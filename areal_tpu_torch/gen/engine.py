@@ -17,15 +17,24 @@
   drawn with key f(seed, s, p), so a stream does not depend on which slot
   it sits in or what else is batched with it.
 
+- **Weight reload** (`load_weights`): the aborting path of the JAX
+  engine — every in-flight request finishes with "abort", then the new
+  weights (a trainer's `v{N}` snapshot, or a model) replace the old and the
+  version advances.
+
 Left for later slices: prefix reuse, suffix prefill, group fan-out,
 length-cohort tiers, speculative decoding, the host KV tier, disaggregated
-handoff, VLM requests, tensor/expert parallelism and weight updates.
+handoff, VLM requests, tensor/expert parallelism, and the staged and live
+weight swaps.
 """
 
+import logging
+import os
 import queue
+import re
 import threading
 from dataclasses import dataclass, field
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -44,6 +53,8 @@ from areal_tpu_torch.models.transformer import (
 )
 from areal_tpu_torch.ops.ragged_decode import ragged_supported
 from areal_tpu_torch.utils.datapack import round_up_to_bucket
+
+logger = logging.getLogger("areal_tpu_torch.gen.engine")
 
 
 @dataclass
@@ -415,6 +426,51 @@ class GenEngine:
         for req, reason in to_finish:
             req.finish(reason)
         return delivered
+
+    # ------------------------------------------------------------------
+    # weights
+    # ------------------------------------------------------------------
+
+    @staticmethod
+    def resolve_ckpt_dir(path: str) -> Tuple[str, Optional[int]]:
+        """A trainer publishes atomic snapshots `root/v{N}`: pick the newest
+        and return (dir, N).  A plain checkpoint dir (config.json present) is
+        used as it is, with version None."""
+        if os.path.exists(os.path.join(path, "config.json")):
+            return path, None
+        vs = sorted(
+            (int(m.group(1)), os.path.join(path, d))
+            for d in (os.listdir(path) if os.path.isdir(path) else [])
+            if (m := re.fullmatch(r"v(\d+)", d))
+        )
+        if not vs:
+            raise FileNotFoundError(f"no checkpoint under {path}")
+        return vs[-1][1], vs[-1][0]
+
+    def load_weights(self, path: str, version: Optional[int] = None) -> int:
+        """Swap weights, aborting in-flight generation first (clients
+        resubmit, and the new prefill recomputes under the new policy).
+        `path` is a checkpoint dir or a trainer's snapshot root (the newest
+        `v{N}`, or exactly `v{version}` when that exists); without a
+        `version` the snapshot's N is adopted, else the version advances by
+        one.  Call from the thread that steps the engine.  Returns the new
+        version."""
+        aborted = self.abort_all("abort")
+        if aborted:
+            logger.info("aborted %d requests for a weight update", aborted)
+        pinned = os.path.join(path, f"v{int(version)}") if version is not None else None
+        if pinned is not None and os.path.isdir(pinned):
+            path = pinned
+        else:
+            path, dir_version = self.resolve_ckpt_dir(path)
+            if version is None:
+                version = dir_version
+        # the old weights serve on until the new ones have loaded: a failed
+        # load raises and leaves the engine as it was
+        model, _ = load_hf_params(path, self.model_config, self.device)
+        self.model = model
+        self.version = int(version) if version is not None else self.version + 1
+        return self.version
 
     def generate_blocking(self, reqs: List[GenRequest]) -> List[GenRequest]:
         """Synchronous helper (tests, offline use): run until all finish."""

@@ -9,18 +9,22 @@ Same paths and JSON keys as the JAX server:
     POST /generate_batch       {"requests": [...]} -> {"results": [...]}
     POST /pause_generation     the decode loop parks
     POST /continue_generation
+    POST /update_weights_from_disk {path, version?} -> {ok, version}: abort
+                               in-flight requests, reload the trainer's
+                               snapshot (`GenEngine.load_weights`)
     GET  /health
 
 `http.server.ThreadingHTTPServer` handles each connection on its own
 thread; a dedicated worker thread owns the engine and the device (every
-admission and decode step runs there), and handler threads wait on the
-request's completion.  /metrics, the weight-update endpoints and the KV
-handoff endpoints come with later slices.
+admission, decode step and weight reload runs there), and handler threads
+wait on the request's completion.  /metrics, the chunked weight transfer
+and the KV handoff endpoints come with later slices.
 
     python -m areal_tpu_torch.gen.server --model-path <hf dir> --port 8000
 """
 
 import argparse
+import concurrent.futures
 import json
 import logging
 import threading
@@ -43,6 +47,9 @@ class GenServer:
         self.shutdown = threading.Event()
         self.worker = threading.Thread(target=self._run, daemon=True)
         self.last_error: float = 0.0
+        # a weight update handed from a handler thread to the worker
+        self._cmd_lock = threading.Lock()
+        self._pending_weight_update: Optional[dict] = None
 
     def start(self) -> None:
         self.worker.start()
@@ -51,8 +58,35 @@ class GenServer:
         self.shutdown.set()
         self.worker.join(timeout)
 
+    def queue_weight_update(self, path: str, version: Optional[int] = None
+                            ) -> "concurrent.futures.Future[int]":
+        """Hand a reload of `path` to the worker; the future resolves to the
+        engine's new version.  A reload still waiting is superseded (its
+        future fails), so only the newest snapshot is loaded."""
+        fut: "concurrent.futures.Future[int]" = concurrent.futures.Future()
+        with self._cmd_lock:
+            old = self._pending_weight_update
+            self._pending_weight_update = {"future": fut, "path": path, "version": version}
+        if old is not None:
+            old["future"].set_exception(RuntimeError("superseded by a newer weight update"))
+        return fut
+
+    def _apply_weight_update(self) -> bool:
+        with self._cmd_lock:
+            upd, self._pending_weight_update = self._pending_weight_update, None
+        if upd is None:
+            return False
+        try:
+            upd["future"].set_result(
+                self.engine.load_weights(path=upd["path"], version=upd["version"]))
+        except Exception as e:  # noqa: BLE001 — surfaced to the waiting handler
+            upd["future"].set_exception(e)
+        return True
+
     def _run(self) -> None:
         while not self.shutdown.is_set():
+            if self._apply_weight_update():
+                continue
             if self.paused.is_set():
                 time.sleep(0.005)
                 continue
@@ -168,6 +202,17 @@ class _Handler(BaseHTTPRequestHandler):
         elif self.path == "/continue_generation":
             gen.paused.clear()
             self._reply(200, {"ok": True})
+        elif self.path == "/update_weights_from_disk":
+            if "path" not in body:
+                self._reply(400, {"error": "missing 'path'"})
+                return
+            version = body.get("version")
+            fut = gen.queue_weight_update(
+                body["path"], None if version is None else int(version))
+            try:
+                self._reply(200, {"ok": True, "version": fut.result()})
+            except Exception as e:  # noqa: BLE001 — the reload's error goes to the client
+                self._reply(500, {"error": f"weight update failed: {e}"})
         else:
             self._reply(404, {"error": f"no route {self.path}"})
 

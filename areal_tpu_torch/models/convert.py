@@ -6,7 +6,7 @@
 the same weights, so tests can run both packages on one set of weights.
 """
 
-from typing import Any, Dict, Iterator, Tuple
+from typing import Any, Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -39,7 +39,11 @@ def jax_tree_to_hf(tree: Dict[str, Any], cfg: TransformerConfig) -> Iterator[Tup
 
 
 def params_from_jax(tree: Dict[str, Any], cfg: TransformerConfig,
-                    device: DeviceLike = None) -> Transformer:
+                    device: DeviceLike = None, param_dtype: Optional[str] = None,
+                    trainable: bool = False) -> Transformer:
     """The port's model (on `device`, the card by default) holding the
-    weights of a JAX param tree, cast to the config's compute dtype."""
-    return state_to_params(jax_tree_to_hf(tree, cfg), cfg, device)
+    weights of a JAX param tree in `param_dtype` (default: the config's
+    compute dtype; "float32" builds the trainer's f32 masters), with
+    gradients enabled when `trainable`."""
+    model = state_to_params(jax_tree_to_hf(tree, cfg), cfg, device, param_dtype)
+    return model.requires_grad_(trainable)

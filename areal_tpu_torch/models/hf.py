@@ -54,12 +54,14 @@ def state_to_params(
     items: Iterable[Tuple[str, torch.Tensor]],
     cfg: TransformerConfig,
     device: DeviceLike = None,
+    param_dtype: Optional[str] = None,
 ) -> Transformer:
-    """HF-named (name, tensor) pairs -> model on `device`, with
-    completeness validation: every weight the model has must arrive
-    exactly once; unmapped names are skipped with a warning; a tied config
-    drops a checkpoint's `lm_head.weight`, an untied one requires it."""
-    model = build_model(cfg, device)
+    """HF-named (name, tensor) pairs -> model on `device` with weights in
+    `param_dtype` (default: the compute dtype), with completeness
+    validation: every weight the model has must arrive exactly once;
+    unmapped names are skipped with a warning; a tied config drops a
+    checkpoint's `lm_head.weight`, an untied one requires it."""
+    model = build_model(cfg, device, param_dtype)
     params = dict(model.named_parameters())
     filled = set()
     with torch.no_grad():
@@ -89,11 +91,14 @@ def load_hf_params(
     path: str,
     cfg: Optional[TransformerConfig] = None,
     device: DeviceLike = None,
+    param_dtype: Optional[str] = None,
 ) -> Tuple[Transformer, TransformerConfig]:
-    """Load an HF checkpoint dir onto `device` (the card by default)."""
+    """Load an HF checkpoint dir onto `device` (the card by default), with
+    weights in `param_dtype` (default: the config's compute dtype)."""
     if cfg is None:
         cfg = TransformerConfig.from_hf(path)
-    return state_to_params(safetensors_io.iter_safetensors(path), cfg, device), cfg
+    return state_to_params(safetensors_io.iter_safetensors(path), cfg, device,
+                           param_dtype), cfg
 
 
 def params_to_hf_state(model: Transformer) -> Iterator[Tuple[str, torch.Tensor]]:

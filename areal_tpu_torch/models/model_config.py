@@ -4,11 +4,14 @@
 One frozen dataclass covers the decoder-only families the reference parses
 from HF `config.json`.  The copy keeps `TransformerConfig` with its HF
 interop (`from_hf`, `to_hf_dict`) and the `tiny_config`/`qwen25_1p5b`
-presets; the training-only knobs (remat, layer grouping, scan unroll,
-attention implementation, LoRA, MoE capacity) come back with the training
-slice.  Weights are held in the compute `dtype`.  The port's model raises
-`NotImplementedError` on the families it does not serve yet (MoE, VLM,
-learned positions, sandwich norms, sliding windows, softcaps).
+presets, and of the training knobs the remat settings (scan unroll, the
+attention implementation, LoRA and MoE capacity come with later slices).
+The served model holds its weights in the compute `dtype`; the trainer
+holds f32 masters (the `param_dtype` argument of the model builders, not a
+config field) and casts them to `dtype` at each use.  The port's model raises
+`NotImplementedError` on the families it does not run yet (MoE, VLM,
+learned positions, sandwich norms, sliding windows, softcaps), and on the
+remat rungs other than `full` and `layer_group_size` > 1.
 """
 
 import json
@@ -95,9 +98,11 @@ class TransformerConfig:
     moe_intermediate_size: Optional[int] = None
     moe_impl: str = "capacity"  # capacity | dropless
 
-    # numerics: compute/activation dtype, also the dtype the port keeps
-    # its weights in
+    # numerics: compute/activation dtype (also the served weights' dtype)
     dtype: str = "bfloat16"
+    remat: bool = True  # checkpoint each layer in the training forward
+    remat_policy: str = "full"  # full (the only rung ported)
+    layer_group_size: int = 1  # 1 (grouping is not ported)
 
     # vision-language (None = text-only); Qwen2-VL-style mrope: the rope
     # frequency bands are split into (temporal, height, width) sections
@@ -448,6 +453,7 @@ def tiny_config(**kw) -> TransformerConfig:
         num_kv_heads=2,
         max_position_embeddings=512,
         dtype="float32",
+        remat=False,
     )
     base.update(kw)
     return TransformerConfig(**base)

@@ -1,31 +1,48 @@
-"""Decoder-only transformer, serving half (the port of
-`areal_tpu/models/transformer.py`).
+"""Decoder-only transformer (the port of `areal_tpu/models/transformer.py`):
+the serving half (KV-cache prefill and ragged decode) and the training half
+(segment-masked forward over packed rows with a deferred LM head).
 
 The JAX package keeps parameters as a scan-stacked pytree; the port keeps
 them in an `nn.Module` whose state-dict names are the HF checkpoint names
 (`model.layers.N.self_attn.q_proj.weight`, ...), with `nn.Linear`'s
-[out, in] weight layout.  Weights live in the config's compute dtype.
+[out, in] weight layout.  Weights live in `param_dtype` (the served model:
+the compute dtype; the trainer: f32 masters) and are cast to the compute
+dtype at each use, as JAX's `_proj` does; when the two are equal the cast
+is free.
 
 The public functions keep the JAX package's layouts, so tests compare like
 with like: q is [B, T, Hq, hd], the KV cache is a dict of
-[L, S, M, Hkv, hd] tensors, and the page table is an int32 `rows` array.
-Unlike JAX's pure functions, `forward_prefill` and `forward_decode` write
-the cache IN PLACE (and return the same dict).
+[L, S, M, Hkv, hd] tensors, the page table is an int32 `rows` array, and
+the deferred head is [D, V].  Unlike JAX's pure functions,
+`forward_prefill` and `forward_decode` write the cache IN PLACE (and
+return the same dict).
+
+Training attention (`_backbone`, through `ops.attention`'s
+`make_segment_attention`) takes the flash kernels when `flash_supported`
+admits the packed row shape and `naive_attention` otherwise, the decision
+JAX's `_backbone` makes with `splash_supported`.
+`remat` checkpoints each layer (`torch.utils.checkpoint`, the `full` rung);
+the other rungs and layer grouping raise NotImplementedError.
 
 Covered: what Qwen2.5 and `tiny_config` use — RMSNorm, RoPE, q/k/v bias,
 SwiGLU, tied or untied heads.  Other families raise NotImplementedError.
 """
 
 import math
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from areal_tpu_torch.device import DeviceLike, resolve_device, torch_dtype
 from areal_tpu_torch.models.model_config import TransformerConfig
-from areal_tpu_torch.ops.attention import make_attention_mask, naive_attention
+from areal_tpu_torch.ops.attention import (
+    make_attention_mask,
+    make_segment_attention,
+    naive_attention,
+)
 from areal_tpu_torch.ops.ragged_decode import ragged_paged_attention
 
 Cache = Dict[str, torch.Tensor]
@@ -55,6 +72,17 @@ def check_supported(cfg: TransformerConfig) -> None:
             f"the torch port does not serve {', '.join(found)} yet "
             f"({cfg.hf_architecture})"
         )
+
+
+def check_trainable(cfg: TransformerConfig) -> None:
+    """Raise NotImplementedError for the training knobs not ported yet: the
+    remat rungs other than `full` and layer grouping."""
+    check_supported(cfg)
+    if cfg.remat and cfg.remat_policy != "full":
+        raise NotImplementedError(
+            f"remat_policy {cfg.remat_policy!r} is not ported; use 'full'")
+    if cfg.layer_group_size > 1:
+        raise NotImplementedError("layer_group_size > 1 is not ported; use 1")
 
 
 # ---------------------------------------------------------------------------
@@ -89,6 +117,15 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
     return out.to(x.dtype)
 
 
+class Linear(nn.Linear):
+    """`nn.Linear` whose weight and bias are cast to the input's dtype at
+    use (a no-op when they already match)."""
+
+    def forward(self, x):
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return F.linear(x, self.weight.to(x.dtype), bias)
+
+
 class RMSNorm(nn.Module):
     def __init__(self, dim: int, eps: float, dtype=None):
         super().__init__()
@@ -106,10 +143,10 @@ class Attention(nn.Module):
         super().__init__()
         D, hd = cfg.hidden_size, cfg.head_dim_
         self.num_heads, self.num_kv_heads, self.head_dim = cfg.num_heads, cfg.num_kv_heads, hd
-        self.q_proj = nn.Linear(D, cfg.q_size, bias=cfg.qkv_bias, dtype=dtype)
-        self.k_proj = nn.Linear(D, cfg.kv_size, bias=cfg.qkv_bias, dtype=dtype)
-        self.v_proj = nn.Linear(D, cfg.kv_size, bias=cfg.qkv_bias, dtype=dtype)
-        self.o_proj = nn.Linear(cfg.q_size, D, bias=False, dtype=dtype)
+        self.q_proj = Linear(D, cfg.q_size, bias=cfg.qkv_bias, dtype=dtype)
+        self.k_proj = Linear(D, cfg.kv_size, bias=cfg.qkv_bias, dtype=dtype)
+        self.v_proj = Linear(D, cfg.kv_size, bias=cfg.qkv_bias, dtype=dtype)
+        self.o_proj = Linear(cfg.q_size, D, bias=False, dtype=dtype)
 
     def qkv(self, h: torch.Tensor):
         """h [B, T, D] -> q [B, T, Hq, hd], k/v [B, T, Hkv, hd]."""
@@ -126,9 +163,9 @@ class MLP(nn.Module):
     def __init__(self, cfg: TransformerConfig, dtype=None):
         super().__init__()
         D, Fd = cfg.hidden_size, cfg.intermediate_size
-        self.gate_proj = nn.Linear(D, Fd, bias=False, dtype=dtype)
-        self.up_proj = nn.Linear(D, Fd, bias=False, dtype=dtype)
-        self.down_proj = nn.Linear(Fd, D, bias=False, dtype=dtype)
+        self.gate_proj = Linear(D, Fd, bias=False, dtype=dtype)
+        self.up_proj = Linear(D, Fd, bias=False, dtype=dtype)
+        self.down_proj = Linear(Fd, D, bias=False, dtype=dtype)
 
     def forward(self, h):
         return self.down_proj(F.silu(self.gate_proj(h)) * self.up_proj(h))
@@ -143,8 +180,9 @@ class DecoderLayer(nn.Module):
         self.mlp = MLP(cfg, dtype)
 
     def forward(self, x, cos, sin, attend):
-        """One block; `attend(q, k, v) -> [B, T, Hq, hd]` is the cache path's
-        attention (prefill or ragged decode)."""
+        """One block; `attend(q, k, v) -> [B, T, Hq, hd]` is the path's
+        attention (prefill, ragged decode, or segment attention over packed
+        rows)."""
         B, T = x.shape[:2]
         q, k, v = self.self_attn.qkv(self.input_layernorm(x))
         q = apply_rope(q, cos, sin)
@@ -162,41 +200,52 @@ class Backbone(nn.Module):
 
 
 class Transformer(nn.Module):
-    """The served model.  `state_dict()` names are HF checkpoint names."""
+    """The model.  `state_dict()` names are HF checkpoint names; weights are
+    held in `param_dtype` (default: the compute dtype)."""
 
-    def __init__(self, cfg: TransformerConfig):
+    def __init__(self, cfg: TransformerConfig, param_dtype: Optional[str] = None):
         super().__init__()
         check_supported(cfg)
-        dtype = torch_dtype(cfg.dtype)
+        dtype = torch_dtype(param_dtype or cfg.dtype)
         self.cfg = cfg
         self.model = Backbone(cfg, dtype)
         self.lm_head = (
             None if cfg.tie_word_embeddings
-            else nn.Linear(cfg.hidden_size, cfg.vocab_size, bias=False, dtype=dtype)
+            else Linear(cfg.hidden_size, cfg.vocab_size, bias=False, dtype=dtype)
         )
+
+    def embed(self, ids: torch.Tensor) -> torch.Tensor:
+        """Token embeddings in the compute dtype."""
+        return F.embedding(ids, self.model.embed_tokens.weight.to(torch_dtype(self.cfg.dtype)))
+
+    def head(self) -> torch.Tensor:
+        """The LM head [V, D] in the compute dtype."""
+        w = self.model.embed_tokens.weight if self.lm_head is None else self.lm_head.weight
+        return w.to(torch_dtype(self.cfg.dtype))
 
     def logits(self, x: torch.Tensor) -> torch.Tensor:
         """Final norm + head, in the compute dtype."""
-        x = self.model.norm(x)
-        head = self.model.embed_tokens.weight if self.lm_head is None else self.lm_head.weight
-        return F.linear(x, head)
+        return F.linear(self.model.norm(x), self.head())
 
 
-def build_model(cfg: TransformerConfig, device: DeviceLike = None) -> Transformer:
+def build_model(cfg: TransformerConfig, device: DeviceLike = None,
+                param_dtype: Optional[str] = None) -> Transformer:
     """An uninitialised model on `device` (built on the meta device first,
-    so no default init runs)."""
+    so no default init runs), weights in `param_dtype` (default: the
+    compute dtype), gradients off."""
     dev = resolve_device(device)
     with torch.device("meta"):
-        model = Transformer(cfg)
+        model = Transformer(cfg, param_dtype)
     return model.to_empty(device=dev).requires_grad_(False)
 
 
-def init_params(cfg: TransformerConfig, seed: int = 0,
-                device: DeviceLike = None) -> Transformer:
+def init_params(cfg: TransformerConfig, seed: int = 0, device: DeviceLike = None,
+                param_dtype: Optional[str] = None) -> Transformer:
     """Random model: weights normal / sqrt(fan_in) (fan_in is the input
     width of each [out, in] matrix), norms one, biases zero, drawn from a
-    seeded generator on `device` (the card unless device='cpu')."""
-    model = build_model(cfg, device)
+    seeded generator on `device` (the card unless device='cpu'), held in
+    `param_dtype` (default: the compute dtype)."""
+    model = build_model(cfg, device, param_dtype)
     dev = next(model.parameters()).device
     gen = torch.Generator(device=dev).manual_seed(seed)
     with torch.no_grad():
@@ -244,7 +293,7 @@ def forward_prefill(
     seg = torch.where(positions < prompt_lens[:, None], 0, -1)
     mask = make_attention_mask(seg, positions)
     cos, sin = rope_cos_sin(positions, cfg.head_dim_, cfg.rope_theta)
-    x = model.model.embed_tokens(input_ids)
+    x = model.embed(input_ids)
     slot_ids = slot_ids.long()
     for i, layer in enumerate(model.model.layers):
         ck, cv = cache["k"][i], cache["v"][i]
@@ -286,7 +335,7 @@ def forward_decode(
     dev = tokens.device
     positions = lengths.long()[:, None]
     cos, sin = rope_cos_sin(positions, cfg.head_dim_, cfg.rope_theta)
-    x = model.model.embed_tokens(tokens[:, None])
+    x = model.embed(tokens[:, None])
     mask = (torch.arange(K, device=dev)[None, :] <= positions)[:, None, :]  # [B, 1, K]
     widx = torch.clamp(lengths, max=K - 1)
     if active is not None:
@@ -305,3 +354,64 @@ def forward_decode(
 
         x = layer(x, cos, sin, attend)
     return model.logits(x[:, 0]), cache
+
+
+# ---------------------------------------------------------------------------
+# Training forward over packed rows
+# ---------------------------------------------------------------------------
+
+
+class LMOutput(NamedTuple):
+    """Deferred language-model head: final-norm hidden states and the head
+    matrix, so the [tokens, vocab] logits only ever exist one vocab chunk
+    at a time (`ops/fused_xent.py`)."""
+
+    hidden: torch.Tensor  # [B, T, D] in the compute dtype
+    head: torch.Tensor  # [D, V] in the compute dtype (a view of [V, D])
+    aux_loss: Optional[torch.Tensor] = None  # MoE penalty (dense: None)
+    logit_softcap: Optional[float] = None
+
+
+def _backbone(model: Transformer, input_ids: torch.Tensor, positions: torch.Tensor,
+              segment_ids: torch.Tensor) -> torch.Tensor:
+    """Layer loop -> final-norm hidden [B, T, D] in the compute dtype.
+
+    Attention is `make_segment_attention`'s: the flash kernels when the
+    packed row shape passes `flash_supported`, else `naive_attention` over
+    a mask built once.  With `cfg.remat` and gradients enabled each layer
+    runs under `torch.utils.checkpoint` (the `full` rung: the backward
+    recomputes the layer, attention forward included)."""
+    cfg = model.cfg
+    check_trainable(cfg)
+    x = model.embed(input_ids)
+    cos, sin = rope_cos_sin(positions, cfg.head_dim_, cfg.rope_theta)
+    attend = make_segment_attention(segment_ids, positions, cfg.num_heads, cfg.num_kv_heads,
+                                    cfg.head_dim_, cfg.sliding_window, cfg.attn_logit_softcap)
+    remat = cfg.remat and torch.is_grad_enabled()
+    for layer in model.model.layers:
+        if remat:
+            x = checkpoint(layer, x, cos, sin, attend, use_reentrant=False)
+        else:
+            x = layer(x, cos, sin, attend)
+    return model.model.norm(x)
+
+
+def forward_hidden(model: Transformer, input_ids: torch.Tensor, positions: torch.Tensor,
+                   segment_ids: torch.Tensor) -> torch.Tensor:
+    """Backbone forward -> final-norm hidden states [B, T, D]."""
+    return _backbone(model, input_ids, positions, segment_ids)
+
+
+def forward(model: Transformer, input_ids: torch.Tensor, positions: torch.Tensor,
+            segment_ids: torch.Tensor) -> torch.Tensor:
+    """Full forward -> logits [B, T, V] in the compute dtype."""
+    x = forward_hidden(model, input_ids, positions, segment_ids)
+    return F.linear(x, model.head())
+
+
+def forward_lm(model: Transformer, input_ids: torch.Tensor, positions: torch.Tensor,
+               segment_ids: torch.Tensor) -> LMOutput:
+    """Backbone forward with a deferred LM head (see LMOutput)."""
+    x = _backbone(model, input_ids, positions, segment_ids)
+    return LMOutput(hidden=x, head=model.head().t(),
+                    logit_softcap=model.cfg.final_logit_softcap)

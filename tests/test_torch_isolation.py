@@ -1,6 +1,8 @@
 """The torch port stands alone: no file under areal_tpu_torch/, and not
 chip_smoke.py, imports `jax` or anything of `areal_tpu`, and every port
-module imports in a fresh interpreter where both are blocked."""
+module imports in a fresh interpreter where both are blocked, and so are
+the packages the card's machine lacks (`yaml`, `optax`, `safetensors`,
+`ml_dtypes`, `transformers`, `aiohttp`)."""
 
 import ast
 import os
@@ -18,9 +20,12 @@ def _port_files():
     return sorted(out)
 
 
+BLOCKED = ("jax", "jaxlib", "areal_tpu", "yaml", "optax", "safetensors", "ml_dtypes",
+           "transformers", "aiohttp")
+
+
 def _forbidden(name: str) -> bool:
-    root = name.split(".")[0]
-    return root in ("jax", "jaxlib", "areal_tpu")
+    return name.split(".")[0] in BLOCKED
 
 
 def test_no_port_file_imports_jax_or_the_jax_package():
@@ -47,7 +52,7 @@ def test_no_port_file_imports_jax_or_the_jax_package():
 def test_every_port_module_imports_without_jax():
     code = (
         "import sys, importlib, pkgutil\n"
-        "for name in ('jax', 'jaxlib', 'areal_tpu'):\n"
+        f"for name in {BLOCKED!r}:\n"
         "    sys.modules[name] = None\n"
         "import areal_tpu_torch\n"
         "mods = [m.name for m in pkgutil.walk_packages(areal_tpu_torch.__path__, "
@@ -55,11 +60,11 @@ def test_every_port_module_imports_without_jax():
         "for m in mods:\n"
         "    importlib.import_module(m)\n"
         "import chip_smoke\n"
-        "assert not [k for k in sys.modules if k.split('.')[0] in ('jax', 'areal_tpu') "
+        f"assert not [k for k in sys.modules if k.split('.')[0] in {BLOCKED!r} "
         "and sys.modules[k] is not None]\n"
         "print(len(mods))\n"
     )
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                          text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.strip().splitlines()[-1]) >= 14
+    assert int(res.stdout.strip().splitlines()[-1]) >= 26
