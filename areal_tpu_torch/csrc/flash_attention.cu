@@ -16,25 +16,28 @@
 // [B, T, Hkv, hd]; segment ids int32 [B, T]; lse and di f32 [B, Hq, T].
 // Inputs are float32 or bfloat16; every product, the softmax statistics
 // and the accumulators are f32, outputs are rounded once to the input type.
+// One exception: the bf16 forward rounds P to bf16 before its PV product.
 //
 // What bounds it on this card: operations.  Attention over a packed row
 // does ~4 hd flops per attended (q, k) pair forward (8 and 6 for dk/dv and
 // dq) against ~2 hd bytes of q/k/v per token, far above the ~300 flops per
 // byte where the H100's arithmetic becomes the limit.
 //
-// What the design does about it, for now.  This first kernel is plain and
-// right rather than fast: it runs on the CUDA cores in f32 (no tensor
-// cores, no wgmma or TMA), so it is bounded by the f32 FMA rate and by
-// shared-memory traffic, not by the bf16 tensor-core peak.  Each block
-// stages 64-row tiles of q, k, v (and dout) in shared memory as f32 and
-// keeps a 2 x 8 score tile and 2 x 16 output slices per thread in
-// registers.  What it keeps from splash: the blockwise online softmax (no
-// [T, T] score matrix ever reaches device memory) and the skipping of
-// masked tiles.  Segments are contiguous, so a q tile needs only the keys
-// from the segment start of its first valid query to its last query (and a
-// k tile only the queries from its first key to the segment end of its
-// last key); each block finds that range from the segment ids, and the
-// window narrows it further.
+// What the design does about it.  The bf16 forward runs on the tensor
+// cores (tc::flash_fwd_tc_kernel below: mma.sync, Q in registers, a
+// double-buffered cp.async K/V pipeline).  The f32 forward and the dq and
+// dk/dv kernels are still plain and right rather than fast: they run on the
+// CUDA cores in f32 (no tensor cores, no wgmma or TMA), so they are bounded
+// by the f32 FMA rate and by shared-memory traffic.  Each such block stages
+// 64-row tiles of q, k, v (and dout) in shared memory as f32 and keeps a
+// 2 x 8 score tile and 2 x 16 output slices per thread in registers.  What
+// every kernel keeps from splash: the blockwise online softmax (no [T, T]
+// score matrix ever reaches device memory) and the skipping of masked
+// tiles.  Segments are contiguous, so a q tile needs only the keys from the
+// segment start of its first valid query to its last query (and a k tile
+// only the queries from its first key to the segment end of its last key);
+// each block finds that range from the segment ids, and the window narrows
+// it further.
 //
 // Grids: forward and dq one block per (q tile, q head, row); dk/dv one
 // block per (k tile, kv head, row), looping over the group's q heads and
@@ -142,7 +145,7 @@ __device__ int segment_start(const int* __restrict__ segb, int i, int* s_out) {
   const int s = segb[i];
   if (threadIdx.x == 0) *s_out = 0;
   __syncthreads();
-  for (int base = i - 1; base >= 0; base -= kThreads) {
+  for (int base = i - 1; base >= 0; base -= (int)blockDim.x) {
     const int j = base - (int)threadIdx.x;
     const bool hit = j >= 0 && segb[j] != s;
     if (hit) atomicMax(s_out, j + 1);
@@ -157,7 +160,7 @@ __device__ int segment_end(const int* __restrict__ segb, int i, int Tn, int* s_o
   const int s = segb[i];
   if (threadIdx.x == 0) *s_out = Tn;
   __syncthreads();
-  for (int base = i + 1; base < Tn; base += kThreads) {
+  for (int base = i + 1; base < Tn; base += (int)blockDim.x) {
     const int j = base + (int)threadIdx.x;
     const bool hit = j < Tn && segb[j] != s;
     if (hit) atomicMin(s_out, j);
@@ -476,6 +479,264 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
   store_rows(dv, dv_acc, b, j0, Tn, Hkv, kh, tr, tc);
 }
 
+// ---------------------------------------------------------------------------
+// forward on the bf16 tensor cores (bf16 inputs)
+// ---------------------------------------------------------------------------
+//
+// FlashAttention-2's pattern with mma.sync.m16n8k16 (bf16 in, f32 sums).
+// A block owns 64 q rows of one q head; each of its 4 warps owns 16 rows
+// and keeps their Q fragments in registers (loaded once by ldmatrix).  K
+// and V tiles of 64 keys x 128 stay bf16 in shared memory, rows padded to
+// 272 bytes so ldmatrix reads hit distinct banks, double-buffered and
+// filled by 16-byte cp.async so the next tile's copy overlaps this tile's
+// products.  S = Q K^T runs on the tensor cores; the softcap and the
+// segment / causal / window mask act on the accumulator fragments (tiles
+// wholly inside one segment and below the diagonal skip the mask); the
+// online softmax takes row max and sum across each quad with shuffles.  P
+// becomes bf16 A fragments in registers and O += P V reads V through
+// ldmatrix.trans.  The output goes out through shared memory in 16-byte
+// stores.  Key ranges come from the segment ids as in flash_fwd_kernel.
+//
+// P rounding: P is rounded to bf16 before the PV product (the tensor cores
+// take bf16), where splash and flash_fwd_plain keep P in f32; l sums the
+// unrounded f32 P, and lse is f32 as before.
+
+namespace tc {
+
+constexpr int kBr = 64;           // q rows per block
+constexpr int kBc = 64;           // keys per tile
+constexpr int kThreads = 128;     // 4 warps x 16 q rows
+constexpr int kLDS = kHD + 8;     // bf16 row stride in shared memory (272 bytes)
+constexpr int kTileElems = kBr * kLDS;
+constexpr int kSmem = 5 * kTileElems * 2;  // Q, K x 2, V x 2
+constexpr float kLog2e = 1.4426950408889634f;
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 16-byte async copy; src_bytes 0 fills the destination with zeros
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(src_bytes));
+}
+
+__device__ __forceinline__ void ldmatrix_x4(unsigned r[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(unsigned r[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+// c += a (16 x 16, row) * b (16 x 8, col), bf16 in, f32 accumulate
+__device__ __forceinline__ void mma(float c[4], const unsigned a[4], unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<unsigned*>(&v);
+}
+
+// rows [r0, r0 + 64) of head h of a [B, T, H, 128] bf16 tensor -> padded
+// shared tile, by cp.async (rows outside [0, T) become zeros)
+__device__ __forceinline__ void load_tile_async(__nv_bfloat16* dst,
+                                                const __nv_bfloat16* __restrict__ src, int b,
+                                                int r0, int Tn, int H, int h) {
+  for (int i = threadIdx.x; i < kBr * (kHD / 8); i += kThreads) {
+    const int r = i >> 4, c = (i & 15) * 8;
+    const int t = r0 + r;
+    const bool ok = t >= 0 && t < Tn;
+    const __nv_bfloat16* p = ok ? src + (((long long)b * Tn + t) * H + h) * kHD + c : src;
+    cp_async16(dst + r * kLDS + c, p, ok ? 16 : 0);
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, 2) flash_fwd_tc_kernel(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+    const __nv_bfloat16* __restrict__ v, const int* __restrict__ seg,
+    __nv_bfloat16* __restrict__ out, float* __restrict__ lse, int Tn, int Hq, int Hkv,
+    float softcap, int window) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* sK = sQ + kTileElems;      // two stages
+  __nv_bfloat16* sV = sK + 2 * kTileElems;  // two stages
+  __shared__ int seg_q[kBr], seg_k[2][kBc];
+  __shared__ int s_first, s_last, s_lo;
+  const int b = blockIdx.z, h = blockIdx.y;
+  const int i0 = (gridDim.x - 1 - blockIdx.x) * kBr;  // longest key ranges first
+  const int kh = h / (Hq / Hkv);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, tig = lane & 3;
+  const int* segb = seg + (long long)b * Tn;
+
+  float o[kHD / 8][4];  // 16 n-tiles of d
+#pragma unroll
+  for (int j = 0; j < kHD / 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+
+  tile_span(segb, i0, Tn, seg_q, &s_first, &s_last);
+  const int first = s_first, last = s_last;
+  const int rq = warp * 16 + g;  // this thread's rows: rq and rq + 8
+  if (first <= last) {
+    const int i_first = i0 + first;
+    int lo = segment_start(segb, i_first, &s_lo);
+    if (window > 0) lo = max(lo, i_first - window + 1);
+    const int hi = i0 + last + 1;
+    const int ntiles = (hi - lo + kBc - 1) / kBc;
+    // one segment id over all 64 q rows, or -3
+    const int q_uniform = __syncthreads_and(tid >= kBr || seg_q[tid] == seg_q[0]) ? seg_q[0]
+                                                                                  : -3;
+    const int sq[2] = {seg_q[rq], seg_q[rq + 8]};
+    const int qi[2] = {i0 + rq, i0 + rq + 8};
+
+    load_tile_async(sQ, q, b, i0, Tn, Hq, h);
+    load_tile_async(sK, k, b, lo, Tn, Hkv, kh);
+    load_tile_async(sV, v, b, lo, Tn, Hkv, kh);
+    asm volatile("cp.async.commit_group;\n" ::);
+    if (tid < kBc) seg_k[0][tid] = lo + tid < Tn ? segb[lo + tid] : -2;
+
+    unsigned qf[kHD / 16][4];
+    for (int n = 0; n < ntiles; ++n) {
+      const int buf = n & 1, j0 = lo + n * kBc;
+      if (n + 1 < ntiles) {  // prefetch the next tile into the other stage
+        const int j1 = j0 + kBc;
+        load_tile_async(sK + (buf ^ 1) * kTileElems, k, b, j1, Tn, Hkv, kh);
+        load_tile_async(sV + (buf ^ 1) * kTileElems, v, b, j1, Tn, Hkv, kh);
+        if (tid < kBc) seg_k[buf ^ 1][tid] = j1 + tid < Tn ? segb[j1 + tid] : -2;
+      }
+      asm volatile("cp.async.commit_group;\n" ::);
+      asm volatile("cp.async.wait_group 1;\n" ::);  // this tile (and Q) landed
+      const bool full = __syncthreads_and(tid >= kBc || seg_k[buf][tid] == q_uniform) &&
+                        q_uniform >= 0 && window <= 0 && j0 + kBc - 1 <= i0;
+      if (n == 0) {
+#pragma unroll
+        for (int kk = 0; kk < kHD / 16; ++kk)
+          ldmatrix_x4(qf[kk], sQ + (warp * 16 + (lane & 7) + 8 * ((lane >> 3) & 1)) * kLDS +
+                                  16 * kk + 8 * (lane >> 4));
+      }
+      const __nv_bfloat16* tK = sK + buf * kTileElems;
+      const __nv_bfloat16* tV = sV + buf * kTileElems;
+
+      // S = Q K^T: 8 n-tiles of 8 keys
+      float s[kBc / 8][4];
+#pragma unroll
+      for (int j = 0; j < kBc / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < kHD / 16; ++kk) {
+#pragma unroll
+        for (int np = 0; np < kBc / 16; ++np) {
+          unsigned r[4];
+          ldmatrix_x4(r, tK + (16 * np + (lane & 7) + 8 * (lane >> 4)) * kLDS + 16 * kk +
+                             8 * ((lane >> 3) & 1));
+          mma(s[2 * np], qf[kk], r[0], r[1]);
+          mma(s[2 * np + 1], qf[kk], r[2], r[3]);
+        }
+      }
+
+      // softcap and mask on the fragments; row max across the quad
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int j = 0; j < kBc / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int row = e >> 1, col = 8 * j + 2 * tig + (e & 1);
+          float x = s[j][e];
+          if (softcap > 0.f) x = tanhf(x / softcap) * softcap;
+          if (!full && !allowed(sq[row], seg_k[buf][col], qi[row], j0 + col, window))
+            x = -INFINITY;
+          s[j][e] = x;
+          mx[row] = fmaxf(mx[row], x);
+        }
+      }
+      float alpha[2], mb[2];
+#pragma unroll
+      for (int row = 0; row < 2; ++row) {
+        mx[row] = fmaxf(mx[row], __shfl_xor_sync(0xffffffffu, mx[row], 1));
+        mx[row] = fmaxf(mx[row], __shfl_xor_sync(0xffffffffu, mx[row], 2));
+        const float m_new = fmaxf(m[row], mx[row]);
+        mb[row] = m_new == -INFINITY ? 0.f : m_new * kLog2e;
+        alpha[row] = exp2f(m[row] * kLog2e - mb[row]);  // 0 while m is -inf
+        m[row] = m_new;
+        l[row] *= alpha[row];
+      }
+#pragma unroll
+      for (int j = 0; j < kHD / 8; ++j) {
+        o[j][0] *= alpha[0];
+        o[j][1] *= alpha[0];
+        o[j][2] *= alpha[1];
+        o[j][3] *= alpha[1];
+      }
+#pragma unroll
+      for (int j = 0; j < kBc / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p = exp2f(s[j][e] * kLog2e - mb[e >> 1]);
+          s[j][e] = p;
+          l[e >> 1] += p;
+        }
+      }
+
+      // O += P V: P as bf16 A fragments, V through ldmatrix.trans
+#pragma unroll
+      for (int kk = 0; kk < kBc / 16; ++kk) {
+        const unsigned a[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+                               pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+                               pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                               pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+        for (int dp = 0; dp < kHD / 16; ++dp) {
+          unsigned r[4];
+          ldmatrix_x4_trans(r, tV + (16 * kk + (lane & 7) + 8 * ((lane >> 3) & 1)) * kLDS +
+                                   16 * dp + 8 * (lane >> 4));
+          mma(o[2 * dp], a, r[0], r[1]);
+          mma(o[2 * dp + 1], a, r[2], r[3]);
+        }
+      }
+      __syncthreads();  // this stage's readers are done before it is refilled
+    }
+    asm volatile("cp.async.wait_all;\n" ::);
+  }
+
+  // normalise, lse, and the output through shared memory (sQ is free)
+#pragma unroll
+  for (int row = 0; row < 2; ++row) {
+    l[row] += __shfl_xor_sync(0xffffffffu, l[row], 1);
+    l[row] += __shfl_xor_sync(0xffffffffu, l[row], 2);
+    const int t = i0 + rq + 8 * row;
+    if (tig == 0 && t < Tn)
+      lse[((long long)b * Hq + h) * Tn + t] = l[row] > 0.f ? m[row] + logf(l[row]) : -INFINITY;
+  }
+  const float inv[2] = {l[0] > 0.f ? 1.f / l[0] : 0.f, l[1] > 0.f ? 1.f / l[1] : 0.f};
+#pragma unroll
+  for (int j = 0; j < kHD / 8; ++j) {
+    const int c = 8 * j + 2 * tig;
+    *reinterpret_cast<__nv_bfloat162*>(sQ + rq * kLDS + c) =
+        __floats2bfloat162_rn(o[j][0] * inv[0], o[j][1] * inv[0]);
+    *reinterpret_cast<__nv_bfloat162*>(sQ + (rq + 8) * kLDS + c) =
+        __floats2bfloat162_rn(o[j][2] * inv[1], o[j][3] * inv[1]);
+  }
+  __syncthreads();
+  for (int i = tid; i < kBr * (kHD / 8); i += kThreads) {
+    const int r = i >> 4, c = (i & 15) * 8;
+    const int t = i0 + r;
+    if (t < Tn)
+      *reinterpret_cast<uint4*>(out + (((long long)b * Tn + t) * Hq + h) * kHD + c) =
+          *reinterpret_cast<const uint4*>(sQ + r * kLDS + c);
+  }
+}
+
+}  // namespace tc
+
 template <typename K>
 cudaError_t opt_in(K kernel, int bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
@@ -496,6 +757,19 @@ cudaError_t fwd(const void* q, const void* k, const void* v, const void* seg, vo
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const int*>(seg), static_cast<T*>(out), static_cast<float*>(lse), Tn, Hq,
       Hkv, softcap, window);
+  return cudaGetLastError();
+}
+
+cudaError_t fwd_tc(const void* q, const void* k, const void* v, const void* seg, void* out,
+                   void* lse, int B, int Tn, int Hq, int Hkv, float softcap, int window,
+                   cudaStream_t s) {
+  auto kernel = tc::flash_fwd_tc_kernel;
+  cudaError_t err = opt_in(kernel, tc::kSmem);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3((Tn + tc::kBr - 1) / tc::kBr, Hq, B), tc::kThreads, tc::kSmem, s>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<const int*>(seg),
+      static_cast<__nv_bfloat16*>(out), static_cast<float*>(lse), Tn, Hq, Hkv, softcap, window);
   return cudaGetLastError();
 }
 
@@ -533,7 +807,9 @@ cudaError_t bwd_dkv(const void* q, const void* k, const void* v, const void* seg
 }  // namespace
 
 // bf16: 1 for bfloat16 inputs, 0 for float32.  softcap <= 0 and window <= 0
-// are off.  q is the pre-scaled q_s.
+// are off.  q is the pre-scaled q_s.  The forward picks its kernel by dtype:
+// bfloat16 runs on the tensor cores (tc::flash_fwd_tc_kernel), float32 on
+// the CUDA cores (flash_fwd_kernel), which keeps f32 products exact.
 extern "C" int flash_fwd(int device, int bf16, const void* q, const void* k, const void* v,
                          const void* seg, void* out, void* lse, int B, int Tn, int Hq,
                          int Hkv, int hd, float softcap, int window, void* stream) {
@@ -541,8 +817,7 @@ extern "C" int flash_fwd(int device, int bf16, const void* q, const void* k, con
   if (err == cudaSuccess) err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)(bf16 ? fwd<__nv_bfloat16>(q, k, v, seg, out, lse, B, Tn, Hq, Hkv, softcap,
-                                         window, s)
+  return (int)(bf16 ? fwd_tc(q, k, v, seg, out, lse, B, Tn, Hq, Hkv, softcap, window, s)
                     : fwd<float>(q, k, v, seg, out, lse, B, Tn, Hq, Hkv, softcap, window, s));
 }
 

@@ -113,12 +113,13 @@ class GenEngine:
                              f"engine device is {self.device}")
         self.model = params
         self.model_config = cfg = params.cfg
-        # the ragged kernel's shared-memory gate, once, at the widest window
+        # the ragged kernel's gate, once, at the widest window
         if not ragged_supported(max_seq_len, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_):
             raise ValueError(
-                f"max_seq_len {max_seq_len} exceeds what the ragged decode "
-                f"kernel's shared memory holds for {cfg.num_heads} q heads "
-                f"over {cfg.num_kv_heads} kv heads of dim {cfg.head_dim_}"
+                f"the ragged decode kernel does not take {cfg.num_heads} q heads "
+                f"over {cfg.num_kv_heads} kv heads of dim {cfg.head_dim_} at "
+                f"max_seq_len {max_seq_len} (the head dim must be a multiple of 8 "
+                "and a kv head's query rows must fit one block's shared memory)"
             )
         self.n_slots = n_slots
         self.max_seq_len = max_seq_len

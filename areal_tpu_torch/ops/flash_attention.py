@@ -27,7 +27,12 @@ launch the kernels for CUDA tensors and raise on what they do not take;
 for CPU tensors they run the plain versions (`*_plain`), which repeat the
 kernels' arithmetic (f32 products and statistics, outputs rounded once to
 the input dtype).  There is no fallback between the two.  Each kernel
-wrapper counts its launches in `.launches`.
+wrapper counts its launches in `.launches`.  The forward picks its kernel
+by dtype: bfloat16 runs on the tensor cores (counted again in
+`flash_fwd.launches_tc`), float32 on the CUDA cores, whose f32 products the
+tensor cores (TF32 at best) could not keep.  The tensor-core forward rounds
+P to bfloat16 before its PV product, where splash and `flash_fwd_plain`
+keep P in f32; its l and lse still sum the f32 P.
 """
 
 import ctypes
@@ -207,11 +212,13 @@ def flash_fwd(qs, k, v, segment_ids, window: Optional[int] = None,
     B, T, Hq, hd, cap, win, stream = _common(qs, window, softcap)
     out = torch.empty_like(qs)
     lse = torch.empty((B, Hq, T), dtype=torch.float32, device=qs.device)
+    bf16 = qs.dtype == torch.bfloat16
     _raise(_lib().flash_fwd(
-        qs.device.index or 0, int(qs.dtype == torch.bfloat16), qs.data_ptr(), k.data_ptr(),
+        qs.device.index or 0, int(bf16), qs.data_ptr(), k.data_ptr(),
         v.data_ptr(), segment_ids.data_ptr(), out.data_ptr(), lse.data_ptr(),
         B, T, Hq, k.shape[2], hd, cap, win, stream), "flash_fwd")
     flash_fwd.launches += 1
+    flash_fwd.launches_tc += bf16  # the C entry runs bf16 on the tensor cores
     return out, lse
 
 
@@ -252,6 +259,7 @@ def flash_bwd_dkv(qs, k, v, segment_ids, dout, lse, di, window: Optional[int] = 
 
 
 flash_fwd.launches = 0
+flash_fwd.launches_tc = 0
 flash_bwd_dq.launches = 0
 flash_bwd_dkv.launches = 0
 

@@ -12,7 +12,11 @@ slot's span covers (columns past them count as zero K/V).
 `ragged_paged_attention` launches the kernel for CUDA tensors and raises
 on what the kernel does not take; for CPU tensors it runs
 `ragged_paged_attention_plain`.  There is no fallback between the two.
-`ragged_paged_attention.launches` counts kernel launches.
+On the card one call runs the kernel's three passes over fixed chunks of
+CHUNK key positions (scores, then probabilities and partial PV, then the
+partials combined in chunk order; see `csrc/ragged_decode.cu`) with f32
+scratch allocated here; `ragged_paged_attention.launches` counts one per
+call.
 """
 
 import ctypes
@@ -27,27 +31,48 @@ from areal_tpu_torch.ops.attention import naive_attention
 
 # dynamic shared memory a Hopper block may opt into (H100 / H200)
 SMEM_LIMIT = 232448
-MAX_HEAD_DIM = 256  # the kernel keeps hd / 32 values per lane in registers
+CHUNK = 64  # key positions per block of the kernel's split-K grid
 
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
-def smem_bytes(T: int, group: int, head_dim: int, key_window: int) -> int:
-    """Shared memory of one kernel block: the f32 query rows [T*group, hd]
-    and score rows [T*group, K]."""
-    return 4 * T * group * (head_dim + key_window)
+def n_chunks(key_window: int) -> int:
+    """Blocks along the key axis: fixed chunks of CHUNK key positions."""
+    return -(-key_window // CHUNK)
+
+
+def smem_bytes(T: int, group: int, head_dim: int, kv_itemsize: int = 4) -> int:
+    """Shared memory of the kernel's widest block (the scores pass): one
+    chunk of cached keys, each row padded by 16 bytes, the f32 query rows
+    [T*group, hd] and the chunk's f32 scores [T*group, CHUNK].  It does not
+    grow with the key window."""
+    R = T * group
+    return CHUNK * (head_dim * kv_itemsize + 16) + 4 * R * (head_dim + CHUNK)
+
+
+def scratch_floats(B: int, T: int, Hq: int, Hkv: int, head_dim: int,
+                   key_window: int) -> int:
+    """f32 scratch of one call: scores [B, Hkv, R, K], chunk maxima and sums
+    [B, Hkv, R, chunks] each, partial outputs [B, Hkv, chunks, R, hd], with
+    R = T * Hq / Hkv query rows per kv head."""
+    rows = B * T * Hq  # B * Hkv * R
+    nc = n_chunks(key_window)
+    return rows * (key_window + 2 * nc + nc * head_dim)
 
 
 def ragged_supported(max_key_window: int, num_heads: int, num_kv_heads: int,
                      head_dim: int, T: int = 1) -> bool:
-    """Static gate for an engine: the kernel's shared memory at the widest
-    key window must fit one Hopper block.  Evaluated once at engine init;
-    an engine whose window fails it raises there."""
+    """Static gate for an engine: heads that group, a head dim of whole
+    16-byte f32 vectors, and the widest block's shared memory (an f32
+    cache, the larger case) inside one Hopper block.  The key window only
+    sizes the scratch.  Evaluated once at engine init; an engine that fails
+    it raises there."""
     return (
-        num_heads % num_kv_heads == 0
-        and head_dim <= MAX_HEAD_DIM
-        and smem_bytes(T, num_heads // num_kv_heads, head_dim,
-                       max_key_window) <= SMEM_LIMIT
+        max_key_window > 0
+        and num_kv_heads > 0
+        and num_heads % num_kv_heads == 0
+        and head_dim % 8 == 0
+        and smem_bytes(T, num_heads // num_kv_heads, head_dim) <= SMEM_LIMIT
     )
 
 
@@ -88,8 +113,8 @@ def ragged_paged_attention_plain(
 def _launcher():
     fn = _build.load("ragged_decode").ragged_decode_launch
     fn.argtypes = (
-        [ctypes.c_int] * 3 + [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8
-        + [ctypes.c_float] * 2 + [ctypes.c_int, ctypes.c_void_p]
+        [ctypes.c_int] * 3 + [ctypes.c_void_p] * 11 + [ctypes.c_int] * 8
+        + [ctypes.c_float] * 2 + [ctypes.c_void_p]
     )
     fn.restype = ctypes.c_int
     return fn
@@ -126,13 +151,19 @@ def _check(q, k_new, v_new, ck, cv, rows, lengths, widx, mask, K) -> None:
         if tuple(tensors[name].shape) != shape:
             raise ValueError(f"{name} has shape {tuple(tensors[name].shape)}, "
                              f"expected {shape}")
-    if hd_c != hd or Hq % Hkv or hd > MAX_HEAD_DIM:
+    if K <= 0:
+        raise ValueError(f"key window {K} must be positive")
+    if hd_c != hd or Hq % Hkv or hd % 8:
         raise ValueError(f"unsupported heads: Hq={Hq} Hkv={Hkv} hd={hd} "
-                         f"(cache hd {hd_c}; hd <= {MAX_HEAD_DIM})")
-    need = smem_bytes(T, Hq // Hkv, hd, K)
+                         f"(cache hd {hd_c}; hd a multiple of 8)")
+    need = smem_bytes(T, Hq // Hkv, hd, ck.element_size())
     if need > SMEM_LIMIT:
-        raise ValueError(f"key window {K} needs {need} bytes of shared "
-                         f"memory per block, above {SMEM_LIMIT}")
+        raise ValueError(f"{T * Hq // Hkv} query rows per kv head at hd {hd} need "
+                         f"{need} bytes of shared memory per block, above {SMEM_LIMIT}")
+    for name in ("ck", "cv"):
+        if tensors[name].data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned (the kernel copies "
+                             "16-byte vectors)")
 
 
 def ragged_paged_attention(
@@ -167,15 +198,16 @@ def ragged_paged_attention(
     page = min(page_size, K)
     _check(q, k_new, v_new, ck, cv, rows, lengths, widx, mask, K)
     out = torch.empty_like(q)
+    scratch = torch.empty(scratch_floats(B, T, Hq, Hkv, hd, K), dtype=torch.float32,
+                          device=q.device)
     err = _launcher()(
         q.device.index or 0, int(q.dtype == torch.bfloat16),
         int(ck.dtype == torch.bfloat16),
         q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), ck.data_ptr(),
         cv.data_ptr(), rows.data_ptr(), lengths.data_ptr(), widx.data_ptr(),
-        mask.data_ptr(), out.data_ptr(),
+        mask.data_ptr(), out.data_ptr(), scratch.data_ptr(),
         B, T, Hq, Hkv, hd, M, K, page,
         1.0 / math.sqrt(hd), float(logit_softcap or 0.0),
-        smem_bytes(T, Hq // Hkv, hd, K),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     if err:

@@ -12,11 +12,15 @@ Phases, each printed with its wall time; any failure exits non-zero:
 3. kernels  each kernel against its plain PyTorch version.  Ragged decode at
             the serving shapes (Qwen2.5-1.5B decode: B=16, T=1, Hq=12,
             Hkv=2, hd=128, bf16, page 128, K in {128, 2048}; T=4 at K=512;
-            softcap 30 at K=128; one f32 case; the appended cache bit for
-            bit).  Flash forward, dq and dk/dv at Qwen2.5's training heads
-            (Hq=12, Hkv=2, hd=128, bf16): T=2048 packed with 3 segments and
-            tail padding, T=1024 one segment, window 256, softcap 30, and f32
-            at T=256; two dk/dv runs equal bit for bit
+            softcap 30 at K=128; one f32 case; T=4 writes straddling a
+            key-chunk boundary; a write into [K, M); an all-masked row; the
+            appended cache bit for bit), then one slot bit-equal alone and
+            in the B=16 grid, and two runs bit-equal.  Flash forward, dq and
+            dk/dv at Qwen2.5's training heads (Hq=12, Hkv=2, hd=128, bf16):
+            T=2048 packed with 3 segments and tail padding, T=1024 one
+            segment, window 256, softcap 30, and f32 at T=256; two forwards
+            and two dk/dv runs equal bit for bit, bf16 forwards on the tensor
+            cores
 4. engine   a tiny f32 model served by the port's engine on the card and on
             the CPU: greedy streams equal, logprobs within 1e-4
 5. serve    random seeded bf16 Qwen2.5-1.5B weights at full width (28
@@ -25,18 +29,23 @@ Phases, each printed with its wall time; any failure exits non-zero:
             and one /generate_batch of 4, 64 tokens each, half greedy; the
             kernel's launch count must equal 28 x the engine's decode steps
 6. timings  ragged kernel, plain version and torch SDPA on the serving
-            shapes (CUDA events), the kernel's bound, decode tokens/s
+            shapes (CUDA events; the kernel's and SDPA's device time per
+            call by torch.profiler), the kernel's bound, decode tokens/s, and a
+            torch.profiler window over steady decode steps (top device ops,
+            the ragged kernel's share of device time)
 7. train    the PPO actor on the serve phase's checkpoint at full width (f32
             masters, bf16 compute, full remat) beside a server of the same
             checkpoint: 8 prompts x group 4 rolled out over HTTP (256 new
             tokens each), the trainer's logprobs against the server's,
             advantages, 3 PPO updates (loss, grad norm, tokens/s, MFU), the
-            policy moving along the advantages, exact flash launch counts,
-            and the new weights published to the server and read back
+            policy moving along the advantages, exact flash launch counts
+            (every bf16 forward on the tensor-core kernel), and the new
+            weights published to the server and read back
 8. flash timings  on the train phase's packed rows (bf16, T=1024, Hq=12,
             Hkv=2, hd=128): each flash kernel against its plain version,
             then the kernel, its plain version and torch SDPA (the forward,
-            and forward + backward) timed, with each bound
+            and forward + backward) timed, with each bound, and the forward's
+            and SDPA's device time per call by torch.profiler
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  Without a CUDA device it exits 1 and prints
@@ -128,6 +137,27 @@ def ragged_case(seed, *, B=16, T=1, Hq=12, Hkv=2, hd=128, K=2048, M=2048,
     )
 
 
+def straddle_chunk(case):
+    """Slot 0 at length 62: a T=4 verify writes 62..65, across the kernel's
+    key-chunk boundary at 64."""
+    T = case["q"].shape[1]
+    K = case["key_window"]
+    case["lengths"][0] = 62
+    case["widx"][0] = 62 + torch.arange(T, dtype=torch.int32)
+    keys = torch.arange(K, device=case["mask"].device)
+    case["mask"][0] = keys[None, :] <= case["widx"][0][:, None]
+
+
+def tail_write(case):
+    """Slot 3's last write lands in [K, M): stored, never read."""
+    case["widx"][3, -1] = (case["key_window"] + case["ck"].shape[1]) // 2
+
+
+def all_masked(case):
+    """Slot 4 attends nothing: naive_attention's uniform average over K."""
+    case["mask"][4] = False
+
+
 def _run(fn, case, softcap=None):
     args = dict(case, ck=case["ck"].clone(), cv=case["cv"].clone())
     return fn(**args, logit_softcap=softcap)
@@ -145,10 +175,15 @@ def check_kernel():
         ("T=4 K=512", dict(T=4, K=512), None),
         ("softcap 30 K=128", dict(K=128), 30.0),
         ("f32 T=1 K=256", dict(K=256, dtype=torch.float32), None),
+        ("T=4 K=512, writes across a chunk boundary", dict(T=4, K=512), None, straddle_chunk),
+        ("T=4 K=512 M=1024, a write into [K, M)", dict(T=4, K=512, M=1024), None, tail_write),
+        ("T=1 K=1024, an all-masked row", dict(K=1024), None, all_masked),
     ]
     worst = 0.0
-    for i, (name, kw, softcap) in enumerate(cases):
+    for i, (name, kw, softcap, *edit) in enumerate(cases):
         case = ragged_case(100 + i, **kw)
+        for fn in edit:
+            fn(case)
         got, want = _run(ragged_paged_attention, case, softcap), _run(
             ragged_paged_attention_plain, case, softcap)
         torch.cuda.synchronize()
@@ -165,7 +200,27 @@ def check_kernel():
               f"cache equal: {cache_ok}")
         if bad.any() or not cache_ok or not torch.isfinite(got[0]).all():
             raise AssertionError(f"ragged kernel disagrees with its plain version: {name}")
+    check_ragged_invariance()
     return worst
+
+
+def check_ragged_invariance():
+    """Fixed key chunks and no atomics: two runs of the B=16 grid are
+    bit-equal (out and caches), and a slot run alone (B=1) gives the same
+    out, bit for bit, as inside the grid."""
+    case = ragged_case(120, K=1024)
+    first, second = _run(ragged_paged_attention, case), _run(ragged_paged_attention, case)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(first, second)):
+        raise AssertionError("two ragged runs on the same inputs differ")
+    for slot in (0, 5, 15):
+        alone = {k: (v[slot:slot + 1] if k in ("q", "k_new", "v_new", "rows", "lengths",
+                                               "widx", "mask") else v)
+                 for k, v in case.items()}
+        out = _run(ragged_paged_attention, alone)[0]
+        if not torch.equal(out[0], first[0][slot]):
+            raise AssertionError(f"slot {slot} alone differs from slot {slot} in the grid")
+    print("  two B=16 runs bit-equal; slots 0, 5, 15 alone (B=1) bit-equal to the grid")
 
 
 def packed_segments(T, seg_lens):
@@ -200,7 +255,10 @@ def compare_flash(name, qs, k, v, dout, sg, window=None, softcap=None):
     relative to the largest element).  f32: 1e-5 on out, 1e-4 relative to
     the largest element on gradients.  Two dk/dv runs must be equal bit for
     bit (no atomics).  Returns |kernel - plain| of out, dq and dk/dv."""
+    tc0 = fa.flash_fwd.launches_tc
     out, lse = fa.flash_fwd(qs, k, v, sg, window, softcap)
+    out2, lse2 = fa.flash_fwd(qs, k, v, sg, window, softcap)
+    tc_runs = fa.flash_fwd.launches_tc - tc0
     di = fa.attention_di(out, dout)
     dq = fa.flash_bwd_dq(qs, k, v, sg, dout, lse, di, window, softcap)
     dk, dv = fa.flash_bwd_dkv(qs, k, v, sg, dout, lse, di, window, softcap)
@@ -221,13 +279,17 @@ def compare_flash(name, qs, k, v, dout, sg, window=None, softcap=None):
         rels.append(float(diff.max() / b.float().abs().max()))
         abss.append(float(diff.max()))
     rerun_equal = torch.equal(dk, dk2) and torch.equal(dv, dv2)
+    fwd_equal = torch.equal(out, out2) and torch.equal(lse, lse2)
     print(f"  {name}: max|out - plain| = {float(err.max()):.3e} ({bad} outside atol "
           f"{atol} rtol {rtol}); dq, dk, dv max|diff|/max = "
           f"{rels[0]:.2e}, {rels[1]:.2e}, {rels[2]:.2e} (tol {grad_tol}); "
-          f"dk/dv reruns equal: {rerun_equal}")
+          f"forward and dk/dv reruns equal: {fwd_equal}, {rerun_equal}; "
+          f"forwards on the tensor cores: {tc_runs} of 2")
     finite = all(bool(torch.isfinite(t).all()) for t in (out, dq, dk, dv))
-    if bad or max(rels) > grad_tol or not rerun_equal or not finite:
+    if bad or max(rels) > grad_tol or not rerun_equal or not fwd_equal or not finite:
         raise AssertionError(f"flash kernels disagree with their plain versions: {name}")
+    if tc_runs != (0 if f32 else 2):
+        raise AssertionError(f"{name}: the forward ran on the wrong variant")
     return {"flash_fwd": float(err.max()), "flash_bwd_dq": abss[0],
             "flash_bwd_dkv": max(abss[1], abss[2])}
 
@@ -407,6 +469,50 @@ def decode_rate(eng, prompt=512, new=64):
     return tokens / (time.perf_counter() - t0)
 
 
+def profile_decode(eng, prompt=512, new=64, steps=2, top=8):
+    """torch.profiler over `steps` steady engine steps (decode_chunk decode
+    steps each) of a full slot grid: prints the top device ops by time,
+    the ragged kernel's share of device time, and the device's busy share
+    of the window's wall time (the profiler slows the host, so that share
+    reads low).  Returns the device ms per decode step, or None when the
+    profiler saw no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    rng = np.random.default_rng(4)
+    reqs = [GenRequest(rid=f"prof{i}", input_ids=rng.integers(0, 151936, prompt).tolist(),
+                       max_new_tokens=new, min_new_tokens=new, temperature=0.0)
+            for i in range(eng.n_slots)]
+    for r in reqs:
+        eng.submit(r)
+    eng.step()  # admission (prefill) + the first chunk
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            eng.step()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    while any(not r.stop_reason for r in reqs):
+        eng.step()
+    kernels = device_kernels(prof)
+    total = sum(e.self_device_time_total for e in kernels)
+    if total <= 0:
+        print("  profiler: key_averages() shows no device time on this machine")
+        return None
+    kernels.sort(key=lambda e: -e.self_device_time_total)
+    print(f"  profiler window: {steps} engine steps x {eng.decode_chunk} decode steps, "
+          f"{wall_us / 1e3:.2f} ms wall, {total / 1e3:.2f} ms device time")
+    for e in kernels[:top]:
+        t = e.self_device_time_total
+        print(f"    {t / 1e3:9.3f} ms {100 * t / total:5.1f}%  x{e.count:<5d} {e.key[:90]}")
+    ragged = sum(e.self_device_time_total for e in kernels if "ragged_" in e.key)
+    per_step = total / 1e3 / (steps * eng.decode_chunk)
+    print(f"  ragged kernels {ragged / 1e3:.3f} ms = {100 * ragged / total:.1f}% of device "
+          f"time; device busy {100 * total / wall_us:.1f}% of the window's wall time; "
+          f"{per_step:.3f} ms of device time per decode step")
+    return per_step
+
+
 # ---------------------------------------------------------------------------
 # training at full width
 # ---------------------------------------------------------------------------
@@ -429,6 +535,7 @@ def flash_counts():
 
 def reset_flash_counts():
     fa.flash_fwd.launches = fa.flash_bwd_dq.launches = fa.flash_bwd_dkv.launches = 0
+    fa.flash_fwd.launches_tc = 0
 
 
 def rollout_batch(results, prompts, rewards):
@@ -610,6 +717,29 @@ def cuda_ms(fn, iters=200, warmup=20):
     return start.elapsed_time(stop) / iters
 
 
+def device_kernels(prof):
+    """The device kernels of a torch.profiler run, by name, with their self
+    device time (microseconds)."""
+    return [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+
+
+def device_ms(fn, iters=50):
+    """Device time per call of `fn` from torch.profiler: the self device
+    time of every kernel it launched over `iters` calls, summed, per call.
+    Unlike `cuda_ms` it leaves out the host's share (Python, the launch
+    path) when the host is slower than the device."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in device_kernels(prof)) / iters / 1e3
+
+
 def kernel_bound(case):
     """Least time for the work: bytes moved (each input read once, each
     output written once; the K/V pages of each slot's copied span) over
@@ -631,7 +761,8 @@ def kernel_bound(case):
 
 
 def time_kernel(case):
-    """(kernel ms, plain ms, SDPA ms, bound ms, bound_by) on one case."""
+    """(kernel ms, plain ms, SDPA ms, bound ms, bound_by, kernel device ms,
+    SDPA device ms) on one case."""
     args = dict(case)
     kern = cuda_ms(lambda: ragged_paged_attention(**args))
     plain = cuda_ms(lambda: ragged_paged_attention_plain(**args), iters=50)
@@ -645,10 +776,13 @@ def time_kernel(case):
     v = cv[rows, :K].transpose(1, 2).repeat_interleave(group, dim=1)
     qs = q.transpose(1, 2)
     m = case["mask"][:, None]
-    sdpa = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-        qs, k, v, attn_mask=m))
+    def lib():
+        return torch.nn.functional.scaled_dot_product_attention(qs, k, v, attn_mask=m)
+
+    sdpa = cuda_ms(lib)
     bound, by = kernel_bound(case)
-    return kern, plain, sdpa, bound, by
+    return (kern, plain, sdpa, bound, by,
+            device_ms(lambda: ragged_paged_attention(**args)), device_ms(lib))
 
 
 FLASH_REPLACES = {
@@ -743,6 +877,9 @@ def time_flash(seg_rows):
                             (q4, k4, v4), g4)
 
     lib = {"flash_fwd": cuda_ms(lib_fwd, iters=20, warmup=3)}
+    print(f"  flash_fwd device time per call (profiler): kernel "
+          f"{device_ms(lambda: fa.flash_fwd(qs, k, v, sg), iters=20):.4f} ms, SDPA forward "
+          f"{device_ms(lib_fwd, iters=20):.4f} ms")
     lib["flash_bwd_dq"] = lib["flash_bwd_dkv"] = cuda_ms(lib_fwd_bwd, iters=10, warmup=2)
     bounds = flash_bounds(qs, k, sg)
     timings = {}
@@ -788,23 +925,36 @@ def main():
             engine, launches, steps, wall, tokens = serve_qwen(ckpt_dir)
         with phase("timings"):
             tok_s = decode_rate(engine)
+            dev_step = profile_decode(engine)
+            if dev_step is not None:
+                wall_step = 1e3 * engine.n_slots / tok_s
+                print(f"  decode step: {wall_step:.2f} ms of wall (unprofiled rate), "
+                      f"{dev_step:.3f} ms of device time: device busy "
+                      f"{100 * dev_step / wall_step:.1f}%")
             del engine
             lengths = torch.from_numpy(
                 np.random.default_rng(2).integers(64, 965, 16)).to(torch.int32)
             main_case = ragged_case(7, K=1024, lengths=lengths)
-            kern, plain, sdpa, bound, by = time_kernel(main_case)
+            kern, plain, sdpa, bound, by, kern_dev, sdpa_dev = time_kernel(main_case)
             print(f"  serving shape (B=16 T=1 K=1024, spans 64..964): kernel {kern:.4f} ms, "
-                  f"plain {plain:.4f} ms, SDPA {sdpa:.4f} ms, bound {bound:.4f} ms ({by})")
+                  f"plain {plain:.4f} ms, SDPA {sdpa:.4f} ms, bound {bound:.4f} ms ({by}); "
+                  f"device time per call (profiler): kernel {kern_dev:.4f} ms, "
+                  f"SDPA {sdpa_dev:.4f} ms")
             full = time_kernel(ragged_case(8, K=2048))
             print(f"  full window (B=16 T=1 K=2048, random spans): kernel {full[0]:.4f} ms, "
                   f"plain {full[1]:.4f} ms, SDPA {full[2]:.4f} ms, bound {full[3]:.4f} ms "
-                  f"({full[4]})")
+                  f"({full[4]}); device time per call: kernel {full[5]:.4f} ms, "
+                  f"SDPA {full[6]:.4f} ms")
             print(f"  decode {tok_s:.1f} tokens/s (16 slots, 512-token prompts, greedy); "
                   f"serve window {tokens / wall:.1f} tokens/s incl. prefill")
             torch.cuda.empty_cache()
         with phase("train"):
             flash_launches, train_stats, seg_rows = train_qwen(ckpt_dir, publish_dir)
-            print(f"  flash launches over the phase fwd/dq/dkv {flash_launches}")
+            print(f"  flash launches over the phase fwd/dq/dkv {flash_launches}; "
+                  f"forwards on the tensor cores {fa.flash_fwd.launches_tc}")
+            if fa.flash_fwd.launches_tc != flash_launches[0]:
+                raise AssertionError("a bf16 forward of the train phase missed the "
+                                     "tensor-core kernel")
         with phase("flash timings"):
             flash_times, train_err = time_flash(seg_rows)
             flash_err = {n: max(flash_err[n], train_err[n]) for n in flash_err}

@@ -124,7 +124,11 @@ def test_entry_points_need_a_card_or_cpu(monkeypatch):
 
 
 def test_oversized_window_raises_at_init():
-    cfg = tiny_config(**KW)
+    """The engine checks the ragged kernel's gate once, at init, and raises.
+    The kernel splits the key window into fixed chunks, so no window outgrows
+    a block's shared memory; what can is a kv head's query rows at a wide
+    head dim (256 q heads over one kv head at hd 256), even at a 65536 window."""
+    cfg = tiny_config(**KW, num_heads=256, num_kv_heads=1, head_dim=256)
     with pytest.raises(ValueError, match="shared memory"):
         GenEngine(cfg, params=init_params(cfg, 0, "cpu"), n_slots=2, max_seq_len=1 << 16,
                   device="cpu")

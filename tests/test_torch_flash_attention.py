@@ -200,6 +200,7 @@ def test_cuda_kernels_match_plain(cuda_device, case):
     qs = fa.scale_query(qs)
     sg = torch.from_numpy(seg).to(cuda_device)
     counts = (fa.flash_fwd.launches, fa.flash_bwd_dq.launches, fa.flash_bwd_dkv.launches)
+    tc0 = fa.flash_fwd.launches_tc
     out, lse = fa.flash_fwd(qs, kk, vv, sg, window, softcap)
     di = fa.attention_di(out, dout)
     dq = fa.flash_bwd_dq(qs, kk, vv, sg, dout, lse, di, window, softcap)
@@ -208,6 +209,8 @@ def test_cuda_kernels_match_plain(cuda_device, case):
     torch.cuda.synchronize()
     assert (fa.flash_fwd.launches, fa.flash_bwd_dq.launches, fa.flash_bwd_dkv.launches) == (
         counts[0] + 1, counts[1] + 1, counts[2] + 2)
+    # bf16 forwards run on the tensor cores, f32 ones on the CUDA cores
+    assert fa.flash_fwd.launches_tc == tc0 + (dtype == torch.bfloat16)
     assert torch.equal(dk, dk2) and torch.equal(dv, dv2)  # no atomics: bit-equal reruns
     p_out, p_lse = fa.flash_fwd_plain(qs, kk, vv, sg, window, softcap)
     p_dq = fa.flash_bwd_dq_plain(qs, kk, vv, sg, dout, p_lse, di, window, softcap)
@@ -221,3 +224,35 @@ def test_cuda_kernels_match_plain(cuda_device, case):
     for a, b in ((dq, p_dq), (dk, p_dk), (dv, p_dv)):
         rel = ((a.float() - b.float()).abs().max() / b.float().abs().max()).item()
         assert rel < (1e-4 if f32 else 2e-2), rel
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", [
+    dict(T=1024, n_segs=4),
+    dict(T=2048, n_segs=3, window=256),
+    dict(T=1024, n_segs=2, softcap=30.0),
+], ids=["packed", "window", "softcap"])
+def test_cuda_tensor_core_forward(cuda_device, case):
+    """The bf16 forward on the tensor cores at Qwen2.5's heads (Hq=12,
+    Hkv=2, hd=128) against `flash_fwd_plain`: within 2e-2 on valid rows (it
+    rounds P to bf16 before PV, the plain version keeps P in f32; both round
+    out once to bf16), lse within 1e-4 (both sum the f32 P), pad rows out 0
+    and lse -inf; two forwards bit-equal (no atomics)."""
+    window, softcap = case.get("window"), case.get("softcap")
+    q, k, v, _, seg, _ = _packed(17, B=2, T=case["T"], Hq=12, Hkv=2, n_segs=case["n_segs"])
+    qs, kk, vv = (torch.from_numpy(x).to(cuda_device, torch.bfloat16) for x in (q, k, v))
+    qs = fa.scale_query(qs)
+    sg = torch.from_numpy(seg).to(cuda_device)
+    tc0, all0 = fa.flash_fwd.launches_tc, fa.flash_fwd.launches
+    out, lse = fa.flash_fwd(qs, kk, vv, sg, window, softcap)
+    out2, lse2 = fa.flash_fwd(qs, kk, vv, sg, window, softcap)
+    torch.cuda.synchronize()
+    assert (fa.flash_fwd.launches_tc, fa.flash_fwd.launches) == (tc0 + 2, all0 + 2)
+    assert torch.equal(out, out2) and torch.equal(lse, lse2)
+    p_out, p_lse = fa.flash_fwd_plain(qs, kk, vv, sg, window, softcap)
+    valid = torch.from_numpy(seg >= 0).to(cuda_device)
+    err = (out.float() - p_out.float()).abs()[valid].max().item()
+    assert err < 2e-2, err
+    vl = valid.unsqueeze(1).expand_as(lse)
+    assert torch.allclose(lse[vl], p_lse[vl], atol=1e-4)
+    assert not out[~valid].any() and bool((lse[~vl] == -torch.inf).all())

@@ -142,12 +142,30 @@ def test_plain_equals_dense_naive_attention():
 
 
 def test_ragged_supported_gate():
-    # Qwen2.5-1.5B decode: 12 q heads over 2 kv heads, hd 128
+    # Qwen2.5-1.5B decode: 12 q heads over 2 kv heads, hd 128.  The kernel's
+    # shared memory is one key chunk plus the query and score rows, so the
+    # key window does not bound it.
     assert port.ragged_supported(2048, 12, 2, 128)
-    assert not port.ragged_supported(16384, 12, 2, 128)
-    assert port.smem_bytes(1, 6, 128, 2048) == 4 * 6 * (128 + 2048)
+    assert port.ragged_supported(16384, 12, 2, 128)
+    assert port.smem_bytes(1, 6, 128, 2) == 64 * (128 * 2 + 16) + 4 * 6 * (128 + 64)
+    assert port.smem_bytes(1, 6, 128) == 64 * (128 * 4 + 16) + 4 * 6 * (128 + 64)
     assert not port.ragged_supported(2048, 12, 5, 128)  # heads must group
-    assert not port.ragged_supported(128, 4, 2, 512)  # hd above 256
+    assert not port.ragged_supported(128, 4, 2, 100)  # hd not a multiple of 8
+    assert not port.ragged_supported(128, 64, 1, 256, T=8)  # 512 rows overflow
+    assert not port.ragged_supported(0, 12, 2, 128)
+
+
+def test_chunk_plan_and_scratch():
+    """Fixed chunks of CHUNK key positions; the wrapper's f32 scratch holds
+    scores [B, Hkv, R, K], two chunk statistics [B, Hkv, R, chunks] and
+    partial outputs [B, Hkv, chunks, R, hd] (R = T * Hq / Hkv)."""
+    assert port.CHUNK == 64
+    assert [port.n_chunks(k) for k in (1, 64, 65, 1024, 2048)] == [1, 1, 2, 16, 32]
+    B, T, Hq, Hkv, hd, K = 16, 1, 12, 2, 128, 1024
+    rows = B * Hkv * (T * Hq // Hkv)
+    nc = port.n_chunks(K)
+    assert port.scratch_floats(B, T, Hq, Hkv, hd, K) == rows * (K + 2 * nc + nc * hd)
+    assert port.scratch_floats(1, 4, 4, 2, 8, 40) == 16 * (40 + 2 * 1 + 1 * 8)
 
 
 def test_wrapper_refuses_other_devices():
@@ -168,11 +186,9 @@ def test_wrapper_checks(bad):
         t["mask"] = t["mask"][:, :, :-1].contiguous()
     elif bad == "kv_dtype":
         t["k_new"] = t["k_new"].double()
-    else:
-        K = 1 << 20
+    else:  # an empty key window (any positive one fits: the kernel splits K)
+        K = 0
         t["mask"] = torch.zeros(4, 1, K, dtype=torch.bool)
-        t["ck"] = torch.zeros(5, K, 2, 8)
-        t["cv"] = torch.zeros(5, K, 2, 8)
     with pytest.raises((TypeError, ValueError)):
         port._check(t["q"], t["k_new"], t["v_new"], t["ck"], t["cv"], t["rows"],
                     t["lengths"], t["widx"], t["mask"], K)
@@ -208,3 +224,53 @@ def test_cuda_kernel_matches_plain(cuda_device, case):
     np.testing.assert_allclose(got[0], want[0], atol=atol, rtol=0)
     np.testing.assert_array_equal(got[1], want[1])
     np.testing.assert_array_equal(got[2], want[2])
+
+
+def _edge_case(kind):
+    """Qwen2.5's decode heads in bf16, T=4 verify tiles at K=256 over a
+    512-position cache, with one edge each: write positions straddling the
+    chunk boundary at 64, a write into [K, M) (stored, never read), or a
+    query row whose every column is masked (a uniform average over K)."""
+    arrays, dtypes, kw = _case(21, B=4, T=4, K=256, M=512, page=128, Hq=12, Hkv=2,
+                               hd=128, qdtype="bfloat16", kvdtype="bfloat16")
+    lengths, widx, mask = arrays["lengths"], arrays["widx"], arrays["mask"]
+    key_pos = np.arange(256)
+    if kind == "chunk_boundary":
+        lengths[0] = 62
+        widx[0] = 62 + np.arange(4)
+        mask[0] = key_pos[None, :] <= widx[0][:, None]
+    elif kind == "tail_write":
+        widx[1, -1] = 300
+    else:
+        mask[2, 0] = False
+    return arrays, dtypes, kw
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["chunk_boundary", "tail_write", "all_masked"])
+def test_cuda_kernel_edge_cases(cuda_device, kind):
+    arrays, dtypes, kw = _edge_case(kind)
+    got = _port(arrays, dtypes, kw, device=cuda_device)
+    want = _port(arrays, dtypes, kw, fn=port.ragged_paged_attention_plain,
+                 device=cuda_device)
+    np.testing.assert_allclose(got[0], want[0], atol=BF16_ATOL, rtol=0)
+    np.testing.assert_array_equal(got[1], want[1])
+    np.testing.assert_array_equal(got[2], want[2])
+    assert np.isfinite(got[0]).all()
+
+
+@pytest.mark.gpu
+def test_cuda_kernel_batch_invariant_and_deterministic(cuda_device):
+    """Chunk boundaries are fixed key positions and nothing is combined by
+    atomics: a slot's output is bit-equal alone (B=1) and inside the B=16
+    grid, and two runs are bit-equal."""
+    arrays, dtypes, kw = _case(23, B=16, Hq=12, Hkv=2, hd=128, K=2048, M=2048, page=128,
+                               qdtype="bfloat16", kvdtype="bfloat16")
+    full = _port(arrays, dtypes, kw, device=cuda_device)
+    again = _port(arrays, dtypes, kw, device=cuda_device)
+    for a, b in zip(full, again):
+        np.testing.assert_array_equal(a, b)
+    for slot in (0, 5):
+        alone = {k: (v if k in ("ck", "cv") else v[slot:slot + 1]) for k, v in arrays.items()}
+        one = _port(alone, dtypes, kw, device=cuda_device)
+        np.testing.assert_array_equal(one[0][0], full[0][slot])
