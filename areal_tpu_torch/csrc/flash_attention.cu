@@ -16,28 +16,32 @@
 // [B, T, Hkv, hd]; segment ids int32 [B, T]; lse and di f32 [B, Hq, T].
 // Inputs are float32 or bfloat16; every product, the softmax statistics
 // and the accumulators are f32, outputs are rounded once to the input type.
-// One exception: the bf16 forward rounds P to bf16 before its PV product.
+// The exceptions are the bf16 kernels' tensor-core operands: the forward
+// rounds P to bf16 before its PV product, and the backward rounds P (for
+// dV) and dS (for dK and dQ) to bf16 before those products.
 //
 // What bounds it on this card: operations.  Attention over a packed row
 // does ~4 hd flops per attended (q, k) pair forward (8 and 6 for dk/dv and
 // dq) against ~2 hd bytes of q/k/v per token, far above the ~300 flops per
 // byte where the H100's arithmetic becomes the limit.
 //
-// What the design does about it.  The bf16 forward runs on the tensor
-// cores (tc::flash_fwd_tc_kernel below: mma.sync, Q in registers, a
-// double-buffered cp.async K/V pipeline).  The f32 forward and the dq and
-// dk/dv kernels are still plain and right rather than fast: they run on the
-// CUDA cores in f32 (no tensor cores, no wgmma or TMA), so they are bounded
-// by the f32 FMA rate and by shared-memory traffic.  Each such block stages
-// 64-row tiles of q, k, v (and dout) in shared memory as f32 and keeps a
-// 2 x 8 score tile and 2 x 16 output slices per thread in registers.  What
-// every kernel keeps from splash: the blockwise online softmax (no [T, T]
-// score matrix ever reaches device memory) and the skipping of masked
-// tiles.  Segments are contiguous, so a q tile needs only the keys from the
-// segment start of its first valid query to its last query (and a k tile
-// only the queries from its first key to the segment end of its last key);
-// each block finds that range from the segment ids, and the window narrows
-// it further.
+// What the design does about it.  For bf16 inputs all three kernels run
+// on the tensor cores (namespace tc below: mma.sync m16n8k16, bf16 operands
+// in padded shared memory read by ldmatrix, f32 accumulators in registers,
+// double-buffered 16-byte cp.async tile pipelines): the forward
+// (tc::flash_fwd_tc_kernel), dq (tc::flash_bwd_dq_tc_kernel) and dk/dv
+// (tc::flash_bwd_dkv_tc_kernel).  The f32 kernels stay plain and right
+// rather than fast: they run on the CUDA cores in f32, because the tensor
+// cores would round the f32 operands (TF32 at best).  Each such block
+// stages 64-row tiles of q, k, v (and dout) in shared memory as f32 and
+// keeps a 2 x 8 score tile and 2 x 16 output slices per thread in
+// registers.  What every kernel keeps from splash: the blockwise softmax
+// (no [T, T] score matrix ever reaches device memory) and the skipping of
+// masked tiles.  Segments are contiguous, so a q tile needs only the keys
+// from the segment start of its first valid query to its last query (and a
+// k tile only the queries from its first key to the segment end of its last
+// key); each block finds that range from the segment ids, and the window
+// narrows it further.
 //
 // Grids: forward and dq one block per (q tile, q head, row); dk/dv one
 // block per (k tile, kv head, row), looping over the group's q heads and
@@ -69,14 +73,12 @@ constexpr int kFwdSmem = (3 * kTileFloats + kSqFloats) * 4;
 constexpr int kDqSmem = (4 * kTileFloats + kSqFloats) * 4;
 constexpr int kDkvSmem = (4 * kTileFloats + 2 * kSqFloats) * 4;
 
+// the CUDA-core kernels are instantiated for float only (bf16 runs on the
+// tensor-core kernels of namespace tc)
 __device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
 
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
 
 // the 8 lanes of one thread row (tc = 0..7) are neighbours in a warp
 __device__ __forceinline__ float row8_max(float v) {
@@ -509,6 +511,7 @@ constexpr int kThreads = 128;     // 4 warps x 16 q rows
 constexpr int kLDS = kHD + 8;     // bf16 row stride in shared memory (272 bytes)
 constexpr int kTileElems = kBr * kLDS;
 constexpr int kSmem = 5 * kTileElems * 2;  // Q, K x 2, V x 2
+constexpr int kBwdSmem = 6 * kTileElems * 2;  // dq: Q, dO, K x 2, V x 2; dk/dv: K, V, Q x 2, dO x 2
 constexpr float kLog2e = 1.4426950408889634f;
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
@@ -559,6 +562,31 @@ __device__ __forceinline__ void load_tile_async(__nv_bfloat16* dst,
     const __nv_bfloat16* p = ok ? src + (((long long)b * Tn + t) * H + h) * kHD + c : src;
     cp_async16(dst + r * kLDS + c, p, ok ? 16 : 0);
   }
+}
+
+// ldmatrix addresses in a padded [rows][kLDS] tile.  A operand: rows
+// [r0, r0 + 16), columns [16 c, 16 c + 16); ldmatrix.trans from the same
+// address gives the B operand of a [k][n] tile (k rows from r0, the n-tile
+// pair at columns 16 c).
+__device__ __forceinline__ const __nv_bfloat16* a_frag(const __nv_bfloat16* t, int r0, int c,
+                                                       int lane) {
+  return t + (r0 + (lane & 7) + 8 * ((lane >> 3) & 1)) * kLDS + 16 * c + 8 * (lane >> 4);
+}
+
+// B operand of the n-tile pair (2 np, 2 np + 1) from an [n][k] tile (n rows
+// [16 np, 16 np + 16), k columns [16 kk, 16 kk + 16)); r[0], r[1] feed n-tile
+// 2 np and r[2], r[3] n-tile 2 np + 1
+__device__ __forceinline__ const __nv_bfloat16* b_frag(const __nv_bfloat16* t, int np, int kk,
+                                                       int lane) {
+  return t + (16 * np + (lane & 7) + 8 * (lane >> 4)) * kLDS + 16 * kk + 8 * ((lane >> 3) & 1);
+}
+
+// two 16 x 8 accumulator tiles (columns 0-7 and 8-15) -> one bf16 A fragment
+__device__ __forceinline__ void pack_a(unsigned a[4], const float lo[4], const float hi[4]) {
+  a[0] = pack_bf16(lo[0], lo[1]);
+  a[1] = pack_bf16(lo[2], lo[3]);
+  a[2] = pack_bf16(hi[0], hi[1]);
+  a[3] = pack_bf16(hi[2], hi[3]);
 }
 
 __global__ void __launch_bounds__(kThreads, 2) flash_fwd_tc_kernel(
@@ -620,9 +648,7 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd_tc_kernel(
                         q_uniform >= 0 && window <= 0 && j0 + kBc - 1 <= i0;
       if (n == 0) {
 #pragma unroll
-        for (int kk = 0; kk < kHD / 16; ++kk)
-          ldmatrix_x4(qf[kk], sQ + (warp * 16 + (lane & 7) + 8 * ((lane >> 3) & 1)) * kLDS +
-                                  16 * kk + 8 * (lane >> 4));
+        for (int kk = 0; kk < kHD / 16; ++kk) ldmatrix_x4(qf[kk], a_frag(sQ, warp * 16, kk, lane));
       }
       const __nv_bfloat16* tK = sK + buf * kTileElems;
       const __nv_bfloat16* tV = sV + buf * kTileElems;
@@ -636,8 +662,7 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd_tc_kernel(
 #pragma unroll
         for (int np = 0; np < kBc / 16; ++np) {
           unsigned r[4];
-          ldmatrix_x4(r, tK + (16 * np + (lane & 7) + 8 * (lane >> 4)) * kLDS + 16 * kk +
-                             8 * ((lane >> 3) & 1));
+          ldmatrix_x4(r, b_frag(tK, np, kk, lane));
           mma(s[2 * np], qf[kk], r[0], r[1]);
           mma(s[2 * np + 1], qf[kk], r[2], r[3]);
         }
@@ -689,15 +714,12 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd_tc_kernel(
       // O += P V: P as bf16 A fragments, V through ldmatrix.trans
 #pragma unroll
       for (int kk = 0; kk < kBc / 16; ++kk) {
-        const unsigned a[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                               pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                               pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                               pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+        unsigned a[4];
+        pack_a(a, s[2 * kk], s[2 * kk + 1]);
 #pragma unroll
         for (int dp = 0; dp < kHD / 16; ++dp) {
           unsigned r[4];
-          ldmatrix_x4_trans(r, tV + (16 * kk + (lane & 7) + 8 * ((lane >> 3) & 1)) * kLDS +
-                                   16 * dp + 8 * (lane >> 4));
+          ldmatrix_x4_trans(r, a_frag(tV, 16 * kk, dp, lane));
           mma(o[2 * dp], a, r[0], r[1]);
           mma(o[2 * dp + 1], a, r[2], r[3]);
         }
@@ -732,6 +754,366 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd_tc_kernel(
     if (t < Tn)
       *reinterpret_cast<uint4*>(out + (((long long)b * Tn + t) * Hq + h) * kHD + c) =
           *reinterpret_cast<const uint4*>(sQ + r * kLDS + c);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// backward on the bf16 tensor cores (bf16 inputs)
+// ---------------------------------------------------------------------------
+//
+// FlashAttention-2's backward on the forward's mma.sync fragments.  P =
+// exp(S - lse) comes from the forward's f32 lse (no running max), and dS =
+// P * (dP - di), times 1 - t^2 under the softcap; both stay f32 on the
+// accumulator fragments, masked as the forward masks S (tiles wholly inside
+// one segment, below the diagonal, with no window, skip the mask).
+//
+// dq: a block owns 64 q rows of one q head (4 warps x 16 rows; Q fragments
+// in registers, dO re-read by ldmatrix at each key tile) and walks its key
+// range in double-buffered cp.async K/V tiles: S = Q K^T and dP = dO V^T
+// (K and V as non-transposed B fragments), then dQ += dS K with dS packed
+// to bf16 A fragments and K read through ldmatrix.trans.  The last q tiles,
+// whose key ranges are longest, start first.
+//
+// dk/dv: a block owns 64 keys of one kv head (4 warps x 16 keys).  K and V
+// stay in shared memory for the whole block and their A fragments are
+// re-read at every q tile, which keeps the 128 f32 dK/dV accumulators a
+// thread holds in registers.  It walks (q head of the group, q tile of its
+// range) with double-buffered cp.async Q/dO tiles and their lse, di and
+// segment ids in shared memory, and takes each tile in two halves of 32
+// queries, so that S^T and dP^T add only 32 registers: S^T = K Q^T and
+// dP^T = V dO^T (Q and dO as non-transposed B fragments), then dV += P^T dO
+// and dK += dS^T Q with P^T and dS^T packed to bf16 A fragments and dO and Q
+// read through ldmatrix.trans.  The first key tiles, whose query ranges are
+// longest, start first.  No atomics.
+//
+// Rounding: P (for dV) and dS (for dK and dQ) are rounded to bf16 before
+// those products (the tensor cores take bf16), where splash and the plain
+// versions keep them in f32; lse and di stay f32.
+
+__global__ void __launch_bounds__(kThreads, 2) flash_bwd_dq_tc_kernel(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+    const __nv_bfloat16* __restrict__ v, const int* __restrict__ seg,
+    const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
+    const float* __restrict__ di, __nv_bfloat16* __restrict__ dq, int Tn, int Hq, int Hkv,
+    float softcap, int window) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* sdO = sQ + kTileElems;
+  __nv_bfloat16* sK = sdO + kTileElems;     // two stages
+  __nv_bfloat16* sV = sK + 2 * kTileElems;  // two stages
+  __shared__ int seg_q[kBr], seg_k[2][kBc];
+  __shared__ int s_first, s_last, s_lo;
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int i0 = (gridDim.z - 1 - blockIdx.z) * kBr;  // longest key ranges first
+  const int kh = h / (Hq / Hkv);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, tig = lane & 3;
+  const int* segb = seg + (long long)b * Tn;
+
+  float acc[kHD / 8][4];  // 16 n-tiles of d
+#pragma unroll
+  for (int j = 0; j < kHD / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+
+  tile_span(segb, i0, Tn, seg_q, &s_first, &s_last);
+  const int first = s_first, last = s_last;
+  const int rq = warp * 16 + g;  // this thread's rows: rq and rq + 8
+  if (first <= last) {
+    const int i_first = i0 + first;
+    int lo = segment_start(segb, i_first, &s_lo);
+    if (window > 0) lo = max(lo, i_first - window + 1);
+    const int hi = i0 + last + 1;
+    const int ntiles = (hi - lo + kBc - 1) / kBc;
+    const int q_uniform = __syncthreads_and(tid >= kBr || seg_q[tid] == seg_q[0]) ? seg_q[0]
+                                                                                  : -3;
+    const int sq[2] = {seg_q[rq], seg_q[rq + 8]};
+    const int qi[2] = {i0 + rq, i0 + rq + 8};
+    float lse_r[2], di_r[2];
+#pragma unroll
+    for (int row = 0; row < 2; ++row) {
+      const long long at = ((long long)b * Hq + h) * Tn + min(qi[row], Tn - 1);
+      lse_r[row] = lse[at];
+      di_r[row] = di[at];
+    }
+
+    load_tile_async(sQ, q, b, i0, Tn, Hq, h);
+    load_tile_async(sdO, dout, b, i0, Tn, Hq, h);
+    load_tile_async(sK, k, b, lo, Tn, Hkv, kh);
+    load_tile_async(sV, v, b, lo, Tn, Hkv, kh);
+    asm volatile("cp.async.commit_group;\n" ::);
+    if (tid < kBc) seg_k[0][tid] = lo + tid < Tn ? segb[lo + tid] : -2;
+
+    unsigned qf[kHD / 16][4];
+    for (int n = 0; n < ntiles; ++n) {
+      const int buf = n & 1, j0 = lo + n * kBc;
+      if (n + 1 < ntiles) {  // prefetch the next tile into the other stage
+        const int j1 = j0 + kBc;
+        load_tile_async(sK + (buf ^ 1) * kTileElems, k, b, j1, Tn, Hkv, kh);
+        load_tile_async(sV + (buf ^ 1) * kTileElems, v, b, j1, Tn, Hkv, kh);
+        if (tid < kBc) seg_k[buf ^ 1][tid] = j1 + tid < Tn ? segb[j1 + tid] : -2;
+      }
+      asm volatile("cp.async.commit_group;\n" ::);
+      asm volatile("cp.async.wait_group 1;\n" ::);  // this tile (and Q, dO) landed
+      const bool full = __syncthreads_and(tid >= kBc || seg_k[buf][tid] == q_uniform) &&
+                        q_uniform >= 0 && window <= 0 && j0 + kBc - 1 <= i0;
+      if (n == 0) {
+#pragma unroll
+        for (int kk = 0; kk < kHD / 16; ++kk) ldmatrix_x4(qf[kk], a_frag(sQ, warp * 16, kk, lane));
+      }
+      const __nv_bfloat16* tK = sK + buf * kTileElems;
+      const __nv_bfloat16* tV = sV + buf * kTileElems;
+
+      // S = Q K^T and dP = dO V^T: 8 n-tiles of 8 keys each
+      float s[kBc / 8][4], dp[kBc / 8][4];
+#pragma unroll
+      for (int j = 0; j < kBc / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < kHD / 16; ++kk) {
+        unsigned da[4];
+        ldmatrix_x4(da, a_frag(sdO, warp * 16, kk, lane));
+#pragma unroll
+        for (int np = 0; np < kBc / 16; ++np) {
+          unsigned r[4];
+          ldmatrix_x4(r, b_frag(tK, np, kk, lane));
+          mma(s[2 * np], qf[kk], r[0], r[1]);
+          mma(s[2 * np + 1], qf[kk], r[2], r[3]);
+          ldmatrix_x4(r, b_frag(tV, np, kk, lane));
+          mma(dp[2 * np], da, r[0], r[1]);
+          mma(dp[2 * np + 1], da, r[2], r[3]);
+        }
+      }
+
+      // dS on the fragments (rows: queries, columns: keys), into s
+#pragma unroll
+      for (int j = 0; j < kBc / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int row = e >> 1, col = 8 * j + 2 * tig + (e & 1);
+          float x = s[j][e], t = 0.f;
+          if (softcap > 0.f) {
+            t = tanhf(x / softcap);
+            x = t * softcap;
+          }
+          const bool ok =
+              full || allowed(sq[row], seg_k[buf][col], qi[row], j0 + col, window);
+          float ds = ok ? exp2f((x - lse_r[row]) * kLog2e) * (dp[j][e] - di_r[row]) : 0.f;
+          if (softcap > 0.f) ds *= 1.f - t * t;
+          s[j][e] = ds;
+        }
+      }
+
+      // dQ += dS K: dS as bf16 A fragments, K through ldmatrix.trans
+#pragma unroll
+      for (int kk = 0; kk < kBc / 16; ++kk) {
+        unsigned a[4];
+        pack_a(a, s[2 * kk], s[2 * kk + 1]);
+#pragma unroll
+        for (int c = 0; c < kHD / 16; ++c) {
+          unsigned r[4];
+          ldmatrix_x4_trans(r, a_frag(tK, 16 * kk, c, lane));
+          mma(acc[2 * c], a, r[0], r[1]);
+          mma(acc[2 * c + 1], a, r[2], r[3]);
+        }
+      }
+      __syncthreads();  // this stage's readers are done before it is refilled
+    }
+    asm volatile("cp.async.wait_all;\n" ::);
+  }
+
+  // dq through shared memory: each warp writes its own rows of sQ, which
+  // only that warp read
+#pragma unroll
+  for (int j = 0; j < kHD / 8; ++j) {
+    const int c = 8 * j + 2 * tig;
+    *reinterpret_cast<__nv_bfloat162*>(sQ + rq * kLDS + c) =
+        __floats2bfloat162_rn(acc[j][0], acc[j][1]);
+    *reinterpret_cast<__nv_bfloat162*>(sQ + (rq + 8) * kLDS + c) =
+        __floats2bfloat162_rn(acc[j][2], acc[j][3]);
+  }
+  __syncthreads();
+  for (int i = tid; i < kBr * (kHD / 8); i += kThreads) {
+    const int r = i >> 4, c = (i & 15) * 8;
+    const int t = i0 + r;
+    if (t < Tn)
+      *reinterpret_cast<uint4*>(dq + (((long long)b * Tn + t) * Hq + h) * kHD + c) =
+          *reinterpret_cast<const uint4*>(sQ + r * kLDS + c);
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, 2) flash_bwd_dkv_tc_kernel(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+    const __nv_bfloat16* __restrict__ v, const int* __restrict__ seg,
+    const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
+    const float* __restrict__ di, __nv_bfloat16* __restrict__ dk,
+    __nv_bfloat16* __restrict__ dv, int Tn, int Hq, int Hkv, float softcap, int window) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* sV = sK + kTileElems;
+  __nv_bfloat16* sQ = sV + kTileElems;       // two stages
+  __nv_bfloat16* sdO = sQ + 2 * kTileElems;  // two stages
+  __shared__ int seg_k[kBc], seg_q[2][kBr];
+  __shared__ float lse_q[2][kBr], di_q[2][kBr];
+  __shared__ int s_first, s_last, s_hi;
+  const int kh = blockIdx.x, b = blockIdx.y;
+  const int j0 = blockIdx.z * kBc;  // the first key tiles, longest query ranges, first
+  const int group = Hq / Hkv, h_lo = kh * group;  // the group's q heads
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, tig = lane & 3;
+  const int* segb = seg + (long long)b * Tn;
+
+  float dk_acc[kHD / 8][4], dv_acc[kHD / 8][4];
+#pragma unroll
+  for (int j = 0; j < kHD / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[j][e] = dv_acc[j][e] = 0.f;
+
+  tile_span(segb, j0, Tn, seg_k, &s_first, &s_last);
+  const int first = s_first, last = s_last;
+  const int rk = warp * 16 + g;  // this thread's keys: rk and rk + 8
+  if (first <= last) {
+    const int j_last = j0 + last;
+    const int lo = j0 + first;  // causal: a query sees only keys at or before it
+    int hi = segment_end(segb, j_last, Tn, &s_hi);
+    if (window > 0) hi = min(hi, j_last + window);
+    const int ntiles = (hi - lo + kBr - 1) / kBr;
+    const int total = group * ntiles;  // (q head, q tile) steps
+    // one segment id over all 64 keys, or -3
+    const int k_uniform = __syncthreads_and(tid >= kBc || seg_k[tid] == seg_k[0]) ? seg_k[0]
+                                                                                  : -3;
+    const int sk[2] = {seg_k[rk], seg_k[rk + 8]};
+    const int kj[2] = {j0 + rk, j0 + rk + 8};
+
+    // step n's Q and dO tiles by cp.async, its segment ids, lse and di by
+    // plain loads, into stage `buf`
+    auto stage = [&](int n, int buf) {
+      const int h = h_lo + n / ntiles, i0 = lo + (n % ntiles) * kBr;
+      load_tile_async(sQ + buf * kTileElems, q, b, i0, Tn, Hq, h);
+      load_tile_async(sdO + buf * kTileElems, dout, b, i0, Tn, Hq, h);
+      if (tid < kBr) {
+        const int t = i0 + tid;
+        const long long at = ((long long)b * Hq + h) * Tn + t;
+        seg_q[buf][tid] = t < Tn ? segb[t] : -2;
+        lse_q[buf][tid] = t < Tn ? lse[at] : 0.f;
+        di_q[buf][tid] = t < Tn ? di[at] : 0.f;
+      }
+    };
+    load_tile_async(sK, k, b, j0, Tn, Hkv, kh);
+    load_tile_async(sV, v, b, j0, Tn, Hkv, kh);
+    stage(0, 0);
+    asm volatile("cp.async.commit_group;\n" ::);
+
+    for (int n = 0; n < total; ++n) {
+      const int buf = n & 1, i0 = lo + (n % ntiles) * kBr;
+      if (n + 1 < total) stage(n + 1, buf ^ 1);  // prefetch into the other stage
+      asm volatile("cp.async.commit_group;\n" ::);
+      asm volatile("cp.async.wait_group 1;\n" ::);  // this step (and K, V) landed
+      const bool full = __syncthreads_and(tid >= kBr || seg_q[buf][tid] == k_uniform) &&
+                        k_uniform >= 0 && window <= 0 && i0 >= j0 + kBc - 1;
+      const __nv_bfloat16* tQ = sQ + buf * kTileElems;
+      const __nv_bfloat16* tdO = sdO + buf * kTileElems;
+      const int* seg_t = seg_q[buf];
+      const float* lse_t = lse_q[buf];
+      const float* di_t = di_q[buf];
+
+      // the tile in two halves of 32 queries: S^T and dP^T of a half take
+      // 32 registers beside the 128 of dK and dV
+#pragma unroll 1
+      for (int half = 0; half < 2; ++half) {
+        const int c0 = 32 * half;  // the half's first query in the tile
+
+        // S^T = K Q^T and dP^T = V dO^T: rows are keys, 4 n-tiles of 8 queries
+        float st[4][4], dpt[4][4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) st[j][e] = dpt[j][e] = 0.f;
+#pragma unroll
+        for (int kk = 0; kk < kHD / 16; ++kk) {
+          unsigned ka[4], va[4];
+          ldmatrix_x4(ka, a_frag(sK, warp * 16, kk, lane));
+          ldmatrix_x4(va, a_frag(sV, warp * 16, kk, lane));
+#pragma unroll
+          for (int np = 0; np < 2; ++np) {
+            unsigned r[4];
+            ldmatrix_x4(r, b_frag(tQ, 2 * half + np, kk, lane));
+            mma(st[2 * np], ka, r[0], r[1]);
+            mma(st[2 * np + 1], ka, r[2], r[3]);
+            ldmatrix_x4(r, b_frag(tdO, 2 * half + np, kk, lane));
+            mma(dpt[2 * np], va, r[0], r[1]);
+            mma(dpt[2 * np + 1], va, r[2], r[3]);
+          }
+        }
+
+        // P^T into st and dS^T into dpt, on the fragments
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int row = e >> 1, col = c0 + 8 * j + 2 * tig + (e & 1);
+            float x = st[j][e], t = 0.f;
+            if (softcap > 0.f) {
+              t = tanhf(x / softcap);
+              x = t * softcap;
+            }
+            const bool ok = full || allowed(seg_t[col], sk[row], i0 + col, kj[row], window);
+            const float p = ok ? exp2f((x - lse_t[col]) * kLog2e) : 0.f;
+            float ds = p * (dpt[j][e] - di_t[col]);
+            if (softcap > 0.f) ds *= 1.f - t * t;
+            st[j][e] = p;
+            dpt[j][e] = ds;
+          }
+        }
+
+        // dV += P^T dO and dK += dS^T Q: bf16 A fragments, dO and Q through
+        // ldmatrix.trans
+#pragma unroll
+        for (int kk = 0; kk < 2; ++kk) {
+          unsigned pa[4], sa[4];
+          pack_a(pa, st[2 * kk], st[2 * kk + 1]);
+          pack_a(sa, dpt[2 * kk], dpt[2 * kk + 1]);
+#pragma unroll
+          for (int c = 0; c < kHD / 16; ++c) {
+            unsigned r[4];
+            ldmatrix_x4_trans(r, a_frag(tdO, c0 + 16 * kk, c, lane));
+            mma(dv_acc[2 * c], pa, r[0], r[1]);
+            mma(dv_acc[2 * c + 1], pa, r[2], r[3]);
+            ldmatrix_x4_trans(r, a_frag(tQ, c0 + 16 * kk, c, lane));
+            mma(dk_acc[2 * c], sa, r[0], r[1]);
+            mma(dk_acc[2 * c + 1], sa, r[2], r[3]);
+          }
+        }
+      }
+      __syncthreads();  // this stage's readers are done before it is refilled
+    }
+    asm volatile("cp.async.wait_all;\n" ::);
+  }
+
+  // dk and dv through shared memory (the Q stages: every reader passed
+  // the loop's last barrier), then out in 16-byte stores
+  __nv_bfloat16* oK = sQ;
+  __nv_bfloat16* oV = sQ + kTileElems;
+#pragma unroll
+  for (int j = 0; j < kHD / 8; ++j) {
+    const int c = 8 * j + 2 * tig;
+    *reinterpret_cast<__nv_bfloat162*>(oK + rk * kLDS + c) =
+        __floats2bfloat162_rn(dk_acc[j][0], dk_acc[j][1]);
+    *reinterpret_cast<__nv_bfloat162*>(oK + (rk + 8) * kLDS + c) =
+        __floats2bfloat162_rn(dk_acc[j][2], dk_acc[j][3]);
+    *reinterpret_cast<__nv_bfloat162*>(oV + rk * kLDS + c) =
+        __floats2bfloat162_rn(dv_acc[j][0], dv_acc[j][1]);
+    *reinterpret_cast<__nv_bfloat162*>(oV + (rk + 8) * kLDS + c) =
+        __floats2bfloat162_rn(dv_acc[j][2], dv_acc[j][3]);
+  }
+  __syncthreads();
+  for (int i = tid; i < kBc * (kHD / 8); i += kThreads) {
+    const int r = i >> 4, c = (i & 15) * 8;
+    const int t = j0 + r;
+    if (t < Tn) {
+      const long long at = (((long long)b * Tn + t) * Hkv + kh) * kHD + c;
+      *reinterpret_cast<uint4*>(dk + at) = *reinterpret_cast<const uint4*>(oK + r * kLDS + c);
+      *reinterpret_cast<uint4*>(dv + at) = *reinterpret_cast<const uint4*>(oV + r * kLDS + c);
+    }
   }
 }
 
@@ -804,12 +1186,45 @@ cudaError_t bwd_dkv(const void* q, const void* k, const void* v, const void* seg
   return cudaGetLastError();
 }
 
+cudaError_t bwd_dq_tc(const void* q, const void* k, const void* v, const void* seg,
+                      const void* dout, const void* lse, const void* di, void* dq, int B,
+                      int Tn, int Hq, int Hkv, float softcap, int window, cudaStream_t s) {
+  auto kernel = tc::flash_bwd_dq_tc_kernel;
+  cudaError_t err = opt_in(kernel, tc::kBwdSmem);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(Hq, B, (Tn + tc::kBr - 1) / tc::kBr), tc::kThreads, tc::kBwdSmem, s>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<const int*>(seg),
+      static_cast<const __nv_bfloat16*>(dout), static_cast<const float*>(lse),
+      static_cast<const float*>(di), static_cast<__nv_bfloat16*>(dq), Tn, Hq, Hkv, softcap,
+      window);
+  return cudaGetLastError();
+}
+
+cudaError_t bwd_dkv_tc(const void* q, const void* k, const void* v, const void* seg,
+                       const void* dout, const void* lse, const void* di, void* dk, void* dv,
+                       int B, int Tn, int Hq, int Hkv, float softcap, int window,
+                       cudaStream_t s) {
+  auto kernel = tc::flash_bwd_dkv_tc_kernel;
+  cudaError_t err = opt_in(kernel, tc::kBwdSmem);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(Hkv, B, (Tn + tc::kBc - 1) / tc::kBc), tc::kThreads, tc::kBwdSmem, s>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<const int*>(seg),
+      static_cast<const __nv_bfloat16*>(dout), static_cast<const float*>(lse),
+      static_cast<const float*>(di), static_cast<__nv_bfloat16*>(dk),
+      static_cast<__nv_bfloat16*>(dv), Tn, Hq, Hkv, softcap, window);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // bf16: 1 for bfloat16 inputs, 0 for float32.  softcap <= 0 and window <= 0
-// are off.  q is the pre-scaled q_s.  The forward picks its kernel by dtype:
-// bfloat16 runs on the tensor cores (tc::flash_fwd_tc_kernel), float32 on
-// the CUDA cores (flash_fwd_kernel), which keeps f32 products exact.
+// are off.  q is the pre-scaled q_s.  Each entry picks its kernel by dtype:
+// bfloat16 runs on the tensor cores (tc::flash_fwd_tc_kernel,
+// tc::flash_bwd_dq_tc_kernel, tc::flash_bwd_dkv_tc_kernel), float32 on the
+// CUDA cores (flash_fwd_kernel, flash_bwd_dq_kernel, flash_bwd_dkv_kernel),
+// which keeps f32 products exact.
 extern "C" int flash_fwd(int device, int bf16, const void* q, const void* k, const void* v,
                          const void* seg, void* out, void* lse, int B, int Tn, int Hq,
                          int Hkv, int hd, float softcap, int window, void* stream) {
@@ -829,22 +1244,22 @@ extern "C" int flash_bwd_dq(int device, int bf16, const void* q, const void* k, 
   if (err == cudaSuccess) err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)(bf16 ? bwd_dq<__nv_bfloat16>(q, k, v, seg, dout, lse, di, dq, B, Tn, Hq, Hkv,
-                                            softcap, window, s)
+  return (int)(bf16 ? bwd_dq_tc(q, k, v, seg, dout, lse, di, dq, B, Tn, Hq, Hkv, softcap,
+                                window, s)
                     : bwd_dq<float>(q, k, v, seg, dout, lse, di, dq, B, Tn, Hq, Hkv, softcap,
                                     window, s));
 }
 
 extern "C" int flash_bwd_dkv(int device, int bf16, const void* q, const void* k, const void* v,
                              const void* seg, const void* dout, const void* lse,
-                             const void* di, void* dk, void* dv, int B, int Tn, int Hq,
-                             int Hkv, int hd, float softcap, int window, void* stream) {
+                             const void* di, void* dk, void* dv, int B, int Tn, int Hq, int Hkv,
+                             int hd, float softcap, int window, void* stream) {
   cudaError_t err = check_shape(hd, Hq, Hkv);
   if (err == cudaSuccess) err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)(bf16 ? bwd_dkv<__nv_bfloat16>(q, k, v, seg, dout, lse, di, dk, dv, B, Tn, Hq,
-                                             Hkv, softcap, window, s)
+  return (int)(bf16 ? bwd_dkv_tc(q, k, v, seg, dout, lse, di, dk, dv, B, Tn, Hq, Hkv, softcap,
+                                 window, s)
                     : bwd_dkv<float>(q, k, v, seg, dout, lse, di, dk, dv, B, Tn, Hq, Hkv,
                                      softcap, window, s));
 }

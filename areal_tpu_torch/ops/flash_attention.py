@@ -27,12 +27,16 @@ launch the kernels for CUDA tensors and raise on what they do not take;
 for CPU tensors they run the plain versions (`*_plain`), which repeat the
 kernels' arithmetic (f32 products and statistics, outputs rounded once to
 the input dtype).  There is no fallback between the two.  Each kernel
-wrapper counts its launches in `.launches`.  The forward picks its kernel
+wrapper counts its launches in `.launches`.  Every wrapper picks its kernel
 by dtype: bfloat16 runs on the tensor cores (counted again in
-`flash_fwd.launches_tc`), float32 on the CUDA cores, whose f32 products the
-tensor cores (TF32 at best) could not keep.  The tensor-core forward rounds
-P to bfloat16 before its PV product, where splash and `flash_fwd_plain`
-keep P in f32; its l and lse still sum the f32 P.
+`.launches_tc`), float32 on the CUDA cores, whose f32 products the tensor
+cores (TF32 at best) could not keep.
+
+Rounding on the tensor cores.  The forward rounds P to bfloat16 before its
+PV product; its l and lse still sum the f32 P.  The backward rounds P to
+bfloat16 before dV = P^T dO and dS before dK = dS^T Q and dQ = dS K.  Splash
+and the plain versions keep P and dS in f32.  The statistics stay f32: lse
+comes from the forward and di from `attention_di`.
 """
 
 import ctypes
@@ -231,12 +235,14 @@ def flash_bwd_dq(qs, k, v, segment_ids, dout, lse, di, window: Optional[int] = N
     _check(qs, k, v, segment_ids, dout, lse, di)
     B, T, Hq, hd, cap, win, stream = _common(qs, window, softcap)
     dq = torch.empty_like(qs)
+    bf16 = qs.dtype == torch.bfloat16
     _raise(_lib().flash_bwd_dq(
-        qs.device.index or 0, int(qs.dtype == torch.bfloat16), qs.data_ptr(), k.data_ptr(),
+        qs.device.index or 0, int(bf16), qs.data_ptr(), k.data_ptr(),
         v.data_ptr(), segment_ids.data_ptr(), dout.data_ptr(), lse.data_ptr(),
         di.data_ptr(), dq.data_ptr(), B, T, Hq, k.shape[2], hd, cap, win, stream),
         "flash_bwd_dq")
     flash_bwd_dq.launches += 1
+    flash_bwd_dq.launches_tc += bf16  # the C entry runs bf16 on the tensor cores
     return dq
 
 
@@ -249,19 +255,20 @@ def flash_bwd_dkv(qs, k, v, segment_ids, dout, lse, di, window: Optional[int] = 
     _check(qs, k, v, segment_ids, dout, lse, di)
     B, T, Hq, hd, cap, win, stream = _common(qs, window, softcap)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
+    bf16 = qs.dtype == torch.bfloat16
     _raise(_lib().flash_bwd_dkv(
-        qs.device.index or 0, int(qs.dtype == torch.bfloat16), qs.data_ptr(), k.data_ptr(),
+        qs.device.index or 0, int(bf16), qs.data_ptr(), k.data_ptr(),
         v.data_ptr(), segment_ids.data_ptr(), dout.data_ptr(), lse.data_ptr(),
         di.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, T, Hq, k.shape[2], hd, cap, win,
         stream), "flash_bwd_dkv")
     flash_bwd_dkv.launches += 1
+    flash_bwd_dkv.launches_tc += bf16  # the C entry runs bf16 on the tensor cores
     return dk, dv
 
 
-flash_fwd.launches = 0
-flash_fwd.launches_tc = 0
-flash_bwd_dq.launches = 0
-flash_bwd_dkv.launches = 0
+flash_fwd.launches = flash_fwd.launches_tc = 0
+flash_bwd_dq.launches = flash_bwd_dq.launches_tc = 0
+flash_bwd_dkv.launches = flash_bwd_dkv.launches_tc = 0
 
 
 def attention_di(out: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:

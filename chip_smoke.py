@@ -18,9 +18,10 @@ Phases, each printed with its wall time; any failure exits non-zero:
             in the B=16 grid, and two runs bit-equal.  Flash forward, dq and
             dk/dv at Qwen2.5's training heads (Hq=12, Hkv=2, hd=128, bf16):
             T=2048 packed with 3 segments and tail padding, T=1024 one
-            segment, window 256, softcap 30, and f32 at T=256; two forwards
-            and two dk/dv runs equal bit for bit, bf16 forwards on the tensor
-            cores
+            segment, window 256, softcap 30, and f32 at T=256; two forwards,
+            two dq and two dk/dv runs equal bit for bit, pad rows' dq, dk
+            and dv exactly 0, every bf16 kernel on its tensor-core variant
+            and every f32 one on the CUDA cores
 4. engine   a tiny f32 model served by the port's engine on the card and on
             the CPU: greedy streams equal, logprobs within 1e-4
 5. serve    random seeded bf16 Qwen2.5-1.5B weights at full width (28
@@ -39,12 +40,16 @@ Phases, each printed with its wall time; any failure exits non-zero:
             tokens each), the trainer's logprobs against the server's,
             advantages, 3 PPO updates (loss, grad norm, tokens/s, MFU), the
             policy moving along the advantages, exact flash launch counts
-            (every bf16 forward on the tensor-core kernel), and the new
-            weights published to the server and read back
+            (every bf16 forward, dq and dk/dv on its tensor-core kernel:
+            168 dq and 168 dk/dv launches), a torch.profiler window over the
+            third update (top device ops, groups of them, the flash kernels'
+            share, the device's busy share; its step times are printed but
+            left out of the steady step time, which the profiler would
+            slow), and the new weights published to the server and read back
 8. flash timings  on the train phase's packed rows (bf16, T=1024, Hq=12,
             Hkv=2, hd=128): each flash kernel against its plain version,
             then the kernel, its plain version and torch SDPA (the forward,
-            and forward + backward) timed, with each bound, and the forward's
+            and forward + backward) timed, with each bound, and the kernels'
             and SDPA's device time per call by torch.profiler
 
 The line before the last is the kernels' JSON record; the last line is
@@ -65,6 +70,7 @@ import urllib.request
 
 import numpy as np
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 from areal_tpu_torch.api.config import NormConfig, OptimizerConfig, PPOActorConfig
 from areal_tpu_torch.api.io_struct import FinetuneSpec, WeightUpdateMeta
@@ -253,16 +259,20 @@ def compare_flash(name, qs, k, v, dout, sg, window=None, softcap=None):
     against one pass), so an element can land a bf16 step or two apart:
     2e-2, like the ragged check (out: absolute plus relative; gradients:
     relative to the largest element).  f32: 1e-5 on out, 1e-4 relative to
-    the largest element on gradients.  Two dk/dv runs must be equal bit for
-    bit (no atomics).  Returns |kernel - plain| of out, dq and dk/dv."""
-    tc0 = fa.flash_fwd.launches_tc
+    the largest element on gradients.  Two runs of each kernel must be equal
+    bit for bit (no atomics), pad rows must get dq = dk = dv = 0 exactly,
+    and each kernel must run on its tensor-core variant for bf16 and on the
+    CUDA cores for f32.  Returns |kernel - plain| of out, dq and dk/dv."""
+    wrappers = (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv)
+    tc0 = [w.launches_tc for w in wrappers]
     out, lse = fa.flash_fwd(qs, k, v, sg, window, softcap)
     out2, lse2 = fa.flash_fwd(qs, k, v, sg, window, softcap)
-    tc_runs = fa.flash_fwd.launches_tc - tc0
     di = fa.attention_di(out, dout)
     dq = fa.flash_bwd_dq(qs, k, v, sg, dout, lse, di, window, softcap)
+    dq2 = fa.flash_bwd_dq(qs, k, v, sg, dout, lse, di, window, softcap)
     dk, dv = fa.flash_bwd_dkv(qs, k, v, sg, dout, lse, di, window, softcap)
     dk2, dv2 = fa.flash_bwd_dkv(qs, k, v, sg, dout, lse, di, window, softcap)
+    tc_runs = [w.launches_tc - n for w, n in zip(wrappers, tc0)]
     p_out, p_lse = fa.flash_fwd_plain(qs, k, v, sg, window, softcap)
     p_dq = fa.flash_bwd_dq_plain(qs, k, v, sg, dout, p_lse, di, window, softcap)
     p_dk, p_dv = fa.flash_bwd_dkv_plain(qs, k, v, sg, dout, p_lse, di, window, softcap)
@@ -278,18 +288,22 @@ def compare_flash(name, qs, k, v, dout, sg, window=None, softcap=None):
         diff = (a.float() - b.float()).abs()
         rels.append(float(diff.max() / b.float().abs().max()))
         abss.append(float(diff.max()))
-    rerun_equal = torch.equal(dk, dk2) and torch.equal(dv, dv2)
+    rerun_equal = torch.equal(dq, dq2) and torch.equal(dk, dk2) and torch.equal(dv, dv2)
     fwd_equal = torch.equal(out, out2) and torch.equal(lse, lse2)
+    pad = sg < 0
+    pad_zero = not (dq[pad].any() or dk[pad].any() or dv[pad].any())
     print(f"  {name}: max|out - plain| = {float(err.max()):.3e} ({bad} outside atol "
           f"{atol} rtol {rtol}); dq, dk, dv max|diff|/max = "
           f"{rels[0]:.2e}, {rels[1]:.2e}, {rels[2]:.2e} (tol {grad_tol}); "
-          f"forward and dk/dv reruns equal: {fwd_equal}, {rerun_equal}; "
-          f"forwards on the tensor cores: {tc_runs} of 2")
+          f"forward and dq, dk/dv reruns equal: {fwd_equal}, {rerun_equal}; "
+          f"pad rows' grads 0: {pad_zero}; fwd/dq/dkv runs on the tensor cores: "
+          f"{tc_runs} of 2 each")
     finite = all(bool(torch.isfinite(t).all()) for t in (out, dq, dk, dv))
-    if bad or max(rels) > grad_tol or not rerun_equal or not fwd_equal or not finite:
+    if (bad or max(rels) > grad_tol or not rerun_equal or not fwd_equal or not finite
+            or not pad_zero):
         raise AssertionError(f"flash kernels disagree with their plain versions: {name}")
-    if tc_runs != (0 if f32 else 2):
-        raise AssertionError(f"{name}: the forward ran on the wrong variant")
+    if tc_runs != [0 if f32 else 2] * 3:
+        raise AssertionError(f"{name}: a kernel ran on the wrong variant")
     return {"flash_fwd": float(err.max()), "flash_bwd_dq": abss[0],
             "flash_bwd_dkv": max(abss[1], abss[2])}
 
@@ -476,8 +490,6 @@ def profile_decode(eng, prompt=512, new=64, steps=2, top=8):
     of the window's wall time (the profiler slows the host, so that share
     reads low).  Returns the device ms per decode step, or None when the
     profiler saw no device time."""
-    from torch.profiler import ProfilerActivity, profile
-
     rng = np.random.default_rng(4)
     reqs = [GenRequest(rid=f"prof{i}", input_ids=rng.integers(0, 151936, prompt).tolist(),
                        max_new_tokens=new, min_new_tokens=new, temperature=0.0)
@@ -533,9 +545,57 @@ def flash_counts():
     return (fa.flash_fwd.launches, fa.flash_bwd_dq.launches, fa.flash_bwd_dkv.launches)
 
 
+def flash_counts_tc():
+    return (fa.flash_fwd.launches_tc, fa.flash_bwd_dq.launches_tc,
+            fa.flash_bwd_dkv.launches_tc)
+
+
 def reset_flash_counts():
-    fa.flash_fwd.launches = fa.flash_bwd_dq.launches = fa.flash_bwd_dkv.launches = 0
-    fa.flash_fwd.launches_tc = 0
+    for w in (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv):
+        w.launches = w.launches_tc = 0
+
+
+# kernel groups of the train profile, by substrings of the kernel's name
+# (first match wins; the rest is "other")
+TRAIN_OP_GROUPS = (
+    ("flash attention", ("flash_",)),
+    ("matrix products", ("gemm", "nvjet", "xmma", "cutlass")),
+    ("elementwise", ("elementwise",)),
+    ("reductions", ("reduce",)),
+)
+FLASH_KERNELS = ("flash_fwd_tc_kernel", "flash_bwd_dq_tc_kernel", "flash_bwd_dkv_tc_kernel")
+
+
+def report_train_profile(prof, wall_us, n_batches, top=12):
+    """Prints the top device ops of a profiled `ppo_update` with their
+    shares of device time, the groups of TRAIN_OP_GROUPS, each flash
+    kernel's share, and the device's busy share of the window's wall
+    time."""
+    kernels = device_kernels(prof)
+    total = sum(e.self_device_time_total for e in kernels)
+    if total <= 0:
+        print("  profiler: key_averages() shows no device time on this machine")
+        return
+    kernels.sort(key=lambda e: -e.self_device_time_total)
+    print(f"  profiler window: the third update, {n_batches} train_batch calls, "
+          f"{wall_us / 1e3:.2f} ms wall, {total / 1e3:.2f} ms device time")
+    for e in kernels[:top]:
+        t = e.self_device_time_total
+        print(f"    {t / 1e3:9.3f} ms {100 * t / total:5.1f}%  x{e.count:<6d} {e.key[:90]}")
+    groups = {}
+    for e in kernels:
+        name = e.key.lower()
+        label = next((lab for lab, keys in TRAIN_OP_GROUPS if any(k in name for k in keys)),
+                     "other")
+        groups[label] = groups.get(label, 0.0) + e.self_device_time_total
+    print("  by group: " + ", ".join(
+        f"{lab} {t / 1e3:.2f} ms ({100 * t / total:.1f}%)"
+        for lab, t in sorted(groups.items(), key=lambda kv: -kv[1])))
+    flash = [(n, sum(e.self_device_time_total for e in kernels if n in e.key))
+             for n in FLASH_KERNELS]
+    print("  flash kernels: " + ", ".join(
+        f"{n} {t / 1e3:.2f} ms ({100 * t / total:.1f}%)" for n, t in flash))
+    print(f"  device busy {100 * total / wall_us:.1f}% of the window's wall time")
 
 
 def rollout_batch(results, prompts, rewards):
@@ -562,8 +622,9 @@ def train_qwen(ckpt_dir, publish_dir):
     """The training half of the main path at full width: rollouts from the
     port's server, the PPO actor's logprobs, advantages and updates, and
     the new weights published back to the server.  Returns the flash
-    launch counts of the whole phase and the packed segment ids of one
-    training micro-batch."""
+    launch counts of the whole phase, the stats of the unprofiled updates'
+    train_batch calls and the packed segment ids of one training
+    micro-batch."""
     cfg = qwen25_1p5b()
     rng = np.random.default_rng(3)
     prompts = [rng.integers(0, cfg.vocab_size, int(rng.integers(128, 513))).tolist()
@@ -641,7 +702,15 @@ def train_qwen(ckpt_dir, publish_dir):
         stats = []
         for step in range(3):
             before = flash_counts()
-            st = actor.ppo_update(batch)
+            profiled = step == 2  # the third update runs in a profiler window
+            prof = (profile(activities=[ProfilerActivity.CUDA]) if profiled
+                    else contextlib.nullcontext())
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with prof:
+                st = actor.ppo_update(batch)
+                torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
             got = tuple(int(x) for x in np.subtract(flash_counts(), before))
             n_mb = len(st) * actor.config.mb_spec.n_mbs
             want = (2 * SERVE_LAYERS * n_mb, SERVE_LAYERS * n_mb, SERVE_LAYERS * n_mb)
@@ -650,15 +719,24 @@ def train_qwen(ckpt_dir, publish_dir):
                 print(f"  update {step}: loss {s_['loss']:+.5f} grad_norm "
                       f"{s_['grad_norm']:.4f} step_time {s_['step_time']:.3f} s "
                       f"train tokens/s {s_['tokens_per_s']:.1f} "
-                      f"mfu {s_.get('mfu', float('nan')):.4f}")
+                      f"mfu {s_.get('mfu', float('nan')):.4f}"
+                      + (" (profiled)" if profiled else ""))
                 if not all(np.isfinite(s_[k]) for k in ("loss", "grad_norm", "step_time")):
                     raise AssertionError("a PPO step returned a non-finite stat")
             print(f"    flash launches fwd/dq/dkv {got}, want {want} "
                   f"({n_mb} micro-batches)")
             if got != want:
                 raise AssertionError("a training layer's attention missed the flash kernels")
+            if profiled:
+                report_train_profile(prof, wall_us, len(st))
+            else:
+                stats += st
             counts += got
-            stats += st
+        steady = stats[1:]  # the first train_batch warms the allocator and AdamW's state
+        print("  unprofiled train_batch after the first: step_time " + ", ".join(
+            f"{s_['step_time']:.3f}" for s_ in steady) + " s (median "
+            f"{np.median([s_['step_time'] for s_ in steady]):.3f}); mfu " + ", ".join(
+            f"{s_.get('mfu', float('nan')):.4f}" for s_ in steady))
 
         # 6. the policy moved along the advantages
         before = flash_counts()
@@ -729,8 +807,6 @@ def device_ms(fn, iters=50):
     time of every kernel it launched over `iters` calls, summed, per call.
     Unlike `cuda_ms` it leaves out the host's share (Python, the launch
     path) when the host is slower than the device."""
-    from torch.profiler import ProfilerActivity, profile
-
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -838,8 +914,9 @@ def time_flash(seg_rows):
     kernel against its plain version (`compare_flash`), then the kernel,
     the plain version and torch SDPA timed: SDPA's forward for the forward
     kernel, its forward + backward through autograd for the two backward
-    kernels (one library call computes all of dq, dk, dv).  Returns the
-    timings and the |kernel - plain| of each kernel."""
+    kernels (one library call computes all of dq, dk, dv), by CUDA events
+    and by device time.  Returns the timings and the |kernel - plain| of
+    each kernel."""
     seg = torch.from_numpy(np.ascontiguousarray(seg_rows)).to(torch.int32)
     qs, k, v, dout, sg = flash_case(300, seg)
     errs = compare_flash(f"train rows {tuple(seg.shape)}", qs, k, v, dout, sg)
@@ -877,10 +954,12 @@ def time_flash(seg_rows):
                             (q4, k4, v4), g4)
 
     lib = {"flash_fwd": cuda_ms(lib_fwd, iters=20, warmup=3)}
-    print(f"  flash_fwd device time per call (profiler): kernel "
-          f"{device_ms(lambda: fa.flash_fwd(qs, k, v, sg), iters=20):.4f} ms, SDPA forward "
-          f"{device_ms(lib_fwd, iters=20):.4f} ms")
     lib["flash_bwd_dq"] = lib["flash_bwd_dkv"] = cuda_ms(lib_fwd_bwd, iters=10, warmup=2)
+    dev = {name: device_ms(kernel, iters=20) for name, (kernel, _) in runs.items()}
+    print("  device time per call (profiler): " + ", ".join(
+        f"{name} {t:.4f} ms" for name, t in dev.items())
+        + f"; SDPA forward {device_ms(lib_fwd, iters=20):.4f} ms, SDPA forward + backward "
+          f"{device_ms(lib_fwd_bwd, iters=10):.4f} ms")
     bounds = flash_bounds(qs, k, sg)
     timings = {}
     for name, (kernel, plain) in runs.items():
@@ -950,10 +1029,11 @@ def main():
             torch.cuda.empty_cache()
         with phase("train"):
             flash_launches, train_stats, seg_rows = train_qwen(ckpt_dir, publish_dir)
+            on_tc = flash_counts_tc()
             print(f"  flash launches over the phase fwd/dq/dkv {flash_launches}; "
-                  f"forwards on the tensor cores {fa.flash_fwd.launches_tc}")
-            if fa.flash_fwd.launches_tc != flash_launches[0]:
-                raise AssertionError("a bf16 forward of the train phase missed the "
+                  f"on the tensor cores {on_tc}")
+            if on_tc != flash_launches:
+                raise AssertionError("a bf16 flash launch of the train phase missed its "
                                      "tensor-core kernel")
         with phase("flash timings"):
             flash_times, train_err = time_flash(seg_rows)

@@ -6,8 +6,10 @@ against `areal_tpu`'s splash path (`segment_attention(impl="splash")`),
 run in interpret mode on the CPU as tests/test_attention.py runs it, on
 packed multi-segment rows with tail padding, a sliding window and a logit
 softcap; the plain dq and dk/dv functions against autograd of the port's
-`naive_attention`.  The CUDA kernels are held against the plain versions
-on the card (`gpu` marker; skips without one).
+`naive_attention`.  The rounding that the bf16 tensor-core backward adds
+(P and dS to bf16 before their products) is emulated on the CPU and held
+to the tolerance the card's checks use.  The CUDA kernels are held against
+the plain versions on the card (`gpu` marker; skips without one).
 """
 
 import math
@@ -173,6 +175,77 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
         fa.flash_fwd(q.to("meta"), k.to("meta"), v.to("meta"), seg.to("meta"))
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window,softcap", [(None, None), (64, None), (None, 30.0),
+                                            (64, 30.0)])
+def test_cpu_tensors_run_the_plain_versions(dtype, window, softcap):
+    """For CPU tensors each wrapper returns its plain version's result, bit
+    for bit, in the input dtype, and launches nothing (the launch counters
+    stay put); pad rows get exactly 0 from all of them."""
+    q, k, v, g, seg, _ = _packed(29, B=2)
+    qs, kk, vv, dout = (torch.from_numpy(x).to(dtype) for x in (q, k, v, g))
+    qs = fa.scale_query(qs)
+    sg = torch.from_numpy(seg)
+    wrappers = (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv)
+    before = [(w.launches, w.launches_tc) for w in wrappers]
+    out, lse = fa.flash_fwd(qs, kk, vv, sg, window, softcap)
+    di = fa.attention_di(out, dout)
+    dq = fa.flash_bwd_dq(qs, kk, vv, sg, dout, lse, di, window, softcap)
+    dk, dv = fa.flash_bwd_dkv(qs, kk, vv, sg, dout, lse, di, window, softcap)
+    assert [(w.launches, w.launches_tc) for w in wrappers] == before
+    p_out, p_lse = fa.flash_fwd_plain(qs, kk, vv, sg, window, softcap)
+    p_dq = fa.flash_bwd_dq_plain(qs, kk, vv, sg, dout, lse, di, window, softcap)
+    p_dk, p_dv = fa.flash_bwd_dkv_plain(qs, kk, vv, sg, dout, lse, di, window, softcap)
+    for a, b in ((out, p_out), (lse, p_lse), (dq, p_dq), (dk, p_dk), (dv, p_dv)):
+        assert torch.equal(a, b)
+    assert out.dtype == dq.dtype == dk.dtype == dv.dtype == dtype and lse.dtype == torch.float32
+    pad = torch.from_numpy(seg < 0)
+    assert not out[pad].any() and not dq[pad].any() and not dk[pad].any() and not dv[pad].any()
+
+
+def _bf16_kernel_grads(qs, k, v, seg, dout, lse, di, window, softcap):
+    """The tensor-core backward's arithmetic, emulated in f32 on the CPU:
+    P and dS rounded to bf16 before dv = P^T dO, dk = dS^T Q and dq = dS K,
+    f32 sums, each result rounded once to bf16."""
+    B, T, Hq, hd = qs.shape
+    Hkv = k.shape[2]
+    p, ds = fa._probs_ds(qs, k, v, seg, dout, lse, di, window, softcap)
+    p, ds = p.bfloat16().float(), ds.bfloat16().float()
+    q5 = qs.reshape(B, T, Hkv, Hq // Hkv, hd)
+    do5 = dout.reshape(B, T, Hkv, Hq // Hkv, hd)
+    dq = torch.einsum("bkgts,bskh->btkgh", ds, k).reshape(B, T, Hq, hd)
+    dk = torch.einsum("bkgts,btkgh->bskh", ds, q5)
+    dv = torch.einsum("bkgts,btkgh->bskh", p, do5)
+    return [x.bfloat16().float() for x in (dq, dk, dv)]
+
+
+@pytest.mark.parametrize("case", [
+    dict(),
+    dict(window=256),
+    dict(softcap=30.0),
+], ids=["packed", "window", "softcap"])
+def test_tensor_core_backward_rounding_within_budget(case):
+    """The rounding the bf16 backward kernels add (P and dS to bf16 before
+    their products) stays within the 2e-2 of the largest element that the
+    card's checks allow against the f32 plain versions, on a packed
+    bf16-valued row at Qwen2.5's heads (T=1024, 4 segments, tail padding).
+    The inputs are what the kernels get: q_s, k, v and dout in bf16, lse
+    from the forward and di from the bf16 output, both f32."""
+    window, softcap = case.get("window"), case.get("softcap")
+    q, k, v, g, seg, _ = _packed(23, B=1, T=1024, Hq=12, Hkv=2, n_segs=4)
+    qs = fa.scale_query(torch.from_numpy(q).bfloat16()).float()
+    kk, vv, dout = (torch.from_numpy(x).bfloat16().float() for x in (k, v, g))
+    sg = torch.from_numpy(seg)
+    out, lse = fa.flash_fwd_plain(qs, kk, vv, sg, window, softcap)
+    di = fa.attention_di(out.bfloat16(), dout)
+    want = [fa.flash_bwd_dq_plain(qs, kk, vv, sg, dout, lse, di, window, softcap),
+            *fa.flash_bwd_dkv_plain(qs, kk, vv, sg, dout, lse, di, window, softcap)]
+    got = _bf16_kernel_grads(qs, kk, vv, sg, dout, lse, di, window, softcap)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        rel = _rel(a.numpy(), b.numpy())
+        assert 0 < rel < 2e-2, (name, rel)  # > 0: the rounding is really emulated
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -199,18 +272,20 @@ def test_cuda_kernels_match_plain(cuda_device, case):
     qs, kk, vv, dout = (torch.from_numpy(x).to(cuda_device, dtype) for x in (q, k, v, g))
     qs = fa.scale_query(qs)
     sg = torch.from_numpy(seg).to(cuda_device)
-    counts = (fa.flash_fwd.launches, fa.flash_bwd_dq.launches, fa.flash_bwd_dkv.launches)
-    tc0 = fa.flash_fwd.launches_tc
+    wrappers = (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv)
+    counts = [w.launches for w in wrappers]
+    tc0 = [w.launches_tc for w in wrappers]
     out, lse = fa.flash_fwd(qs, kk, vv, sg, window, softcap)
     di = fa.attention_di(out, dout)
     dq = fa.flash_bwd_dq(qs, kk, vv, sg, dout, lse, di, window, softcap)
     dk, dv = fa.flash_bwd_dkv(qs, kk, vv, sg, dout, lse, di, window, softcap)
     dk2, dv2 = fa.flash_bwd_dkv(qs, kk, vv, sg, dout, lse, di, window, softcap)
     torch.cuda.synchronize()
-    assert (fa.flash_fwd.launches, fa.flash_bwd_dq.launches, fa.flash_bwd_dkv.launches) == (
-        counts[0] + 1, counts[1] + 1, counts[2] + 2)
-    # bf16 forwards run on the tensor cores, f32 ones on the CUDA cores
-    assert fa.flash_fwd.launches_tc == tc0 + (dtype == torch.bfloat16)
+    runs = (1, 1, 2)
+    assert [w.launches for w in wrappers] == [c + n for c, n in zip(counts, runs)]
+    # bf16 runs every kernel on the tensor cores, f32 on the CUDA cores
+    bf16 = dtype == torch.bfloat16
+    assert [w.launches_tc for w in wrappers] == [c + n * bf16 for c, n in zip(tc0, runs)]
     assert torch.equal(dk, dk2) and torch.equal(dv, dv2)  # no atomics: bit-equal reruns
     p_out, p_lse = fa.flash_fwd_plain(qs, kk, vv, sg, window, softcap)
     p_dq = fa.flash_bwd_dq_plain(qs, kk, vv, sg, dout, p_lse, di, window, softcap)
@@ -256,3 +331,42 @@ def test_cuda_tensor_core_forward(cuda_device, case):
     vl = valid.unsqueeze(1).expand_as(lse)
     assert torch.allclose(lse[vl], p_lse[vl], atol=1e-4)
     assert not out[~valid].any() and bool((lse[~vl] == -torch.inf).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", [
+    dict(T=1024, n_segs=4),
+    dict(T=2048, n_segs=3, window=256),
+    dict(T=1024, n_segs=2, softcap=30.0),
+], ids=["packed", "window", "softcap"])
+def test_cuda_tensor_core_backward(cuda_device, case):
+    """The bf16 dq and dk/dv kernels on the tensor cores at Qwen2.5's heads
+    (Hq=12, Hkv=2, hd=128) against the f32 plain versions: within 2e-2
+    of the largest element (they round P and dS to bf16 before their
+    products, the plain versions keep both in f32; both round the results
+    once to bf16).  Pad rows get exactly 0; two runs are bit-equal (no
+    atomics); every launch is counted on the tensor-core variant."""
+    window, softcap = case.get("window"), case.get("softcap")
+    q, k, v, g, seg, _ = _packed(19, B=2, T=case["T"], Hq=12, Hkv=2, n_segs=case["n_segs"])
+    qs, kk, vv, dout = (torch.from_numpy(x).to(cuda_device, torch.bfloat16) for x in (q, k, v, g))
+    qs = fa.scale_query(qs)
+    sg = torch.from_numpy(seg).to(cuda_device)
+    out, lse = fa.flash_fwd(qs, kk, vv, sg, window, softcap)
+    di = fa.attention_di(out, dout)
+    wrappers = (fa.flash_bwd_dq, fa.flash_bwd_dkv)
+    before = [(w.launches, w.launches_tc) for w in wrappers]
+    dq = fa.flash_bwd_dq(qs, kk, vv, sg, dout, lse, di, window, softcap)
+    dq2 = fa.flash_bwd_dq(qs, kk, vv, sg, dout, lse, di, window, softcap)
+    dk, dv = fa.flash_bwd_dkv(qs, kk, vv, sg, dout, lse, di, window, softcap)
+    dk2, dv2 = fa.flash_bwd_dkv(qs, kk, vv, sg, dout, lse, di, window, softcap)
+    torch.cuda.synchronize()
+    assert [(w.launches, w.launches_tc) for w in wrappers] == [
+        (n + 2, tc + 2) for n, tc in before]
+    assert torch.equal(dq, dq2) and torch.equal(dk, dk2) and torch.equal(dv, dv2)
+    pad = torch.from_numpy(seg < 0).to(cuda_device)
+    assert not dq[pad].any() and not dk[pad].any() and not dv[pad].any()
+    p_dq = fa.flash_bwd_dq_plain(qs, kk, vv, sg, dout, lse, di, window, softcap)
+    p_dk, p_dv = fa.flash_bwd_dkv_plain(qs, kk, vv, sg, dout, lse, di, window, softcap)
+    for name, a, b in (("dq", dq, p_dq), ("dk", dk, p_dk), ("dv", dv, p_dv)):
+        rel = ((a.float() - b.float()).abs().max() / b.float().abs().max()).item()
+        assert rel < 2e-2, (name, rel)
