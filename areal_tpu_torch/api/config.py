@@ -1,5 +1,7 @@
-"""Train-side configuration dataclasses (the port's copy of the train
-configs in `areal_tpu/api/config.py`).
+"""Configuration dataclasses (the port's copy of the train configs in
+`areal_tpu/api/config.py`, and of the generation and rollout configs the
+colocated loop reads: `GenerationHyperparameters`,
+`InferenceEngineConfig`).
 
 Field names and defaults are the JAX package's, for the fields the port
 reads; fields of what is not ported yet (meshes, LoRA, `async_stats`, the
@@ -11,8 +13,36 @@ loader (`load_expr_config`) is not copied: the card's machine has no
 `yaml`, and nothing on the port's path reads a config file yet.
 """
 
+import dataclasses
 from dataclasses import dataclass, field
-from typing import Optional
+from typing import List, Optional
+
+
+@dataclass
+class GenerationHyperparameters:
+    """Per-request sampling config."""
+
+    n_samples: int = 1
+    max_new_tokens: int = 256
+    min_new_tokens: int = 0
+    temperature: float = 1.0
+    top_p: float = 1.0
+    top_k: int = 0  # 0 = disabled
+    greedy: bool = False
+    stop_token_ids: List[int] = field(default_factory=list)
+
+    def new(self, **kwargs) -> "GenerationHyperparameters":
+        return dataclasses.replace(self, **kwargs)
+
+
+@dataclass
+class InferenceEngineConfig:
+    """Rollout-side config of the workflow executor."""
+
+    max_concurrent_rollouts: Optional[int] = None
+    consumer_batch_size: int = 1
+    max_head_offpolicyness: int = 0  # max staleness eta
+    check_trajectory_format: bool = False
 
 
 @dataclass

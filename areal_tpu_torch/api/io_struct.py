@@ -1,14 +1,61 @@
-"""Trainer I/O descriptors (the port's copies of `FinetuneSpec`,
-`WeightUpdateMeta` and `SaveLoadMeta` from `areal_tpu/api/io_struct.py`).
+"""I/O descriptors (the port's copies of `ModelRequest`, `ModelResponse`,
+`FinetuneSpec`, `WeightUpdateMeta`, `SaveLoadMeta` and `RolloutStat` from
+`areal_tpu/api/io_struct.py`).
 
-The port publishes weights on the "disk" path only: `WeightUpdateMeta`
-keeps the fields of that path, and `TorchTrainEngine` refuses any other
-type.  `SaveLoadMeta` is the descriptor of `save`/`load`, which come with
-a later slice.
+Between processes the port publishes weights on the "disk" path only
+(`WeightUpdateMeta` keeps the fields of that path, and `TorchTrainEngine`
+refuses any other type); the colocated loop hands them over in memory
+(`engine/colocated.py`).  `SaveLoadMeta` is the descriptor of
+`save`/`load`, which come with a later slice.
 """
 
-from dataclasses import dataclass
-from typing import Any, Literal, Optional
+import uuid
+from dataclasses import dataclass, field
+from typing import Any, List, Literal, Optional
+
+from areal_tpu_torch.api.config import GenerationHyperparameters
+
+
+@dataclass
+class ModelRequest:
+    """One generation request travelling from a workflow to an engine."""
+
+    rid: str = field(default_factory=lambda: str(uuid.uuid4()))
+    input_ids: List[int] = field(default_factory=list)
+    gconfig: GenerationHyperparameters = field(default_factory=GenerationHyperparameters)
+    tokenizer: Any = None
+    trace_id: str = ""
+
+    def copy(self) -> "ModelRequest":
+        return ModelRequest(
+            rid=self.rid,
+            input_ids=list(self.input_ids),
+            gconfig=self.gconfig.new(),
+            tokenizer=self.tokenizer,
+            trace_id=self.trace_id,
+        )
+
+
+@dataclass
+class ModelResponse:
+    """Generation result; `output_versions` carries the weight version that
+    produced each output token, the behaviour policy of decoupled PPO."""
+
+    input_tokens: List[int] = field(default_factory=list)
+    output_tokens: List[int] = field(default_factory=list)
+    output_logprobs: List[float] = field(default_factory=list)
+    output_versions: List[int] = field(default_factory=list)
+    stop_reason: Literal["length", "stop", "interrupt", "abort"] = "stop"
+    latency: float = float("inf")
+    ttft: float = float("inf")
+
+    @property
+    def input_len(self) -> int:
+        return len(self.input_tokens)
+
+    @property
+    def output_len(self) -> int:
+        return len(self.output_tokens)
 
 
 @dataclass
@@ -53,3 +100,14 @@ class SaveLoadMeta:
     tokenizer: Any = None
     processor: Any = None
     base_model_path: Optional[str] = None
+
+
+@dataclass
+class RolloutStat:
+    submitted: int = 0
+    accepted: int = 0
+    running: int = 0
+    # rollouts that settled without acceptance (should_accept veto or an
+    # episode failure), so submitted == accepted + rejected + running is
+    # checkable at every transition
+    rejected: int = 0

@@ -18,6 +18,9 @@
 - `update_weights` publishes on the "disk" path: a bf16 HF snapshot
   staged in `.tmp-v{N}-{pid}` and renamed to `v{N}`, the newest two kept;
   servers reload it on `/update_weights_from_disk`.
+  `export_device_params` is the colocated in-memory publish: copies of
+  the masters in the compute dtype, on the card, for an engine in the same
+  process (`engine/colocated.py`).
 
 Not ported yet: meshes beyond one device, LoRA, `async_stats`, the
 transfer publish path and the name_resolve version handshake, `save` /
@@ -41,7 +44,13 @@ from areal_tpu_torch.api.io_struct import FinetuneSpec, WeightUpdateMeta
 from areal_tpu_torch.device import DeviceLike, resolve_device
 from areal_tpu_torch.models.hf import load_hf_params, save_hf_checkpoint
 from areal_tpu_torch.models.model_config import TransformerConfig
-from areal_tpu_torch.models.transformer import check_trainable, forward_lm, init_params
+from areal_tpu_torch.models.transformer import (
+    Transformer,
+    build_model,
+    check_trainable,
+    forward_lm,
+    init_params,
+)
 from areal_tpu_torch.ops.functional import lm_logprobs_entropy
 from areal_tpu_torch.utils.data import RowPackedBatch, pack_into_rows, unpack_rows
 from areal_tpu_torch.utils.datapack import round_up_to_bucket
@@ -332,6 +341,20 @@ class TorchTrainEngine:
     # ------------------------------------------------------------------
     # weights
     # ------------------------------------------------------------------
+
+    @torch.no_grad()
+    def export_device_params(self) -> Transformer:
+        """The serving model of the colocated publish: a `Transformer`
+        holding COPIES of the masters cast to the compute dtype (bf16 where
+        the masters are f32 at full width, the cast of the disk publish;
+        f32 in an f32 config), on the trainer's device, with no host round
+        trip.  They are copies, so the next optimizer step cannot change
+        what is being served."""
+        served = build_model(self.model_config.replace(remat=False), self.device)
+        masters = dict(self.model.named_parameters())
+        for name, p in served.named_parameters():
+            p.copy_(masters[name])
+        return served
 
     def update_weights(self, meta: WeightUpdateMeta) -> None:
         """Publish the current weights for the servers: the "disk" path."""

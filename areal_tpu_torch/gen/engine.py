@@ -17,15 +17,19 @@
   drawn with key f(seed, s, p), so a stream does not depend on which slot
   it sits in or what else is batched with it.
 
-- **Weight reload** (`load_weights`): the aborting path of the JAX
-  engine — every in-flight request finishes with "abort", then the new
-  weights (a trainer's `v{N}` snapshot, or a model) replace the old and the
-  version advances.
+- **Weights**: `load_weights` is the aborting path — every in-flight
+  request finishes with "abort", then the new weights (a trainer's `v{N}`
+  snapshot, or a model in memory) replace the old and the version
+  advances.  `swap_weights_live` is the colocated in-memory publish that
+  aborts nothing; `release_memory` and `restage` free and re-arm the
+  engine's device memory around a colocated train step.  `step` runs under
+  `torch.no_grad()`, because grad mode is per thread and a colocated
+  engine steps on its own thread beside a training one.
 
 Left for later slices: prefix reuse, suffix prefill, group fan-out,
 length-cohort tiers, speculative decoding, the host KV tier, disaggregated
-handoff, VLM requests, tensor/expert parallelism, and the staged and live
-weight swaps.
+handoff, VLM requests, tensor/expert parallelism, and the staged weight
+swap.
 """
 
 import logging
@@ -33,6 +37,7 @@ import os
 import queue
 import re
 import threading
+import time
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional, Tuple
 
@@ -73,6 +78,7 @@ class GenRequest:
     output_logprobs: List[float] = field(default_factory=list)
     output_versions: List[int] = field(default_factory=list)
     stop_reason: str = ""
+    first_token_ts: float = 0.0  # perf_counter() at the first token
     # sampler stream: 0 = allocate at admission; nonzero pins the stream
     stream_id: int = 0
     on_done: Optional[Callable[["GenRequest"], None]] = None
@@ -125,6 +131,7 @@ class GenEngine:
         self.max_seq_len = max_seq_len
         self.prompt_bucket = prompt_bucket
         self.decode_chunk = max(1, decode_chunk)
+        self.kv_dtype = kv_dtype
         self.version = 0
         self.cache = init_kv_cache(cfg, n_slots + 1, max_seq_len, kv_dtype, self.device)
         self._root_key = root_key(seed, self.device)
@@ -291,6 +298,8 @@ class GenEngine:
         req = self.slot_req[s]
         if req is None:  # aborted between sampling and delivery
             return
+        if req.first_token_ts == 0.0:
+            req.first_token_ts = time.perf_counter()
         req.output_tokens.append(tok)
         req.output_logprobs.append(logp)
         req.output_versions.append(self.version)
@@ -371,10 +380,13 @@ class GenEngine:
         self.stats["ragged_attended_pages"] += int(((attended + page - 1) // page).sum())
         return out.cpu().numpy()
 
+    @torch.no_grad()
     def step(self, chunk: Optional[int] = None) -> int:
         """Admit pending prompts, then advance every active slot by up to
         `chunk` tokens in one dispatch.  Returns the tokens delivered
         (overshoot past a stop condition is discarded)."""
+        if self.cache is None or self.model is None:
+            raise RuntimeError("step() after release_memory: restage() first")
         self._admit()
         n = chunk or self.decode_chunk
         with self._lock:
@@ -448,30 +460,97 @@ class GenEngine:
             raise FileNotFoundError(f"no checkpoint under {path}")
         return vs[-1][1], vs[-1][0]
 
-    def load_weights(self, path: str, version: Optional[int] = None) -> int:
+    def load_weights(self, path: Optional[str] = None, model: Optional[Transformer] = None,
+                     version: Optional[int] = None) -> int:
         """Swap weights, aborting in-flight generation first (clients
-        resubmit, and the new prefill recomputes under the new policy).
-        `path` is a checkpoint dir or a trainer's snapshot root (the newest
-        `v{N}`, or exactly `v{version}` when that exists); without a
-        `version` the snapshot's N is adopted, else the version advances by
-        one.  Call from the thread that steps the engine.  Returns the new
-        version."""
+        resubmit, and the new prefill recomputes under the new policy), then
+        hand the new model to `swap_weights_live`.  The weights are `model`
+        (in memory, on the engine's device) or read from `path`: a
+        checkpoint dir or a trainer's snapshot root (the newest `v{N}`, or
+        exactly `v{version}` when that exists), in which case a missing
+        `version` is the snapshot's N.  Without a version the version
+        advances by one.  Call from the thread that steps the engine.
+        Returns the new version."""
         aborted = self.abort_all("abort")
         if aborted:
             logger.info("aborted %d requests for a weight update", aborted)
-        pinned = os.path.join(path, f"v{int(version)}") if version is not None else None
-        if pinned is not None and os.path.isdir(pinned):
-            path = pinned
-        else:
-            path, dir_version = self.resolve_ckpt_dir(path)
-            if version is None:
-                version = dir_version
-        # the old weights serve on until the new ones have loaded: a failed
-        # load raises and leaves the engine as it was
-        model, _ = load_hf_params(path, self.model_config, self.device)
+        if model is None:
+            if path is None:
+                raise ValueError("load_weights needs a path or a model")
+            pinned = os.path.join(path, f"v{int(version)}") if version is not None else None
+            if pinned is not None and os.path.isdir(pinned):
+                path = pinned
+            else:
+                path, dir_version = self.resolve_ckpt_dir(path)
+                if version is None:
+                    version = dir_version
+            # the old weights serve on until the new ones have loaded: a
+            # failed load raises and leaves the engine as it was
+            model, _ = load_hf_params(path, self.model_config, self.device)
+        return self.swap_weights_live(model, version=version)
+
+    def _adopt(self, model: Transformer) -> None:
+        """Serve `model` from now on (as it is, not copied)."""
+        dev = next(model.parameters()).device
+        if dev != self.device:
+            raise ValueError(f"weights live on {dev}, engine device is {self.device}")
+        mine, theirs = self.model_config, model.cfg
+        for attr in ("vocab_size", "hidden_size", "num_layers", "num_heads",
+                     "num_kv_heads", "head_dim_"):
+            if getattr(mine, attr) != getattr(theirs, attr):
+                raise ValueError(f"weights have {attr} {getattr(theirs, attr)}, "
+                                 f"the engine serves {getattr(mine, attr)}")
         self.model = model
+
+    def swap_weights_live(self, model: Transformer, version: Optional[int] = None) -> int:
+        """Non-aborting weight swap: the colocated in-memory publish.
+
+        In-flight requests keep their slots and KV and decode under the new
+        weights from the next dispatch on; their per-token
+        `output_versions` record the transition, which is the mixed-version
+        trajectory the decoupled loss's behaviour weight consumes.  KV
+        computed under the old weights stays.  The port keeps no retained
+        prefixes (prefix reuse is not ported), so unlike the reference there
+        is no `retained_len`/`kv_version` bookkeeping to invalidate here.
+
+        `model` is served as it is, not copied: the caller hands over
+        tensors nobody else writes (`TorchTrainEngine.export_device_params`
+        makes such copies).  Callers that want exact version stamps must not
+        race a swap against an in-flight `step()` (`ColocatedEngine` parks
+        its stepper first).  `load_weights` delegates here.  Returns the
+        version: `version`, or the old one plus one."""
+        self._adopt(model)
         self.version = int(version) if version is not None else self.version + 1
         return self.version
+
+    def release_memory(self, drop_params: bool = True) -> None:
+        """Free the device memory this engine holds so a colocated trainer
+        can use it: abort every request, drop the KV cache and, with
+        `drop_params`, the serving weights.  `restage` re-arms."""
+        self.abort_all("abort")
+        self.cache = None
+        with self._lock:
+            self._dev_state = None  # rebuilt from the host mirrors at restage
+            self._state_dirty = True
+        self.pool.clear()
+        if drop_params:
+            self.model = None
+
+    def restage(self, model: Optional[Transformer] = None,
+                version: Optional[int] = None) -> None:
+        """Re-arm serving after `release_memory`: adopt `model` (an in-memory
+        handoff from a colocated trainer, at `version` when given) or keep
+        the current weights, and reallocate the KV cache."""
+        if model is not None:
+            self._adopt(model)
+            if version is not None:
+                self.version = int(version)
+        elif self.model is None:
+            raise RuntimeError("restage() needs a model after release_memory(drop_params=True)")
+        if self.cache is None:
+            self.cache = init_kv_cache(self.model_config, self.n_slots + 1, self.max_seq_len,
+                                       self.kv_dtype, self.device)
+            self.pool.reset()  # fresh physical rows: the identity page table
 
     def generate_blocking(self, reqs: List[GenRequest]) -> List[GenRequest]:
         """Synchronous helper (tests, offline use): run until all finish."""

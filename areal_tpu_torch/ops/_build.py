@@ -5,7 +5,8 @@ Each `csrc/<name>.cu` exposes a plain C entry point and compiles on its own
 into `_build/lib<name>-<hash>.so` (the hash covers the source and the
 flags, so an edited source rebuilds).  `build` starts one nvcc per missing
 library, all together, and waits for them; `load` builds if needed and
-opens the library once per process.  Nothing here runs at import time:
+opens the library once per process; `count_launch` keeps the wrappers'
+launch counts.  Nothing here runs at import time:
 the CPU tests import every module where there is no nvcc.
 """
 
@@ -74,6 +75,20 @@ def build(names: Iterable[str]) -> Dict[str, str]:
     if failed:
         raise RuntimeError("\n".join(failed))
     return logs
+
+
+_count_lock = threading.Lock()
+
+
+def count_launch(wrapper, tensor_cores: bool = False) -> None:
+    """Add one launch to `wrapper.launches` (and to `wrapper.launches_tc`
+    when it ran on the tensor cores) under a lock: a colocated engine's
+    decode stepper and the trainer launch from two threads, and a bare
+    `+=` there can lose an increment."""
+    with _count_lock:
+        wrapper.launches += 1
+        if tensor_cores:
+            wrapper.launches_tc += 1
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -221,8 +221,7 @@ def flash_fwd(qs, k, v, segment_ids, window: Optional[int] = None,
         qs.device.index or 0, int(bf16), qs.data_ptr(), k.data_ptr(),
         v.data_ptr(), segment_ids.data_ptr(), out.data_ptr(), lse.data_ptr(),
         B, T, Hq, k.shape[2], hd, cap, win, stream), "flash_fwd")
-    flash_fwd.launches += 1
-    flash_fwd.launches_tc += bf16  # the C entry runs bf16 on the tensor cores
+    _build.count_launch(flash_fwd, tensor_cores=bf16)  # bf16 runs on the tensor cores
     return out, lse
 
 
@@ -241,8 +240,7 @@ def flash_bwd_dq(qs, k, v, segment_ids, dout, lse, di, window: Optional[int] = N
         v.data_ptr(), segment_ids.data_ptr(), dout.data_ptr(), lse.data_ptr(),
         di.data_ptr(), dq.data_ptr(), B, T, Hq, k.shape[2], hd, cap, win, stream),
         "flash_bwd_dq")
-    flash_bwd_dq.launches += 1
-    flash_bwd_dq.launches_tc += bf16  # the C entry runs bf16 on the tensor cores
+    _build.count_launch(flash_bwd_dq, tensor_cores=bf16)  # bf16 runs on the tensor cores
     return dq
 
 
@@ -261,8 +259,7 @@ def flash_bwd_dkv(qs, k, v, segment_ids, dout, lse, di, window: Optional[int] = 
         v.data_ptr(), segment_ids.data_ptr(), dout.data_ptr(), lse.data_ptr(),
         di.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, T, Hq, k.shape[2], hd, cap, win,
         stream), "flash_bwd_dkv")
-    flash_bwd_dkv.launches += 1
-    flash_bwd_dkv.launches_tc += bf16  # the C entry runs bf16 on the tensor cores
+    _build.count_launch(flash_bwd_dkv, tensor_cores=bf16)  # bf16 runs on the tensor cores
     return dk, dv
 
 

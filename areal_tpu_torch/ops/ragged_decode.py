@@ -212,7 +212,7 @@ def ragged_paged_attention(
     )
     if err:
         raise RuntimeError(f"ragged_decode kernel launch failed: CUDA error {err}")
-    ragged_paged_attention.launches += 1
+    _build.count_launch(ragged_paged_attention)
     return out, ck, cv
 
 

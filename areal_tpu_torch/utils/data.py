@@ -1,5 +1,5 @@
 """Padded and row-packed batch helpers (the port's numpy copy of what the
-training slice uses from `areal_tpu/utils/data.py`).
+training slice and the rollout loop use from `areal_tpu/utils/data.py`).
 
 Batches are `dict[str, np.ndarray]` on the host: per-token keys are padded
 [B, L] arrays beside a boolean "attention_mask" whose valid tokens form a
@@ -10,7 +10,7 @@ what the flash-attention kernels rely on.
 """
 
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 
@@ -21,6 +21,70 @@ MbList = List[Dict[str, np.ndarray]]
 
 def _is_per_token(arr: np.ndarray, batch: int, seqlen: int) -> bool:
     return arr.ndim >= 2 and arr.shape[0] == batch and arr.shape[1] == seqlen
+
+
+def pad_sequences_to_tensors(
+    seqs: List[Dict[str, Any]], pad_value: float = 0.0
+) -> Dict[str, np.ndarray]:
+    """Stack per-trajectory dicts (1-D arrays of varying length per
+    per-token key; scalars allowed) into a padded batch with
+    attention_mask."""
+    if not seqs:
+        return {}
+    keys = list(seqs[0].keys())
+    token_keys = [k for k in keys
+                  if np.asarray(seqs[0][k]).ndim >= 1 and k != "attention_mask"]
+    if not token_keys:
+        raise ValueError("trajectory dicts contain no per-token (1-D+) keys")
+    lens = []
+    for s in seqs:
+        klens = {k: len(np.asarray(s[k])) for k in token_keys}
+        if len(set(klens.values())) != 1:
+            raise ValueError(f"per-token keys disagree on length: {klens}")
+        lens.append(next(iter(klens.values())))
+    max_len = max(lens)
+    out: Dict[str, np.ndarray] = {}
+    for k in keys:
+        vals = [np.asarray(s[k]) for s in seqs]
+        if vals[0].ndim == 0:
+            out[k] = np.stack(vals)
+            continue
+        padded = []
+        for v in vals:
+            pad_width = [(0, max_len - v.shape[0])] + [(0, 0)] * (v.ndim - 1)
+            padded.append(np.pad(v, pad_width, constant_values=pad_value))
+        out[k] = np.stack(padded)
+    out["attention_mask"] = np.arange(max_len)[None, :] < np.asarray(lens)[:, None]
+    return out
+
+
+def concat_padded_tensors(
+    dicts: List[Dict[str, np.ndarray]], pad_value: float = 0.0
+) -> Dict[str, np.ndarray]:
+    """Concatenate padded batches along the batch dim, re-padding to the
+    common max length."""
+    dicts = [d for d in dicts if d]
+    if not dicts:
+        return {}
+    assert all("attention_mask" in d for d in dicts)
+    max_len = max(d["attention_mask"].shape[1] for d in dicts)
+    keys = set(dicts[0].keys())
+    for d in dicts[1:]:
+        if set(d.keys()) != keys:
+            raise ValueError(f"inconsistent keys: {keys} vs {set(d.keys())}")
+    out: Dict[str, np.ndarray] = {}
+    for k in keys:
+        parts = []
+        for d in dicts:
+            arr = d[k]
+            B, L = d["attention_mask"].shape
+            if _is_per_token(arr, B, L) and L < max_len:
+                pad_width = [(0, 0), (0, max_len - L)] + [(0, 0)] * (arr.ndim - 2)
+                fill = False if arr.dtype == np.bool_ else pad_value
+                arr = np.pad(arr, pad_width, constant_values=fill)
+            parts.append(arr)
+        out[k] = np.concatenate(parts, axis=0)
+    return out
 
 
 def seq_lens(batch: Dict[str, np.ndarray]) -> np.ndarray:

@@ -51,8 +51,32 @@ Phases, each printed with its wall time; any failure exits non-zero:
             then the kernel, its plain version and torch SDPA (the forward,
             and forward + backward) timed, with each bound, and the kernels'
             and SDPA's device time per call by torch.profiler
+9. grpo     the asynchronous GRPO loop of `areal_tpu_torch.scripts.bench_e2e_grpo`
+            at full width from the serve phase's checkpoint, trainer (f32
+            masters, bf16 compute, full remat, decoupled loss, logprob
+            recompute) and `ColocatedEngine` (32 slots, max_seq_len 1024,
+            bf16) in this process: 8 random prompts of 64..256 tokens x
+            group 4 per step, 256 new tokens, the parity reward, group
+            advantage normalisation.  Sync: 1 warmup + 2 timed steps of
+            rollout_batch, train_phase (serving memory released),
+            publish_weights.  Async: 1 + 3 steps through
+            WorkflowExecutor.prepare_batch (max_head_offpolicyness 4, 16
+            concurrent rollouts, consumer batch 8) with a live publish after
+            each; then one async step with an interrupting publish, in a
+            torch.profiler window (CUDA only: top device ops, groups of
+            them, launches, the device's busy share).  Prints
+            trajectories/s/chip and effective tokens/s/chip per mode and
+            their ratio, every pause window, each step's rollout wait and
+            train time, the version-lag histogram and the launches per mode.
+            Checks: ragged launches = 28 x decode steps, every flash launch
+            on its tensor-core kernel and exactly 84/28/28 per step, the
+            staleness ledger balanced, no consumed token from a version
+            above the trainer's, trainer logprobs against the server's on
+            same-version tokens, no reward timeout, and the served weights
+            bit-equal to the trainer's bf16 cast after the last publish
 
-The line before the last is the kernels' JSON record; the last line is
+The line before the last is the kernels' JSON record (`launches` sums the
+paths that ran each kernel, `launches_by_path` splits them); the last line is
 {"ok": true, "device": {...}}.  Without a CUDA device it exits 1 and prints
 no result.
 """
@@ -190,24 +214,31 @@ def check_kernel():
         case = ragged_case(100 + i, **kw)
         for fn in edit:
             fn(case)
-        got, want = _run(ragged_paged_attention, case, softcap), _run(
-            ragged_paged_attention_plain, case, softcap)
-        torch.cuda.synchronize()
-        f32 = case["q"].dtype == torch.float32
-        atol, rtol = (1e-5, 1e-5) if f32 else (BF16_ATOL, BF16_RTOL)
-        err = (got[0].float() - want[0].float()).abs()
-        bad = err > atol + rtol * want[0].float().abs()
-        max_err = float(err.max())
-        if not f32:
+        max_err = compare_ragged(name, case, softcap)
+        if case["q"].dtype != torch.float32:
             worst = max(worst, max_err)
-        cache_ok = torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
-        print(f"  {name}: max|out - plain| = {max_err:.3e} "
-              f"(atol {atol}, rtol {rtol}), {int(bad.sum())} outside, "
-              f"cache equal: {cache_ok}")
-        if bad.any() or not cache_ok or not torch.isfinite(got[0]).all():
-            raise AssertionError(f"ragged kernel disagrees with its plain version: {name}")
     check_ragged_invariance()
     return worst
+
+
+def compare_ragged(name, case, softcap=None):
+    """The ragged kernel against its plain version on one case (tolerances
+    as in `check_kernel`).  Returns max|out - plain|."""
+    got, want = _run(ragged_paged_attention, case, softcap), _run(
+        ragged_paged_attention_plain, case, softcap)
+    torch.cuda.synchronize()
+    f32 = case["q"].dtype == torch.float32
+    atol, rtol = (1e-5, 1e-5) if f32 else (BF16_ATOL, BF16_RTOL)
+    err = (got[0].float() - want[0].float()).abs()
+    bad = err > atol + rtol * want[0].float().abs()
+    max_err = float(err.max())
+    cache_ok = torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+    print(f"  {name}: max|out - plain| = {max_err:.3e} "
+          f"(atol {atol}, rtol {rtol}), {int(bad.sum())} outside, "
+          f"cache equal: {cache_ok}")
+    if bad.any() or not cache_ok or not torch.isfinite(got[0]).all():
+        raise AssertionError(f"ragged kernel disagrees with its plain version: {name}")
+    return max_err
 
 
 def check_ragged_invariance():
@@ -559,6 +590,7 @@ def reset_flash_counts():
 # (first match wins; the rest is "other")
 TRAIN_OP_GROUPS = (
     ("flash attention", ("flash_",)),
+    ("decode attention", ("ragged_",)),
     ("matrix products", ("gemm", "nvjet", "xmma", "cutlass")),
     ("elementwise", ("elementwise",)),
     ("reductions", ("reduce",)),
@@ -566,19 +598,19 @@ TRAIN_OP_GROUPS = (
 FLASH_KERNELS = ("flash_fwd_tc_kernel", "flash_bwd_dq_tc_kernel", "flash_bwd_dkv_tc_kernel")
 
 
-def report_train_profile(prof, wall_us, n_batches, top=12):
-    """Prints the top device ops of a profiled `ppo_update` with their
-    shares of device time, the groups of TRAIN_OP_GROUPS, each flash
-    kernel's share, and the device's busy share of the window's wall
-    time."""
+def report_train_profile(prof, wall_us, what, top=12):
+    """Prints the top device ops of a profiled window (`what` says which)
+    with their shares of device time, the groups of TRAIN_OP_GROUPS, each
+    flash kernel's share, the kernel launches, and the device's busy share
+    of the window's wall time."""
     kernels = device_kernels(prof)
     total = sum(e.self_device_time_total for e in kernels)
     if total <= 0:
         print("  profiler: key_averages() shows no device time on this machine")
         return
     kernels.sort(key=lambda e: -e.self_device_time_total)
-    print(f"  profiler window: the third update, {n_batches} train_batch calls, "
-          f"{wall_us / 1e3:.2f} ms wall, {total / 1e3:.2f} ms device time")
+    print(f"  profiler window: {what}, {wall_us / 1e3:.2f} ms wall, {total / 1e3:.2f} ms "
+          f"device time in {sum(e.count for e in kernels)} kernel launches")
     for e in kernels[:top]:
         t = e.self_device_time_total
         print(f"    {t / 1e3:9.3f} ms {100 * t / total:5.1f}%  x{e.count:<6d} {e.key[:90]}")
@@ -710,7 +742,8 @@ def train_qwen(ckpt_dir, publish_dir):
             with prof:
                 st = actor.ppo_update(batch)
                 torch.cuda.synchronize()
-            wall_us = (time.perf_counter() - t0) * 1e6
+                # before the profiler's exit, which processes its events
+                wall_us = (time.perf_counter() - t0) * 1e6
             got = tuple(int(x) for x in np.subtract(flash_counts(), before))
             n_mb = len(st) * actor.config.mb_spec.n_mbs
             want = (2 * SERVE_LAYERS * n_mb, SERVE_LAYERS * n_mb, SERVE_LAYERS * n_mb)
@@ -728,7 +761,8 @@ def train_qwen(ckpt_dir, publish_dir):
             if got != want:
                 raise AssertionError("a training layer's attention missed the flash kernels")
             if profiled:
-                report_train_profile(prof, wall_us, len(st))
+                report_train_profile(prof, wall_us,
+                                     f"the third update, {len(st)} train_batch calls")
             else:
                 stats += st
             counts += got
@@ -775,6 +809,165 @@ def train_qwen(ckpt_dir, publish_dir):
     del actor
     torch.cuda.empty_cache()
     return tuple(int(c) for c in counts), stats, seg_rows
+
+
+# ---------------------------------------------------------------------------
+# the colocated GRPO loop at full width
+# ---------------------------------------------------------------------------
+
+GRPO_SLOTS, GRPO_SEQ = 32, 1024
+GRPO_PROMPT_LEN = (64, 256)
+
+
+def grpo_qwen(ckpt_dir):
+    """The asynchronous GRPO loop of the port's bench module on one card,
+    trainer and server colocated in this process: sync (rollout_batch,
+    train_phase with the serving memory released, publish_weights), async
+    (WorkflowExecutor.prepare_batch under the staleness gate, a live publish
+    after each step) and one async step with an interrupting publish.  The
+    reward is the parity of the last token, which varies within a group, so
+    the updates move the weights and the served-weights check can fail.
+    Then the ragged kernel on the phase's decode grid (32 slots) and the
+    flash kernels on the packed rows of one of its train batches, against
+    their plain versions.  Returns the launches of every kernel over the
+    phase and those comparisons' |kernel - plain|."""
+    from areal_tpu_torch.api.config import GenerationHyperparameters
+    from areal_tpu_torch.api.reward import prewarm_reward_pool, shutdown_reward_pool
+    from areal_tpu_torch.scripts import bench_e2e_grpo as bench
+    from areal_tpu_torch.workflow.rlvr import RLVRWorkflow
+
+    t0 = time.perf_counter()
+    actor, serving, cfg = bench._make_parts("qwen2.5-1.5b", GRPO_SLOTS, GRPO_SEQ, GROUP,
+                                            model_path=ckpt_dir)
+    prewarm_reward_pool()
+    torch.cuda.synchronize()
+    print(f"  trainer and colocated server up in {time.perf_counter() - t0:.1f} s; "
+          f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated on the card")
+    workflow = RLVRWorkflow(reward_fn=bench._reward_last_even, gconfig=GenerationHyperparameters(
+        n_samples=GROUP, max_new_tokens=NEW_TOKENS, temperature=1.0))
+    dataset = bench.make_dataset(256, cfg.vocab_size, GRPO_PROMPT_LEN[1], GRPO_PROMPT_LEN[0])
+    # (label, mode, timed steps, warmup steps, interrupting publish)
+    plans = (("sync", "sync", 2, 1, False), ("async", "async", 3, 1, False),
+             ("interrupt", "async", 1, 0, True))
+    runs, launches = {}, np.zeros(4, np.int64)
+    served0 = {n: p.detach().clone() for n, p in serving.engine.model.named_parameters()}
+    packed = []  # segment ids of every row-packed train batch
+    prepare_rows = actor._prepare_rows
+
+    def recording_prepare_rows(batch, n_mbs):
+        rp, data, row_len = prepare_rows(batch, n_mbs)
+        packed.append(data["segment_ids"])
+        return rp, data, row_len
+
+    actor._prepare_rows = recording_prepare_rows
+    try:
+        reset_flash_counts()
+        ragged_paged_attention.launches = 0
+        for label, mode, n_timed, warmup, interrupt in plans:
+            before = np.array([ragged_paged_attention.launches, *flash_counts()])
+            steps0 = serving.engine.stats["decode_steps"]
+            # the last run goes through a profiler window (CUDA only)
+            prof = (profile(activities=[ProfilerActivity.CUDA]) if label == "interrupt"
+                    else contextlib.nullcontext())
+            t0 = time.perf_counter()
+            with prof:
+                res = bench.run_mode(
+                    mode, actor, serving, workflow, dataset, TRAIN_PROMPTS, n_timed,
+                    warmup=warmup, interrupt_publish=interrupt)
+                torch.cuda.synchronize()
+                # before the profiler's exit, which processes its events
+                wall_us = (time.perf_counter() - t0) * 1e6
+            got = np.array([ragged_paged_attention.launches, *flash_counts()]) - before
+            steps = serving.engine.stats["decode_steps"] - steps0
+            n_steps = n_timed + warmup
+            runs[label] = res
+            launches += got
+            print(f"  {label} ({res['publish']} publish): {res['trajs_per_sec_per_chip']:.4f} "
+                  f"trajectories/s/chip, {res['effective_tokens_per_sec_per_chip']:.1f} "
+                  f"effective tokens/s/chip over {res['steps']} timed steps "
+                  f"({res['trajectories']} trajectories, {res['wall_s']:.2f} s); "
+                  f"reward mean {res['reward_mean']:.3f}")
+            print("    per step: rollout wait " + ", ".join(f"{x:.3f}" for x in res["rollout_s"])
+                  + " s; train " + ", ".join(f"{x:.3f}" for x in res["train_s"]) + " s")
+            print("    pause windows " + ", ".join(f"{x * 1e3:.3f}" for x in
+                                                      res["pause_window_s"])
+                  + " ms; serving copies exported in " + ", ".join(
+                      f"{x * 1e3:.3f}" for x in res["export_s"]) + " ms")
+            print(f"    version lag (trainer - oldest token) over {n_steps} consumed batches: "
+                  f"{res['version_lag_hist']}; newest token - trainer version at most "
+                  f"{res['max_version_ahead']}")
+            print(f"    |trainer - server| logprob on same-version tokens: mean "
+                  f"{res['same_version_logp_gap_mean']:.4f} over {res['same_version_tokens']} "
+                  f"tokens (tolerance {LOGP_MEAN_TOL}); losses "
+                  + ", ".join(f"{x:+.5f}" for x in res["loss_trajectory"]))
+            print(f"    launches: ragged {got[0]} = {SERVE_LAYERS} x {steps} decode steps; "
+                  f"flash fwd/dq/dkv {tuple(int(x) for x in got[1:])} over {n_steps} steps")
+            if "ledger" in res:
+                print(f"    staleness ledger {res['ledger']}")
+            if label == "interrupt":
+                report_train_profile(prof, wall_us, f"the {label} run (profiled), {steps} "
+                                     "decode steps and one logprob pass and update")
+            if got[0] != SERVE_LAYERS * steps or steps == 0:
+                raise AssertionError(f"{label}: ragged launches != 28 x decode steps")
+            if tuple(got[1:]) != (3 * SERVE_LAYERS * n_steps, SERVE_LAYERS * n_steps,
+                                  SERVE_LAYERS * n_steps):
+                raise AssertionError(f"{label}: a logprob pass or an update missed the "
+                                     "flash kernels")
+            if res["max_version_ahead"] > 0:
+                raise AssertionError(f"{label}: a consumed token comes from a version above "
+                                     "the trainer's")
+            led = res.get("ledger")
+            if led and led["submitted"] != led["accepted"] + led["rejected"] + led["running"]:
+                raise AssertionError(f"{label}: the staleness ledger does not balance")
+            if (res["same_version_tokens"] == 0
+                    or not res["same_version_logp_gap_mean"] <= LOGP_MEAN_TOL):
+                raise AssertionError(f"{label}: trainer logprobs disagree with the server's")
+            if res["reward_timeouts"] or res["reward_failures"]:
+                raise AssertionError(f"{label}: {res['reward_timeouts']} reward timeouts, "
+                                     f"{res['reward_failures']} failures")
+            if not all(np.isfinite(res["loss_trajectory"])):
+                raise AssertionError(f"{label}: a non-finite loss")
+        on_tc = flash_counts_tc()
+        if on_tc != flash_counts():
+            raise AssertionError("a bf16 flash launch of the grpo phase missed its "
+                                 "tensor-core kernel")
+        served = dict(serving.engine.model.named_parameters())
+        if serving.get_version() != actor.get_version() or not all(
+                torch.equal(served[n], p.detach().to(torch.bfloat16))
+                for n, p in actor.model.named_parameters()):
+            raise AssertionError("the served weights are not the trainer's bf16 cast")
+        moved = [n for n, p in served.items() if not torch.equal(p, served0[n])]
+        n_moved = sum(int((p != served0[n]).sum()) for n, p in served.items())
+        print(f"  after the last publish (version {serving.get_version()}) the served weights "
+              f"equal the trainer's {len(served)} params in bf16, bit for bit; "
+              f"{len(moved)} of them ({n_moved} elements) differ from the phase's start")
+        if not moved:
+            raise AssertionError("no served weight changed over the phase: the updates "
+                                 "never reached the server")
+        del served0
+        print(f"  async / sync trajectories/s: "
+              f"{runs['async']['trajs_per_sec_per_chip'] / runs['sync']['trajs_per_sec_per_chip']:.4f}")
+        n_all = sum(n_timed + warmup for _, _, n_timed, warmup, _ in plans)
+        print(f"  launches over the phase ({n_all} GRPO steps): ragged {launches[0]}, flash "
+              f"fwd/dq/dkv {tuple(int(x) for x in launches[1:])}, on the tensor cores {on_tc}")
+        # the kernels at the phase's own shapes, after its counted window
+        lengths = torch.from_numpy(np.random.default_rng(3).integers(
+            GRPO_PROMPT_LEN[0], GRPO_PROMPT_LEN[1] + NEW_TOKENS, GRPO_SLOTS)).to(torch.int32)
+        errs = {"ragged_paged_attention": compare_ragged(
+            f"grpo decode grid (B={GRPO_SLOTS} T=1 K={GRPO_SEQ}, spans "
+            f"{GRPO_PROMPT_LEN[0]}..{GRPO_PROMPT_LEN[1] + NEW_TOKENS - 1})",
+            ragged_case(9, B=GRPO_SLOTS, K=GRPO_SEQ, M=GRPO_SEQ, lengths=lengths))}
+        seg = torch.from_numpy(np.ascontiguousarray(packed[-1])).to(torch.int32)
+        errs.update(compare_flash(f"grpo train rows {tuple(seg.shape)}",
+                                  *flash_case(301, seg)))
+    finally:
+        actor._prepare_rows = prepare_rows
+        serving.destroy()
+        shutdown_reward_pool()
+        actor.destroy()
+        del actor, serving
+        torch.cuda.empty_cache()
+    return tuple(int(x) for x in launches), errs
 
 
 # ---------------------------------------------------------------------------
@@ -1038,6 +1231,10 @@ def main():
         with phase("flash timings"):
             flash_times, train_err = time_flash(seg_rows)
             flash_err = {n: max(flash_err[n], train_err[n]) for n in flash_err}
+        with phase("grpo"):
+            grpo_launches, grpo_err = grpo_qwen(ckpt_dir)
+            max_err = max(max_err, grpo_err["ragged_paged_attention"])
+            flash_err = {n: max(flash_err[n], grpo_err[n]) for n in flash_err}
     finally:
         for d in (ckpt_dir, publish_dir):
             shutil.rmtree(d, ignore_errors=True)
@@ -1046,7 +1243,8 @@ def main():
         "route": "cuda",
         "source": "areal_tpu_torch/csrc/ragged_decode.cu",
         "replaces": "areal_tpu/ops/ragged_decode.py:93",
-        "launches": launches,
+        "launches": launches + grpo_launches[0],
+        "launches_by_path": {"serve": launches, "grpo": grpo_launches[0]},
         "max_abs_err": max_err,
         "ms": kern,
         "plain_ms": plain,
@@ -1054,14 +1252,16 @@ def main():
         "bound_by": by,
         "library_ms": sdpa,
     }]
-    for name, n in zip(("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"), flash_launches):
+    for name, n, n_grpo in zip(("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"), flash_launches,
+                               grpo_launches[1:]):
         ms, plain_ms, lib_ms, bound_ms, bound_by = flash_times[name]
         records.append({
             "name": name,
             "route": "cuda",
             "source": "areal_tpu_torch/csrc/flash_attention.cu",
             "replaces": FLASH_REPLACES[name],
-            "launches": n,
+            "launches": n + n_grpo,
+            "launches_by_path": {"train": n, "grpo": n_grpo},
             "max_abs_err": flash_err[name],
             "ms": ms,
             "plain_ms": plain_ms,

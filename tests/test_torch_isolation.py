@@ -1,8 +1,9 @@
 """The torch port stands alone: no file under areal_tpu_torch/, and not
 chip_smoke.py, imports `jax` or anything of `areal_tpu`, and every port
 module imports in a fresh interpreter where both are blocked, and so are
-the packages the card's machine lacks (`yaml`, `optax`, `safetensors`,
-`ml_dtypes`, `transformers`, `aiohttp`)."""
+the packages the card's machine lacks or may lack (`yaml`, `optax`,
+`safetensors`, `ml_dtypes`, `transformers`, `aiohttp`, `sympy`: the math
+reward imports it lazily, inside the functions that need it)."""
 
 import ast
 import os
@@ -21,11 +22,23 @@ def _port_files():
 
 
 BLOCKED = ("jax", "jaxlib", "areal_tpu", "yaml", "optax", "safetensors", "ml_dtypes",
-           "transformers", "aiohttp")
+           "transformers", "aiohttp", "sympy")
 
 
-def _forbidden(name: str) -> bool:
-    return name.split(".")[0] in BLOCKED
+# may be imported inside a function (the path that needs it), never at
+# module level
+LAZY = ("sympy",)
+
+
+def _forbidden(name: str, in_function: bool) -> bool:
+    top = name.split(".")[0]
+    return top in BLOCKED and not (in_function and top in LAZY)
+
+
+def _function_nodes(tree) -> set:
+    return {id(n) for f in ast.walk(tree)
+            if isinstance(f, (ast.FunctionDef, ast.AsyncFunctionDef))
+            for n in ast.walk(f)}
 
 
 def test_no_port_file_imports_jax_or_the_jax_package():
@@ -35,6 +48,7 @@ def test_no_port_file_imports_jax_or_the_jax_package():
     for path in files:
         with open(path) as f:
             tree = ast.parse(f.read(), path)
+        in_function = _function_nodes(tree)
         for node in ast.walk(tree):
             names = []
             if isinstance(node, ast.Import):
@@ -45,7 +59,7 @@ def test_no_port_file_imports_jax_or_the_jax_package():
                   and node.args and isinstance(node.args[0], ast.Constant)):
                 names = [node.args[0].value]
             bad += [f"{os.path.relpath(path, REPO)}:{node.lineno} {n}"
-                    for n in names if _forbidden(n)]
+                    for n in names if _forbidden(n, id(node) in in_function)]
     assert not bad, bad
 
 
@@ -67,4 +81,4 @@ def test_every_port_module_imports_without_jax():
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                          text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.strip().splitlines()[-1]) >= 26
+    assert int(res.stdout.strip().splitlines()[-1]) >= 40
