@@ -14,7 +14,12 @@ What is ported so far:
 - training, the path of `JaxPPOActor`: the packed-row training forward
   with a deferred fused LM head, the decoupled-PPO loss, GAE, the train
   engine (f32 masters, bf16 compute, `full` remat, AdamW) and
-  `TorchPPOActor`, which publishes its weights for the server.
+  `TorchPPOActor`, which publishes its weights for the server;
+- the GRPO loop: colocated in one process (`engine/colocated.py`), or
+  remote, with servers as processes of their own (`launcher/local.py`)
+  driven over HTTP by `RemoteTorchEngine` (`engine/torch_remote.py`) and
+  weights published by snapshot or chunked transfer; the entry points are
+  `scripts/bench_e2e_grpo.py` and `examples/math/gsm8k_grpo.py`.
 
 Decode attention runs a hand-written CUDA kernel for Hopper
 (`csrc/ragged_decode.cu`, bound in `ops/ragged_decode.py`), training

@@ -1,7 +1,9 @@
 """Configuration dataclasses (the port's copy of the train configs in
-`areal_tpu/api/config.py`, and of the generation and rollout configs the
-colocated loop reads: `GenerationHyperparameters`,
-`InferenceEngineConfig`).
+`areal_tpu/api/config.py`, of the generation and rollout configs the GRPO
+loop reads: `GenerationHyperparameters`, `InferenceEngineConfig` with the
+remote client's fields, and of the experiment configs the remote example
+reads: `GenServerConfig`, `DatasetConfig`, `ClusterSpecConfig`,
+`GRPOConfig`).
 
 Field names and defaults are the JAX package's, for the fields the port
 reads; fields of what is not ported yet (meshes, LoRA, `async_stats`, the
@@ -10,7 +12,8 @@ package reads) are left out, so a config that sets them fails at
 construction.  The remat rungs other than `full` and `layer_group_size`
 > 1 are kept and raise at `TorchTrainEngine.initialize`.  The YAML/CLI
 loader (`load_expr_config`) is not copied: the card's machine has no
-`yaml`, and nothing on the port's path reads a config file yet.
+`yaml`.  The remote example (`examples/math/gsm8k_grpo.py`) builds its
+`GRPOConfig` in code and takes `key.sub=value` overrides.
 """
 
 import dataclasses
@@ -37,12 +40,23 @@ class GenerationHyperparameters:
 
 @dataclass
 class InferenceEngineConfig:
-    """Rollout-side config of the workflow executor."""
+    """Rollout-side config: the workflow executor's, and the remote
+    client's (`core/remote.py`)."""
 
     max_concurrent_rollouts: Optional[int] = None
     consumer_batch_size: int = 1
     max_head_offpolicyness: int = 0  # max staleness eta
     check_trajectory_format: bool = False
+    schedule_policy: str = "round_robin"  # round_robin | least_requests
+    setup_timeout: float = 120.0
+    request_timeout: float = 3600.0
+    request_retries: int = 3
+    pause_grace_period: float = 0.0
+    # how many times one trajectory may be resubmitted to another server
+    # after a backend failure before it is declared lost, and how long a
+    # failed server is kept out of re-placement
+    failover_retries: int = 3
+    failover_cooldown: float = 30.0
 
 
 @dataclass
@@ -117,3 +131,60 @@ class PPOActorConfig(TrainEngineConfig):
     use_decoupled_loss: bool = True
     behav_imp_weight_cap: Optional[float] = None
     dynamic_sampling: bool = False
+
+
+@dataclass
+class GenServerConfig:
+    """The generation server a launcher starts (`launcher/local.py`), with
+    the flags of `python -m areal_tpu_torch.gen.server`."""
+
+    model_path: str = ""
+    dtype: str = "bfloat16"  # weights and KV cache
+    max_seqs: int = 64  # continuous-batching slots
+    max_context_len: int = 8192
+    page_size: int = 128  # KV page and prompt bucket
+    host: str = "127.0.0.1"
+    port: int = 0  # 0 = pick a free port
+    random_seed: int = 1
+
+
+@dataclass
+class ClusterSpecConfig:
+    # "" = `build/experiments` under the checkout (`examples/math/gsm8k_grpo.py`)
+    fileroot: str = ""
+
+
+@dataclass
+class DatasetConfig:
+    path: str = ""
+    type: str = ""
+    batch_size: int = 1
+    shuffle: bool = True
+    drop_last: bool = True
+    max_length: Optional[int] = None
+
+
+@dataclass
+class GRPOConfig:
+    """The GRPO experiment: the fields `examples/math/gsm8k_grpo.py`
+    reads.  Left out with what they configure: the ref model, the eval
+    client, saver, checkpointer, evaluator, recovery, the stats logger,
+    the launcher's resources and multi-turn workflows."""
+
+    experiment_name: str = "my-exp"
+    trial_name: str = "my-trial"
+    seed: int = 1
+    total_train_epochs: int = 1
+    total_train_steps: Optional[int] = None
+    cluster: ClusterSpecConfig = field(default_factory=ClusterSpecConfig)
+    train_dataset: DatasetConfig = field(default_factory=DatasetConfig)
+    async_training: bool = True
+    # trainer -> server weight sync: "disk" (HF snapshot) or "transfer"
+    # (chunks over HTTP into the servers' memory)
+    weight_update_mode: str = "disk"
+    # transfer only: commit without aborting in-flight generation
+    weight_update_live_commit: bool = True
+    gconfig: GenerationHyperparameters = field(default_factory=GenerationHyperparameters)
+    rollout: InferenceEngineConfig = field(default_factory=InferenceEngineConfig)
+    gen_server: GenServerConfig = field(default_factory=GenServerConfig)
+    actor: PPOActorConfig = field(default_factory=PPOActorConfig)

@@ -5,11 +5,14 @@ Episodes are submitted to the AsyncTaskRunner only when the
 StalenessManager grants capacity; finished trajectories are validated,
 filtered through `should_accept`, shuffled, and concatenated into a padded
 batch.  `prepare_batch` keeps rollouts in flight while the trainer
-consumes.  Left out with the remote fleet: the router's admission gate, the
-failover accounting of lost trajectories, and crash recovery of the
-ledger; and the telemetry events and rollout tracing.
+consumes.  A trajectory the remote client could not finish on any server
+(`TrajectoryLostError`) is settled as rejected and counted in
+`lost_trajectories`; any other episode exception stays fatal.  Left out
+with the router: its fleet-wide admission gate; and crash recovery of the
+ledger, the telemetry events and rollout tracing.
 """
 
+import logging
 import queue
 import random
 import time
@@ -24,6 +27,16 @@ from areal_tpu_torch.core.runner import AsyncTaskRunner, TaskError, TaskQueueFul
 from areal_tpu_torch.core.staleness import StalenessManager
 from areal_tpu_torch.utils.data import concat_padded_tensors
 from areal_tpu_torch.utils.dataloader import StatefulDataLoader, cycle_dataloader
+
+logger = logging.getLogger("areal_tpu_torch.executor")
+
+
+class TrajectoryLostError(RuntimeError):
+    """A rollout's generation could not be completed on any server (the
+    failover budget ran out mid-trajectory).  Unlike an ordinary episode
+    exception, a workflow bug that stays fatal, a lost trajectory is an
+    expected fleet-failure outcome: the executor settles its staleness
+    accounting (submitted -> rejected), counts it, and the run goes on."""
 
 
 def check_trajectory_format(
@@ -77,6 +90,8 @@ class WorkflowExecutor:
         self._pending_results: List[Dict[str, Any]] = []
         self._expected_keys: Optional[Set[str]] = None
         self._data_generator = None
+        # trajectories abandoned after the failover budget ran out
+        self.lost_trajectories = 0
 
     # --- lifecycle ---
     def initialize(self):
@@ -95,6 +110,12 @@ class WorkflowExecutor:
         async def _run():
             try:
                 traj = await ti.workflow.arun_episode(self.inference_engine, ti.data)
+            except TrajectoryLostError as e:
+                # a fleet failure, not a code bug: the reject below
+                # settles submitted -> rejected, and the run goes on
+                self.lost_trajectories += 1
+                logger.warning("trajectory lost to fleet failure: %s", e)
+                traj = None
             except BaseException:
                 # the submit-side increment must be balanced even on
                 # failure, or every crashed episode eats one capacity slot

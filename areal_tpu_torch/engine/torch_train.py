@@ -15,19 +15,29 @@
   optimizer step, written out as optax's `clip_by_global_norm` followed by
   `adamw` (weight decay masked as the JAX engine's, see `decays`) at the
   warmup/cosine/linear schedule evaluated at the pre-increment step.
-- `update_weights` publishes on the "disk" path: a bf16 HF snapshot
+- Weights are published in two halves, as the JAX engine does:
+  `stage_weights` runs the expensive half while the servers go on
+  generating, `update_weights` the commit (and the whole publish when
+  nothing was staged for this version).  "disk": a bf16 HF snapshot
   staged in `.tmp-v{N}-{pid}` and renamed to `v{N}`, the newest two kept;
-  servers reload it on `/update_weights_from_disk`.
+  servers reload it on `/update_weights_from_disk`.  "transfer": every
+  HF-named tensor in bf16, in the JAX engine's order and pieces of at most
+  `chunk_mb` MiB, streamed to every server's `/update_weights_chunk`
+  (`AREAL_LLM_SERVER_ADDRS`), then `prepare`; the commit swaps them in,
+  live or after an abort.  The commit's wall time lands in
+  `last_weight_update_seconds`.
   `export_device_params` is the colocated in-memory publish: copies of
   the masters in the compute dtype, on the card, for an engine in the same
   process (`engine/colocated.py`).
 
 Not ported yet: meshes beyond one device, LoRA, `async_stats`, the
-transfer publish path and the name_resolve version handshake, `save` /
+name_resolve version handshake and router notice of a publish, `save` /
 `load` with the optimizer.  `warm_shapes` has no counterpart: eager
 PyTorch compiles nothing per shape.
 """
 
+import concurrent.futures
+import json
 import logging
 import math
 import os
@@ -42,7 +52,7 @@ import torch
 from areal_tpu_torch.api.config import OptimizerConfig, TrainEngineConfig
 from areal_tpu_torch.api.io_struct import FinetuneSpec, WeightUpdateMeta
 from areal_tpu_torch.device import DeviceLike, resolve_device
-from areal_tpu_torch.models.hf import load_hf_params, save_hf_checkpoint
+from areal_tpu_torch.models.hf import hf_state_in_jax_order, load_hf_params, save_hf_checkpoint
 from areal_tpu_torch.models.model_config import TransformerConfig
 from areal_tpu_torch.models.transformer import (
     Transformer,
@@ -54,6 +64,7 @@ from areal_tpu_torch.models.transformer import (
 from areal_tpu_torch.ops.functional import lm_logprobs_entropy
 from areal_tpu_torch.utils.data import RowPackedBatch, pack_into_rows, unpack_rows
 from areal_tpu_torch.utils.datapack import round_up_to_bucket
+from areal_tpu_torch.utils.http import post_bytes_with_retry, request_with_retry
 from areal_tpu_torch.utils.profiling import mfu, train_flops_per_token
 
 logger = logging.getLogger("areal_tpu_torch.train")
@@ -167,6 +178,9 @@ class TorchTrainEngine:
         self._optimizer: Optional[AdamW] = None
         self._ft_spec: Optional[FinetuneSpec] = None
         self.initialized = False
+        # (type, version) of the publish `stage_weights` prepared
+        self._staged: Optional[Tuple[str, int]] = None
+        self.last_weight_update_seconds = 0.0
 
     # ------------------------------------------------------------------
     # setup
@@ -356,10 +370,42 @@ class TorchTrainEngine:
             p.copy_(masters[name])
         return served
 
+    def stage_weights(self, meta: WeightUpdateMeta) -> None:
+        """The expensive half of a publish, run while the servers go on
+        generating: disk = the snapshot write; transfer = streaming every
+        tensor into the servers' staging buffers and `prepare` (assembly on
+        their devices).  Nothing is swapped.  Call at the version
+        `update_weights` publishes."""
+        if meta.type == "disk":
+            self._write_disk_snapshot(meta)
+        elif meta.type == "transfer":
+            self._push_transfer_chunks(meta)
+        else:
+            raise NotImplementedError(f"weight update type {meta.type!r}")
+        self._staged = (meta.type, self._version)
+
     def update_weights(self, meta: WeightUpdateMeta) -> None:
-        """Publish the current weights for the servers: the "disk" path."""
-        if meta.type != "disk":
-            raise NotImplementedError(f"weight update type {meta.type!r} is not ported")
+        """Publish the current weights: disk = the snapshot (unless staged
+        for this version), which the servers reload when the client fans
+        out `/update_weights_from_disk`; transfer = the push (unless
+        staged) and the commit on every server.  The staged marker is
+        consumed either way, so a failed commit is retried with a push."""
+        t0 = time.perf_counter()
+        try:
+            if meta.type == "disk":
+                if self._staged != ("disk", self._version):
+                    self._write_disk_snapshot(meta)
+            elif meta.type == "transfer":
+                if self._staged != ("transfer", self._version):
+                    self._push_transfer_chunks(meta)
+                self._commit_transfer(meta)
+            else:
+                raise NotImplementedError(f"weight update type {meta.type!r}")
+        finally:
+            self._staged = None
+        self.last_weight_update_seconds = time.perf_counter() - t0
+
+    def _write_disk_snapshot(self, meta: WeightUpdateMeta) -> None:
         final = os.path.join(meta.path, f"v{self._version}")
         tmp = os.path.join(meta.path, f".tmp-v{self._version}-{os.getpid()}")
         save_hf_checkpoint(self.model, tmp, save_dtype="bfloat16")
@@ -367,6 +413,54 @@ class TorchTrainEngine:
             shutil.rmtree(final)
         os.rename(tmp, final)
         self._prune_weight_dirs(meta.path, keep=2)
+
+    @staticmethod
+    def _server_addrs() -> List[str]:
+        addrs = [a for a in os.environ.get("AREAL_LLM_SERVER_ADDRS", "").split(",") if a]
+        if not addrs:
+            raise RuntimeError("a transfer publish needs the servers' addresses in "
+                               "AREAL_LLM_SERVER_ADDRS (the launch helper exports it)")
+        return addrs
+
+    @staticmethod
+    def _on_every_server(addrs: List[str], fn: Callable[[str], None]) -> None:
+        """fn(addr) for every server in parallel; raises the first failure."""
+        with concurrent.futures.ThreadPoolExecutor(len(addrs)) as pool:
+            for f in [pool.submit(fn, a) for a in addrs]:
+                f.result()
+
+    @torch.no_grad()
+    def _push_transfer_chunks(self, meta: WeightUpdateMeta) -> None:
+        """Stream every HF-named tensor in bf16 as raw octet-stream pieces
+        of at most `chunk_mb` MiB (name, dtype, shape, byte count and
+        offset in X-Weight-* headers: the JAX engine's wire form) into
+        every server's staging buffer, then `prepare` there.  Swaps
+        nothing, so it is safe while the servers generate."""
+        addrs = self._server_addrs()
+        chunk = max(1, meta.chunk_mb) << 20
+        state = [(name, t.to(torch.bfloat16).contiguous().cpu().view(torch.uint8).numpy(),
+                  list(t.shape)) for name, t in hf_state_in_jax_order(self.model)]
+        version = self._version
+
+        def push(addr: str) -> None:
+            for name, raw, shape in state:
+                hdrs = {"X-Weight-Name": name, "X-Weight-Dtype": "bfloat16",
+                        "X-Weight-Shape": json.dumps(shape), "X-Weight-Nbytes": str(raw.nbytes)}
+                view = memoryview(raw).cast("B")
+                for off in range(0, raw.nbytes or 1, chunk):
+                    post_bytes_with_retry(addr, "/update_weights_chunk", view[off:off + chunk],
+                                          headers={**hdrs, "X-Weight-Offset": str(off)},
+                                          timeout=300.0)
+            request_with_retry(addr, "/update_weights_chunk",
+                               payload={"prepare": True, "version": version}, timeout=600.0)
+
+        self._on_every_server(addrs, push)
+
+    def _commit_transfer(self, meta: WeightUpdateMeta) -> None:
+        """Swap the staged weights in on every server."""
+        payload = {"commit": True, "version": self._version, "live": meta.live_commit}
+        self._on_every_server(self._server_addrs(), lambda a: request_with_retry(
+            a, "/update_weights_chunk", payload=payload, timeout=600.0))
 
     @staticmethod
     def _prune_weight_dirs(root: str, keep: int) -> None:

@@ -1,5 +1,5 @@
 """HTTP generation server on the standard library (the port of
-`areal_tpu/gen/server.py`, serving slice).
+`areal_tpu/gen/server.py`).
 
 Same paths and JSON keys as the JAX server:
 
@@ -12,30 +12,66 @@ Same paths and JSON keys as the JAX server:
     POST /update_weights_from_disk {path, version?} -> {ok, version}: abort
                                in-flight requests, reload the trainer's
                                snapshot (`GenEngine.load_weights`)
+    POST /update_weights_chunk the transfer publish: octet-stream pieces
+                               (X-Weight-Name/Dtype/Shape/Nbytes/Offset
+                               headers) or JSON {name, dtype, shape, nbytes,
+                               offset, data_b64}; then {prepare, version}
+                               assembles them into a model on the engine's
+                               device while decoding goes on, and {commit,
+                               version, live} swaps it in: live
+                               (`swap_weights_live`) or after aborting
+                               in-flight requests
     GET  /health
+    GET  /metrics              JSON counters (below)
+
+A request that a failed decode step finished is answered with HTTP 500,
+so the remote client counts a failover instead of resubmitting without
+end; a request aborted by a weight update is answered 200 with
+"abort", and the client resumes it.
+
+`/metrics` keys: `decode_steps` (forward_decode steps of the slot grid,
+one per token position; the reference's server counted decode chunks,
+which the port reports as `decode_calls`), `decode_calls`,
+`tokens_generated`, `active`, `version`, `last_pause_s` (the decode
+loop's idle window in the last weight swap), `staged` (a transfer is
+assembled and waits for its commit), `ragged_dispatches`,
+`ragged_attended_pages`, `ragged_kernel_launches` (launches of the ragged
+decode kernel in this process, 0 on the CPU) and, on the card,
+`max_memory_allocated` in bytes.  The Prometheus format is not ported.
 
 `http.server.ThreadingHTTPServer` handles each connection on its own
-thread; a dedicated worker thread owns the engine and the device (every
-admission, decode step and weight reload runs there), and handler threads
-wait on the request's completion.  /metrics, the chunked weight transfer
-and the KV handoff endpoints come with later slices.
+thread; a dedicated worker thread owns the engine and the device's decode
+loop (every admission, decode step and weight swap runs there), and
+handler threads wait on the request's completion.  The KV handoff
+endpoints come with a later slice.
 
     python -m areal_tpu_torch.gen.server --model-path <hf dir> --port 8000
 """
 
 import argparse
+import base64
 import concurrent.futures
 import json
 import logging
+import os
 import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from typing import Callable, List, Optional
+from typing import Callable, Dict, List, Optional, Tuple
 
+import torch
+
+from areal_tpu_torch.device import torch_dtype
 from areal_tpu_torch.gen.engine import GenEngine, GenRequest
+from areal_tpu_torch.models.hf import state_to_params
 from areal_tpu_torch.models.model_config import TransformerConfig, tiny_config
+from areal_tpu_torch.models.transformer import Transformer
+from areal_tpu_torch.ops.ragged_decode import ragged_paged_attention
 
 logger = logging.getLogger("areal_tpu_torch.gen.server")
+
+# the stop reason of requests a failed decode step finished: answered 500
+STEP_FAILED = "error"
 
 
 class GenServer:
@@ -47,9 +83,16 @@ class GenServer:
         self.shutdown = threading.Event()
         self.worker = threading.Thread(target=self._run, daemon=True)
         self.last_error: float = 0.0
-        # a weight update handed from a handler thread to the worker
+        self.tokens_out = 0  # tokens delivered by decode steps
+        self.last_pause_s = 0.0
+        # a weight swap handed from a handler thread to the worker
         self._cmd_lock = threading.Lock()
         self._pending_weight_update: Optional[dict] = None
+        self._last_committed_version: Optional[int] = None
+        # the transfer publish: pieces by name, then the assembled model
+        self._chunk_lock = threading.Lock()
+        self._chunk_buf: Dict[str, dict] = {}  # guarded-by: _chunk_lock
+        self._staged: Optional[Tuple[Transformer, Optional[int]]] = None  # guarded-by: _chunk_lock
 
     def start(self) -> None:
         self.worker.start()
@@ -58,29 +101,34 @@ class GenServer:
         self.shutdown.set()
         self.worker.join(timeout)
 
-    def queue_weight_update(self, path: str, version: Optional[int] = None
-                            ) -> "concurrent.futures.Future[int]":
-        """Hand a reload of `path` to the worker; the future resolves to the
-        engine's new version.  A reload still waiting is superseded (its
-        future fails), so only the newest snapshot is loaded."""
+    def _queue(self, fn: Callable[[], int]) -> "concurrent.futures.Future[int]":
+        """Hand a weight swap `fn() -> version` to the worker.  One still
+        waiting is superseded (its future fails): only the newest runs."""
         fut: "concurrent.futures.Future[int]" = concurrent.futures.Future()
         with self._cmd_lock:
             old = self._pending_weight_update
-            self._pending_weight_update = {"future": fut, "path": path, "version": version}
+            self._pending_weight_update = {"future": fut, "fn": fn}
         if old is not None:
             old["future"].set_exception(RuntimeError("superseded by a newer weight update"))
         return fut
+
+    def queue_weight_update(self, path: str, version: Optional[int] = None
+                            ) -> "concurrent.futures.Future[int]":
+        """Hand a reload of `path` to the worker; the future resolves to the
+        engine's new version."""
+        return self._queue(lambda: self.engine.load_weights(path=path, version=version))
 
     def _apply_weight_update(self) -> bool:
         with self._cmd_lock:
             upd, self._pending_weight_update = self._pending_weight_update, None
         if upd is None:
             return False
+        t0 = time.perf_counter()
         try:
-            upd["future"].set_result(
-                self.engine.load_weights(path=upd["path"], version=upd["version"]))
+            upd["future"].set_result(upd["fn"]())
         except Exception as e:  # noqa: BLE001 — surfaced to the waiting handler
             upd["future"].set_exception(e)
+        self.last_pause_s = time.perf_counter() - t0
         return True
 
     def _run(self) -> None:
@@ -93,12 +141,89 @@ class GenServer:
             try:
                 stepped = self.engine.step()
             except Exception:  # noqa: BLE001 — the loop must outlive a failed step
-                logger.exception("decode step failed; aborting in-flight requests")
+                logger.exception("decode step failed; failing in-flight requests")
                 self.last_error = time.time()
-                self.engine.abort_all("abort")
+                self.engine.abort_all(STEP_FAILED)
                 continue
+            self.tokens_out += stepped
             if not stepped:
                 time.sleep(0.002)
+
+    # ------------------------- the transfer publish ---------------------
+
+    def receive_chunk(self, name: str, data, nbytes: int, dtype: str, shape: List[int],
+                      offset: int) -> None:
+        """Copy one piece of tensor `name` into its staging buffer."""
+        with self._chunk_lock:
+            entry = self._chunk_buf.setdefault(
+                name, {"buf": bytearray(nbytes), "dtype": dtype, "shape": list(shape)})
+            entry["buf"][offset:offset + len(data)] = data
+
+    def _assemble_locked(self) -> Transformer:  # holds: _chunk_lock
+        """Drain the chunk buffer into a model on the engine's device, in
+        the engine's weight dtype (bf16 pieces round-trip exactly)."""
+        buf, self._chunk_buf = self._chunk_buf, {}
+        items = ((name, torch.frombuffer(e["buf"], dtype=torch_dtype(e["dtype"])
+                                         ).reshape(e["shape"]))
+                 for name, e in buf.items())
+        model = state_to_params(items, self.engine.model_config, device=self.engine.device)
+        if self.engine.device.type == "cuda":
+            # the copies are done when `prepare` answers: the commit swaps
+            # a model that is already on the card
+            torch.cuda.synchronize(self.engine.device)
+        return model
+
+    def prepare(self, version: Optional[int]) -> Tuple[int, dict]:
+        """Assemble the received pieces on the device; decoding goes on."""
+        with self._chunk_lock:
+            if not self._chunk_buf:
+                return 409, {"error": "prepare without staged chunks"}
+            self._staged = (self._assemble_locked(), version)
+        return 200, {"ok": True, "staged": True}
+
+    def commit(self, version: Optional[int], live: bool) -> Tuple[int, dict]:
+        """Swap in the prepared model (or the received pieces): live, or
+        after aborting in-flight requests.  A commit retried after its
+        response was lost answers 200 when that version is already live."""
+        with self._chunk_lock:
+            staged, self._staged = self._staged, None
+            if staged is not None and version not in (None, staged[1]):
+                self._staged = staged  # another version's: keep it, refuse
+                return 409, {"error": f"staged version {staged[1]}, commit of {version}"}
+            if staged is None and self._chunk_buf:
+                staged = (self._assemble_locked(), version)
+        if staged is None:
+            if version is None or version == self._last_committed_version:
+                return 200, {"ok": True, "version": self.engine.version}
+            return 409, {"error": "commit without staged chunks"}
+        model, v = staged
+        if live:
+            fut = self._queue(lambda: self.engine.swap_weights_live(model, version=v))
+        else:
+            fut = self._queue(lambda: self.engine.load_weights(model=model, version=v))
+        new_version = fut.result()
+        self._last_committed_version = new_version
+        return 200, {"ok": True, "version": new_version}
+
+    def metrics(self) -> dict:
+        stats = self.engine.stats
+        with self._chunk_lock:
+            staged = self._staged is not None
+        out = {
+            "decode_steps": stats["decode_steps"],
+            "decode_calls": stats["decode_calls"],
+            "tokens_generated": self.tokens_out,
+            "active": self.engine.active_count(),
+            "version": self.engine.version,
+            "last_pause_s": self.last_pause_s,
+            "staged": staged,
+            "ragged_dispatches": stats["ragged_dispatches"],
+            "ragged_attended_pages": stats["ragged_attended_pages"],
+            "ragged_kernel_launches": ragged_paged_attention.launches,
+        }
+        if self.engine.device.type == "cuda":
+            out["max_memory_allocated"] = torch.cuda.max_memory_allocated(self.engine.device)
+        return out
 
     @staticmethod
     def _req_from_body(body: dict, on_done) -> GenRequest:
@@ -134,7 +259,8 @@ class GenServer:
         }
 
     def generate_many(self, bodies: List[dict]) -> List[dict]:
-        """Submit request bodies as one group and block until all finish."""
+        """Submit request bodies as one group and block until all finish;
+        raises when a failed decode step finished any of them."""
         done = [threading.Event() for _ in bodies]
         reqs = [
             self._req_from_body(b, lambda _r, ev=ev: ev.set())
@@ -143,6 +269,8 @@ class GenServer:
         self.engine.submit_batch(reqs)
         for ev in done:
             ev.wait()
+        if any(r.stop_reason == STEP_FAILED for r in reqs):
+            raise RuntimeError("a decode step failed while the request was in flight")
         return [self._result_payload(r, self.engine.version) for r in reqs]
 
     def health(self) -> tuple:
@@ -178,49 +306,87 @@ class _Handler(BaseHTTPRequestHandler):
     def do_GET(self):
         if self.path == "/health":
             self._reply(*self.server.gen.health())
+        elif self.path == "/metrics":
+            self._reply(200, self.server.gen.metrics())
         else:
             self._reply(404, {"error": f"no route {self.path}"})
 
+    def _chunk_octets(self) -> None:
+        h = self.headers
+        data = self.rfile.read(int(h.get("Content-Length") or 0))
+        self.server.gen.receive_chunk(
+            h["X-Weight-Name"], data, int(h["X-Weight-Nbytes"]),
+            h.get("X-Weight-Dtype", "bfloat16"), json.loads(h.get("X-Weight-Shape", "[]")),
+            int(h.get("X-Weight-Offset", 0)))
+        self._reply(200, {"ok": True, "received": h["X-Weight-Name"]})
+
+    def _update_weights_chunk(self, body: dict) -> None:
+        gen = self.server.gen
+        version = body.get("version")
+        version = None if version is None else int(version)
+        if body.get("prepare"):
+            self._reply(*gen.prepare(version))
+        elif body.get("commit"):
+            self._reply(*gen.commit(version, live=bool(body.get("live"))))
+        else:
+            gen.receive_chunk(body["name"], base64.b64decode(body["data_b64"]),
+                              int(body["nbytes"]), body["dtype"], body["shape"],
+                              int(body["offset"]))
+            self._reply(200, {"ok": True, "received": body["name"]})
+
     def do_POST(self):
         gen = self.server.gen
+        if (self.path == "/update_weights_chunk"
+                and "application/octet-stream" in self.headers.get("Content-Type", "")):
+            try:
+                self._chunk_octets()
+            except (KeyError, ValueError) as e:  # missing or malformed X-Weight-* headers
+                self._reply(400, {"error": f"malformed weight chunk: {e!r}"})
+            return
         try:
             body = self._body()
         except json.JSONDecodeError as e:
             self._reply(400, {"error": f"malformed JSON: {e}"})
             return
-        if self.path == "/generate":
-            self._reply(200, gen.generate_many([body])[0])
-        elif self.path == "/generate_batch":
-            bodies = body.get("requests", [])
-            if not bodies:
-                self._reply(400, {"error": "empty batch"})
-            else:
-                self._reply(200, {"results": gen.generate_many(bodies)})
-        elif self.path == "/pause_generation":
-            gen.paused.set()
-            self._reply(200, {"ok": True})
-        elif self.path == "/continue_generation":
-            gen.paused.clear()
-            self._reply(200, {"ok": True})
-        elif self.path == "/update_weights_from_disk":
-            if "path" not in body:
-                self._reply(400, {"error": "missing 'path'"})
-                return
-            version = body.get("version")
-            fut = gen.queue_weight_update(
-                body["path"], None if version is None else int(version))
-            try:
+        try:
+            if self.path == "/generate":
+                self._reply(200, gen.generate_many([body])[0])
+            elif self.path == "/generate_batch":
+                bodies = body.get("requests", [])
+                if not bodies:
+                    self._reply(400, {"error": "empty batch"})
+                else:
+                    self._reply(200, {"results": gen.generate_many(bodies)})
+            elif self.path == "/pause_generation":
+                gen.paused.set()
+                self._reply(200, {"ok": True})
+            elif self.path == "/continue_generation":
+                gen.paused.clear()
+                self._reply(200, {"ok": True})
+            elif self.path == "/update_weights_from_disk":
+                if "path" not in body:
+                    self._reply(400, {"error": "missing 'path'"})
+                    return
+                version = body.get("version")
+                fut = gen.queue_weight_update(
+                    body["path"], None if version is None else int(version))
                 self._reply(200, {"ok": True, "version": fut.result()})
-            except Exception as e:  # noqa: BLE001 — the reload's error goes to the client
-                self._reply(500, {"error": f"weight update failed: {e}"})
-        else:
-            self._reply(404, {"error": f"no route {self.path}"})
+            elif self.path == "/update_weights_chunk":
+                self._update_weights_chunk(body)
+            else:
+                self._reply(404, {"error": f"no route {self.path}"})
+        except Exception as e:  # noqa: BLE001 — the failure goes to the client as a 500
+            logger.warning("%s failed: %r", self.path, e)
+            self._reply(500, {"error": f"{self.path} failed: {e}"})
 
 
 class GenHTTPServer(ThreadingHTTPServer):
     """A ThreadingHTTPServer carrying the GenServer its handlers use."""
 
     daemon_threads = True
+    # the listen backlog: socketserver's default of 5 resets the connections
+    # of a burst of concurrent clients (a GRPO rollout opens one per sample)
+    request_queue_size = 1024
 
     def __init__(self, gen: GenServer, host: str = "0.0.0.0", port: int = 0):
         self.gen = gen
@@ -247,26 +413,53 @@ def serve(engine: GenEngine, host: str = "0.0.0.0", port: int = 0,
         gen.stop()
 
 
+def _exit_with_parent(ppid: int) -> None:
+    """Exit this process once `ppid` is no longer its parent (the parent
+    died and the process was reparented)."""
+    def watch():
+        while os.getppid() == ppid:
+            time.sleep(1.0)
+        logger.warning("parent process %d is gone; exiting", ppid)
+        os._exit(0)
+
+    threading.Thread(target=watch, daemon=True, name="parent-watch").start()
+
+
 def main(argv: Optional[List[str]] = None,
          on_ready: Optional[Callable[[GenHTTPServer], None]] = None) -> None:
     """`python -m areal_tpu_torch.gen.server`: the JAX server's
-    --model-path/--port/--n-slots/--max-seq-len, serving on the card.
-    Decode attention is always the ragged kernel.  Without --model-path it
-    serves a random tiny model, as the JAX server does."""
+    --model-path/--port/--n-slots/--max-seq-len, plus --dtype (weights and
+    KV cache), --seed, --decode-chunk, --device (the card unless `cpu`)
+    and --exit-with-parent (a launcher's: the server exits when the
+    process that started it is gone, so a killed trainer leaves no server
+    holding the card).  Decode attention is always the ragged kernel.
+    Without --model-path it serves a random tiny model, as the JAX server
+    does."""
     p = argparse.ArgumentParser()
     p.add_argument("--model-path", default="")
+    p.add_argument("--host", default="0.0.0.0")
     p.add_argument("--port", type=int, default=0)
     p.add_argument("--n-slots", type=int, default=8)
     p.add_argument("--max-seq-len", type=int, default=2048)
+    p.add_argument("--page-size", type=int, default=128, help="KV page and prompt bucket")
+    p.add_argument("--dtype", default="bfloat16", help="weights and KV cache")
+    p.add_argument("--seed", type=int, default=0, help="sampler seed (and random weights)")
+    p.add_argument("--decode-chunk", type=int, default=8)
+    p.add_argument("--device", default=None, help="cuda (default) or cpu")
+    p.add_argument("--exit-with-parent", action="store_true",
+                   help="exit when the process that started this one is gone")
     args = p.parse_args(argv)
+    if args.exit_with_parent:
+        _exit_with_parent(os.getppid())
+    kw = dict(n_slots=args.n_slots, max_seq_len=args.max_seq_len,
+              prompt_bucket=args.page_size, kv_dtype=args.dtype, seed=args.seed,
+              decode_chunk=args.decode_chunk, device=args.device)
     if args.model_path:
-        cfg = TransformerConfig.from_hf(args.model_path).replace(dtype="bfloat16")
-        engine = GenEngine(cfg, model_path=args.model_path, n_slots=args.n_slots,
-                           max_seq_len=args.max_seq_len)
+        cfg = TransformerConfig.from_hf(args.model_path).replace(dtype=args.dtype)
+        engine = GenEngine(cfg, model_path=args.model_path, **kw)
     else:
-        engine = GenEngine(tiny_config(), n_slots=args.n_slots,
-                           max_seq_len=args.max_seq_len)
-    serve(engine, port=args.port, on_ready=on_ready)
+        engine = GenEngine(tiny_config().replace(dtype=args.dtype), **kw)
+    serve(engine, host=args.host, port=args.port, on_ready=on_ready)
 
 
 if __name__ == "__main__":

@@ -11,7 +11,7 @@ name corresponds to the JAX package's scan-stacked tree; the weight bridge
 import json
 import logging
 import os
-from typing import Dict, Iterable, Iterator, Optional, Tuple
+from typing import Dict, Iterable, Iterator, List, Optional, Tuple
 
 import torch
 
@@ -104,6 +104,24 @@ def load_hf_params(
 def params_to_hf_state(model: Transformer) -> Iterator[Tuple[str, torch.Tensor]]:
     """Yield HF-named (name, tensor) pairs; a tied head is not emitted."""
     yield from model.state_dict().items()
+
+
+def hf_state_in_jax_order(model: Transformer) -> List[Tuple[str, torch.Tensor]]:
+    """`params_to_hf_state` in the order the JAX package's
+    `params_to_hf_state` yields: the embedding, each layer's tensors in
+    `layer_name_map` order, the final norm, an untied head.  The transfer
+    publish streams them so."""
+    state = dict(params_to_hf_state(model))
+    cfg = model.cfg
+    names = (["model.embed_tokens.weight"]
+             + [f"model.layers.{i}.{suffix}" for i in range(cfg.num_layers)
+                for suffix in layer_name_map(cfg)]
+             + ["model.norm.weight"]
+             + (["lm_head.weight"] if "lm_head.weight" in state else []))
+    if set(names) != set(state):
+        raise ValueError(f"state names differ from the HF layout: "
+                         f"{sorted(set(names) ^ set(state))[:8]}")
+    return [(n, state[n]) for n in names]
 
 
 def save_hf_checkpoint(

@@ -1,28 +1,43 @@
 """End-to-end GRPO benchmark of the port: async against sync,
-trajectories/s/chip, on the colocated transport.
+trajectories/s/chip, on the colocated or the remote transport.
 
     python -m areal_tpu_torch.scripts.bench_e2e_grpo                  # Qwen2.5-1.5B on the card
     python -m areal_tpu_torch.scripts.bench_e2e_grpo --device cpu --model tiny
+    python -m areal_tpu_torch.scripts.bench_e2e_grpo --transport remote
 
-The counterpart of `scripts/bench_e2e_grpo.py --transport colocated`.  The
-whole loop runs in one process on one device: the serving engine
-(`ColocatedEngine`), the RLVR workflow with the parity reward in a spawned
-process pool, the PPO trainer (`TorchPPOActor`: logprob recompute,
-advantages, decoupled-PPO update) and a weight publish after every step,
-in two modes over the same workload:
+The counterpart of `scripts/bench_e2e_grpo.py --transport colocated` and
+`--transport remote`.  The RLVR workflow rewards the parity of each
+completion's last token in a spawned process pool (`_reward_last_even`,
+which varies within a group on random weights, so advantages are not all
+0), and the PPO trainer (`TorchPPOActor`: logprob recompute, advantages,
+decoupled-PPO update) publishes after every step, in two modes over the
+same workload:
 
-- **sync**: `rollout_batch`, then the train step inside `train_phase()`
-  (serving parked, its KV cache and weights released), then
-  `publish_weights` (the in-memory restage);
+- **sync**: rollouts of one batch, then the train step, then the publish;
 - **async**: `WorkflowExecutor.prepare_batch` keeps rollouts in flight
   under the staleness gate (`max_head_offpolicyness`) while the trainer
-  consumes; each publish is `update_weights_in_memory` with both sides
-  resident: live (in-flight requests decode on under the new weights) or,
-  with `--publish-mode interrupt`, aborted and resubmitted.
+  consumes.
 
+**colocated**: the whole loop runs in one process on one device: the
+serving engine is a `ColocatedEngine`; sync trains inside `train_phase()`
+(serving parked, its KV cache and weights released) and restages in
+memory (`publish_weights`); async publishes with
+`update_weights_in_memory` with both sides resident: live (in-flight
+requests decode on under the new weights) or, with `--publish-mode
+interrupt`, aborted and resubmitted.
+
+**remote**: the server is a process of its own, started by the launch
+helper on the same device from the trainer's v0 snapshot, and driven over
+HTTP by `RemoteTorchEngine`; each publish is the transfer path: the
+trainer streams and stages its bf16 weights while the server generates
+(`stage_weights`), then commits (`update_weights`), live or, with
+`--publish-mode interrupt`, after an abort.  The pause window is the server's
+idle time in the swap (`/metrics last_pause_s`).
+
+Both transports share `_measure_loop`, so the two measure the same thing.
 The port has no prefix sharing or group fan-out yet, so this is the JAX
-bench's `--share-prefix off`.  Left out: the remote transport, multi-turn
-workflows, the gsm8k-synth dataset mode, latency percentiles, telemetry
+bench's `--share-prefix off`.  Left out: multi-turn workflows, the
+gsm8k-synth dataset mode, `--len-jitter`, latency percentiles, telemetry
 and recovery.
 
 Prints ONE JSON line: {"sync": {...}, "async": {...},
@@ -32,6 +47,7 @@ Prints ONE JSON line: {"sync": {...}, "async": {...},
 import argparse
 import contextlib
 import json
+import os
 import sys
 import time
 from collections import Counter
@@ -54,13 +70,11 @@ def _reward_last_even(prompt, completions, prompt_ids, completion_ids, **kw):
     return float(bool(completion_ids) and completion_ids[-1] % 2 == 0)
 
 
-def _make_parts(model: str, n_slots: int, max_seq_len: int, group_size: int,
-                batch_norm: bool = False, model_path: str = "", device=None,
-                lr: float = 1e-6):
-    """(actor, serving, model config): the trainer and a colocated engine
-    serving copies of its weights.  `qwen2.5-1.5b` trains f32 masters with
-    bf16 compute and serves bf16; `tiny` runs f32 throughout.  Without a
-    `model_path` the weights are random (seed 0)."""
+def _make_actor(model: str, max_seq_len: int, group_size: int, batch_norm: bool = False,
+                model_path: str = "", device=None, lr: float = 1e-6):
+    """(actor, model config): `qwen2.5-1.5b` trains f32 masters with bf16
+    compute; `tiny` runs f32 throughout.  Without a `model_path` the
+    weights are random (seed 0)."""
     from areal_tpu_torch.api.config import (
         MicroBatchSpec,
         NormConfig,
@@ -68,7 +82,6 @@ def _make_parts(model: str, n_slots: int, max_seq_len: int, group_size: int,
         PPOActorConfig,
     )
     from areal_tpu_torch.api.io_struct import FinetuneSpec
-    from areal_tpu_torch.engine.colocated import ColocatedEngine
     from areal_tpu_torch.engine.ppo import TorchPPOActor
     from areal_tpu_torch.models.model_config import qwen25_1p5b, tiny_config
 
@@ -104,6 +117,18 @@ def _make_parts(model: str, n_slots: int, max_seq_len: int, group_size: int,
         device=device,
     )
     actor.initialize(ft_spec=FinetuneSpec(1, 4096, 8))
+    return actor, cfg
+
+
+def _make_parts(model: str, n_slots: int, max_seq_len: int, group_size: int,
+                batch_norm: bool = False, model_path: str = "", device=None,
+                lr: float = 1e-6):
+    """(actor, serving, model config): the trainer and a colocated engine
+    serving copies of its weights (bf16 for `qwen2.5-1.5b`)."""
+    from areal_tpu_torch.engine.colocated import ColocatedEngine
+
+    actor, cfg = _make_actor(model, max_seq_len, group_size, batch_norm, model_path,
+                             device, lr)
     serving = ColocatedEngine(
         cfg,
         params=actor.export_device_params(),
@@ -111,10 +136,34 @@ def _make_parts(model: str, n_slots: int, max_seq_len: int, group_size: int,
         max_seq_len=max_seq_len,
         prompt_bucket=128,
         decode_chunk=8,
-        kv_dtype=dtype,
+        kv_dtype=cfg.dtype,
         device=actor.device,
     )
     return actor, serving, cfg
+
+
+def _make_remote_parts(actor, cfg, n_slots: int, max_seq_len: int, run_dir: str):
+    """A launcher running one port server from the trainer's v0 snapshot
+    (in the serving dtype), on the trainer's device, with
+    AREAL_LLM_SERVER_ADDRS exported.  The caller stops it."""
+    from areal_tpu_torch.api.config import GenServerConfig
+    from areal_tpu_torch.launcher.local import LocalLauncher
+    from areal_tpu_torch.models.hf import save_hf_checkpoint
+
+    v0 = os.path.join(run_dir, "v0")
+    save_hf_checkpoint(actor.model, v0, save_dtype=cfg.dtype)
+    launcher = LocalLauncher(os.path.join(run_dir, "logs"))
+    launcher.start_gen_servers(
+        GenServerConfig(model_path=v0, dtype=cfg.dtype, max_seqs=n_slots,
+                        max_context_len=max_seq_len, page_size=128, random_seed=0),
+        device=actor.device.type)
+    return launcher
+
+
+def server_metrics(addr: str) -> Dict[str, Any]:
+    from areal_tpu_torch.utils.http import request_with_retry
+
+    return request_with_retry(addr, "/metrics", method="GET", timeout=60)
 
 
 def _sync(actor) -> None:
@@ -169,6 +218,7 @@ def _measure_loop(mode: str, actor, get_batch, publish, steps: int, warmup: int,
     trajs = tokens = 0
     pauses: List[float] = []
     rewards: List[float] = []
+    adv_abs: List[float] = []
     rollout_s: List[float] = []
     train_s: List[float] = []
     losses: List[float] = []
@@ -180,7 +230,7 @@ def _measure_loop(mode: str, actor, get_batch, publish, steps: int, warmup: int,
         if step == warmup:
             _sync(actor)
             trajs = tokens = 0
-            pauses, rewards, rollout_s, train_s = [], [], [], []
+            pauses, rewards, adv_abs, rollout_s, train_s = [], [], [], [], []
             t_start = time.perf_counter()
         t0 = time.perf_counter()
         batch = get_batch()
@@ -196,6 +246,7 @@ def _measure_loop(mode: str, actor, get_batch, publish, steps: int, warmup: int,
             _sync(actor)
         t2 = time.perf_counter()
         gap_sum, gap_n = gap_sum + gs, gap_n + gn
+        adv_abs.append(float(np.abs(batch["advantages"]).mean()))
         losses += [float(st["loss"]) for st in stats]
         rollout_s.append(t1 - t0)
         train_s.append(t2 - t1)
@@ -215,6 +266,8 @@ def _measure_loop(mode: str, actor, get_batch, publish, steps: int, warmup: int,
         "pause_window_s_mean": float(np.mean(pauses)),
         "pause_window_s": pauses,
         "reward_mean": float(np.mean(rewards)),
+        # mean |advantage| per step: 0 when every group's rewards tie
+        "adv_abs_mean": adv_abs,
         "rollout_s": rollout_s,
         "train_s": train_s,
         "loss_trajectory": losses,
@@ -318,6 +371,84 @@ def run_mode(mode: str, actor, serving, workflow, dataset, batch_size: int,
     return result
 
 
+def run_mode_remote(mode: str, actor, meta, workflow, dataset, batch_size: int,
+                    steps: int, warmup: int = 1, max_head_offpolicyness: int = 4
+                    ) -> Dict[str, Any]:
+    """The remote counterpart of `run_mode`: rollouts over HTTP through a
+    fresh `RemoteTorchEngine` (its versions counted from this mode's
+    start, as the staleness gate assumes), and each publish the trainer's
+    `stage_weights` while the servers generate, then the commit:
+    `update_weights` on the trainer and the client, inside a client pause
+    unless the commit is live.  The pause window is the server's
+    `last_pause_s`; stage and commit are timed apart."""
+    from areal_tpu_torch.api.config import InferenceEngineConfig
+    from areal_tpu_torch.engine.torch_remote import RemoteTorchEngine
+    from areal_tpu_torch.utils.dataloader import StatefulDataLoader
+
+    if mode not in ("sync", "async"):
+        raise ValueError(f"mode {mode!r}: use sync or async")
+    client = RemoteTorchEngine(InferenceEngineConfig(
+        consumer_batch_size=batch_size, max_concurrent_rollouts=batch_size * 2,
+        max_head_offpolicyness=max_head_offpolicyness))
+    client.initialize()
+    addr = client.addresses[0]
+    dataloader = StatefulDataLoader(dataset, batch_size=batch_size, seed=0)
+    data_iter = iter(np.random.default_rng(1).permutation(len(dataset)))
+
+    def get_batch():
+        if mode == "async":
+            return client.prepare_batch(dataloader, workflow=workflow)
+        items = [dataset[int(next(data_iter)) % len(dataset)] for _ in range(batch_size)]
+        return client.rollout_batch(items, workflow=workflow)
+
+    origin = actor.get_version()
+    live = meta.type == "transfer" and meta.live_commit
+    stage_s: List[float] = []
+    commit_s: List[float] = []
+
+    def publish():
+        version = actor.get_version() + 1
+        actor.set_version(version)
+        t0 = time.perf_counter()
+        actor.stage_weights(meta)
+        t1 = time.perf_counter()
+        if not live:
+            client.pause()
+        actor.update_weights(meta)
+        client.update_weights(meta)
+        client.set_version(version - origin)
+        if not live:
+            client.resume()
+        commit_s.append(time.perf_counter() - t1)
+        stage_s.append(t1 - t0)
+        return float(server_metrics(addr)["last_pause_s"])
+
+    timeouts, failures = workflow.reward_fn.timeouts, workflow.reward_fn.failures
+    try:
+        result = _measure_loop(mode, actor, get_batch, publish, steps, warmup)
+        st = client.executor.staleness_manager.get_stats()
+        result["ledger"] = {"submitted": st.submitted, "accepted": st.accepted,
+                            "rejected": st.rejected, "running": st.running}
+        result["lost_trajectories"] = client.executor.lost_trajectories
+    finally:
+        client.destroy()
+    # rollouts still in flight belonged to this mode: let the server finish
+    # them before the next mode starts
+    deadline = time.monotonic() + 600
+    while server_metrics(addr)["active"]:
+        if time.monotonic() > deadline:
+            raise TimeoutError("the server did not drain the mode's requests")
+        time.sleep(0.1)
+    result["stage_s"] = stage_s[-result["steps"]:]
+    result["commit_s"] = commit_s[-result["steps"]:]
+    result["publish"] = (meta.type if meta.type == "disk"
+                         else "transfer-live" if live else "transfer-abort")
+    result["server_version"] = int(server_metrics(addr)["version"])
+    result["reward_timeouts"] = workflow.reward_fn.timeouts - timeouts
+    result["reward_failures"] = workflow.reward_fn.failures - failures
+    return result
+
+
 def make_dataset(n: int, vocab_size: int, prompt_len: int, prompt_len_min: int = 0,
                  seed: int = 0) -> List[Dict[str, Any]]:
     """`n` random prompts, of `prompt_len` tokens or, with `prompt_len_min`,
@@ -347,28 +478,39 @@ def main(argv=None):
                    help="prompt lengths are uniform in [min, --prompt-len]")
     p.add_argument("--max-new-tokens", type=int, default=256)
     p.add_argument("--modes", default="sync,async")
+    p.add_argument("--transport", default="colocated", choices=["colocated", "remote"])
     p.add_argument("--publish-mode", default="live", choices=["live", "interrupt"],
-                   help="async publish: live swap, or abort and resubmit (sync "
-                        "always releases serving memory for the train step)")
+                   help="live swap, or abort and resubmit: the colocated async publish "
+                        "(sync always releases serving memory for the train step) and the "
+                        "remote transfer commit")
+    p.add_argument("--run-dir", default="",
+                   help="remote: the v0 snapshot and the server's log "
+                        "(default: build/bench_e2e_grpo under the checkout)")
     args = p.parse_args(argv)
 
     from areal_tpu_torch.api.config import GenerationHyperparameters
+    from areal_tpu_torch.api.io_struct import WeightUpdateMeta
     from areal_tpu_torch.api.reward import prewarm_reward_pool, shutdown_reward_pool
     from areal_tpu_torch.workflow.rlvr import RLVRWorkflow
 
-    actor, serving, cfg = _make_parts(
-        args.model, args.n_slots, args.max_seq_len, args.group_size,
-        model_path=args.model_path, device=args.device)
-    prewarm_reward_pool()
+    remote = args.transport == "remote"
+    serving = launcher = None
+    if remote:
+        actor, cfg = _make_actor(args.model, args.max_seq_len, args.group_size,
+                                 model_path=args.model_path, device=args.device)
+    else:
+        actor, serving, cfg = _make_parts(
+            args.model, args.n_slots, args.max_seq_len, args.group_size,
+            model_path=args.model_path, device=args.device)
     workflow = RLVRWorkflow(
-        reward_fn=_reward_any_even,
+        reward_fn=_reward_last_even,
         gconfig=GenerationHyperparameters(
             n_samples=args.group_size, max_new_tokens=args.max_new_tokens, temperature=1.0),
     )
     dataset = make_dataset(256, cfg.vocab_size, args.prompt_len, args.prompt_len_min)
     result: Dict[str, Any] = {
         "model": args.model,
-        "transport": "colocated",
+        "transport": args.transport,
         "device": str(actor.device),
         "batch_size": args.batch_size,
         "group_size": args.group_size,
@@ -377,17 +519,31 @@ def main(argv=None):
         "share_prefix": "off",
     }
     try:
+        if remote:
+            run_dir = args.run_dir or os.path.join(
+                os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
+                "build", "bench_e2e_grpo")
+            launcher = _make_remote_parts(actor, cfg, args.n_slots, args.max_seq_len, run_dir)
+            meta = WeightUpdateMeta.from_transfer(live_commit=args.publish_mode == "live")
+        prewarm_reward_pool()
         for mode in args.modes.split(","):
-            result[mode] = run_mode(
-                mode, actor, serving, workflow, dataset, args.batch_size, args.steps,
-                warmup=args.warmup, interrupt_publish=args.publish_mode == "interrupt")
+            if remote:
+                result[mode] = run_mode_remote(mode, actor, meta, workflow, dataset,
+                                               args.batch_size, args.steps, warmup=args.warmup)
+            else:
+                result[mode] = run_mode(
+                    mode, actor, serving, workflow, dataset, args.batch_size, args.steps,
+                    warmup=args.warmup, interrupt_publish=args.publish_mode == "interrupt")
         if "sync" in result and "async" in result:
             result["async_over_sync_trajs_per_sec"] = (
                 result["async"]["trajs_per_sec_per_chip"]
                 / result["sync"]["trajs_per_sec_per_chip"])
         print(json.dumps(result), flush=True)
     finally:
-        serving.destroy()
+        if serving is not None:
+            serving.destroy()
+        if launcher is not None:
+            launcher.stop_all()
         shutdown_reward_pool()
     return 0
 

@@ -74,6 +74,28 @@ Phases, each printed with its wall time; any failure exits non-zero:
             above the trainer's, trainer logprobs against the server's on
             same-version tokens, no reward timeout, and the served weights
             bit-equal to the trainer's bf16 cast after the last publish
+10. remote  the same cell with trainer and server as two processes on the
+            card: `areal_tpu_torch.gen.server` started by the launch helper
+            (32 slots, max_seq_len 1024, bf16, from the serve phase's
+            checkpoint), the trainer here, rollouts over HTTP through
+            `RemoteTorchEngine` (`bench_e2e_grpo.run_mode_remote`).  Sync
+            with the disk publish (1 + 2 steps), async with the transfer
+            publish and a live commit (1 + 3 steps, max_head_offpolicyness
+            4), one async step with an aborting commit.  Prints
+            trajectories/s/chip and effective tokens/s/chip per mode, stage
+            and commit times, the server's pause windows, version lags and
+            both processes' peak memory.  Checks: the server's ragged
+            launches (over HTTP, /metrics) = 28 x its decode steps, the
+            trainer's flash launches 84/28/28 per step on the tensor cores,
+            the ledger balanced, no token from a future version, the logprob
+            gap, no reward timeout, no lost trajectory, the server at the
+            trainer's version, and after the last publish 4 greedy streams
+            (and logprobs) from the server process bit-equal to a GenEngine
+            built here from the trainer's bf16 export
+11. example `python -m areal_tpu_torch.examples.math.gsm8k_grpo` at full width
+            for one step with the transfer publish (gsm8k-synth, the
+            example's own server through the launch helper); prints the
+            step's stats
 
 The line before the last is the kernels' JSON record (`launches` sums the
 paths that ran each kernel, `launches_by_path` splits them); the last line is
@@ -971,6 +993,201 @@ def grpo_qwen(ckpt_dir):
 
 
 # ---------------------------------------------------------------------------
+# the remote GRPO loop: trainer here, server a process of its own
+# ---------------------------------------------------------------------------
+
+REMOTE_EQUAL_PROMPTS, REMOTE_EQUAL_TOKENS = 4, 32
+
+
+def greedy_streams(generate, vocab_size):
+    """(tokens, logprobs) of REMOTE_EQUAL_PROMPTS greedy requests sent one at
+    a time through `generate(body) -> wire result`."""
+    rng = np.random.default_rng(11)
+    out = []
+    for i in range(REMOTE_EQUAL_PROMPTS):
+        body = dict(rid=f"eq{i}", input_ids=rng.integers(
+            0, vocab_size, int(rng.integers(*GRPO_PROMPT_LEN))).tolist(),
+            sampling_params=dict(max_new_tokens=REMOTE_EQUAL_TOKENS,
+                                 min_new_tokens=REMOTE_EQUAL_TOKENS, temperature=0.0))
+        r = generate(body)
+        out.append((r["output_tokens"], r["output_logprobs"]))
+    return out
+
+
+def remote_qwen(ckpt_dir, publish_dir):
+    """The remote GRPO loop of the bench module at full width: the port
+    server on the card as a separate process (the launch helper, 32 slots,
+    max_seq_len 1024, bf16, from the smoke checkpoint), the trainer (f32
+    masters) in this process.  Sync with the disk publish, async with the
+    transfer publish and a live commit, one async step with an aborting
+    commit.  Checks the server's ragged launches (read over HTTP) against
+    its decode steps, the trainer's flash launches per step, the ledger,
+    versions, logprob gap, rewards, lost trajectories, and, after the last
+    publish, greedy streams from the server against a GenEngine built here
+    from the trainer's bf16 export.  Returns (ragged launches, flash
+    launches) over the phase."""
+    from areal_tpu_torch.api.config import GenerationHyperparameters, GenServerConfig
+    from areal_tpu_torch.api.reward import prewarm_reward_pool, shutdown_reward_pool
+    from areal_tpu_torch.launcher.local import LocalLauncher
+    from areal_tpu_torch.scripts import bench_e2e_grpo as bench
+    from areal_tpu_torch.workflow.rlvr import RLVRWorkflow
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    launcher = LocalLauncher(os.path.join(ROOT, "build", "remote_logs"))
+    try:
+        addr = launcher.start_gen_servers(GenServerConfig(
+            model_path=ckpt_dir, dtype="bfloat16", max_seqs=GRPO_SLOTS,
+            max_context_len=GRPO_SEQ, page_size=128, random_seed=0))[0]
+        print(f"  server process up at {addr} in {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        actor, cfg = bench._make_actor("qwen2.5-1.5b", GRPO_SEQ, GROUP, model_path=ckpt_dir)
+        prewarm_reward_pool()
+        torch.cuda.synchronize()
+        print(f"  trainer up in {time.perf_counter() - t0:.1f} s; "
+              f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated by this process")
+        workflow = RLVRWorkflow(reward_fn=bench._reward_last_even,
+                                gconfig=GenerationHyperparameters(
+                                    n_samples=GROUP, max_new_tokens=NEW_TOKENS,
+                                    temperature=1.0))
+        dataset = bench.make_dataset(256, cfg.vocab_size, GRPO_PROMPT_LEN[1],
+                                     GRPO_PROMPT_LEN[0])
+        disk = WeightUpdateMeta(type="disk", path=publish_dir)
+        # (label, mode, publish, timed steps, warmup steps)
+        plans = (("sync", "sync", disk, 2, 1),
+                 ("async", "async", WeightUpdateMeta.from_transfer(live_commit=True), 3, 1),
+                 ("abort", "async", WeightUpdateMeta.from_transfer(live_commit=False), 1, 0))
+        launches = np.zeros(4, np.int64)
+        reset_flash_counts()
+        for label, mode, meta, n_timed, warmup in plans:
+            m0 = bench.server_metrics(addr)
+            before = np.array(flash_counts())
+            res = bench.run_mode_remote(mode, actor, meta, workflow, dataset, TRAIN_PROMPTS,
+                                        n_timed, warmup=warmup)
+            m1 = bench.server_metrics(addr)
+            got = np.array([m1["ragged_kernel_launches"] - m0["ragged_kernel_launches"],
+                            *(np.array(flash_counts()) - before)])
+            steps = m1["decode_steps"] - m0["decode_steps"]
+            n_steps = n_timed + warmup
+            launches += got
+            print(f"  {label} ({res['publish']} publish): {res['trajs_per_sec_per_chip']:.4f} "
+                  f"trajectories/s/chip, {res['effective_tokens_per_sec_per_chip']:.1f} "
+                  f"effective tokens/s/chip over {res['steps']} timed steps "
+                  f"({res['trajectories']} trajectories, {res['wall_s']:.2f} s); "
+                  f"reward mean {res['reward_mean']:.3f}, mean |advantage| per step "
+                  + ", ".join(f"{x:.4f}" for x in res["adv_abs_mean"]))
+            print("    per step: rollout wait " + ", ".join(f"{x:.3f}" for x in res["rollout_s"])
+                  + " s; train " + ", ".join(f"{x:.3f}" for x in res["train_s"]) + " s")
+            print("    publish: stage " + ", ".join(f"{x * 1e3:.1f}" for x in res["stage_s"])
+                  + " ms; commit " + ", ".join(f"{x * 1e3:.1f}" for x in res["commit_s"])
+                  + " ms; server pause windows " + ", ".join(
+                      f"{x * 1e3:.3f}" for x in res["pause_window_s"]) + " ms")
+            print(f"    version lag (trainer - oldest token) over {n_steps} consumed batches: "
+                  f"{res['version_lag_hist']}; newest token - trainer version at most "
+                  f"{res['max_version_ahead']}; server at version {res['server_version']}")
+            print(f"    |trainer - server| logprob on same-version tokens: mean "
+                  f"{res['same_version_logp_gap_mean']:.4f} over {res['same_version_tokens']} "
+                  f"tokens (tolerance {LOGP_MEAN_TOL}); losses "
+                  + ", ".join(f"{x:+.5f}" for x in res["loss_trajectory"]))
+            print(f"    server: ragged {got[0]} = {SERVE_LAYERS} x {steps} decode steps; "
+                  f"trainer: flash fwd/dq/dkv {tuple(int(x) for x in got[1:])} over {n_steps} "
+                  f"steps; staleness ledger {res['ledger']}; lost trajectories "
+                  f"{res['lost_trajectories']}")
+            if got[0] != SERVE_LAYERS * steps or steps == 0:
+                raise AssertionError(f"remote {label}: server ragged launches != 28 x decode "
+                                     "steps")
+            if tuple(got[1:]) != (3 * SERVE_LAYERS * n_steps, SERVE_LAYERS * n_steps,
+                                  SERVE_LAYERS * n_steps):
+                raise AssertionError(f"remote {label}: a logprob pass or an update missed the "
+                                     "flash kernels")
+            if res["max_version_ahead"] > 0:
+                raise AssertionError(f"remote {label}: a consumed token comes from a version "
+                                     "above the trainer's")
+            led = res["ledger"]
+            if led["submitted"] != led["accepted"] + led["rejected"] + led["running"]:
+                raise AssertionError(f"remote {label}: the staleness ledger does not balance")
+            if res["lost_trajectories"]:
+                raise AssertionError(f"remote {label}: {res['lost_trajectories']} trajectories "
+                                     "lost")
+            if (res["same_version_tokens"] == 0
+                    or not res["same_version_logp_gap_mean"] <= LOGP_MEAN_TOL):
+                raise AssertionError(f"remote {label}: trainer logprobs disagree with the "
+                                     "server's")
+            if res["reward_timeouts"] or res["reward_failures"]:
+                raise AssertionError(f"remote {label}: {res['reward_timeouts']} reward "
+                                     f"timeouts, {res['reward_failures']} failures")
+            if not all(np.isfinite(res["loss_trajectory"])):
+                raise AssertionError(f"remote {label}: a non-finite loss")
+            if res["server_version"] != actor.get_version():
+                raise AssertionError(f"remote {label}: the server serves version "
+                                     f"{res['server_version']}, the trainer is at "
+                                     f"{actor.get_version()}")
+        if flash_counts_tc() != flash_counts():
+            raise AssertionError("a bf16 flash launch of the remote phase missed its "
+                                 "tensor-core kernel")
+        trainer_peak = torch.cuda.max_memory_allocated()
+        server_peak = bench.server_metrics(addr).get("max_memory_allocated", 0)
+        print(f"  peak memory: trainer process {trainer_peak / 2**30:.2f} GiB, server process "
+              f"{server_peak / 2**30:.2f} GiB (torch.cuda.max_memory_allocated)")
+        # the served weights after the last (aborting) transfer publish
+        t0 = time.perf_counter()
+        served = greedy_streams(lambda b: post_addr(addr, "/generate", b), cfg.vocab_size)
+        local = GenEngine(cfg.replace(dtype="bfloat16"), params=actor.export_device_params(),
+                          n_slots=GRPO_SLOTS, max_seq_len=GRPO_SEQ, prompt_bucket=128,
+                          kv_dtype="bfloat16", seed=0)
+
+        def local_generate(body):
+            sp = body["sampling_params"]
+            req = GenRequest(rid=body["rid"], input_ids=body["input_ids"],
+                             max_new_tokens=sp["max_new_tokens"],
+                             min_new_tokens=sp["min_new_tokens"], temperature=0.0)
+            local.generate_blocking([req])
+            return {"output_tokens": req.output_tokens, "output_logprobs": req.output_logprobs}
+
+        mine = greedy_streams(local_generate, cfg.vocab_size)
+        del local
+        if served != mine:
+            raise AssertionError("greedy streams or logprobs of the server process differ "
+                                 "from a GenEngine on the trainer's bf16 export")
+        print(f"  after the last publish (version {actor.get_version()}): "
+              f"{REMOTE_EQUAL_PROMPTS} greedy streams x {REMOTE_EQUAL_TOKENS} tokens and their "
+              f"logprobs from the server process equal a GenEngine on the trainer's bf16 "
+              f"export here, bit for bit ({time.perf_counter() - t0:.1f} s)")
+    finally:
+        launcher.stop_all()
+        shutdown_reward_pool()
+    actor.destroy()
+    del actor
+    torch.cuda.empty_cache()
+    return int(launches[0]), tuple(int(x) for x in launches[1:])
+
+
+def post_addr(addr, path, body, timeout=600):
+    host, _, port = addr.rpartition(":")
+    return post(int(port), path, body, timeout)
+
+
+def example_qwen():
+    """`python -m areal_tpu_torch.examples.math.gsm8k_grpo` at full width
+    for one step with the transfer publish; prints its step stats."""
+    cmd = [sys.executable, "-m", "areal_tpu_torch.examples.math.gsm8k_grpo",
+           "--weight-update-mode", "transfer", "total_train_steps=1",
+           f"cluster.fileroot={os.path.join(ROOT, 'build', 'example')}"]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=900,
+                         env={**os.environ, "PYTHONPATH": ROOT})
+    steps = [ln for ln in res.stdout.splitlines() if ln.startswith("{")]
+    if res.returncode != 0 or len(steps) != 1:
+        raise AssertionError(f"the example failed ({res.returncode}):\n{res.stderr[-4000:]}")
+    stats = json.loads(steps[0])
+    print(f"  {' '.join(cmd[1:6])}: {time.perf_counter() - t0:.1f} s in all; step stats "
+          f"{steps[0]}")
+    if stats["n_seqs"] != 32 or stats["lost_trajectories"] or not all(
+            np.isfinite(stats["loss"])):
+        raise AssertionError("the example's step did not train on 32 trajectories")
+
+
+# ---------------------------------------------------------------------------
 # timings
 # ---------------------------------------------------------------------------
 
@@ -1190,7 +1407,8 @@ def main():
     build_dir = os.path.join(ROOT, "build")
     ckpt_dir = os.path.join(build_dir, "smoke_ckpt")
     publish_dir = os.path.join(build_dir, "smoke_publish")
-    for d in (ckpt_dir, publish_dir):
+    remote_dir = os.path.join(build_dir, "remote_publish")
+    for d in (ckpt_dir, publish_dir, remote_dir):
         shutil.rmtree(d, ignore_errors=True)
     try:
         with phase("serve"):
@@ -1235,16 +1453,21 @@ def main():
             grpo_launches, grpo_err = grpo_qwen(ckpt_dir)
             max_err = max(max_err, grpo_err["ragged_paged_attention"])
             flash_err = {n: max(flash_err[n], grpo_err[n]) for n in flash_err}
+        with phase("remote"):
+            remote_ragged, remote_flash = remote_qwen(ckpt_dir, remote_dir)
+        with phase("example"):
+            example_qwen()
     finally:
-        for d in (ckpt_dir, publish_dir):
+        for d in (ckpt_dir, publish_dir, remote_dir):
             shutil.rmtree(d, ignore_errors=True)
     records = [{
         "name": "ragged_paged_attention",
         "route": "cuda",
         "source": "areal_tpu_torch/csrc/ragged_decode.cu",
         "replaces": "areal_tpu/ops/ragged_decode.py:93",
-        "launches": launches + grpo_launches[0],
-        "launches_by_path": {"serve": launches, "grpo": grpo_launches[0]},
+        "launches": launches + grpo_launches[0] + remote_ragged,
+        "launches_by_path": {"serve": launches, "grpo": grpo_launches[0],
+                             "remote": remote_ragged},
         "max_abs_err": max_err,
         "ms": kern,
         "plain_ms": plain,
@@ -1252,16 +1475,16 @@ def main():
         "bound_by": by,
         "library_ms": sdpa,
     }]
-    for name, n, n_grpo in zip(("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"), flash_launches,
-                               grpo_launches[1:]):
+    for name, n, n_grpo, n_remote in zip(("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"),
+                                         flash_launches, grpo_launches[1:], remote_flash):
         ms, plain_ms, lib_ms, bound_ms, bound_by = flash_times[name]
         records.append({
             "name": name,
             "route": "cuda",
             "source": "areal_tpu_torch/csrc/flash_attention.cu",
             "replaces": FLASH_REPLACES[name],
-            "launches": n + n_grpo,
-            "launches_by_path": {"train": n, "grpo": n_grpo},
+            "launches": n + n_grpo + n_remote,
+            "launches_by_path": {"train": n, "grpo": n_grpo, "remote": n_remote},
             "max_abs_err": flash_err[name],
             "ms": ms,
             "plain_ms": plain_ms,
