@@ -18,7 +18,10 @@ port of `areal_tpu/engine/colocated.py`).
 Workflows run unmodified: `ColocatedEngine` implements the agenerate /
 rollout_batch surface of `api/engine.py` with the remote client's
 interruption contract (an aborted request is resubmitted with the tokens
-it accumulated).
+it accumulated, and its retained prefix makes the resubmit a suffix
+prefill).  A request's `group_id`/`group_n` reach the engine, whose
+admission prefills a GRPO group's prompt once (`share_prefix`, a
+`GenEngine` keyword like every other in `gen_kwargs`).
 
 Unlike the reference's stepper, which logs a failed decode step and
 steps again, the port's stops: it keeps the error, finishes every request
@@ -102,9 +105,9 @@ class ColocatedEngine(InferenceEngine):
                 torch.cuda.set_device(device)  # the device is per thread
             try:
                 while not self._stop.is_set():
-                    if self.engine.active_count():
-                        self.engine.step()
-                    else:
+                    # nothing delivered: idle, or admission waits out a
+                    # group hold or an abort reservation
+                    if not (self.engine.active_count() and self.engine.step()):
                         time.sleep(0.001)
             except Exception as e:  # noqa: BLE001 — surfaced to every caller
                 logger.exception("decode step failed; serving stops")
@@ -226,6 +229,8 @@ class ColocatedEngine(InferenceEngine):
             budget = g.max_new_tokens - len(accumulated)
             gr = GenRequest(
                 rid=req.rid,
+                group_id=req.group_id,
+                group_n=req.group_n,
                 input_ids=input_ids + accumulated,
                 max_new_tokens=budget,
                 min_new_tokens=min(g.min_new_tokens, budget),

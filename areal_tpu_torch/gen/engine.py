@@ -4,9 +4,28 @@
 - `n_slots` concurrent sequences share a preallocated KV cache
   [L, S, M, Hkv, hd]; admission fills free slots, completion frees them.
   Slot `n_slots` is the scratch row that admission padding writes into.
-- **Batched fresh admission**: every free slot is filled from the pending
-  queue in ONE bucketed prefill (rows padded to a power of two, padding
-  rows target the scratch row).
+- **Batched fresh admission**: prompts with no reusable prefix prefill in
+  ONE bucketed call (rows padded to a power of two, padding rows target
+  the scratch row).
+- **KV prefix reuse**: a freed slot keeps its cache and its token history
+  (`seq_tokens`, `retained_len`, indexed by `KVPool`'s radix tree).
+  Admission matches each prompt against every retained prefix (longest
+  common prefix, best first) and prefills only the suffix
+  (`forward_prefill_cached`), so an interruption resume or a multi-turn
+  turn pays for its new tokens, not its context.  Reuse across a weight
+  swap keeps old-policy K/V behind new-policy decoding (`kv_version`
+  records the oldest); `retain_kv_on_reload=False` recomputes instead.
+- **Abort reservations**: a slot freed by `abort_all` is withheld from
+  fresh prompts for `abort_reserve_s`, so the aborted client's resubmit
+  (prompt + accumulated tokens) finds its prefix; admission drains a
+  window of the queue and matches it globally before any fresh prompt
+  takes a slot.
+- **Group fan-out**: the siblings of a GRPO group (`group_id`/`group_n`,
+  held for up to `group_hold_s` until the group shares one admission
+  window) and other requests sharing a prompt prefix cluster; one
+  representative prefills the shared prefix, its K/V is copied into the
+  siblings' slots (`ops.kv_copy.copy_kv_prefix`, fused into the suffix
+  call) and each sibling prefills only its remainder.
 - **Ragged decode**: `step` advances the whole slot grid by `decode_chunk`
   tokens per host round trip, one `forward_decode` per token whose
   attention is the ragged paged-decode kernel, reading each slot's cache
@@ -15,7 +34,8 @@
   attention always goes through the kernel.
 - **Counter-keyed sampling**: the token at cache position p of stream s is
   drawn with key f(seed, s, p), so a stream does not depend on which slot
-  it sits in or what else is batched with it.
+  it sits in, what else is batched with it, or whether its prompt was
+  prefilled fresh, as a suffix, or from a sibling's copied prefix.
 
 - **Weights**: `load_weights` is the aborting path — every in-flight
   request finishes with "abort", then the new weights (a trainer's `v{N}`
@@ -26,10 +46,10 @@
   `torch.no_grad()`, because grad mode is per thread and a colocated
   engine steps on its own thread beside a training one.
 
-Left for later slices: prefix reuse, suffix prefill, group fan-out,
-length-cohort tiers, speculative decoding, the host KV tier, disaggregated
-handoff, VLM requests, tensor/expert parallelism, and the staged weight
-swap.
+Left for later slices: length-cohort tiers and migration, speculative
+decoding, the host KV tier, disaggregated handoff, VLM requests,
+tensor/expert parallelism, the staged weight swap, and the admission
+telemetry events.
 """
 
 import logging
@@ -45,7 +65,7 @@ import numpy as np
 import torch
 
 from areal_tpu_torch.device import DeviceLike, resolve_device
-from areal_tpu_torch.gen.kv_pool import KVPool
+from areal_tpu_torch.gen.kv_pool import KVPool, lcp_ids
 from areal_tpu_torch.gen.sampling import root_key, sample_tokens_keyed, stream_keys
 from areal_tpu_torch.models.hf import load_hf_params
 from areal_tpu_torch.models.model_config import TransformerConfig
@@ -53,6 +73,7 @@ from areal_tpu_torch.models.transformer import (
     Transformer,
     forward_decode,
     forward_prefill,
+    forward_prefill_cached,
     init_kv_cache,
     init_params,
 )
@@ -72,6 +93,11 @@ class GenRequest:
     top_p: float = 1.0
     top_k: int = 0
     stop_token_ids: List[int] = field(default_factory=list)
+    # group fan-out: siblings sampling the same prompt (a GRPO group) share
+    # a key and the expected group size, so admission can hold for the
+    # whole group and share its prefix, and clients keep it on one server
+    group_id: str = ""
+    group_n: int = 0
     trace_id: str = ""  # echoed on the wire
     # filled by the engine
     output_tokens: List[int] = field(default_factory=list)
@@ -79,6 +105,9 @@ class GenRequest:
     output_versions: List[int] = field(default_factory=list)
     stop_reason: str = ""
     first_token_ts: float = 0.0  # perf_counter() at the first token
+    # prompt tokens inherited from resident K/V at admission (a retained
+    # prefix or a sibling's shared one); answered on the wire
+    cache_hit_tokens: int = 0
     # sampler stream: 0 = allocate at admission; nonzero pins the stream
     stream_id: int = 0
     on_done: Optional[Callable[["GenRequest"], None]] = None
@@ -106,6 +135,14 @@ class GenEngine:
         seed: int = 0,
         decode_chunk: int = 8,
         device: DeviceLike = None,
+        kv_reuse: bool = True,
+        reuse_min_tokens: int = 16,
+        retain_kv_on_reload: bool = True,
+        abort_reserve_s: float = 1.0,
+        admission_window: Optional[int] = None,
+        share_prefix: bool = True,
+        group_hold_s: float = 0.05,
+        match_window: Optional[int] = None,
     ):
         self.device = resolve_device(device)
         cfg = model_config
@@ -148,19 +185,63 @@ class GenEngine:
         self.pool = KVPool(n_slots)
         self.pending: "queue.Queue[GenRequest]" = queue.Queue()
         self._lock = threading.Lock()
-        # requests drained from `pending` whose prefill is in flight: an
-        # abort_all landing meanwhile finishes them and bumps _abort_gen,
-        # so the admission pass drops them instead of resurrecting them
+        # requests drained from `pending` whose admission pass is in
+        # flight: an abort_all landing meanwhile finishes them and bumps
+        # _abort_gen, so the pass drops them instead of resurrecting them
         self._admitting: List[GenRequest] = []
+        # drained but not admitted (no slot, a reservation, a group hold);
+        # first in line at the next pass
+        self._holdback: List[GenRequest] = []
         self._abort_gen = 0
         self._next_stream = 1
         # device copy of the decode state, rebuilt when admission or a
         # free dirties the host mirrors
         self._dev_state: Optional[Dict[str, torch.Tensor]] = None
         self._state_dirty = True
+
+        # KV prefix reuse: a freed slot keeps its cache; seq_tokens mirrors
+        # each slot's cache content (prompt + generated, the pending last
+        # token included) and retained_len the valid prefix of a free slot.
+        # reuse_min_tokens is the shortest prefix worth reusing or sharing
+        self.kv_reuse = kv_reuse
+        self.reuse_min_tokens = reuse_min_tokens
+        self.retain_kv_on_reload = retain_kv_on_reload
+        self.seq_tokens = np.zeros((S, max_seq_len), np.int64)
+        self.retained_len = np.zeros(S, np.int32)
+        # weight version of the oldest K/V in each slot's valid prefix
+        self.kv_version = np.zeros(S, np.int64)
+        # abort reservations: monotonic deadline per abort-freed slot
+        self.abort_reserve_s = abort_reserve_s
+        self._reserved_until = np.zeros(S, np.float64)
+        self.admission_window = admission_window or max(64, 4 * n_slots)
+        # the lcp scan touches at most this much of the drained window
+        self.match_window = match_window or max(64, 2 * n_slots)
+        # group fan-out
+        self.share_prefix = share_prefix
+        self.group_hold_s = group_hold_s
+        self._group_first_seen: Dict[str, float] = {}
+        # no-progress guard: a pass that parked everything records the free
+        # slots and the earliest expiry, and later passes skip the rescan
+        # until something can change
+        self._parked_free: Optional[frozenset] = None
+        self._parked_until = 0.0
         self.stats = {
             "prefill_calls": 0,
-            "prefill_tokens": 0,
+            "prefill_tokens": 0,  # prompt tokens through fresh prefill
+            "suffix_calls": 0,
+            "suffix_tokens": 0,  # tokens through suffix prefill
+            "reused_tokens": 0,  # retained-prefix tokens not recomputed
+            "shared_tokens": 0,  # cluster-prefix tokens copied, not recomputed
+            "copy_calls": 0,  # suffix calls with a fused fan-out copy
+            # abort reservations that lapsed before their owner resubmitted
+            "reservations_lapsed": 0,
+            # admitted rows that inherited a resident prefix / did not;
+            # retained prefixes overwritten before any hit used them; hits
+            # whose span is a page-rounded part of a claimed donor's prefix
+            "prefix_cache_hits": 0,
+            "prefix_cache_misses": 0,
+            "prefix_cache_evictions": 0,
+            "prefix_cache_partial_hits": 0,
             "decode_calls": 0,  # decode dispatches (one per chunk)
             "decode_steps": 0,  # forward_decode calls (chunk tokens each)
             "ragged_dispatches": 0,
@@ -179,18 +260,31 @@ class GenEngine:
         self.pending.put(req)
 
     def submit_batch(self, reqs: List[GenRequest]) -> None:
-        """Enqueue a group contiguously so one admission pass sees it."""
+        """Enqueue a group contiguously, so one admission window sees every
+        member and the cluster fan-out can share their prefix; the group
+        hold (`group_hold_s`) covers members that straggle in through
+        separate submits."""
         for req in reqs:
             self.submit(req)
 
     def active_count(self) -> int:
         with self._lock:
-            return (sum(r is not None for r in self.slot_req)
-                    + len(self._admitting) + self.pending.qsize())
+            return (sum(r is not None for r in self.slot_req) + len(self._admitting)
+                    + len(self._holdback) + self.pending.qsize())
 
     def abort_all(self, reason: str = "abort") -> int:
-        """Finish every in-flight and queued request now; returns how many.
-        Callbacks run after the lock is released (they may re-enter)."""
+        """Finish every in-flight, held-back and queued request now; returns
+        how many.  Callbacks run after the lock is released (they may
+        re-enter).
+
+        Each abort-freed slot keeps its prefix, and one whose prefix is
+        longer than `reuse_min_tokens` is reserved for `abort_reserve_s`:
+        the aborted client resubmits its prompt plus the tokens it got
+        within a round trip, and a fresh prompt taking the slot first would
+        overwrite the prefix exactly when it is worth most.  The threshold
+        is strictly greater: a resubmit's match is capped below its length,
+        so a prefix of exactly `reuse_min_tokens` could never be claimed."""
+        deadline = time.monotonic() + self.abort_reserve_s
         to_finish: List[GenRequest] = []
         with self._lock:
             self._abort_gen += 1
@@ -198,8 +292,14 @@ class GenEngine:
                 if req is not None:
                     to_finish.append(req)
                     self.slot_req[s] = None
+                    self.retained_len[s] = self.lengths[s]
+                    if self.kv_reuse and self.retained_len[s] > self.reuse_min_tokens:
+                        self._reserved_until[s] = deadline
+                    self.pool.note_free(s, self.seq_tokens[s], int(self.retained_len[s]))
             to_finish.extend(self._admitting)
             self._admitting = []
+            to_finish.extend(self._holdback)
+            self._holdback = []
             while True:
                 try:
                     to_finish.append(self.pending.get_nowait())
@@ -226,20 +326,263 @@ class GenEngine:
                 streams[i] = req.stream_id
         return streams
 
+    def _apply_group_hold(self, reqs: List[GenRequest]):
+        """Park the members of a declared group (`group_id`, `group_n` > 1)
+        until the whole group shares one admission window: the fan-out can
+        only share a prefix among requests admitted together.  The hold
+        lasts at most `group_hold_s` (a sibling that already finished never
+        resubmits, so a partial group must admit eventually).  Returns
+        (requests to admit, held, hold deadlines)."""
+        if self.group_hold_s <= 0 or not any(r.group_id and r.group_n > 1 for r in reqs):
+            return reqs, [], []
+        now = time.monotonic()
+        counts: Dict[str, int] = {}
+        need: Dict[str, int] = {}
+        for req in reqs:
+            if req.group_id and req.group_n > 1:
+                counts[req.group_id] = counts.get(req.group_id, 0) + 1
+                need[req.group_id] = max(need.get(req.group_id, 0), req.group_n)
+        hold: set = set()
+        deadlines: List[float] = []
+        for gid, cnt in counts.items():
+            if cnt >= need[gid]:
+                self._group_first_seen.pop(gid, None)
+                continue
+            first = self._group_first_seen.setdefault(gid, now)
+            if now - first < self.group_hold_s:
+                hold.add(gid)
+                deadlines.append(first + self.group_hold_s)
+            else:  # the hold lapsed: admit the partial group
+                self._group_first_seen.pop(gid, None)
+        if not hold:
+            return reqs, [], []
+        held = [r for r in reqs if r.group_id in hold]
+        return [r for r in reqs if r.group_id not in hold], held, deadlines
+
+    def _plan_clusters(self, entries: List[GenRequest], matched: set) -> List[dict]:
+        """Cluster the admission window by shared prompt prefix ->
+        [{"members": [entry index], "share": tokens}].
+
+        Declared groups cluster by `group_id`; the rest by content (sorted
+        by a bounded prefix key, then runs of adjacent lcp, which is exact
+        because lcp is an ultrametric).  The shared span is capped at
+        min(len) - 1 so every sibling still prefills at least one token
+        (its last position's logits seed sampling); a cluster whose span
+        is below `reuse_min_tokens` dissolves.  Entries matched to a
+        retained slot never become siblings but may serve as the
+        representative."""
+        cand = [i for i, req in enumerate(entries)
+                if len(req.input_ids) > self.reuse_min_tokens]
+        if len(cand) < 2:
+            return []
+        by_gid: Dict[str, List[int]] = {}
+        rest: List[int] = []
+        for i in cand:
+            gid = entries[i].group_id
+            (by_gid.setdefault(gid, []) if gid else rest).append(i)
+        raw = [m for m in by_gid.values() if len(m) >= 2]
+        rest.extend(i for m in by_gid.values() if len(m) == 1 for i in m)
+        rest = rest[: self.match_window]  # bound the host-side sort and scan
+        if len(rest) >= 2:
+            rest.sort(key=lambda i: tuple(entries[i].input_ids[:64]))
+            run = [rest[0]]
+            run_share: Optional[int] = None
+            for prev, cur in zip(rest, rest[1:]):
+                lcp = lcp_ids(entries[prev].input_ids, entries[cur].input_ids)
+                tentative = lcp if run_share is None else min(run_share, lcp)
+                if tentative >= self.reuse_min_tokens:
+                    run.append(cur)
+                    run_share = tentative
+                else:
+                    if len(run) >= 2:
+                        raw.append(run)
+                    run = [cur]
+                    run_share = None
+            if len(run) >= 2:
+                raw.append(run)
+        clusters: List[dict] = []
+        for members in raw:
+            ids0 = entries[members[0]].input_ids
+            share = min(lcp_ids(ids0, entries[i].input_ids) for i in members[1:])
+            share = min(share, min(len(entries[i].input_ids) for i in members) - 1)
+            # a cluster of retained-matched members only has nothing to fan out
+            if share >= self.reuse_min_tokens and any(i not in matched for i in members):
+                clusters.append({"members": sorted(members), "share": share})
+        return clusters
+
     def _admit(self) -> None:
-        """Fill every free slot (lowest first) from the pending queue."""
+        """Admit from the held-back requests and a window of the queue.
+
+        1. Group hold: members of a declared group wait (`group_hold_s` at
+           most) until the whole group is in the window.
+        2. Reuse: with `kv_reuse`, the first `match_window` requests are
+           matched against every free slot's retained prefix through the
+           radix index; pairs assign greedily, longest lcp first (ties by
+           arrival), and each match prefills only its suffix.  A request
+           whose best donor a longer match claimed inherits the donor's
+           prefix rounded down to a page (with `share_prefix`).
+        3. Fan-out: with `share_prefix`, the rest cluster by shared prefix;
+           one representative per cluster prefills it (fresh, or riding
+           its own retained match), the siblings get a copy of its K/V and
+           prefill only their remainder.
+        4. Fresh prompts take the free slots that no reservation holds,
+           least-valuable retained prefix first; what finds no slot is held
+           back for the next pass.
+
+        The fresh rows prefill in one call, then the retained and shared
+        rows in one suffix call with the fan-out copy fused in (by then
+        every copy source holds its prefix).  A pass that admitted nothing
+        parks the rescan until a reservation or hold expires, a slot frees
+        or a request arrives.  An `abort_all` landing mid-pass finished
+        every request of the pass (they sit in `_admitting`), and the pass
+        drops them instead of admitting them behind their callback."""
+        free = [s for s in range(self.n_slots) if self.slot_req[s] is None]
+        if not free:
+            return
+        if self._parked_free is not None:
+            if (not self.pending.qsize() and time.monotonic() < self._parked_until
+                    and frozenset(free) == self._parked_free):
+                return
+            self._parked_free = None
         with self._lock:
-            free = [s for s in range(self.n_slots) if self.slot_req[s] is None]
-            batch: List[GenRequest] = []
-            while len(batch) < len(free):
+            abort_gen = self._abort_gen
+            entries, self._holdback = self._holdback, []
+            while len(entries) < self.admission_window:
                 try:
-                    batch.append(self.pending.get_nowait())
+                    entries.append(self.pending.get_nowait())
                 except queue.Empty:
                     break
-            self._admitting = list(batch)
-            abort_gen = self._abort_gen
-        if batch:
-            self._admit_fresh_batch(list(zip(free, batch)), abort_gen)
+            self._admitting = list(entries)
+        if not entries:
+            return
+        held: List[GenRequest] = []
+        group_deadlines: List[float] = []
+        if self.share_prefix:
+            entries, held, group_deadlines = self._apply_group_hold(entries)
+
+        admitted: List[Tuple[int, GenRequest]] = []  # fresh rows (slot, req)
+        # suffix rows (slot, req, start, kv_src, shared)
+        reuse_admitted: List[tuple] = []
+        shared_admitted: List[tuple] = []
+        free_set = set(free)
+        matched: set = set()
+        slot_of_entry: Dict[int, Tuple[int, int]] = {}  # entry -> (slot, lcp)
+        cands: List[Tuple[int, int, int]] = []  # (-lcp, entry, slot)
+        dev_claimed: set = set()
+        if self.kv_reuse:
+            cand_set = {s for s in free if self.retained_len[s] >= self.reuse_min_tokens}
+            if cand_set:
+                for i, req in enumerate(entries[: self.match_window]):
+                    # capped at len - 1: one suffix token at least runs
+                    # through prefill (its logits seed sampling)
+                    limit = len(req.input_ids) - 1
+                    for s, lcp in self.pool.match_device(req.input_ids).items():
+                        if s not in cand_set:
+                            continue
+                        toks = self.pool.device_tokens(s)
+                        if toks is None or len(toks) != int(self.retained_len[s]):
+                            continue  # a stale index entry costs a hit, never fakes one
+                        lcp = min(int(lcp), limit)
+                        if lcp >= self.reuse_min_tokens:
+                            cands.append((-lcp, i, s))
+                cands.sort()
+                for neg, i, s in cands:
+                    if i in matched or s not in free_set:
+                        continue
+                    matched.add(i)
+                    free_set.remove(s)
+                    dev_claimed.add(s)
+                    slot_of_entry[i] = (s, -neg)
+                    reuse_admitted.append((s, entries[i], -neg, s, False))
+        # a request whose best match lost its donor to a longer match
+        # inherits the donor's prefix up to a page boundary: the donor is
+        # claimed this pass (its K/V survives until the suffix call) and
+        # its winner writes only from its own lcp >= the span on
+        partial_of: Dict[int, Tuple[int, int]] = {}  # entry -> (donor, span)
+        if self.share_prefix and dev_claimed:
+            page = self.prompt_bucket
+            for neg, i, s in cands:  # longest first
+                if i in matched or i in partial_of or s not in dev_claimed:
+                    continue
+                span = ((-neg) // page) * page
+                if span >= self.reuse_min_tokens:
+                    partial_of[i] = (s, span)
+
+        clusters = self._plan_clusters(entries, matched) if self.share_prefix else []
+        cluster_of: Dict[int, int] = {}
+        for cid, cl in enumerate(clusters):
+            for i in cl["members"]:
+                cluster_of[i] = cid
+                # a retained-matched member represents the cluster: nobody
+                # recomputes the prefix, and the share is capped at its lcp,
+                # valid in its row before the suffix call runs
+                if "rep_slot" not in cl and i in slot_of_entry:
+                    s, lcp = slot_of_entry[i]
+                    cl["rep_slot"] = s
+                    cl["share"] = min(cl["share"], lcp)
+
+        now = time.monotonic()
+        for s in free_set:
+            if 0.0 < self._reserved_until[s] <= now:  # the owner never came back
+                self._reserved_until[s] = 0.0
+                self.stats["reservations_lapsed"] += 1
+        open_slots = sorted((s for s in free_set if self._reserved_until[s] <= now),
+                            key=lambda s: int(self.retained_len[s]))
+        leftover: List[GenRequest] = list(held)
+        for i, req in enumerate(entries):
+            if i in matched:
+                continue
+            if not open_slots:
+                leftover.append(req)
+                if req.group_id:
+                    # the group had its window; its leftover members admit
+                    # at the next pass instead of waiting out another hold
+                    self._group_first_seen[req.group_id] = 0.0
+                continue
+            s = open_slots.pop(0)
+            cid = cluster_of.get(i)
+            if cid is not None and clusters[cid].get("rep_slot") is not None:
+                shared_admitted.append(
+                    (s, req, clusters[cid]["share"], clusters[cid]["rep_slot"], True))
+            elif i in partial_of:
+                donor, span = partial_of[i]
+                self.stats["prefix_cache_partial_hits"] += 1
+                shared_admitted.append((s, req, span, donor, True))
+            else:
+                admitted.append((s, req))
+                if cid is not None:  # the first member with a slot represents
+                    clusters[cid]["rep_slot"] = s
+        with self._lock:
+            if self._abort_gen != abort_gen:
+                return  # abort_all finished every request of this pass
+            self._holdback = leftover + self._holdback
+            self._admitting = ([r for _, r in admitted]
+                               + [r for _, r, *_ in reuse_admitted + shared_admitted])
+        if leftover and not (admitted or reuse_admitted or shared_admitted):
+            expiries = [float(self._reserved_until[s]) for s in free
+                        if self._reserved_until[s] > now] + group_deadlines
+            self._parked_free = frozenset(free)
+            self._parked_until = min(expiries) if expiries else now + 0.05
+        self.stats["prefix_cache_hits"] += len(reuse_admitted) + len(shared_admitted)
+        self.stats["prefix_cache_misses"] += len(admitted)
+        if admitted:
+            self._admit_fresh_batch(admitted, abort_gen)
+        if reuse_admitted or shared_admitted:
+            self._admit_suffix_batch(reuse_admitted + shared_admitted, abort_gen)
+
+    def _settle_admitted(self, rows: List[tuple], abort_gen: int) -> bool:
+        """Under _lock, after a prefill of `rows` ((slot, req, ...)): False
+        when an abort_all finished them meanwhile, after forgetting the
+        slots' retained prefixes (the prefill overwrote them); True when
+        they may take their slots (and leave `_admitting`)."""
+        if self._abort_gen != abort_gen:
+            for s, *_ in rows:
+                self.retained_len[s] = 0
+                self.pool.drop_device(s)
+            return False
+        mine = {id(r) for _, r, *_ in rows}
+        self._admitting = [r for r in self._admitting if id(r) not in mine]
+        return True
 
     def _admit_fresh_batch(self, admitted: List[tuple], abort_gen: int) -> None:
         """Full prefill of the admitted prompts in ONE bucketed call (pow2
@@ -278,10 +621,12 @@ class GenEngine:
         self.stats["prefill_calls"] += 1
         self.stats["prefill_tokens"] += int(plens[: len(admitted)].sum())
         with self._lock:
-            if self._abort_gen != abort_gen:
-                return  # abort_all already finished these requests
-            self._admitting = []
+            if not self._settle_admitted(admitted, abort_gen):
+                return
             for i, (s, req) in enumerate(admitted):
+                # a retained prefix nobody matched is overwritten here
+                if self.pool.drop_device(s):
+                    self.stats["prefix_cache_evictions"] += 1
                 self.slot_req[s] = req
                 self.lengths[s] = plens[i]
                 self.last_tokens[s] = toks[i]
@@ -289,8 +634,97 @@ class GenEngine:
                 self.top_p[s] = req.top_p
                 self.top_k[s] = req.top_k
                 self.stream_ids[s] = streams[i]
+                self.retained_len[s] = 0
+                self._reserved_until[s] = 0.0
+                self.kv_version[s] = self.version
+                self.seq_tokens[s, :plens[i]] = req.input_ids
             self._state_dirty = True
         for i, (s, req) in enumerate(admitted):
+            self._record_token(s, int(toks[i]), float(logps[i]))
+
+    def _admit_suffix_batch(self, batch: List[tuple], abort_gen: int) -> None:
+        """Suffix-only prefill into slots whose cache holds (or is about to
+        receive) the prompt's prefix: ONE bucketed `forward_prefill_cached`
+        call.  Rows are (slot, req, start, kv_src, shared): `start` prompt
+        tokens are inherited, from `kv_src`'s cache (the slot itself for a
+        retained prefix, the cluster's representative or a donor for a
+        shared one, copied by the fused fan-out copy).  The slot's
+        `kv_version` becomes the oldest of kv_src's and the current one;
+        `shared` picks the counter of the inherited tokens."""
+        bucket = round_up_to_bucket(
+            max(len(r.input_ids) - start for _, r, start, _, _ in batch),
+            self.prompt_bucket, self.max_seq_len,
+        )
+        S = 1 << (len(batch) - 1).bit_length()
+        ids = np.zeros((S, bucket), np.int64)
+        starts = np.zeros(S, np.int64)
+        slens = np.ones(S, np.int64)
+        slot_rows = np.full(S, self.n_slots, np.int64)
+        copy_src = np.full(S, self.n_slots, np.int64)  # pad: scratch
+        temp = np.ones(S, np.float32)
+        top_p = np.ones(S, np.float32)
+        top_k = np.zeros(S, np.int64)
+        max_shared = 0
+        for i, (s, req, start, kv_src, shared) in enumerate(batch):
+            suffix = req.input_ids[start:]
+            ids[i, :len(suffix)] = suffix
+            starts[i] = start
+            slens[i] = len(suffix)
+            slot_rows[i] = self.pool.row(s)
+            copy_src[i] = self.pool.row(kv_src)
+            temp[i], top_p[i], top_k[i] = req.temperature, req.top_p, req.top_k
+            if shared:
+                max_shared = max(max_shared, start)
+        # the fan-out span on the bucket ladder; 0 (no shared row) skips it
+        copy_block = (round_up_to_bucket(max_shared, self.prompt_bucket, self.max_seq_len)
+                      if max_shared else 0)
+        n = len(batch)
+        key_window = round_up_to_bucket(int((starts[:n] + slens[:n]).max()),
+                                        self.prompt_bucket, self.max_seq_len)
+        streams = self._assign_streams([r for _, r, *_ in batch], S)
+        dev = self.device
+
+        def put(a):
+            return torch.from_numpy(a).to(dev)
+
+        logits, _ = forward_prefill_cached(
+            self.model, put(ids), put(starts), put(slens), self.cache, put(slot_rows),
+            copy_src=put(copy_src), copy_block=copy_block, key_window=key_window,
+        )
+        keys = stream_keys(self._root_key, put(streams), put(starts + slens - 1))
+        toks, logps = sample_tokens_keyed(logits.float(), keys, put(temp), put(top_k),
+                                          put(top_p))
+        out = torch.stack([toks.double(), logps.double()]).cpu().numpy()  # one download
+        toks, logps = out[0].astype(np.int64), out[1]
+        self.stats["suffix_calls"] += 1
+        if copy_block:
+            self.stats["copy_calls"] += 1
+        self.stats["suffix_tokens"] += int(slens[:n].sum())
+        for _, _, start, _, shared in batch:
+            self.stats["shared_tokens" if shared else "reused_tokens"] += int(start)
+        with self._lock:
+            if not self._settle_admitted(batch, abort_gen):
+                return
+            for i, (s, req, start, kv_src, shared) in enumerate(batch):
+                # the slot's index entry retires: used by its own hit, or
+                # overwritten by a shared row landing on it (an eviction)
+                if self.pool.drop_device(s) and shared:
+                    self.stats["prefix_cache_evictions"] += 1
+                req.cache_hit_tokens = int(start)
+                n_total = len(req.input_ids)
+                self.slot_req[s] = req
+                self.lengths[s] = n_total
+                self.last_tokens[s] = toks[i]
+                self.temperature[s] = req.temperature
+                self.top_p[s] = req.top_p
+                self.top_k[s] = req.top_k
+                self.stream_ids[s] = streams[i]
+                self.retained_len[s] = 0
+                self._reserved_until[s] = 0.0
+                self.kv_version[s] = min(int(self.kv_version[kv_src]), self.version)
+                self.seq_tokens[s, :n_total] = req.input_ids
+            self._state_dirty = True
+        for i, (s, req, *_) in enumerate(batch):
             self._record_token(s, int(toks[i]), float(logps[i]))
 
     def _record_token(self, s: int, tok: int, logp: float) -> None:
@@ -303,6 +737,8 @@ class GenEngine:
         req.output_tokens.append(tok)
         req.output_logprobs.append(logp)
         req.output_versions.append(self.version)
+        # its K/V lands at cache position lengths[s] at the next decode step
+        self.seq_tokens[s, min(int(self.lengths[s]), self.max_seq_len - 1)] = tok
         n_out = len(req.output_tokens)
         hit_stop = tok in self._stop_ids(req) and n_out >= req.min_new_tokens
         if hit_stop:
@@ -315,12 +751,23 @@ class GenEngine:
         return req.stop_token_ids or ([eos] if eos is not None else [])
 
     def _free(self, s: int, reason: str) -> None:
+        """Release slot `s`, keeping its cache-backed prefix (positions <
+        lengths: the pending last token's K/V was never written)."""
         with self._lock:
             req = self.slot_req[s]
             self.slot_req[s] = None
+            self.retained_len[s] = self.lengths[s]
+            self.pool.note_free(s, self.seq_tokens[s], int(self.retained_len[s]))
             self._state_dirty = True
         if req is not None:
             req.finish(reason)
+
+    def prefix_cache_hit_rate(self) -> float:
+        """Admitted rows that inherited a resident prefix (retained or
+        shared) over all admitted rows."""
+        h = self.stats["prefix_cache_hits"]
+        m = self.stats["prefix_cache_misses"]
+        return h / (h + m) if (h + m) else 0.0
 
     # ------------------------------------------------------------------
     # decode
@@ -428,11 +875,16 @@ class GenEngine:
                 req.output_tokens.extend(toks[:k, s].tolist())
                 req.output_logprobs.extend(logps[:k, s].tolist())
                 req.output_versions.extend([version] * k)
+                # delivered tokens sit at cache positions L+1 .. L+k (the
+                # pending token's K/V was written at L this chunk)
+                self.seq_tokens[s, L + 1:L + 1 + k] = toks[:k, s]
                 self.lengths[s] = L + k
                 self.last_tokens[s] = toks[k - 1, s]
                 delivered += k
                 if reason:
                     self.slot_req[s] = None
+                    self.retained_len[s] = self.lengths[s]
+                    self.pool.note_free(s, self.seq_tokens[s], int(self.retained_len[s]))
                     to_finish.append((req, reason))
             if to_finish:
                 self._state_dirty = True
@@ -463,8 +915,9 @@ class GenEngine:
     def load_weights(self, path: Optional[str] = None, model: Optional[Transformer] = None,
                      version: Optional[int] = None) -> int:
         """Swap weights, aborting in-flight generation first (clients
-        resubmit, and the new prefill recomputes under the new policy), then
-        hand the new model to `swap_weights_live`.  The weights are `model`
+        resubmit, and the resubmits reuse their retained prefixes unless
+        `retain_kv_on_reload=False`), then hand the new model to
+        `swap_weights_live`.  The weights are `model`
         (in memory, on the engine's device) or read from `path`: a
         checkpoint dir or a trainer's snapshot root (the newest `v{N}`, or
         exactly `v{version}` when that exists), in which case a missing
@@ -509,9 +962,12 @@ class GenEngine:
         weights from the next dispatch on; their per-token
         `output_versions` record the transition, which is the mixed-version
         trajectory the decoupled loss's behaviour weight consumes.  KV
-        computed under the old weights stays.  The port keeps no retained
-        prefixes (prefix reuse is not ported), so unlike the reference there
-        is no `retained_len`/`kv_version` bookkeeping to invalidate here.
+        computed under the old weights stays, and so do the retained and
+        shared prefixes of free slots, which later admissions reuse
+        (`kv_version` keeps each slot's oldest version).  With
+        `retain_kv_on_reload=False` (strict mode, on every swap path) no
+        prefix survives: `retained_len` and the reservations are zeroed,
+        the radix index cleared and `kv_version` set to the new version.
 
         `model` is served as it is, not copied: the caller hands over
         tensors nobody else writes (`TorchTrainEngine.export_device_params`
@@ -521,6 +977,11 @@ class GenEngine:
         version: `version`, or the old one plus one."""
         self._adopt(model)
         self.version = int(version) if version is not None else self.version + 1
+        if not self.retain_kv_on_reload:
+            self.retained_len[:] = 0
+            self._reserved_until[:] = 0.0
+            self.kv_version[:] = self.version
+            self.pool.clear()
         return self.version
 
     def release_memory(self, drop_params: bool = True) -> None:
@@ -532,6 +993,10 @@ class GenEngine:
         with self._lock:
             self._dev_state = None  # rebuilt from the host mirrors at restage
             self._state_dirty = True
+        # the cache is gone: no prefix survives
+        self.retained_len[:] = 0
+        self._reserved_until[:] = 0.0
+        self.kv_version[:] = self.version
         self.pool.clear()
         if drop_params:
             self.model = None
@@ -557,6 +1022,9 @@ class GenEngine:
         for r in reqs:
             self.submit(r)
         while any(not r.stop_reason for r in reqs):
-            if self.step() == 0 and self.active_count() == 0:
-                break
+            if self.step() == 0:
+                # queued work may wait behind a reservation or a group hold
+                if self.active_count() == 0:
+                    break
+                time.sleep(0.001)
         return reqs

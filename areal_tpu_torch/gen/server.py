@@ -34,10 +34,19 @@ one per token position; the reference's server counted decode chunks,
 which the port reports as `decode_calls`), `decode_calls`,
 `tokens_generated`, `active`, `version`, `last_pause_s` (the decode
 loop's idle window in the last weight swap), `staged` (a transfer is
-assembled and waits for its commit), `ragged_dispatches`,
+assembled and waits for its commit), the prefill accounting
+(`prefill_tokens` cold, `suffix_tokens`, `reused_tokens` from retained
+prefixes, `shared_tokens` from a group's fanned-out prefix, `copy_calls`)
+and `reservations_lapsed` (abort reservations whose owner did not
+resubmit in time), `ragged_dispatches`,
 `ragged_attended_pages`, `ragged_kernel_launches` (launches of the ragged
 decode kernel in this process, 0 on the CPU) and, on the card,
 `max_memory_allocated` in bytes.  The Prometheus format is not ported.
+
+A request's `group_id`/`group_n` reach the engine, which holds and
+clusters a GRPO group to prefill its prompt once; each answer carries its
+`cache_hit_tokens`, the prompt tokens that came from resident K/V.  The
+server runs the engine's defaults: prefix reuse and sharing on.
 
 `http.server.ThreadingHTTPServer` handles each connection on its own
 thread; a dedicated worker thread owns the engine and the device's decode
@@ -217,6 +226,12 @@ class GenServer:
             "version": self.engine.version,
             "last_pause_s": self.last_pause_s,
             "staged": staged,
+            "prefill_tokens": stats["prefill_tokens"],
+            "suffix_tokens": stats["suffix_tokens"],
+            "reused_tokens": stats["reused_tokens"],
+            "shared_tokens": stats["shared_tokens"],
+            "copy_calls": stats["copy_calls"],
+            "reservations_lapsed": stats["reservations_lapsed"],
             "ragged_dispatches": stats["ragged_dispatches"],
             "ragged_attended_pages": stats["ragged_attended_pages"],
             "ragged_kernel_launches": ragged_paged_attention.launches,
@@ -232,6 +247,8 @@ class GenServer:
         return GenRequest(
             rid=body.get("rid", ""),
             trace_id=str(body.get("trace_id", "") or ""),
+            group_id=str(body.get("group_id", "") or ""),
+            group_n=int(body.get("group_n", 0) or 0),
             input_ids=[int(t) for t in body["input_ids"]],
             max_new_tokens=int(sp.get("max_new_tokens", 256)),
             min_new_tokens=int(sp.get("min_new_tokens", 0)),
@@ -252,9 +269,9 @@ class GenServer:
             "stop_reason": r.stop_reason or "stop",
             "version": version,
             "trace_id": r.trace_id,
-            # prefix reuse is not ported: no prompt token comes from
-            # resident K/V
-            "cache_hit_tokens": 0,
+            # prompt tokens served from resident K/V (a retained prefix or
+            # a sibling's shared one): a resubmit can see its warm start
+            "cache_hit_tokens": r.cache_hit_tokens,
             "stream_id": r.stream_id,
         }
 

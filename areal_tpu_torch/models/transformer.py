@@ -1,5 +1,6 @@
 """Decoder-only transformer (the port of `areal_tpu/models/transformer.py`):
-the serving half (KV-cache prefill and ragged decode) and the training half
+the serving half (KV-cache prefill, suffix prefill over a cached prefix,
+ragged decode) and the training half
 (segment-masked forward over packed rows with a deferred LM head).
 
 The JAX package keeps parameters as a scan-stacked pytree; the port keeps
@@ -14,8 +15,8 @@ The public functions keep the JAX package's layouts, so tests compare like
 with like: q is [B, T, Hq, hd], the KV cache is a dict of
 [L, S, M, Hkv, hd] tensors, the page table is an int32 `rows` array, and
 the deferred head is [D, V].  Unlike JAX's pure functions,
-`forward_prefill` and `forward_decode` write the cache IN PLACE (and
-return the same dict).
+`forward_prefill`, `forward_prefill_cached` and `forward_decode` write the
+cache IN PLACE (and return the same dict).
 
 Training attention (`_backbone`, through `ops.attention`'s
 `make_segment_attention`) takes the flash kernels when `flash_supported`
@@ -43,6 +44,7 @@ from areal_tpu_torch.ops.attention import (
     make_segment_attention,
     naive_attention,
 )
+from areal_tpu_torch.ops.kv_copy import copy_kv_prefix
 from areal_tpu_torch.ops.ragged_decode import ragged_paged_attention
 
 Cache = Dict[str, torch.Tensor]
@@ -305,6 +307,69 @@ def forward_prefill(
 
         x = layer(x, cos, sin, attend)
     last = torch.clamp(prompt_lens.long() - 1, min=0)
+    x = x[torch.arange(S, device=dev), last]
+    return model.logits(x), cache
+
+
+@torch.no_grad()
+def forward_prefill_cached(
+    model: Transformer,
+    input_ids: torch.Tensor,  # [S, P] padded SUFFIX tokens
+    starts: torch.Tensor,  # int [S]: cache position where each suffix begins
+    suffix_lens: torch.Tensor,  # int [S]: real suffix tokens per row
+    cache: Cache,
+    slot_ids: torch.Tensor,  # int [S]: physical cache row of each row
+    copy_src: Optional[torch.Tensor] = None,  # int [S]: prefix-KV source row
+    copy_block: int = 0,  # bucketed copy length (0: no fan-out copy)
+    key_window: Optional[int] = None,  # bucketed attended span
+) -> Tuple[torch.Tensor, Cache]:
+    """Prefill only a suffix of each row, attending over the row's cached
+    prefix [0, starts) plus the causal suffix: the engine's KV prefix reuse.
+    Returns (last-real-token logits [S, V], cache), the cache written in
+    place.
+
+    With `copy_src`/`copy_block`, each row's prefix K/V [0, copy_block) is
+    first copied from row `copy_src[row]` (`ops.kv_copy.copy_kv_prefix`, one
+    gather and one scatter per K and V), so GRPO siblings ride their
+    representative's prefix in the same call; a row that reuses its own
+    retained prefix passes itself as the source.  The caller guarantees
+    every source row's [0, starts) is valid before the call.
+
+    Attention reads the span [0, K), K = `key_window` (a bucketed bound on
+    the deepest row's start + suffix; M when omitted), through
+    `naive_attention`, as the JAX path does.  Suffix positions past the
+    cache's end (padding of a row near the end) are dropped by the JAX
+    scatter; here they are written into the last cache row, the engine's
+    scratch row, which no real row reads."""
+    cfg = model.cfg
+    S, P = input_ids.shape
+    dev = input_ids.device
+    M = cache["k"].shape[2]
+    slot_ids = slot_ids.long()
+    if copy_block and copy_src is not None:
+        copy_kv_prefix(cache, copy_src, slot_ids, copy_block)
+    K = min(key_window, M) if key_window else M
+    positions = starts.long()[:, None] + torch.arange(P, device=dev)[None, :]  # [S, P]
+    cos, sin = rope_cos_sin(positions, cfg.head_dim_, cfg.rope_theta)
+    x = model.embed(input_ids)
+    # q at global position g attends cache positions <= g; padding rows
+    # (offsets >= suffix_lens) compute values that are never read
+    mask = (torch.arange(K, device=dev)[None, None, :] <= positions[:, :, None])[:, None]
+    in_range = positions < M
+    wrows = torch.where(in_range, slot_ids[:, None], cache["k"].shape[1] - 1)
+    wpos = torch.where(in_range, positions, 0)
+    for i, layer in enumerate(model.model.layers):
+        ck, cv = cache["k"][i], cache["v"][i]
+
+        def attend(q, k, v, ck=ck, cv=cv):
+            ck[wrows, wpos] = k.to(ck.dtype)
+            cv[wrows, wpos] = v.to(cv.dtype)
+            kr = ck[slot_ids, :K].to(q.dtype)
+            vr = cv[slot_ids, :K].to(q.dtype)
+            return naive_attention(q, kr, vr, mask)
+
+        x = layer(x, cos, sin, attend)
+    last = torch.clamp(suffix_lens.long() - 1, min=0)
     x = x[torch.arange(S, device=dev), last]
     return model.logits(x), cache
 

@@ -35,10 +35,28 @@ trainer streams and stages its bf16 weights while the server generates
 idle time in the swap (`/metrics last_pause_s`).
 
 Both transports share `_measure_loop`, so the two measure the same thing.
-The port has no prefix sharing or group fan-out yet, so this is the JAX
-bench's `--share-prefix off`.  Left out: multi-turn workflows, the
-gsm8k-synth dataset mode, `--len-jitter`, latency percentiles, telemetry
-and recovery.
+As in the JAX bench, the engine runs with prefix reuse and group fan-out
+(`--share-prefix on`, the default: a GRPO group's prompt prefills once and
+its K/V is copied to the siblings); `--share-prefix off` keeps per-slot
+retained reuse only, for A/B runs (colocated only: the server process,
+like the JAX server, has no such flag).  The workload options of the JAX
+bench:
+
+- `--len-jitter J`: each prompt gets a log-uniform generation budget in
+  [max_new / (1 + J), max_new], the length spread of real math workloads
+  that async absorbs and sync pays as a straggler tail;
+- `--dataset gsm8k-synth`: the in-repo GSM8K generator, its
+  `WordTokenizer` and the real `gsm8k_reward_fn`;
+- `--workflow multi_turn --max-turns N`: retry-until-correct episodes
+  (`MultiTurnWorkflow`, a grader that accepts about a third of the turns),
+  whose later turns ride retained prefix reuse; advantages normalise over
+  the batch.
+
+Every mode reports the client's per-request latency distributions
+(`latency`: e2e, TTFT and inter-token seconds, p50/p90/p99, warmup
+requests left out when the timed window has its own) and its prefill
+accounting (`prefill`: cold, suffix, reused and shared tokens, fan-out
+copies).  Left out: telemetry, chaos and recovery.
 
 Prints ONE JSON line: {"sync": {...}, "async": {...},
 "async_over_sync_trajs_per_sec": R, ...}.
@@ -56,6 +74,81 @@ from typing import Any, Dict, List
 import numpy as np
 
 MODELS = ("qwen2.5-1.5b", "tiny")
+# the engine counters of the prefill accounting, per mode
+PREFILL_KEYS = ("prefill_tokens", "suffix_tokens", "reused_tokens", "shared_tokens",
+                "copy_calls")
+
+
+class _LatencyRecorder:
+    """Per-request client latencies (`ModelResponse.latency` and `.ttft`)
+    over a measured mode, for p50/p99 distributions."""
+
+    def __init__(self):
+        self.samples = []
+        self._mark = 0
+
+    def reset(self):
+        self.samples = []
+        self._mark = 0
+
+    def mark(self):
+        # the warmup boundary: later samples are preferred, the earlier ones
+        # stay as a fallback (prepare_batch keeps batches in flight, so a
+        # short run may consume only episodes that finished in its warmup)
+        self._mark = len(self.samples)
+
+    def record(self, resp):
+        self.samples.append((float(resp.latency), float(resp.ttft), int(resp.output_len)))
+
+    def summary(self):
+        from areal_tpu_torch.obs.trace import dist_summary
+
+        post = self.samples[self._mark:]
+        use = post or self.samples
+        if not use:
+            return None
+        inf = float("inf")
+        return {
+            "n": len(use),
+            "includes_warmup": not post,
+            "e2e_s": dist_summary(s[0] for s in use if s[0] != inf),
+            "ttft_s": dist_summary(s[1] for s in use if s[1] != inf),
+            "inter_token_s": dist_summary(
+                (lat - tf) / (n - 1) for lat, tf, n in use if lat != inf and tf != inf and n > 1),
+        }
+
+
+class _RecordingEngine:
+    """Engine proxy that forwards everything and records each agenerate."""
+
+    def __init__(self, inner, recorder):
+        self._inner = inner
+        self._recorder = recorder
+
+    def __getattr__(self, name):
+        return getattr(self._inner, name)
+
+    async def agenerate(self, req):
+        resp = await self._inner.agenerate(req)
+        self._recorder.record(resp)
+        return resp
+
+
+class _RecordingWorkflow:
+    """Workflow wrapper that hands its episodes the recording engine; both
+    `WorkflowExecutor` and `rollout_batch` drive episodes through
+    `workflow.arun_episode(engine, data)`, so it serves every transport and
+    mode."""
+
+    def __init__(self, inner, recorder):
+        self._inner = inner
+        self._recorder = recorder
+
+    def __getattr__(self, name):
+        return getattr(self._inner, name)
+
+    async def arun_episode(self, engine, data):
+        return await self._inner.arun_episode(_RecordingEngine(engine, self._recorder), data)
 
 
 def _reward_any_even(prompt, completions, prompt_ids, completion_ids, **kw):
@@ -68,6 +161,25 @@ def _reward_last_even(prompt, completions, prompt_ids, completion_ids, **kw):
     is 1 for nearly every long completion, so a group's advantages are all
     0 and an update moves nothing; this one varies within a group."""
     return float(bool(completion_ids) and completion_ids[-1] % 2 == 0)
+
+
+def _reward_mt(prompt, completions, prompt_ids, completion_ids, **kw):
+    """The multi-turn grader: about a third of the turns "solve" the task,
+    so episodes span 1..max_turns turns."""
+    return float(sum(completion_ids) % 3 == 0)
+
+
+class _FakeTokenizer:
+    """Just enough of a tokenizer for MultiTurnWorkflow on token prompts."""
+
+    def decode(self, tokens):
+        return " ".join(str(t) for t in tokens)
+
+    def encode(self, text, add_special_tokens=False):
+        return [3] * 6  # a fixed-size feedback suffix
+
+    def apply_chat_template(self, messages, add_generation_prompt=True, tokenize=True):
+        raise NotImplementedError("the bench feeds token prompts")
 
 
 def _make_actor(model: str, max_seq_len: int, group_size: int, batch_norm: bool = False,
@@ -122,9 +234,10 @@ def _make_actor(model: str, max_seq_len: int, group_size: int, batch_norm: bool 
 
 def _make_parts(model: str, n_slots: int, max_seq_len: int, group_size: int,
                 batch_norm: bool = False, model_path: str = "", device=None,
-                lr: float = 1e-6):
+                lr: float = 1e-6, share_prefix: bool = True):
     """(actor, serving, model config): the trainer and a colocated engine
-    serving copies of its weights (bf16 for `qwen2.5-1.5b`)."""
+    serving copies of its weights (bf16 for `qwen2.5-1.5b`), with group
+    fan-out when `share_prefix`."""
     from areal_tpu_torch.engine.colocated import ColocatedEngine
 
     actor, cfg = _make_actor(model, max_seq_len, group_size, batch_norm, model_path,
@@ -138,6 +251,7 @@ def _make_parts(model: str, n_slots: int, max_seq_len: int, group_size: int,
         decode_chunk=8,
         kv_dtype=cfg.dtype,
         device=actor.device,
+        share_prefix=share_prefix,
     )
     return actor, serving, cfg
 
@@ -211,10 +325,11 @@ def _version_lag(batch, version: int):
 
 
 def _measure_loop(mode: str, actor, get_batch, publish, steps: int, warmup: int,
-                  train_phase=contextlib.nullcontext):
+                  train_phase=contextlib.nullcontext, recorder=None):
     """The timed region shared by both modes: rollout -> train (inside
     `train_phase()`) -> version bump -> publish, with the warmup steps
-    outside the timed window."""
+    outside the timed window (and, with a `recorder`, outside the latency
+    distributions when the timed steps have requests of their own)."""
     trajs = tokens = 0
     pauses: List[float] = []
     rewards: List[float] = []
@@ -226,11 +341,15 @@ def _measure_loop(mode: str, actor, get_batch, publish, steps: int, warmup: int,
     ahead = -(1 << 30)
     gap_sum, gap_n = 0.0, 0
     t_start = None
+    if recorder is not None:
+        recorder.reset()
     for step in range(warmup + steps):
         if step == warmup:
             _sync(actor)
             trajs = tokens = 0
             pauses, rewards, adv_abs, rollout_s, train_s = [], [], [], [], []
+            if recorder is not None:
+                recorder.mark()
             t_start = time.perf_counter()
         t0 = time.perf_counter()
         batch = get_batch()
@@ -276,6 +395,7 @@ def _measure_loop(mode: str, actor, get_batch, publish, steps: int, warmup: int,
         "max_version_ahead": ahead,
         "same_version_logp_gap_mean": gap_sum / max(gap_n, 1),
         "same_version_tokens": gap_n,
+        "latency": recorder.summary() if recorder is not None else None,
     }
 
 
@@ -296,9 +416,13 @@ class _VersionsFrom:
         return self._inner.get_version() - self._origin
 
 
+def _prefill_delta(before: Dict[str, Any], after: Dict[str, Any]) -> Dict[str, int]:
+    return {k: int(after[k]) - int(before[k]) for k in PREFILL_KEYS}
+
+
 def run_mode(mode: str, actor, serving, workflow, dataset, batch_size: int,
              steps: int, warmup: int = 1, interrupt_publish: bool = False,
-             max_head_offpolicyness: int = 4) -> Dict[str, Any]:
+             max_head_offpolicyness: int = 4, recorder=None) -> Dict[str, Any]:
     """One mode over `warmup + steps` steps; see the module docstring."""
     from areal_tpu_torch.api.config import InferenceEngineConfig
     from areal_tpu_torch.core.executor import WorkflowExecutor
@@ -348,11 +472,13 @@ def run_mode(mode: str, actor, serving, workflow, dataset, batch_size: int,
                                                 interrupt=interrupt_publish)
 
     timeouts, failures = workflow.reward_fn.timeouts, workflow.reward_fn.failures
+    stats0 = dict(serving.engine.stats)
     try:
         # sync: serving parked and released while the trainer steps
         result = _measure_loop(
             mode, actor, get_batch, publish, steps, warmup,
-            train_phase=serving.train_phase if mode == "sync" else contextlib.nullcontext)
+            train_phase=serving.train_phase if mode == "sync" else contextlib.nullcontext,
+            recorder=recorder)
         if executor is not None:
             st = executor.staleness_manager.get_stats()
             result["ledger"] = {"submitted": st.submitted, "accepted": st.accepted,
@@ -363,6 +489,7 @@ def run_mode(mode: str, actor, serving, workflow, dataset, batch_size: int,
         # requests still in flight belong to this mode's executor
         serving.stop_serving()
         serving.engine.abort_all("abort")
+    result["prefill"] = _prefill_delta(stats0, serving.engine.stats)  # warmup included
     result["export_s"] = export_s[-result["steps"]:]  # the timed steps
     result["publish"] = ("release" if mode == "sync"
                          else "interrupt" if interrupt_publish else "live")
@@ -372,8 +499,8 @@ def run_mode(mode: str, actor, serving, workflow, dataset, batch_size: int,
 
 
 def run_mode_remote(mode: str, actor, meta, workflow, dataset, batch_size: int,
-                    steps: int, warmup: int = 1, max_head_offpolicyness: int = 4
-                    ) -> Dict[str, Any]:
+                    steps: int, warmup: int = 1, max_head_offpolicyness: int = 4,
+                    recorder=None) -> Dict[str, Any]:
     """The remote counterpart of `run_mode`: rollouts over HTTP through a
     fresh `RemoteTorchEngine` (its versions counted from this mode's
     start, as the staleness gate assumes), and each publish the trainer's
@@ -424,8 +551,10 @@ def run_mode_remote(mode: str, actor, meta, workflow, dataset, batch_size: int,
         return float(server_metrics(addr)["last_pause_s"])
 
     timeouts, failures = workflow.reward_fn.timeouts, workflow.reward_fn.failures
+    stats0 = server_metrics(addr)
     try:
-        result = _measure_loop(mode, actor, get_batch, publish, steps, warmup)
+        result = _measure_loop(mode, actor, get_batch, publish, steps, warmup,
+                               recorder=recorder)
         st = client.executor.staleness_manager.get_stats()
         result["ledger"] = {"submitted": st.submitted, "accepted": st.accepted,
                             "rejected": st.rejected, "running": st.running}
@@ -439,6 +568,7 @@ def run_mode_remote(mode: str, actor, meta, workflow, dataset, batch_size: int,
         if time.monotonic() > deadline:
             raise TimeoutError("the server did not drain the mode's requests")
         time.sleep(0.1)
+    result["prefill"] = _prefill_delta(stats0, server_metrics(addr))  # warmup included
     result["stage_s"] = stage_s[-result["steps"]:]
     result["commit_s"] = commit_s[-result["steps"]:]
     result["publish"] = (meta.type if meta.type == "disk"
@@ -450,14 +580,38 @@ def run_mode_remote(mode: str, actor, meta, workflow, dataset, batch_size: int,
 
 
 def make_dataset(n: int, vocab_size: int, prompt_len: int, prompt_len_min: int = 0,
-                 seed: int = 0) -> List[Dict[str, Any]]:
+                 seed: int = 0, len_jitter: float = 0.0,
+                 max_new_tokens: int = 0) -> List[Dict[str, Any]]:
     """`n` random prompts, of `prompt_len` tokens or, with `prompt_len_min`,
-    of lengths drawn uniformly from [prompt_len_min, prompt_len]."""
+    of lengths drawn uniformly from [prompt_len_min, prompt_len].  With
+    `len_jitter` J > 0 each item also carries a generation budget drawn
+    log-uniformly from [max_new_tokens / (1 + J), max_new_tokens]."""
     rng = np.random.default_rng(seed)
     lo = prompt_len_min or prompt_len
-    return [{"input_ids": rng.integers(0, vocab_size, int(rng.integers(lo, prompt_len + 1))
-                                       ).tolist(),
-             "query_id": str(i)} for i in range(n)]
+    out = []
+    for i in range(n):
+        item = {"input_ids": rng.integers(0, vocab_size, int(rng.integers(lo, prompt_len + 1))
+                                          ).tolist(),
+                "query_id": str(i)}
+        if len_jitter > 0:
+            low = max_new_tokens / (1.0 + len_jitter)
+            item["max_new_tokens"] = int(np.exp(rng.uniform(np.log(low),
+                                                            np.log(max_new_tokens))))
+        out.append(item)
+    return out
+
+
+def make_gsm8k_dataset(n: int, vocab_size: int):
+    """(items, tokenizer): `n` gsm8k-synth problems as token prompts of the
+    `WordTokenizer`'s chat template, with their answers."""
+    from areal_tpu_torch.dataset.gsm8k_synth import WordTokenizer, generate_problems
+
+    tok = WordTokenizer()
+    if len(tok) > vocab_size:
+        raise ValueError(f"model vocab {vocab_size} < tokenizer {len(tok)}")
+    return [{"input_ids": tok.apply_chat_template(p["messages"], add_generation_prompt=True),
+             "query_id": p["query_id"], "answer": p["answer"]}
+            for p in generate_problems(n, seed=0)], tok
 
 
 def main(argv=None):
@@ -486,7 +640,29 @@ def main(argv=None):
     p.add_argument("--run-dir", default="",
                    help="remote: the v0 snapshot and the server's log "
                         "(default: build/bench_e2e_grpo under the checkout)")
+    p.add_argument("--share-prefix", default="on", choices=["on", "off"],
+                   help="off = per-slot retained reuse only (no group fan-out), for A/B "
+                        "runs; colocated only")
+    p.add_argument("--len-jitter", type=float, default=0.0,
+                   help=">0 gives each prompt a log-uniform generation budget in "
+                        "[max_new/(1+j), max_new]")
+    p.add_argument("--dataset", default="random", choices=["random", "gsm8k-synth"],
+                   help="random token prompts, or the gsm8k-synth generator with its "
+                        "WordTokenizer and gsm8k_reward_fn")
+    p.add_argument("--workflow", default="rlvr", choices=["rlvr", "multi_turn"],
+                   help="multi_turn = retry-until-correct episodes (rides prefix reuse)")
+    p.add_argument("--max-turns", type=int, default=3)
     args = p.parse_args(argv)
+    if args.dataset == "gsm8k-synth" and args.workflow != "rlvr":
+        p.error("--dataset gsm8k-synth runs the RLVR workflow (its reward parses "
+                "\\boxed{} answers, not multi-turn feedback)")
+    if args.workflow == "multi_turn" and args.len_jitter > 0:
+        # MultiTurnWorkflow generates with its fixed budget: per-item budgets
+        # would be ignored while the result claimed a jittered run
+        p.error("--len-jitter is not supported with --workflow multi_turn")
+    if args.transport == "remote" and args.share_prefix == "off":
+        p.error("--share-prefix off needs --transport colocated: the server process "
+                "runs the engine's defaults (reuse and sharing on) and has no such flag")
 
     from areal_tpu_torch.api.config import GenerationHyperparameters
     from areal_tpu_torch.api.io_struct import WeightUpdateMeta
@@ -494,29 +670,51 @@ def main(argv=None):
     from areal_tpu_torch.workflow.rlvr import RLVRWorkflow
 
     remote = args.transport == "remote"
+    multi_turn = args.workflow == "multi_turn"
     serving = launcher = None
     if remote:
         actor, cfg = _make_actor(args.model, args.max_seq_len, args.group_size,
-                                 model_path=args.model_path, device=args.device)
+                                 batch_norm=multi_turn, model_path=args.model_path,
+                                 device=args.device)
     else:
         actor, serving, cfg = _make_parts(
             args.model, args.n_slots, args.max_seq_len, args.group_size,
-            model_path=args.model_path, device=args.device)
-    workflow = RLVRWorkflow(
-        reward_fn=_reward_last_even,
-        gconfig=GenerationHyperparameters(
-            n_samples=args.group_size, max_new_tokens=args.max_new_tokens, temperature=1.0),
-    )
-    dataset = make_dataset(256, cfg.vocab_size, args.prompt_len, args.prompt_len_min)
+            batch_norm=multi_turn, model_path=args.model_path, device=args.device,
+            share_prefix=args.share_prefix == "on")
+    gconfig = GenerationHyperparameters(n_samples=args.group_size,
+                                        max_new_tokens=args.max_new_tokens, temperature=1.0)
+    if args.dataset == "gsm8k-synth":
+        from areal_tpu_torch.reward import gsm8k_reward_fn
+
+        dataset, tokenizer = make_gsm8k_dataset(256, cfg.vocab_size)
+        workflow = RLVRWorkflow(reward_fn=gsm8k_reward_fn, gconfig=gconfig,
+                                tokenizer=tokenizer)
+    elif multi_turn:
+        from areal_tpu_torch.workflow.multi_turn import MultiTurnWorkflow
+
+        dataset = make_dataset(256, cfg.vocab_size, args.prompt_len, args.prompt_len_min)
+        # one trajectory per episode (the workflow samples one per turn):
+        # advantages normalise over the batch
+        workflow = MultiTurnWorkflow(reward_fn=_reward_mt, gconfig=gconfig,
+                                     tokenizer=_FakeTokenizer(), max_turns=args.max_turns)
+    else:
+        dataset = make_dataset(256, cfg.vocab_size, args.prompt_len, args.prompt_len_min,
+                               len_jitter=args.len_jitter, max_new_tokens=args.max_new_tokens)
+        workflow = RLVRWorkflow(reward_fn=_reward_last_even, gconfig=gconfig)
+    recorder = _LatencyRecorder()
+    workflow = _RecordingWorkflow(workflow, recorder)
     result: Dict[str, Any] = {
         "model": args.model,
         "transport": args.transport,
         "device": str(actor.device),
+        "workflow": args.workflow,
+        "dataset": args.dataset,
         "batch_size": args.batch_size,
         "group_size": args.group_size,
         "max_new_tokens": args.max_new_tokens,
+        "len_jitter": args.len_jitter,
         "publish_mode": args.publish_mode,
-        "share_prefix": "off",
+        "share_prefix": args.share_prefix,
     }
     try:
         if remote:
@@ -529,15 +727,27 @@ def main(argv=None):
         for mode in args.modes.split(","):
             if remote:
                 result[mode] = run_mode_remote(mode, actor, meta, workflow, dataset,
-                                               args.batch_size, args.steps, warmup=args.warmup)
+                                               args.batch_size, args.steps, warmup=args.warmup,
+                                               recorder=recorder)
             else:
                 result[mode] = run_mode(
                     mode, actor, serving, workflow, dataset, args.batch_size, args.steps,
-                    warmup=args.warmup, interrupt_publish=args.publish_mode == "interrupt")
+                    warmup=args.warmup, interrupt_publish=args.publish_mode == "interrupt",
+                    recorder=recorder)
         if "sync" in result and "async" in result:
             result["async_over_sync_trajs_per_sec"] = (
                 result["async"]["trajs_per_sec_per_chip"]
                 / result["sync"]["trajs_per_sec_per_chip"])
+        # the whole run's prefill accounting, as the JAX bench reports it
+        st = (server_metrics(launcher.server_addrs[0]) if remote
+              else serving.engine.stats)
+        total = sum(int(st[k]) for k in PREFILL_KEYS if k != "copy_calls")
+        acct = {k: int(st[k]) for k in PREFILL_KEYS}
+        if multi_turn:
+            result["kv_reuse"] = dict(acct, reused_fraction=acct["reused_tokens"] / max(total, 1))
+        if args.group_size > 1:
+            result["shared_prefill"] = dict(
+                acct, shared_fraction=acct["shared_tokens"] / max(total, 1))
         print(json.dumps(result), flush=True)
     finally:
         if serving is not None:

@@ -6,9 +6,11 @@ a (sync) reward function run off the event loop, and emit one padded
 trajectory batch with the keys `TorchPPOActor` consumes: input_ids,
 logprobs (the behaviour policy's, 0 on the prompt), loss_mask, versions
 (the weight version of each output token, -1 on the prompt), rewards and
-attention_mask.  Left out with what they serve: the reference's telemetry
-events, per-query text dumps (`dump_dir`), the group declaration of a
-request (`group_id`, for prefix sharing) and `enable_thinking`.
+attention_mask.  The siblings of a GRPO group declare it (`group_id`,
+`group_n`): a remote client keeps them on one server and the engine
+prefills their prompt once.  Left out with what they serve: the
+reference's telemetry events, per-query text dumps (`dump_dir`) and
+`enable_thinking`.
 """
 
 import asyncio
@@ -64,9 +66,13 @@ class RLVRWorkflow(RolloutWorkflow):
         n = self.gconfig.n_samples
         req = self._build_request(data)
         reqs = [req.copy() for _ in range(n)]
-        if n > 1:  # a GRPO group: one rid per sibling
+        if n > 1:
+            # a GRPO group: declare the siblings so routing keeps them on one
+            # server and the engine admits them as one prefix-sharing cluster
             for k, r in enumerate(reqs):
                 r.rid = f"{req.rid}-{k}"
+                r.group_id = req.rid
+                r.group_n = n
         for r in reqs:
             r.trace_id = r.rid
         resps = await asyncio.gather(*[engine.agenerate(r) for r in reqs])

@@ -27,7 +27,10 @@ Phases, each printed with its wall time; any failure exits non-zero:
 5. serve    random seeded bf16 Qwen2.5-1.5B weights at full width (28
             layers), written as an HF checkpoint by the port's writer, served
             through `areal_tpu_torch.gen.server.main` over HTTP: 8 /generate
-            and one /generate_batch of 4, 64 tokens each, half greedy; the
+            and one /generate_batch of 4, 64 tokens each, 7 greedy; three of
+            the batch's are a declared greedy group over one prompt, whose
+            two siblings (its K/V fanned out from the representative, cache
+            hits of all but one token) must return bit-equal streams; the
             kernel's launch count must equal 28 x the engine's decode steps
 6. timings  ragged kernel, plain version and torch SDPA on the serving
             shapes (CUDA events; the kernel's and SDPA's device time per
@@ -55,11 +58,12 @@ Phases, each printed with its wall time; any failure exits non-zero:
             at full width from the serve phase's checkpoint, trainer (f32
             masters, bf16 compute, full remat, decoupled loss, logprob
             recompute) and `ColocatedEngine` (32 slots, max_seq_len 1024,
-            bf16) in this process: 8 random prompts of 64..256 tokens x
-            group 4 per step, 256 new tokens, the parity reward, group
-            advantage normalisation.  Sync: 1 warmup + 2 timed steps of
-            rollout_batch, train_phase (serving memory released),
-            publish_weights.  Async: 1 + 3 steps through
+            bf16, prefix reuse and group fan-out on) in this process: 8
+            random prompts of 64..256 tokens x group 4 per step, generation
+            budgets log-uniform in 64..256 (the bench's --len-jitter 3), the
+            parity reward, group advantage normalisation.  Sync: 1 warmup +
+            1 timed step of rollout_batch, train_phase (serving memory
+            released), publish_weights.  Async: 1 + 1 steps through
             WorkflowExecutor.prepare_batch (max_head_offpolicyness 4, 16
             concurrent rollouts, consumer batch 8) with a live publish after
             each; then one async step with an interrupting publish, in a
@@ -67,24 +71,41 @@ Phases, each printed with its wall time; any failure exits non-zero:
             them, launches, the device's busy share).  Prints
             trajectories/s/chip and effective tokens/s/chip per mode and
             their ratio, every pause window, each step's rollout wait and
-            train time, the version-lag histogram and the launches per mode.
+            train time, the version-lag histogram, the launches, the prefill
+            accounting (cold, shared, suffix and reused tokens, fan-out
+            copies; shared > 0 required) and the requests' TTFT, e2e and
+            inter-token p50/p99 per mode.
             Checks: ragged launches = 28 x decode steps, every flash launch
             on its tensor-core kernel and exactly 84/28/28 per step, the
             staleness ledger balanced, no consumed token from a version
             above the trainer's, trainer logprobs against the server's on
             same-version tokens, no reward timeout, and the served weights
             bit-equal to the trainer's bf16 cast after the last publish
-10. remote  the same cell with trainer and server as two processes on the
+10. prefix  KV prefix reuse and group fan-out on Qwen2.5-1.5B at full width
+            (random weights, seed 0) in the grpo cell's engine (32 slots,
+            max_seq_len 1024): 8 prompts of 64..256 tokens x group 4, groups
+            declared, streams pinned, admitted in one pass with sharing on
+            and off (bf16, sampled): the token accounting of each (cold +
+            shared + suffix + reused = the prompt tokens), the admission's
+            wall and device time (warm, on fresh engines), first-token
+            logprobs on against off within FIRST_LOGP_*; then f32 at 4
+            layers, greedy: streams equal with sharing on and off, and an
+            abort_all after the first decode chunk whose resubmits (prompt +
+            accumulated tokens) reuse their retained prefixes and resume
+            every stream exactly.  Ragged launches = layers x decode steps
+            in every run
+11. remote  the same cell with trainer and server as two processes on the
             card: `areal_tpu_torch.gen.server` started by the launch helper
             (32 slots, max_seq_len 1024, bf16, from the serve phase's
             checkpoint), the trainer here, rollouts over HTTP through
             `RemoteTorchEngine` (`bench_e2e_grpo.run_mode_remote`).  Sync
-            with the disk publish (1 + 2 steps), async with the transfer
-            publish and a live commit (1 + 3 steps, max_head_offpolicyness
+            with the disk publish (1 + 1 steps), async with the transfer
+            publish and a live commit (1 + 1 steps, max_head_offpolicyness
             4), one async step with an aborting commit.  Prints
             trajectories/s/chip and effective tokens/s/chip per mode, stage
-            and commit times, the server's pause windows, version lags and
-            both processes' peak memory.  Checks: the server's ragged
+            and commit times, the server's pause windows, version lags,
+            both processes' peak memory and the server's prefill accounting
+            from /metrics (shared > 0 required).  Checks: the server's ragged
             launches (over HTTP, /metrics) = 28 x its decode steps, the
             trainer's flash launches 84/28/28 per step on the tensor cores,
             the ledger balanced, no token from a future version, the logprob
@@ -92,12 +113,13 @@ Phases, each printed with its wall time; any failure exits non-zero:
             trainer's version, and after the last publish 4 greedy streams
             (and logprobs) from the server process bit-equal to a GenEngine
             built here from the trainer's bf16 export
-11. example `python -m areal_tpu_torch.examples.math.gsm8k_grpo` at full width
+12. example `python -m areal_tpu_torch.examples.math.gsm8k_grpo` at full width
             for one step with the transfer publish (gsm8k-synth, the
             example's own server through the launch helper); prints the
             step's stats
 
-The line before the last is the kernels' JSON record (`launches` sums the
+After the card's line comes the whole run's wall time.  The line before
+the last is the kernels' JSON record (`launches` sums the
 paths that ran each kernel, `launches_by_path` splits them); the last line is
 {"ok": true, "device": {...}}.  Without a CUDA device it exits 1 and prints
 no result.
@@ -489,7 +511,14 @@ def serve_qwen(ckpt_dir):
                       temperature=0.0 if greedy else 1.0, top_p=1.0 if greedy else 0.9)
             ids = rng.integers(0, cfg.vocab_size, int(rng.integers(64, 901))).tolist()
             bodies.append(dict(rid=f"r{i}", input_ids=ids, sampling_params=sp))
-        bodies[2]["input_ids"] = list(bodies[0]["input_ids"])  # identical greedy pair
+        # the batch's greedy rows and one more greedy copy form a declared
+        # group of 3 over one prompt: the engine prefills it once (the
+        # representative) and fans its K/V out to the other two, which take
+        # the same path in the same calls, so their streams must be equal
+        group = [8, 10, 11]
+        for i in group:
+            bodies[i].update(input_ids=list(bodies[8]["input_ids"]), group_id="g",
+                             group_n=len(group), sampling_params=dict(bodies[8]["sampling_params"]))
         ragged_paged_attention.launches = 0
         steps0 = engine.stats["decode_steps"]
         t0 = time.perf_counter()
@@ -507,8 +536,24 @@ def serve_qwen(ckpt_dir):
             raise AssertionError(f"{b['rid']}: {len(r['output_tokens'])} tokens, want 64")
         if not (np.isfinite(lp).all() and (lp <= 0).all()):
             raise AssertionError(f"{b['rid']}: logprobs not finite and <= 0")
-    if results[0]["output_tokens"] != results[2]["output_tokens"]:
-        raise AssertionError("identical greedy requests returned different streams")
+    hits = [results[i]["cache_hit_tokens"] for i in group]
+    want_hit = len(bodies[8]["input_ids"]) - 1
+    if sorted(hits) != [0, want_hit, want_hit]:
+        raise AssertionError(f"the group's prompt was not prefilled once and shared: cache "
+                             f"hits {hits}, want one 0 and two {want_hit}")
+    rep, *sibs = sorted((results[i] for i in group), key=lambda r: r["cache_hit_tokens"])
+    if any((r["output_tokens"], r["output_logprobs"]) != (sibs[0]["output_tokens"],
+                                                          sibs[0]["output_logprobs"])
+           for r in sibs):
+        raise AssertionError("two greedy siblings fanned out from one representative returned "
+                             "different streams")
+    same = next((j for j, (a, b) in enumerate(zip(rep["output_tokens"], sibs[0]["output_tokens"]))
+                 if a != b), 64)
+    print(f"  a greedy group of 3 over one {len(bodies[8]['input_ids'])}-token prompt: the two "
+          f"siblings (cache hits {want_hit}) bit-equal; against the representative's full "
+          f"prefill: first-token logprob |diff| "
+          f"{abs(rep['output_logprobs'][0] - sibs[0]['output_logprobs'][0]):.5f}, streams equal "
+          f"for {same} of 64 tokens (bf16)")
     print(f"  12 requests x 64 tokens in {wall:.2f} s; health {health}")
     print(f"  kernel launches {launches}, decode steps {steps}, "
           f"{SERVE_LAYERS} x steps = {SERVE_LAYERS * steps}")
@@ -839,6 +884,23 @@ def train_qwen(ckpt_dir, publish_dir):
 
 GRPO_SLOTS, GRPO_SEQ = 32, 1024
 GRPO_PROMPT_LEN = (64, 256)
+# the bench's --len-jitter: budgets log-uniform in [256 / (1 + 3), 256]
+GRPO_LEN_JITTER = 3.0
+
+
+def print_prefill(res, indent="    "):
+    """A mode's prefill accounting and its requests' latency percentiles."""
+    pf, lat = res["prefill"], res["latency"]
+    print(f"{indent}prefill tokens: cold {pf['prefill_tokens']}, shared {pf['shared_tokens']}, "
+          f"suffix {pf['suffix_tokens']}, reused {pf['reused_tokens']}; fan-out copies "
+          f"{pf['copy_calls']}")
+    if lat:
+        print(f"{indent}latency over {lat['n']} requests (warmup included: "
+              f"{lat['includes_warmup']}): " + "; ".join(
+                  f"{k} p50 {lat[k]['p50']:.4f} p99 {lat[k]['p99']:.4f}"
+                  for k in ("ttft_s", "e2e_s", "inter_token_s") if lat[k]))
+    if pf["shared_tokens"] <= 0:
+        raise AssertionError("no group shared its prompt's prefill in this mode")
 
 
 def grpo_qwen(ckpt_dir):
@@ -865,11 +927,14 @@ def grpo_qwen(ckpt_dir):
     torch.cuda.synchronize()
     print(f"  trainer and colocated server up in {time.perf_counter() - t0:.1f} s; "
           f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated on the card")
-    workflow = RLVRWorkflow(reward_fn=bench._reward_last_even, gconfig=GenerationHyperparameters(
-        n_samples=GROUP, max_new_tokens=NEW_TOKENS, temperature=1.0))
-    dataset = bench.make_dataset(256, cfg.vocab_size, GRPO_PROMPT_LEN[1], GRPO_PROMPT_LEN[0])
+    recorder = bench._LatencyRecorder()
+    workflow = bench._RecordingWorkflow(RLVRWorkflow(
+        reward_fn=bench._reward_last_even, gconfig=GenerationHyperparameters(
+            n_samples=GROUP, max_new_tokens=NEW_TOKENS, temperature=1.0)), recorder)
+    dataset = bench.make_dataset(256, cfg.vocab_size, GRPO_PROMPT_LEN[1], GRPO_PROMPT_LEN[0],
+                                 len_jitter=GRPO_LEN_JITTER, max_new_tokens=NEW_TOKENS)
     # (label, mode, timed steps, warmup steps, interrupting publish)
-    plans = (("sync", "sync", 2, 1, False), ("async", "async", 3, 1, False),
+    plans = (("sync", "sync", 1, 1, False), ("async", "async", 1, 1, False),
              ("interrupt", "async", 1, 0, True))
     runs, launches = {}, np.zeros(4, np.int64)
     served0 = {n: p.detach().clone() for n, p in serving.engine.model.named_parameters()}
@@ -895,7 +960,7 @@ def grpo_qwen(ckpt_dir):
             with prof:
                 res = bench.run_mode(
                     mode, actor, serving, workflow, dataset, TRAIN_PROMPTS, n_timed,
-                    warmup=warmup, interrupt_publish=interrupt)
+                    warmup=warmup, interrupt_publish=interrupt, recorder=recorder)
                 torch.cuda.synchronize()
                 # before the profiler's exit, which processes its events
                 wall_us = (time.perf_counter() - t0) * 1e6
@@ -926,6 +991,7 @@ def grpo_qwen(ckpt_dir):
                   f"flash fwd/dq/dkv {tuple(int(x) for x in got[1:])} over {n_steps} steps")
             if "ledger" in res:
                 print(f"    staleness ledger {res['ledger']}")
+            print_prefill(res)
             if label == "interrupt":
                 report_train_profile(prof, wall_us, f"the {label} run (profiled), {steps} "
                                      "decode steps and one logprob pass and update")
@@ -993,6 +1059,182 @@ def grpo_qwen(ckpt_dir):
 
 
 # ---------------------------------------------------------------------------
+# prefix reuse and group fan-out at full width
+# ---------------------------------------------------------------------------
+
+PREFIX_NEW = 32  # tokens decoded per request after the admission
+PREFIX_F32_LAYERS = 4
+# the bf16 runs with sharing on and off, against each other: a sibling's
+# first token comes from logits computed over its representative's copied
+# K/V by the suffix prefill, against its own full prefill; both are bf16 on
+# the same weights with the same sampler keys, so they differ by bf16
+# rounding only (the trainer-against-server gap, through more different
+# paths, sits near 0.016: LOGP_MEAN_TOL).  A first token may flip where
+# two candidates sit within that rounding; at most 4 of 32 may.
+FIRST_LOGP_MEAN_TOL, FIRST_LOGP_MAX_TOL, FIRST_TOKEN_FLIPS = LOGP_MEAN_TOL, 0.25, 4
+
+
+def prefix_requests(prompts, new, temperature, tag):
+    """GROUP siblings per prompt, each declaring its group, streams pinned
+    (so a stream does not depend on the run it is in)."""
+    return [GenRequest(rid=f"{tag}{i}-{k}", input_ids=list(p), max_new_tokens=new,
+                       temperature=temperature, group_id=f"{tag}{i}", group_n=GROUP,
+                       stream_id=1 + GROUP * i + k)
+            for i, p in enumerate(prompts) for k in range(GROUP)]
+
+
+def prefix_run(model, prompts, share, temperature, kv_dtype, label):
+    """The groups admitted in one pass by an engine of the grpo cell (32
+    slots, max_seq_len 1024), three times on fresh engines: once to warm
+    the pass's shapes, once under torch.profiler (its device time), once
+    timed on the host clock and then decoded to the end.  Returns (that
+    engine, its requests, the ragged kernel's launches in its decode,
+    (admission wall ms, admission device ms))."""
+    cfg = model.cfg
+
+    def submitted():
+        eng = GenEngine(cfg, params=model, n_slots=GRPO_SLOTS, max_seq_len=GRPO_SEQ,
+                        prompt_bucket=128, kv_dtype=kv_dtype, seed=0, share_prefix=share)
+        reqs = prefix_requests(prompts, PREFIX_NEW, temperature, "p")
+        eng.submit_batch(reqs)
+        torch.cuda.synchronize()
+        return eng, reqs
+
+    with torch.no_grad():  # the admission pass of step(), alone
+        eng, _ = submitted()
+        eng._admit()
+        eng.abort_all()
+        eng, _ = submitted()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            eng._admit()
+            torch.cuda.synchronize()
+        dev = sum(e.self_device_time_total for e in device_kernels(prof)) / 1e3
+        if dev <= 0:
+            raise AssertionError(f"{label}: the profiler saw no device time in the admission")
+        eng.abort_all()
+        eng, reqs = submitted()
+        t0 = time.perf_counter()
+        eng._admit()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    n_prompt = sum(len(r.input_ids) for r in reqs)
+    launches0 = ragged_paged_attention.launches
+    while any(not r.stop_reason for r in reqs):
+        eng.step()
+    launches = ragged_paged_attention.launches - launches0
+    st = eng.stats
+    acct = {k: st[k] for k in ("prefill_tokens", "shared_tokens", "suffix_tokens",
+                               "reused_tokens", "copy_calls")}
+    print(f"  {label}: {len(reqs)} requests, {n_prompt} prompt tokens; cold "
+          f"{acct['prefill_tokens']}, shared {acct['shared_tokens']}, suffix "
+          f"{acct['suffix_tokens']}, reused {acct['reused_tokens']}, copies "
+          f"{acct['copy_calls']}; admission {1e3 * wall:.2f} ms of wall, {dev:.3f} ms of "
+          f"device time; ragged {launches} = {cfg.num_layers} x {st['decode_steps']} decode "
+          "steps")
+    if sum(acct[k] for k in ("prefill_tokens", "shared_tokens", "suffix_tokens",
+                             "reused_tokens")) != n_prompt:
+        raise AssertionError(f"{label}: cold + shared + suffix + reused != prompt tokens")
+    if (acct["shared_tokens"] > 0) != share:
+        raise AssertionError(f"{label}: shared tokens {acct['shared_tokens']} with sharing "
+                             f"{'on' if share else 'off'}")
+    if launches != cfg.num_layers * st["decode_steps"] or not launches:
+        raise AssertionError(f"{label}: ragged launches != layers x decode steps")
+    return eng, reqs, launches, (1e3 * wall, dev)
+
+
+def prefix_qwen():
+    """KV prefix reuse and group fan-out on Qwen2.5-1.5B at full width
+    (random weights from seed 0), in the grpo cell's engine: 8 prompts of
+    64..256 tokens x group 4, groups declared and streams pinned.
+
+    - bf16, 28 layers, sampled: sharing on against off (the token
+      accounting of each, its admission's wall and device time; first-token
+      logprobs against each other within FIRST_LOGP_*);
+    - f32 KV and weights at 4 layers of full width, greedy: streams with
+      sharing on equal those with it off, and an abort_all after the first
+      decode chunk, resubmitted with the accumulated tokens, reuses the
+      retained prefixes and resumes each stream exactly.
+    Returns the ragged kernel's launches over the phase."""
+    cfg = qwen25_1p5b().replace(eos_token_id=None)
+    rng = np.random.default_rng(21)
+    lo, hi = GRPO_PROMPT_LEN
+    prompts = [rng.integers(0, cfg.vocab_size, int(rng.integers(lo, hi + 1))).tolist()
+               for _ in range(TRAIN_PROMPTS)]
+    launches = 0
+    model = init_params(cfg, 0, "cuda")
+    runs, times = {}, {}
+    for share in (True, False):
+        label = f"bf16 {cfg.num_layers} layers, sharing {'on' if share else 'off'}"
+        eng, reqs, n, times[share] = prefix_run(model, prompts, share, 1.0, "bfloat16", label)
+        runs[share] = reqs
+        launches += n
+        del eng
+    print(f"  admission, sharing on / off: wall {times[True][0] / times[False][0]:.3f}, "
+          f"device time {times[True][1] / times[False][1]:.3f}")
+    same = [(a.output_logprobs[0], b.output_logprobs[0])
+            for a, b in zip(runs[True], runs[False]) if a.output_tokens[0] == b.output_tokens[0]]
+    flips = len(runs[True]) - len(same)
+    gaps = np.abs(np.subtract(*zip(*same))) if same else np.array([np.inf])
+    print(f"  first tokens equal in {len(same)} of {len(runs[True])} requests; their "
+          f"logprobs on against off: mean |diff| {gaps.mean():.5f}, max {gaps.max():.5f} "
+          f"(tolerance {FIRST_LOGP_MEAN_TOL} / {FIRST_LOGP_MAX_TOL}, at most "
+          f"{FIRST_TOKEN_FLIPS} flips)")
+    if (flips > FIRST_TOKEN_FLIPS or gaps.mean() > FIRST_LOGP_MEAN_TOL
+            or gaps.max() > FIRST_LOGP_MAX_TOL):
+        raise AssertionError("first tokens with sharing on and off disagree beyond bf16")
+    del model, runs
+    torch.cuda.empty_cache()
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg4 = cfg.replace(num_layers=PREFIX_F32_LAYERS, dtype="float32")
+    model = init_params(cfg4, 0, "cuda")
+    streams = {}
+    for share in (True, False):
+        label = f"f32 {PREFIX_F32_LAYERS} layers, greedy, sharing {'on' if share else 'off'}"
+        eng, reqs, n, _ = prefix_run(model, prompts, share, 0.0, "float32", label)
+        streams[share] = [r.output_tokens for r in reqs]
+        launches += n
+        del eng
+    if streams[True] != streams[False]:
+        raise AssertionError("f32 greedy streams differ between sharing on and off")
+    print(f"  f32 greedy streams with sharing on equal those with it off "
+          f"({len(streams[True])} x {PREFIX_NEW} tokens)")
+    # an interruption: abort after the first decode chunk, resubmit
+    eng = GenEngine(cfg4, params=model, n_slots=GRPO_SLOTS, max_seq_len=GRPO_SEQ,
+                    prompt_bucket=128, kv_dtype="float32", seed=0)
+    first = prefix_requests(prompts, PREFIX_NEW, 0.0, "p")
+    eng.submit_batch(first)
+    launches0 = ragged_paged_attention.launches
+    eng.step()
+    eng.abort_all("abort")
+    got = [len(r.output_tokens) for r in first]
+    resumed = [GenRequest(rid=r.rid, input_ids=r.input_ids + r.output_tokens,
+                          max_new_tokens=PREFIX_NEW - len(r.output_tokens), temperature=0.0,
+                          group_id=r.group_id, group_n=r.group_n, stream_id=r.stream_id)
+               for r in first]
+    reused0 = eng.stats["reused_tokens"]
+    eng.generate_blocking(resumed)
+    n = ragged_paged_attention.launches - launches0
+    launches += n
+    reused = eng.stats["reused_tokens"] - reused0
+    print(f"  interruption: aborted after {min(got)}..{max(got)} tokens, {len(resumed)} "
+          f"resubmits reused {reused} retained tokens (cache hits "
+          f"{sum(r.cache_hit_tokens for r in resumed)}), suffix "
+          f"{eng.stats['suffix_tokens']}; ragged {n} = {PREFIX_F32_LAYERS} x "
+          f"{eng.stats['decode_steps']} decode steps")
+    if reused <= 0 or any(r.stop_reason != "length" for r in resumed):
+        raise AssertionError("the resubmits after the abort did not reuse their prefixes")
+    if [a.output_tokens + b.output_tokens for a, b in zip(first, resumed)] != streams[True]:
+        raise AssertionError("a resumed f32 greedy stream differs from the uninterrupted one")
+    if n != PREFIX_F32_LAYERS * eng.stats["decode_steps"]:
+        raise AssertionError("interruption: ragged launches != layers x decode steps")
+    print("  every resumed f32 greedy stream equals the uninterrupted one")
+    del eng, model
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # the remote GRPO loop: trainer here, server a process of its own
 # ---------------------------------------------------------------------------
 
@@ -1046,16 +1288,16 @@ def remote_qwen(ckpt_dir, publish_dir):
         torch.cuda.synchronize()
         print(f"  trainer up in {time.perf_counter() - t0:.1f} s; "
               f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated by this process")
-        workflow = RLVRWorkflow(reward_fn=bench._reward_last_even,
-                                gconfig=GenerationHyperparameters(
-                                    n_samples=GROUP, max_new_tokens=NEW_TOKENS,
-                                    temperature=1.0))
+        recorder = bench._LatencyRecorder()
+        workflow = bench._RecordingWorkflow(RLVRWorkflow(
+            reward_fn=bench._reward_last_even, gconfig=GenerationHyperparameters(
+                n_samples=GROUP, max_new_tokens=NEW_TOKENS, temperature=1.0)), recorder)
         dataset = bench.make_dataset(256, cfg.vocab_size, GRPO_PROMPT_LEN[1],
                                      GRPO_PROMPT_LEN[0])
         disk = WeightUpdateMeta(type="disk", path=publish_dir)
         # (label, mode, publish, timed steps, warmup steps)
-        plans = (("sync", "sync", disk, 2, 1),
-                 ("async", "async", WeightUpdateMeta.from_transfer(live_commit=True), 3, 1),
+        plans = (("sync", "sync", disk, 1, 1),
+                 ("async", "async", WeightUpdateMeta.from_transfer(live_commit=True), 1, 1),
                  ("abort", "async", WeightUpdateMeta.from_transfer(live_commit=False), 1, 0))
         launches = np.zeros(4, np.int64)
         reset_flash_counts()
@@ -1063,7 +1305,7 @@ def remote_qwen(ckpt_dir, publish_dir):
             m0 = bench.server_metrics(addr)
             before = np.array(flash_counts())
             res = bench.run_mode_remote(mode, actor, meta, workflow, dataset, TRAIN_PROMPTS,
-                                        n_timed, warmup=warmup)
+                                        n_timed, warmup=warmup, recorder=recorder)
             m1 = bench.server_metrics(addr)
             got = np.array([m1["ragged_kernel_launches"] - m0["ragged_kernel_launches"],
                             *(np.array(flash_counts()) - before)])
@@ -1093,6 +1335,7 @@ def remote_qwen(ckpt_dir, publish_dir):
                   f"trainer: flash fwd/dq/dkv {tuple(int(x) for x in got[1:])} over {n_steps} "
                   f"steps; staleness ledger {res['ledger']}; lost trajectories "
                   f"{res['lost_trajectories']}")
+            print_prefill(res)  # the server's /metrics, read over HTTP
             if got[0] != SERVE_LAYERS * steps or steps == 0:
                 raise AssertionError(f"remote {label}: server ragged launches != 28 x decode "
                                      "steps")
@@ -1384,6 +1627,7 @@ def time_flash(seg_rows):
 
 
 def main():
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -1453,6 +1697,8 @@ def main():
             grpo_launches, grpo_err = grpo_qwen(ckpt_dir)
             max_err = max(max_err, grpo_err["ragged_paged_attention"])
             flash_err = {n: max(flash_err[n], grpo_err[n]) for n in flash_err}
+        with phase("prefix"):
+            prefix_launches = prefix_qwen()
         with phase("remote"):
             remote_ragged, remote_flash = remote_qwen(ckpt_dir, remote_dir)
         with phase("example"):
@@ -1465,9 +1711,9 @@ def main():
         "route": "cuda",
         "source": "areal_tpu_torch/csrc/ragged_decode.cu",
         "replaces": "areal_tpu/ops/ragged_decode.py:93",
-        "launches": launches + grpo_launches[0] + remote_ragged,
+        "launches": launches + grpo_launches[0] + prefix_launches + remote_ragged,
         "launches_by_path": {"serve": launches, "grpo": grpo_launches[0],
-                             "remote": remote_ragged},
+                             "prefix": prefix_launches, "remote": remote_ragged},
         "max_abs_err": max_err,
         "ms": kern,
         "plain_ms": plain,
@@ -1493,6 +1739,7 @@ def main():
             "library_ms": lib_ms,
         })
     print(f"card: {smi}")
+    print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s of wall")
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

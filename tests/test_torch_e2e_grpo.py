@@ -12,6 +12,10 @@ colocated transport (`scripts/bench_e2e_grpo.py`).
   update (two Adam steps at lr 1e-3, as in test_torch_train_engine.py; the
   bench's own lr of 1e-6 would move no parameter by more than the
   tolerance, so the comparison would prove nothing).
+- The same two steps with prefix reuse and group fan-out on in both
+  engines (the JAX bench's default `--share-prefix on`): a group's prompt
+  prefills once and its siblings ride the copied K/V, and streams,
+  logprobs and params must match as before.
 - Then three async steps, torch against its own invariants: the staleness
   ledger balances, no consumed token comes from a version above the
   trainer's, and the served weights equal the trainer's after the last
@@ -50,10 +54,11 @@ def _jax_bench():
     return mod
 
 
-def _jax_parts():
+def _jax_parts(share_prefix=False):
     """The JAX bench's `_make_parts("tiny", ..., batch_norm=True)` at lr
-    1e-3, with the serving engine's f32 KV and the port's admission (no
-    prefix sharing, ragged decode)."""
+    1e-3, with the serving engine's f32 KV and ragged decode; without
+    `share_prefix` also without prefix reuse (the port's admission before
+    it had either), with it at the JAX bench's default admission."""
     from areal_tpu.api.config import (
         MeshConfig,
         MicroBatchSpec,
@@ -81,8 +86,8 @@ def _jax_parts():
     serving = ColocatedEngine(
         cfg.replace(dtype="float32", param_dtype="float32", remat=False),
         params=actor.export_device_params(), n_slots=N_SLOTS, max_seq_len=MAX_SEQ_LEN,
-        prompt_bucket=128, decode_chunk=8, share_prefix=False, kv_reuse=False,
-        ragged_attn=True, kv_dtype="float32")
+        prompt_bucket=128, decode_chunk=8, share_prefix=share_prefix,
+        kv_reuse=share_prefix, ragged_attn=True, kv_dtype="float32")
     return actor, serving, cfg
 
 
@@ -107,15 +112,15 @@ def _jax_params(actor):
     return _params(params_from_jax(tree, tcfg, "cpu", param_dtype="float32"))
 
 
-@pytest.fixture(scope="module")
-def loops():
+def _loops(share_prefix):
     from areal_tpu.api.config import GenerationHyperparameters as JaxGen
     from areal_tpu.workflow.rlvr import RLVRWorkflow as JaxRLVR
 
     jb = _jax_bench()
-    ja, jserving, _ = _jax_parts()
+    ja, jserving, _ = _jax_parts(share_prefix)
     ta, serving, _ = bench._make_parts("tiny", N_SLOTS, MAX_SEQ_LEN, GROUP,
-                                         batch_norm=True, device="cpu", lr=LR)
+                                         batch_norm=True, device="cpu", lr=LR,
+                                         share_prefix=share_prefix)
     src = _jax_params(ja)
     with torch.no_grad():
         for n, p in ta.model.named_parameters():
@@ -135,7 +140,34 @@ def loops():
     serving.destroy()
 
 
+@pytest.fixture(scope="module")
+def loops():
+    """The JAX side without prefix reuse or sharing; the port's bench parts
+    at their default (sharing on): the streams must not depend on it."""
+    yield from _loops(False)
+
+
+@pytest.fixture(scope="module")
+def shared_loops():
+    """Both sides at the JAX bench's default admission: prefix reuse and
+    group fan-out on."""
+    yield from _loops(True)
+
+
 def test_two_sync_steps_match_jax(loops):
+    _two_sync_steps(loops)
+
+
+def test_two_sync_steps_with_prefix_sharing_match_jax(shared_loops):
+    """The same two steps with both engines sharing each group's prompt
+    prefill (the JAX bench's default `--share-prefix on`)."""
+    _two_sync_steps(shared_loops)
+    (_, jserving, _), (_, serving, _) = shared_loops[1], shared_loops[2]
+    assert jserving.engine.stats["shared_tokens"] > 0
+    assert serving.engine.stats["shared_tokens"] > 0
+
+
+def _two_sync_steps(loops):
     jb, (ja, jserving, jwf), (ta, serving, twf), initial = loops
     data = _dataset(512)
     for step in range(2):

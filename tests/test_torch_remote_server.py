@@ -7,7 +7,9 @@ package's `GenServer` on the same weights.
 - Greedy streams from the port's server, driven by the port's client,
   equal the JAX server's on the same params (carried over by
   `models/convert.py`), before and after transfer publishes from the
-  port's trainer with a live and with an aborting commit; the trainer's
+  port's trainer with a live and with an aborting commit (both servers at
+  the engine's defaults, so both reuse a prompt's retained prefix across a
+  publish); the trainer's
   chunks go to both servers, and the JAX server then serves exactly the
   trainer's bf16 cast.  Tokens must be equal; logprobs agree to 1e-4 (f32
   forwards in another op order, as in test_torch_engine.py).
@@ -69,9 +71,11 @@ def _jax_server(tree):
     from areal_tpu.gen.server import GenServer as JaxServer
     from areal_tpu.models.model_config import tiny_config as jax_tiny
 
-    engine = JaxEngine(jax_tiny(**KW), params=tree, ragged_attn=True, kv_reuse=False,
-                       share_prefix=False, decode_chunk=CHUNK, n_slots=SLOTS, max_seq_len=SEQ,
-                       prompt_bucket=PAGE, kv_dtype="float32")
+    # the engine's admission defaults (prefix reuse, group fan-out), which
+    # both servers run: a prompt seen before a publish reuses its retained
+    # old-weight K/V on either server
+    engine = JaxEngine(jax_tiny(**KW), params=tree, ragged_attn=True, decode_chunk=CHUNK,
+                       n_slots=SLOTS, max_seq_len=SEQ, prompt_bucket=PAGE, kv_dtype="float32")
     server = JaxServer(engine)
     server.start()
     port = find_free_port()
