@@ -52,7 +52,7 @@ import torch
 from areal_tpu_torch.api.config import OptimizerConfig, TrainEngineConfig
 from areal_tpu_torch.api.io_struct import FinetuneSpec, WeightUpdateMeta
 from areal_tpu_torch.device import DeviceLike, resolve_device
-from areal_tpu_torch.models.hf import hf_state_in_jax_order, load_hf_params, save_hf_checkpoint
+from areal_tpu_torch.models.hf import load_hf_params, params_to_hf_state, save_hf_checkpoint
 from areal_tpu_torch.models.model_config import TransformerConfig
 from areal_tpu_torch.models.transformer import (
     Transformer,
@@ -112,8 +112,12 @@ def make_schedule(oc: OptimizerConfig, total_steps: int) -> Callable[[int], floa
 def decays(name: str, p: torch.Tensor) -> bool:
     """The JAX engine's weight-decay mask, `ndim >= 2` on its scan-stacked
     tree: per-layer leaves carry a leading layer axis there, so every
-    per-layer tensor (norm weights and biases included) decays, and of the
-    rest only the matrices (the embedding, an untied head) do."""
+    per-layer tensor decays (norm weights and LayerNorm biases, q/k norms,
+    projection and MLP biases included), and of the rest only the matrices
+    (the token and learned-position embeddings, an untied head) do; the
+    final norm's weight and bias do not.  This needs the port's names to
+    keep every per-layer tensor under `model.layers.`, which the
+    Llama-style names of every family do."""
     return p.ndim + name.startswith("model.layers.") >= 2
 
 
@@ -439,7 +443,7 @@ class TorchTrainEngine:
         addrs = self._server_addrs()
         chunk = max(1, meta.chunk_mb) << 20
         state = [(name, t.to(torch.bfloat16).contiguous().cpu().view(torch.uint8).numpy(),
-                  list(t.shape)) for name, t in hf_state_in_jax_order(self.model)]
+                  list(t.shape)) for name, t in params_to_hf_state(self.model)]
         version = self._version
 
         def push(addr: str) -> None:

@@ -156,6 +156,12 @@ class GenEngine:
                              f"engine device is {self.device}")
         self.model = params
         self.model_config = cfg = params.cfg
+        if cfg.pos_emb == "learned" and max_seq_len > cfg.max_position_embeddings:
+            # positions past the table would read its last row: refuse
+            raise ValueError(
+                f"max_seq_len {max_seq_len} exceeds the learned position table "
+                f"({cfg.max_position_embeddings}); gpt2-family models cannot "
+                "extrapolate positions")
         # the ragged kernel's gate, once, at the widest window
         if not ragged_supported(max_seq_len, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_):
             raise ValueError(

@@ -22,8 +22,13 @@ def _tensor(a) -> torch.Tensor:
 
 
 def jax_tree_to_hf(tree: Dict[str, Any], cfg: TransformerConfig) -> Iterator[Tuple[str, torch.Tensor]]:
-    """HF-named f32 tensors from a JAX scan-stacked tree."""
+    """The port's state-dict names (HF names, Llama-style for every family)
+    with f32 tensors from a JAX scan-stacked tree: the embeddings (token,
+    and learned positions), each layer's leaves by `layer_name_map`, the
+    final norm (with its LayerNorm bias), an untied head."""
     yield "model.embed_tokens.weight", _tensor(tree["embedding"])
+    if "pos_embedding" in tree:
+        yield "model.embed_positions.weight", _tensor(tree["pos_embedding"])
     layers = tree["layers"]
     lmap = layer_name_map(cfg)
     for i in range(cfg.num_layers):
@@ -34,6 +39,8 @@ def jax_tree_to_hf(tree: Dict[str, Any], cfg: TransformerConfig) -> Iterator[Tup
             arr = np.asarray(leaf[i])
             yield f"model.layers.{i}.{suffix}", _tensor(arr.T if transpose else arr)
     yield "model.norm.weight", _tensor(tree["final_norm"])
+    if "final_norm_b" in tree:
+        yield "model.norm.bias", _tensor(tree["final_norm_b"])
     if "lm_head" in tree:
         yield "lm_head.weight", _tensor(np.asarray(tree["lm_head"]).T)
 

@@ -2,16 +2,18 @@
 `areal_tpu/models/model_config.py`, which is framework-free).
 
 One frozen dataclass covers the decoder-only families the reference parses
-from HF `config.json`.  The copy keeps `TransformerConfig` with its HF
-interop (`from_hf`, `to_hf_dict`) and the `tiny_config`/`qwen25_1p5b`
-presets, and of the training knobs the remat settings (scan unroll, the
-attention implementation, LoRA and MoE capacity come with later slices).
-The served model holds its weights in the compute `dtype`; the trainer
-holds f32 masters (the `param_dtype` argument of the model builders, not a
-config field) and casts them to `dtype` at each use.  The port's model raises
-`NotImplementedError` on the families it does not run yet (MoE, VLM,
-learned positions, sandwich norms, sliding windows, softcaps), and on the
-remat rungs other than `full` and `layer_group_size` > 1.
+from HF `config.json`: llama/mistral, qwen2, qwen3, gemma, gemma2 and gpt2,
+with the MoE and vision fields as the reference has them and its LoRA
+rank.  The copy
+keeps `TransformerConfig` with its HF interop (`from_hf`, `to_hf_dict`) and
+the `tiny_config`/`qwen25_1p5b` presets, and of the training knobs the
+remat settings (scan unroll, the attention implementation and MoE capacity
+come with later slices).  The served model holds its weights in the
+compute `dtype`; the trainer holds f32 masters (the `param_dtype` argument
+of the model builders, not a config field) and casts them to `dtype` at
+each use.  The port's model raises `NotImplementedError` on MoE, VLM and
+LoRA configs, and on the remat rungs other than `full` and
+`layer_group_size` > 1.
 """
 
 import json
@@ -97,6 +99,9 @@ class TransformerConfig:
     num_experts_per_tok: int = 2
     moe_intermediate_size: Optional[int] = None
     moe_impl: str = "capacity"  # capacity | dropless
+
+    # LoRA (0 = off); the port refuses adapted configs
+    lora_rank: int = 0
 
     # numerics: compute/activation dtype (also the served weights' dtype)
     dtype: str = "bfloat16"

@@ -5,8 +5,9 @@ Prefill attention runs `naive_attention` as it does in the JAX serving
 path; it is no kernel there either.  `segment_attention` (and
 `make_segment_attention`, which the model's layer loop calls) is the
 training entry point: the flash kernels (`ops/flash_attention.py`) when
-`flash_supported` admits the shape, as JAX takes splash when
-`splash_supported` does, and `naive_attention` outside that gate.
+`flash_supported` admits the shape and the windows are uniform, as JAX
+takes splash when `splash_supported` does, and `naive_attention` outside
+that gate and under gemma2's per-layer windows.
 `naive_attention`'s op order (scores in the compute
 dtype, then f32, scale, optional softcap, mask to `MASK_VALUE`, softmax,
 probabilities cast to the value dtype, then PV) is also the op order of
@@ -78,21 +79,31 @@ def make_segment_attention(
     head_dim: int,
     sliding_window: Optional[int] = None,
     logit_softcap: Optional[float] = None,
-) -> Callable[[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]:
-    """`attend(q, k, v)` for packed rows with these segment ids: the flash
-    kernels when `flash_supported` admits the shape, else `naive_attention`
-    over a mask built here once, so a layer loop reuses it (as JAX's
-    `_backbone` builds its mask once)."""
+    per_layer_window: bool = False,
+) -> Callable[..., torch.Tensor]:
+    """`attend(q, k, v, sliding=False)` for packed rows with these segment
+    ids, the ladder JAX's `_backbone` climbs: with `per_layer_window`
+    (gemma2's alternation) `naive_attention` over two masks built here
+    once, the windowed one where `sliding`; else the flash kernels when
+    `flash_supported` admits the shape (a uniform window and the softcap
+    go to the kernels), else `naive_attention` over one mask built once,
+    so a layer loop reuses it."""
     T = segment_ids.shape[1]
-    if flash_supported(T, num_heads, num_kv_heads, head_dim):
+    if per_layer_window:
+        mask = make_attention_mask(segment_ids, positions)
+        mask_win = make_attention_mask(segment_ids, positions, sliding_window)
+
+        def attend(q, k, v, sliding=False):
+            return naive_attention(q, k, v, mask_win if sliding else mask, logit_softcap)
+    elif flash_supported(T, num_heads, num_kv_heads, head_dim):
         seg = segment_ids.to(torch.int32).contiguous()
 
-        def attend(q, k, v):
+        def attend(q, k, v, sliding=False):
             return segment_flash_attention(q, k, v, seg, sliding_window, logit_softcap)
     else:
         mask = make_attention_mask(segment_ids, positions, sliding_window)
 
-        def attend(q, k, v):
+        def attend(q, k, v, sliding=False):
             return naive_attention(q, k, v, mask, logit_softcap)
     return attend
 

@@ -1,6 +1,6 @@
 """Loss functions and token-level numerics in plain PyTorch (the port of
 `areal_tpu/ops/functional.py`: masked means, logprob gathering, the KL
-estimators and the decoupled-PPO / GRPO actor loss).
+estimators, the decoupled-PPO / GRPO actor loss and the LM heads).
 
 All reductions are masked *sums* plus explicit weights, so the engine can
 normalise globally across micro-batches; softmax and log-softmax run in
@@ -11,6 +11,7 @@ import os
 from typing import Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from areal_tpu_torch.models.transformer import LMOutput
 from areal_tpu_torch.ops.fused_xent import fused_logprobs_entropy
@@ -54,6 +55,68 @@ def gather_logprobs_entropy(logits: torch.Tensor,
     return picked - logz, entropy
 
 
+def _chunk_len(n: int, target: int) -> int:
+    """The largest chunk length <= target that divides n."""
+    c = min(n, target)
+    while n % c:
+        c -= 1
+    return c
+
+
+def _head_chunk(hc: torch.Tensor, head: torch.Tensor, lc: torch.Tensor,
+                cap: Optional[float], inv_t: float, with_entropy: bool,
+                entropy_grad: bool):
+    """One token chunk of the chunked head: (logprobs, entropy, correct)."""
+    logits = (hc @ head).float()
+    if cap:
+        # the final softcap is part of the model's distribution: before
+        # temperature
+        logits = torch.tanh(logits / cap) * cap
+    logits = logits * inv_t
+    logz = torch.logsumexp(logits, dim=-1)
+    picked = torch.gather(logits, -1, lc[:, None].long())[:, 0]
+    if with_entropy:
+        z, lz = (logits, logz) if entropy_grad else (logits.detach(), logz.detach())
+        ent = lz - (torch.softmax(z, dim=-1) * z).sum(dim=-1)
+        corr = (logits.argmax(dim=-1) == lc).float()
+    else:
+        ent = corr = torch.zeros_like(logz)
+    return picked - logz, ent, corr
+
+
+def chunked_logprobs_entropy(
+    hidden: torch.Tensor,  # [N, D]
+    head: torch.Tensor,  # [D, V]
+    labels: torch.Tensor,  # int [N]
+    temperature: float = 1.0,
+    logit_softcap: Optional[float] = None,
+    chunk: int = 1024,
+    with_entropy: bool = True,
+    entropy_grad: bool = True,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The token-chunked head (JAX's `lm_logprobs_entropy` chunked path,
+    there a rematerialised `lax.scan`): f32 logits of one chunk of tokens
+    at a time, the softcap before temperature, each chunk recomputed in the
+    backward (`torch.utils.checkpoint`), so only one chunk's [c, V] logits
+    exist at once.  Chunks are the largest divisor of N up to `chunk`.
+
+    `entropy_grad=False` computes the entropy outside the autograd graph
+    (the GRPO stats-only case), as the fused head does.  JAX's chunked
+    path differentiates it regardless, which changes no gradient of a loss
+    without an entropy term; here a graph that the loss's backward never
+    walks would keep every chunk's recomputed logits alive for as long as
+    the entropy stat is (on a 256,000-column vocab, gigabytes per chunk)."""
+    N = hidden.shape[0]
+    c = _chunk_len(N, chunk)
+    inv_t = float(1.0 / temperature)
+    parts = [
+        checkpoint(_head_chunk, hidden[i:i + c], head, labels[i:i + c], logit_softcap, inv_t,
+                   with_entropy, entropy_grad, use_reentrant=False)
+        for i in range(0, N, c)
+    ]
+    return tuple(torch.cat(p) for p in zip(*parts))
+
+
 def lm_logprobs_entropy(
     out,  # LMOutput (deferred head) or materialised logits [..., V]
     labels: torch.Tensor,  # int [...]
@@ -61,28 +124,33 @@ def lm_logprobs_entropy(
     with_entropy: bool = True,
     entropy_grad: bool = True,
     vocab_chunk: Optional[int] = None,  # None -> AREAL_LM_HEAD_CHUNK or 8192
+    chunk: int = 1024,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(logprobs, entropy, argmax-correct) of `labels`, f32.
 
     With an `LMOutput` this runs the vocab-chunked fused head
-    (`ops/fused_xent.py`); the JAX package's token-chunked alternative and
-    its entropy clamp are not ported, and a final-logit softcap (gemma2,
-    which the port does not run) raises."""
+    (`ops/fused_xent.py`), or, under a final-logit softcap (gemma2), the
+    token-chunked head (`chunked_logprobs_entropy`, `chunk` tokens at a
+    time), as the JAX package decides.  The JAX package's entropy clamp
+    is not ported."""
     inv_t = float(1.0 / temperature)
     if not isinstance(out, LMOutput):
         logits = out.float() * inv_t
         logp, ent = gather_logprobs_entropy(logits, labels)
         corr = (logits.argmax(dim=-1) == labels).float()
         return logp, ent, corr
-    if out.logit_softcap is not None:
-        raise NotImplementedError("a final-logit softcap needs the chunked head, not ported")
     shape = labels.shape
     D = out.hidden.shape[-1]
-    lp, ent, corr = fused_logprobs_entropy(
-        out.hidden.reshape(-1, D), out.head, labels.reshape(-1), temperature=temperature,
-        vocab_chunk_width=int(vocab_chunk or os.environ.get("AREAL_LM_HEAD_CHUNK", 8192)),
-        with_entropy=with_entropy, entropy_grad=entropy_grad,
-    )
+    if out.logit_softcap is not None:
+        lp, ent, corr = chunked_logprobs_entropy(
+            out.hidden.reshape(-1, D), out.head, labels.reshape(-1), temperature,
+            out.logit_softcap, chunk, with_entropy, entropy_grad)
+    else:
+        lp, ent, corr = fused_logprobs_entropy(
+            out.hidden.reshape(-1, D), out.head, labels.reshape(-1), temperature=temperature,
+            vocab_chunk_width=int(vocab_chunk or os.environ.get("AREAL_LM_HEAD_CHUNK", 8192)),
+            with_entropy=with_entropy, entropy_grad=entropy_grad,
+        )
     return lp.reshape(shape), ent.reshape(shape), corr.reshape(shape)
 
 

@@ -4,6 +4,7 @@ trajectories/s/chip, on the colocated or the remote transport.
     python -m areal_tpu_torch.scripts.bench_e2e_grpo                  # Qwen2.5-1.5B on the card
     python -m areal_tpu_torch.scripts.bench_e2e_grpo --device cpu --model tiny
     python -m areal_tpu_torch.scripts.bench_e2e_grpo --transport remote
+    python -m areal_tpu_torch.scripts.bench_e2e_grpo --model-path <hf dir>  # any family
 
 The counterpart of `scripts/bench_e2e_grpo.py --transport colocated` and
 `--transport remote`.  The RLVR workflow rewards the parity of each
@@ -184,8 +185,11 @@ class _FakeTokenizer:
 
 def _make_actor(model: str, max_seq_len: int, group_size: int, batch_norm: bool = False,
                 model_path: str = "", device=None, lr: float = 1e-6):
-    """(actor, model config): `qwen2.5-1.5b` trains f32 masters with bf16
-    compute; `tiny` runs f32 throughout.  Without a `model_path` the
+    """(actor, model config): `tiny` runs f32 throughout, every other model
+    trains f32 masters with bf16 compute.  With a `model_path` the config
+    comes from its `config.json` (any family the port runs; `model` is then
+    a label that picks the dtype) and the weights from its checkpoint;
+    without one `model` names the config (`qwen2.5-1.5b` or `tiny`) and the
     weights are random (seed 0)."""
     from areal_tpu_torch.api.config import (
         MicroBatchSpec,
@@ -195,13 +199,15 @@ def _make_actor(model: str, max_seq_len: int, group_size: int, batch_norm: bool 
     )
     from areal_tpu_torch.api.io_struct import FinetuneSpec
     from areal_tpu_torch.engine.ppo import TorchPPOActor
-    from areal_tpu_torch.models.model_config import qwen25_1p5b, tiny_config
+    from areal_tpu_torch.models.model_config import TransformerConfig, qwen25_1p5b, tiny_config
 
-    if model == "qwen2.5-1.5b":
+    if model_path:
+        cfg = TransformerConfig.from_hf(model_path)
+    elif model == "qwen2.5-1.5b":
         cfg = qwen25_1p5b()
     else:
         cfg = tiny_config(vocab_size=512, qkv_bias=True, hf_architecture="Qwen2ForCausalLM")
-    dtype = "bfloat16" if model == "qwen2.5-1.5b" else "float32"
+    dtype = "float32" if model == "tiny" else "bfloat16"
     cfg = cfg.replace(eos_token_id=None, dtype=dtype)
     actor = TorchPPOActor(
         PPOActorConfig(
@@ -236,8 +242,8 @@ def _make_parts(model: str, n_slots: int, max_seq_len: int, group_size: int,
                 batch_norm: bool = False, model_path: str = "", device=None,
                 lr: float = 1e-6, share_prefix: bool = True):
     """(actor, serving, model config): the trainer and a colocated engine
-    serving copies of its weights (bf16 for `qwen2.5-1.5b`), with group
-    fan-out when `share_prefix`."""
+    serving copies of its weights (bf16 at full width), with group fan-out
+    when `share_prefix`."""
     from areal_tpu_torch.engine.colocated import ColocatedEngine
 
     actor, cfg = _make_actor(model, max_seq_len, group_size, batch_norm, model_path,
@@ -618,7 +624,8 @@ def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--model", default="qwen2.5-1.5b", choices=MODELS)
     p.add_argument("--model-path", default="",
-                   help="HF checkpoint the trainer starts from (default: random weights)")
+                   help="HF checkpoint the trainer starts from; its config.json sets the "
+                        "model, --model then only the dtype (default: random weights)")
     p.add_argument("--device", default=None,
                    help="cuda (default) or cpu; without a card only cpu runs")
     p.add_argument("--steps", type=int, default=3)
@@ -705,6 +712,7 @@ def main(argv=None):
     workflow = _RecordingWorkflow(workflow, recorder)
     result: Dict[str, Any] = {
         "model": args.model,
+        "architecture": cfg.hf_architecture,
         "transport": args.transport,
         "device": str(actor.device),
         "workflow": args.workflow,

@@ -14,11 +14,15 @@ Phases, each printed with its wall time; any failure exits non-zero:
             Hkv=2, hd=128, bf16, page 128, K in {128, 2048}; T=4 at K=512;
             softcap 30 at K=128; one f32 case; T=4 writes straddling a
             key-chunk boundary; a write into [K, M); an all-masked row; the
-            appended cache bit for bit), then one slot bit-equal alone and
+            appended cache bit for bit; Gemma-2-2B's decode (B=8, Hq=8,
+            Hkv=4, hd=256, softcap 50) at K=4096 and 8192 under sliding
+            masks that drop keys, two runs bit-equal; Qwen3-1.7B's heads
+            Hq=16, Hkv=8 at B=16), then one slot bit-equal alone and
             in the B=16 grid, and two runs bit-equal.  Flash forward, dq and
             dk/dv at Qwen2.5's training heads (Hq=12, Hkv=2, hd=128, bf16):
             T=2048 packed with 3 segments and tail padding, T=1024 one
-            segment, window 256, softcap 30, and f32 at T=256; two forwards,
+            segment, window 256, softcap 30, and f32 at T=256, and at
+            Qwen3-1.7B's (Hq=16, Hkv=8) on the T=2048 rows; two forwards,
             two dq and two dk/dv runs equal bit for bit, pad rows' dq, dk
             and dv exactly 0, every bf16 kernel on its tensor-core variant
             and every f32 one on the CUDA cores
@@ -94,7 +98,29 @@ Phases, each printed with its wall time; any failure exits non-zero:
             accumulated tokens) reuse their retained prefixes and resume
             every stream exactly.  Ragged launches = layers x decode steps
             in every run
-11. remote  the same cell with trainer and server as two processes on the
+11. families  the dense families at full width, random weights from seed 0,
+            each written as an HF checkpoint by the port's writer from its
+            published config.json.  Gemma-2-2B (26 layers, d=2304, 8 q / 4
+            kv heads of 256, vocab 256000, softcaps 50/30, window 4096 on
+            even layers) through `gen.server.main` (8 slots, max_seq_len
+            8192): a greedy request with a 4,500-token prompt, then three
+            shorter (64 new tokens each); K2 launches = 26 x decode steps
+            (/metrics); the long request's served logprobs against the
+            packed forward with the per-layer windows (within LOGP_MEAN_TOL
+            on the mean), which without the windows must move by more than
+            that; 8 prompts x group 4 over HTTP, the actor's logprob
+            recompute against the server's, 2 PPO updates (f32 masters, bf16
+            compute, full remat, naive attention under the per-layer
+            windows as in JAX: no flash launch, the softcapped chunked
+            head; loss, grad norm, tokens/s, MFU), a disk publish the
+            server reloads (snapshot bit-equal to the trainer's bf16 cast),
+            decode tokens/s.  Qwen3-1.7B (28 layers, d=2048, 16 q / 8 kv
+            heads, qk norm) through the grpo phase's colocated loop from its
+            checkpoint: sync and async (live publish), 1 + 1 steps each,
+            with the grpo phase's checks.  Then K2 at both models' decode
+            shapes and K1 at Qwen3's heads on its train rows timed against
+            their plain versions and SDPA, with bounds
+12. remote  the same cell with trainer and server as two processes on the
             card: `areal_tpu_torch.gen.server` started by the launch helper
             (32 slots, max_seq_len 1024, bf16, from the serve phase's
             checkpoint), the trainer here, rollouts over HTTP through
@@ -113,7 +139,7 @@ Phases, each printed with its wall time; any failure exits non-zero:
             trainer's version, and after the last publish 4 greedy streams
             (and logprobs) from the server process bit-equal to a GenEngine
             built here from the trainer's bf16 export
-12. example `python -m areal_tpu_torch.examples.math.gsm8k_grpo` at full width
+13. example `python -m areal_tpu_torch.examples.math.gsm8k_grpo` at full width
             for one step with the transfer publish (gsm8k-synth, the
             example's own server through the launch helper); prints the
             step's stats
@@ -147,7 +173,7 @@ from areal_tpu_torch.gen import server as gen_server
 from areal_tpu_torch.gen.engine import GenEngine, GenRequest
 from areal_tpu_torch.models import safetensors_io
 from areal_tpu_torch.models.hf import save_hf_checkpoint
-from areal_tpu_torch.models.model_config import qwen25_1p5b, tiny_config
+from areal_tpu_torch.models.model_config import TransformerConfig, qwen25_1p5b, tiny_config
 from areal_tpu_torch.models.transformer import build_model, init_params
 from areal_tpu_torch.ops import _build
 from areal_tpu_torch.ops import flash_attention as fa
@@ -163,6 +189,9 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # H100 SXM, dense
 BF16_ATOL = BF16_RTOL = 2e-2  # see check_kernel
 SERVE_LAYERS = 28
+# the decode heads of the families phase's models (B = its slot grid)
+GEMMA_DECODE = dict(B=8, Hq=8, Hkv=4, hd=256)
+QWEN3_HEADS = dict(Hq=16, Hkv=8, hd=128)
 
 
 @contextlib.contextmanager
@@ -186,9 +215,11 @@ def nvidia_smi() -> str:
 
 
 def ragged_case(seed, *, B=16, T=1, Hq=12, Hkv=2, hd=128, K=2048, M=2048,
-                page=128, dtype=torch.bfloat16, lengths=None, dev="cuda"):
+                page=128, dtype=torch.bfloat16, lengths=None, window=None, dev="cuda"):
     """Inputs of one ragged call: permuted page-table rows, lengths with 0
-    and K - T, one dropped write position (index M)."""
+    and K - T, one dropped write position (index M); with `window`, a
+    sliding layer's mask (keys inside the window only, which must drop
+    some)."""
     g = torch.Generator(device="cpu").manual_seed(seed)
     S = B + 1
 
@@ -200,6 +231,11 @@ def ragged_case(seed, *, B=16, T=1, Hq=12, Hkv=2, hd=128, K=2048, M=2048,
         lengths[0], lengths[1] = 0, K - T
     pos = lengths.to(torch.int32)[:, None] + torch.arange(T, dtype=torch.int32)[None, :]
     mask = torch.arange(K)[None, None, :] <= pos[:, :, None]
+    if window:
+        causal = mask
+        mask = mask & (torch.arange(K)[None, None, :] > pos[:, :, None] - window)
+        if torch.equal(mask, causal):
+            raise AssertionError(f"the window {window} drops no key at K={K}")
     widx = pos.clone()
     widx[2, -1] = M  # a dropped write (idle slot / short draft padding)
     return dict(
@@ -252,6 +288,11 @@ def check_kernel():
         ("T=4 K=512, writes across a chunk boundary", dict(T=4, K=512), None, straddle_chunk),
         ("T=4 K=512 M=1024, a write into [K, M)", dict(T=4, K=512, M=1024), None, tail_write),
         ("T=1 K=1024, an all-masked row", dict(K=1024), None, all_masked),
+        ("Gemma-2-2B decode (B=8 Hq=8 Hkv=4 hd=256) K=4096, softcap 50, window 2048",
+         dict(GEMMA_DECODE, K=4096, M=4096, window=2048), 50.0),
+        ("Gemma-2-2B decode K=8192, softcap 50, its window 4096",
+         dict(GEMMA_DECODE, K=8192, M=8192, window=4096), 50.0),
+        ("Qwen3-1.7B decode heads (B=16 Hq=16 Hkv=8 hd=128) K=2048", dict(QWEN3_HEADS), None),
     ]
     worst = 0.0
     for i, (name, kw, softcap, *edit) in enumerate(cases):
@@ -261,6 +302,13 @@ def check_kernel():
         max_err = compare_ragged(name, case, softcap)
         if case["q"].dtype != torch.float32:
             worst = max(worst, max_err)
+        if kw.get("hd") == 256:
+            first, second = _run(ragged_paged_attention, case, softcap), _run(
+                ragged_paged_attention, case, softcap)
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(first, second)):
+                raise AssertionError(f"two ragged runs differ: {name}")
+            print("    two runs bit-equal")
     check_ragged_invariance()
     return worst
 
@@ -393,11 +441,14 @@ def check_flash():
         ("T=1024, window 256", packed_segments(1024, [600, 380]), dict(window=256)),
         ("T=1024, softcap 30", packed_segments(1024, [600, 380]), dict(softcap=30.0)),
         ("f32 T=256", packed_segments(256, [100, 140]), dict(dtype=torch.float32)),
+        ("Qwen3-1.7B heads (Hq=16 Hkv=8), T=2048, 3 segments + padding",
+         packed_segments(2048, [700, 900, 300]), dict(Hq=16, Hkv=8)),
     ]
     worst = {"flash_fwd": 0.0, "flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0}
     for i, (name, seg, kw) in enumerate(cases):
         dtype = kw.get("dtype", torch.bfloat16)
-        qs, k, v, dout, sg = flash_case(200 + i, seg, dtype=dtype)
+        qs, k, v, dout, sg = flash_case(200 + i, seg, dtype=dtype, Hq=kw.get("Hq", 12),
+                                        Hkv=kw.get("Hkv", 2))
         errs = compare_flash(name, qs, k, v, dout, sg, kw.get("window"), kw.get("softcap"))
         if dtype != torch.float32:
             worst = {n: max(worst[n], errs[n]) for n in worst}
@@ -568,7 +619,8 @@ def decode_rate(eng, prompt=512, new=64):
     grid (the first step, prefill and one chunk, is not timed)."""
     n_slots = eng.n_slots
     rng = np.random.default_rng(1)
-    reqs = [GenRequest(rid=str(i), input_ids=rng.integers(0, 151936, prompt).tolist(),
+    vocab = eng.model_config.vocab_size
+    reqs = [GenRequest(rid=str(i), input_ids=rng.integers(0, vocab, prompt).tolist(),
                        max_new_tokens=new, temperature=0.0) for i in range(n_slots)]
     for r in reqs:
         eng.submit(r)
@@ -903,26 +955,36 @@ def print_prefill(res, indent="    "):
         raise AssertionError("no group shared its prompt's prefill in this mode")
 
 
-def grpo_qwen(ckpt_dir):
+# (label, mode, timed steps, warmup steps, interrupting publish)
+GRPO_PLANS = (("sync", "sync", 1, 1, False), ("async", "async", 1, 1, False),
+              ("interrupt", "async", 1, 0, True))
+
+
+def grpo_loop(ckpt_dir, model="qwen2.5-1.5b", plans=GRPO_PLANS):
     """The asynchronous GRPO loop of the port's bench module on one card,
-    trainer and server colocated in this process: sync (rollout_batch,
-    train_phase with the serving memory released, publish_weights), async
-    (WorkflowExecutor.prepare_batch under the staleness gate, a live publish
-    after each step) and one async step with an interrupting publish.  The
-    reward is the parity of the last token, which varies within a group, so
-    the updates move the weights and the served-weights check can fail.
-    Then the ragged kernel on the phase's decode grid (32 slots) and the
-    flash kernels on the packed rows of one of its train batches, against
-    their plain versions.  Returns the launches of every kernel over the
-    phase and those comparisons' |kernel - plain|."""
+    trainer and server colocated in this process, from the HF checkpoint
+    `ckpt_dir` (its config.json sets the model; `model` labels it): sync
+    (rollout_batch, train_phase with the serving memory released,
+    publish_weights), async (WorkflowExecutor.prepare_batch under the
+    staleness gate, a live publish after each step) and, in the grpo
+    phase's plans, one async step with an interrupting publish, profiled.
+    The reward is the parity of the last token, which varies within a
+    group, so the updates move the weights and the served-weights check can
+    fail.  Then the ragged kernel on the loop's decode grid (32 slots) and
+    the flash kernels on the packed rows of one of its train batches, at
+    the model's heads, against their plain versions.  Returns the launches
+    of every kernel over the loop, those comparisons' |kernel - plain|, the
+    mode results and the packed segment ids of the last train batch."""
     from areal_tpu_torch.api.config import GenerationHyperparameters
     from areal_tpu_torch.api.reward import prewarm_reward_pool, shutdown_reward_pool
     from areal_tpu_torch.scripts import bench_e2e_grpo as bench
     from areal_tpu_torch.workflow.rlvr import RLVRWorkflow
 
     t0 = time.perf_counter()
-    actor, serving, cfg = bench._make_parts("qwen2.5-1.5b", GRPO_SLOTS, GRPO_SEQ, GROUP,
+    actor, serving, cfg = bench._make_parts(model, GRPO_SLOTS, GRPO_SEQ, GROUP,
                                             model_path=ckpt_dir)
+    L = cfg.num_layers
+    heads = dict(Hq=cfg.num_heads, Hkv=cfg.num_kv_heads, hd=cfg.head_dim_)
     prewarm_reward_pool()
     torch.cuda.synchronize()
     print(f"  trainer and colocated server up in {time.perf_counter() - t0:.1f} s; "
@@ -933,9 +995,6 @@ def grpo_qwen(ckpt_dir):
             n_samples=GROUP, max_new_tokens=NEW_TOKENS, temperature=1.0)), recorder)
     dataset = bench.make_dataset(256, cfg.vocab_size, GRPO_PROMPT_LEN[1], GRPO_PROMPT_LEN[0],
                                  len_jitter=GRPO_LEN_JITTER, max_new_tokens=NEW_TOKENS)
-    # (label, mode, timed steps, warmup steps, interrupting publish)
-    plans = (("sync", "sync", 1, 1, False), ("async", "async", 1, 1, False),
-             ("interrupt", "async", 1, 0, True))
     runs, launches = {}, np.zeros(4, np.int64)
     served0 = {n: p.detach().clone() for n, p in serving.engine.model.named_parameters()}
     packed = []  # segment ids of every row-packed train batch
@@ -987,7 +1046,7 @@ def grpo_qwen(ckpt_dir):
                   f"{res['same_version_logp_gap_mean']:.4f} over {res['same_version_tokens']} "
                   f"tokens (tolerance {LOGP_MEAN_TOL}); losses "
                   + ", ".join(f"{x:+.5f}" for x in res["loss_trajectory"]))
-            print(f"    launches: ragged {got[0]} = {SERVE_LAYERS} x {steps} decode steps; "
+            print(f"    launches: ragged {got[0]} = {L} x {steps} decode steps; "
                   f"flash fwd/dq/dkv {tuple(int(x) for x in got[1:])} over {n_steps} steps")
             if "ledger" in res:
                 print(f"    staleness ledger {res['ledger']}")
@@ -995,10 +1054,9 @@ def grpo_qwen(ckpt_dir):
             if label == "interrupt":
                 report_train_profile(prof, wall_us, f"the {label} run (profiled), {steps} "
                                      "decode steps and one logprob pass and update")
-            if got[0] != SERVE_LAYERS * steps or steps == 0:
-                raise AssertionError(f"{label}: ragged launches != 28 x decode steps")
-            if tuple(got[1:]) != (3 * SERVE_LAYERS * n_steps, SERVE_LAYERS * n_steps,
-                                  SERVE_LAYERS * n_steps):
+            if got[0] != L * steps or steps == 0:
+                raise AssertionError(f"{label}: ragged launches != {L} x decode steps")
+            if tuple(got[1:]) != (3 * L * n_steps, L * n_steps, L * n_steps):
                 raise AssertionError(f"{label}: a logprob pass or an update missed the "
                                      "flash kernels")
             if res["max_version_ahead"] > 0:
@@ -1033,7 +1091,7 @@ def grpo_qwen(ckpt_dir):
             raise AssertionError("no served weight changed over the phase: the updates "
                                  "never reached the server")
         del served0
-        print(f"  async / sync trajectories/s: "
+        print(f"  {model}: async / sync trajectories/s: "
               f"{runs['async']['trajs_per_sec_per_chip'] / runs['sync']['trajs_per_sec_per_chip']:.4f}")
         n_all = sum(n_timed + warmup for _, _, n_timed, warmup, _ in plans)
         print(f"  launches over the phase ({n_all} GRPO steps): ragged {launches[0]}, flash "
@@ -1042,12 +1100,12 @@ def grpo_qwen(ckpt_dir):
         lengths = torch.from_numpy(np.random.default_rng(3).integers(
             GRPO_PROMPT_LEN[0], GRPO_PROMPT_LEN[1] + NEW_TOKENS, GRPO_SLOTS)).to(torch.int32)
         errs = {"ragged_paged_attention": compare_ragged(
-            f"grpo decode grid (B={GRPO_SLOTS} T=1 K={GRPO_SEQ}, spans "
+            f"{model} decode grid (B={GRPO_SLOTS} T=1 K={GRPO_SEQ}, spans "
             f"{GRPO_PROMPT_LEN[0]}..{GRPO_PROMPT_LEN[1] + NEW_TOKENS - 1})",
-            ragged_case(9, B=GRPO_SLOTS, K=GRPO_SEQ, M=GRPO_SEQ, lengths=lengths))}
+            ragged_case(9, B=GRPO_SLOTS, K=GRPO_SEQ, M=GRPO_SEQ, lengths=lengths, **heads))}
         seg = torch.from_numpy(np.ascontiguousarray(packed[-1])).to(torch.int32)
-        errs.update(compare_flash(f"grpo train rows {tuple(seg.shape)}",
-                                  *flash_case(301, seg)))
+        errs.update(compare_flash(f"{model} train rows {tuple(seg.shape)}",
+                                  *flash_case(301, seg, Hq=heads["Hq"], Hkv=heads["Hkv"])))
     finally:
         actor._prepare_rows = prepare_rows
         serving.destroy()
@@ -1055,7 +1113,7 @@ def grpo_qwen(ckpt_dir):
         actor.destroy()
         del actor, serving
         torch.cuda.empty_cache()
-    return tuple(int(x) for x in launches), errs
+    return tuple(int(x) for x in launches), errs, runs, packed[-1]
 
 
 # ---------------------------------------------------------------------------
@@ -1431,6 +1489,261 @@ def example_qwen():
 
 
 # ---------------------------------------------------------------------------
+# the dense families at full width
+# ---------------------------------------------------------------------------
+
+# google/gemma-2-2b config.json: the keys the port reads
+GEMMA2_2B = {
+    "architectures": ["Gemma2ForCausalLM"], "model_type": "gemma2",
+    "vocab_size": 256000, "hidden_size": 2304, "intermediate_size": 9216,
+    "num_hidden_layers": 26, "num_attention_heads": 8, "num_key_value_heads": 4,
+    "head_dim": 256, "max_position_embeddings": 8192, "rope_theta": 10000.0,
+    "rms_norm_eps": 1e-6, "hidden_act": "gelu_pytorch_tanh",
+    "hidden_activation": "gelu_pytorch_tanh", "query_pre_attn_scalar": 256,
+    "sliding_window": 4096, "attn_logit_softcapping": 50.0,
+    "final_logit_softcapping": 30.0, "attention_bias": False, "tie_word_embeddings": True,
+    "bos_token_id": 2, "eos_token_id": 1, "pad_token_id": 0,
+}
+# Qwen/Qwen3-1.7B config.json: the keys the port reads
+QWEN3_1P7B = {
+    "architectures": ["Qwen3ForCausalLM"], "model_type": "qwen3",
+    "vocab_size": 151936, "hidden_size": 2048, "intermediate_size": 6144,
+    "num_hidden_layers": 28, "num_attention_heads": 16, "num_key_value_heads": 8,
+    "head_dim": 128, "max_position_embeddings": 40960, "rope_theta": 1000000.0,
+    "rms_norm_eps": 1e-6, "hidden_act": "silu", "attention_bias": False,
+    "tie_word_embeddings": True, "use_sliding_window": False, "sliding_window": None,
+    "bos_token_id": 151643, "eos_token_id": 151645,
+}
+FAMILY_SLOTS, FAMILY_SEQ = 8, 8192
+LONG_PROMPT = 4500  # past Gemma-2's window of 4096
+SHORT_PROMPTS = (300, 700, 1200)  # the long request's three companions
+FAMILY_NEW = 64  # new tokens per request of the Gemma-2 server
+FAMILY_PROMPT_LEN = (128, 512)  # the Gemma-2 rollouts' prompts
+# the Qwen3 loop: sync and async with a live publish, 1 warmup + 1 timed each
+FAMILY_PLANS = GRPO_PLANS[:2]
+
+
+def write_checkpoint(hf_config, out_dir):
+    """Random bf16 weights (seed 0) of an HF config, written as an HF
+    checkpoint by the port's writer; returns the config."""
+    cfg = TransformerConfig.from_hf(hf_config)
+    t0 = time.perf_counter()
+    model = init_params(cfg, seed=0, device="cuda")
+    n = sum(p.numel() for p in model.parameters())
+    save_hf_checkpoint(model, out_dir)
+    del model
+    torch.cuda.empty_cache()
+    print(f"  {cfg.hf_architecture}: {n / 1e9:.3f} B parameters, {cfg.num_layers} layers, "
+          f"written as an HF checkpoint in {time.perf_counter() - t0:.1f} s")
+    return cfg
+
+
+def packed_logprobs(model, ids, window=True):
+    """Next-token logprobs [T - 1] of one sequence through the port's
+    packed forward (`forward_lm`: naive attention with the per-layer window
+    masks, the softcapped chunked head); `window=False` runs the same
+    weights with every window taken away."""
+    from areal_tpu_torch.models.transformer import forward_lm
+    from areal_tpu_torch.ops.functional import lm_logprobs_entropy
+
+    t = torch.tensor(ids, device="cuda")[None]
+    pos = torch.arange(t.shape[1], device="cuda")[None]
+    cfg = model.cfg
+    if not window:
+        model.cfg = cfg.replace(sliding_window=None, layer_is_sliding=None)
+    try:
+        with torch.no_grad():
+            out = forward_lm(model, t, pos, torch.zeros_like(pos))
+            lp, _, _ = lm_logprobs_entropy(out, torch.roll(t, -1, dims=-1), with_entropy=False)
+    finally:
+        model.cfg = cfg
+    return lp[0, :-1].float().cpu().numpy()
+
+
+def gemma_serve_and_train(ckpt_dir, publish_dir):
+    """Gemma-2-2B at full width (26 layers), random weights from seed 0,
+    through `areal_tpu_torch.gen.server.main` (8 slots, max_seq_len 8192):
+    a greedy request with a prompt past the window and three shorter ones
+    (64 new tokens each); the long request's served logprobs against the
+    packed forward with the per-layer windows, which must differ from the
+    same forward without them; 8 prompts x group 4 rolled out over HTTP,
+    the PPO actor's logprob recompute and 2 updates (f32 masters, bf16
+    compute, full remat, naive attention under the per-layer windows as in
+    JAX, the softcapped chunked head); a disk publish the server reloads.
+    Then decode tokens/s on the engine.  Returns the K2 launches (the
+    server's /metrics) and the train stats."""
+    cfg = write_checkpoint(GEMMA2_2B, ckpt_dir)
+    L, V = cfg.num_layers, cfg.vocab_size
+    rng = np.random.default_rng(8)
+    t0 = time.perf_counter()
+    with running_server(["--model-path", ckpt_dir, "--port", "0", "--n-slots",
+                         str(FAMILY_SLOTS), "--max-seq-len", str(FAMILY_SEQ)]) as httpd:
+        port, engine = httpd.port, httpd.gen.engine
+        print(f"  server up in {time.perf_counter() - t0:.1f} s "
+              f"({torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated)")
+        greedy = dict(max_new_tokens=FAMILY_NEW, min_new_tokens=FAMILY_NEW, temperature=0.0)
+        long_ids = rng.integers(0, V, LONG_PROMPT).tolist()
+        shorts = [dict(rid=f"s{i}", input_ids=rng.integers(0, V, n).tolist(),
+                       sampling_params=greedy) for i, n in enumerate(SHORT_PROMPTS)]
+        m0 = get(port, "/metrics")
+        t0 = time.perf_counter()
+        # alone: a 4500-token prompt prefills in the 8192 bucket
+        long = post(port, "/generate", dict(rid="long", input_ids=long_ids,
+                                            sampling_params=greedy))
+        with concurrent.futures.ThreadPoolExecutor(len(shorts)) as pool:
+            results = [long] + list(pool.map(lambda b: post(port, "/generate", b), shorts))
+        wall = time.perf_counter() - t0
+        m1 = get(port, "/metrics")
+        launches = m1["ragged_kernel_launches"] - m0["ragged_kernel_launches"]
+        steps = m1["decode_steps"] - m0["decode_steps"]
+        print(f"  {len(results)} greedy requests (prompts of {LONG_PROMPT}, "
+              f"{', '.join(map(str, SHORT_PROMPTS))} tokens) x {FAMILY_NEW} tokens in "
+              f"{wall:.2f} s; ragged {launches} = {L} x {steps} decode steps (/metrics)")
+        for r in results:
+            lp = np.asarray(r["output_logprobs"])
+            if len(r["output_tokens"]) != FAMILY_NEW or not (np.isfinite(lp).all()
+                                                             and (lp <= 0).all()):
+                raise AssertionError(f"a Gemma-2 request did not return {FAMILY_NEW} "
+                                     "finite logprobs")
+        if steps == 0 or launches != L * steps:
+            raise AssertionError(f"Gemma-2 decode did not run its {L} layers through K2")
+
+        t0 = time.perf_counter()
+        ids = long_ids + long["output_tokens"]
+        P = len(long_ids)
+        served = np.asarray(long["output_logprobs"])
+        windowed = packed_logprobs(engine.model, ids)[P - 1:]
+        unwindowed = packed_logprobs(engine.model, ids, window=False)[P - 1:]
+        gap = np.abs(windowed - served)
+        lost = np.abs(unwindowed - windowed)
+        print(f"  the long request (positions {P}..{len(ids) - 1}): |served - packed forward| "
+              f"mean {gap.mean():.4f}, max {gap.max():.4f} (tolerance on the mean "
+              f"{LOGP_MEAN_TOL}); without the windows the forward moves by mean "
+              f"{lost.mean():.4f}, max {lost.max():.4f} ({time.perf_counter() - t0:.1f} s)")
+        if not gap.mean() <= LOGP_MEAN_TOL:
+            raise AssertionError("served Gemma-2 logprobs disagree with the packed forward")
+        if not lost.mean() > LOGP_MEAN_TOL:
+            raise AssertionError("the window check cannot see a lost window")
+
+        # rollouts and two PPO updates
+        prompts = [rng.integers(0, V, int(rng.integers(FAMILY_PROMPT_LEN[0],
+                                                       FAMILY_PROMPT_LEN[1] + 1))).tolist()
+                   for _ in range(TRAIN_PROMPTS)]
+        sp = dict(max_new_tokens=FAMILY_NEW, min_new_tokens=FAMILY_NEW, temperature=1.0,
+                  top_p=1.0)
+        bodies = [dict(rid=f"p{i}g{j}", input_ids=p, sampling_params=sp)
+                  for i, p in enumerate(prompts) for j in range(GROUP)]
+        m0 = get(port, "/metrics")
+        t0 = time.perf_counter()
+        results = post(port, "/generate_batch", {"requests": bodies})["results"]
+        wall = time.perf_counter() - t0
+        m1 = get(port, "/metrics")
+        steps = m1["decode_steps"] - m0["decode_steps"]
+        roll_launches = m1["ragged_kernel_launches"] - m0["ragged_kernel_launches"]
+        launches += roll_launches
+        print(f"  rollouts: {len(results)} x {FAMILY_NEW} tokens in {wall:.2f} s; ragged "
+              f"{roll_launches} = {L} x {steps} decode steps")
+        if steps == 0 or roll_launches != L * steps:
+            raise AssertionError("Gemma-2 rollouts missed K2 in a decode layer")
+        rewards = [float(r["output_tokens"][-1] % 2 == 0) for r in results]
+        batch = rollout_batch(results, [b["input_ids"] for b in bodies], rewards)
+
+        t0 = time.perf_counter()
+        actor = TorchPPOActor(PPOActorConfig(
+            init_from_scratch=False, path=ckpt_dir, dtype="bfloat16",
+            gradient_checkpointing=True, group_size=GROUP, ppo_n_minibatches=2,
+            use_decoupled_loss=True, recompute_logprob=True, pack_length_quantum=ROW_LEN,
+            max_pack_length=ROW_LEN,
+            adv_norm=NormConfig(mean_level="group", std_level="group"),
+            optimizer=OptimizerConfig(lr=1e-5, warmup_steps_proportion=0.0),
+        ))
+        actor.initialize(ft_spec=FinetuneSpec(1, len(bodies), len(bodies)))
+        torch.cuda.synchronize()
+        print(f"  trainer up in {time.perf_counter() - t0:.1f} s; "
+              f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated on the card")
+        flash0 = flash_counts()
+        batch["prox_logp"] = actor.compute_logp(batch)
+        mask = np.roll(batch["loss_mask"] > 0, -1, axis=-1)
+        dlp = np.abs(batch["prox_logp"][mask] - np.roll(batch["logprobs"], -1, axis=-1)[mask])
+        print(f"  |trainer - server| logprob: mean {dlp.mean():.4f}, max {dlp.max():.4f} "
+              f"(tolerance on the mean {LOGP_MEAN_TOL})")
+        if not dlp.mean() <= LOGP_MEAN_TOL:
+            raise AssertionError("Gemma-2 trainer logprobs disagree with the server's")
+        actor.compute_advantages(batch)
+        view = {k: batch[k] for k in actor.actor.LOSS_KEYS if k in batch}
+        mb_tokens = [int(mb["attention_mask"].sum()) for mb in split_padded_tensor_dict_into_mb_list(
+            view, n_mbs=actor.config.ppo_n_minibatches).mbs]
+        stats = actor.ppo_update(batch)
+        for i, (st, toks) in enumerate(zip(stats, mb_tokens)):
+            st["tokens_per_s"] = toks / st["step_time"]
+            print(f"  update {i}: loss {st['loss']:+.5f} grad_norm {st['grad_norm']:.4f} "
+                  f"step_time {st['step_time']:.3f} s train tokens/s {st['tokens_per_s']:.1f} "
+                  f"mfu {st.get('mfu', float('nan')):.4f} ({toks} tokens)")
+            if not all(np.isfinite(st[k]) for k in ("loss", "grad_norm", "step_time")):
+                raise AssertionError("a Gemma-2 PPO update returned a non-finite stat")
+        print(f"  peak memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB "
+              "(torch.cuda.max_memory_allocated, server and trainer)")
+        if flash_counts() != flash0:
+            raise AssertionError("Gemma-2 training launched the flash kernels: per-layer "
+                                 "windows take naive attention, as in JAX")
+
+        actor.set_version(1)
+        t0 = time.perf_counter()
+        actor.update_weights(WeightUpdateMeta(type="disk", path=publish_dir))
+        reply = post(port, "/update_weights_from_disk", {"path": publish_dir, "version": 1})
+        print(f"  published and reloaded in {time.perf_counter() - t0:.1f} s: {reply}")
+        snap = dict(safetensors_io.iter_safetensors(os.path.join(publish_dir, "v1")))
+        params = dict(actor.model.named_parameters())
+        if reply.get("version") != 1 or get(port, "/health")["version"] != 1:
+            raise AssertionError("the Gemma-2 server did not take the trainer's version")
+        if set(snap) != set(params) or not all(
+                torch.equal(snap[n].to(p.device), p.detach().to(torch.bfloat16))
+                for n, p in params.items()):
+            raise AssertionError("the Gemma-2 snapshot is not the trainer's params in bf16")
+        del snap
+        out = post(port, "/generate", dict(input_ids=prompts[0], sampling_params=greedy))
+        if len(out["output_tokens"]) != FAMILY_NEW or out["version"] != 1:
+            raise AssertionError("the reloaded Gemma-2 server did not answer")
+        print(f"  snapshot equals the trainer's {len(params)} params in bf16; a greedy request "
+              f"on the new weights: {FAMILY_NEW} tokens, version {out['version']}")
+        actor.destroy()
+        del actor, params
+        torch.cuda.empty_cache()
+    ragged0 = ragged_paged_attention.launches
+    tok_s = decode_rate(engine)
+    print(f"  Gemma-2-2B decode {tok_s:.1f} tokens/s ({FAMILY_SLOTS} slots, 512-token prompts, "
+          f"greedy); a decode step {1e3 * FAMILY_SLOTS / tok_s:.2f} ms of wall")
+    launches += ragged_paged_attention.launches - ragged0
+    del engine
+    torch.cuda.empty_cache()
+    return launches, stats, tok_s
+
+
+def families_timings(qwen3_rows):
+    """K2 at the families' decode shapes and K1 at Qwen3's heads on the
+    Qwen3 loop's packed rows: kernel, plain version, SDPA, bound."""
+    lo, hi = LONG_PROMPT - 512, LONG_PROMPT + FAMILY_NEW
+    lengths = torch.from_numpy(np.random.default_rng(12).integers(
+        lo, hi, GEMMA_DECODE["B"])).to(torch.int32)
+    gemma = time_kernel(ragged_case(13, K=FAMILY_SEQ, M=FAMILY_SEQ, lengths=lengths,
+                                    window=4096, **GEMMA_DECODE), softcap=50.0)
+    lengths = torch.from_numpy(np.random.default_rng(14).integers(
+        GRPO_PROMPT_LEN[0], GRPO_PROMPT_LEN[1] + NEW_TOKENS, GRPO_SLOTS)).to(torch.int32)
+    qwen3 = time_kernel(ragged_case(15, B=GRPO_SLOTS, K=GRPO_SEQ, M=GRPO_SEQ, lengths=lengths,
+                                    **QWEN3_HEADS))
+    for name, t in ((f"Gemma-2-2B decode (B={GEMMA_DECODE['B']} K={FAMILY_SEQ}, spans "
+                     f"{lo}..{hi - 1}, window 4096, softcap 50; SDPA uncapped)", gemma),
+                    (f"Qwen3-1.7B decode (B={GRPO_SLOTS} K={GRPO_SEQ}, spans "
+                     f"{GRPO_PROMPT_LEN[0]}..{GRPO_PROMPT_LEN[1] + NEW_TOKENS - 1})", qwen3)):
+        print(f"  K2 at {name}: kernel {t[0]:.4f} ms, plain {t[1]:.4f} ms, SDPA {t[2]:.4f} ms, "
+              f"bound {t[3]:.4f} ms ({t[4]}); device time per call: kernel {fmt_ms(t[5])}, "
+              f"SDPA {fmt_ms(t[6])}")
+    print("  K1 at Qwen3-1.7B's heads (Hq=16 Hkv=8):")
+    flash, errs = time_flash(qwen3_rows, **{k: QWEN3_HEADS[k] for k in ("Hq", "Hkv")})
+    return errs
+
+
+# ---------------------------------------------------------------------------
 # timings
 # ---------------------------------------------------------------------------
 
@@ -1459,14 +1772,20 @@ def device_ms(fn, iters=50):
     """Device time per call of `fn` from torch.profiler: the self device
     time of every kernel it launched over `iters` calls, summed, per call.
     Unlike `cuda_ms` it leaves out the host's share (Python, the launch
-    path) when the host is slower than the device."""
+    path) when the host is slower than the device.  None when the
+    profiler recorded no device time (it sometimes drops a window)."""
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in device_kernels(prof)) / iters / 1e3
+    total = sum(e.self_device_time_total for e in device_kernels(prof))
+    return total / iters / 1e3 if total > 0 else None
+
+
+def fmt_ms(t):
+    return "not measured" if t is None else f"{t:.4f} ms"
 
 
 def kernel_bound(case):
@@ -1489,10 +1808,11 @@ def kernel_bound(case):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def time_kernel(case):
+def time_kernel(case, softcap=None):
     """(kernel ms, plain ms, SDPA ms, bound ms, bound_by, kernel device ms,
-    SDPA device ms) on one case."""
-    args = dict(case)
+    SDPA device ms) on one case.  SDPA has no softcap: under one it times
+    the same attention uncapped."""
+    args = dict(case, logit_softcap=softcap)
     kern = cuda_ms(lambda: ragged_paged_attention(**args))
     plain = cuda_ms(lambda: ragged_paged_attention_plain(**args), iters=50)
     # SDPA on the same inputs, gathered and GQA-expanded outside the timing
@@ -1562,8 +1882,9 @@ def flash_bounds(qs, k, seg):
     return out
 
 
-def time_flash(seg_rows):
-    """On the packed rows `seg_rows` at Qwen2.5's heads in bf16: each flash
+def time_flash(seg_rows, Hq=12, Hkv=2):
+    """On the packed rows `seg_rows` at `Hq` q heads over `Hkv` kv heads
+    (default: Qwen2.5's) in bf16: each flash
     kernel against its plain version (`compare_flash`), then the kernel,
     the plain version and torch SDPA timed: SDPA's forward for the forward
     kernel, its forward + backward through autograd for the two backward
@@ -1571,7 +1892,7 @@ def time_flash(seg_rows):
     and by device time.  Returns the timings and the |kernel - plain| of
     each kernel."""
     seg = torch.from_numpy(np.ascontiguousarray(seg_rows)).to(torch.int32)
-    qs, k, v, dout, sg = flash_case(300, seg)
+    qs, k, v, dout, sg = flash_case(300, seg, Hq=Hq, Hkv=Hkv)
     errs = compare_flash(f"train rows {tuple(seg.shape)}", qs, k, v, dout, sg)
     out, lse = fa.flash_fwd(qs, k, v, sg)
     di = fa.attention_di(out, dout)
@@ -1610,9 +1931,9 @@ def time_flash(seg_rows):
     lib["flash_bwd_dq"] = lib["flash_bwd_dkv"] = cuda_ms(lib_fwd_bwd, iters=10, warmup=2)
     dev = {name: device_ms(kernel, iters=20) for name, (kernel, _) in runs.items()}
     print("  device time per call (profiler): " + ", ".join(
-        f"{name} {t:.4f} ms" for name, t in dev.items())
-        + f"; SDPA forward {device_ms(lib_fwd, iters=20):.4f} ms, SDPA forward + backward "
-          f"{device_ms(lib_fwd_bwd, iters=10):.4f} ms")
+        f"{name} {fmt_ms(t)}" for name, t in dev.items())
+        + f"; SDPA forward {fmt_ms(device_ms(lib_fwd, iters=20))}, SDPA forward + backward "
+          f"{fmt_ms(device_ms(lib_fwd_bwd, iters=10))}")
     bounds = flash_bounds(qs, k, sg)
     timings = {}
     for name, (kernel, plain) in runs.items():
@@ -1652,7 +1973,11 @@ def main():
     ckpt_dir = os.path.join(build_dir, "smoke_ckpt")
     publish_dir = os.path.join(build_dir, "smoke_publish")
     remote_dir = os.path.join(build_dir, "remote_publish")
-    for d in (ckpt_dir, publish_dir, remote_dir):
+    gemma_dir = os.path.join(build_dir, "gemma2_ckpt")
+    gemma_publish = os.path.join(build_dir, "gemma2_publish")
+    qwen3_dir = os.path.join(build_dir, "qwen3_ckpt")
+    scratch = (ckpt_dir, publish_dir, remote_dir, gemma_dir, gemma_publish, qwen3_dir)
+    for d in scratch:
         shutil.rmtree(d, ignore_errors=True)
     try:
         with phase("serve"):
@@ -1672,13 +1997,13 @@ def main():
             kern, plain, sdpa, bound, by, kern_dev, sdpa_dev = time_kernel(main_case)
             print(f"  serving shape (B=16 T=1 K=1024, spans 64..964): kernel {kern:.4f} ms, "
                   f"plain {plain:.4f} ms, SDPA {sdpa:.4f} ms, bound {bound:.4f} ms ({by}); "
-                  f"device time per call (profiler): kernel {kern_dev:.4f} ms, "
-                  f"SDPA {sdpa_dev:.4f} ms")
+                  f"device time per call (profiler): kernel {fmt_ms(kern_dev)}, "
+                  f"SDPA {fmt_ms(sdpa_dev)}")
             full = time_kernel(ragged_case(8, K=2048))
             print(f"  full window (B=16 T=1 K=2048, random spans): kernel {full[0]:.4f} ms, "
                   f"plain {full[1]:.4f} ms, SDPA {full[2]:.4f} ms, bound {full[3]:.4f} ms "
-                  f"({full[4]}); device time per call: kernel {full[5]:.4f} ms, "
-                  f"SDPA {full[6]:.4f} ms")
+                  f"({full[4]}); device time per call: kernel {fmt_ms(full[5])}, "
+                  f"SDPA {fmt_ms(full[6])}")
             print(f"  decode {tok_s:.1f} tokens/s (16 slots, 512-token prompts, greedy); "
                   f"serve window {tokens / wall:.1f} tokens/s incl. prefill")
             torch.cuda.empty_cache()
@@ -1694,26 +2019,38 @@ def main():
             flash_times, train_err = time_flash(seg_rows)
             flash_err = {n: max(flash_err[n], train_err[n]) for n in flash_err}
         with phase("grpo"):
-            grpo_launches, grpo_err = grpo_qwen(ckpt_dir)
+            grpo_launches, grpo_err, _, _ = grpo_loop(ckpt_dir)
             max_err = max(max_err, grpo_err["ragged_paged_attention"])
             flash_err = {n: max(flash_err[n], grpo_err[n]) for n in flash_err}
         with phase("prefix"):
             prefix_launches = prefix_qwen()
+        with phase("families"):
+            gemma_ragged, _, _ = gemma_serve_and_train(gemma_dir, gemma_publish)
+            shutil.rmtree(gemma_dir, ignore_errors=True)
+            write_checkpoint(QWEN3_1P7B, qwen3_dir)
+            qwen3_launches, qwen3_err, _, qwen3_rows = grpo_loop(qwen3_dir, "qwen3-1.7b",
+                                                                 FAMILY_PLANS)
+            timing_err = families_timings(qwen3_rows)
+            max_err = max(max_err, qwen3_err["ragged_paged_attention"])
+            flash_err = {n: max(flash_err[n], qwen3_err[n], timing_err[n]) for n in flash_err}
+            family_launches = (gemma_ragged + qwen3_launches[0], *qwen3_launches[1:])
         with phase("remote"):
             remote_ragged, remote_flash = remote_qwen(ckpt_dir, remote_dir)
         with phase("example"):
             example_qwen()
     finally:
-        for d in (ckpt_dir, publish_dir, remote_dir):
+        for d in scratch:
             shutil.rmtree(d, ignore_errors=True)
     records = [{
         "name": "ragged_paged_attention",
         "route": "cuda",
         "source": "areal_tpu_torch/csrc/ragged_decode.cu",
         "replaces": "areal_tpu/ops/ragged_decode.py:93",
-        "launches": launches + grpo_launches[0] + prefix_launches + remote_ragged,
+        "launches": (launches + grpo_launches[0] + prefix_launches + family_launches[0]
+                     + remote_ragged),
         "launches_by_path": {"serve": launches, "grpo": grpo_launches[0],
-                             "prefix": prefix_launches, "remote": remote_ragged},
+                             "prefix": prefix_launches, "families": family_launches[0],
+                             "remote": remote_ragged},
         "max_abs_err": max_err,
         "ms": kern,
         "plain_ms": plain,
@@ -1721,16 +2058,18 @@ def main():
         "bound_by": by,
         "library_ms": sdpa,
     }]
-    for name, n, n_grpo, n_remote in zip(("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"),
-                                         flash_launches, grpo_launches[1:], remote_flash):
+    for name, n, n_grpo, n_fam, n_remote in zip(
+            ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"), flash_launches, grpo_launches[1:],
+            family_launches[1:], remote_flash):
         ms, plain_ms, lib_ms, bound_ms, bound_by = flash_times[name]
         records.append({
             "name": name,
             "route": "cuda",
             "source": "areal_tpu_torch/csrc/flash_attention.cu",
             "replaces": FLASH_REPLACES[name],
-            "launches": n + n_grpo + n_remote,
-            "launches_by_path": {"train": n, "grpo": n_grpo, "remote": n_remote},
+            "launches": n + n_grpo + n_fam + n_remote,
+            "launches_by_path": {"train": n, "grpo": n_grpo, "families": n_fam,
+                                 "remote": n_remote},
             "max_abs_err": flash_err[name],
             "ms": ms,
             "plain_ms": plain_ms,

@@ -12,7 +12,7 @@ import torch
 
 from areal_tpu_torch.models import transformer as pt
 from areal_tpu_torch.models.convert import jax_tree_to_hf, params_from_jax
-from areal_tpu_torch.models.model_config import tiny_config
+from areal_tpu_torch.models.model_config import VisionConfig, tiny_config
 
 # logits and K/V: f32 on both sides, products and sums in another order
 # (XLA's einsum against torch's linear) over widths <= 128 -> 1e-4 covers
@@ -152,12 +152,8 @@ def test_naive_attention_and_mask_match_jax():
 
 @pytest.mark.parametrize("family", [
     dict(num_experts=4),
-    dict(sandwich_norms=True),
-    dict(pos_emb="learned"),
-    dict(sliding_window=8),
-    dict(attn_logit_softcap=50.0),
-    dict(qk_norm=True),
-    dict(norm_type="layernorm"),
+    dict(vision=VisionConfig(num_layers=1, hidden_size=32, num_heads=2, out_hidden_size=64)),
+    dict(lora_rank=8),
 ])
 def test_unserved_families_raise(family):
     with pytest.raises(NotImplementedError):

@@ -26,7 +26,7 @@ BF16_ATOL = 2e-2
 
 
 def _case(seed, *, B=4, T=1, K=32, page=16, M=64, Hq=4, Hkv=2, hd=8,
-          qdtype="float32", kvdtype="float32", softcap=None, wide_mask=False):
+          qdtype="float32", kvdtype="float32", softcap=None, wide_mask=False, window=None):
     """Inputs as in tests/test_ragged_decode.py `_case`: f32 numpy arrays
     and the dtype each is cast to (round to nearest even on both sides, so
     both frameworks see the same bf16 values; numpy has no bf16 here)."""
@@ -47,6 +47,9 @@ def _case(seed, *, B=4, T=1, K=32, page=16, M=64, Hq=4, Hkv=2, hd=8,
     mask = key_pos[None, None, :] <= widx.clip(max=K - 1)[:, :, None]
     if T > 1:
         mask[0, -1] = key_pos <= lengths[0] + T - 1
+    if window:
+        # a sliding layer's mask (gemma2): keys inside the window only
+        mask &= key_pos[None, None, :] > widx.clip(max=K - 1)[:, :, None] - window
     if wide_mask:
         # slot 0 attends every column, including the never-copied ones
         # past its pages: they must score 0, not MASK_VALUE
@@ -100,6 +103,7 @@ def _port(arrays, dtypes, kw, fn=port.ragged_paged_attention, device="cpu"):
     dict(T=4, K=48),                             # verify tile + dropped pos
     dict(wide_mask=True),                        # mask past the copied pages
     dict(T=4, K=48, wide_mask=True),
+    dict(hd=256, softcap=50.0, window=8),         # gemma2's head dim, cap, window
 ])
 def test_plain_matches_jax_kernel(case):
     arrays, dtypes, kw = _case(7, **case)
@@ -211,6 +215,15 @@ def cuda_device():
     dict(T=4, K=48),
     dict(T=4, K=48, wide_mask=True),
     dict(B=16, Hq=12, Hkv=2, hd=128, K=2048, M=2048, page=128,
+         qdtype="bfloat16", kvdtype="bfloat16"),
+    # Gemma-2-2B decode (hd 256, group 2, softcap 50) on a sliding layer's
+    # mask: a window that drops keys at K = 4096, its own 4096 at K = 8192
+    dict(B=8, Hq=8, Hkv=4, hd=256, K=4096, M=4096, page=128, softcap=50.0, window=1000,
+         qdtype="bfloat16", kvdtype="bfloat16"),
+    dict(B=8, Hq=8, Hkv=4, hd=256, K=8192, M=8192, page=128, softcap=50.0, window=4096,
+         qdtype="bfloat16", kvdtype="bfloat16"),
+    # Qwen3-1.7B decode heads (group 2, hd 128)
+    dict(B=8, Hq=16, Hkv=8, hd=128, K=2048, M=2048, page=128,
          qdtype="bfloat16", kvdtype="bfloat16"),
 ])
 def test_cuda_kernel_matches_plain(cuda_device, case):
