@@ -19,7 +19,12 @@ What is ported so far:
   remote, with servers as processes of their own (`launcher/local.py`)
   driven over HTTP by `RemoteTorchEngine` (`engine/torch_remote.py`) and
   weights published by snapshot or chunked transfer; the entry points are
-  `scripts/bench_e2e_grpo.py` and `examples/math/gsm8k_grpo.py`.
+  `scripts/bench_e2e_grpo.py` and `examples/math/gsm8k_grpo.py`;
+- the example's training job: the ref engine and its KL term, the eval
+  client (`utils/evaluator.py`), `utils/saver.py`, crash-safe recovery
+  (`utils/recover.py`, the engine's `save`/`load`, `utils/faults.py`,
+  `utils/shutdown.py`), `utils/stats_logger.py`, and the launcher's
+  relaunch loop (`LocalLauncher.run`, `gsm8k_grpo --launch`).
 
 Decode attention runs a hand-written CUDA kernel for Hopper
 (`csrc/ragged_decode.cu`, bound in `ops/ragged_decode.py`), training

@@ -3,7 +3,8 @@
 loop reads: `GenerationHyperparameters`, `InferenceEngineConfig` with the
 remote client's fields, and of the experiment configs the remote example
 reads: `GenServerConfig`, `DatasetConfig`, `ClusterSpecConfig`,
-`GRPOConfig`).
+`GRPOConfig`), and of the training job's infrastructure: `TimerConfig`,
+`SaverConfig`, `EvaluatorConfig`, `RecoverConfig` and `StatsLoggerConfig`.
 
 Field names and defaults are the JAX package's, for the fields the port
 reads; fields of what is not ported yet (meshes, LoRA, `async_stats`, the
@@ -13,12 +14,17 @@ construction.  The remat rungs other than `full` and `layer_group_size`
 > 1 are kept and raise at `TorchTrainEngine.initialize`.  The YAML/CLI
 loader (`load_expr_config`) is not copied: the card's machine has no
 `yaml`.  The remote example (`examples/math/gsm8k_grpo.py`) builds its
-`GRPOConfig` in code and takes `key.sub=value` overrides.
+`GRPOConfig` in code and takes `key.sub=value` overrides; `to_dict` is
+the reference's, and `propagate_names` does what its loader does after
+parsing: the experiment's names and file root fill the nested configs
+that leave them empty.  `StatsLoggerConfig` has no wandb or tensorboard
+fields (the port logs JSON lines only), and `RecoverConfig` has one field
+the reference keeps as a constant, `keep_generations`.
 """
 
 import dataclasses
-from dataclasses import dataclass, field
-from typing import List, Optional
+from dataclasses import dataclass, field, fields, is_dataclass
+from typing import Any, List, Optional
 
 
 @dataclass
@@ -165,11 +171,51 @@ class DatasetConfig:
 
 
 @dataclass
+class TimerConfig:
+    freq_epochs: Optional[int] = None
+    freq_steps: Optional[int] = None
+    freq_secs: Optional[int] = None
+
+
+@dataclass
+class SaverConfig(TimerConfig):
+    experiment_name: str = ""
+    trial_name: str = ""
+    fileroot: str = ""
+
+
+@dataclass
+class EvaluatorConfig(TimerConfig):
+    experiment_name: str = ""
+    trial_name: str = ""
+    fileroot: str = ""
+
+
+@dataclass
+class RecoverConfig(TimerConfig):
+    mode: str = "disabled"  # disabled | auto | fault | resume
+    experiment_name: str = ""
+    trial_name: str = ""
+    fileroot: str = ""
+    retries: int = 3
+    # recover generations kept on disk after a dump (the reference's
+    # KEEP_GENERATIONS): the live one and, at 2, one to fall back to
+    keep_generations: int = 2
+
+
+@dataclass
+class StatsLoggerConfig:
+    experiment_name: str = ""
+    trial_name: str = ""
+    fileroot: str = ""
+
+
+@dataclass
 class GRPOConfig:
     """The GRPO experiment: the fields `examples/math/gsm8k_grpo.py`
-    reads.  Left out with what they configure: the ref model, the eval
-    client, saver, checkpointer, evaluator, recovery, the stats logger,
-    the launcher's resources and multi-turn workflows."""
+    reads.  Left out with what they configure: the launcher's resources,
+    the allocation mode, the tokenizer path and the multi-turn and agent
+    workflows."""
 
     experiment_name: str = "my-exp"
     trial_name: str = "my-trial"
@@ -188,3 +234,37 @@ class GRPOConfig:
     rollout: InferenceEngineConfig = field(default_factory=InferenceEngineConfig)
     gen_server: GenServerConfig = field(default_factory=GenServerConfig)
     actor: PPOActorConfig = field(default_factory=PPOActorConfig)
+    # the frozen reference policy of the KL term (built when actor.kl_ctl > 0)
+    ref: Optional[TrainEngineConfig] = None
+    valid_dataset: Optional[DatasetConfig] = None
+    saver: SaverConfig = field(default_factory=SaverConfig)
+    checkpointer: SaverConfig = field(default_factory=SaverConfig)
+    evaluator: EvaluatorConfig = field(default_factory=EvaluatorConfig)
+    recover: RecoverConfig = field(default_factory=RecoverConfig)
+    stats_logger: StatsLoggerConfig = field(default_factory=StatsLoggerConfig)
+
+
+def to_dict(cfg) -> Any:
+    """A dataclass tree as plain dicts and lists (what the recover
+    fingerprint hashes)."""
+    if is_dataclass(cfg):
+        return {f.name: to_dict(getattr(cfg, f.name)) for f in fields(cfg)}
+    if isinstance(cfg, list):
+        return [to_dict(v) for v in cfg]
+    if isinstance(cfg, dict):
+        return {k: to_dict(v) for k, v in cfg.items()}
+    return cfg
+
+
+def propagate_names(cfg, fileroot: str) -> None:
+    """Fill the experiment and trial names, and `fileroot`, into every
+    top-level sub-config that carries them and leaves them empty (the
+    reference loader's last step)."""
+    for f in fields(cfg):
+        sub = getattr(cfg, f.name)
+        if not is_dataclass(sub):
+            continue
+        for name, value in (("experiment_name", cfg.experiment_name),
+                            ("trial_name", cfg.trial_name), ("fileroot", fileroot)):
+            if hasattr(sub, name) and getattr(sub, name) in ("", None):
+                setattr(sub, name, value)

@@ -1,13 +1,13 @@
 """I/O descriptors (the port's copies of `ModelRequest`, `ModelResponse`,
-`FinetuneSpec`, `WeightUpdateMeta`, `SaveLoadMeta` and `RolloutStat` from
+`FinetuneSpec`, `WeightUpdateMeta`, `SaveLoadMeta`, `StepInfo` and `RolloutStat` from
 `areal_tpu/api/io_struct.py`).
 
 Also the remote client's wire descriptors (`HttpRequest`,
 `HttpGenerationResult`, `WeightUpdateRequests`).  Between processes the
 port publishes weights on the "disk" path or the "transfer" path
 (`WeightUpdateMeta`); the colocated loop hands them over in memory
-(`engine/colocated.py`).  `SaveLoadMeta` is the descriptor of
-`save`/`load`, which come with a later slice.
+(`engine/colocated.py`).  `SaveLoadMeta` is the descriptor of the train
+engine's `save`/`load`.
 """
 
 import os
@@ -141,6 +141,14 @@ class SaveLoadMeta:
     tokenizer: Any = None
     processor: Any = None
     base_model_path: Optional[str] = None
+
+
+@dataclass
+class StepInfo:
+    epoch: int
+    epoch_step: int
+    global_step: int
+    steps_per_epoch: int
 
 
 @dataclass

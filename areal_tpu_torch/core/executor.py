@@ -7,9 +7,10 @@ filtered through `should_accept`, shuffled, and concatenated into a padded
 batch.  `prepare_batch` keeps rollouts in flight while the trainer
 consumes.  A trajectory the remote client could not finish on any server
 (`TrajectoryLostError`) is settled as rejected and counted in
-`lost_trajectories`; any other episode exception stays fatal.  Left out
-with the router: its fleet-wide admission gate; and crash recovery of the
-ledger, the telemetry events and rollout tracing.
+`lost_trajectories`; any other episode exception stays fatal.
+`restore_staleness` adopts a recovered ledger, counting the trajectories
+in flight at the crash as lost.  Left out with the router: its fleet-wide
+admission gate; and the telemetry events and rollout tracing.
 """
 
 import logging
@@ -247,3 +248,14 @@ class WorkflowExecutor:
 
     def is_paused(self) -> bool:
         return self.runner.paused.is_set()
+
+    # --- crash recovery (utils/recover.py) ---
+    def restore_staleness(self, stat) -> int:
+        """Adopt a recovered ledger snapshot.  Trajectories that were in
+        flight when the trainer died are settled as rejected by the
+        manager and counted here as lost, as a failover-budget exhaustion
+        is, so loss counts stay honest across restarts.  Returns the
+        number settled."""
+        settled = self.staleness_manager.restore(stat)
+        self.lost_trajectories += settled
+        return settled

@@ -6,8 +6,8 @@
                        - (accepted + running))
 
 so that by the time a sample is consumed, its off-policyness cannot exceed
-`max_staleness` versions.  The crash-recovery `restore` and the metrics
-gauges of the reference are not ported.
+`max_staleness` versions.  `restore` adopts the ledger of a recover
+generation.  The metrics gauges of the reference are not ported.
 """
 
 import threading
@@ -75,3 +75,21 @@ class StalenessManager:
     def get_stats(self) -> RolloutStat:
         with self._lock:
             return RolloutStat(**asdict(self._stat))
+
+    def restore(self, stat: RolloutStat) -> int:
+        """Adopt a ledger snapshot from a recover manifest.  Trajectories
+        that were in flight when the trainer died can never settle through
+        their futures (those died with the process), so they are folded
+        into `rejected` here, which keeps the invariant checkable from the
+        first transition after the restore.  Returns how many were settled
+        that way (the caller counts them as lost)."""
+        settled = max(0, stat.running)
+        with self._lock:
+            self._stat = RolloutStat(
+                submitted=stat.submitted,
+                accepted=stat.accepted,
+                rejected=stat.rejected + settled,
+                running=0,
+            )
+            self._check_locked()
+        return settled

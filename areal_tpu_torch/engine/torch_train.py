@@ -29,11 +29,22 @@
   `export_device_params` is the colocated in-memory publish: copies of
   the masters in the compute dtype, on the card, for an engine in the same
   process (`engine/colocated.py`).
+- `save` writes the weights as an HF safetensors dir through the port's
+  writer: the f32 masters with `with_optim` (a recover checkpoint), the
+  bf16 cast otherwise (an export).  With `with_optim` it also writes
+  AdamW's state into `optimizer/`: `mu` and `nu` keyed by parameter name
+  (`mu/<name>`, `nu/<name>` in `adamw*.safetensors` shards) and
+  `adamw_state.json` with the update count, which is the schedule's
+  position and the bias correction's exponent.  The reference writes the
+  optimizer state with orbax; the port has no orbax, and keying by name
+  keeps the moments with their parameters (and their decay mask) whatever
+  order the parameters are listed in.  `load` restores all of it in
+  place, so the next update is bit-identical to an uninterrupted one.
 
 Not ported yet: meshes beyond one device, LoRA, `async_stats`, the
-name_resolve version handshake and router notice of a publish, `save` /
-`load` with the optimizer.  `warm_shapes` has no counterpart: eager
-PyTorch compiles nothing per shape.
+name_resolve version handshake and router notice of a publish.
+`warm_shapes` has no counterpart: eager PyTorch compiles nothing per
+shape.
 """
 
 import concurrent.futures
@@ -50,8 +61,9 @@ import numpy as np
 import torch
 
 from areal_tpu_torch.api.config import OptimizerConfig, TrainEngineConfig
-from areal_tpu_torch.api.io_struct import FinetuneSpec, WeightUpdateMeta
+from areal_tpu_torch.api.io_struct import FinetuneSpec, SaveLoadMeta, WeightUpdateMeta
 from areal_tpu_torch.device import DeviceLike, resolve_device
+from areal_tpu_torch.models import safetensors_io
 from areal_tpu_torch.models.hf import load_hf_params, params_to_hf_state, save_hf_checkpoint
 from areal_tpu_torch.models.model_config import TransformerConfig
 from areal_tpu_torch.models.transformer import (
@@ -127,9 +139,12 @@ class AdamW:
     scales by max_norm / norm only when the norm is not below max_norm (no
     epsilon); weight decay follows `decays`."""
 
+    STATE_FORMAT = "areal-torch-adamw/v1"
+
     def __init__(self, named_params: List[Tuple[str, torch.nn.Parameter]],
                  oc: OptimizerConfig, schedule: Callable[[int], float]):
         params = [p for _, p in named_params]
+        self.names = [n for n, _ in named_params]
         self.params = params
         self.decay = [decays(n, p) for n, p in named_params]
         self.oc = oc
@@ -159,6 +174,37 @@ class AdamW:
                 update.add_(p, alpha=oc.weight_decay)
             p.add_(update, alpha=-lr)
         return norm, lr
+
+    def save(self, out_dir: str, extra: Optional[dict] = None) -> None:
+        """`mu`/`nu` by parameter name in safetensors shards, and the
+        update count (with `extra`) in `adamw_state.json`."""
+        os.makedirs(out_dir, exist_ok=True)
+        moments = [(f"{kind}/{n}", t) for kind, ts in (("mu", self.mu), ("nu", self.nu))
+                   for n, t in zip(self.names, ts)]
+        safetensors_io.save_sharded(moments, out_dir, "adamw")
+        state = {"format": self.STATE_FORMAT, "count": self.count,
+                 "next_lr": self.schedule(self.count), "names": self.names, **(extra or {})}
+        with open(os.path.join(out_dir, "adamw_state.json"), "w") as f:
+            json.dump(state, f, indent=1)
+
+    @torch.no_grad()
+    def load(self, in_dir: str) -> dict:
+        """Restore what `save` wrote, in place, matching the moments to the
+        parameters by name; returns the state JSON."""
+        with open(os.path.join(in_dir, "adamw_state.json")) as f:
+            state = json.load(f)
+        if state.get("format") != self.STATE_FORMAT:
+            raise ValueError(f"{in_dir}: optimizer state format {state.get('format')!r}")
+        saved = dict(safetensors_io.iter_safetensors(in_dir))
+        want = {f"{kind}/{n}" for kind in ("mu", "nu") for n in self.names}
+        if set(saved) != want:
+            raise ValueError(f"{in_dir}: the optimizer state names "
+                             f"{sorted(set(saved) ^ want)[:4]} do not match the model's")
+        for kind, ts in (("mu", self.mu), ("nu", self.nu)):
+            for n, t in zip(self.names, ts):
+                t.copy_(saved[f"{kind}/{n}"])
+        self.count = int(state["count"])
+        return state
 
 
 # ---------------------------------------------------------------------------
@@ -231,6 +277,38 @@ class TorchTrainEngine:
         self.model = None
         self._optimizer = None
         self.initialized = False
+
+    def save(self, meta: SaveLoadMeta) -> None:
+        """The weights as an HF safetensors dir: f32 with `with_optim`,
+        bf16 otherwise; with `with_optim`, AdamW's state in `optimizer/`
+        (module docstring)."""
+        assert self.initialized
+        if meta.weight_format != "safetensors":
+            raise NotImplementedError(f"weight format {meta.weight_format!r}")
+        save_hf_checkpoint(self.model, meta.path,
+                           save_dtype="float32" if meta.with_optim else "bfloat16")
+        if meta.with_optim and self._optimizer is not None:
+            self._optimizer.save(os.path.join(meta.path, "optimizer"),
+                                 extra={"step_count": self.step_count})
+
+    @torch.no_grad()
+    def load(self, meta: SaveLoadMeta) -> None:
+        """Restore `save`'s weights (cast to `param_dtype`) into the live
+        parameters, in place, and with `with_optim` the optimizer state
+        when the checkpoint holds one."""
+        assert self.initialized
+        loaded, _ = load_hf_params(meta.path, self.model_config, self.device,
+                                   param_dtype=self.config.param_dtype)
+        src = dict(loaded.named_parameters())
+        for name, p in self.model.named_parameters():
+            p.copy_(src[name])
+        del loaded, src
+        opt_dir = os.path.join(meta.path, "optimizer")
+        if meta.with_optim and os.path.isdir(opt_dir):
+            if self._optimizer is None:
+                raise ValueError(f"{meta.path} holds optimizer state and this engine has "
+                                 "no optimizer")
+            self.step_count = int(self._optimizer.load(opt_dir)["step_count"])
 
     def set_version(self, version: int) -> None:
         self._version = version

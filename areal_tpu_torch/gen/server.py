@@ -48,6 +48,13 @@ clusters a GRPO group to prefill its prompt once; each answer carries its
 `cache_hit_tokens`, the prompt tokens that came from resident K/V.  The
 server runs the engine's defaults: prefix reuse and sharing on.
 
+The server logs, at INFO and on arrival, every generate request and every
+JSON weight action (a disk reload, a transfer's prepare and commit) with
+its wall-clock time and version: ``arrival <path> at <time.time()>
+<JSON>``.  The servers of a launched run outlive its trainer, and these
+lines show what a relaunched trainer asked of them first (its recover
+load's reload, pinned to the recovered version, before any generate).
+
 `http.server.ThreadingHTTPServer` handles each connection on its own
 thread; a dedicated worker thread owns the engine and the device's decode
 loop (every admission, decode step and weight swap runs there), and
@@ -76,6 +83,7 @@ from areal_tpu_torch.models.hf import state_to_params
 from areal_tpu_torch.models.model_config import TransformerConfig, tiny_config
 from areal_tpu_torch.models.transformer import Transformer
 from areal_tpu_torch.ops.ragged_decode import ragged_paged_attention
+from areal_tpu_torch.utils.shutdown import exit_with_parent
 
 logger = logging.getLogger("areal_tpu_torch.gen.server")
 
@@ -351,6 +359,23 @@ class _Handler(BaseHTTPRequestHandler):
                               int(body["offset"]))
             self._reply(200, {"ok": True, "received": body["name"]})
 
+    @staticmethod
+    def _arrival(path: str, body: dict) -> Optional[dict]:
+        """What the arrival line records of a request; None for requests
+        it does not record (pauses, chunk pieces)."""
+        if path == "/generate":
+            return {"rid": body.get("rid", "")}
+        if path == "/generate_batch":
+            return {"n": len(body.get("requests", []))}
+        if path == "/update_weights_from_disk":
+            return {"version": body.get("version")}
+        if path == "/update_weights_chunk" and (body.get("prepare") or body.get("commit")):
+            if body.get("commit"):
+                return {"action": "commit", "version": body.get("version"),
+                        "live": bool(body.get("live"))}
+            return {"action": "prepare", "version": body.get("version")}
+        return None
+
     def do_POST(self):
         gen = self.server.gen
         if (self.path == "/update_weights_chunk"
@@ -365,6 +390,9 @@ class _Handler(BaseHTTPRequestHandler):
         except json.JSONDecodeError as e:
             self._reply(400, {"error": f"malformed JSON: {e}"})
             return
+        arrival = self._arrival(self.path, body)
+        if arrival is not None:
+            logger.info("arrival %s at %.6f %s", self.path, time.time(), json.dumps(arrival))
         try:
             if self.path == "/generate":
                 self._reply(200, gen.generate_many([body])[0])
@@ -430,18 +458,6 @@ def serve(engine: GenEngine, host: str = "0.0.0.0", port: int = 0,
         gen.stop()
 
 
-def _exit_with_parent(ppid: int) -> None:
-    """Exit this process once `ppid` is no longer its parent (the parent
-    died and the process was reparented)."""
-    def watch():
-        while os.getppid() == ppid:
-            time.sleep(1.0)
-        logger.warning("parent process %d is gone; exiting", ppid)
-        os._exit(0)
-
-    threading.Thread(target=watch, daemon=True, name="parent-watch").start()
-
-
 def main(argv: Optional[List[str]] = None,
          on_ready: Optional[Callable[[GenHTTPServer], None]] = None) -> None:
     """`python -m areal_tpu_torch.gen.server`: the JAX server's
@@ -467,7 +483,7 @@ def main(argv: Optional[List[str]] = None,
                    help="exit when the process that started this one is gone")
     args = p.parse_args(argv)
     if args.exit_with_parent:
-        _exit_with_parent(os.getppid())
+        exit_with_parent(os.getppid())
     kw = dict(n_slots=args.n_slots, max_seq_len=args.max_seq_len,
               prompt_bucket=args.page_size, kv_dtype=args.dtype, seed=args.seed,
               decode_chunk=args.decode_chunk, device=args.device)

@@ -1,5 +1,5 @@
-"""Local launcher: generation servers as subprocesses of this host (the
-part of `areal_tpu/launcher/local.py` that the remote GRPO loop needs).
+"""Local launcher: generation servers and the trainer as subprocesses of
+this host (the port of `areal_tpu/launcher/local.py`).
 
 `LocalLauncher.start_gen_servers` spawns `python -m
 areal_tpu_torch.gen.server` once per server with the flags of a
@@ -12,13 +12,35 @@ addresses as `AREAL_LLM_SERVER_ADDRS`, where the remote client and the
 trainer's transfer publish find them.  `stop_all` stops every process it
 started: SIGTERM to each group, then SIGKILL after a grace period.
 
-Left out: the trainer subprocess, the babysitting loop and the
-relaunch-on-failure recovery of the reference, and allocation-mode
-parsing.  All servers run on the device the caller names (on one H100,
-trainer and servers share the card).
+`run` is the reference's relaunch loop.  It starts the servers once
+(or takes those `AREAL_LLM_SERVER_ADDRS` already names) and they outlive
+the trainer: the trainer is a subprocess (`start_trainer`) with
+`AREAL_LLM_SERVER_ADDRS` and `AREAL_RUN_ID` in its environment, and
+`_babysit` waits for it.  When it exits:
+
+- 0: the run is done;
+- `RESUME_EXIT_CODE` (75, a preemption retreat with a known-good dump):
+  relaunched at once with the next run id, using up no retry;
+- anything else (a crash): relaunched after `relaunch_delay` seconds with
+  the next run id while `recover.mode` is `auto` or `fault`, at most
+  `recover.retries` times.
+
+The relaunched trainer finds its recover generation (`check_if_recover`)
+and reloads the servers' weights at the recovered version before it
+generates.  ``AREAL_FAULT_POINTS`` reaches the first launch only, so a
+relaunch does not crash at the same point again.  A server that dies
+ends the run (rc 1).  Each start and exit of a trainer is a JSON line in
+`log_dir/launcher.jsonl` (`event`, `run_id`, `pid` or `rc`, wall-clock
+`ts`), and so is each started server's last `/metrics` before the
+launcher stops it.
+
+Left out: allocation-mode parsing and name_resolve.  All servers run on
+the device the caller names (on one H100, trainer and servers share the
+card).
 """
 
 import http.client
+import json
 import logging
 import os
 import signal
@@ -26,12 +48,14 @@ import socket
 import subprocess
 import sys
 import time
-from typing import List, Optional
+from typing import Dict, List, Optional
 
-from areal_tpu_torch.api.config import GenServerConfig
+from areal_tpu_torch.api.config import GenServerConfig, RecoverConfig
+from areal_tpu_torch.utils.shutdown import RESUME_EXIT_CODE
 
 logger = logging.getLogger("areal_tpu_torch.launcher")
 
+RECOVER_TIME_INTERVAL = 10.0  # seconds before a crashed trainer is relaunched
 # the directory holding the `areal_tpu_torch` package
 _PKG_PARENT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
@@ -87,10 +111,16 @@ class LocalLauncher:
     def __exit__(self, *exc) -> None:
         self.stop_all()
 
-    def _spawn(self, cmd: List[str], tag: str) -> subprocess.Popen:
+    def _spawn(self, cmd: List[str], tag: str,
+               env_extra: Optional[Dict[str, Optional[str]]] = None) -> subprocess.Popen:
         os.makedirs(self.log_dir, exist_ok=True)
         log_path = os.path.join(self.log_dir, f"{tag}.log")
         env = dict(os.environ)
+        for k, v in (env_extra or {}).items():
+            if v is None:
+                env.pop(k, None)
+            else:
+                env[k] = v
         env["PYTHONPATH"] = os.pathsep.join(
             [_PKG_PARENT] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep) if p])
         logger.info("spawn [%s]: %s (log: %s)", tag, " ".join(cmd), log_path)
@@ -161,3 +191,115 @@ class LocalLauncher:
                 self.server_addrs):
             del os.environ["AREAL_LLM_SERVER_ADDRS"]
         self.server_addrs = []
+
+    # ------------------------------------------------------------------
+    # the trainer and the relaunch loop
+    # ------------------------------------------------------------------
+
+    def _event(self, **rec) -> None:
+        os.makedirs(self.log_dir, exist_ok=True)
+        with open(os.path.join(self.log_dir, "launcher.jsonl"), "a") as f:
+            f.write(json.dumps({**rec, "ts": time.time()}) + "\n")
+
+    def start_trainer(self, cmd: List[str], run_id: int,
+                      server_addrs: List[str]) -> subprocess.Popen:
+        """Spawn the trainer `cmd` with the servers' addresses and its run
+        id; the fault points of the environment reach run 0 only."""
+        env = {"AREAL_LLM_SERVER_ADDRS": ",".join(server_addrs),
+               "AREAL_RUN_ID": str(run_id)}
+        if run_id > 0:
+            env["AREAL_FAULT_POINTS"] = None
+        p = self._spawn(cmd, f"trainer_run{run_id}", env)
+        self._event(event="trainer_start", run_id=run_id, pid=p.pid)
+        return p
+
+    def run(self, trainer_cmd: List[str], recover: RecoverConfig,
+            server_config: Optional[GenServerConfig] = None, n_servers: int = 1,
+            device: Optional[str] = None, relaunch_delay: float = RECOVER_TIME_INTERVAL,
+            trainer_timeout: Optional[float] = None, setup_timeout: float = 600.0) -> int:
+        """Start the servers (unless `AREAL_LLM_SERVER_ADDRS` names them),
+        then the trainer, relaunched as the module docstring says; returns
+        the last trainer's exit code.  A trainer that runs longer than
+        `trainer_timeout` seconds is killed (rc -9).  Stops everything it
+        started before it returns."""
+        run_id = int(os.environ.get("AREAL_RUN_ID", 0))
+        failures = 0  # crash relaunches used; preemptions use none
+        try:
+            addrs = [a for a in os.environ.get("AREAL_LLM_SERVER_ADDRS", "").split(",") if a]
+            if not addrs:
+                if server_config is None:
+                    raise ValueError("no AREAL_LLM_SERVER_ADDRS and no server_config")
+                addrs = self.start_gen_servers(server_config, n_servers, device, setup_timeout)
+            while True:
+                trainer = self.start_trainer(trainer_cmd, run_id, addrs)
+                rc = self._babysit(trainer, trainer_timeout)
+                self._event(event="trainer_exit", run_id=run_id, rc=rc)
+                self._reap(trainer)
+                if rc == 0:
+                    logger.info("trainer finished")
+                    return 0
+                if recover.mode == "disabled" or self._server_died():
+                    return rc
+                run_id += 1
+                if rc == RESUME_EXIT_CODE:
+                    logger.warning("trainer preempted (rc %d); relaunching at once (run %d)",
+                                   rc, run_id)
+                    continue
+                failures += 1
+                if recover.mode not in ("auto", "fault") or failures > recover.retries:
+                    return rc
+                logger.warning("trainer exited with rc %d; relaunching (run %d) in %.1f s "
+                               "[crash %d/%d]", rc, run_id, relaunch_delay, failures,
+                               recover.retries)
+                time.sleep(relaunch_delay)
+        finally:
+            self._record_server_metrics()
+            self.stop_all()
+
+    def _record_server_metrics(self) -> None:
+        """Each started server's `/metrics`, best effort, as an event."""
+        for addr in self.server_addrs:
+            host, _, port = addr.rpartition(":")
+            conn = http.client.HTTPConnection(host, int(port), timeout=10)
+            try:
+                conn.request("GET", "/metrics")
+                metrics = json.loads(conn.getresponse().read())
+            except (OSError, ValueError):
+                continue
+            finally:
+                conn.close()
+            self._event(event="server_metrics", addr=addr, metrics=metrics)
+
+    def _server_died(self) -> bool:
+        """Did a server this launcher started exit?  (Between trainers,
+        the processes left are the servers.)"""
+        return any(p.poll() is not None for p in self.procs)
+
+    def _babysit(self, trainer: subprocess.Popen, timeout: Optional[float] = None) -> int:
+        """Wait for the trainer; if a server dies first, kill it and
+        return 1."""
+        deadline = None if timeout is None else time.monotonic() + timeout
+        servers = [p for p in self.procs if p is not trainer]
+        while True:
+            try:
+                return trainer.wait(timeout=0.1)
+            except subprocess.TimeoutExpired:
+                pass
+            if any(p.poll() is not None for p in servers):
+                logger.error("a generation server died; stopping the trainer")
+                self._reap(trainer)
+                return 1
+            if deadline is not None and time.monotonic() > deadline:
+                logger.error("the trainer ran past %.0f s; killing it", timeout)
+                self._reap(trainer)
+                return trainer.wait()
+
+    def _reap(self, trainer: subprocess.Popen) -> None:
+        """SIGKILL the trainer's process group (its reward workers outlive
+        a killed trainer otherwise) and forget it."""
+        try:
+            os.killpg(trainer.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+        trainer.wait()
+        self.procs = [p for p in self.procs if p is not trainer]

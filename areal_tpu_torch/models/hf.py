@@ -228,21 +228,9 @@ def save_hf_checkpoint(
     with open(os.path.join(out_dir, "config.json"), "w") as f:
         json.dump(cfg.to_hf_dict(), f, indent=2)
     target = getattr(torch, save_dtype)
-    shards, sizes = [{}], [0]
-    for name, t in params_to_hf_state(model):
-        t = t.to(target)
-        nbytes = t.numel() * t.element_size()
-        if sizes[-1] + nbytes > max_shard_bytes and shards[-1]:
-            shards.append({})
-            sizes.append(0)
-        shards[-1][name] = t
-        sizes[-1] += nbytes
-    n = len(shards)
-    weight_map = {}
-    for i, shard in enumerate(shards):
-        fname = "model.safetensors" if n == 1 else f"model-{i + 1:05d}-of-{n:05d}.safetensors"
-        safetensors_io.save_file(shard, os.path.join(out_dir, fname))
-        weight_map.update({name: fname for name in shard})
-    if n > 1:
+    weight_map, total = safetensors_io.save_sharded(
+        ((name, t.to(target)) for name, t in params_to_hf_state(model)), out_dir, "model",
+        max_shard_bytes)
+    if len(set(weight_map.values())) > 1:
         with open(os.path.join(out_dir, "model.safetensors.index.json"), "w") as f:
-            json.dump({"metadata": {"total_size": sum(sizes)}, "weight_map": weight_map}, f)
+            json.dump({"metadata": {"total_size": total}, "weight_map": weight_map}, f)

@@ -12,7 +12,7 @@ become tensors through `torch.frombuffer` and a dtype view.
 import json
 import os
 import struct
-from typing import Dict, Iterator, Mapping, Tuple
+from typing import Dict, Iterable, Iterator, Mapping, Tuple
 
 import torch
 
@@ -97,3 +97,25 @@ def save_file(tensors: Mapping[str, torch.Tensor], path: str) -> None:
         f.write(blob)
         for t in flat:
             f.write(t.numpy().data)
+
+
+def save_sharded(items: Iterable[Tuple[str, torch.Tensor]], out_dir: str, stem: str,
+                 max_shard_bytes: int = 4 * 1024**3) -> Tuple[Dict[str, str], int]:
+    """Write (name, tensor) pairs into `out_dir` as `{stem}.safetensors`,
+    or as `{stem}-00001-of-0000N.safetensors`... when they outgrow one
+    shard of `max_shard_bytes`; returns ({name: file name}, total bytes)."""
+    shards, sizes = [{}], [0]
+    for name, t in items:
+        nbytes = t.numel() * t.element_size()
+        if sizes[-1] + nbytes > max_shard_bytes and shards[-1]:
+            shards.append({})
+            sizes.append(0)
+        shards[-1][name] = t
+        sizes[-1] += nbytes
+    n = len(shards)
+    weight_map = {}
+    for i, shard in enumerate(shards):
+        fname = f"{stem}.safetensors" if n == 1 else f"{stem}-{i + 1:05d}-of-{n:05d}.safetensors"
+        save_file(shard, os.path.join(out_dir, fname))
+        weight_map.update({name: fname for name in shard})
+    return weight_map, sum(sizes)

@@ -1,12 +1,13 @@
 """Stateful batch dataloader over list-like datasets (the port's copy of
 `areal_tpu/utils/dataloader.py`): deterministic per-epoch shuffling and
-drop_last batching; a batch is the list of its items.  The reference's
-checkpointable iteration state (`state_dict`) and `collate_fn` come with
-recovery, which is not ported.
+drop_last batching, a batch being the list of its items, and the
+checkpointable iteration state (`state_dict` / `load_state_dict`) that a
+recover generation stores, so a resumed run continues the epoch's order
+where the dump left it.  The reference's `collate_fn` is not ported.
 """
 
 import random
-from typing import Any, Iterator, List, Sequence
+from typing import Any, Dict, Iterator, List, Sequence
 
 
 class StatefulDataLoader:
@@ -51,6 +52,12 @@ class StatefulDataLoader:
         self._epoch += 1
         self._batch_idx = 0
 
+    def state_dict(self) -> Dict[str, int]:
+        return {"epoch": self._epoch, "batch_idx": self._batch_idx}
+
+    def load_state_dict(self, state: Dict[str, int]):
+        self._epoch = state["epoch"]
+        self._batch_idx = state["batch_idx"]
 
 
 def cycle_dataloader(dataloader: StatefulDataLoader) -> Iterator[Any]:

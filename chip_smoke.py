@@ -139,10 +139,40 @@ Phases, each printed with its wall time; any failure exits non-zero:
             trainer's version, and after the last publish 4 greedy streams
             (and logprobs) from the server process bit-equal to a GenEngine
             built here from the trainer's bf16 export
-13. example `python -m areal_tpu_torch.examples.math.gsm8k_grpo` at full width
-            for one step with the transfer publish (gsm8k-synth, the
-            example's own server through the launch helper); prints the
-            step's stats
+13. recover the training job at full width.  In process: Qwen2.5-1.5B's
+            width at 4 layers, the example's actor config, one update,
+            `save` with the optimizer, `load` into a fresh actor (masters,
+            mu/nu and the update count bit-equal), then one `ppo_update` on
+            one batch from both: bit-equal, every flash launch counted on
+            the tensor cores; the ref engine (bf16, 28 layers) forward on
+            the grpo phase's sequences: one K1a per layer, within
+            LOGP_MEAN_TOL of naive attention.  Then `python -m
+            areal_tpu_torch.examples.math.gsm8k_grpo --launch` for 3 steps
+            at full width and RECOVER_RUN_LAYERS (4) layers, from a random
+            bf16 HF checkpoint (seed 0) that trainer, ref engine and server
+            load: 256 new tokens, the transfer publish, kl_ctl 0.001 with
+            the ref engine, 32 held-out gsm8k-synth problems evaluated at
+            every step, a recover generation at steps 1 and 2 keeping 1, a
+            bf16 export at step 2, recover.mode fault with 1 retry, and
+            AREAL_FAULT_POINTS=train_step@2:kill: run 0 dies after step 1,
+            the launcher relaunches it, run 1 resumes.  Checks: exit 0,
+            the StatsLogger's global_step [0, 1, 2], run_id [0, 0, 1],
+            version [1, 2, 3]; run 1's first requests to the server (its
+            arrival log) the transfer reload pinned to version 2,
+            committed with an abort, before any generate; the ledger on
+            every step; lost = settled; the step-1 generation loaded (its
+            digests checked by the load); finite loss, nonzero KL and an
+            eval reward every step; the trainers' flash launches (10/4/4 x
+            layers per step, tensor cores) and the server's ragged
+            launches (layers x decode steps, from its last /metrics).
+            Prints the free disk, each dump's seconds and GB (write,
+            digests, fsync), the load (validate, restore, replay), kill to
+            run 1's first trained step, the ref forward and eval per step,
+            trajectories/s/chip per run.  The depth is cut because the
+            card's host takes 45 GiB of disk writes per run (RECOVER_RUN_LAYERS).
+            `--only recover` runs the build and this phase alone;
+            `--only recover-full-depth` the build and the launched run
+            alone at 28 layers (18.5 GB per recover generation)
 
 After the card's line comes the whole run's wall time.  The line before
 the last is the kernels' JSON record (`launches` sums the
@@ -155,6 +185,7 @@ import concurrent.futures
 import contextlib
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -1468,24 +1499,336 @@ def post_addr(addr, path, body, timeout=600):
     return post(int(port), path, body, timeout)
 
 
-def example_qwen():
-    """`python -m areal_tpu_torch.examples.math.gsm8k_grpo` at full width
-    for one step with the transfer publish; prints its step stats."""
-    cmd = [sys.executable, "-m", "areal_tpu_torch.examples.math.gsm8k_grpo",
-           "--weight-update-mode", "transfer", "total_train_steps=1",
-           f"cluster.fileroot={os.path.join(ROOT, 'build', 'example')}"]
+# the recover phase: the example's run, killed after step 1 and relaunched
+RECOVER_LAYERS = 4  # depth of the in-process save/load checks (full width)
+# depth of the launched run in the whole script.  The card's host takes
+# 45 GiB of disk writes per run (deleted files count): the earlier phases write
+# about 26 GB, and at 28 layers one recover generation is 18.5 GB (two
+# dumps, the checkpoint and the export: 43 GB).  `--only recover-full-depth`
+# runs the launched run alone at 28 layers.
+RECOVER_RUN_LAYERS = 4
+RECOVER_STEPS = 3
+RECOVER_KILL = "train_step@2:kill"  # SIGKILL at the end of global step 1
+RECOVER_OVERRIDES = [
+    # 256 new tokens (the example's default is 512) keep the script under 900 s
+    f"total_train_steps={RECOVER_STEPS}", "gconfig.max_new_tokens=256",
+    "actor.kl_ctl=0.001", "ref.dtype=bfloat16",
+    "valid_dataset.type=gsm8k-synth", "valid_dataset.batch_size=32",
+    # FrequencyControl counts from step 0, so freq_steps=1 first fires at
+    # step 1; freq_secs=0 fires at every step
+    "evaluator.freq_secs=0", "checkpointer.freq_steps=1", "recover.keep_generations=1",
+    "saver.freq_steps=2", "recover.mode=fault", "recover.retries=1",
+]
+ARRIVAL_LINE = re.compile(r"arrival (\S+) at (\S+) (.*)$")  # the server's arrival log
+
+
+def recover_batch(seed, vocab, B=32):
+    """A GRPO-shaped padded batch: prompts of 64..256 random tokens, 64..256
+    completion tokens with behaviour logprobs, 0/1 rewards."""
+    rng = np.random.default_rng(seed)
+    P, N = rng.integers(64, 257, B), rng.integers(64, 257, B)
+    L = int((P + N).max())
+    pos = np.arange(L)[None, :]
+    mask = pos < (P + N)[:, None]
+    loss_mask = (mask & (pos >= P[:, None])).astype(np.float32)
+    return {"input_ids": (rng.integers(0, vocab, (B, L)) * mask).astype(np.int32),
+            "attention_mask": mask, "loss_mask": loss_mask,
+            "logprobs": (rng.normal(-2.0, 0.5, (B, L)) * loss_mask).astype(np.float32),
+            "rewards": rng.integers(0, 2, B).astype(np.float32)}
+
+
+def recover_save_load(work_dir):
+    """Qwen2.5-1.5B's width at RECOVER_LAYERS layers, the example's actor
+    config (f32 masters, bf16 compute, full remat, 2 minibatches of 2
+    micro-batches): one update, `save` with the optimizer, `load` into a
+    fresh actor (masters, mu/nu and the update count bit-equal), then one
+    `ppo_update` on one fixed batch from the loaded and from the live state:
+    bit-equal params, every flash launch on the tensor cores, counted.
+    Returns the flash launches of those two updates."""
+    import copy
+
+    from areal_tpu_torch.api.config import MicroBatchSpec
+    from areal_tpu_torch.api.io_struct import SaveLoadMeta
+
+    mc = qwen25_1p5b().replace(num_layers=RECOVER_LAYERS)
+    cfg = PPOActorConfig(init_from_scratch=True, dtype="bfloat16", gradient_checkpointing=True,
+                         group_size=4, ppo_n_minibatches=2, mb_spec=MicroBatchSpec(n_mbs=2),
+                         pack_length_quantum=512, max_pack_length=2048,
+                         adv_norm=NormConfig(mean_level="group", std_level="group"),
+                         optimizer=OptimizerConfig(lr=1e-6, weight_decay=0.01,
+                                                   warmup_steps_proportion=0.001))
+    ft = FinetuneSpec(1, 1024, 8)
+
+    def prepared(actor, seed):
+        b = recover_batch(seed, mc.vocab_size)
+        b["prox_logp"] = actor.compute_logp(b)
+        actor.compute_advantages(b)
+        return b
+
+    live = TorchPPOActor(cfg, mc, device="cuda")
+    live.initialize(ft_spec=ft)
+    live.ppo_update(prepared(live, 0))
+    torch.cuda.synchronize()
+    path = os.path.join(work_dir, "ckpt")
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=900,
-                         env={**os.environ, "PYTHONPATH": ROOT})
-    steps = [ln for ln in res.stdout.splitlines() if ln.startswith("{")]
-    if res.returncode != 0 or len(steps) != 1:
-        raise AssertionError(f"the example failed ({res.returncode}):\n{res.stderr[-4000:]}")
-    stats = json.loads(steps[0])
-    print(f"  {' '.join(cmd[1:6])}: {time.perf_counter() - t0:.1f} s in all; step stats "
-          f"{steps[0]}")
-    if stats["n_seqs"] != 32 or stats["lost_trajectories"] or not all(
-            np.isfinite(stats["loss"])):
-        raise AssertionError("the example's step did not train on 32 trajectories")
+    live.save(SaveLoadMeta(path=path, with_optim=True))
+    save_s = time.perf_counter() - t0
+    nbytes = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(path) for f in fs)
+    fresh = TorchPPOActor(cfg, mc, device="cuda")
+    fresh.initialize(ft_spec=ft)
+    t0 = time.perf_counter()
+    fresh.load(SaveLoadMeta(path=path, with_optim=True))
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+
+    def same_state():
+        a, b = live._optimizer, fresh._optimizer
+        return (a.count == b.count and a.names == b.names
+                and all(torch.equal(p, q) for p, q in zip(a.params, b.params))
+                and all(torch.equal(x, y) for x, y in zip(a.mu + a.nu, b.mu + b.nu)))
+
+    if not same_state():
+        raise AssertionError("the loaded masters or mu/nu differ from the saved ones")
+    batch = prepared(live, 1)
+    reset_flash_counts()
+    stats_live = live.ppo_update(copy.deepcopy(batch))
+    stats_fresh = fresh.ppo_update(copy.deepcopy(batch))
+    torch.cuda.synchronize()
+    launches, on_tc = flash_counts(), flash_counts_tc()
+    n_mb = 2 * cfg.ppo_n_minibatches * cfg.mb_spec.n_mbs
+    L = RECOVER_LAYERS
+    print(f"  {L} layers at full width: save {save_s:.2f} s ({nbytes / 1e9:.3f} GB, f32 masters "
+          f"+ mu/nu), load {load_s:.2f} s; masters, mu/nu and count {live._optimizer.count} "
+          f"bit-equal after load; losses live {[s['loss'] for s in stats_live]} / loaded "
+          f"{[s['loss'] for s in stats_fresh]}; flash launches fwd/dq/dkv {launches}, on the "
+          f"tensor cores {on_tc}")
+    if launches != (2 * L * n_mb, L * n_mb, L * n_mb) or on_tc != launches:
+        raise AssertionError(f"the two updates launched {launches} flash kernels ({on_tc} on "
+                             f"the tensor cores), not {(2 * L * n_mb, L * n_mb, L * n_mb)}")
+    if not same_state():
+        raise AssertionError("one ppo_update from the loaded state is not bit-equal to the "
+                             "update from the live state")
+    print("  one ppo_update from the loaded state equals the live one bit for bit "
+          "(params, mu/nu)")
+    del live, fresh
+    torch.cuda.empty_cache()
+    return launches
+
+
+def segment_lengths(seg_rows):
+    """The sequence lengths packed into rows of segment ids."""
+    rows = np.asarray(seg_rows)
+    return [int((row == s).sum()) for row in rows for s in np.unique(row[row >= 0])]
+
+
+def recover_ref_forward(lens):
+    """The example's ref engine (a TorchTrainEngine without optimizer,
+    bf16 compute, random weights from seed 0) at full width, 28 layers, on
+    random sequences of lengths `lens` (the grpo phase's packed train
+    rows'): one forward, K1a launched once per layer on the tensor cores;
+    then the same forward through naive attention, within LOGP_MEAN_TOL on
+    the mean.  Returns the forward's flash launches."""
+    from areal_tpu_torch.api.config import TrainEngineConfig
+    from areal_tpu_torch.engine.torch_train import TorchTrainEngine
+    from areal_tpu_torch.ops import attention
+
+    rng = np.random.default_rng(11)
+    mc = qwen25_1p5b()
+    Lmax = max(lens)
+    mask = np.arange(Lmax)[None, :] < np.asarray(lens)[:, None]
+    batch = {"input_ids": (rng.integers(0, mc.vocab_size, (len(lens), Lmax)) * mask
+                           ).astype(np.int32), "attention_mask": mask}
+    ref = TorchTrainEngine(TrainEngineConfig(init_from_scratch=True, dtype="bfloat16",
+                                             optimizer=None), mc, device="cuda")
+    ref.initialize()
+    ref.forward(batch)  # warm
+    torch.cuda.synchronize()
+    reset_flash_counts()
+    t0 = time.perf_counter()
+    got = ref.forward(batch)
+    torch.cuda.synchronize()
+    fwd_s = time.perf_counter() - t0
+    launches, on_tc = flash_counts(), flash_counts_tc()
+    real = attention.flash_supported
+    attention.flash_supported = lambda *a: False
+    try:
+        plain = ref.forward(batch)
+    finally:
+        attention.flash_supported = real
+    if flash_counts() != launches:
+        raise AssertionError("the plain forward launched a flash kernel")
+    valid = mask[:, 1:]
+    gap = np.abs(got[:, :-1] - plain[:, :-1])[valid]
+    print(f"  ref forward at 28 layers on {len(lens)} sequences ({int(mask.sum())} tokens): "
+          f"{fwd_s:.3f} s; K1a launches {launches[0]} (tensor cores "
+          f"{on_tc[0]}); |flash - naive| logprob mean {gap.mean():.5f}, max {gap.max():.4f} "
+          f"(tolerance on the mean {LOGP_MEAN_TOL})")
+    if launches != (SERVE_LAYERS, 0, 0) or on_tc != launches:
+        raise AssertionError(f"the ref forward launched {launches} flash kernels, not one K1a "
+                             "per layer on the tensor cores")
+    if not np.isfinite(got[:, :-1][valid]).all() or not gap.mean() <= LOGP_MEAN_TOL:
+        raise AssertionError("the ref forward disagrees with the plain attention path")
+    del ref
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _jsonl(path):
+    with open(path) as f:
+        return [json.loads(ln) for ln in f if ln.strip()]
+
+
+def recover_run(fileroot, layers):
+    """`python -m areal_tpu_torch.examples.math.gsm8k_grpo --launch` at full
+    width and `layers` layers (an HF checkpoint of random bf16 weights,
+    seed 0, which the trainer, the ref engine and the server load) with the
+    transfer publish, KL to the ref engine, the evaluator and the
+    checkpointer at every step, a bf16 export at the last step, and
+    `AREAL_FAULT_POINTS` killing the first trainer at the end of step 1; the
+    launcher relaunches it and run 1 resumes.  Checks the run from the files
+    it leaves and prints its recover timings.  Returns (K2 launches of the
+    server, K1 launches of both trainers)."""
+    from areal_tpu_torch.api.config import RecoverConfig
+    from areal_tpu_torch.utils.recover import RecoverHandler
+
+    shutil.rmtree(fileroot, ignore_errors=True)
+    os.makedirs(fileroot)
+    print(f"  free disk under {fileroot}: {shutil.disk_usage(fileroot).free / 1e9:.1f} GB")
+    ckpt = os.path.join(fileroot, "ckpt")
+    write_checkpoint(qwen25_1p5b().replace(num_layers=layers).to_hf_dict(), ckpt)
+    cmd = [sys.executable, "-m", "areal_tpu_torch.examples.math.gsm8k_grpo", "--launch",
+           "--relaunch-delay", "1", "--trainer-timeout", "600", "--weight-update-mode",
+           "transfer", *RECOVER_OVERRIDES, f"actor.path={ckpt}", "actor.init_from_scratch=false",
+           f"cluster.fileroot={fileroot}"]
+    env = {**os.environ, "PYTHONPATH": ROOT, "AREAL_FAULT_POINTS": RECOVER_KILL}
+    for k in ("AREAL_LLM_SERVER_ADDRS", "AREAL_RUN_ID"):
+        env.pop(k, None)
+    log_path = os.path.join(fileroot, "launch.log")
+    t0 = time.perf_counter()
+    with open(log_path, "wb") as log:
+        proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=log, stderr=subprocess.STDOUT,
+                                start_new_session=True)
+        try:
+            rc = proc.wait(timeout=900)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, 9)
+            proc.wait()
+            rc = "timeout"
+    wall = time.perf_counter() - t0
+    run_dir = os.path.join(fileroot, "gsm8k-grpo", "trial0")
+    logs = os.path.join(run_dir, "logs")
+    if rc != 0:
+        tails = []
+        for name in ("launch.log", *sorted(os.listdir(logs) if os.path.isdir(logs) else [])):
+            path = os.path.join(fileroot if name == "launch.log" else logs, name)
+            with open(path, errors="replace") as f:
+                tails.append(f"--- {name}\n" + "".join(f.readlines()[-30:]))
+        raise AssertionError(f"the launched run exited {rc}:\n" + "\n".join(tails))
+    print(f"  {' '.join(cmd[3:])}\n  at {layers} layers, with AREAL_FAULT_POINTS={RECOVER_KILL}: "
+          f"exit 0 after {wall:.1f} s")
+    stats = _jsonl(os.path.join(fileroot, "logs", "gsm8k-grpo", "trial0", "stats.jsonl"))
+    events = _jsonl(os.path.join(logs, "launcher.jsonl"))
+    exits = [(e["run_id"], e["rc"]) for e in events if e["event"] == "trainer_exit"]
+    print(f"  trainer exits (run id, rc): {exits}")
+    if exits != [(0, -9), (1, 0)]:
+        raise AssertionError("run 0 was not killed and relaunched into a run 1 that finished")
+    seq = [(s["global_step"], s["run_id"], s["version"]) for s in stats]
+    print(f"  StatsLogger (global_step, run_id, version): {seq}")
+    if seq != [(0, 0, 1), (1, 0, 2), (2, 1, 3)]:
+        raise AssertionError("the steps, run ids or versions do not continue across the kill")
+    start1 = next(e["ts"] for e in events if e["event"] == "trainer_start" and e["run_id"] == 1)
+    with open(os.path.join(logs, "gen_server_0.log")) as f:
+        arrivals = [(float(m[2]), m[1], json.loads(m[3])) for m in map(ARRIVAL_LINE.search, f)
+                    if m]
+    first = [(p, d) for ts, p, d in arrivals if ts > start1][:3]
+    print(f"  run 1's first requests to the server: {first}")
+    if first[:2] != [("/update_weights_chunk", {"action": "prepare", "version": 2}),
+                     ("/update_weights_chunk", {"action": "commit", "version": 2,
+                                                "live": False})] or first[2][0] != "/generate":
+        raise AssertionError("run 1's first weight action is not the reload pinned to version 2 "
+                             "(an aborting commit) before any generate")
+    for s in stats:
+        led = (s["ledger/submitted"], s["ledger/accepted"], s["ledger/rejected"],
+               s["ledger/running"])
+        if led[0] != led[1] + led[2] + led[3]:
+            raise AssertionError(f"step {s['global_step']}: the ledger {led} does not balance")
+        if not np.isfinite(s["ppo_actor/loss"]) or not s["kl_ref"] or "eval_reward_mean" not in s:
+            raise AssertionError(f"step {s['global_step']}: a non-finite loss, a zero KL "
+                                 "statistic or no eval reward")
+    resumed = stats[2]
+    ledgers = [tuple(s[f"ledger/{k}"] for k in ("submitted", "accepted", "rejected", "running"))
+               for s in stats]
+    print(f"  ledgers {ledgers}; "
+          f"run 1 settled {resumed['recover/settled_inflight']} in-flight trajectories, lost "
+          f"{resumed['lost_trajectories']}")
+    if resumed["lost_trajectories"] != resumed["recover/settled_inflight"] or any(
+            s["lost_trajectories"] for s in stats[:2]):
+        raise AssertionError("lost_trajectories is not the settled count")
+    # load() takes the newest generation whose every digest checks out
+    if resumed["recover/recovered_step"] != 1 or not resumed["recover/validate_s"] > 0:
+        raise AssertionError("run 1 did not load the step-1 generation (its digests failed?)")
+    gens = RecoverHandler(RecoverConfig(experiment_name="gsm8k-grpo", trial_name="trial0",
+                                        fileroot=fileroot)).generations()
+    print(f"  run 1 loaded the step-1 generation, its digests checked; generations left "
+          f"{[os.path.basename(g) for g in gens]}")
+    for s in stats:
+        if "recover/dump_s" in s:
+            print(f"  dump at step {s['global_step']}: {s['recover/dump_s']:.2f} s for "
+                  f"{s['recover/dump_gb']:.3f} GB (write {s['recover/write_s']:.2f} s, blake2b "
+                  f"digests {s['recover/digest_s']:.2f} s, fsync {s['recover/fsync_s']:.2f} s)")
+    kill_ts = next(e["ts"] for e in events if e["event"] == "trainer_exit" and e["run_id"] == 0)
+    print(f"  load in run 1: {resumed['recover/load_s']:.2f} s (validate "
+          f"{resumed['recover/validate_s']:.2f} s, restore {resumed['recover/restore_s']:.2f} s, "
+          f"pinned transfer replay {resumed['recover/replay_s']:.2f} s); kill -> run 1's first "
+          f"trained step {resumed['ts'] - kill_ts:.1f} s (relaunch at +{start1 - kill_ts:.1f} s, "
+          f"the step itself {resumed['step_s']:.1f} s)")
+    for s in stats:
+        print(f"  step {s['global_step']} (run {s['run_id']}): {s['step_s']:.2f} s, rollout "
+              f"{s['timing/rollout']:.2f} s, ref forward {s['timing/ref_logp']:.3f} s, eval "
+              f"{s['timing/eval']:.2f} s (reward {s['eval_reward_mean']:.3f} on "
+              f"{s['eval_n']}), loss {s['ppo_actor/loss']:+.5f}, kl_ref {s['kl_ref']:.5f}")
+    for run in (0, 1):
+        mine = [s for s in stats if s["run_id"] == run]
+        rate = sum(s["n_seqs"] for s in mine) / sum(s["step_s"] for s in mine)
+        print(f"  run {run}: {rate:.4f} trajectories/s/chip over {len(mine)} steps")
+    names = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+    flash = np.zeros(3, np.int64)
+    for run, n_steps in ((0, 2), (1, 1)):
+        last = [s for s in stats if s["run_id"] == run][-1]
+        got = np.array([last[f"launches/{n}"] for n in names])
+        tc = np.array([last[f"launches/{n}_tc"] for n in names])
+        L = layers
+        want = np.array([(2 + 2 * 4) * L, 4 * L, 4 * L]) * n_steps
+        if not (got == tc).all() or not (got == want).all():
+            raise AssertionError(f"run {run}: flash launches {got} (tensor cores {tc}), not "
+                                 f"{want}: a logprob, ref or update pass missed a kernel")
+        flash += got
+    metrics = next(e["metrics"] for e in events if e["event"] == "server_metrics")
+    ragged = metrics["ragged_kernel_launches"]
+    print(f"  launches: flash fwd/dq/dkv {tuple(int(x) for x in flash)} in the trainers; ragged "
+          f"{ragged} = {layers} x {metrics['decode_steps']} decode steps in the server")
+    if ragged != layers * metrics["decode_steps"] or ragged == 0:
+        raise AssertionError(f"the server's ragged launches are not {layers} x its decode steps")
+    return ragged, tuple(int(x) for x in flash)
+
+
+def recover_phase(build_dir, lens):
+    """The recover phase's three parts; returns (K2 launches, K1 launches
+    of the phase's paths: the launched run's trainers, the in-process
+    updates and the ref forward)."""
+    work = os.path.join(build_dir, "recover_inproc")
+    shutil.rmtree(work, ignore_errors=True)
+    try:
+        bit_equal = recover_save_load(work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    ref = recover_ref_forward(lens)
+    fileroot = os.path.join(build_dir, "recover_run")
+    try:
+        ragged, flash = recover_run(fileroot, RECOVER_RUN_LAYERS)
+    finally:
+        shutil.rmtree(fileroot, ignore_errors=True)
+    return ragged, tuple(a + b + c for a, b, c in zip(flash, bit_equal, ref))
 
 
 # ---------------------------------------------------------------------------
@@ -1947,11 +2290,12 @@ def time_flash(seg_rows, Hq=12, Hkv=2):
     return timings, errs
 
 
-def main():
+def main(argv):
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    only = argv[argv.index("--only") + 1] if "--only" in argv else None
     with phase("device"):
         smi = nvidia_smi()
         kind = torch.cuda.get_device_name(0)
@@ -1964,6 +2308,21 @@ def main():
             print(f"  {name}.cu:\n" + "\n".join("    " + ln for ln in log.strip().splitlines()))
         if not logs:
             print("  already built")
+    if only == "recover":
+        # the recover phase alone, on sequence lengths of the grpo rows' shape
+        lens = [int(m.sum()) for m in recover_batch(5, 8)["attention_mask"]]
+        with phase("recover"):
+            recover_phase(os.path.join(ROOT, "build"), lens)
+    elif only == "recover-full-depth":
+        fileroot = os.path.join(ROOT, "build", "recover_run")
+        try:
+            with phase("recover at 28 layers"):
+                recover_run(fileroot, SERVE_LAYERS)
+        finally:
+            shutil.rmtree(fileroot, ignore_errors=True)
+    if only is not None:
+        print(f"card: {smi}")
+        return 0
     with phase("kernels"):
         max_err = check_kernel()
         flash_err = check_flash()
@@ -2019,7 +2378,7 @@ def main():
             flash_times, train_err = time_flash(seg_rows)
             flash_err = {n: max(flash_err[n], train_err[n]) for n in flash_err}
         with phase("grpo"):
-            grpo_launches, grpo_err, _, _ = grpo_loop(ckpt_dir)
+            grpo_launches, grpo_err, _, grpo_rows = grpo_loop(ckpt_dir)
             max_err = max(max_err, grpo_err["ragged_paged_attention"])
             flash_err = {n: max(flash_err[n], grpo_err[n]) for n in flash_err}
         with phase("prefix"):
@@ -2036,8 +2395,9 @@ def main():
             family_launches = (gemma_ragged + qwen3_launches[0], *qwen3_launches[1:])
         with phase("remote"):
             remote_ragged, remote_flash = remote_qwen(ckpt_dir, remote_dir)
-        with phase("example"):
-            example_qwen()
+        with phase("recover"):
+            recover_ragged, recover_flash = recover_phase(build_dir,
+                                                          segment_lengths(grpo_rows))
     finally:
         for d in scratch:
             shutil.rmtree(d, ignore_errors=True)
@@ -2047,10 +2407,10 @@ def main():
         "source": "areal_tpu_torch/csrc/ragged_decode.cu",
         "replaces": "areal_tpu/ops/ragged_decode.py:93",
         "launches": (launches + grpo_launches[0] + prefix_launches + family_launches[0]
-                     + remote_ragged),
+                     + remote_ragged + recover_ragged),
         "launches_by_path": {"serve": launches, "grpo": grpo_launches[0],
                              "prefix": prefix_launches, "families": family_launches[0],
-                             "remote": remote_ragged},
+                             "remote": remote_ragged, "recover": recover_ragged},
         "max_abs_err": max_err,
         "ms": kern,
         "plain_ms": plain,
@@ -2058,18 +2418,18 @@ def main():
         "bound_by": by,
         "library_ms": sdpa,
     }]
-    for name, n, n_grpo, n_fam, n_remote in zip(
+    for name, n, n_grpo, n_fam, n_remote, n_recover in zip(
             ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"), flash_launches, grpo_launches[1:],
-            family_launches[1:], remote_flash):
+            family_launches[1:], remote_flash, recover_flash):
         ms, plain_ms, lib_ms, bound_ms, bound_by = flash_times[name]
         records.append({
             "name": name,
             "route": "cuda",
             "source": "areal_tpu_torch/csrc/flash_attention.cu",
             "replaces": FLASH_REPLACES[name],
-            "launches": n + n_grpo + n_fam + n_remote,
+            "launches": n + n_grpo + n_fam + n_remote + n_recover,
             "launches_by_path": {"train": n, "grpo": n_grpo, "families": n_fam,
-                                 "remote": n_remote},
+                                 "remote": n_remote, "recover": n_recover},
             "max_abs_err": flash_err[name],
             "ms": ms,
             "plain_ms": plain_ms,
@@ -2086,4 +2446,4 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))
