@@ -8,10 +8,10 @@ reads: `GenServerConfig`, `DatasetConfig`, `ClusterSpecConfig`,
 
 Field names and defaults are the JAX package's, for the fields the port
 reads; fields of what is not ported yet (meshes, LoRA, `async_stats`, the
-scan unroll, the attention implementation switch, and the fields neither
-package reads) are left out, so a config that sets them fails at
-construction.  The remat rungs other than `full` and `layer_group_size`
-> 1 are kept and raise at `TorchTrainEngine.initialize`.  The YAML/CLI
+scan unroll, and the fields neither package reads) are left out, so a
+config that sets them fails at construction.  `remat_policy`,
+`layer_group_size` and `attn_impl` take every value JAX takes, and
+`TorchTrainEngine.initialize` rejects what JAX's engine rejects.  The YAML/CLI
 loader (`load_expr_config`) is not copied: the card's machine has no
 `yaml`.  The remote example (`examples/math/gsm8k_grpo.py`) builds its
 `GRPOConfig` in code and takes `key.sub=value` overrides; `to_dict` is
@@ -90,8 +90,16 @@ class TrainEngineConfig:
     dtype: str = "bfloat16"  # compute dtype
     param_dtype: str = "float32"  # master weights and optimizer state
     gradient_checkpointing: bool = True
-    remat_policy: str = "full"  # only "full" is ported
-    layer_group_size: int = 1  # only 1 is ported
+    # what each checkpoint keeps (models/remat.py): full | dots | save_attn |
+    # save_mlp | carry_offload
+    remat_policy: str = "full"
+    # one checkpoint around each group of this many layers; must divide the
+    # model's depth
+    layer_group_size: int = 1
+    # training attention, forwarded onto the model config unless that sets
+    # its own: auto | splash (the flash kernels where they fit) | naive |
+    # ring (no sequence-parallel mesh on one card: warns, runs auto)
+    attn_impl: str = "auto"
     # fused LM-head vocab chunk width, rounded up to a multiple of 128;
     # 0 = the AREAL_LM_HEAD_CHUNK env default (8192)
     lm_head_chunk: int = 0

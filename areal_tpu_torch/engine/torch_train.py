@@ -73,6 +73,7 @@ from areal_tpu_torch.models.transformer import (
     forward_lm,
     init_params,
 )
+from areal_tpu_torch.ops.attention import ATTN_IMPLS
 from areal_tpu_torch.ops.functional import lm_logprobs_entropy
 from areal_tpu_torch.utils.data import RowPackedBatch, pack_into_rows, unpack_rows
 from areal_tpu_torch.utils.datapack import round_up_to_bucket
@@ -239,6 +240,11 @@ class TorchTrainEngine:
     def initialize(self, addr: Optional[str] = None,
                    ft_spec: Optional[FinetuneSpec] = None) -> None:
         cfg = self.config
+        if cfg.attn_impl not in ATTN_IMPLS:
+            # forwarded onto the model config: an unknown value would
+            # silently take the auto ladder (JAX's engine refuses it too)
+            raise ValueError(f"unknown attn_impl {cfg.attn_impl!r}: use auto, splash, "
+                             "naive, or ring")
         self.device = resolve_device(self._device_arg)
         self._ft_spec = ft_spec
         if cfg.path and not cfg.init_from_scratch:
@@ -254,6 +260,9 @@ class TorchTrainEngine:
             remat=cfg.gradient_checkpointing,
             remat_policy=cfg.remat_policy,
             layer_group_size=cfg.layer_group_size,
+            # an explicitly set model config wins; the engine config is the
+            # path for checkpoints (from_hf leaves "auto")
+            attn_impl=mc.attn_impl if mc.attn_impl != "auto" else cfg.attn_impl,
         )
         check_trainable(self.model_config)
         model.cfg = self.model_config

@@ -7,13 +7,13 @@ with the MoE and vision fields as the reference has them and its LoRA
 rank.  The copy
 keeps `TransformerConfig` with its HF interop (`from_hf`, `to_hf_dict`) and
 the `tiny_config`/`qwen25_1p5b` presets, and of the training knobs the
-remat settings (scan unroll, the attention implementation and MoE capacity
-come with later slices).  The served model holds its weights in the
+remat rungs, the layer grouping and the attention implementation (the
+scan unroll has no counterpart: eager PyTorch runs no scan; MoE capacity
+comes with a later slice).  The served model holds its weights in the
 compute `dtype`; the trainer holds f32 masters (the `param_dtype` argument
 of the model builders, not a config field) and casts them to `dtype` at
 each use.  The port's model raises `NotImplementedError` on MoE, VLM and
-LoRA configs, and on the remat rungs other than `full` and
-`layer_group_size` > 1.
+LoRA configs.
 """
 
 import json
@@ -105,9 +105,19 @@ class TransformerConfig:
 
     # numerics: compute/activation dtype (also the served weights' dtype)
     dtype: str = "bfloat16"
-    remat: bool = True  # checkpoint each layer in the training forward
-    remat_policy: str = "full"  # full (the only rung ported)
-    layer_group_size: int = 1  # 1 (grouping is not ported)
+    remat: bool = True  # checkpoint each layer (or layer group) in the training forward
+    # what a checkpoint keeps (models/remat.py): "full" nothing; "dots" the
+    # projections' products; "save_attn" / "save_mlp" the tagged attention /
+    # MLP output; "carry_offload" both tags, in pinned host memory
+    remat_policy: str = "full"  # full | dots | save_attn | save_mlp | carry_offload
+    # one checkpoint around each group of this many consecutive layers;
+    # must divide num_layers
+    layer_group_size: int = 1
+    # training attention: "auto" and "splash" take the flash kernels where
+    # flash_supported admits the shape, "naive" forces naive_attention,
+    # "ring" (sequence parallelism, which one card has not) warns and takes
+    # the auto ladder
+    attn_impl: str = "auto"  # auto | splash | naive | ring
 
     # vision-language (None = text-only); Qwen2-VL-style mrope: the rope
     # frequency bands are split into (temporal, height, width) sections

@@ -30,12 +30,14 @@ mistral's uniform window; gpt2's learned positions in place of rope.
 
 Training attention (`_backbone`, through `ops.attention`'s
 `make_segment_attention`) takes the flash kernels when `flash_supported`
-admits the packed row shape and `naive_attention` otherwise, and always
-with per-layer windows: the decision JAX's `_backbone` makes with
-`splash_supported`.  `remat` checkpoints each layer
-(`torch.utils.checkpoint`, the `full` rung); the other rungs and layer
-grouping raise NotImplementedError.  MoE, VLM and LoRA configs raise
-NotImplementedError.
+admits the packed row shape (head dim 128 or 256) and `naive_attention`
+otherwise, and always with per-layer windows or under `attn_impl`
+"naive": the decision JAX's `_backbone` makes with `splash_supported`.
+`remat` puts one checkpoint around each group of `layer_group_size`
+layers, keeping what the `remat_policy` rung keeps (`models/remat.py`:
+`full`, `dots`, `save_attn`, `save_mlp`, `carry_offload`, on the
+`attn_out` and `mlp_out` tags JAX names).  MoE, VLM and LoRA configs
+raise NotImplementedError.
 """
 
 import functools
@@ -45,9 +47,9 @@ from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
 
 from areal_tpu_torch.device import DeviceLike, resolve_device, torch_dtype
+from areal_tpu_torch.models import remat
 from areal_tpu_torch.models.model_config import TransformerConfig
 from areal_tpu_torch.ops.attention import (
     make_attention_mask,
@@ -77,14 +79,16 @@ def check_supported(cfg: TransformerConfig) -> None:
 
 
 def check_trainable(cfg: TransformerConfig) -> None:
-    """Raise NotImplementedError for the training knobs not ported yet: the
-    remat rungs other than `full` and layer grouping."""
+    """Raise what JAX's `_backbone` raises: ValueError for an unknown remat
+    rung (with remat on) and for a `layer_group_size` that does not divide
+    the depth; and `check_supported`'s NotImplementedError."""
     check_supported(cfg)
-    if cfg.remat and cfg.remat_policy != "full":
-        raise NotImplementedError(
-            f"remat_policy {cfg.remat_policy!r} is not ported; use 'full'")
-    if cfg.layer_group_size > 1:
-        raise NotImplementedError("layer_group_size > 1 is not ported; use 1")
+    if cfg.remat:
+        remat.check_rung(cfg.remat_policy)
+    if cfg.num_layers % max(1, cfg.layer_group_size):
+        raise ValueError(
+            f"layer_group_size={cfg.layer_group_size} must divide num_layers={cfg.num_layers}: "
+            "a trailing partial group would silently change the remat boundary")
 
 
 # ---------------------------------------------------------------------------
@@ -284,13 +288,19 @@ class DecoderLayer(nn.Module):
         if rope is not None:
             q = apply_rope(q, *rope)
             k = apply_rope(k, *rope)
-        delta = self.self_attn.o_proj(attend(q, k, v).reshape(B, T, -1))
+        with remat.tag("attn_out"):
+            attn = attend(q, k, v)
+        delta = self.self_attn.o_proj(attn.reshape(B, T, -1))
         if self.sandwich:
             x = x + self.post_attention_layernorm(delta)
-            return x + self.post_feedforward_layernorm(
-                self.mlp(self.pre_feedforward_layernorm(x)))
+            with remat.tag("mlp_out"):
+                ffn = self.mlp(self.pre_feedforward_layernorm(x))
+            return x + self.post_feedforward_layernorm(ffn)
         x = x + delta
-        return x + self.mlp(self.post_attention_layernorm(x))
+        h = self.post_attention_layernorm(x)
+        with remat.tag("mlp_out"):
+            ffn = self.mlp(h)
+        return x + ffn
 
 
 class Backbone(nn.Module):
@@ -590,26 +600,36 @@ def _backbone(model: Transformer, input_ids: torch.Tensor, positions: torch.Tens
     """Layer loop -> final-norm hidden [B, T, D] in the compute dtype.
 
     Attention is `make_segment_attention`'s: the flash kernels when the
-    packed row shape passes `flash_supported` and the windows are uniform,
-    else `naive_attention` over masks built once (with per-layer windows,
-    the windowed mask on the sliding layers).  With `cfg.remat` and
-    gradients enabled each layer runs under `torch.utils.checkpoint` (the
-    `full` rung: the backward recomputes the layer, attention forward
-    included)."""
+    packed row shape passes `flash_supported`, the windows are uniform and
+    `cfg.attn_impl` is not "naive", else `naive_attention` over masks built
+    once (with per-layer windows, the windowed mask on the sliding layers).
+    With `cfg.remat` and gradients enabled each group of
+    `cfg.layer_group_size` layers runs under one checkpoint with the
+    `cfg.remat_policy` rung (`models/remat.py`; `full`: the backward
+    recomputes the group, attention forward included)."""
     cfg = model.cfg
     check_trainable(cfg)
     x = model.embed(input_ids, positions)
     rope = _rope(cfg, positions)
     attend = make_segment_attention(segment_ids, positions, cfg.num_heads, cfg.num_kv_heads,
                                     cfg.head_dim_, cfg.sliding_window, cfg.attn_logit_softcap,
-                                    per_layer_window=_per_layer_window(cfg))
-    remat = cfg.remat and torch.is_grad_enabled()
-    for layer, sliding in zip(model.model.layers, layer_sliding_flags(cfg)):
-        layer_attend = functools.partial(attend, sliding=sliding)
-        if remat:
-            x = checkpoint(layer, x, rope, layer_attend, use_reentrant=False)
+                                    per_layer_window=_per_layer_window(cfg),
+                                    attn_impl=cfg.attn_impl)
+    layers = list(zip(model.model.layers, layer_sliding_flags(cfg)))
+    G = max(1, cfg.layer_group_size)
+
+    def run_group(x, group):
+        for layer, sliding in group:
+            x = layer(x, rope, functools.partial(attend, sliding=sliding))
+        return x
+
+    for i in range(0, len(layers), G):
+        group = layers[i:i + G]
+        if cfg.remat and torch.is_grad_enabled():
+            x = remat.checkpoint(functools.partial(run_group, group=group), x,
+                                 cfg.remat_policy)
         else:
-            x = layer(x, rope, layer_attend)
+            x = run_group(x, group)
     return model.model.norm(x)
 
 
@@ -624,6 +644,13 @@ def forward(model: Transformer, input_ids: torch.Tensor, positions: torch.Tensor
     """Full forward -> logits [B, T, V] in the compute dtype (the final
     softcap applied)."""
     return model.head_logits(forward_hidden(model, input_ids, positions, segment_ids))
+
+
+def forward_packed(model: Transformer, packed: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """`forward` over a packed dict of flat [T] buffers (`input_ids`,
+    `positions`, `segment_ids`) -> logits [T, V]."""
+    ids, pos, seg = (packed[k][None, :] for k in ("input_ids", "positions", "segment_ids"))
+    return forward(model, ids, pos, seg)[0]
 
 
 def forward_lm(model: Transformer, input_ids: torch.Tensor, positions: torch.Tensor,

@@ -16,7 +16,7 @@ import os
 import shutil
 import subprocess
 import threading
-from typing import Dict, Iterable, Tuple
+from typing import Dict, Iterable, Optional, Tuple
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -80,15 +80,18 @@ def build(names: Iterable[str]) -> Dict[str, str]:
 _count_lock = threading.Lock()
 
 
-def count_launch(wrapper, tensor_cores: bool = False) -> None:
+def count_launch(wrapper, tensor_cores: bool = False, head_dim: Optional[int] = None) -> None:
     """Add one launch to `wrapper.launches` (and to `wrapper.launches_tc`
-    when it ran on the tensor cores) under a lock: a colocated engine's
+    when it ran on the tensor cores, and to `wrapper.launches_hd[head_dim]`
+    when the wrapper counts by head dim) under a lock: a colocated engine's
     decode stepper and the trainer launch from two threads, and a bare
     `+=` there can lose an increment."""
     with _count_lock:
         wrapper.launches += 1
         if tensor_cores:
             wrapper.launches_tc += 1
+        if head_dim is not None:
+            wrapper.launches_hd[head_dim] += 1
 
 
 def load(name: str) -> ctypes.CDLL:

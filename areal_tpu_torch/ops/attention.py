@@ -7,7 +7,8 @@ path; it is no kernel there either.  `segment_attention` (and
 training entry point: the flash kernels (`ops/flash_attention.py`) when
 `flash_supported` admits the shape and the windows are uniform, as JAX
 takes splash when `splash_supported` does, and `naive_attention` outside
-that gate and under gemma2's per-layer windows.
+that gate, under gemma2's per-layer windows and when the config's
+`attn_impl` says "naive".
 `naive_attention`'s op order (scores in the compute
 dtype, then f32, scale, optional softcap, mask to `MASK_VALUE`, softmax,
 probabilities cast to the value dtype, then PV) is also the op order of
@@ -15,6 +16,7 @@ the ragged decode kernel and its plain version (`ops/ragged_decode.py`).
 """
 
 import math
+import warnings
 from typing import Callable, Optional
 
 import torch
@@ -22,6 +24,7 @@ import torch
 from areal_tpu_torch.ops.flash_attention import flash_supported, segment_flash_attention
 
 MASK_VALUE = -2.3819763e38
+ATTN_IMPLS = ("auto", "splash", "naive", "ring")
 
 
 def make_attention_mask(
@@ -80,22 +83,31 @@ def make_segment_attention(
     sliding_window: Optional[int] = None,
     logit_softcap: Optional[float] = None,
     per_layer_window: bool = False,
+    attn_impl: str = "auto",
 ) -> Callable[..., torch.Tensor]:
     """`attend(q, k, v, sliding=False)` for packed rows with these segment
     ids, the ladder JAX's `_backbone` climbs: with `per_layer_window`
     (gemma2's alternation) `naive_attention` over two masks built here
-    once, the windowed one where `sliding`; else the flash kernels when
-    `flash_supported` admits the shape (a uniform window and the softcap
-    go to the kernels), else `naive_attention` over one mask built once,
-    so a layer loop reuses it."""
+    once, the windowed one where `sliding`; else, unless `attn_impl` is
+    "naive", the flash kernels when `flash_supported` admits the shape (a
+    uniform window and the softcap go to the kernels); else
+    `naive_attention` over one mask built once, so a layer loop reuses it.
+    "auto" and "splash" both mean the flash kernels where they fit.
+    "ring" needs a sequence-parallel mesh, which one card does not have:
+    it warns, as JAX does without one, and climbs the same ladder."""
     T = segment_ids.shape[1]
+    if attn_impl == "ring":
+        reason = ("per-layer sliding windows (gemma2) are mask-based" if per_layer_window
+                  else "the mesh has no sp>1 axis")
+        warnings.warn(f"attn_impl='ring' requested but unused: {reason}; falling back to "
+                      "the splash/naive ladder", stacklevel=2)
     if per_layer_window:
         mask = make_attention_mask(segment_ids, positions)
         mask_win = make_attention_mask(segment_ids, positions, sliding_window)
 
         def attend(q, k, v, sliding=False):
             return naive_attention(q, k, v, mask_win if sliding else mask, logit_softcap)
-    elif flash_supported(T, num_heads, num_kv_heads, head_dim):
+    elif attn_impl != "naive" and flash_supported(T, num_heads, num_kv_heads, head_dim):
         seg = segment_ids.to(torch.int32).contiguous()
 
         def attend(q, k, v, sliding=False):

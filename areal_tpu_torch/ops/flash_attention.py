@@ -27,10 +27,18 @@ launch the kernels for CUDA tensors and raise on what they do not take;
 for CPU tensors they run the plain versions (`*_plain`), which repeat the
 kernels' arithmetic (f32 products and statistics, outputs rounded once to
 the input dtype).  There is no fallback between the two.  Each kernel
-wrapper counts its launches in `.launches`.  Every wrapper picks its kernel
-by dtype: bfloat16 runs on the tensor cores (counted again in
-`.launches_tc`), float32 on the CUDA cores, whose f32 products the tensor
-cores (TF32 at best) could not keep.
+wrapper counts its launches in `.launches`, and by head dim (128 or 256)
+in `.launches_hd`.  Every wrapper picks its kernel by dtype and head dim:
+bfloat16 runs on the tensor cores (counted again in `.launches_tc`),
+float32 on the CUDA cores, whose f32 products the tensor cores (TF32 at
+best) could not keep.
+
+`segment_flash_attention` calls the forward through one
+`torch.library` custom op, `areal_torch::flash_attention` (out and lse,
+with the dq and dk/dv kernels as its registered backward), so that the
+remat rungs' selective checkpointing (`models/remat.py`) sees the
+attention as one op whose outputs it may keep instead of launching the
+forward again.
 
 Rounding on the tensor cores.  The forward rounds P to bfloat16 before its
 PV product; its l and lse still sum the f32 P.  The backward rounds P to
@@ -48,16 +56,18 @@ import torch
 
 from areal_tpu_torch.ops import _build
 
-HEAD_DIM = 128  # the kernels' head dim
+HEAD_DIMS = (128, 256)  # the kernels' head dims
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
 def flash_supported(T: int, Hq: int, Hkv: int, hd: int) -> bool:
     """Shapes the kernels take; everything else runs `naive_attention`, as
-    JAX's `splash_supported` sends its misfits there.  It admits Qwen2.5's
-    packed training rows (T >= 256, T % 128 == 0, hd 128); head dims other
-    than 128 take the naive path here where JAX would run splash."""
-    return T >= 256 and T % 128 == 0 and hd == HEAD_DIM and Hkv > 0 and Hq % Hkv == 0
+    JAX's `splash_supported` sends its misfits there.  It admits packed
+    training rows with T >= 256, T % 128 == 0 and a head dim of 128
+    (Qwen2.5, Qwen3, Llama) or 256 (Gemma); splash takes any multiple of
+    128, so a head dim of 384 or more takes the naive path here where JAX
+    would run splash."""
+    return T >= 256 and T % 128 == 0 and hd in HEAD_DIMS and Hkv > 0 and Hq % Hkv == 0
 
 
 # ---------------------------------------------------------------------------
@@ -173,6 +183,8 @@ def _lib():
 def _check(qs, k, v, segment_ids, *extra) -> None:
     B, T, Hq, hd = qs.shape
     Hkv = k.shape[2]
+    if hd not in HEAD_DIMS or Hq % Hkv:
+        raise ValueError(f"unsupported heads Hq={Hq} Hkv={Hkv} hd={hd} (hd in {HEAD_DIMS})")
     if qs.device.type != "cuda":
         raise ValueError(f"the flash kernels run on cuda, not {qs.device}")
     for name, t in dict(k=k, v=v, segment_ids=segment_ids,
@@ -191,8 +203,6 @@ def _check(qs, k, v, segment_ids, *extra) -> None:
     if tuple(k.shape) != (B, T, Hkv, hd) or tuple(v.shape) != (B, T, Hkv, hd):
         raise ValueError(f"k, v must be [{B}, {T}, Hkv, {hd}], got {tuple(k.shape)}, "
                          f"{tuple(v.shape)}")
-    if hd != HEAD_DIM or Hq % Hkv:
-        raise ValueError(f"unsupported heads Hq={Hq} Hkv={Hkv} hd={hd} (hd {HEAD_DIM})")
 
 
 def _common(qs, window, softcap):
@@ -221,7 +231,7 @@ def flash_fwd(qs, k, v, segment_ids, window: Optional[int] = None,
         qs.device.index or 0, int(bf16), qs.data_ptr(), k.data_ptr(),
         v.data_ptr(), segment_ids.data_ptr(), out.data_ptr(), lse.data_ptr(),
         B, T, Hq, k.shape[2], hd, cap, win, stream), "flash_fwd")
-    _build.count_launch(flash_fwd, tensor_cores=bf16)  # bf16 runs on the tensor cores
+    _build.count_launch(flash_fwd, tensor_cores=bf16, head_dim=hd)  # bf16: tensor cores
     return out, lse
 
 
@@ -240,7 +250,7 @@ def flash_bwd_dq(qs, k, v, segment_ids, dout, lse, di, window: Optional[int] = N
         v.data_ptr(), segment_ids.data_ptr(), dout.data_ptr(), lse.data_ptr(),
         di.data_ptr(), dq.data_ptr(), B, T, Hq, k.shape[2], hd, cap, win, stream),
         "flash_bwd_dq")
-    _build.count_launch(flash_bwd_dq, tensor_cores=bf16)  # bf16 runs on the tensor cores
+    _build.count_launch(flash_bwd_dq, tensor_cores=bf16, head_dim=hd)  # bf16: tensor cores
     return dq
 
 
@@ -259,13 +269,13 @@ def flash_bwd_dkv(qs, k, v, segment_ids, dout, lse, di, window: Optional[int] = 
         v.data_ptr(), segment_ids.data_ptr(), dout.data_ptr(), lse.data_ptr(),
         di.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, T, Hq, k.shape[2], hd, cap, win,
         stream), "flash_bwd_dkv")
-    _build.count_launch(flash_bwd_dkv, tensor_cores=bf16)  # bf16 runs on the tensor cores
+    _build.count_launch(flash_bwd_dkv, tensor_cores=bf16, head_dim=hd)  # bf16: tensor cores
     return dk, dv
 
 
-flash_fwd.launches = flash_fwd.launches_tc = 0
-flash_bwd_dq.launches = flash_bwd_dq.launches_tc = 0
-flash_bwd_dkv.launches = flash_bwd_dkv.launches_tc = 0
+for _wrapper in (flash_fwd, flash_bwd_dq, flash_bwd_dkv):
+    _wrapper.launches = _wrapper.launches_tc = 0
+    _wrapper.launches_hd = dict.fromkeys(HEAD_DIMS, 0)
 
 
 def attention_di(out: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:
@@ -274,26 +284,36 @@ def attention_di(out: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:
     return (out.float() * dout.float()).sum(dim=-1).transpose(1, 2).contiguous()
 
 
-class _SegmentFlashAttention(torch.autograd.Function):
-    """Forward kernel; backward = dq and dk/dv kernels.  Saves q_s, k, v,
-    out and lse; under `torch.utils.checkpoint` the forward runs again
-    during the backward."""
+@torch.library.custom_op("areal_torch::flash_attention", mutates_args=())
+def flash_attention_op(qs: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       segment_ids: torch.Tensor, window: int,
+                       softcap: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(out, lse) of pre-scaled q_s through `flash_fwd` (window 0 and
+    softcap 0 are off).  Its backward runs the dq and dk/dv kernels from
+    the saved q_s, k, v, out and lse; under `torch.utils.checkpoint` the
+    forward runs again during the backward unless the remat rung keeps its
+    outputs."""
+    return flash_fwd(qs, k, v, segment_ids, window or None, softcap or None)
 
-    @staticmethod
-    def forward(ctx, qs, k, v, segment_ids, window, softcap):
-        out, lse = flash_fwd(qs, k, v, segment_ids, window, softcap)
-        ctx.save_for_backward(qs, k, v, segment_ids, out, lse)
-        ctx.window, ctx.softcap = window, softcap
-        return out
 
-    @staticmethod
-    def backward(ctx, dout):
-        qs, k, v, segment_ids, out, lse = ctx.saved_tensors
-        dout = dout.contiguous()
-        di = attention_di(out, dout)
-        dq = flash_bwd_dq(qs, k, v, segment_ids, dout, lse, di, ctx.window, ctx.softcap)
-        dk, dv = flash_bwd_dkv(qs, k, v, segment_ids, dout, lse, di, ctx.window, ctx.softcap)
-        return dq, dk, dv, None, None, None
+def _flash_setup(ctx, inputs, output):
+    qs, k, v, segment_ids, window, softcap = inputs
+    out, lse = output
+    ctx.mark_non_differentiable(lse)
+    ctx.save_for_backward(qs, k, v, segment_ids, out, lse)
+    ctx.window, ctx.softcap = window or None, softcap or None
+
+
+def _flash_backward(ctx, dout, _dlse):
+    qs, k, v, segment_ids, out, lse = ctx.saved_tensors
+    dout = dout.contiguous()
+    di = attention_di(out, dout)
+    dq = flash_bwd_dq(qs, k, v, segment_ids, dout, lse, di, ctx.window, ctx.softcap)
+    dk, dv = flash_bwd_dkv(qs, k, v, segment_ids, dout, lse, di, ctx.window, ctx.softcap)
+    return dq, dk, dv, None, None, None
+
+
+flash_attention_op.register_autograd(_flash_backward, setup_context=_flash_setup)
 
 
 def scale_query(q: torch.Tensor) -> torch.Tensor:
@@ -315,6 +335,7 @@ def segment_flash_attention(
     [B, T, Hq, hd] in q's dtype.  Segments must be contiguous (the layout
     `pack_into_rows` emits)."""
     qs = scale_query(q).contiguous()
-    return _SegmentFlashAttention.apply(
-        qs, k.contiguous(), v.contiguous(), segment_ids.to(torch.int32).contiguous(),
-        sliding_window, logit_softcap)
+    out, _ = flash_attention_op(qs, k.contiguous(), v.contiguous(),
+                                segment_ids.to(torch.int32).contiguous(),
+                                int(sliding_window or 0), float(logit_softcap or 0.0))
+    return out

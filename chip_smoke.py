@@ -17,7 +17,8 @@ Phases, each printed with its wall time; any failure exits non-zero:
             appended cache bit for bit; Gemma-2-2B's decode (B=8, Hq=8,
             Hkv=4, hd=256, softcap 50) at K=4096 and 8192 under sliding
             masks that drop keys, two runs bit-equal; Qwen3-1.7B's heads
-            Hq=16, Hkv=8 at B=16), then one slot bit-equal alone and
+            Hq=16, Hkv=8 at B=16; Gemma-2B's decode heads B=8, Hq=8, Hkv=1,
+            hd=256 at K=2048), then one slot bit-equal alone and
             in the B=16 grid, and two runs bit-equal.  Flash forward, dq and
             dk/dv at Qwen2.5's training heads (Hq=12, Hkv=2, hd=128, bf16):
             T=2048 packed with 3 segments and tail padding, T=1024 one
@@ -25,7 +26,11 @@ Phases, each printed with its wall time; any failure exits non-zero:
             Qwen3-1.7B's (Hq=16, Hkv=8) on the T=2048 rows; two forwards,
             two dq and two dk/dv runs equal bit for bit, pad rows' dq, dk
             and dv exactly 0, every bf16 kernel on its tensor-core variant
-            and every f32 one on the CUDA cores
+            and every f32 one on the CUDA cores; the same checks at head dim
+            256 on Gemma-2B's heads (Hq=8, Hkv=1) and Gemma-7B's (Hq=16,
+            Hkv=16): T=2048 with 3 segments and tail padding, T=1024 with
+            window 256, with softcap 30 and (Gemma-7B) with both, f32 at
+            T=256; every launch counted at its head dim
 4. engine   a tiny f32 model served by the port's engine on the card and on
             the CPU: greedy streams equal, logprobs within 1e-4
 5. serve    random seeded bf16 Qwen2.5-1.5B weights at full width (28
@@ -114,16 +119,41 @@ Phases, each printed with its wall time; any failure exits non-zero:
             windows as in JAX: no flash launch, the softcapped chunked
             head; loss, grad norm, tokens/s, MFU), a disk publish the
             server reloads (snapshot bit-equal to the trainer's bf16 cast),
-            decode tokens/s.  Qwen3-1.7B (28 layers, d=2048, 16 q / 8 kv
-            heads, qk norm) through the grpo phase's colocated loop from its
-            checkpoint: sync and async (live publish), 1 + 1 steps each,
-            with the grpo phase's checks.  Then K2 at both models' decode
+            decode tokens/s.  Qwen3-1.7B (d=2048, 16 q / 8 kv heads, qk
+            norm; its 28 layers cut to QWEN3_LOOP_LAYERS, 8) through the
+            grpo phase's colocated loop from its checkpoint: sync and async
+            (live publish), 1 + 1 steps each, with the grpo phase's checks.  Then K2 at both models' decode
             shapes and K1 at Qwen3's heads on its train rows timed against
             their plain versions and SDPA, with bounds
-12. remote  the same cell with trainer and server as two processes on the
+12. gemma1  Gemma-2B (google/gemma-2b's config.json: 18 layers, d=2048,
+            8 q heads on 1 kv head of 256, vocab 256000, exact gelu, tied
+            head), random bf16 weights from seed 0 written by the port's
+            writer, served through `gen.server.main` (8 slots, max_seq_len
+            2048): 8 prompts of 128..512 tokens x group 4, 128 new tokens
+            each over HTTP, K2 = 18 x decode steps (/metrics); the PPO
+            actor (f32 masters, bf16 compute, full remat) on the rollouts
+            in 1024-token rows: the logprob recompute against the server's
+            within LOGP_MEAN_TOL, 2 ppo_updates (loss, grad norm, tokens/s,
+            MFU), every K1 launch at hd 256 on the tensor cores, exactly 18
+            K1a in the recompute and 36 K1a, 18 K1b and 18 K1c per update
+            micro-batch; a disk publish the server reloads (snapshot
+            bit-equal to the trainer's bf16 cast).  Then, the server
+            stopped, the rung ladder: from the actor's state (masters and
+            Adam's moments parked in pinned host memory), one update on one
+            batch of 8 packed 1024-token rows under full, save_attn,
+            save_mlp, dots and carry_offload (one layer a checkpoint) and
+            full with 2 and 3 layers a checkpoint: loss, grad norm and the
+            updated masters bit-equal to full with one layer; each one's
+            peak memory, train_batch time and K1a count (2 a layer under
+            full, save_mlp and dots, 1 under save_attn and carry_offload).
+            Then K1a/b/c at hd 256 on the phase's train rows and K2 at its
+            decode shape timed against their plain versions and SDPA, with
+            bounds.  `--only gemma1` runs the build and this phase alone
+13. remote  the same cell with trainer and server as two processes on the
             card: `areal_tpu_torch.gen.server` started by the launch helper
-            (32 slots, max_seq_len 1024, bf16, from the serve phase's
-            checkpoint), the trainer here, rollouts over HTTP through
+            (32 slots, max_seq_len 1024, bf16, from a checkpoint of the
+            serve phase's model cut to REMOTE_LAYERS (8) layers), the
+            trainer here, rollouts over HTTP through
             `RemoteTorchEngine` (`bench_e2e_grpo.run_mode_remote`).  Sync
             with the disk publish (1 + 1 steps), async with the transfer
             publish and a live commit (1 + 1 steps, max_head_offpolicyness
@@ -132,14 +162,14 @@ Phases, each printed with its wall time; any failure exits non-zero:
             and commit times, the server's pause windows, version lags,
             both processes' peak memory and the server's prefill accounting
             from /metrics (shared > 0 required).  Checks: the server's ragged
-            launches (over HTTP, /metrics) = 28 x its decode steps, the
-            trainer's flash launches 84/28/28 per step on the tensor cores,
+            launches (over HTTP, /metrics) = 8 x its decode steps, the
+            trainer's flash launches 24/8/8 per step on the tensor cores,
             the ledger balanced, no token from a future version, the logprob
             gap, no reward timeout, no lost trajectory, the server at the
             trainer's version, and after the last publish 4 greedy streams
             (and logprobs) from the server process bit-equal to a GenEngine
             built here from the trainer's bf16 export
-13. recover the training job at full width.  In process: Qwen2.5-1.5B's
+14. recover the training job at full width.  In process: Qwen2.5-1.5B's
             width at 4 layers, the example's actor config, one update,
             `save` with the optimizer, `load` into a fresh actor (masters,
             mu/nu and the update count bit-equal), then one `ppo_update` on
@@ -174,6 +204,11 @@ Phases, each printed with its wall time; any failure exits non-zero:
             `--only recover-full-depth` the build and the launched run
             alone at 28 layers (18.5 GB per recover generation)
 
+Depth cuts, to keep the whole script near 600 s and under the card
+host's 45 GiB of disk writes a call: the remote loop at REMOTE_LAYERS
+(8) and the Qwen3-1.7B loop at QWEN3_LOOP_LAYERS (8) layers (both full
+width), the recover phase's launched run at RECOVER_RUN_LAYERS.
+
 After the card's line comes the whole run's wall time.  The line before
 the last is the kernels' JSON record (`launches` sums the
 paths that ran each kernel, `launches_by_path` splits them); the last line is
@@ -183,6 +218,7 @@ no result.
 
 import concurrent.futures
 import contextlib
+import gc
 import json
 import os
 import re
@@ -324,6 +360,7 @@ def check_kernel():
         ("Gemma-2-2B decode K=8192, softcap 50, its window 4096",
          dict(GEMMA_DECODE, K=8192, M=8192, window=4096), 50.0),
         ("Qwen3-1.7B decode heads (B=16 Hq=16 Hkv=8 hd=128) K=2048", dict(QWEN3_HEADS), None),
+        ("Gemma-2B decode (B=8 Hq=8 Hkv=1 hd=256) K=2048", dict(GEMMA1_DECODE), None),
     ]
     worst = 0.0
     for i, (name, kw, softcap, *edit) in enumerate(cases):
@@ -415,10 +452,13 @@ def compare_flash(name, qs, k, v, dout, sg, window=None, softcap=None):
     relative to the largest element).  f32: 1e-5 on out, 1e-4 relative to
     the largest element on gradients.  Two runs of each kernel must be equal
     bit for bit (no atomics), pad rows must get dq = dk = dv = 0 exactly,
-    and each kernel must run on its tensor-core variant for bf16 and on the
-    CUDA cores for f32.  Returns |kernel - plain| of out, dq and dk/dv."""
+    each kernel must run on its tensor-core variant for bf16 and on the
+    CUDA cores for f32, and every launch must be counted at the input's
+    head dim.  Returns |kernel - plain| of out, dq and dk/dv."""
     wrappers = (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv)
+    hd = qs.shape[-1]
     tc0 = [w.launches_tc for w in wrappers]
+    hd0 = [w.launches_hd[hd] for w in wrappers]
     out, lse = fa.flash_fwd(qs, k, v, sg, window, softcap)
     out2, lse2 = fa.flash_fwd(qs, k, v, sg, window, softcap)
     di = fa.attention_di(out, dout)
@@ -427,6 +467,7 @@ def compare_flash(name, qs, k, v, dout, sg, window=None, softcap=None):
     dk, dv = fa.flash_bwd_dkv(qs, k, v, sg, dout, lse, di, window, softcap)
     dk2, dv2 = fa.flash_bwd_dkv(qs, k, v, sg, dout, lse, di, window, softcap)
     tc_runs = [w.launches_tc - n for w, n in zip(wrappers, tc0)]
+    hd_runs = [w.launches_hd[hd] - n for w, n in zip(wrappers, hd0)]
     p_out, p_lse = fa.flash_fwd_plain(qs, k, v, sg, window, softcap)
     p_dq = fa.flash_bwd_dq_plain(qs, k, v, sg, dout, p_lse, di, window, softcap)
     p_dk, p_dv = fa.flash_bwd_dkv_plain(qs, k, v, sg, dout, p_lse, di, window, softcap)
@@ -456,7 +497,7 @@ def compare_flash(name, qs, k, v, dout, sg, window=None, softcap=None):
     if (bad or max(rels) > grad_tol or not rerun_equal or not fwd_equal or not finite
             or not pad_zero):
         raise AssertionError(f"flash kernels disagree with their plain versions: {name}")
-    if tc_runs != [0 if f32 else 2] * 3:
+    if tc_runs != [0 if f32 else 2] * 3 or hd_runs != [2] * 3:
         raise AssertionError(f"{name}: a kernel ran on the wrong variant")
     return {"flash_fwd": float(err.max()), "flash_bwd_dq": abss[0],
             "flash_bwd_dkv": max(abss[1], abss[2])}
@@ -464,8 +505,12 @@ def compare_flash(name, qs, k, v, dout, sg, window=None, softcap=None):
 
 def check_flash():
     """`compare_flash` on single packed rows at Qwen2.5's heads: several
-    segments with tail padding, one segment, a window, a softcap, and f32.
-    Returns the worst bf16 |kernel - plain| per kernel."""
+    segments with tail padding, one segment, a window, a softcap, and f32;
+    at Qwen3-1.7B's; and at head dim 256: Gemma-2B's (8 q heads on one kv
+    head) and Gemma-7B's (16 on 16) heads, on the same kinds of rows.
+    Returns the worst bf16 |kernel - plain| per kernel at hd 128 and at hd
+    256."""
+    g2b, g7b = GEMMA1_HEADS, GEMMA7B_HEADS
     cases = [
         ("T=2048, 3 segments + padding", packed_segments(2048, [700, 900, 300]), {}),
         ("T=1024, one segment", packed_segments(1024, [1024]), {}),
@@ -474,15 +519,31 @@ def check_flash():
         ("f32 T=256", packed_segments(256, [100, 140]), dict(dtype=torch.float32)),
         ("Qwen3-1.7B heads (Hq=16 Hkv=8), T=2048, 3 segments + padding",
          packed_segments(2048, [700, 900, 300]), dict(Hq=16, Hkv=8)),
+        ("hd 256, Gemma-2B heads (Hq=8 Hkv=1), T=2048, 3 segments + padding",
+         packed_segments(2048, [700, 900, 300]), dict(g2b)),
+        ("hd 256, Gemma-7B heads (Hq=16 Hkv=16), T=2048, 3 segments + padding",
+         packed_segments(2048, [700, 900, 300]), dict(g7b)),
+        ("hd 256, Gemma-2B heads, T=1024, window 256", packed_segments(1024, [600, 380]),
+         dict(g2b, window=256)),
+        ("hd 256, Gemma-2B heads, T=1024, softcap 30", packed_segments(1024, [600, 380]),
+         dict(g2b, softcap=30.0)),
+        ("hd 256, Gemma-7B heads, T=1024, window 256 and softcap 30",
+         packed_segments(1024, [600, 380]), dict(g7b, window=256, softcap=30.0)),
+        ("hd 256 f32, Gemma-2B heads, T=256", packed_segments(256, [100, 140]),
+         dict(g2b, dtype=torch.float32)),
+        ("hd 256 f32, Gemma-7B heads, T=256", packed_segments(256, [100, 140]),
+         dict(g7b, dtype=torch.float32)),
     ]
-    worst = {"flash_fwd": 0.0, "flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0}
+    names = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+    worst = {hd: dict.fromkeys(names, 0.0) for hd in fa.HEAD_DIMS}
     for i, (name, seg, kw) in enumerate(cases):
         dtype = kw.get("dtype", torch.bfloat16)
+        hd = kw.get("hd", 128)
         qs, k, v, dout, sg = flash_case(200 + i, seg, dtype=dtype, Hq=kw.get("Hq", 12),
-                                        Hkv=kw.get("Hkv", 2))
+                                        Hkv=kw.get("Hkv", 2), hd=hd)
         errs = compare_flash(name, qs, k, v, dout, sg, kw.get("window"), kw.get("softcap"))
         if dtype != torch.float32:
-            worst = {n: max(worst[n], errs[n]) for n in worst}
+            worst[hd] = {n: max(worst[hd][n], errs[n]) for n in names}
     return worst
 
 
@@ -734,6 +795,7 @@ def flash_counts_tc():
 def reset_flash_counts():
     for w in (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv):
         w.launches = w.launches_tc = 0
+        w.launches_hd = dict.fromkeys(fa.HEAD_DIMS, 0)
 
 
 # kernel groups of the train profile, by substrings of the kernel's name
@@ -1345,11 +1407,15 @@ def greedy_streams(generate, vocab_size):
     return out
 
 
+REMOTE_LAYERS = 8  # depth of the remote loop's checkpoint (full width)
+QWEN3_LOOP_LAYERS = 8  # depth of the Qwen3-1.7B loop's checkpoint (full width)
+
+
 def remote_qwen(ckpt_dir, publish_dir):
     """The remote GRPO loop of the bench module at full width: the port
     server on the card as a separate process (the launch helper, 32 slots,
-    max_seq_len 1024, bf16, from the smoke checkpoint), the trainer (f32
-    masters) in this process.  Sync with the disk publish, async with the
+    max_seq_len 1024, bf16, from a Qwen2.5-1.5B checkpoint of
+    REMOTE_LAYERS layers), the trainer (f32 masters) in this process.  Sync with the disk publish, async with the
     transfer publish and a live commit, one async step with an aborting
     commit.  Checks the server's ragged launches (read over HTTP) against
     its decode steps, the trainer's flash launches per step, the ledger,
@@ -1373,6 +1439,7 @@ def remote_qwen(ckpt_dir, publish_dir):
         print(f"  server process up at {addr} in {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
         actor, cfg = bench._make_actor("qwen2.5-1.5b", GRPO_SEQ, GROUP, model_path=ckpt_dir)
+        L = cfg.num_layers
         prewarm_reward_pool()
         torch.cuda.synchronize()
         print(f"  trainer up in {time.perf_counter() - t0:.1f} s; "
@@ -1420,16 +1487,15 @@ def remote_qwen(ckpt_dir, publish_dir):
                   f"{res['same_version_logp_gap_mean']:.4f} over {res['same_version_tokens']} "
                   f"tokens (tolerance {LOGP_MEAN_TOL}); losses "
                   + ", ".join(f"{x:+.5f}" for x in res["loss_trajectory"]))
-            print(f"    server: ragged {got[0]} = {SERVE_LAYERS} x {steps} decode steps; "
+            print(f"    server: ragged {got[0]} = {L} x {steps} decode steps; "
                   f"trainer: flash fwd/dq/dkv {tuple(int(x) for x in got[1:])} over {n_steps} "
                   f"steps; staleness ledger {res['ledger']}; lost trajectories "
                   f"{res['lost_trajectories']}")
             print_prefill(res)  # the server's /metrics, read over HTTP
-            if got[0] != SERVE_LAYERS * steps or steps == 0:
-                raise AssertionError(f"remote {label}: server ragged launches != 28 x decode "
+            if got[0] != L * steps or steps == 0:
+                raise AssertionError(f"remote {label}: server ragged launches != {L} x decode "
                                      "steps")
-            if tuple(got[1:]) != (3 * SERVE_LAYERS * n_steps, SERVE_LAYERS * n_steps,
-                                  SERVE_LAYERS * n_steps):
+            if tuple(got[1:]) != (3 * L * n_steps, L * n_steps, L * n_steps):
                 raise AssertionError(f"remote {label}: a logprob pass or an update missed the "
                                      "flash kernels")
             if res["max_version_ahead"] > 0:
@@ -1626,11 +1692,12 @@ def recover_ref_forward(lens):
     bf16 compute, random weights from seed 0) at full width, 28 layers, on
     random sequences of lengths `lens` (the grpo phase's packed train
     rows'): one forward, K1a launched once per layer on the tensor cores;
-    then the same forward through naive attention, within LOGP_MEAN_TOL on
-    the mean.  Returns the forward's flash launches."""
+    then the same forward through naive attention (`attn_impl` "naive"),
+    within LOGP_MEAN_TOL on the mean; then the flash kernels on the
+    forward's packed rows, timed against their plain versions and SDPA,
+    with bounds (`time_flash`).  Returns the forward's flash launches."""
     from areal_tpu_torch.api.config import TrainEngineConfig
     from areal_tpu_torch.engine.torch_train import TorchTrainEngine
-    from areal_tpu_torch.ops import attention
 
     rng = np.random.default_rng(11)
     mc = qwen25_1p5b()
@@ -1649,12 +1716,11 @@ def recover_ref_forward(lens):
     torch.cuda.synchronize()
     fwd_s = time.perf_counter() - t0
     launches, on_tc = flash_counts(), flash_counts_tc()
-    real = attention.flash_supported
-    attention.flash_supported = lambda *a: False
+    ref.model.cfg = ref.model_config.replace(attn_impl="naive")
     try:
         plain = ref.forward(batch)
     finally:
-        attention.flash_supported = real
+        ref.model.cfg = ref.model_config
     if flash_counts() != launches:
         raise AssertionError("the plain forward launched a flash kernel")
     valid = mask[:, 1:]
@@ -1668,8 +1734,11 @@ def recover_ref_forward(lens):
                              "per layer on the tensor cores")
     if not np.isfinite(got[:, :-1][valid]).all() or not gap.mean() <= LOGP_MEAN_TOL:
         raise AssertionError("the ref forward disagrees with the plain attention path")
+    seg_rows = ref._prepare_rows(batch, 1)[1]["segment_ids"]
     del ref
     torch.cuda.empty_cache()
+    print("  the flash kernels on the ref forward's packed rows (K1a is the one it runs):")
+    time_flash(seg_rows)
     return launches
 
 
@@ -2062,6 +2131,314 @@ def gemma_serve_and_train(ckpt_dir, publish_dir):
     return launches, stats, tok_s
 
 
+# ---------------------------------------------------------------------------
+# Gemma-1 (Gemma-2B) at full width: K1 at head dim 256 and the remat rungs
+# ---------------------------------------------------------------------------
+
+# google/gemma-2b config.json: the keys the port reads
+GEMMA_2B = {
+    "architectures": ["GemmaForCausalLM"], "model_type": "gemma",
+    "vocab_size": 256000, "hidden_size": 2048, "intermediate_size": 16384,
+    "num_hidden_layers": 18, "num_attention_heads": 8, "num_key_value_heads": 1,
+    "head_dim": 256, "max_position_embeddings": 8192, "rope_theta": 10000.0,
+    "rms_norm_eps": 1e-6, "hidden_act": "gelu", "attention_bias": False,
+    "tie_word_embeddings": True, "bos_token_id": 2, "eos_token_id": 1, "pad_token_id": 0,
+}
+GEMMA1_SLOTS, GEMMA1_SEQ, GEMMA1_NEW = 8, 2048, 128
+GEMMA1_PROMPT_LEN = (128, 512)
+GEMMA1_HEADS = dict(Hq=8, Hkv=1, hd=256)  # Gemma-2B: MQA, 8 q heads on one kv head
+GEMMA7B_HEADS = dict(Hq=16, Hkv=16, hd=256)  # Gemma-7B: MHA
+GEMMA1_DECODE = dict(B=GEMMA1_SLOTS, **GEMMA1_HEADS)
+LADDER_ROWS = 8  # the rung ladder's batch: 8 packed 1024-token rows, one micro-batch
+# (remat_policy, layer_group_size); the first is the one the others must equal
+RUNG_LADDER = (("full", 1), ("save_attn", 1), ("save_mlp", 1), ("dots", 1),
+               ("carry_offload", 1), ("full", 2), ("full", 3))
+# attention forwards a layer in one update of one micro-batch: the rungs
+# that keep the attention output launch none in the recompute
+RUNG_K1A = {"full": 2, "save_mlp": 2, "dots": 2, "save_attn": 1, "carry_offload": 1}
+
+
+def flash_counts_hd(hd):
+    return tuple(w.launches_hd[hd] for w in (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv))
+
+
+def ladder_view(batch, loss_keys):
+    """The longest prefix of the batch's sequences that packs into
+    LADDER_ROWS rows of ROW_LEN (the engine's first-fit-decreasing)."""
+    from areal_tpu_torch.utils.data import pack_into_rows
+
+    view = {k: batch[k] for k in loss_keys if k in batch}
+    best = 0
+    for m in range(1, len(view["input_ids"]) + 1):
+        rows = pack_into_rows({k: v[:m] for k, v in view.items()}, ROW_LEN).data["input_ids"]
+        if rows.shape[0] > LADDER_ROWS:
+            break
+        best = m
+    return {k: v[:best] for k, v in view.items()}
+
+
+def rung_ladder(actor, batch, L):
+    """From the actor's state after the phase's updates (masters, Adam's
+    moments and count, parked in pinned host memory), one update on one
+    batch of LADDER_ROWS packed rows under each (rung, layer group) of
+    RUNG_LADDER.  Loss, grad norm and the updated masters must equal the
+    first's (`full`, one layer a checkpoint) bit for bit; K1a must run
+    RUNG_K1A[rung] times a layer.  Prints each one's memory (what the
+    forward leaves for the backward beyond the actor's state, the peak
+    before the optimizer step, the peak with it), its train_batch time and
+    its K1a count.  Returns the flash launches at hd 256 (fwd, dq, dkv)
+    summed over the ladder."""
+    opt = actor._optimizer
+    state = [p.data for p in opt.params] + opt.mu + opt.nu
+    view = ladder_view(batch, actor.actor.LOSS_KEYS)
+    rows, _, _ = actor._prepare_rows(view, 1)
+    n_rows = rows.data["input_ids"].shape[0]
+    tokens = int(view["attention_mask"].sum())
+    t0 = time.perf_counter()
+    host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in state]
+    for h, t in zip(host, state):
+        h.copy_(t, non_blocking=True)
+    torch.cuda.synchronize()
+    count, steps = opt.count, actor.step_count
+    print(f"  rung ladder: {len(view['input_ids'])} sequences, {tokens} tokens in {n_rows} rows "
+          f"of {ROW_LEN}; the actor's state ({sum(t.numel() * t.element_size() for t in state) / 1e9:.1f} "
+          f"GB: masters, mu, nu) parked in pinned host memory in "
+          f"{time.perf_counter() - t0:.1f} s")
+    if n_rows != LADDER_ROWS:
+        raise AssertionError(f"the ladder batch packs into {n_rows} rows, not {LADDER_ROWS}")
+    base_cfg = actor.model_config
+    ref = None
+    total = np.zeros(3, np.int64)
+    marks = {}
+    call_model, step = actor._call_model, opt.step
+
+    def marked_call(mb):
+        out = call_model(mb)
+        torch.cuda.synchronize()
+        marks["held"] = torch.cuda.memory_allocated()
+        return out
+
+    def marked_step():
+        marks["backward_peak"] = torch.cuda.max_memory_allocated()
+        return step()
+
+    actor._call_model, opt.step = marked_call, marked_step  # instance attributes, deleted below
+    for rung, group in RUNG_LADDER:
+        with torch.no_grad():
+            for h, t in zip(host, state):
+                t.copy_(h, non_blocking=True)
+        opt.count, actor.step_count = count, steps
+        actor.model_config = actor.model.cfg = base_cfg.replace(remat_policy=rung,
+                                                                layer_group_size=group)
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        before = flash_counts_hd(256)
+        st = actor.actor._train_one_mb(view)
+        torch.cuda.synchronize()
+        got = np.subtract(flash_counts_hd(256), before)
+        total += got
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        if ref is None:
+            ref = (st["loss"], st["grad_norm"],
+                   [torch.empty(p.shape, dtype=p.dtype, pin_memory=True).copy_(p.data)
+                    for p in opt.params])
+            same = True
+        else:
+            same = (st["loss"] == ref[0] and st["grad_norm"] == ref[1] and all(
+                torch.equal(p.data, r.to(p.device, non_blocking=True))
+                for p, r in zip(opt.params, ref[2])))
+        print(f"    {rung:13s} G={group}: loss {st['loss']:+.7f} grad_norm {st['grad_norm']:.7f} "
+              f"train_batch {st['step_time']:.3f} s mfu {st.get('mfu', float('nan')):.4f}; "
+              f"held after the forward {(marks['held'] - base) / 2**30:.2f} GiB over the state's "
+              f"{base / 2**30:.2f}, peak {(marks['backward_peak']) / 2**30:.2f} GiB before the "
+              f"step, {peak:.2f} GiB with it; K1a/K1b/K1c {tuple(int(x) for x in got)}; "
+              f"loss, grad norm and masters bit-equal to full G=1: {same}")
+        want = (RUNG_K1A[rung] * L, L, L)
+        if tuple(got) != want:
+            raise AssertionError(f"{rung} G={group}: flash launches {tuple(got)}, want {want}")
+        if not same:
+            raise AssertionError(f"{rung} G={group} differs from full G=1")
+    actor.model_config = actor.model.cfg = base_cfg
+    del actor._call_model, opt.step, host, ref
+    return total
+
+
+def gemma1_phase(ckpt_dir, publish_dir):
+    """Gemma-2B at full width (18 layers, d 2048, 8 q heads on one kv head
+    of 256, vocab 256000), random bf16 weights from seed 0 written as an HF
+    checkpoint by the port's writer: served through `gen.server.main` (8
+    slots, max_seq_len 2048), 8 prompts of 128..512 tokens x group 4, 128
+    new tokens each over HTTP, K2 = 18 x decode steps (/metrics); the PPO
+    actor (f32 masters, bf16 compute, full remat) on the rollouts packed in
+    1024-token rows: the logprob recompute against the server's, 2
+    ppo_updates, every K1 launch at hd 256 on the tensor cores and exactly
+    18 K1a a micro-batch in the recompute and 36 K1a, 18 K1b, 18 K1c in
+    an update; a disk publish the server reloads (snapshot bit-equal to the
+    trainer's bf16 cast).  Then, the server stopped, the rung ladder
+    (`rung_ladder`).  Returns the K2 launches, the flash launches at hd 256
+    (recompute and updates, ladder), the update stats and one update
+    micro-batch's packed segment ids."""
+    cfg = write_checkpoint(GEMMA_2B, ckpt_dir)
+    shape = (cfg.num_layers, cfg.hidden_size, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_,
+             cfg.vocab_size, cfg.hidden_act, cfg.sliding_window, cfg.attn_impl)
+    print(f"  from_hf: layers, d, q heads, kv heads, hd, vocab, act, window, attn_impl {shape}")
+    if shape != (18, 2048, 8, 1, 256, 256000, "gelu", None, "auto") or not fa.flash_supported(
+            ROW_LEN, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_):
+        raise AssertionError("google/gemma-2b's config did not parse into the flash path's shape")
+    L, V = cfg.num_layers, cfg.vocab_size
+    rng = np.random.default_rng(21)
+    prompts = [rng.integers(0, V, int(rng.integers(GEMMA1_PROMPT_LEN[0],
+                                                   GEMMA1_PROMPT_LEN[1] + 1))).tolist()
+               for _ in range(TRAIN_PROMPTS)]
+    reset_flash_counts()
+    counts = np.zeros(3, np.int64)
+    t0 = time.perf_counter()
+    with running_server(["--model-path", ckpt_dir, "--port", "0", "--n-slots",
+                         str(GEMMA1_SLOTS), "--max-seq-len", str(GEMMA1_SEQ)]) as httpd:
+        port = httpd.port
+        print(f"  server up in {time.perf_counter() - t0:.1f} s "
+              f"({torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated)")
+        sp = dict(max_new_tokens=GEMMA1_NEW, min_new_tokens=GEMMA1_NEW, temperature=1.0,
+                  top_p=1.0)
+        bodies = [dict(rid=f"p{i}g{j}", input_ids=p, sampling_params=sp)
+                  for i, p in enumerate(prompts) for j in range(GROUP)]
+        m0 = get(port, "/metrics")
+        t0 = time.perf_counter()
+        results = post(port, "/generate_batch", {"requests": bodies})["results"]
+        wall = time.perf_counter() - t0
+        m1 = get(port, "/metrics")
+        steps = m1["decode_steps"] - m0["decode_steps"]
+        ragged = m1["ragged_kernel_launches"] - m0["ragged_kernel_launches"]
+        print(f"  rollouts: {len(results)} x {GEMMA1_NEW} tokens in {wall:.2f} s "
+              f"({len(results) * GEMMA1_NEW / wall:.1f} tokens/s); ragged {ragged} = {L} x "
+              f"{steps} decode steps (/metrics)")
+        for r in results:
+            lp = np.asarray(r["output_logprobs"])
+            if len(r["output_tokens"]) != GEMMA1_NEW or not (np.isfinite(lp).all()
+                                                             and (lp <= 0).all()):
+                raise AssertionError(f"a Gemma-2B request did not return {GEMMA1_NEW} "
+                                     "finite logprobs")
+        if steps == 0 or ragged != L * steps:
+            raise AssertionError(f"Gemma-2B decode did not run its {L} layers through K2")
+        rewards = [float(np.mean(np.asarray(r["output_tokens"]) % 2 == 0) > 0.5)
+                   for r in results]
+        batch = rollout_batch(results, [b["input_ids"] for b in bodies], rewards)
+
+        t0 = time.perf_counter()
+        actor = TorchPPOActor(PPOActorConfig(
+            init_from_scratch=False, path=ckpt_dir, dtype="bfloat16",
+            gradient_checkpointing=True, remat_policy="full", layer_group_size=1,
+            group_size=GROUP, ppo_n_minibatches=2, use_decoupled_loss=True,
+            recompute_logprob=True, pack_length_quantum=ROW_LEN, max_pack_length=ROW_LEN,
+            adv_norm=NormConfig(mean_level="group", std_level="group"),
+            optimizer=OptimizerConfig(lr=1e-5, warmup_steps_proportion=0.0),
+        ))
+        actor.initialize(ft_spec=FinetuneSpec(1, len(bodies), len(bodies)))
+        torch.cuda.synchronize()
+        print(f"  trainer up in {time.perf_counter() - t0:.1f} s; "
+              f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated on the card")
+        hd0, tc0 = flash_counts_hd(256), flash_counts_tc()
+        before = flash_counts()
+        t0 = time.perf_counter()
+        batch["prox_logp"] = actor.compute_logp(batch)
+        got = tuple(int(x) for x in np.subtract(flash_counts(), before))
+        counts += got
+        mask = np.roll(batch["loss_mask"] > 0, -1, axis=-1)
+        dlp = np.abs(batch["prox_logp"][mask] - np.roll(batch["logprobs"], -1, axis=-1)[mask])
+        print(f"  compute_logp in {time.perf_counter() - t0:.2f} s, flash launches fwd/dq/dkv "
+              f"{got}; |trainer - server| logprob: mean {dlp.mean():.4f}, max {dlp.max():.4f} "
+              f"(tolerance on the mean {LOGP_MEAN_TOL})")
+        if got != (L, 0, 0):
+            raise AssertionError(f"compute_logp did not run {L} flash forwards")
+        if not dlp.mean() <= LOGP_MEAN_TOL:
+            raise AssertionError("Gemma-2B trainer logprobs disagree with the server's")
+        actor.compute_advantages(batch)
+        view = {k: batch[k] for k in actor.actor.LOSS_KEYS if k in batch}
+        mbs = split_padded_tensor_dict_into_mb_list(
+            view, n_mbs=actor.config.ppo_n_minibatches).mbs
+        mb_tokens = [int(mb["attention_mask"].sum()) for mb in mbs]
+        seg_rows = actor._prepare_rows(mbs[0], actor.config.mb_spec.n_mbs)[1]["segment_ids"]
+        stats = []
+        torch.cuda.reset_peak_memory_stats()
+        for step in range(2):
+            before = flash_counts()
+            st = actor.ppo_update(batch)
+            got = tuple(int(x) for x in np.subtract(flash_counts(), before))
+            counts += got
+            n_mb = len(st) * actor.config.mb_spec.n_mbs
+            want = (2 * L * n_mb, L * n_mb, L * n_mb)
+            for s_, toks in zip(st, mb_tokens):
+                s_["tokens_per_s"] = toks / s_["step_time"]
+                print(f"  update {step}: loss {s_['loss']:+.5f} grad_norm {s_['grad_norm']:.4f} "
+                      f"step_time {s_['step_time']:.3f} s train tokens/s "
+                      f"{s_['tokens_per_s']:.1f} mfu {s_.get('mfu', float('nan')):.4f} "
+                      f"({toks} tokens)")
+                if not all(np.isfinite(s_[k]) for k in ("loss", "grad_norm", "step_time")):
+                    raise AssertionError("a Gemma-2B PPO update returned a non-finite stat")
+            print(f"    flash launches fwd/dq/dkv {got}, want {want} ({n_mb} micro-batches)")
+            if got != want:
+                raise AssertionError("a Gemma-2B training layer's attention missed the flash "
+                                     "kernels")
+            stats += st
+        on_hd = tuple(int(x) for x in np.subtract(flash_counts_hd(256), hd0))
+        on_tc = tuple(int(x) for x in np.subtract(flash_counts_tc(), tc0))
+        print(f"  peak memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB over the "
+              f"updates (server and trainer); flash launches {tuple(int(c) for c in counts)}: "
+              f"at hd 256 {on_hd}, on the tensor cores {on_tc}")
+        if not on_hd == on_tc == tuple(int(c) for c in counts):
+            raise AssertionError("a Gemma-2B flash launch missed the hd-256 tensor-core kernels")
+
+        actor.set_version(1)
+        t0 = time.perf_counter()
+        actor.update_weights(WeightUpdateMeta(type="disk", path=publish_dir))
+        reply = post(port, "/update_weights_from_disk", {"path": publish_dir, "version": 1})
+        print(f"  published and reloaded in {time.perf_counter() - t0:.1f} s: {reply}")
+        snap = dict(safetensors_io.iter_safetensors(os.path.join(publish_dir, "v1")))
+        params = dict(actor.model.named_parameters())
+        if reply.get("version") != 1 or get(port, "/health")["version"] != 1:
+            raise AssertionError("the Gemma-2B server did not take the trainer's version")
+        if set(snap) != set(params) or not all(
+                torch.equal(snap[n].to(p.device), p.detach().to(torch.bfloat16))
+                for n, p in params.items()):
+            raise AssertionError("the Gemma-2B snapshot is not the trainer's params in bf16")
+        del snap, params
+        greedy = dict(max_new_tokens=32, min_new_tokens=32, temperature=0.0)
+        out = post(port, "/generate", dict(input_ids=prompts[0], sampling_params=greedy))
+        if len(out["output_tokens"]) != 32 or out["version"] != 1:
+            raise AssertionError("the reloaded Gemma-2B server did not answer")
+        m2 = get(port, "/metrics")
+        ragged += m2["ragged_kernel_launches"] - m1["ragged_kernel_launches"]
+        print(f"  snapshot equals the trainer's params in bf16; a greedy request on the new "
+              f"weights: 32 tokens, version {out['version']}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  server stopped: {torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated")
+    ladder = rung_ladder(actor, batch, L)
+    actor.destroy()
+    del actor
+    gc.collect()
+    torch.cuda.empty_cache()
+    return ragged, tuple(int(c) for c in counts), tuple(int(c) for c in ladder), stats, seg_rows
+
+
+def gemma1_timings(seg_rows):
+    """K1a/b/c at hd 256 on the Gemma-2B phase's train rows (kernel, plain
+    version, SDPA, bound) and K2 at Gemma-2B's decode heads (8 slots, one
+    kv head of 256, spans 128..639 of K 2048)."""
+    lengths = torch.from_numpy(np.random.default_rng(22).integers(
+        GEMMA1_PROMPT_LEN[0], GEMMA1_PROMPT_LEN[1] + GEMMA1_NEW, GEMMA1_SLOTS)).to(torch.int32)
+    k2 = time_kernel(ragged_case(23, K=GEMMA1_SEQ, M=GEMMA1_SEQ, lengths=lengths,
+                                 **GEMMA1_DECODE))
+    print(f"  K2 at Gemma-2B decode (B={GEMMA1_SLOTS} Hq=8 Hkv=1 hd=256, K={GEMMA1_SEQ}, spans "
+          f"{GEMMA1_PROMPT_LEN[0]}..{GEMMA1_PROMPT_LEN[1] + GEMMA1_NEW - 1}): kernel "
+          f"{k2[0]:.4f} ms, plain {k2[1]:.4f} ms, SDPA {k2[2]:.4f} ms, bound {k2[3]:.4f} ms "
+          f"({k2[4]}); device time per call: kernel {fmt_ms(k2[5])}, SDPA {fmt_ms(k2[6])}")
+    print("  K1 at Gemma-2B's heads (Hq=8 Hkv=1 hd=256):")
+    return time_flash(seg_rows, **GEMMA1_HEADS)
+
+
 def families_timings(qwen3_rows):
     """K2 at the families' decode shapes and K1 at Qwen3's heads on the
     Qwen3 loop's packed rows: kernel, plain version, SDPA, bound."""
@@ -2225,9 +2602,9 @@ def flash_bounds(qs, k, seg):
     return out
 
 
-def time_flash(seg_rows, Hq=12, Hkv=2):
+def time_flash(seg_rows, Hq=12, Hkv=2, hd=128):
     """On the packed rows `seg_rows` at `Hq` q heads over `Hkv` kv heads
-    (default: Qwen2.5's) in bf16: each flash
+    of `hd` (default: Qwen2.5's) in bf16: each flash
     kernel against its plain version (`compare_flash`), then the kernel,
     the plain version and torch SDPA timed: SDPA's forward for the forward
     kernel, its forward + backward through autograd for the two backward
@@ -2235,7 +2612,7 @@ def time_flash(seg_rows, Hq=12, Hkv=2):
     and by device time.  Returns the timings and the |kernel - plain| of
     each kernel."""
     seg = torch.from_numpy(np.ascontiguousarray(seg_rows)).to(torch.int32)
-    qs, k, v, dout, sg = flash_case(300, seg, Hq=Hq, Hkv=Hkv)
+    qs, k, v, dout, sg = flash_case(300, seg, Hq=Hq, Hkv=Hkv, hd=hd)
     errs = compare_flash(f"train rows {tuple(seg.shape)}", qs, k, v, dout, sg)
     out, lse = fa.flash_fwd(qs, k, v, sg)
     di = fa.attention_di(out, dout)
@@ -2313,6 +2690,15 @@ def main(argv):
         lens = [int(m.sum()) for m in recover_batch(5, 8)["attention_mask"]]
         with phase("recover"):
             recover_phase(os.path.join(ROOT, "build"), lens)
+    elif only == "gemma1":
+        g1_dir = os.path.join(ROOT, "build", "gemma1_ckpt")
+        g1_publish = os.path.join(ROOT, "build", "gemma1_publish")
+        try:
+            with phase("gemma1"):
+                gemma1_timings(gemma1_phase(g1_dir, g1_publish)[-1])
+        finally:
+            for d in (g1_dir, g1_publish):
+                shutil.rmtree(d, ignore_errors=True)
     elif only == "recover-full-depth":
         fileroot = os.path.join(ROOT, "build", "recover_run")
         try:
@@ -2325,7 +2711,8 @@ def main(argv):
         return 0
     with phase("kernels"):
         max_err = check_kernel()
-        flash_err = check_flash()
+        flash_checks = check_flash()
+        flash_err, flash_err256 = flash_checks[128], flash_checks[256]
     with phase("engine"):
         check_engine()
     build_dir = os.path.join(ROOT, "build")
@@ -2335,7 +2722,11 @@ def main(argv):
     gemma_dir = os.path.join(build_dir, "gemma2_ckpt")
     gemma_publish = os.path.join(build_dir, "gemma2_publish")
     qwen3_dir = os.path.join(build_dir, "qwen3_ckpt")
-    scratch = (ckpt_dir, publish_dir, remote_dir, gemma_dir, gemma_publish, qwen3_dir)
+    gemma1_dir = os.path.join(build_dir, "gemma1_ckpt")
+    gemma1_publish = os.path.join(build_dir, "gemma1_publish")
+    remote_ckpt = os.path.join(build_dir, "remote_ckpt")
+    scratch = (ckpt_dir, publish_dir, remote_dir, gemma_dir, gemma_publish, qwen3_dir,
+               gemma1_dir, gemma1_publish, remote_ckpt)
     for d in scratch:
         shutil.rmtree(d, ignore_errors=True)
     try:
@@ -2386,15 +2777,25 @@ def main(argv):
         with phase("families"):
             gemma_ragged, _, _ = gemma_serve_and_train(gemma_dir, gemma_publish)
             shutil.rmtree(gemma_dir, ignore_errors=True)
-            write_checkpoint(QWEN3_1P7B, qwen3_dir)
+            write_checkpoint(dict(QWEN3_1P7B, num_hidden_layers=QWEN3_LOOP_LAYERS), qwen3_dir)
             qwen3_launches, qwen3_err, _, qwen3_rows = grpo_loop(qwen3_dir, "qwen3-1.7b",
                                                                  FAMILY_PLANS)
             timing_err = families_timings(qwen3_rows)
             max_err = max(max_err, qwen3_err["ragged_paged_attention"])
             flash_err = {n: max(flash_err[n], qwen3_err[n], timing_err[n]) for n in flash_err}
             family_launches = (gemma_ragged + qwen3_launches[0], *qwen3_launches[1:])
+            shutil.rmtree(qwen3_dir, ignore_errors=True)
+        with phase("gemma1"):
+            gemma1_ragged, gemma1_flash, ladder_flash, _, gemma1_rows = gemma1_phase(
+                gemma1_dir, gemma1_publish)
+            for d in (gemma1_dir, gemma1_publish):
+                shutil.rmtree(d, ignore_errors=True)
+            flash_times256, gemma1_err = gemma1_timings(gemma1_rows)
+            flash_err256 = {n: max(flash_err256[n], gemma1_err[n]) for n in flash_err256}
         with phase("remote"):
-            remote_ragged, remote_flash = remote_qwen(ckpt_dir, remote_dir)
+            write_checkpoint(qwen25_1p5b().replace(num_layers=REMOTE_LAYERS).to_hf_dict(),
+                             remote_ckpt)
+            remote_ragged, remote_flash = remote_qwen(remote_ckpt, remote_dir)
         with phase("recover"):
             recover_ragged, recover_flash = recover_phase(build_dir,
                                                           segment_lengths(grpo_rows))
@@ -2407,10 +2808,11 @@ def main(argv):
         "source": "areal_tpu_torch/csrc/ragged_decode.cu",
         "replaces": "areal_tpu/ops/ragged_decode.py:93",
         "launches": (launches + grpo_launches[0] + prefix_launches + family_launches[0]
-                     + remote_ragged + recover_ragged),
+                     + gemma1_ragged + remote_ragged + recover_ragged),
         "launches_by_path": {"serve": launches, "grpo": grpo_launches[0],
                              "prefix": prefix_launches, "families": family_launches[0],
-                             "remote": remote_ragged, "recover": recover_ragged},
+                             "gemma1": gemma1_ragged, "remote": remote_ragged,
+                             "recover": recover_ragged},
         "max_abs_err": max_err,
         "ms": kern,
         "plain_ms": plain,
@@ -2431,6 +2833,26 @@ def main(argv):
             "launches_by_path": {"train": n, "grpo": n_grpo, "families": n_fam,
                                  "remote": n_remote, "recover": n_recover},
             "max_abs_err": flash_err[name],
+            "ms": ms,
+            "plain_ms": plain_ms,
+            "bound_ms": bound_ms,
+            "bound_by": bound_by,
+            "library_ms": lib_ms,
+        })
+    # the same kernels' hd-256 variants (tc::flash_fwd_tc_kernel<256>,
+    # tc::flash_bwd_dq_tc_kernel<256>, tc::flash_bwd_dkv_tc256_kernel), run by
+    # the gemma1 path only
+    for name, n, n_ladder in zip(("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"), gemma1_flash,
+                                 ladder_flash):
+        ms, plain_ms, lib_ms, bound_ms, bound_by = flash_times256[name]
+        records.append({
+            "name": f"{name}_hd256",
+            "route": "cuda",
+            "source": "areal_tpu_torch/csrc/flash_attention.cu",
+            "replaces": FLASH_REPLACES[name],
+            "launches": n + n_ladder,
+            "launches_by_path": {"gemma1": n, "gemma1_rung_ladder": n_ladder},
+            "max_abs_err": flash_err256[name],
             "ms": ms,
             "plain_ms": plain_ms,
             "bound_ms": bound_ms,

@@ -5,8 +5,9 @@ the wrappers run for CPU tensors) and their autograd function are held
 against `areal_tpu`'s splash path (`segment_attention(impl="splash")`),
 run in interpret mode on the CPU as tests/test_attention.py runs it, on
 packed multi-segment rows with tail padding, a sliding window and a logit
-softcap; the plain dq and dk/dv functions against autograd of the port's
-`naive_attention`.  The rounding that the bf16 tensor-core backward adds
+softcap, at head dim 128 and at 256 (Gemma-2B's 8 q heads on one kv head,
+and an MHA group); the plain dq and dk/dv functions against autograd of
+the port's `naive_attention`.  The rounding that the bf16 tensor-core backward adds
 (P and dS to bf16 before their products) is emulated on the CPU and held
 to the tolerance the card's checks use.  The CUDA kernels are held against
 the plain versions on the card (`gpu` marker; skips without one).
@@ -74,7 +75,9 @@ def _port_out_grads(q, k, v, g, seg, window=None, softcap=None):
     dict(B=2),
     dict(window=64, n_segs=2),
     dict(softcap=30.0),
-], ids=["packed", "window", "softcap"])
+    dict(hd=256, Hq=8, Hkv=1),
+    dict(hd=256, Hq=2, Hkv=2, softcap=30.0),
+], ids=["packed", "window", "softcap", "hd256-mqa", "hd256-mha-softcap"])
 def test_plain_forward_and_grads_match_splash(interpret, case):
     import jax
     import jax.numpy as jnp
@@ -82,7 +85,9 @@ def test_plain_forward_and_grads_match_splash(interpret, case):
     from areal_tpu.ops.attention import segment_attention
 
     window, softcap = case.get("window"), case.get("softcap")
-    q, k, v, g, seg, pos = _packed(7, B=case.get("B", 1), n_segs=case.get("n_segs", 3))
+    q, k, v, g, seg, pos = _packed(7, B=case.get("B", 1), n_segs=case.get("n_segs", 3),
+                                   hd=case.get("hd", 128), Hq=case.get("Hq", 4),
+                                   Hkv=case.get("Hkv", 2))
     valid = seg >= 0
     w = jnp.asarray(valid[..., None, None], jnp.float32)
 
@@ -147,14 +152,16 @@ def test_valid_grads_ignore_pad_row_content():
 
 
 def test_segment_attention_dispatch():
-    """The flash path inside the gate (T >= 256, T % 128 == 0, hd 128),
-    `naive_attention` outside it; both agree on valid rows.  The branch
+    """The flash path inside the gate (T >= 256, T % 128 == 0, hd 128 or
+    256), `naive_attention` outside it; both agree on valid rows.  The branch
     shows at the pad rows: flash gives them 0, naive a uniform average.
     The model's layer loop takes the same `make_segment_attention`."""
     assert fa.flash_supported(256, 12, 2, 128) and fa.flash_supported(1024, 12, 2, 128)
     assert not fa.flash_supported(128, 12, 2, 128)
     assert not fa.flash_supported(320, 12, 2, 128)
     assert not fa.flash_supported(256, 12, 2, 64)
+    assert fa.flash_supported(1024, 8, 1, 256) and fa.flash_supported(256, 16, 16, 256)
+    assert not fa.flash_supported(256, 8, 1, 192) and not fa.flash_supported(256, 8, 1, 384)
     for T, flash in ((256, True), (128, False)):
         q, k, v, _, seg, pos = (torch.from_numpy(x) for x in _packed(11, T=T))
         before = fa.flash_fwd.launches
@@ -168,31 +175,45 @@ def test_segment_attention_dispatch():
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take():
+    """CPU tensors never reach a kernel, and no kernel takes a head dim
+    other than 128 and 256 (a device other than cuda is refused either
+    way; the head dim is checked first)."""
     q, k, v, _, seg, _ = (torch.from_numpy(x) for x in _packed(1, T=256, hd=128))
-    with pytest.raises(ValueError):
-        fa._check(q, k, v, seg)  # CPU tensors never reach a kernel
-    with pytest.raises(ValueError):
+    with pytest.raises(ValueError, match="cuda"):
+        fa._check(q, k, v, seg)
+    with pytest.raises(ValueError, match="cuda"):
         fa.flash_fwd(q.to("meta"), k.to("meta"), v.to("meta"), seg.to("meta"))
+    for hd in (64, 192):
+        q, k, v, g, seg, _ = (torch.from_numpy(x).to("meta")
+                              for x in _packed(1, T=256, hd=hd, Hq=8, Hkv=1))
+        lse = torch.empty(1, 8, 256, device="meta")
+        with pytest.raises(ValueError, match=f"hd={hd}"):
+            fa.flash_fwd(q, k, v, seg)
+        with pytest.raises(ValueError, match=f"hd={hd}"):
+            fa.flash_bwd_dq(q, k, v, seg, g, lse, lse)
+        with pytest.raises(ValueError, match=f"hd={hd}"):
+            fa.flash_bwd_dkv(q, k, v, seg, g, lse, lse)
 
 
+@pytest.mark.parametrize("hd", [128, 256])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("window,softcap", [(None, None), (64, None), (None, 30.0),
                                             (64, 30.0)])
-def test_cpu_tensors_run_the_plain_versions(dtype, window, softcap):
+def test_cpu_tensors_run_the_plain_versions(dtype, window, softcap, hd):
     """For CPU tensors each wrapper returns its plain version's result, bit
     for bit, in the input dtype, and launches nothing (the launch counters
     stay put); pad rows get exactly 0 from all of them."""
-    q, k, v, g, seg, _ = _packed(29, B=2)
+    q, k, v, g, seg, _ = _packed(29, B=2, hd=hd, **(dict(Hq=8, Hkv=1) if hd == 256 else {}))
     qs, kk, vv, dout = (torch.from_numpy(x).to(dtype) for x in (q, k, v, g))
     qs = fa.scale_query(qs)
     sg = torch.from_numpy(seg)
     wrappers = (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv)
-    before = [(w.launches, w.launches_tc) for w in wrappers]
+    before = [(w.launches, w.launches_tc, dict(w.launches_hd)) for w in wrappers]
     out, lse = fa.flash_fwd(qs, kk, vv, sg, window, softcap)
     di = fa.attention_di(out, dout)
     dq = fa.flash_bwd_dq(qs, kk, vv, sg, dout, lse, di, window, softcap)
     dk, dv = fa.flash_bwd_dkv(qs, kk, vv, sg, dout, lse, di, window, softcap)
-    assert [(w.launches, w.launches_tc) for w in wrappers] == before
+    assert [(w.launches, w.launches_tc, dict(w.launches_hd)) for w in wrappers] == before
     p_out, p_lse = fa.flash_fwd_plain(qs, kk, vv, sg, window, softcap)
     p_dq = fa.flash_bwd_dq_plain(qs, kk, vv, sg, dout, lse, di, window, softcap)
     p_dk, p_dv = fa.flash_bwd_dkv_plain(qs, kk, vv, sg, dout, lse, di, window, softcap)
@@ -223,16 +244,20 @@ def _bf16_kernel_grads(qs, k, v, seg, dout, lse, di, window, softcap):
     dict(),
     dict(window=256),
     dict(softcap=30.0),
-], ids=["packed", "window", "softcap"])
+    dict(hd=256, Hq=8, Hkv=1),
+], ids=["packed", "window", "softcap", "gemma-2b"])
 def test_tensor_core_backward_rounding_within_budget(case):
     """The rounding the bf16 backward kernels add (P and dS to bf16 before
     their products) stays within the 2e-2 of the largest element that the
     card's checks allow against the f32 plain versions, on a packed
-    bf16-valued row at Qwen2.5's heads (T=1024, 4 segments, tail padding).
-    The inputs are what the kernels get: q_s, k, v and dout in bf16, lse
-    from the forward and di from the bf16 output, both f32."""
+    bf16-valued row at Qwen2.5's heads (T=1024, 4 segments, tail padding),
+    and at Gemma-2B's (8 q heads on one kv head of 256), where dk and dv
+    sum eight heads' products.  The inputs are what the kernels get: q_s,
+    k, v and dout in bf16, lse from the forward and di from the bf16
+    output, both f32."""
     window, softcap = case.get("window"), case.get("softcap")
-    q, k, v, g, seg, _ = _packed(23, B=1, T=1024, Hq=12, Hkv=2, n_segs=4)
+    q, k, v, g, seg, _ = _packed(23, B=1, T=1024, Hq=case.get("Hq", 12), Hkv=case.get("Hkv", 2),
+                                 hd=case.get("hd", 128), n_segs=4)
     qs = fa.scale_query(torch.from_numpy(q).bfloat16()).float()
     kk, vv, dout = (torch.from_numpy(x).bfloat16().float() for x in (k, v, g))
     sg = torch.from_numpy(seg)
@@ -260,21 +285,28 @@ def cuda_device():
     dict(dtype=torch.bfloat16, window=96),
     dict(dtype=torch.bfloat16, softcap=30.0),
     dict(dtype=torch.bfloat16, T=1024, Hq=12, Hkv=2, n_segs=4),
+    dict(dtype=torch.float32, hd=256, Hq=8, Hkv=1),
+    dict(dtype=torch.bfloat16, hd=256, Hq=8, Hkv=1),
+    dict(dtype=torch.bfloat16, hd=256, Hq=4, Hkv=4, window=96, softcap=30.0),
+    dict(dtype=torch.bfloat16, hd=256, T=1024, Hq=8, Hkv=1, n_segs=4),
 ])
 def test_cuda_kernels_match_plain(cuda_device, case):
-    """Each kernel against its plain version on the card: f32 within 1e-5
-    (out) and 1e-4 relative (grads); bf16 within 2e-2 (both round the f32
-    results once to bf16, after f32 sums in another order)."""
+    """Each kernel against its plain version on the card, at head dim 128
+    and 256: f32 within 1e-5 (out) and 1e-4 relative (grads); bf16 within
+    2e-2 (both round the f32 results once to bf16, after f32 sums in
+    another order).  Each launch is counted at its head dim."""
     dtype = case["dtype"]
+    hd = case.get("hd", 128)
     window, softcap = case.get("window"), case.get("softcap")
     q, k, v, g, seg, _ = _packed(13, B=2, T=case.get("T", 256), Hq=case.get("Hq", 4),
-                                 Hkv=case.get("Hkv", 2), n_segs=case.get("n_segs", 3))
+                                 Hkv=case.get("Hkv", 2), n_segs=case.get("n_segs", 3), hd=hd)
     qs, kk, vv, dout = (torch.from_numpy(x).to(cuda_device, dtype) for x in (q, k, v, g))
     qs = fa.scale_query(qs)
     sg = torch.from_numpy(seg).to(cuda_device)
     wrappers = (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv)
     counts = [w.launches for w in wrappers]
     tc0 = [w.launches_tc for w in wrappers]
+    hd0 = [w.launches_hd[hd] for w in wrappers]
     out, lse = fa.flash_fwd(qs, kk, vv, sg, window, softcap)
     di = fa.attention_di(out, dout)
     dq = fa.flash_bwd_dq(qs, kk, vv, sg, dout, lse, di, window, softcap)
@@ -283,6 +315,7 @@ def test_cuda_kernels_match_plain(cuda_device, case):
     torch.cuda.synchronize()
     runs = (1, 1, 2)
     assert [w.launches for w in wrappers] == [c + n for c, n in zip(counts, runs)]
+    assert [w.launches_hd[hd] for w in wrappers] == [c + n for c, n in zip(hd0, runs)]
     # bf16 runs every kernel on the tensor cores, f32 on the CUDA cores
     bf16 = dtype == torch.bfloat16
     assert [w.launches_tc for w in wrappers] == [c + n * bf16 for c, n in zip(tc0, runs)]
@@ -301,20 +334,29 @@ def test_cuda_kernels_match_plain(cuda_device, case):
         assert rel < (1e-4 if f32 else 2e-2), rel
 
 
+GEMMA_2B_HEADS = dict(hd=256, Hq=8, Hkv=1)
+GEMMA_7B_HEADS = dict(hd=256, Hq=16, Hkv=16)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", [
     dict(T=1024, n_segs=4),
     dict(T=2048, n_segs=3, window=256),
     dict(T=1024, n_segs=2, softcap=30.0),
-], ids=["packed", "window", "softcap"])
+    dict(T=2048, n_segs=3, **GEMMA_2B_HEADS),
+    dict(T=1024, n_segs=2, window=256, softcap=30.0, **GEMMA_7B_HEADS),
+], ids=["packed", "window", "softcap", "gemma-2b", "gemma-7b-window-softcap"])
 def test_cuda_tensor_core_forward(cuda_device, case):
     """The bf16 forward on the tensor cores at Qwen2.5's heads (Hq=12,
-    Hkv=2, hd=128) against `flash_fwd_plain`: within 2e-2 on valid rows (it
+    Hkv=2, hd=128) and Gemma's (hd 256: 8 q heads on 1 kv head; 16 on 16)
+    against `flash_fwd_plain`: within 2e-2 on valid rows (it
     rounds P to bf16 before PV, the plain version keeps P in f32; both round
     out once to bf16), lse within 1e-4 (both sum the f32 P), pad rows out 0
     and lse -inf; two forwards bit-equal (no atomics)."""
     window, softcap = case.get("window"), case.get("softcap")
-    q, k, v, _, seg, _ = _packed(17, B=2, T=case["T"], Hq=12, Hkv=2, n_segs=case["n_segs"])
+    q, k, v, _, seg, _ = _packed(17, B=2, T=case["T"], Hq=case.get("Hq", 12),
+                                 Hkv=case.get("Hkv", 2), hd=case.get("hd", 128),
+                                 n_segs=case["n_segs"])
     qs, kk, vv = (torch.from_numpy(x).to(cuda_device, torch.bfloat16) for x in (q, k, v))
     qs = fa.scale_query(qs)
     sg = torch.from_numpy(seg).to(cuda_device)
@@ -338,16 +380,20 @@ def test_cuda_tensor_core_forward(cuda_device, case):
     dict(T=1024, n_segs=4),
     dict(T=2048, n_segs=3, window=256),
     dict(T=1024, n_segs=2, softcap=30.0),
-], ids=["packed", "window", "softcap"])
+    dict(T=2048, n_segs=3, **GEMMA_2B_HEADS),
+    dict(T=1024, n_segs=2, window=256, softcap=30.0, **GEMMA_7B_HEADS),
+], ids=["packed", "window", "softcap", "gemma-2b", "gemma-7b-window-softcap"])
 def test_cuda_tensor_core_backward(cuda_device, case):
     """The bf16 dq and dk/dv kernels on the tensor cores at Qwen2.5's heads
-    (Hq=12, Hkv=2, hd=128) against the f32 plain versions: within 2e-2
+    (Hq=12, Hkv=2, hd=128) and Gemma's (hd 256) against the f32 plain versions: within 2e-2
     of the largest element (they round P and dS to bf16 before their
     products, the plain versions keep both in f32; both round the results
     once to bf16).  Pad rows get exactly 0; two runs are bit-equal (no
     atomics); every launch is counted on the tensor-core variant."""
     window, softcap = case.get("window"), case.get("softcap")
-    q, k, v, g, seg, _ = _packed(19, B=2, T=case["T"], Hq=12, Hkv=2, n_segs=case["n_segs"])
+    q, k, v, g, seg, _ = _packed(19, B=2, T=case["T"], Hq=case.get("Hq", 12),
+                                 Hkv=case.get("Hkv", 2), hd=case.get("hd", 128),
+                                 n_segs=case["n_segs"])
     qs, kk, vv, dout = (torch.from_numpy(x).to(cuda_device, torch.bfloat16) for x in (q, k, v, g))
     qs = fa.scale_query(qs)
     sg = torch.from_numpy(seg).to(cuda_device)
