@@ -160,6 +160,13 @@ class GenServerConfig:
     host: str = "127.0.0.1"
     port: int = 0  # 0 = pick a free port
     random_seed: int = 1
+    # speculative decoding: prompt-lookup drafts verified in one dispatch;
+    # the emitted streams are those of plain decode at any temperature, so
+    # this is a speed knob.  spec_ladder lists the static draft-length
+    # rungs; spec_draft_len > 0 pins D instead of adapting.
+    spec_decode: bool = False
+    spec_ladder: List[int] = field(default_factory=list)
+    spec_draft_len: int = 0
 
 
 @dataclass

@@ -9,8 +9,9 @@ consumes.  A trajectory the remote client could not finish on any server
 (`TrajectoryLostError`) is settled as rejected and counted in
 `lost_trajectories`; any other episode exception stays fatal.
 `restore_staleness` adopts a recovered ledger, counting the trajectories
-in flight at the crash as lost.  Left out with the router: its fleet-wide
-admission gate; and the telemetry events and rollout tracing.
+in flight at the crash as lost.  With telemetry on, each episode emits an
+`episode` event and each loss a `trajectory_lost` one.  Left out with the
+router: its fleet-wide admission gate; and the rollout tracing logs.
 """
 
 import logging
@@ -26,6 +27,7 @@ from areal_tpu_torch.api.config import InferenceEngineConfig
 from areal_tpu_torch.api.workflow import RolloutWorkflow
 from areal_tpu_torch.core.runner import AsyncTaskRunner, TaskError, TaskQueueFullError
 from areal_tpu_torch.core.staleness import StalenessManager
+from areal_tpu_torch.utils import telemetry
 from areal_tpu_torch.utils.data import concat_padded_tensors
 from areal_tpu_torch.utils.dataloader import StatefulDataLoader, cycle_dataloader
 
@@ -116,6 +118,8 @@ class WorkflowExecutor:
                 # settles submitted -> rejected, and the run goes on
                 self.lost_trajectories += 1
                 logger.warning("trajectory lost to fleet failure: %s", e)
+                if telemetry.is_enabled():
+                    telemetry.emit("trajectory_lost", lost_total=self.lost_trajectories)
                 traj = None
             except BaseException:
                 # the submit-side increment must be balanced even on
@@ -129,6 +133,9 @@ class WorkflowExecutor:
             accept = traj is not None and (
                 ti.should_accept is None or ti.should_accept(traj)
             )
+            if telemetry.is_enabled():
+                telemetry.emit("episode", accepted=accept,
+                               version=self.inference_engine.get_version())
             if accept:
                 self.staleness_manager.on_rollout_accepted()
                 return traj
@@ -258,4 +265,7 @@ class WorkflowExecutor:
         number settled."""
         settled = self.staleness_manager.restore(stat)
         self.lost_trajectories += settled
+        if settled and telemetry.is_enabled():
+            telemetry.emit("trajectory_lost", lost_total=self.lost_trajectories,
+                           reason="trainer_crash", settled=settled)
         return settled

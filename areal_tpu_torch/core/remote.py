@@ -17,15 +17,22 @@
   failover; after `failover_retries` the trajectory is lost
   (`TrajectoryLostError`, which the executor settles and counts).
 - Weight updates, pause and continue fan out to every server; a fan-out
-  that reaches no server raises.
+  that reaches no server raises, and the servers a fan-out missed count in
+  `areal_train_publish_partial_failures_total`.
+- Telemetry: failover resubmits count in
+  `areal_client_resubmissions_total` (and those that warm-started from the
+  new server's prefix cache in `areal_client_resubmit_cache_hits_total`);
+  with telemetry on, the loop emits `rollout_submit`, `resume`,
+  `resubmit`, `resubmit_cache_hit`, `rollout_lost` and `gen_done` events
+  under the request's trace id, which travels on the wire.
 
 `http.client` blocks, and each `/generate` call blocks until its request
 finishes, so the calls run on a thread pool of the client's own, sized
 for the executor's concurrency: asyncio's default pool has `min(32, cpus +
 4)` workers and would cap the rollouts in flight without an error.
 
-Left out, as ROADMAP's M7 lists: the router's fleet-wide staleness gate,
-name_resolve discovery and the telemetry events.
+Left out, as ROADMAP's M7 lists: the router's fleet-wide staleness gate
+and name_resolve discovery.
 """
 
 import asyncio
@@ -49,6 +56,7 @@ from areal_tpu_torch.api.io_struct import (
     WeightUpdateRequests,
 )
 from areal_tpu_torch.core.executor import TrajectoryLostError, WorkflowExecutor
+from areal_tpu_torch.utils import telemetry
 from areal_tpu_torch.utils.http import HttpRequestError, request_with_retry
 
 logger = logging.getLogger("areal_tpu_torch.remote")
@@ -199,6 +207,11 @@ class RemoteInfEngine(InferenceEngine):
         # a GRPO group's siblings share a server; the group key (when
         # declared) outranks the per-request rid
         addr = self._server_for_rid(req.group_id or req.rid)
+        if telemetry.is_enabled():
+            telemetry.emit("rollout_submit", trace_id=req.trace_id, rid=req.rid,
+                           group_id=req.group_id, input_len=len(req.input_ids), server=addr)
+        attempt = 0
+        resubmitted = False  # the next /generate is a failover resubmit
         failovers = 0
         start = time.perf_counter()
         out_tokens: List[int] = []
@@ -215,6 +228,12 @@ class RemoteInfEngine(InferenceEngine):
             # back off while the client is paused for a weight update
             while self.executor.is_paused():
                 await asyncio.sleep(0.25)
+            attempt += 1
+            if attempt > 1 and telemetry.is_enabled():
+                # a resume after an interruption: the accumulated tokens
+                # travel back as the new prompt
+                telemetry.emit("resume", trace_id=req.trace_id, attempt=attempt,
+                               generated=len(out_tokens), prompt_len=len(req.input_ids))
             http_req = self.backend.build_generation_request(req)
             if stream_id:
                 http_req.payload["stream_id"] = stream_id
@@ -232,12 +251,25 @@ class RemoteInfEngine(InferenceEngine):
             except HttpRequestError as e:
                 failovers += 1
                 if failovers > self.config.failover_retries:
+                    if telemetry.is_enabled():
+                        telemetry.emit("rollout_lost", trace_id=req.trace_id, rid=req.rid,
+                                       group_id=req.group_id, server=addr,
+                                       generated=len(out_tokens), failovers=failovers)
                     raise TrajectoryLostError(
                         f"rid {req.rid}: no healthy server after {failovers} failovers "
                         f"(last: {e})") from e
                 next_addr = self._failover_server(addr, req.group_id or req.rid)
                 logger.warning("rid %s: %s failed (%s); resubmitting to %s with %d tokens "
                                "generated", req.rid, addr, e, next_addr, len(out_tokens))
+                if telemetry.is_enabled():
+                    # a resubmit span under the original trace id: the
+                    # trajectory survives a server's death in one trace
+                    telemetry.emit("resubmit", trace_id=req.trace_id, rid=req.rid,
+                                   group_id=req.group_id, from_server=addr,
+                                   to_server=next_addr, generated=len(out_tokens),
+                                   attempt=attempt)
+                telemetry.CLIENT_RESUBMISSIONS.inc()
+                resubmitted = True
             finally:
                 with self._lock:
                     self._inflight[addr] = max(0, self._inflight.get(addr, 1) - 1)
@@ -246,6 +278,16 @@ class RemoteInfEngine(InferenceEngine):
                 continue
             result = self.backend.parse_generation_response(raw)
             stream_id = int(raw.get("stream_id", stream_id) or stream_id)
+            if resubmitted:
+                # did the retried trajectory warm-start from the new
+                # server's prefix cache instead of prefilling cold?
+                resubmitted = False
+                if result.cache_hit_tokens > 0:
+                    telemetry.CLIENT_RESUBMIT_CACHE_HITS.inc()
+                    if telemetry.is_enabled():
+                        telemetry.emit("resubmit_cache_hit", trace_id=req.trace_id,
+                                       rid=req.rid, server=addr,
+                                       hit_tokens=result.cache_hit_tokens)
             stop_reason = result.stop_reason
             version = result.version if result.version >= 0 else self.get_version()
             if ttft == float("inf") and result.output_tokens:
@@ -260,6 +302,11 @@ class RemoteInfEngine(InferenceEngine):
             req.gconfig = req.gconfig.new(max_new_tokens=max_new - len(out_tokens))
         if stop_reason in ("abort", "interrupt"):
             stop_reason = "length"  # left the loop on budget during an interruption
+        if telemetry.is_enabled():
+            telemetry.emit("gen_done", trace_id=req.trace_id, stop_reason=stop_reason or "length",
+                           output_len=len(out_tokens), attempts=attempt,
+                           latency_s=time.perf_counter() - start,
+                           ttft_s=ttft if ttft != float("inf") else None)
         return ModelResponse(
             input_tokens=req.input_ids[:input_len],
             output_tokens=out_tokens,
@@ -290,6 +337,8 @@ class RemoteInfEngine(InferenceEngine):
                     failed[a] = e
         for a, exc in failed.items():
             logger.warning("control-plane fanout to %s failed: %r", a, exc)
+        if failed:
+            telemetry.PUBLISH_PARTIAL_FAILURES.inc(len(failed))
         if len(failed) == len(self.addresses):
             raise RuntimeError(f"control-plane fanout reached no server: {failed}")
 

@@ -7,13 +7,14 @@
 
 so that by the time a sample is consumed, its off-policyness cannot exceed
 `max_staleness` versions.  `restore` adopts the ledger of a recover
-generation.  The metrics gauges of the reference are not ported.
+generation; `register_metrics` exports the ledger as scrape-time gauges.
 """
 
 import threading
 from dataclasses import asdict
 
 from areal_tpu_torch.api.io_struct import RolloutStat
+from areal_tpu_torch.utils import telemetry
 
 
 class StalenessManager:
@@ -75,6 +76,13 @@ class StalenessManager:
     def get_stats(self) -> RolloutStat:
         with self._lock:
             return RolloutStat(**asdict(self._stat))
+
+    def register_metrics(self, reg=None) -> None:
+        """Expose submitted/running/accepted/rejected as scrape-time gauges
+        (`telemetry.register_staleness`), on the `gen` registry by default.
+        Collectors run only at a scrape, so the rollout path never takes
+        the lock for them."""
+        telemetry.register_staleness(reg or telemetry.GEN, self)
 
     def restore(self, stat: RolloutStat) -> int:
         """Adopt a ledger snapshot from a recover manifest.  Trajectories

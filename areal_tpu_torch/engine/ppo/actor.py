@@ -185,6 +185,10 @@ class PPOActor:
             keep = self._dynamic_filter(batch)
             if keep is not None:
                 batch = select_rows(batch, keep)
+        # consumption telemetry reads the post-filter batch here: the
+        # LOSS_KEYS view below drops `versions` and `trace_keys`, so the
+        # hook inside `train_batch` never sees them on this path
+        batch = self.engine._consume_telemetry(batch)
         train_view = {k: batch[k] for k in self.LOSS_KEYS if k in batch}
         mbs = split_padded_tensor_dict_into_mb_list(
             train_view, n_mbs=self.config.ppo_n_minibatches)

@@ -41,8 +41,14 @@
   order the parameters are listed in.  `load` restores all of it in
   place, so the next update is bit-identical to an uninterrupted one.
 
+`train_batch` strips a batch's `trace_keys` (the rollout's telemetry
+hash) before packing; with telemetry on it observes each row's
+staleness at consumption (the trainer's version minus the row's newest
+behaviour version) and emits a `train_consume` event per row.
+
 Not ported yet: meshes beyond one device, LoRA, `async_stats`, the
-name_resolve version handshake and router notice of a publish.
+name_resolve version handshake and router notice of a publish, and the
+per-step train-stats gauges.
 `warm_shapes` has no counterpart: eager PyTorch compiles nothing per
 shape.
 """
@@ -75,6 +81,7 @@ from areal_tpu_torch.models.transformer import (
 )
 from areal_tpu_torch.ops.attention import ATTN_IMPLS
 from areal_tpu_torch.ops.functional import lm_logprobs_entropy
+from areal_tpu_torch.utils import telemetry
 from areal_tpu_torch.utils.data import RowPackedBatch, pack_into_rows, unpack_rows
 from areal_tpu_torch.utils.datapack import round_up_to_bucket
 from areal_tpu_torch.utils.http import post_bytes_with_retry, request_with_retry
@@ -366,9 +373,37 @@ class TorchTrainEngine:
     # train / eval / forward
     # ------------------------------------------------------------------
 
+    def _consume_telemetry(self, input_: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+        """Strip the telemetry-only `trace_keys` and, with telemetry on,
+        record the staleness of each row at consumption: the trainer's
+        version minus the row's newest behaviour version (`versions`, -1
+        on the prompt)."""
+        keys = input_.get("trace_keys")
+        if keys is not None:
+            input_ = {k: v for k, v in input_.items() if k != "trace_keys"}
+        if not telemetry.is_enabled():
+            return input_
+        versions = np.asarray(input_.get("versions", ()))
+        if versions.ndim != 2:
+            return input_
+        behavior = np.where(versions >= 0, versions, -1).max(axis=-1)
+        tks = None if keys is None else np.asarray(keys).reshape(-1).tolist()
+        consumed = self._version
+        for i, bv in enumerate(behavior.tolist()):
+            if bv < 0:
+                continue
+            staleness = max(0, consumed - int(bv))
+            telemetry.STALENESS_AT_CONSUMPTION.observe(staleness)
+            telemetry.emit("train_consume",
+                           trace_key=tks[i] if tks is not None and i < len(tks) else None,
+                           behavior_version=int(bv), consumed_version=consumed,
+                           staleness=staleness)
+        return input_
+
     def train_batch(self, input_: Dict[str, np.ndarray], loss_fn: Callable,
                     loss_weight_fn: Callable) -> Dict[str, float]:
         assert self.initialized and self._optimizer is not None
+        input_ = self._consume_telemetry(input_)
         n_mbs = max(1, self.config.mb_spec.n_mbs)
         rp, data, row_len = self._prepare_rows(input_, n_mbs)
         total_weight = float(loss_weight_fn(data))

@@ -78,7 +78,7 @@ import sys
 import threading
 import time
 import typing
-from typing import Any, Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -260,6 +260,23 @@ def _kl_to_ref(batch: Dict[str, np.ndarray], estimator: str) -> float:
     return float(kl.sum() / max(mask.sum(), 1.0))
 
 
+def serve_train_metrics() -> Tuple[int, Callable[[], None]]:
+    """The trainer's `/metrics` on a free local port: the `train`
+    registry (staleness at consumption, client resubmissions and their
+    cache hits, partial publish failures, recover).  Returns the port and
+    the function that stops it."""
+    from areal_tpu_torch.utils import telemetry
+
+    srv, port = telemetry.start_metrics_server(telemetry.TRAIN)
+    logger.info("trainer /metrics on :%d", port)
+
+    def close() -> None:
+        srv.shutdown()
+        srv.server_close()
+
+    return port, close
+
+
 def run(config: GRPOConfig, device: Optional[str] = None, model: str = "qwen2.5-1.5b",
         reward_fn: Optional[Callable] = None,
         dataset: Optional[List[Dict[str, Any]]] = None,
@@ -287,6 +304,7 @@ def run(config: GRPOConfig, device: Optional[str] = None, model: str = "qwen2.5-
     from areal_tpu_torch.utils.saver import Saver
     from areal_tpu_torch.utils.shutdown import PreemptionGuard, preempt_exit
     from areal_tpu_torch.utils.stats_logger import StatsLogger
+    from areal_tpu_torch.utils.telemetry import is_enabled as telemetry_enabled
     from areal_tpu_torch.workflow.rlvr import RLVRWorkflow
 
     for name, ds, given in (("train", config.train_dataset, dataset),
@@ -330,7 +348,7 @@ def run(config: GRPOConfig, device: Optional[str] = None, model: str = "qwen2.5-
         raise ValueError(f"weight_update_mode {config.weight_update_mode!r}")
 
     launcher = LocalLauncher(os.path.join(run_dir, "logs"))
-    rollout = eval_rollout = stats_logger = None
+    rollout = eval_rollout = stats_logger = close_metrics = None
     stats_out: List[Dict[str, Any]] = []
     # SIGTERM/SIGINT -> dump and the resume exit code at the step boundary
     guard = (PreemptionGuard().install()
@@ -351,6 +369,8 @@ def run(config: GRPOConfig, device: Optional[str] = None, model: str = "qwen2.5-
             logger.info("server up in %.1f s", time.perf_counter() - t0)
         rollout = RemoteTorchEngine(config.rollout)
         rollout.initialize()
+        if telemetry_enabled():  # AREAL_TELEMETRY=1
+            _, close_metrics = serve_train_metrics()
         if valid_dataset is not None:
             # eval has no off-policyness limit
             eval_rollout = RemoteTorchEngine(dataclasses.replace(
@@ -509,6 +529,8 @@ def run(config: GRPOConfig, device: Optional[str] = None, model: str = "qwen2.5-
                 preempt_exit(recover, actor, step_info, rollout_engines=(rollout, eval_rollout),
                              dump_kwargs=dump_kwargs)
     finally:
+        if close_metrics is not None:
+            close_metrics()
         for r in (rollout, eval_rollout):
             if r is not None:
                 r.destroy()

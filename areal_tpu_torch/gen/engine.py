@@ -36,6 +36,24 @@
   drawn with key f(seed, s, p), so a stream does not depend on which slot
   it sits in, what else is batched with it, or whether its prompt was
   prefilled fresh, as a suffix, or from a sibling's copied prefix.
+- **Speculative decoding** (`spec_decode`): before a step, each active
+  slot drafts up to D tokens by prompt lookup over its own history
+  (`gen/spec.py`); D is pinned (`spec_draft_len`) or picked from a static
+  ladder by the windowed acceptance rate.  When any slot drafted, the
+  step is ONE verify dispatch for the whole grid: `forward_verify` at
+  T = D + 1, whose attention is the ragged kernel at that T.  Every
+  position is sampled with the counter key it would have had in plain
+  decode, the leading run of drafts equal to what the sampler drew is
+  accepted, and the slot advances by that run plus one (the first
+  mismatch's sample is the plain-decode token), so the stream is the
+  plain stream at any temperature.  The K/V that rejected positions wrote
+  is zeroed before the dispatch returns; `seq_tokens`, `lengths` and the
+  radix index only ever see accepted tokens.
+- **Telemetry** (`utils/telemetry.py`): `decode_chunk` and `spec_verify`
+  events with the `decode_chunk_seconds` histogram (when telemetry is
+  on), `admission`/`prefill` events and the admission-wait histogram,
+  `interrupt` events from `abort_all`, and a `pause` event with the
+  pause-window histogram at every weight swap.
 
 - **Weights**: `load_weights` is the aborting path — every in-flight
   request finishes with "abort", then the new weights (a trainer's `v{N}`
@@ -46,10 +64,9 @@
   `torch.no_grad()`, because grad mode is per thread and a colocated
   engine steps on its own thread beside a training one.
 
-Left for later slices: length-cohort tiers and migration, speculative
-decoding, the host KV tier, disaggregated handoff, VLM requests,
-tensor/expert parallelism, the staged weight swap, and the admission
-telemetry events.
+Left for later slices: length-cohort tiers and migration (the spec
+controller so has one tier, 0), the host KV tier, disaggregated handoff,
+VLM requests, tensor/expert parallelism and the staged weight swap.
 """
 
 import logging
@@ -67,6 +84,7 @@ import torch
 from areal_tpu_torch.device import DeviceLike, resolve_device
 from areal_tpu_torch.gen.kv_pool import KVPool, lcp_ids
 from areal_tpu_torch.gen.sampling import root_key, sample_tokens_keyed, stream_keys
+from areal_tpu_torch.gen.spec import DEFAULT_SPEC_LADDER, SpecController, propose_draft
 from areal_tpu_torch.models.hf import load_hf_params
 from areal_tpu_torch.models.model_config import TransformerConfig
 from areal_tpu_torch.models.transformer import (
@@ -74,10 +92,12 @@ from areal_tpu_torch.models.transformer import (
     forward_decode,
     forward_prefill,
     forward_prefill_cached,
+    forward_verify,
     init_kv_cache,
     init_params,
 )
 from areal_tpu_torch.ops.ragged_decode import ragged_supported
+from areal_tpu_torch.utils import telemetry
 from areal_tpu_torch.utils.datapack import round_up_to_bucket
 
 logger = logging.getLogger("areal_tpu_torch.gen.engine")
@@ -105,6 +125,7 @@ class GenRequest:
     output_versions: List[int] = field(default_factory=list)
     stop_reason: str = ""
     first_token_ts: float = 0.0  # perf_counter() at the first token
+    submit_ts: float = 0.0  # perf_counter() at submit (the admission wait)
     # prompt tokens inherited from resident K/V at admission (a retained
     # prefix or a sibling's shared one); answered on the wire
     cache_hit_tokens: int = 0
@@ -143,6 +164,9 @@ class GenEngine:
         share_prefix: bool = True,
         group_hold_s: float = 0.05,
         match_window: Optional[int] = None,
+        spec_decode: bool = False,
+        spec_ladder: Optional[List[int]] = None,
+        spec_draft_len: Optional[int] = None,
     ):
         self.device = resolve_device(device)
         cfg = model_config
@@ -162,13 +186,30 @@ class GenEngine:
                 f"max_seq_len {max_seq_len} exceeds the learned position table "
                 f"({cfg.max_position_embeddings}); gpt2-family models cannot "
                 "extrapolate positions")
-        # the ragged kernel's gate, once, at the widest window
-        if not ragged_supported(max_seq_len, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_):
+        # speculative decoding: D rides a small static ladder (pinned to
+        # (0, spec_draft_len) when that is set); the acceptance controller
+        # picks the rung of each step
+        self.spec_decode = spec_decode
+        if spec_draft_len is not None:
+            if spec_draft_len <= 0:
+                raise ValueError("spec_draft_len must be positive")
+            self.spec_ladder = (0, int(spec_draft_len))
+        else:
+            self.spec_ladder = tuple(sorted(set(int(d) for d in (
+                spec_ladder or DEFAULT_SPEC_LADDER))))
+        self.spec_draft_len = spec_draft_len
+        self._spec = SpecController(ladder=self.spec_ladder)
+        # the ragged kernel's gate, once, at the widest window and the
+        # widest query tile (a verify at the ladder's top rung)
+        T = max(self.spec_ladder) + 1 if spec_decode else 1
+        if not ragged_supported(max_seq_len, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_,
+                                T=T):
             raise ValueError(
                 f"the ragged decode kernel does not take {cfg.num_heads} q heads "
                 f"over {cfg.num_kv_heads} kv heads of dim {cfg.head_dim_} at "
-                f"max_seq_len {max_seq_len} (the head dim must be a multiple of 8 "
-                "and a kv head's query rows must fit one block's shared memory)"
+                f"max_seq_len {max_seq_len} and {T} query rows a slot (the head dim "
+                "must be a multiple of 8 and a kv head's query rows must fit one "
+                "block's shared memory)"
             )
         self.n_slots = n_slots
         self.max_seq_len = max_seq_len
@@ -253,6 +294,11 @@ class GenEngine:
             "ragged_dispatches": 0,
             # pages the kernel read, summed over slots x steps
             "ragged_attended_pages": 0,
+            # speculative decoding: draft tokens proposed and accepted, and
+            # verify dispatches (each one ragged kernel call a layer)
+            "spec_drafted": 0,
+            "spec_accepted": 0,
+            "verify_calls": 0,
         }
 
     # ------------------------------------------------------------------
@@ -263,6 +309,7 @@ class GenEngine:
         if len(req.input_ids) + 1 >= self.max_seq_len:
             req.finish("length")
             return
+        req.submit_ts = time.perf_counter()
         self.pending.put(req)
 
     def submit_batch(self, reqs: List[GenRequest]) -> None:
@@ -302,6 +349,7 @@ class GenEngine:
                     if self.kv_reuse and self.retained_len[s] > self.reuse_min_tokens:
                         self._reserved_until[s] = deadline
                     self.pool.note_free(s, self.seq_tokens[s], int(self.retained_len[s]))
+            n_in_slot = len(to_finish)
             to_finish.extend(self._admitting)
             self._admitting = []
             to_finish.extend(self._holdback)
@@ -312,6 +360,13 @@ class GenEngine:
                 except queue.Empty:
                     break
             self._state_dirty = True
+        if telemetry.is_enabled():
+            # only slot-holding requests were mid-decode: those are the
+            # interrupt spans the client's resume events pair with
+            for req in to_finish[:n_in_slot]:
+                telemetry.emit("interrupt", trace_id=req.trace_id or req.rid, reason=reason,
+                               version_before=self.version,
+                               generated=len(req.output_tokens))
         for req in to_finish:
             req.finish(reason)
         return len(to_finish)
@@ -571,10 +626,35 @@ class GenEngine:
             self._parked_until = min(expiries) if expiries else now + 0.05
         self.stats["prefix_cache_hits"] += len(reuse_admitted) + len(shared_admitted)
         self.stats["prefix_cache_misses"] += len(admitted)
+        if telemetry.is_enabled():
+            # before the prefill calls, so a request's admission event
+            # precedes its first decode and its finish in the log
+            now_pc = time.perf_counter()
+            for s, req in admitted:
+                self._emit_admission(req, s, "fresh", 0, now_pc)
+            for s, req, start, _, shared in reuse_admitted + shared_admitted:
+                self._emit_admission(req, s, "shared" if shared else "reuse", start, now_pc)
         if admitted:
             self._admit_fresh_batch(admitted, abort_gen)
         if reuse_admitted or shared_admitted:
             self._admit_suffix_batch(reuse_admitted + shared_admitted, abort_gen)
+
+    @staticmethod
+    def _emit_admission(req: GenRequest, slot: int, kind: str, inherited: int,
+                        now_pc: float) -> None:
+        """Admission and prefill events of one admitted request: its queue
+        wait (submit to slot grant, holdback and group hold included) and
+        the cold/inherited split of its prompt; `kind` is "fresh", "reuse"
+        (its slot's retained prefix) or "shared" (a fan-out copy).  Called
+        only when telemetry is on."""
+        wait = max(0.0, now_pc - req.submit_ts) if req.submit_ts else 0.0
+        telemetry.ADMISSION_WAIT.observe(wait)
+        tid = req.trace_id or req.rid
+        telemetry.emit("admission", trace_id=tid, kind=kind, slot=int(slot), tier=0,
+                       queue_wait_s=wait)
+        total = len(req.input_ids)
+        telemetry.emit("prefill", trace_id=tid, kind=kind, total_tokens=total,
+                       inherited_tokens=int(inherited), cold_tokens=total - int(inherited))
 
     def _settle_admitted(self, rows: List[tuple], abort_gen: int) -> bool:
         """Under _lock, after a prefill of `rows` ((slot, req, ...)): False
@@ -833,11 +913,96 @@ class GenEngine:
         self.stats["ragged_attended_pages"] += int(((attended + page - 1) // page).sum())
         return out.cpu().numpy()
 
+    def _plan_drafts(self, active: List[int]) -> Optional[Tuple[int, np.ndarray, np.ndarray]]:
+        """Prompt-lookup drafts for this step: (D, drafts [n_slots, D],
+        draft lengths [n_slots]), or None when no slot drafted.  D is
+        pinned or the controller's rung; each slot's draft is capped by its
+        cache room and by the tokens its request has left (the verify
+        always emits one token more than it accepts)."""
+        d = self.spec_draft_len if self.spec_draft_len is not None else self._spec.draft_len(0)
+        if d <= 0:
+            return None
+        drafts = np.zeros((self.n_slots, d), np.int64)
+        dlens = np.zeros(self.n_slots, np.int64)
+        for s in active:
+            req = self.slot_req[s]
+            if req is None:
+                continue
+            L = int(self.lengths[s])
+            cap = min(d, self.max_seq_len - 2 - L,
+                      req.max_new_tokens - len(req.output_tokens) - 1)
+            if cap <= 0:
+                continue
+            draft = propose_draft(self.seq_tokens[s, :L + 1], cap)
+            drafts[s, :draft.size] = draft
+            dlens[s] = draft.size
+        return (d, drafts, dlens) if dlens.any() else None
+
+    def _dispatch_verify(self, st: Dict[str, torch.Tensor], active: List[int], d: int,
+                         drafts: np.ndarray, dlens: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+        """One speculative step for the whole grid: score each slot's
+        pending token and its drafts in ONE `forward_verify` at T = D + 1
+        (a draftless slot carries draft length 0 and emits exactly its
+        plain-decode token), sample all T positions with the counter keys
+        plain decode would use, and accept the leading run of drafts that
+        equal what the sampler drew.  The slot advances by n_emit = that
+        run + 1 on the device; the K/V that rejected positions wrote is
+        zeroed before the call returns.  Returns the [2, T, n_slots]
+        (token, logprob) block and n_emit [n_slots], in one download."""
+        M = self.max_seq_len
+        page = self.prompt_bucket
+        T = d + 1
+        span = int(max(self.lengths[s] for s in active))
+        key_window = round_up_to_bucket(span + T, page, M)
+        dev = self.device
+        B = self.n_slots
+        tokens, lengths, act = st["tokens"], st["lengths"], st["active"]
+        drafts_d = torch.from_numpy(drafts).to(dev)
+        n_write = torch.from_numpy(dlens + 1).to(dev)  # pending token + real drafts
+        inputs = torch.cat([tokens[:, None], drafts_d], dim=1)
+        logits, _ = forward_verify(
+            self.model, inputs, lengths, self.cache, st["rows"], page_size=page,
+            key_window=key_window, active=act, n_write=n_write,
+        )  # [B, T, V]
+        offs = torch.arange(T, device=dev)
+        pos = lengths.long()[:, None] + offs[None, :]  # cache position of each row
+        keys = stream_keys(self._root_key, st["streams"][:, None], pos)
+        sampled, logp = sample_tokens_keyed(
+            logits.float().reshape(B * T, -1), keys.reshape(-1),
+            st["temp"].repeat_interleave(T), st["top_k"].repeat_interleave(T),
+            st["top_p"].repeat_interleave(T))
+        sampled, logp = sampled.reshape(B, T), logp.reshape(B, T)
+        ok = (sampled[:, :d] == drafts_d) & (offs[None, :d] < n_write[:, None] - 1)
+        a = torch.cumprod(ok.long(), dim=1).sum(dim=1)
+        n_emit = torch.where(act, a + 1, 0)
+        # rejected K/V must not outlive this call: zero the positions
+        # above the accepted frontier that the verify wrote; the other
+        # entries of the index target the scratch row, which nobody reads
+        rej = (offs[None, :] >= n_emit[:, None]) & (offs[None, :] < n_write[:, None])
+        rej &= act[:, None]
+        zrows = torch.where(rej, st["rows"].long()[:, None], self.cache["k"].shape[1] - 1)
+        zpos = torch.where(rej, pos, 0)
+        for name in ("k", "v"):
+            self.cache[name][:, zrows, zpos] = 0
+        st["tokens"] = torch.where(act, sampled.gather(1, a[:, None])[:, 0], tokens)
+        st["lengths"] = (lengths + n_emit).to(lengths.dtype)
+        out = torch.cat([sampled.T.double().reshape(-1), logp.T.double().reshape(-1),
+                         n_emit.double()]).cpu().numpy()  # one download
+        lens = self.lengths[:B].astype(np.int64)
+        attended = np.minimum(lens + T, key_window)
+        self.stats["verify_calls"] += 1
+        self.stats["spec_drafted"] += int(dlens.sum())
+        self.stats["ragged_dispatches"] += 1
+        self.stats["ragged_attended_pages"] += int(((attended + page - 1) // page).sum())
+        return out[:2 * T * B].reshape(2, T, B), out[2 * T * B:].astype(np.int64)
+
     @torch.no_grad()
     def step(self, chunk: Optional[int] = None) -> int:
-        """Admit pending prompts, then advance every active slot by up to
-        `chunk` tokens in one dispatch.  Returns the tokens delivered
-        (overshoot past a stop condition is discarded)."""
+        """Admit pending prompts, then advance every active slot in one
+        dispatch: by up to `chunk` tokens of plain decode, or, when spec
+        decoding drafted, by each slot's accepted run + 1 in one verify.
+        Returns the tokens delivered (overshoot past a stop condition is
+        discarded)."""
         if self.cache is None or self.model is None:
             raise RuntimeError("step() after release_memory: restage() first")
         self._admit()
@@ -849,14 +1014,41 @@ class GenEngine:
             if self._dev_state is None or self._state_dirty:
                 self._sync_device_state()
             st = self._dev_state
+        plan = self._plan_drafts(active) if self.spec_decode else None
+        # the per-dispatch telemetry (clock reads, trace-id snapshot) is
+        # gated on the flag as a whole
+        tele = telemetry.is_enabled()
+        if tele:
+            trace_ids = [r.trace_id or r.rid for s in active
+                         if (r := self.slot_req[s]) is not None]
+            t_dispatch = time.perf_counter()
         try:
-            out = self._dispatch_ragged(st, n, active)
+            if plan is None:
+                out = self._dispatch_ragged(st, n, active)
+                avail = np.full(self.n_slots, n, np.int64)
+            else:
+                out, avail = self._dispatch_verify(st, active, *plan)
         except Exception:
             with self._lock:  # the device state may be half advanced
                 self._dev_state = None
                 self._state_dirty = True
             raise
-        toks = out[0].astype(np.int64)  # [n, n_slots]
+        if plan is not None:
+            drafted = int(plan[2].sum())
+            accepted = int(np.maximum(avail - 1, 0).sum())
+            self.stats["spec_accepted"] += accepted
+            self._spec.record(0, drafted, accepted)
+        if tele:
+            lat = time.perf_counter() - t_dispatch
+            telemetry.DECODE_CHUNK.observe(lat, tier="0")
+            if plan is None:
+                telemetry.emit("decode_chunk", tier=0, chunk=n, n_active=len(active),
+                               latency_s=lat, trace_ids=trace_ids)
+            else:
+                telemetry.emit("spec_verify", tier=0, draft_len=plan[0], drafted=drafted,
+                               accepted=accepted, n_active=len(active), latency_s=lat,
+                               trace_ids=trace_ids)
+        toks = out[0].astype(np.int64)  # [rows, n_slots]
         logps = out[1]
         delivered = 0
         to_finish: List[tuple] = []
@@ -867,8 +1059,10 @@ class GenEngine:
             for s, req in pairs:
                 stops = self._stop_ids(req)
                 L = int(self.lengths[s])
-                k, reason = n, ""
-                for j in range(n):
+                # rows past a slot's avail are rejected drafts: they neither
+                # deliver nor trigger a stop
+                k, reason = int(avail[s]), ""
+                for j in range(k):
                     n_out = len(req.output_tokens) + j + 1
                     if toks[j, s] in stops and n_out >= req.min_new_tokens:
                         k, reason = j + 1, "stop"
@@ -882,7 +1076,7 @@ class GenEngine:
                 req.output_logprobs.extend(logps[:k, s].tolist())
                 req.output_versions.extend([version] * k)
                 # delivered tokens sit at cache positions L+1 .. L+k (the
-                # pending token's K/V was written at L this chunk)
+                # pending token's K/V was written at L this step)
                 self.seq_tokens[s, L + 1:L + 1 + k] = toks[:k, s]
                 self.lengths[s] = L + k
                 self.last_tokens[s] = toks[k - 1, s]
@@ -897,6 +1091,11 @@ class GenEngine:
         for req, reason in to_finish:
             req.finish(reason)
         return delivered
+
+    def spec_acceptance_rates(self) -> List[float]:
+        """The controller's windowed acceptance rate per tier (one tier
+        here); 0.0 before any verify has reported."""
+        return [self._spec.acceptance_rate(0) or 0.0]
 
     # ------------------------------------------------------------------
     # weights
@@ -922,14 +1121,16 @@ class GenEngine:
                      version: Optional[int] = None) -> int:
         """Swap weights, aborting in-flight generation first (clients
         resubmit, and the resubmits reuse their retained prefixes unless
-        `retain_kv_on_reload=False`), then hand the new model to
-        `swap_weights_live`.  The weights are `model`
+        `retain_kv_on_reload=False`), then adopt the new model as
+        `swap_weights_live` does.  The weights are `model`
         (in memory, on the engine's device) or read from `path`: a
         checkpoint dir or a trainer's snapshot root (the newest `v{N}`, or
         exactly `v{version}` when that exists), in which case a missing
         `version` is the snapshot's N.  Without a version the version
         advances by one.  Call from the thread that steps the engine.
         Returns the new version."""
+        t0 = time.perf_counter()
+        version_before = self.version
         aborted = self.abort_all("abort")
         if aborted:
             logger.info("aborted %d requests for a weight update", aborted)
@@ -946,7 +1147,9 @@ class GenEngine:
             # the old weights serve on until the new ones have loaded: a
             # failed load raises and leaves the engine as it was
             model, _ = load_hf_params(path, self.model_config, self.device)
-        return self.swap_weights_live(model, version=version)
+        self._swap(model, version)
+        self._record_pause(time.perf_counter() - t0, "reload_abort", version_before)
+        return self.version
 
     def _adopt(self, model: Transformer) -> None:
         """Serve `model` from now on (as it is, not copied)."""
@@ -979,8 +1182,16 @@ class GenEngine:
         tensors nobody else writes (`TorchTrainEngine.export_device_params`
         makes such copies).  Callers that want exact version stamps must not
         race a swap against an in-flight `step()` (`ColocatedEngine` parks
-        its stepper first).  `load_weights` delegates here.  Returns the
+        its stepper first).  `load_weights` shares its `_swap`.  Returns the
         version: `version`, or the old one plus one."""
+        t0 = time.perf_counter()
+        version_before = self.version
+        self._swap(model, version)
+        self._record_pause(time.perf_counter() - t0, "swap_live", version_before)
+        return self.version
+
+    def _swap(self, model: Transformer, version: Optional[int]) -> None:
+        """Adopt `model` and advance the version (both swap paths)."""
         self._adopt(model)
         self.version = int(version) if version is not None else self.version + 1
         if not self.retain_kv_on_reload:
@@ -988,7 +1199,15 @@ class GenEngine:
             self._reserved_until[:] = 0.0
             self.kv_version[:] = self.version
             self.pool.clear()
-        return self.version
+
+    def _record_pause(self, dur: float, kind: str, version_before: int) -> None:
+        """Every weight swap's pause window lands in the pause histogram
+        (a cold path); with telemetry on, a `pause` event also records the
+        version transition."""
+        telemetry.PAUSE_WINDOW.observe(dur)
+        if telemetry.is_enabled():
+            telemetry.emit("pause", kind=kind, dur_s=dur, version_before=version_before,
+                           version_after=self.version)
 
     def release_memory(self, drop_params: bool = True) -> None:
         """Free the device memory this engine holds so a colocated trainer

@@ -22,7 +22,9 @@ Same paths and JSON keys as the JAX server:
                                (`swap_weights_live`) or after aborting
                                in-flight requests
     GET  /health
-    GET  /metrics              JSON counters (below)
+    GET  /metrics              JSON counters (below); the Prometheus text
+                               exposition with ?format=prometheus or an
+                               Accept header asking for text/plain
 
 A request that a failed decode step finished is answered with HTTP 500,
 so the remote client counts a failover instead of resubmitting without
@@ -40,8 +42,20 @@ prefixes, `shared_tokens` from a group's fanned-out prefix, `copy_calls`)
 and `reservations_lapsed` (abort reservations whose owner did not
 resubmit in time), `ragged_dispatches`,
 `ragged_attended_pages`, `ragged_kernel_launches` (launches of the ragged
-decode kernel in this process, 0 on the CPU) and, on the card,
-`max_memory_allocated` in bytes.  The Prometheus format is not ported.
+decode kernel in this process, 0 on the CPU) and `ragged_verify_launches`
+(those at T > 1, a verify's), speculative decoding's
+`spec_drafted`, `spec_accepted`, `spec_acceptance_rate` (over the
+server's life) and `verify_calls`, and, on the card,
+`max_memory_allocated` in bytes.
+
+The Prometheus surface renders the process's `gen` registry
+(`utils/telemetry.py`): a scrape-time collector mirrors the engine's
+counters, each under its own name pinned in
+`tests/data/metrics_schema.json` (`areal_gen_<stat>_total`), plus the
+gauges (active requests, weight version, the last pause, the prefix-cache
+hit rate, the acceptance rate over the server's life and per tier as
+`{tier="0"}`, the mean pages a ragged dispatch read) and the histograms
+the engine observes (pause window, admission wait, decode chunk).
 
 A request's `group_id`/`group_n` reach the engine, which holds and
 clusters a GRPO group to prefill its prompt once; each answer carries its
@@ -62,6 +76,7 @@ handler threads wait on the request's completion.  The KV handoff
 endpoints come with a later slice.
 
     python -m areal_tpu_torch.gen.server --model-path <hf dir> --port 8000
+    python -m areal_tpu_torch.gen.server --model-path <hf dir> --spec-decode
 """
 
 import argparse
@@ -72,8 +87,10 @@ import logging
 import os
 import threading
 import time
+import weakref
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Callable, Dict, List, Optional, Tuple
+from urllib.parse import parse_qs, urlsplit
 
 import torch
 
@@ -83,6 +100,7 @@ from areal_tpu_torch.models.hf import state_to_params
 from areal_tpu_torch.models.model_config import TransformerConfig, tiny_config
 from areal_tpu_torch.models.transformer import Transformer
 from areal_tpu_torch.ops.ragged_decode import ragged_paged_attention
+from areal_tpu_torch.utils import telemetry
 from areal_tpu_torch.utils.shutdown import exit_with_parent
 
 logger = logging.getLogger("areal_tpu_torch.gen.server")
@@ -110,11 +128,97 @@ class GenServer:
         self._chunk_lock = threading.Lock()
         self._chunk_buf: Dict[str, dict] = {}  # guarded-by: _chunk_lock
         self._staged: Optional[Tuple[Transformer, Optional[int]]] = None  # guarded-by: _chunk_lock
+        self._register_telemetry()
+
+    def _register_telemetry(self) -> None:
+        """A scrape-time collector mirroring this server's counters into
+        the process's `gen` registry; the decode loop never touches it.
+        It holds a weak reference and goes quiet once the server stops;
+        `stop` removes it, so a process that runs servers one after another
+        (tests, the smoke script) reports the live one."""
+        reg = telemetry.GEN
+        self_ref = weakref.ref(self)
+        # engine stats and their pinned counter names, one literal each
+        counters = (
+            ("prefill_calls", reg.counter("prefill_calls_total", "Fresh prefill calls")),
+            ("prefill_tokens", reg.counter("prefill_tokens_total",
+                                           "Prompt tokens through fresh prefill")),
+            ("suffix_calls", reg.counter("suffix_calls_total", "Suffix prefill calls")),
+            ("suffix_tokens", reg.counter("suffix_tokens_total",
+                                          "Tokens through suffix prefill")),
+            ("reused_tokens", reg.counter("reused_tokens_total",
+                                          "Retained-prefix tokens not recomputed")),
+            ("shared_tokens", reg.counter("shared_tokens_total",
+                                          "Fanned-out prefix tokens not recomputed")),
+            ("copy_calls", reg.counter("copy_calls_total", "Suffix calls with a fan-out copy")),
+            ("decode_calls", reg.counter("decode_calls_total", "Plain decode dispatches")),
+            ("decode_steps", reg.counter("decode_steps_total",
+                                         "forward_decode steps of the slot grid")),
+            ("reservations_lapsed", reg.counter("reservations_lapsed_total",
+                                                "Abort reservations that lapsed unclaimed")),
+            ("prefix_cache_hits", reg.counter("prefix_cache_hits_total",
+                                              "Admissions that inherited a resident prefix")),
+            ("prefix_cache_misses", reg.counter("prefix_cache_misses_total",
+                                                "Admissions that prefilled cold")),
+            ("prefix_cache_evictions", reg.counter("prefix_cache_evictions_total",
+                                                   "Retained prefixes overwritten unused")),
+            ("prefix_cache_partial_hits", reg.counter(
+                "prefix_cache_partial_hits_total", "Hits on a page-rounded donor prefix")),
+            ("ragged_dispatches", reg.counter("ragged_dispatches_total",
+                                              "Decode and verify dispatches")),
+            ("ragged_attended_pages", reg.counter("ragged_attended_pages_total",
+                                                  "KV pages the ragged kernel read")),
+            ("spec_drafted", reg.counter("spec_drafted_total", "Draft tokens proposed")),
+            ("spec_accepted", reg.counter("spec_accepted_total", "Draft tokens accepted")),
+            ("verify_calls", reg.counter("verify_calls_total", "Speculative verify dispatches")),
+        )
+        tokens = reg.counter("tokens_generated_total", "Decode tokens delivered")
+        active = reg.gauge("active_requests", "Requests in slots, admitting or queued")
+        version = reg.gauge("weight_version", "Live weight version")
+        pause = reg.gauge("last_pause_seconds",
+                          "Most recent weight-swap pause window (histogram: "
+                          "areal_gen_pause_window_seconds)")
+        staged = reg.gauge("staged_standby", "Transfer staged and awaiting its commit (0/1)")
+        hit_rate = reg.gauge("prefix_cache_hit_rate",
+                             "Admissions served from a resident prefix")
+        rate = reg.gauge("spec_acceptance_rate",
+                         "Draft tokens accepted / drafted (per-tier series: the "
+                         "controller's acceptance window)")
+        pages = reg.gauge("ragged_attended_pages",
+                          "Mean KV pages read per ragged kernel dispatch")
+
+        def _collect():
+            srv = self_ref()
+            if srv is None or srv.shutdown.is_set():
+                return
+            eng = srv.engine
+            st = eng.stats
+            for key, counter in counters:
+                counter.set_total(float(st[key]))
+            tokens.set_total(float(srv.tokens_out))
+            active.set(eng.active_count())
+            version.set(eng.version)
+            pause.set(srv.last_pause_s)
+            with srv._chunk_lock:
+                staged.set(1.0 if srv._staged is not None else 0.0)
+            hit_rate.set(eng.prefix_cache_hit_rate())
+            drafted = float(st["spec_drafted"])
+            rate.set(st["spec_accepted"] / drafted if drafted else 0.0)
+            for t, r in enumerate(eng.spec_acceptance_rates()):
+                rate.set(r, tier=str(t))
+            disp = float(st["ragged_dispatches"])
+            pages.set(st["ragged_attended_pages"] / disp if disp else 0.0)
+
+        reg.add_collector(_collect)
+        self._collector = _collect
 
     def start(self) -> None:
         self.worker.start()
 
     def stop(self, timeout: float = 30.0) -> None:
+        collector, self._collector = self._collector, None
+        if collector is not None:
+            telemetry.GEN.remove_collector(collector)
         self.shutdown.set()
         self.worker.join(timeout)
 
@@ -243,6 +347,12 @@ class GenServer:
             "ragged_dispatches": stats["ragged_dispatches"],
             "ragged_attended_pages": stats["ragged_attended_pages"],
             "ragged_kernel_launches": ragged_paged_attention.launches,
+            "ragged_verify_launches": ragged_paged_attention.launches_verify,
+            "spec_drafted": stats["spec_drafted"],
+            "spec_accepted": stats["spec_accepted"],
+            "spec_acceptance_rate": round(
+                stats["spec_accepted"] / max(1, stats["spec_drafted"]), 4),
+            "verify_calls": stats["verify_calls"],
         }
         if self.engine.device.type == "cuda":
             out["max_memory_allocated"] = torch.cuda.max_memory_allocated(self.engine.device)
@@ -317,9 +427,11 @@ class _Handler(BaseHTTPRequestHandler):
         logger.debug("%s " + fmt, self.address_string(), *args)
 
     def _reply(self, status: int, payload: dict) -> None:
-        data = json.dumps(payload).encode()
+        self._send(status, json.dumps(payload).encode(), "application/json")
+
+    def _send(self, status: int, data: bytes, ctype: str) -> None:
         self.send_response(status)
-        self.send_header("Content-Type", "application/json")
+        self.send_header("Content-Type", ctype)
         self.send_header("Content-Length", str(len(data)))
         self.end_headers()
         self.wfile.write(data)
@@ -329,10 +441,16 @@ class _Handler(BaseHTTPRequestHandler):
         return json.loads(self.rfile.read(n) or b"{}")
 
     def do_GET(self):
-        if self.path == "/health":
+        url = urlsplit(self.path)
+        if url.path == "/health":
             self._reply(*self.server.gen.health())
-        elif self.path == "/metrics":
-            self._reply(200, self.server.gen.metrics())
+        elif url.path == "/metrics":
+            fmt = parse_qs(url.query).get("format", [None])[0]
+            if telemetry.wants_prometheus(fmt, self.headers.get("Accept", "")):
+                self._send(200, telemetry.GEN.render_prometheus().encode(),
+                           "text/plain; version=0.0.4; charset=utf-8")
+            else:
+                self._reply(200, self.server.gen.metrics())
         else:
             self._reply(404, {"error": f"no route {self.path}"})
 
@@ -463,9 +581,12 @@ def main(argv: Optional[List[str]] = None,
     """`python -m areal_tpu_torch.gen.server`: the JAX server's
     --model-path/--port/--n-slots/--max-seq-len, plus --dtype (weights and
     KV cache), --seed, --decode-chunk, --device (the card unless `cpu`)
-    and --exit-with-parent (a launcher's: the server exits when the
+    --exit-with-parent (a launcher's: the server exits when the
     process that started it is gone, so a killed trainer leaves no server
-    holding the card).  Decode attention is always the ragged kernel.
+    holding the card), the JAX server's --spec-decode, --spec-ladder and
+    --spec-draft-len (speculative decoding, verified through the ragged
+    kernel at T = D + 1) and --telemetry (lifecycle events; also
+    AREAL_TELEMETRY=1).  Decode attention is always the ragged kernel.
     Without --model-path it serves a random tiny model, as the JAX server
     does."""
     p = argparse.ArgumentParser()
@@ -481,12 +602,27 @@ def main(argv: Optional[List[str]] = None,
     p.add_argument("--device", default=None, help="cuda (default) or cpu")
     p.add_argument("--exit-with-parent", action="store_true",
                    help="exit when the process that started this one is gone")
+    p.add_argument("--spec-decode", action="store_true",
+                   help="speculative decoding: prompt-lookup drafts verified in one "
+                        "dispatch; output streams stay those of plain decode")
+    p.add_argument("--spec-ladder", default="",
+                   help="static draft-length ladder (comma list incl. 0, e.g. '0,3,7')")
+    p.add_argument("--spec-draft-len", type=int, default=0,
+                   help="pin the draft length instead of adapting along the ladder")
+    p.add_argument("--telemetry", action="store_true",
+                   help="emit trajectory lifecycle events (also AREAL_TELEMETRY=1)")
     args = p.parse_args(argv)
     if args.exit_with_parent:
         exit_with_parent(os.getppid())
+    if args.telemetry:
+        telemetry.set_enabled(True)
     kw = dict(n_slots=args.n_slots, max_seq_len=args.max_seq_len,
               prompt_bucket=args.page_size, kv_dtype=args.dtype, seed=args.seed,
-              decode_chunk=args.decode_chunk, device=args.device)
+              decode_chunk=args.decode_chunk, device=args.device,
+              spec_decode=args.spec_decode,
+              spec_ladder=[int(x) for x in args.spec_ladder.split(",")] if args.spec_ladder
+              else None,
+              spec_draft_len=args.spec_draft_len or None)
     if args.model_path:
         cfg = TransformerConfig.from_hf(args.model_path).replace(dtype=args.dtype)
         engine = GenEngine(cfg, model_path=args.model_path, **kw)

@@ -82,6 +82,12 @@ def build_server_cmd(config: GenServerConfig, port: int,
     ]
     if config.model_path:
         cmd.append(f"--model-path={config.model_path}")
+    if config.spec_decode:
+        cmd.append("--spec-decode")
+        if config.spec_ladder:
+            cmd.append("--spec-ladder=" + ",".join(str(d) for d in config.spec_ladder))
+        if config.spec_draft_len:
+            cmd.append(f"--spec-draft-len={config.spec_draft_len}")
     if device is not None:
         cmd.append(f"--device={device}")
     return cmd

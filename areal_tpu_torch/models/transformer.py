@@ -529,6 +529,69 @@ def forward_prefill_cached(
 
 
 @torch.no_grad()
+def forward_verify(
+    model: Transformer,
+    tokens: torch.Tensor,  # [B, T] pending last token, then T - 1 drafts
+    lengths: torch.Tensor,  # int32 [B] cache fill per slot
+    cache: Cache,
+    rows: torch.Tensor,  # int32 [B] physical cache row per slot (page table)
+    *,
+    page_size: int,  # page granularity of the ragged kernel
+    key_window: Optional[int] = None,  # bucketed attended span K
+    active: Optional[torch.Tensor] = None,  # bool [B]; False drops every write
+    n_write: Optional[torch.Tensor] = None,  # int [B] input positions that write
+) -> Tuple[torch.Tensor, Cache]:
+    """Score T input positions per slot in one pass: speculative decoding's
+    verify step, the port of the JAX `forward_verify`.  Returns (logits
+    [B, T, V], cache).
+
+    Row b's inputs are its pending token followed by T - 1 drafts; their
+    K/V lands at cache positions lengths[b] .. lengths[b] + T - 1 of row
+    `rows[b]` (clamped to K - 1), and logits[:, j] is the model's
+    distribution for the token after position lengths[b] + j: what T
+    sequential decode steps would have computed had every draft been the
+    sampled token.  Each layer's attention is ONE `ragged_paged_attention`
+    call over the whole grid at this T, causal among the T rows (query j
+    attends cache positions <= lengths[b] + j), under the layer's window.
+    Position j of row b writes only if the slot is `active` and
+    j < n_write[b]; otherwise its write index is M, which the kernel
+    drops, so a short draft's padding and an idle slot never write.  The
+    caller zeroes what rejected positions wrote.  T = 1 is
+    `forward_decode`."""
+    cfg = model.cfg
+    B, T = tokens.shape
+    M = cache["k"].shape[2]
+    K = min(key_window, M) if key_window else M
+    dev = tokens.device
+    offs = torch.arange(T, device=dev)
+    positions = lengths.long()[:, None] + offs[None, :]  # [B, T] cache positions
+    rope = _rope(cfg, positions)
+    x = model.embed(tokens, positions)
+    key_pos = torch.arange(K, device=dev)[None, None, :]
+    masks = _window_masks(cfg, key_pos <= positions[:, :, None], key_pos,
+                          positions[:, :, None])  # [B, T, K]
+    widx = torch.clamp(positions, max=K - 1)
+    keep = torch.ones_like(widx, dtype=torch.bool) if n_write is None else (
+        offs[None, :] < n_write.long()[:, None])
+    if active is not None:
+        keep = keep & active[:, None]
+    widx = torch.where(keep, widx, M).to(torch.int32).contiguous()
+    for i, layer in enumerate(model.model.layers):
+        ck, cv = cache["k"][i], cache["v"][i]
+
+        def attend(q, k, v, ck=ck, cv=cv, m=masks[i]):
+            out, _, _ = ragged_paged_attention(
+                q, k.to(ck.dtype), v.to(cv.dtype), ck, cv, rows, lengths,
+                widx, m, key_window=K, page_size=page_size,
+                logit_softcap=cfg.attn_logit_softcap,
+            )
+            return out
+
+        x = layer(x, rope, attend)
+    return model.logits(x), cache
+
+
+@torch.no_grad()
 def forward_decode(
     model: Transformer,
     tokens: torch.Tensor,  # [B] last token per slot (not yet in the cache)
@@ -542,40 +605,17 @@ def forward_decode(
 ) -> Tuple[torch.Tensor, Cache]:
     """One decode step for the slot grid; returns (logits [B, V], cache).
 
-    Each layer's attention is one `ragged_paged_attention` call: the new
-    token's K/V lands at cache position `lengths[b]` of row `rows[b]`
-    (clamped to K - 1; inactive slots drop the write), and attention reads
-    only the occupied pages under the layer's mask (the window, where the
-    layer slides, counted over cache indices).  On the card that is the
-    CUDA kernel; there is no other decode attention path."""
-    cfg = model.cfg
-    B = tokens.shape[0]
-    M = cache["k"].shape[2]
-    K = min(key_window, M) if key_window else M
-    dev = tokens.device
-    positions = lengths.long()[:, None]
-    rope = _rope(cfg, positions)
-    x = model.embed(tokens[:, None], positions)
-    key_pos = torch.arange(K, device=dev)[None, None, :]
-    masks = _window_masks(cfg, key_pos <= positions[:, :, None], key_pos,
-                          positions[:, :, None])  # [B, 1, K]
-    widx = torch.clamp(lengths, max=K - 1)
-    if active is not None:
-        widx = torch.where(active, widx, M)
-    widx = widx.to(torch.int32)[:, None].contiguous()
-    for i, layer in enumerate(model.model.layers):
-        ck, cv = cache["k"][i], cache["v"][i]
-
-        def attend(q, k, v, ck=ck, cv=cv, m=masks[i]):
-            out, _, _ = ragged_paged_attention(
-                q, k.to(ck.dtype), v.to(cv.dtype), ck, cv, rows, lengths,
-                widx, m, key_window=K, page_size=page_size,
-                logit_softcap=cfg.attn_logit_softcap,
-            )
-            return out
-
-        x = layer(x, rope, attend)
-    return model.logits(x[:, 0]), cache
+    `forward_verify` at T = 1: the new token's K/V lands at cache position
+    `lengths[b]` of row `rows[b]` (clamped to K - 1; inactive slots drop
+    the write), and each layer's attention is one `ragged_paged_attention`
+    call reading only the occupied pages under the layer's mask (the
+    window, where the layer slides, counted over cache indices).  On the
+    card that is the CUDA kernel; there is no other decode attention
+    path."""
+    logits, cache = forward_verify(model, tokens[:, None], lengths, cache, rows,
+                                   page_size=page_size, key_window=key_window,
+                                   active=active)
+    return logits[:, 0], cache
 
 
 # ---------------------------------------------------------------------------

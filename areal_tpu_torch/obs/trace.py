@@ -1,7 +1,8 @@
 """Distribution summaries of latency samples (the port's copy of
 `dist_summary` from `areal_tpu/obs/trace.py`, which is standard library
-only).  The event-log readers and trace stitching of that module come with
-the telemetry."""
+only).  The event-log readers and trace stitching of that module are not
+ported; the port emits the same event names (`utils/telemetry.py`), which
+`tests/test_lint.py` holds to the names that analyzer parses."""
 
 import math
 from typing import Dict, Iterable, Optional

@@ -80,18 +80,22 @@ def build(names: Iterable[str]) -> Dict[str, str]:
 _count_lock = threading.Lock()
 
 
-def count_launch(wrapper, tensor_cores: bool = False, head_dim: Optional[int] = None) -> None:
+def count_launch(wrapper, tensor_cores: bool = False, head_dim: Optional[int] = None,
+                 verify: bool = False) -> None:
     """Add one launch to `wrapper.launches` (and to `wrapper.launches_tc`
-    when it ran on the tensor cores, and to `wrapper.launches_hd[head_dim]`
-    when the wrapper counts by head dim) under a lock: a colocated engine's
-    decode stepper and the trainer launch from two threads, and a bare
-    `+=` there can lose an increment."""
+    when it ran on the tensor cores, to `wrapper.launches_hd[head_dim]`
+    when the wrapper counts by head dim, and to `wrapper.launches_verify`
+    when it took more than one query row a slot) under a lock: a colocated
+    engine's decode stepper and the trainer launch from two threads, and a
+    bare `+=` there can lose an increment."""
     with _count_lock:
         wrapper.launches += 1
         if tensor_cores:
             wrapper.launches_tc += 1
         if head_dim is not None:
             wrapper.launches_hd[head_dim] += 1
+        if verify:
+            wrapper.launches_verify += 1
 
 
 def load(name: str) -> ctypes.CDLL:

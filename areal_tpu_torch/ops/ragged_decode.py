@@ -16,7 +16,7 @@ On the card one call runs the kernel's three passes over fixed chunks of
 CHUNK key positions (scores, then probabilities and partial PV, then the
 partials combined in chunk order; see `csrc/ragged_decode.cu`) with f32
 scratch allocated here; `ragged_paged_attention.launches` counts one per
-call.
+call, and `.launches_verify` the calls at T > 1 (a speculative verify).
 """
 
 import ctypes
@@ -212,8 +212,8 @@ def ragged_paged_attention(
     )
     if err:
         raise RuntimeError(f"ragged_decode kernel launch failed: CUDA error {err}")
-    _build.count_launch(ragged_paged_attention)
+    _build.count_launch(ragged_paged_attention, verify=T > 1)
     return out, ck, cv
 
 
-ragged_paged_attention.launches = 0
+ragged_paged_attention.launches = ragged_paged_attention.launches_verify = 0

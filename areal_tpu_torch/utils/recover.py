@@ -29,9 +29,8 @@ the last good state, losing at most one step:
 The reference's `extra_engines` (a critic saved beside the actor) wait
 for the critic (M10).  The digests are computed file by file on a thread pool (hashlib releases
 the GIL on large buffers); `last_dump` and `last_load` keep the wall times
-of each part, the digests' apart.  The reference's `telemetry.emit`
-calls (the `run_restart` event and the recover counter) are M7's
-telemetry, which the port has not taken up yet: left out.
+of each part, the digests' apart.  A load counts in
+`areal_train_recover_total` and emits a `run_restart` event.
 
 `check_if_recover` decides whether a launch resumes.
 """
@@ -50,7 +49,7 @@ from typing import Any, Dict, List, Optional
 
 from areal_tpu_torch.api.config import RecoverConfig
 from areal_tpu_torch.api.io_struct import RolloutStat, SaveLoadMeta, StepInfo, WeightUpdateMeta
-from areal_tpu_torch.utils import seeding
+from areal_tpu_torch.utils import seeding, telemetry
 from areal_tpu_torch.utils.faults import fault_point
 
 logger = logging.getLogger("areal_tpu_torch.recover")
@@ -385,6 +384,11 @@ class RecoverHandler:
             "restore_seconds": t_loaded - t_valid,
             "replay_seconds": t_replayed - t_loaded,
         }
+        telemetry.TRAIN_RECOVER.inc()
+        telemetry.emit("run_restart", run_id=int(os.environ.get("AREAL_RUN_ID", 0)),
+                       recovered_step=info.last_step_info.global_step,
+                       resume_step=info.recover_start.global_step, weight_version=version,
+                       settled_inflight=settled, generation=gen_dir)
         logger.info("recovered from step %d (%s); resuming at %d",
                     info.last_step_info.global_step, gen_dir, info.recover_start.global_step)
         return info

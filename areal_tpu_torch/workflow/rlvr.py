@@ -8,9 +8,11 @@ logprobs (the behaviour policy's, 0 on the prompt), loss_mask, versions
 (the weight version of each output token, -1 on the prompt), rewards and
 attention_mask.  The siblings of a GRPO group declare it (`group_id`,
 `group_n`): a remote client keeps them on one server and the engine
-prefills their prompt once.  Left out with what they serve: the
-reference's telemetry events, per-query text dumps (`dump_dir`) and
-`enable_thinking`.
+prefills their prompt once.  With telemetry on, each scored sample emits
+a `reward` event and its trajectory carries `trace_keys` (the trace id's
+int64 hash), which the trainer strips at consumption and joins its
+`train_consume` events on.  Left out with what they serve: per-query text
+dumps (`dump_dir`) and `enable_thinking`.
 """
 
 import asyncio
@@ -23,6 +25,7 @@ from areal_tpu_torch.api.config import GenerationHyperparameters
 from areal_tpu_torch.api.io_struct import ModelRequest
 from areal_tpu_torch.api.reward import AsyncRewardWrapper
 from areal_tpu_torch.api.workflow import RolloutWorkflow
+from areal_tpu_torch.utils import telemetry
 from areal_tpu_torch.utils.data import pad_sequences_to_tensors
 
 
@@ -73,11 +76,13 @@ class RLVRWorkflow(RolloutWorkflow):
                 r.rid = f"{req.rid}-{k}"
                 r.group_id = req.rid
                 r.group_n = n
+        # the lifecycle trace id is pinned here, so reward and trainer
+        # consumption events join the generation-side spans
         for r in reqs:
             r.trace_id = r.rid
         resps = await asyncio.gather(*[engine.agenerate(r) for r in reqs])
         results = []
-        for resp in resps:
+        for r, resp in zip(reqs, resps):
             completion_str = (
                 self.tokenizer.decode(resp.output_tokens)
                 if self.tokenizer is not None
@@ -99,11 +104,21 @@ class RLVRWorkflow(RolloutWorkflow):
             logprobs = [0.0] * resp.input_len + resp.output_logprobs
             loss_mask = [0] * resp.input_len + [1] * resp.output_len
             versions = [-1] * resp.input_len + resp.output_versions
-            results.append(dict(
+            result = dict(
                 input_ids=np.array(seq, dtype=np.int32),
                 logprobs=np.array(logprobs, dtype=np.float32),
                 loss_mask=np.array(loss_mask, dtype=np.int32),
                 versions=np.array(versions, dtype=np.int32),
                 rewards=np.float32(reward),
-            ))
+            )
+            if telemetry.is_enabled():
+                out_v = [v for v in resp.output_versions if v >= 0]
+                telemetry.emit("reward", trace_id=r.trace_id, reward=float(reward),
+                               output_len=resp.output_len, stop_reason=resp.stop_reason,
+                               version_min=min(out_v) if out_v else -1,
+                               version_max=max(out_v) if out_v else -1)
+                # a 0-d scalar, stacked to [B]; keyed only when telemetry
+                # is on, so a run's batches have one key set
+                result["trace_keys"] = np.int64(telemetry.trace_key(r.trace_id))
+            results.append(result)
         return pad_sequences_to_tensors(results)

@@ -46,6 +46,26 @@ Phases, each printed with its wall time; any failure exits non-zero:
             call by torch.profiler), the kernel's bound, decode tokens/s, and a
             torch.profiler window over steady decode steps (top device ops,
             the ragged kernel's share of device time)
+6b. spec    speculative decoding, K2's verify half at T = D + 1: (a) K2
+            against its plain version at T = 4 and 8 on Qwen2.5-1.5B's heads
+            and Gemma-2B's decode heads, with short drafts and idle slots,
+            the appended cache bit for bit; (b) in process, f32 at 4 layers
+            of full width, spec off, D = 3 and the ladder (0, 3, 7) on one
+            greedy-and-sampled workload: equal token streams, logprobs
+            within 1e-3, every accepted draft the sampled token, K2
+            launches = 4 x (decode steps + verify calls), those at T > 1
+            counted apart = 4 x verify calls; (c) `python -m
+            areal_tpu_torch.gen.server` on the serve checkpoint with
+            --spec-decode and without (8 slots each, the launch helper),
+            the same 8 requests (64..512-token prompts of tiled spans, 128
+            new tokens, half greedy): tokens/s, drafted, accepted, verify
+            calls, K2 launches = 28 x (decode steps + verify calls) and
+            the server's count of those at T > 1 = 28 x verify calls, the
+            Prometheus series, and the logprob gap on against off before
+            each request's first divergent position; (d) K2 at T = 4 and 8
+            timed (events, profiler) with its bound, plain version and
+            SDPA on the same boolean mask.  `--only spec` runs the build,
+            a checkpoint and this phase alone
 7. train    the PPO actor on the serve phase's checkpoint at full width (f32
             masters, bf16 compute, full remat) beside a server of the same
             checkpoint: 8 prompts x group 4 rolled out over HTTP (256 new
@@ -2468,6 +2488,282 @@ def families_timings(qwen3_rows):
 # ---------------------------------------------------------------------------
 
 
+# ---------------------------------------------------------------------------
+# speculative decoding: K2's verify half at T = D + 1
+# ---------------------------------------------------------------------------
+
+SPEC_SLOTS, SPEC_SEQ, SPEC_NEW = 8, 1024, 128
+SPEC_PROMPT_LEN = (64, 512)
+SPEC_F32_LAYERS, SPEC_F32_NEW = 4, 64
+# mean |logprob on - logprob off| over the positions before the first
+# divergence, at 28 layers in bf16: a verify's projections are products of
+# [B * (D + 1), d] rows where decode's are [B, d], and cuBLAS may take
+# another algorithm for each, so a logit may round one bf16 step (2^-8
+# relative) apart; as LOGP_MEAN_TOL, a few hundredths at most.
+SPEC_LOGP_MEAN_TOL = 5e-2
+# f32, TF32 off: per-token |logprob on - off|.  The products of a verify
+# ([B * (D + 1), d] rows) and of decode ([B, d]) may round a row apart, and
+# a last-bit difference compounds along a stream through the K/V it writes
+# (on the CPU, a few 1e-6 at one token grew to 4e-4 over 64 tokens)
+SPEC_F32_LOGP_TOL = 1e-3
+
+
+def spec_requests(vocab, n, lens, new, seed, tag):
+    """`n` requests over prompts of `lens` tokens made of a random span
+    tiled (prompt lookup finds drafts there); even ones greedy, odd ones
+    sampled at temperature 1.  Stream ids pinned, so the two servers key
+    each request's sampler alike."""
+    rng = np.random.default_rng(seed)
+    bodies = []
+    for i in range(n):
+        length = int(rng.integers(*lens))
+        span = rng.integers(0, vocab, int(rng.integers(16, 65))).tolist()
+        ids = (span * (length // len(span) + 1))[:length]
+        bodies.append(dict(rid=f"{tag}{i}", input_ids=ids, stream_id=1000 + i,
+                           sampling_params=dict(max_new_tokens=new, min_new_tokens=new,
+                                                temperature=0.0 if i % 2 == 0 else 1.0)))
+    return bodies
+
+
+def verify_case(seed, T, **kw):
+    """A verify call's inputs at T = D + 1 (`ragged_case`): slot 2 drafts
+    T - 3 tokens, slot 5 none (n_write 1), slots 3 and 6 are idle (every
+    write dropped), the rest draft all T - 1; the mask is causal among
+    the T rows."""
+    case = ragged_case(seed, T=T, **kw)
+    M = case["ck"].shape[1]
+    widx = case["lengths"].long()[:, None] + torch.arange(T, device="cuda")[None, :]
+    n_write = torch.full_like(case["lengths"], T)
+    n_write[2], n_write[5] = T - 2, 1
+    n_write[[3, 6]] = 0
+    keep = torch.arange(T, device="cuda")[None, :] < n_write[:, None].long()
+    case["widx"] = torch.where(keep, widx, M).to(torch.int32).contiguous()
+    return case
+
+
+def check_verify_kernel():
+    """(a) K2 against its plain version at verify shapes: Qwen2.5-1.5B's
+    heads and Gemma-2B's decode heads at T = 4 and 8, with short drafts and
+    idle slots; the appended cache bit for bit.  Returns max|out - plain|."""
+    worst = 0.0
+    for i, (label, kw) in enumerate((
+            ("Qwen2.5-1.5B heads (B=8 Hq=12 Hkv=2 hd=128) K=1024", dict(B=SPEC_SLOTS, K=1024,
+                                                                      M=1024)),
+            ("Gemma-2B decode heads (B=8 Hq=8 Hkv=1 hd=256) K=2048", dict(GEMMA1_DECODE)))):
+        for T in (4, 8):
+            err = compare_ragged(f"verify T={T}, {label}, n_write < T and idle slots",
+                                 verify_case(300 + 10 * i + T, T, **kw))
+            worst = max(worst, err)
+    return worst
+
+
+def spec_f32_streams(cfg):
+    """(b) In process, f32 weights and cache, TF32 off, SPEC_F32_LAYERS
+    layers of full width: spec off, spec_draft_len 3 and the adaptive
+    ladder, on one workload of greedy and sampled requests.  Token streams
+    must be equal, logprobs within SPEC_F32_LOGP_TOL, every accepted
+    draft the token the sampler drew at its position, and K2 launches
+    layers x (decode steps + verify calls).  Returns the launches."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg4 = cfg.replace(num_layers=SPEC_F32_LAYERS, dtype="float32")
+    model = init_params(cfg4, 0, "cuda")
+    bodies = spec_requests(cfg.vocab_size, SPEC_SLOTS, (64, 257), SPEC_F32_NEW, 41, "f")
+    launches, runs = 0, {}
+    for label, kw in (("off", {}), ("D=3", dict(spec_decode=True, spec_draft_len=3)),
+                      ("ladder (0, 3, 7)", dict(spec_decode=True))):
+        eng = GenEngine(cfg4, params=model, n_slots=SPEC_SLOTS, max_seq_len=SPEC_SEQ,
+                        prompt_bucket=128, kv_dtype="float32", seed=0, **kw)
+        checked = record_verifies(eng)
+        reqs = [GenRequest(rid=b["rid"], input_ids=b["input_ids"], stream_id=b["stream_id"],
+                           **b["sampling_params"]) for b in bodies]
+        l0 = ragged_paged_attention.launches
+        v0 = ragged_paged_attention.launches_verify
+        eng.generate_blocking(reqs)
+        n = ragged_paged_attention.launches - l0
+        n_verify = ragged_paged_attention.launches_verify - v0
+        st = eng.stats
+        want = SPEC_F32_LAYERS * (st["decode_steps"] + st["verify_calls"])
+        print(f"  f32 {SPEC_F32_LAYERS} layers, spec {label}: drafted {st['spec_drafted']}, "
+              f"accepted {st['spec_accepted']}, verify calls {st['verify_calls']}, decode "
+              f"steps {st['decode_steps']}; K2 launches {n} = {SPEC_F32_LAYERS} x (decode "
+              f"steps + verify calls) = {want}, of them at T > 1 {n_verify}; accepted drafts "
+              f"checked {checked[0]}")
+        if n != want or n_verify != SPEC_F32_LAYERS * st["verify_calls"]:
+            raise AssertionError(f"spec {label}: K2 launches != layers x (decode steps + "
+                                 "verify calls), or those at T > 1 != layers x verify calls")
+        if kw and (st["verify_calls"] == 0 or st["spec_drafted"] == 0):
+            raise AssertionError(f"spec {label}: nothing was drafted or verified")
+        launches += n
+        runs[label] = reqs
+        del eng
+    worst = 0.0
+    for label in ("D=3", "ladder (0, 3, 7)"):
+        for a, b in zip(runs["off"], runs[label]):
+            gap = float(np.max(np.abs(np.subtract(a.output_logprobs, b.output_logprobs))))
+            worst = max(worst, gap)
+            if a.output_tokens != b.output_tokens or gap > SPEC_F32_LOGP_TOL:
+                raise AssertionError(f"f32 request {a.rid}: spec {label} differs from spec off "
+                                     f"(tokens equal {a.output_tokens == b.output_tokens}, "
+                                     f"max |dlogprob| {gap:.2e})")
+    print(f"  f32 token streams (4 greedy, 4 sampled, {SPEC_F32_NEW} tokens) equal with spec "
+          f"off, D=3 and the ladder; max |logprob on - off| {worst:.3e} (tolerance "
+          f"{SPEC_F32_LOGP_TOL})")
+    del model
+    torch.cuda.empty_cache()
+    return launches
+
+
+def record_verifies(eng):
+    """Wrap the engine's verify so each call checks, slot by slot, that
+    every accepted draft is the token the sampler drew at its position
+    (the delivered rows).  Returns a one-element list counting the
+    checked drafts."""
+    inner = eng._dispatch_verify
+    checked = [0]
+
+    def wrapped(st, active, d, drafts, dlens):
+        out, n_emit = inner(st, active, d, drafts, dlens)
+        toks = out[0].astype(np.int64)  # [T, slots]
+        for s in active:
+            a = int(n_emit[s]) - 1
+            if a > dlens[s] or not np.array_equal(toks[:a, s], drafts[s, :a]):
+                raise AssertionError(f"slot {s}: an accepted draft is not the sampled token")
+            checked[0] += a
+        return out, n_emit
+
+    eng._dispatch_verify = wrapped
+    return checked
+
+
+def spec_servers(ckpt_dir):
+    """(c) `python -m areal_tpu_torch.gen.server` on the 28-layer bf16
+    checkpoint, with --spec-decode and without (the launch helper, 8
+    slots), each sent the same 8 requests at once.  Returns the launches
+    the servers counted: (the spec server's at T > 1, both servers' at
+    T = 1, the servers' figures)."""
+    from areal_tpu_torch.api.config import GenServerConfig
+    from areal_tpu_torch.launcher.local import LocalLauncher
+    from areal_tpu_torch.scripts.bench_e2e_grpo import server_metrics
+    from areal_tpu_torch.utils.telemetry import parse_prometheus_text
+
+    cfg = qwen25_1p5b()
+    bodies = spec_requests(cfg.vocab_size, SPEC_SLOTS, SPEC_PROMPT_LEN, SPEC_NEW, 42, "s")
+    launchers = {k: LocalLauncher(os.path.join(ROOT, "build", f"spec_logs_{k}"))
+                 for k in ("off", "on")}
+    t0 = time.perf_counter()
+    try:
+        with concurrent.futures.ThreadPoolExecutor(2) as pool:
+            futs = {k: pool.submit(launchers[k].start_gen_servers, GenServerConfig(
+                model_path=ckpt_dir, dtype="bfloat16", max_seqs=SPEC_SLOTS,
+                max_context_len=SPEC_SEQ, page_size=128, random_seed=0,
+                spec_decode=(k == "on"))) for k in launchers}
+            addrs = {k: f.result()[0] for k, f in futs.items()}
+        print(f"  both server processes up in {time.perf_counter() - t0:.1f} s")
+        res, figs = {}, {}
+        for k in ("off", "on"):
+            addr = addrs[k]
+            m0 = server_metrics(addr)
+            t1 = time.perf_counter()
+            with concurrent.futures.ThreadPoolExecutor(len(bodies)) as pool:
+                res[k] = list(pool.map(lambda b, a=addr: post_addr(a, "/generate", b), bodies))
+            wall = time.perf_counter() - t1
+            m1 = server_metrics(addr)
+            d = {key: m1[key] - m0[key] for key in (
+                "decode_steps", "verify_calls", "spec_drafted", "spec_accepted",
+                "ragged_kernel_launches", "ragged_verify_launches", "tokens_generated")}
+            want = SERVE_LAYERS * (d["decode_steps"] + d["verify_calls"])
+            figs[k] = dict(d, wall=wall, tok_s=sum(len(r["output_tokens"]) for r in res[k]) / wall)
+            rate = d["spec_accepted"] / d["spec_drafted"] if d["spec_drafted"] else 0.0
+            print(f"  spec {k}: 8 x {SPEC_NEW} tokens in {wall:.2f} s = {figs[k]['tok_s']:.1f} "
+                  f"tokens/s (prefill included); decode steps {d['decode_steps']}, verify calls "
+                  f"{d['verify_calls']}, drafted {d['spec_drafted']}, accepted "
+                  f"{d['spec_accepted']} (rate {rate:.3f}); K2 launches "
+                  f"{d['ragged_kernel_launches']} = {SERVE_LAYERS} x (decode steps + verify "
+                  f"calls) = {want}, of them at T > 1 {d['ragged_verify_launches']} = "
+                  f"{SERVE_LAYERS} x verify calls")
+            if (d["ragged_kernel_launches"] != want
+                    or d["ragged_verify_launches"] != SERVE_LAYERS * d["verify_calls"]):
+                raise AssertionError(f"spec {k}: K2 launches != {SERVE_LAYERS} x (decode steps + "
+                                     "verify calls), or those at T > 1 != "
+                                     f"{SERVE_LAYERS} x verify calls")
+            for b, r in zip(bodies, res[k]):
+                lp = np.asarray(r["output_logprobs"], np.float64)
+                if len(r["output_tokens"]) != SPEC_NEW or not (np.isfinite(lp).all()
+                                                              and (lp <= 0).all()):
+                    raise AssertionError(f"spec {k} {b['rid']}: not {SPEC_NEW} tokens with "
+                                         "finite logprobs <= 0")
+        if figs["on"]["verify_calls"] == 0 or figs["on"]["spec_drafted"] == 0:
+            raise AssertionError("the --spec-decode server drafted or verified nothing")
+        if figs["off"]["verify_calls"] != 0:
+            raise AssertionError("the server without --spec-decode ran a verify")
+        with urllib.request.urlopen(f"http://{addrs['on']}/metrics?format=prometheus",
+                                    timeout=60) as resp:
+            parsed = parse_prometheus_text(resp.read().decode())
+    finally:
+        for launcher in launchers.values():
+            launcher.stop_all()
+    for name in ("areal_gen_spec_drafted_total", "areal_gen_spec_accepted_total",
+                 "areal_gen_verify_calls_total", "areal_gen_spec_acceptance_rate"):
+        if name not in parsed:
+            raise AssertionError(f"/metrics?format=prometheus lacks {name}")
+    rates = parsed["areal_gen_spec_acceptance_rate"]
+    tier0 = rates.get('{tier="0"}')
+    if tier0 is None:
+        raise AssertionError('no {tier="0"} acceptance rate on the Prometheus surface')
+    print(f"  Prometheus: verify calls {parsed['areal_gen_verify_calls_total']['']:.0f}, "
+          f"drafted {parsed['areal_gen_spec_drafted_total']['']:.0f}, accepted "
+          f"{parsed['areal_gen_spec_accepted_total']['']:.0f}, acceptance rate "
+          f"{rates['']:.4f} (tier 0, windowed: {tier0:.4f})")
+    gaps, firsts = [], []
+    for a, b in zip(res["off"], res["on"]):
+        first = next((j for j, (x, y) in enumerate(zip(a["output_tokens"], b["output_tokens"]))
+                      if x != y), SPEC_NEW)
+        firsts.append(first)
+        gaps.extend(np.abs(np.subtract(a["output_logprobs"][:first],
+                                       b["output_logprobs"][:first])).tolist())
+    gaps = np.asarray(gaps)
+    print(f"  on against off (bf16, 28 layers): first divergent position per request "
+          f"{firsts} ({SPEC_NEW} = none); logprob |diff| before it: mean {gaps.mean():.5f}, "
+          f"max {gaps.max():.5f} over {gaps.size} tokens (tolerance: mean "
+          f"{SPEC_LOGP_MEAN_TOL}). Acceptance on random weights says nothing about a "
+          "trained model's.")
+    if gaps.mean() > SPEC_LOGP_MEAN_TOL:
+        raise AssertionError("spec on and off logprobs differ beyond bf16 rounding")
+    return (figs["on"]["ragged_verify_launches"],
+            sum(f["ragged_kernel_launches"] - f["ragged_verify_launches"] for f in figs.values()),
+            figs)
+
+
+def spec_timings():
+    """(d) K2 at T = 4 and 8 at the spec servers' shape (8 slots, Qwen2.5's
+    heads, K 1024, spans 64..640, every slot drafting), by CUDA events and
+    the profiler, with its bound, plain version and SDPA on the same
+    [B, Hq, T, K] boolean mask.  Returns {T: time_kernel's tuple}."""
+    out = {}
+    lengths = torch.from_numpy(np.random.default_rng(3).integers(64, 641, SPEC_SLOTS)).to(
+        torch.int32)
+    for T in (4, 8):
+        case = ragged_case(400 + T, B=SPEC_SLOTS, T=T, K=1024, M=1024, lengths=lengths)
+        case["widx"] = (case["lengths"].long()[:, None]
+                        + torch.arange(T, device="cuda")[None, :]).to(torch.int32).contiguous()
+        t = time_kernel(case)
+        out[T] = t
+        print(f"  verify T={T} (B=8 Hq=12 Hkv=2 hd=128, K=1024): kernel {t[0]:.4f} ms, plain "
+              f"{t[1]:.4f} ms, SDPA {t[2]:.4f} ms, bound {t[3]:.4f} ms ({t[4]}); device time "
+              f"per call: kernel {fmt_ms(t[5])}, SDPA {fmt_ms(t[6])}")
+    return out
+
+
+def spec_phase(ckpt_dir):
+    """The spec phase: (a) to (d) above.  Returns (max|err| of the kernel
+    checks, verify launches, T=1 launches of the servers, f32 launches,
+    timings)."""
+    err = check_verify_kernel()
+    f32_launches = spec_f32_streams(qwen25_1p5b().replace(eos_token_id=None))
+    verify_launches, decode_launches, _ = spec_servers(ckpt_dir)
+    return err, verify_launches, decode_launches, f32_launches, spec_timings()
+
+
 def cuda_ms(fn, iters=200, warmup=20):
     for _ in range(warmup):
         fn()
@@ -2699,6 +2995,18 @@ def main(argv):
         finally:
             for d in (g1_dir, g1_publish):
                 shutil.rmtree(d, ignore_errors=True)
+    elif only == "spec":
+        # the spec phase alone, on a checkpoint written as the serve phase writes it
+        ckpt_dir = os.path.join(ROOT, "build", "smoke_ckpt")
+        try:
+            model = init_params(qwen25_1p5b(), seed=0, device="cuda")
+            save_hf_checkpoint(model, ckpt_dir)
+            del model
+            torch.cuda.empty_cache()
+            with phase("spec"):
+                spec_phase(ckpt_dir)
+        finally:
+            shutil.rmtree(ckpt_dir, ignore_errors=True)
     elif only == "recover-full-depth":
         fileroot = os.path.join(ROOT, "build", "recover_run")
         try:
@@ -2757,6 +3065,10 @@ def main(argv):
             print(f"  decode {tok_s:.1f} tokens/s (16 slots, 512-token prompts, greedy); "
                   f"serve window {tokens / wall:.1f} tokens/s incl. prefill")
             torch.cuda.empty_cache()
+        with phase("spec"):
+            spec_err, verify_launches, spec_decode_launches, spec_f32_launches, verify_times = (
+                spec_phase(ckpt_dir))
+            max_err = max(max_err, spec_err)
         with phase("train"):
             flash_launches, train_stats, seg_rows = train_qwen(ckpt_dir, publish_dir)
             on_tc = flash_counts_tc()
@@ -2808,11 +3120,20 @@ def main(argv):
         "source": "areal_tpu_torch/csrc/ragged_decode.cu",
         "replaces": "areal_tpu/ops/ragged_decode.py:93",
         "launches": (launches + grpo_launches[0] + prefix_launches + family_launches[0]
-                     + gemma1_ragged + remote_ragged + recover_ragged),
+                     + gemma1_ragged + remote_ragged + recover_ragged + verify_launches
+                     + spec_decode_launches + spec_f32_launches),
+        # "spec": the launches at T = D + 1 the --spec-decode server
+        # counted; "spec_decode": both spec-phase servers' T = 1 launches;
+        # "spec_f32": the in-process f32 runs at 4 layers
         "launches_by_path": {"serve": launches, "grpo": grpo_launches[0],
                              "prefix": prefix_launches, "families": family_launches[0],
                              "gemma1": gemma1_ragged, "remote": remote_ragged,
-                             "recover": recover_ragged},
+                             "recover": recover_ragged, "spec": verify_launches,
+                             "spec_decode": spec_decode_launches,
+                             "spec_f32": spec_f32_launches},
+        # the verify half at the spec servers' shape, T = 4 and 8
+        "verify": {f"T{T}": dict(zip(("ms", "plain_ms", "library_ms", "bound_ms", "bound_by"),
+                                     verify_times[T][:5])) for T in verify_times},
         "max_abs_err": max_err,
         "ms": kern,
         "plain_ms": plain,

@@ -115,6 +115,45 @@ def test_plain_matches_jax_kernel(case):
     np.testing.assert_array_equal(got[2], want[2], err_msg="cv append")
 
 
+def _verify_case(seed, *, B=6, T=8, K=64, M=96, **kw):
+    """A verify dispatch's inputs at T = D + 1 = 8: per slot a draft length
+    n_write - 1 in 0..7 (positions at or past n_write drop their writes,
+    index M), two inactive slots (every write dropped), and the causal
+    mask among the T rows that `forward_verify` builds."""
+    arrays, dtypes, kwargs = _case(seed, B=B, T=T, K=K, M=M, **kw)
+    rng = np.random.default_rng(seed + 1)
+    lengths = rng.integers(0, K - T, B).astype(np.int32)
+    n_write = np.array([8, 1, 5, 3, 8, 2][:B], np.int32)
+    active = np.ones(B, bool)
+    active[[1, 4]] = False
+    pos = lengths[:, None] + np.arange(T, dtype=np.int32)[None, :]
+    keep = (np.arange(T)[None, :] < n_write[:, None]) & active[:, None]
+    arrays.update(lengths=lengths, widx=np.where(keep, pos, M).astype(np.int32),
+                  mask=np.arange(K)[None, None, :] <= pos[:, :, None])
+    return arrays, dtypes, kwargs
+
+
+@pytest.mark.parametrize("case", [dict(), dict(qdtype="bfloat16", kvdtype="bfloat16")])
+def test_plain_matches_jax_kernel_at_verify_shapes(case):
+    """The verify half at T = 8 with mixed n_write and inactive slots: the
+    plain version against the JAX kernel (interpret mode), the append bit
+    for bit, and no dropped position written."""
+    arrays, dtypes, kw = _verify_case(31, **case)
+    want = _jax(arrays, dtypes, kw)
+    got = _port(arrays, dtypes, kw)
+    atol = BF16_ATOL if case.get("qdtype") == "bfloat16" else F32_ATOL
+    np.testing.assert_allclose(got[0], want[0], atol=atol, rtol=0, err_msg="out")
+    np.testing.assert_array_equal(got[1], want[1], err_msg="ck append")
+    np.testing.assert_array_equal(got[2], want[2], err_msg="cv append")
+    t = _to_torch(arrays, dtypes)
+    untouched = np.ones(got[1].shape[:2], bool)
+    for b in range(len(arrays["rows"])):
+        for j in range(arrays["widx"].shape[1]):
+            if arrays["widx"][b, j] < got[1].shape[1]:
+                untouched[arrays["rows"][b], arrays["widx"][b, j]] = False
+    np.testing.assert_array_equal(got[1][untouched], t["ck"].float().numpy()[untouched])
+
+
 def test_append_is_in_place_and_drops_index_m():
     arrays, dtypes, kw = _case(3, T=4, K=48)
     t = _to_torch(arrays, dtypes)
@@ -229,8 +268,12 @@ def cuda_device():
 def test_cuda_kernel_matches_plain(cuda_device, case):
     arrays, dtypes, kw = _case(9, **case)
     before = port.ragged_paged_attention.launches
+    before_verify = port.ragged_paged_attention.launches_verify
     got = _port(arrays, dtypes, kw, device=cuda_device)
     assert port.ragged_paged_attention.launches == before + 1
+    # a launch at T > 1 is a verify's, counted apart as well
+    assert (port.ragged_paged_attention.launches_verify
+            == before_verify + int(case.get("T", 1) > 1))
     want = _port(arrays, dtypes, kw, fn=port.ragged_paged_attention_plain,
                  device=cuda_device)
     atol = BF16_ATOL if case.get("qdtype") == "bfloat16" else F32_ATOL
@@ -270,6 +313,29 @@ def test_cuda_kernel_edge_cases(cuda_device, kind):
     np.testing.assert_array_equal(got[1], want[1])
     np.testing.assert_array_equal(got[2], want[2])
     assert np.isfinite(got[0]).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", [
+    dict(qdtype="bfloat16", kvdtype="bfloat16"),
+    dict(),
+    # Qwen2.5-1.5B's heads at a serving window, bf16
+    dict(Hq=12, Hkv=2, hd=128, K=1024, M=1024, page=128, qdtype="bfloat16",
+         kvdtype="bfloat16"),
+])
+def test_cuda_kernel_matches_plain_at_verify_shapes(cuda_device, case):
+    """The CUDA kernel at T = 8 with mixed n_write and inactive slots
+    against its plain version; the appended cache bit for bit."""
+    arrays, dtypes, kw = _verify_case(33, **case)
+    before_verify = port.ragged_paged_attention.launches_verify
+    got = _port(arrays, dtypes, kw, device=cuda_device)
+    assert port.ragged_paged_attention.launches_verify == before_verify + 1
+    want = _port(arrays, dtypes, kw, fn=port.ragged_paged_attention_plain,
+                 device=cuda_device)
+    atol = BF16_ATOL if case.get("qdtype") == "bfloat16" else F32_ATOL
+    np.testing.assert_allclose(got[0], want[0], atol=atol, rtol=0)
+    np.testing.assert_array_equal(got[1], want[1])
+    np.testing.assert_array_equal(got[2], want[2])
 
 
 @pytest.mark.gpu

@@ -282,9 +282,10 @@ def test_transfer_protocol_refusals_and_metrics(fleet):
     m = _http(addr, "/metrics")[1]
     assert {"decode_steps", "decode_calls", "tokens_generated", "active", "version",
             "last_pause_s", "staged", "ragged_dispatches", "ragged_attended_pages",
-            "ragged_kernel_launches"} <= set(m)
+            "ragged_kernel_launches", "ragged_verify_launches"} <= set(m)
     assert m["decode_steps"] > 0 and m["tokens_generated"] > 0 and not m["staged"]
-    assert m["ragged_kernel_launches"] == 0  # the CPU runs the plain version
+    # the CPU runs the plain version
+    assert m["ragged_kernel_launches"] == m["ragged_verify_launches"] == 0
 
 
 @pytest.mark.parametrize("impl", ["torch", "jax"])
