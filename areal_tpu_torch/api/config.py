@@ -7,9 +7,11 @@ reads: `GenServerConfig`, `DatasetConfig`, `ClusterSpecConfig`,
 `SaverConfig`, `EvaluatorConfig`, `RecoverConfig` and `StatsLoggerConfig`.
 
 Field names and defaults are the JAX package's, for the fields the port
-reads; fields of what is not ported yet (meshes, LoRA, `async_stats`, the
-scan unroll, and the fields neither package reads) are left out, so a
-config that sets them fails at construction.  `remat_policy`,
+reads; fields of what is not ported yet (LoRA, `async_stats`, the scan
+unroll, and the fields neither package reads) are left out, so a config
+that sets them fails at construction.  `MeshConfig` has all five of the
+JAX package's axes; the port runs dp and sp, and a config asking for
+fsdp, tp or ep > 1 raises NotImplementedError at construction.  `remat_policy`,
 `layer_group_size` and `attn_impl` take every value JAX takes, and
 `TorchTrainEngine.initialize` rejects what JAX's engine rejects.  The YAML/CLI
 loader (`load_expr_config`) is not copied: the card's machine has no
@@ -83,6 +85,37 @@ class MicroBatchSpec:
     n_mbs: int = 1  # gradient-accumulation micro-batches per train_batch
 
 
+def check_ported_axes(fsdp: int, tp: int, ep: int) -> None:
+    """Raise NotImplementedError for the mesh axes the port does not run
+    yet (fsdp on FSDP2, tp and ep on DTensor: ROADMAP M9b)."""
+    asked = [f"{n}={v}" for n, v in (("fsdp", fsdp), ("tp", tp), ("ep", ep)) if v > 1]
+    if asked:
+        raise NotImplementedError(
+            f"mesh axes {', '.join(asked)} are not ported yet (ROADMAP M9b: fsdp on FSDP2, "
+            "tp and ep on DTensor); the port runs dp and sp")
+
+
+@dataclass
+class MeshConfig:
+    """How a train engine lays its ranks out as a (dp, fsdp, ep, sp, tp)
+    mesh (`parallel/mesh.py`): the JAX package's fields and defaults."""
+
+    data_parallel_size: int = 1
+    fsdp_parallel_size: int = 1
+    sequence_parallel_size: int = 1
+    tensor_parallel_size: int = 1
+    expert_parallel_size: int = 1
+
+    def __post_init__(self):
+        check_ported_axes(self.fsdp_parallel_size, self.tensor_parallel_size,
+                          self.expert_parallel_size)
+
+    @property
+    def world_size(self) -> int:
+        return (self.data_parallel_size * self.fsdp_parallel_size
+                * self.sequence_parallel_size * self.tensor_parallel_size)
+
+
 @dataclass
 class TrainEngineConfig:
     path: str = ""  # HF checkpoint dir
@@ -98,16 +131,19 @@ class TrainEngineConfig:
     layer_group_size: int = 1
     # training attention, forwarded onto the model config unless that sets
     # its own: auto | splash (the flash kernels where they fit) | naive |
-    # ring (no sequence-parallel mesh on one card: warns, runs auto)
+    # ring (not ported: raises under an sp > 1 mesh; without one it warns
+    # and runs auto, as JAX does)
     attn_impl: str = "auto"
     # fused LM-head vocab chunk width, rounded up to a multiple of 128;
     # 0 = the AREAL_LM_HEAD_CHUNK env default (8192)
     lm_head_chunk: int = 0
     mb_spec: MicroBatchSpec = field(default_factory=MicroBatchSpec)
     optimizer: Optional[OptimizerConfig] = field(default_factory=OptimizerConfig)
-    # packed row lengths are power-of-two multiples of this quantum
+    # packed row lengths are power-of-two multiples of this quantum (a
+    # multiple of the mesh's sp size)
     pack_length_quantum: int = 512
     max_pack_length: int = 32768
+    mesh: MeshConfig = field(default_factory=MeshConfig)
 
 
 @dataclass

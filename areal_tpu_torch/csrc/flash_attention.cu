@@ -14,8 +14,23 @@
 // -inf, and no (query, key) pair touching it is visited, so it neither
 // sends nor receives gradient.
 //
-// Layouts are the model's: q, dout, out, dq [B, T, Hq, hd]; k, v, dk, dv
-// [B, T, Hkv, hd]; segment ids int32 [B, T]; lse and di f32 [B, Hq, T].
+// Query offset (the sequence-parallel shard of `_sharded_splash`, which
+// runs these kernels for one sp shard's T/sp query rows against the whole
+// K/V).  Queries are rows [q_start, q_start + Tq) of a packed row of Tk
+// keys: query i (local) is global position q_start + i, and causality and
+// the window are taken on global positions (key j is visible to query i
+// when j <= q_start + i and j > q_start + i - window).  q's segment ids are
+// [B, Tq], the keys' [B, Tk], and q's are the keys' slice [q_start,
+// q_start + Tq).  The forward and dq stop at the last key the shard's last
+// query can see; dk/dv's grid covers all Tk keys, and a key tile that no
+// query of the shard sees visits no query tile and writes zeros, so a
+// shard's dk/dv is its partial over every key, to be summed across shards.
+// q_start = 0 with Tq = Tk (and one segment-id array for both) is the
+// unsharded call, with the same arithmetic.
+//
+// Layouts are the model's: q, dout, out, dq [B, Tq, Hq, hd]; k, v, dk, dv
+// [B, Tk, Hkv, hd]; segment ids int32 [B, Tq] (queries) and [B, Tk] (keys);
+// lse and di f32 [B, Hq, Tq].
 // Inputs are float32 or bfloat16; every product, the softmax statistics
 // and the accumulators are f32, outputs are rounded once to the input type.
 // The exceptions are the bf16 kernels' tensor-core operands: the forward
@@ -266,8 +281,9 @@ __device__ __forceinline__ void store_rows(T* __restrict__ dst,
 template <typename T, int HD, int TILE>
 __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    const int* __restrict__ seg, T* __restrict__ out, float* __restrict__ lse, int Tn,
-    int Hq, int Hkv, float softcap, int window) {
+    const int* __restrict__ segq, const int* __restrict__ segk, T* __restrict__ out,
+    float* __restrict__ lse, int q_start, int Tq, int Tk, int Hq, int Hkv, float softcap,
+    int window) {
   using C = F32Tiles<HD, TILE>;
   extern __shared__ float smem[];
   float* Qs = smem;
@@ -276,10 +292,11 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
   float* Ps = Vs + C::kTileFloats;
   __shared__ int seg_q[TILE], seg_k[TILE];
   __shared__ int s_first, s_last, s_lo;
-  const int b = blockIdx.z, h = blockIdx.y, i0 = blockIdx.x * TILE;
+  const int b = blockIdx.z, h = blockIdx.y, i0 = blockIdx.x * TILE;  // i0: local query
   const int kh = h / (Hq / Hkv);
   const int tr = threadIdx.x >> 3, tc = threadIdx.x & 7;
-  const int* segb = seg + (long long)b * Tn;
+  const int* segqb = segq + (long long)b * Tq;
+  const int* segkb = segk + (long long)b * Tk;
 
   float m[C::kRows], l[C::kRows], o[C::kRows][C::kDCols];
 #pragma unroll
@@ -290,28 +307,28 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
     for (int j = 0; j < C::kDCols; ++j) o[i][j] = 0.f;
   }
 
-  tile_span<TILE>(segb, i0, Tn, seg_q, &s_first, &s_last);
+  tile_span<TILE>(segqb, i0, Tq, seg_q, &s_first, &s_last);
   const int first = s_first, last = s_last;
   if (first <= last) {
-    const int i_first = i0 + first;
-    int lo = segment_start(segb, i_first, &s_lo);
+    const int i_first = q_start + i0 + first;  // global positions from here on
+    int lo = segment_start(segkb, i_first, &s_lo);
     if (window > 0) lo = max(lo, i_first - window + 1);
-    const int hi = i0 + last + 1;
-    load_tile<T, HD, TILE>(Qs, q, b, i0, Tn, Hq, h);
+    const int hi = q_start + i0 + last + 1;
+    load_tile<T, HD, TILE>(Qs, q, b, i0, Tq, Hq, h);
     for (int j0 = lo; j0 < hi; j0 += TILE) {
       __syncthreads();  // the previous tile's readers are done
-      load_tile<T, HD, TILE>(Ks, k, b, j0, Tn, Hkv, kh);
-      load_tile<T, HD, TILE>(Vs, v, b, j0, Tn, Hkv, kh);
+      load_tile<T, HD, TILE>(Ks, k, b, j0, Tk, Hkv, kh);
+      load_tile<T, HD, TILE>(Vs, v, b, j0, Tk, Hkv, kh);
       if (threadIdx.x < TILE) {
         const int t = j0 + threadIdx.x;
-        seg_k[threadIdx.x] = t < Tn ? segb[t] : -2;
+        seg_k[threadIdx.x] = t < Tk ? segkb[t] : -2;
       }
       __syncthreads();
       float s[C::kRows][C::kCols];
       tile_dot<HD, TILE>(Qs, Ks, tr, tc, s);
 #pragma unroll
       for (int i = 0; i < C::kRows; ++i) {
-        const int r = tr + 32 * i, qi = i0 + r, sq = seg_q[r];
+        const int r = tr + 32 * i, qi = q_start + i0 + r, sq = seg_q[r];
         float mx = -INFINITY;
 #pragma unroll
         for (int j = 0; j < C::kCols; ++j) {
@@ -342,13 +359,13 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
   }
 #pragma unroll
   for (int i = 0; i < C::kRows; ++i) {
-    const int qi = i0 + tr + 32 * i;
+    const int qi = i0 + tr + 32 * i;  // local
 #pragma unroll
     for (int j = 0; j < C::kDCols; ++j) o[i][j] = l[i] > 0.f ? o[i][j] / l[i] : 0.f;
-    if (tc == 0 && qi < Tn)
-      lse[((long long)b * Hq + h) * Tn + qi] = l[i] > 0.f ? m[i] + logf(l[i]) : -INFINITY;
+    if (tc == 0 && qi < Tq)
+      lse[((long long)b * Hq + h) * Tq + qi] = l[i] > 0.f ? m[i] + logf(l[i]) : -INFINITY;
   }
-  store_rows<T, HD, TILE>(out, o, b, i0, Tn, Hq, h, tr, tc);
+  store_rows<T, HD, TILE>(out, o, b, i0, Tq, Hq, h, tr, tc);
 }
 
 // ---------------------------------------------------------------------------
@@ -358,9 +375,9 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
 template <typename T, int HD, int TILE>
 __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    const int* __restrict__ seg, const T* __restrict__ dout, const float* __restrict__ lse,
-    const float* __restrict__ di, T* __restrict__ dq, int Tn, int Hq, int Hkv, float softcap,
-    int window) {
+    const int* __restrict__ segq, const int* __restrict__ segk, const T* __restrict__ dout,
+    const float* __restrict__ lse, const float* __restrict__ di, T* __restrict__ dq,
+    int q_start, int Tq, int Tk, int Hq, int Hkv, float softcap, int window) {
   using C = F32Tiles<HD, TILE>;
   extern __shared__ float smem[];
   float* Qs = smem;
@@ -370,10 +387,11 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
   float* dSs = Vs + C::kTileFloats;
   __shared__ int seg_q[TILE], seg_k[TILE];
   __shared__ int s_first, s_last, s_lo;
-  const int b = blockIdx.z, h = blockIdx.y, i0 = blockIdx.x * TILE;
+  const int b = blockIdx.z, h = blockIdx.y, i0 = blockIdx.x * TILE;  // i0: local query
   const int kh = h / (Hq / Hkv);
   const int tr = threadIdx.x >> 3, tc = threadIdx.x & 7;
-  const int* segb = seg + (long long)b * Tn;
+  const int* segqb = segq + (long long)b * Tq;
+  const int* segkb = segk + (long long)b * Tk;
 
   float acc[C::kRows][C::kDCols];
 #pragma unroll
@@ -381,29 +399,29 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
 #pragma unroll
     for (int j = 0; j < C::kDCols; ++j) acc[i][j] = 0.f;
 
-  tile_span<TILE>(segb, i0, Tn, seg_q, &s_first, &s_last);
+  tile_span<TILE>(segqb, i0, Tq, seg_q, &s_first, &s_last);
   const int first = s_first, last = s_last;
   if (first <= last) {
-    const int i_first = i0 + first;
-    int lo = segment_start(segb, i_first, &s_lo);
+    const int i_first = q_start + i0 + first;  // global positions from here on
+    int lo = segment_start(segkb, i_first, &s_lo);
     if (window > 0) lo = max(lo, i_first - window + 1);
-    const int hi = i0 + last + 1;
-    load_tile<T, HD, TILE>(Qs, q, b, i0, Tn, Hq, h);
-    load_tile<T, HD, TILE>(dOs, dout, b, i0, Tn, Hq, h);
+    const int hi = q_start + i0 + last + 1;
+    load_tile<T, HD, TILE>(Qs, q, b, i0, Tq, Hq, h);
+    load_tile<T, HD, TILE>(dOs, dout, b, i0, Tq, Hq, h);
     float lse_r[C::kRows], di_r[C::kRows];
 #pragma unroll
     for (int i = 0; i < C::kRows; ++i) {
-      const int qi = min(i0 + tr + 32 * i, Tn - 1);
-      lse_r[i] = lse[((long long)b * Hq + h) * Tn + qi];
-      di_r[i] = di[((long long)b * Hq + h) * Tn + qi];
+      const int qi = min(i0 + tr + 32 * i, Tq - 1);  // local
+      lse_r[i] = lse[((long long)b * Hq + h) * Tq + qi];
+      di_r[i] = di[((long long)b * Hq + h) * Tq + qi];
     }
     for (int j0 = lo; j0 < hi; j0 += TILE) {
       __syncthreads();
-      load_tile<T, HD, TILE>(Ks, k, b, j0, Tn, Hkv, kh);
-      load_tile<T, HD, TILE>(Vs, v, b, j0, Tn, Hkv, kh);
+      load_tile<T, HD, TILE>(Ks, k, b, j0, Tk, Hkv, kh);
+      load_tile<T, HD, TILE>(Vs, v, b, j0, Tk, Hkv, kh);
       if (threadIdx.x < TILE) {
         const int t = j0 + threadIdx.x;
-        seg_k[threadIdx.x] = t < Tn ? segb[t] : -2;
+        seg_k[threadIdx.x] = t < Tk ? segkb[t] : -2;
       }
       __syncthreads();
       float s[C::kRows][C::kCols], dp[C::kRows][C::kCols];
@@ -411,7 +429,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
       tile_dot<HD, TILE>(dOs, Vs, tr, tc, dp);
 #pragma unroll
       for (int i = 0; i < C::kRows; ++i) {
-        const int r = tr + 32 * i, qi = i0 + r, sq = seg_q[r];
+        const int r = tr + 32 * i, qi = q_start + i0 + r, sq = seg_q[r];
 #pragma unroll
         for (int j = 0; j < C::kCols; ++j) {
           const int c = tc + 8 * j;
@@ -428,7 +446,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
       tile_pv<HD, TILE>(dSs, Ks, tr, tc, acc);
     }
   }
-  store_rows<T, HD, TILE>(dq, acc, b, i0, Tn, Hq, h, tr, tc);
+  store_rows<T, HD, TILE>(dq, acc, b, i0, Tq, Hq, h, tr, tc);
 }
 
 // ---------------------------------------------------------------------------
@@ -439,9 +457,10 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
 template <typename T, int HD, int TILE>
 __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    const int* __restrict__ seg, const T* __restrict__ dout, const float* __restrict__ lse,
-    const float* __restrict__ di, T* __restrict__ dk, T* __restrict__ dv, int Tn, int Hq,
-    int Hkv, float softcap, int window) {
+    const int* __restrict__ segq, const int* __restrict__ segk, const T* __restrict__ dout,
+    const float* __restrict__ lse, const float* __restrict__ di, T* __restrict__ dk,
+    T* __restrict__ dv, int q_start, int Tq, int Tk, int Hq, int Hkv, float softcap,
+    int window) {
   using C = F32Tiles<HD, TILE>;
   extern __shared__ float smem[];
   float* Ks = smem;
@@ -456,7 +475,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
   const int b = blockIdx.z, kh = blockIdx.y, j0 = blockIdx.x * TILE;
   const int group = Hq / Hkv;
   const int tr = threadIdx.x >> 3, tc = threadIdx.x & 7;
-  const int* segb = seg + (long long)b * Tn;
+  const int* segqb = segq + (long long)b * Tq;
+  const int* segkb = segk + (long long)b * Tk;
 
   float dk_acc[C::kRows][C::kDCols], dv_acc[C::kRows][C::kDCols];
 #pragma unroll
@@ -464,28 +484,33 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
 #pragma unroll
     for (int j = 0; j < C::kDCols; ++j) dk_acc[i][j] = dv_acc[i][j] = 0.f;
 
-  tile_span<TILE>(segb, j0, Tn, seg_k, &s_first, &s_last);
+  tile_span<TILE>(segkb, j0, Tk, seg_k, &s_first, &s_last);
   const int first = s_first, last = s_last;
   if (first <= last) {
     const int j_last = j0 + last;
-    const int lo = j0 + first;  // causal: a query sees only keys at or before it
-    int hi = segment_end(segb, j_last, Tn, &s_hi);
+    int lo = j0 + first;  // causal: a query sees only keys at or before it
+    int hi = segment_end(segkb, j_last, Tk, &s_hi);
     if (window > 0) hi = min(hi, j_last + window);
-    load_tile<T, HD, TILE>(Ks, k, b, j0, Tn, Hkv, kh);
-    load_tile<T, HD, TILE>(Vs, v, b, j0, Tn, Hkv, kh);
-    for (int g = 0; g < group; ++g) {
+    // the shard's queries among them, as local rows [lo, hi)
+    lo = max(lo, q_start) - q_start;
+    hi = min(hi, q_start + Tq) - q_start;
+    if (lo < hi) {
+      load_tile<T, HD, TILE>(Ks, k, b, j0, Tk, Hkv, kh);
+      load_tile<T, HD, TILE>(Vs, v, b, j0, Tk, Hkv, kh);
+    }
+    for (int g = 0; g < group && lo < hi; ++g) {
       const int h = kh * group + g;
-      const float* lse_h = lse + ((long long)b * Hq + h) * Tn;
-      const float* di_h = di + ((long long)b * Hq + h) * Tn;
+      const float* lse_h = lse + ((long long)b * Hq + h) * Tq;
+      const float* di_h = di + ((long long)b * Hq + h) * Tq;
       for (int i0 = lo; i0 < hi; i0 += TILE) {
         __syncthreads();  // the previous q tile's readers are done
-        load_tile<T, HD, TILE>(Qs, q, b, i0, Tn, Hq, h);
-        load_tile<T, HD, TILE>(dOs, dout, b, i0, Tn, Hq, h);
+        load_tile<T, HD, TILE>(Qs, q, b, i0, Tq, Hq, h);
+        load_tile<T, HD, TILE>(dOs, dout, b, i0, Tq, Hq, h);
         if (threadIdx.x < TILE) {
           const int t = i0 + threadIdx.x;
-          seg_q[threadIdx.x] = t < Tn ? segb[t] : -2;
-          lse_q[threadIdx.x] = t < Tn ? lse_h[t] : 0.f;
-          di_q[threadIdx.x] = t < Tn ? di_h[t] : 0.f;
+          seg_q[threadIdx.x] = t < Tq ? segqb[t] : -2;
+          lse_q[threadIdx.x] = t < Tq ? lse_h[t] : 0.f;
+          di_q[threadIdx.x] = t < Tq ? di_h[t] : 0.f;
         }
         __syncthreads();
         float st[C::kRows][C::kCols], dpt[C::kRows][C::kCols];  // rows: keys, columns: queries
@@ -499,7 +524,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
             const int c = tc + 8 * j;
             float t;
             const float x = capped(st[i][j], softcap, &t);
-            const bool ok = allowed(seg_q[c], sk, i0 + c, kj, window);
+            const bool ok = allowed(seg_q[c], sk, q_start + i0 + c, kj, window);
             const float p = ok ? expf(x - lse_q[c]) : 0.f;
             float ds = p * (dpt[i][j] - di_q[c]);
             if (softcap > 0.f) ds *= 1.f - t * t;
@@ -513,8 +538,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
       }
     }
   }
-  store_rows<T, HD, TILE>(dk, dk_acc, b, j0, Tn, Hkv, kh, tr, tc);
-  store_rows<T, HD, TILE>(dv, dv_acc, b, j0, Tn, Hkv, kh, tr, tc);
+  store_rows<T, HD, TILE>(dk, dk_acc, b, j0, Tk, Hkv, kh, tr, tc);
+  store_rows<T, HD, TILE>(dv, dv_acc, b, j0, Tk, Hkv, kh, tr, tc);
 }
 
 // ---------------------------------------------------------------------------
@@ -677,9 +702,9 @@ __device__ __forceinline__ void store_tile(__nv_bfloat16* __restrict__ dst,
 template <int HD>
 __global__ void __launch_bounds__(kThreads, 2) flash_fwd_tc_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-    const __nv_bfloat16* __restrict__ v, const int* __restrict__ seg,
-    __nv_bfloat16* __restrict__ out, float* __restrict__ lse, int Tn, int Hq, int Hkv,
-    float softcap, int window) {
+    const __nv_bfloat16* __restrict__ v, const int* __restrict__ segq,
+    const int* __restrict__ segk, __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
+    int q_start, int Tq, int Tk, int Hq, int Hkv, float softcap, int window) {
   using C = Tiles<HD>;
   constexpr int kBc = C::kBc, kLDS = C::kLDS;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -689,51 +714,52 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd_tc_kernel(
   __shared__ int seg_q[kBr], seg_k[2][kBc];
   __shared__ int s_first, s_last, s_lo;
   const int b = blockIdx.z, h = blockIdx.y;
-  const int i0 = (gridDim.x - 1 - blockIdx.x) * kBr;  // longest key ranges first
+  const int i0 = (gridDim.x - 1 - blockIdx.x) * kBr;  // local; longest key ranges first
   const int kh = h / (Hq / Hkv);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, tig = lane & 3;
-  const int* segb = seg + (long long)b * Tn;
+  const int* segqb = segq + (long long)b * Tq;
+  const int* segkb = segk + (long long)b * Tk;
 
   float o[HD / 8][4];  // n-tiles of d
 #pragma unroll
   for (int j = 0; j < HD / 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
 
-  tile_span<kBr>(segb, i0, Tn, seg_q, &s_first, &s_last);
+  tile_span<kBr>(segqb, i0, Tq, seg_q, &s_first, &s_last);
   const int first = s_first, last = s_last;
   const int rq = warp * 16 + g;  // this thread's rows: rq and rq + 8
   if (first <= last) {
-    const int i_first = i0 + first;
-    int lo = segment_start(segb, i_first, &s_lo);
+    const int i_first = q_start + i0 + first;  // global positions from here on
+    int lo = segment_start(segkb, i_first, &s_lo);
     if (window > 0) lo = max(lo, i_first - window + 1);
-    const int hi = i0 + last + 1;
+    const int hi = q_start + i0 + last + 1;
     const int ntiles = (hi - lo + kBc - 1) / kBc;
     // one segment id over all 64 q rows, or -3
     const int q_uniform = __syncthreads_and(tid >= kBr || seg_q[tid] == seg_q[0]) ? seg_q[0]
                                                                                   : -3;
     const int sq[2] = {seg_q[rq], seg_q[rq + 8]};
-    const int qi[2] = {i0 + rq, i0 + rq + 8};
+    const int qi[2] = {q_start + i0 + rq, q_start + i0 + rq + 8};
 
-    load_tile_async<HD, kBr>(sQ, q, b, i0, Tn, Hq, h);
-    load_tile_async<HD, kBc>(sK, k, b, lo, Tn, Hkv, kh);
-    load_tile_async<HD, kBc>(sV, v, b, lo, Tn, Hkv, kh);
+    load_tile_async<HD, kBr>(sQ, q, b, i0, Tq, Hq, h);
+    load_tile_async<HD, kBc>(sK, k, b, lo, Tk, Hkv, kh);
+    load_tile_async<HD, kBc>(sV, v, b, lo, Tk, Hkv, kh);
     asm volatile("cp.async.commit_group;\n" ::);
-    if (tid < kBc) seg_k[0][tid] = lo + tid < Tn ? segb[lo + tid] : -2;
+    if (tid < kBc) seg_k[0][tid] = lo + tid < Tk ? segkb[lo + tid] : -2;
 
     unsigned qf[C::kQInRegs ? HD / 16 : 1][4];
     for (int n = 0; n < ntiles; ++n) {
       const int buf = n & 1, j0 = lo + n * kBc;
       if (n + 1 < ntiles) {  // prefetch the next tile into the other stage
         const int j1 = j0 + kBc;
-        load_tile_async<HD, kBc>(sK + (buf ^ 1) * C::kTileK, k, b, j1, Tn, Hkv, kh);
-        load_tile_async<HD, kBc>(sV + (buf ^ 1) * C::kTileK, v, b, j1, Tn, Hkv, kh);
-        if (tid < kBc) seg_k[buf ^ 1][tid] = j1 + tid < Tn ? segb[j1 + tid] : -2;
+        load_tile_async<HD, kBc>(sK + (buf ^ 1) * C::kTileK, k, b, j1, Tk, Hkv, kh);
+        load_tile_async<HD, kBc>(sV + (buf ^ 1) * C::kTileK, v, b, j1, Tk, Hkv, kh);
+        if (tid < kBc) seg_k[buf ^ 1][tid] = j1 + tid < Tk ? segkb[j1 + tid] : -2;
       }
       asm volatile("cp.async.commit_group;\n" ::);
       asm volatile("cp.async.wait_group 1;\n" ::);  // this tile (and Q) landed
       const bool full = __syncthreads_and(tid >= kBc || seg_k[buf][tid] == q_uniform) &&
-                        q_uniform >= 0 && window <= 0 && j0 + kBc - 1 <= i0;
+                        q_uniform >= 0 && window <= 0 && j0 + kBc - 1 <= q_start + i0;
       if constexpr (C::kQInRegs) {
         if (n == 0) {
 #pragma unroll
@@ -832,13 +858,13 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd_tc_kernel(
   for (int row = 0; row < 2; ++row) {
     l[row] += __shfl_xor_sync(0xffffffffu, l[row], 1);
     l[row] += __shfl_xor_sync(0xffffffffu, l[row], 2);
-    const int t = i0 + rq + 8 * row;
-    if (tig == 0 && t < Tn)
-      lse[((long long)b * Hq + h) * Tn + t] = l[row] > 0.f ? m[row] + logf(l[row]) : -INFINITY;
+    const int t = i0 + rq + 8 * row;  // local
+    if (tig == 0 && t < Tq)
+      lse[((long long)b * Hq + h) * Tq + t] = l[row] > 0.f ? m[row] + logf(l[row]) : -INFINITY;
   }
   stage_rows<HD>(sQ, o, rq, tig, l[0] > 0.f ? 1.f / l[0] : 0.f, l[1] > 0.f ? 1.f / l[1] : 0.f);
   __syncthreads();
-  store_tile<HD>(out, sQ, b, i0, Tn, Hq, h);
+  store_tile<HD>(out, sQ, b, i0, Tq, Hq, h);
 }
 
 // ---------------------------------------------------------------------------
@@ -885,9 +911,10 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd_tc_kernel(
 template <int HD>
 __global__ void __launch_bounds__(kThreads, Tiles<HD>::kDqMinBlocks) flash_bwd_dq_tc_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-    const __nv_bfloat16* __restrict__ v, const int* __restrict__ seg,
-    const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
-    const float* __restrict__ di, __nv_bfloat16* __restrict__ dq, int Tn, int Hq, int Hkv,
+    const __nv_bfloat16* __restrict__ v, const int* __restrict__ segq,
+    const int* __restrict__ segk, const __nv_bfloat16* __restrict__ dout,
+    const float* __restrict__ lse, const float* __restrict__ di,
+    __nv_bfloat16* __restrict__ dq, int q_start, int Tq, int Tk, int Hq, int Hkv,
     float softcap, int window) {
   using C = Tiles<HD>;
   constexpr int kBc = C::kBc, kLDS = C::kLDS;
@@ -899,57 +926,58 @@ __global__ void __launch_bounds__(kThreads, Tiles<HD>::kDqMinBlocks) flash_bwd_d
   __shared__ int seg_q[kBr], seg_k[2][kBc];
   __shared__ int s_first, s_last, s_lo;
   const int h = blockIdx.x, b = blockIdx.y;
-  const int i0 = (gridDim.z - 1 - blockIdx.z) * kBr;  // longest key ranges first
+  const int i0 = (gridDim.z - 1 - blockIdx.z) * kBr;  // local; longest key ranges first
   const int kh = h / (Hq / Hkv);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, tig = lane & 3;
-  const int* segb = seg + (long long)b * Tn;
+  const int* segqb = segq + (long long)b * Tq;
+  const int* segkb = segk + (long long)b * Tk;
 
   float acc[HD / 8][4];  // n-tiles of d
 #pragma unroll
   for (int j = 0; j < HD / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
 
-  tile_span<kBr>(segb, i0, Tn, seg_q, &s_first, &s_last);
+  tile_span<kBr>(segqb, i0, Tq, seg_q, &s_first, &s_last);
   const int first = s_first, last = s_last;
   const int rq = warp * 16 + g;  // this thread's rows: rq and rq + 8
   if (first <= last) {
-    const int i_first = i0 + first;
-    int lo = segment_start(segb, i_first, &s_lo);
+    const int i_first = q_start + i0 + first;  // global positions from here on
+    int lo = segment_start(segkb, i_first, &s_lo);
     if (window > 0) lo = max(lo, i_first - window + 1);
-    const int hi = i0 + last + 1;
+    const int hi = q_start + i0 + last + 1;
     const int ntiles = (hi - lo + kBc - 1) / kBc;
     const int q_uniform = __syncthreads_and(tid >= kBr || seg_q[tid] == seg_q[0]) ? seg_q[0]
                                                                                   : -3;
     const int sq[2] = {seg_q[rq], seg_q[rq + 8]};
-    const int qi[2] = {i0 + rq, i0 + rq + 8};
+    const int qi[2] = {q_start + i0 + rq, q_start + i0 + rq + 8};
     float lse_r[2], di_r[2];
 #pragma unroll
     for (int row = 0; row < 2; ++row) {
-      const long long at = ((long long)b * Hq + h) * Tn + min(qi[row], Tn - 1);
+      const long long at = ((long long)b * Hq + h) * Tq + min(i0 + rq + 8 * row, Tq - 1);
       lse_r[row] = lse[at];
       di_r[row] = di[at];
     }
 
-    load_tile_async<HD, kBr>(sQ, q, b, i0, Tn, Hq, h);
-    load_tile_async<HD, kBr>(sdO, dout, b, i0, Tn, Hq, h);
-    load_tile_async<HD, kBc>(sK, k, b, lo, Tn, Hkv, kh);
-    load_tile_async<HD, kBc>(sV, v, b, lo, Tn, Hkv, kh);
+    load_tile_async<HD, kBr>(sQ, q, b, i0, Tq, Hq, h);
+    load_tile_async<HD, kBr>(sdO, dout, b, i0, Tq, Hq, h);
+    load_tile_async<HD, kBc>(sK, k, b, lo, Tk, Hkv, kh);
+    load_tile_async<HD, kBc>(sV, v, b, lo, Tk, Hkv, kh);
     asm volatile("cp.async.commit_group;\n" ::);
-    if (tid < kBc) seg_k[0][tid] = lo + tid < Tn ? segb[lo + tid] : -2;
+    if (tid < kBc) seg_k[0][tid] = lo + tid < Tk ? segkb[lo + tid] : -2;
 
     unsigned qf[C::kQInRegs ? HD / 16 : 1][4];
     for (int n = 0; n < ntiles; ++n) {
       const int buf = n & 1, j0 = lo + n * kBc;
       if (n + 1 < ntiles) {  // prefetch the next tile into the other stage
         const int j1 = j0 + kBc;
-        load_tile_async<HD, kBc>(sK + (buf ^ 1) * C::kTileK, k, b, j1, Tn, Hkv, kh);
-        load_tile_async<HD, kBc>(sV + (buf ^ 1) * C::kTileK, v, b, j1, Tn, Hkv, kh);
-        if (tid < kBc) seg_k[buf ^ 1][tid] = j1 + tid < Tn ? segb[j1 + tid] : -2;
+        load_tile_async<HD, kBc>(sK + (buf ^ 1) * C::kTileK, k, b, j1, Tk, Hkv, kh);
+        load_tile_async<HD, kBc>(sV + (buf ^ 1) * C::kTileK, v, b, j1, Tk, Hkv, kh);
+        if (tid < kBc) seg_k[buf ^ 1][tid] = j1 + tid < Tk ? segkb[j1 + tid] : -2;
       }
       asm volatile("cp.async.commit_group;\n" ::);
       asm volatile("cp.async.wait_group 1;\n" ::);  // this tile (and Q, dO) landed
       const bool full = __syncthreads_and(tid >= kBc || seg_k[buf][tid] == q_uniform) &&
-                        q_uniform >= 0 && window <= 0 && j0 + kBc - 1 <= i0;
+                        q_uniform >= 0 && window <= 0 && j0 + kBc - 1 <= q_start + i0;
       if constexpr (C::kQInRegs) {
         if (n == 0) {
 #pragma unroll
@@ -1028,15 +1056,16 @@ __global__ void __launch_bounds__(kThreads, Tiles<HD>::kDqMinBlocks) flash_bwd_d
   // only that warp read
   stage_rows<HD>(sQ, acc, rq, tig);
   __syncthreads();
-  store_tile<HD>(dq, sQ, b, i0, Tn, Hq, h);
+  store_tile<HD>(dq, sQ, b, i0, Tq, Hq, h);
 }
 
 __global__ void __launch_bounds__(kThreads, 2) flash_bwd_dkv_tc_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-    const __nv_bfloat16* __restrict__ v, const int* __restrict__ seg,
-    const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
-    const float* __restrict__ di, __nv_bfloat16* __restrict__ dk,
-    __nv_bfloat16* __restrict__ dv, int Tn, int Hq, int Hkv, float softcap, int window) {
+    const __nv_bfloat16* __restrict__ v, const int* __restrict__ segq,
+    const int* __restrict__ segk, const __nv_bfloat16* __restrict__ dout,
+    const float* __restrict__ lse, const float* __restrict__ di,
+    __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int q_start, int Tq,
+    int Tk, int Hq, int Hkv, float softcap, int window) {
   constexpr int HD = 128, kBc = kBr, kLDS = Tiles<HD>::kLDS, kTile = Tiles<HD>::kTileQ;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(smem_raw);
@@ -1051,7 +1080,8 @@ __global__ void __launch_bounds__(kThreads, 2) flash_bwd_dkv_tc_kernel(
   const int group = Hq / Hkv, h_lo = kh * group;  // the group's q heads
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, tig = lane & 3;
-  const int* segb = seg + (long long)b * Tn;
+  const int* segqb = segq + (long long)b * Tq;
+  const int* segkb = segk + (long long)b * Tk;
 
   float dk_acc[HD / 8][4], dv_acc[HD / 8][4];
 #pragma unroll
@@ -1059,14 +1089,18 @@ __global__ void __launch_bounds__(kThreads, 2) flash_bwd_dkv_tc_kernel(
 #pragma unroll
     for (int e = 0; e < 4; ++e) dk_acc[j][e] = dv_acc[j][e] = 0.f;
 
-  tile_span<kBc>(segb, j0, Tn, seg_k, &s_first, &s_last);
+  tile_span<kBc>(segkb, j0, Tk, seg_k, &s_first, &s_last);
   const int first = s_first, last = s_last;
   const int rk = warp * 16 + g;  // this thread's keys: rk and rk + 8
+  int lo = 0, hi = 0;  // the shard's queries that see these keys: local rows [lo, hi)
   if (first <= last) {
     const int j_last = j0 + last;
-    const int lo = j0 + first;  // causal: a query sees only keys at or before it
-    int hi = segment_end(segb, j_last, Tn, &s_hi);
+    lo = max(j0 + first, q_start) - q_start;  // causal: a query sees only keys at or before it
+    hi = segment_end(segkb, j_last, Tk, &s_hi);
     if (window > 0) hi = min(hi, j_last + window);
+    hi = min(hi, q_start + Tq) - q_start;
+  }
+  if (lo < hi) {
     const int ntiles = (hi - lo + kBr - 1) / kBr;
     const int total = group * ntiles;  // (q head, q tile) steps
     // one segment id over all 64 keys, or -3
@@ -1078,19 +1112,19 @@ __global__ void __launch_bounds__(kThreads, 2) flash_bwd_dkv_tc_kernel(
     // step n's Q and dO tiles by cp.async, its segment ids, lse and di by
     // plain loads, into stage `buf`
     auto stage = [&](int n, int buf) {
-      const int h = h_lo + n / ntiles, i0 = lo + (n % ntiles) * kBr;
-      load_tile_async<HD, kBr>(sQ + buf * kTile, q, b, i0, Tn, Hq, h);
-      load_tile_async<HD, kBr>(sdO + buf * kTile, dout, b, i0, Tn, Hq, h);
+      const int h = h_lo + n / ntiles, i0 = lo + (n % ntiles) * kBr;  // local
+      load_tile_async<HD, kBr>(sQ + buf * kTile, q, b, i0, Tq, Hq, h);
+      load_tile_async<HD, kBr>(sdO + buf * kTile, dout, b, i0, Tq, Hq, h);
       if (tid < kBr) {
         const int t = i0 + tid;
-        const long long at = ((long long)b * Hq + h) * Tn + t;
-        seg_q[buf][tid] = t < Tn ? segb[t] : -2;
-        lse_q[buf][tid] = t < Tn ? lse[at] : 0.f;
-        di_q[buf][tid] = t < Tn ? di[at] : 0.f;
+        const long long at = ((long long)b * Hq + h) * Tq + t;
+        seg_q[buf][tid] = t < Tq ? segqb[t] : -2;
+        lse_q[buf][tid] = t < Tq ? lse[at] : 0.f;
+        di_q[buf][tid] = t < Tq ? di[at] : 0.f;
       }
     };
-    load_tile_async<HD, kBc>(sK, k, b, j0, Tn, Hkv, kh);
-    load_tile_async<HD, kBc>(sV, v, b, j0, Tn, Hkv, kh);
+    load_tile_async<HD, kBc>(sK, k, b, j0, Tk, Hkv, kh);
+    load_tile_async<HD, kBc>(sV, v, b, j0, Tk, Hkv, kh);
     stage(0, 0);
     asm volatile("cp.async.commit_group;\n" ::);
 
@@ -1100,7 +1134,7 @@ __global__ void __launch_bounds__(kThreads, 2) flash_bwd_dkv_tc_kernel(
       asm volatile("cp.async.commit_group;\n" ::);
       asm volatile("cp.async.wait_group 1;\n" ::);  // this step (and K, V) landed
       const bool full = __syncthreads_and(tid >= kBr || seg_q[buf][tid] == k_uniform) &&
-                        k_uniform >= 0 && window <= 0 && i0 >= j0 + kBc - 1;
+                        k_uniform >= 0 && window <= 0 && q_start + i0 >= j0 + kBc - 1;
       const __nv_bfloat16* tQ = sQ + buf * kTile;
       const __nv_bfloat16* tdO = sdO + buf * kTile;
       const int* seg_t = seg_q[buf];
@@ -1147,7 +1181,8 @@ __global__ void __launch_bounds__(kThreads, 2) flash_bwd_dkv_tc_kernel(
               t = tanhf(x / softcap);
               x = t * softcap;
             }
-            const bool ok = full || allowed(seg_t[col], sk[row], i0 + col, kj[row], window);
+            const bool ok =
+                full || allowed(seg_t[col], sk[row], q_start + i0 + col, kj[row], window);
             const float p = ok ? exp2f((x - lse_t[col]) * kLog2e) : 0.f;
             float ds = p * (dpt[j][e] - di_t[col]);
             if (softcap > 0.f) ds *= 1.f - t * t;
@@ -1185,8 +1220,8 @@ __global__ void __launch_bounds__(kThreads, 2) flash_bwd_dkv_tc_kernel(
   stage_rows<HD>(sQ, dk_acc, rk, tig);
   stage_rows<HD>(sQ + kTile, dv_acc, rk, tig);
   __syncthreads();
-  store_tile<HD>(dk, sQ, b, j0, Tn, Hkv, kh);
-  store_tile<HD>(dv, sQ + kTile, b, j0, Tn, Hkv, kh);
+  store_tile<HD>(dk, sQ, b, j0, Tk, Hkv, kh);
+  store_tile<HD>(dv, sQ + kTile, b, j0, Tk, Hkv, kh);
 }
 
 constexpr int kDkv256Threads = 256;  // two groups of 4 warps
@@ -1196,10 +1231,11 @@ constexpr int kDkv256Smem = 6 * Tiles<256>::kTileQ * 2 + 2 * kBr * kXLD * 4;
 
 __global__ void __launch_bounds__(kDkv256Threads, 1) flash_bwd_dkv_tc256_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-    const __nv_bfloat16* __restrict__ v, const int* __restrict__ seg,
-    const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
-    const float* __restrict__ di, __nv_bfloat16* __restrict__ dk,
-    __nv_bfloat16* __restrict__ dv, int Tn, int Hq, int Hkv, float softcap, int window) {
+    const __nv_bfloat16* __restrict__ v, const int* __restrict__ segq,
+    const int* __restrict__ segk, const __nv_bfloat16* __restrict__ dout,
+    const float* __restrict__ lse, const float* __restrict__ di,
+    __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int q_start, int Tq,
+    int Tk, int Hq, int Hkv, float softcap, int window) {
   constexpr int HD = 256, kNT = kDkv256Threads, kLDS = Tiles<HD>::kLDS;
   constexpr int kTile = Tiles<HD>::kTileQ;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -1218,21 +1254,26 @@ __global__ void __launch_bounds__(kDkv256Threads, 1) flash_bwd_dkv_tc256_kernel(
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int wg = warp >> 2;  // 0: S^T, P^T and dV; 1: dP^T, dS^T and dK
   const int g = lane >> 2, tig = lane & 3;
-  const int* segb = seg + (long long)b * Tn;
+  const int* segqb = segq + (long long)b * Tq;
+  const int* segkb = segk + (long long)b * Tk;
 
   float acc[HD / 8][4];  // dV (group 0) or dK (group 1): 16 keys x 256 a warp
 #pragma unroll
   for (int j = 0; j < HD / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
 
-  tile_span<kBr>(segb, j0, Tn, seg_k, &s_first, &s_last);
+  tile_span<kBr>(segkb, j0, Tk, seg_k, &s_first, &s_last);
   const int first = s_first, last = s_last;
   const int r0 = (warp & 3) * 16;  // the warp's first key in the tile
   const int rk = r0 + g;           // this thread's keys: rk and rk + 8
+  int lo = 0, hi = 0;  // the shard's queries that see these keys: local rows [lo, hi)
   if (first <= last) {
     const int j_last = j0 + last;
-    const int lo = j0 + first;  // causal: a query sees only keys at or before it
-    int hi = segment_end(segb, j_last, Tn, &s_hi);
+    lo = max(j0 + first, q_start) - q_start;  // causal: a query sees only keys at or before it
+    hi = segment_end(segkb, j_last, Tk, &s_hi);
     if (window > 0) hi = min(hi, j_last + window);
+    hi = min(hi, q_start + Tq) - q_start;
+  }
+  if (lo < hi) {
     const int ntiles = (hi - lo + kBr - 1) / kBr;
     const int total = group * ntiles;  // (q head, q tile) steps
     const int k_uniform = __syncthreads_and(tid >= kBr || seg_k[tid] == seg_k[0]) ? seg_k[0]
@@ -1241,19 +1282,19 @@ __global__ void __launch_bounds__(kDkv256Threads, 1) flash_bwd_dkv_tc256_kernel(
     const int kj[2] = {j0 + rk, j0 + rk + 8};
 
     auto stage = [&](int n, int buf) {
-      const int h = h_lo + n / ntiles, i0 = lo + (n % ntiles) * kBr;
-      load_tile_async<HD, kBr, kNT>(sQ + buf * kTile, q, b, i0, Tn, Hq, h);
-      load_tile_async<HD, kBr, kNT>(sdO + buf * kTile, dout, b, i0, Tn, Hq, h);
+      const int h = h_lo + n / ntiles, i0 = lo + (n % ntiles) * kBr;  // local
+      load_tile_async<HD, kBr, kNT>(sQ + buf * kTile, q, b, i0, Tq, Hq, h);
+      load_tile_async<HD, kBr, kNT>(sdO + buf * kTile, dout, b, i0, Tq, Hq, h);
       if (tid < kBr) {
         const int t = i0 + tid;
-        const long long at = ((long long)b * Hq + h) * Tn + t;
-        seg_q[buf][tid] = t < Tn ? segb[t] : -2;
-        lse_q[buf][tid] = t < Tn ? lse[at] : 0.f;
-        di_q[buf][tid] = t < Tn ? di[at] : 0.f;
+        const long long at = ((long long)b * Hq + h) * Tq + t;
+        seg_q[buf][tid] = t < Tq ? segqb[t] : -2;
+        lse_q[buf][tid] = t < Tq ? lse[at] : 0.f;
+        di_q[buf][tid] = t < Tq ? di[at] : 0.f;
       }
     };
-    load_tile_async<HD, kBr, kNT>(sK, k, b, j0, Tn, Hkv, kh);
-    load_tile_async<HD, kBr, kNT>(sV, v, b, j0, Tn, Hkv, kh);
+    load_tile_async<HD, kBr, kNT>(sK, k, b, j0, Tk, Hkv, kh);
+    load_tile_async<HD, kBr, kNT>(sV, v, b, j0, Tk, Hkv, kh);
     stage(0, 0);
     asm volatile("cp.async.commit_group;\n" ::);
 
@@ -1265,7 +1306,7 @@ __global__ void __launch_bounds__(kDkv256Threads, 1) flash_bwd_dkv_tc256_kernel(
       asm volatile("cp.async.commit_group;\n" ::);
       asm volatile("cp.async.wait_group 1;\n" ::);  // this step (and K, V) landed
       const bool full = __syncthreads_and(tid >= kBr || seg_q[buf][tid] == k_uniform) &&
-                        k_uniform >= 0 && window <= 0 && i0 >= j0 + kBr - 1;
+                        k_uniform >= 0 && window <= 0 && q_start + i0 >= j0 + kBr - 1;
       const __nv_bfloat16* tQ = sQ + buf * kTile;
       const __nv_bfloat16* tdO = sdO + buf * kTile;
       const __nv_bfloat16* tB = wg == 0 ? tQ : tdO;  // S^T's or dP^T's queries
@@ -1307,7 +1348,8 @@ __global__ void __launch_bounds__(kDkv256Threads, 1) flash_bwd_dkv_tc256_kernel(
                 t = tanhf(s / softcap);
                 s = t * softcap;
               }
-              const bool ok = full || allowed(seg_t[qc], sk[row], i0 + qc, kj[row], window);
+              const bool ok =
+                  full || allowed(seg_t[qc], sk[row], q_start + i0 + qc, kj[row], window);
               const float p = ok ? exp2f((s - lse_t[qc]) * kLog2e) : 0.f;
               x[j][e] = p;
               xP[(rk + 8 * row) * kXLD + col] = p;
@@ -1354,8 +1396,8 @@ __global__ void __launch_bounds__(kDkv256Threads, 1) flash_bwd_dkv_tc256_kernel(
   // then out in 16-byte stores
   stage_rows<HD>(sQ + wg * kTile, acc, rk, tig);
   __syncthreads();
-  store_tile<HD, kNT>(dv, sQ, b, j0, Tn, Hkv, kh);
-  store_tile<HD, kNT>(dk, sQ + kTile, b, j0, Tn, Hkv, kh);
+  store_tile<HD, kNT>(dv, sQ, b, j0, Tk, Hkv, kh);
+  store_tile<HD, kNT>(dk, sQ + kTile, b, j0, Tk, Hkv, kh);
 }
 
 }  // namespace tc
@@ -1365,171 +1407,182 @@ cudaError_t opt_in(K kernel, int bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
-cudaError_t check_shape(int hd, int Hq, int Hkv) {
-  return ((hd == 128 || hd == 256) && Hkv > 0 && Hq % Hkv == 0) ? cudaSuccess
-                                                                : cudaErrorInvalidValue;
+// head dim 128 or 256, whole GQA groups, and the shard's queries inside the
+// key range
+cudaError_t check_shape(int hd, int Hq, int Hkv, int q_start, int Tq, int Tk) {
+  const bool heads = (hd == 128 || hd == 256) && Hkv > 0 && Hq % Hkv == 0;
+  const bool rows = q_start >= 0 && Tq > 0 && q_start + Tq <= Tk;
+  return heads && rows ? cudaSuccess : cudaErrorInvalidValue;
 }
 
+// the arguments every launch takes after its tensors
+struct Rows {
+  int B, q_start, Tq, Tk, Hq, Hkv;
+  float softcap;
+  int window;
+};
+
 template <typename T, int HD>
-cudaError_t fwd(const void* q, const void* k, const void* v, const void* seg, void* out,
-                void* lse, int B, int Tn, int Hq, int Hkv, float softcap, int window,
-                cudaStream_t s) {
+cudaError_t fwd(const void* q, const void* k, const void* v, const void* segq,
+                const void* segk, void* out, void* lse, Rows r, cudaStream_t s) {
   constexpr int TILE = f32_tile<HD>(), kSmem = F32Tiles<HD, TILE>::kFwdSmem;
   auto kernel = flash_fwd_kernel<T, HD, TILE>;
   cudaError_t err = opt_in(kernel, kSmem);
   if (err != cudaSuccess) return err;
-  kernel<<<dim3((Tn + TILE - 1) / TILE, Hq, B), kThreads, kSmem, s>>>(
+  kernel<<<dim3((r.Tq + TILE - 1) / TILE, r.Hq, r.B), kThreads, kSmem, s>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const int*>(seg), static_cast<T*>(out), static_cast<float*>(lse), Tn, Hq,
-      Hkv, softcap, window);
+      static_cast<const int*>(segq), static_cast<const int*>(segk), static_cast<T*>(out),
+      static_cast<float*>(lse), r.q_start, r.Tq, r.Tk, r.Hq, r.Hkv, r.softcap, r.window);
   return cudaGetLastError();
 }
 
 template <int HD>
-cudaError_t fwd_tc(const void* q, const void* k, const void* v, const void* seg, void* out,
-                   void* lse, int B, int Tn, int Hq, int Hkv, float softcap, int window,
-                   cudaStream_t s) {
+cudaError_t fwd_tc(const void* q, const void* k, const void* v, const void* segq,
+                   const void* segk, void* out, void* lse, Rows r, cudaStream_t s) {
   constexpr int kSmem = tc::Tiles<HD>::kSmem;
   auto kernel = tc::flash_fwd_tc_kernel<HD>;
   cudaError_t err = opt_in(kernel, kSmem);
   if (err != cudaSuccess) return err;
-  kernel<<<dim3((Tn + tc::kBr - 1) / tc::kBr, Hq, B), tc::kThreads, kSmem, s>>>(
+  kernel<<<dim3((r.Tq + tc::kBr - 1) / tc::kBr, r.Hq, r.B), tc::kThreads, kSmem, s>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<const int*>(seg),
-      static_cast<__nv_bfloat16*>(out), static_cast<float*>(lse), Tn, Hq, Hkv, softcap, window);
+      static_cast<const __nv_bfloat16*>(v), static_cast<const int*>(segq),
+      static_cast<const int*>(segk), static_cast<__nv_bfloat16*>(out),
+      static_cast<float*>(lse), r.q_start, r.Tq, r.Tk, r.Hq, r.Hkv, r.softcap, r.window);
   return cudaGetLastError();
 }
 
 template <typename T, int HD>
-cudaError_t bwd_dq(const void* q, const void* k, const void* v, const void* seg,
-                   const void* dout, const void* lse, const void* di, void* dq, int B, int Tn,
-                   int Hq, int Hkv, float softcap, int window, cudaStream_t s) {
+cudaError_t bwd_dq(const void* q, const void* k, const void* v, const void* segq,
+                   const void* segk, const void* dout, const void* lse, const void* di,
+                   void* dq, Rows r, cudaStream_t s) {
   constexpr int TILE = f32_tile<HD>(), kSmem = F32Tiles<HD, TILE>::kDqSmem;
   auto kernel = flash_bwd_dq_kernel<T, HD, TILE>;
   cudaError_t err = opt_in(kernel, kSmem);
   if (err != cudaSuccess) return err;
-  kernel<<<dim3((Tn + TILE - 1) / TILE, Hq, B), kThreads, kSmem, s>>>(
+  kernel<<<dim3((r.Tq + TILE - 1) / TILE, r.Hq, r.B), kThreads, kSmem, s>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const int*>(seg), static_cast<const T*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(di), static_cast<T*>(dq), Tn,
-      Hq, Hkv, softcap, window);
+      static_cast<const int*>(segq), static_cast<const int*>(segk),
+      static_cast<const T*>(dout), static_cast<const float*>(lse),
+      static_cast<const float*>(di), static_cast<T*>(dq), r.q_start, r.Tq, r.Tk, r.Hq,
+      r.Hkv, r.softcap, r.window);
   return cudaGetLastError();
 }
 
+// dk/dv: one block per key tile over all Tk keys (tiles no query of the
+// shard sees write zeros)
 template <typename T, int HD>
-cudaError_t bwd_dkv(const void* q, const void* k, const void* v, const void* seg,
-                    const void* dout, const void* lse, const void* di, void* dk, void* dv,
-                    int B, int Tn, int Hq, int Hkv, float softcap, int window,
-                    cudaStream_t s) {
+cudaError_t bwd_dkv(const void* q, const void* k, const void* v, const void* segq,
+                    const void* segk, const void* dout, const void* lse, const void* di,
+                    void* dk, void* dv, Rows r, cudaStream_t s) {
   constexpr int TILE = f32_tile<HD>(), kSmem = F32Tiles<HD, TILE>::kDkvSmem;
   auto kernel = flash_bwd_dkv_kernel<T, HD, TILE>;
   cudaError_t err = opt_in(kernel, kSmem);
   if (err != cudaSuccess) return err;
-  kernel<<<dim3((Tn + TILE - 1) / TILE, Hkv, B), kThreads, kSmem, s>>>(
+  kernel<<<dim3((r.Tk + TILE - 1) / TILE, r.Hkv, r.B), kThreads, kSmem, s>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const int*>(seg), static_cast<const T*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(di), static_cast<T*>(dk),
-      static_cast<T*>(dv), Tn, Hq, Hkv, softcap, window);
+      static_cast<const int*>(segq), static_cast<const int*>(segk),
+      static_cast<const T*>(dout), static_cast<const float*>(lse),
+      static_cast<const float*>(di), static_cast<T*>(dk), static_cast<T*>(dv), r.q_start,
+      r.Tq, r.Tk, r.Hq, r.Hkv, r.softcap, r.window);
   return cudaGetLastError();
 }
 
 template <int HD>
-cudaError_t bwd_dq_tc(const void* q, const void* k, const void* v, const void* seg,
-                      const void* dout, const void* lse, const void* di, void* dq, int B,
-                      int Tn, int Hq, int Hkv, float softcap, int window, cudaStream_t s) {
+cudaError_t bwd_dq_tc(const void* q, const void* k, const void* v, const void* segq,
+                      const void* segk, const void* dout, const void* lse, const void* di,
+                      void* dq, Rows r, cudaStream_t s) {
   constexpr int kSmem = tc::Tiles<HD>::kDqSmem;
   auto kernel = tc::flash_bwd_dq_tc_kernel<HD>;
   cudaError_t err = opt_in(kernel, kSmem);
   if (err != cudaSuccess) return err;
-  kernel<<<dim3(Hq, B, (Tn + tc::kBr - 1) / tc::kBr), tc::kThreads, kSmem, s>>>(
+  kernel<<<dim3(r.Hq, r.B, (r.Tq + tc::kBr - 1) / tc::kBr), tc::kThreads, kSmem, s>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<const int*>(seg),
-      static_cast<const __nv_bfloat16*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(di), static_cast<__nv_bfloat16*>(dq), Tn, Hq, Hkv, softcap,
-      window);
+      static_cast<const __nv_bfloat16*>(v), static_cast<const int*>(segq),
+      static_cast<const int*>(segk), static_cast<const __nv_bfloat16*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(di),
+      static_cast<__nv_bfloat16*>(dq), r.q_start, r.Tq, r.Tk, r.Hq, r.Hkv, r.softcap,
+      r.window);
   return cudaGetLastError();
 }
 
 // the dk/dv kernel of a head dim: 4 warps with dK and dV in each thread at
 // hd 128, two groups of 4 warps at hd 256
 template <int HD>
-cudaError_t bwd_dkv_tc(const void* q, const void* k, const void* v, const void* seg,
-                       const void* dout, const void* lse, const void* di, void* dk, void* dv,
-                       int B, int Tn, int Hq, int Hkv, float softcap, int window,
-                       cudaStream_t s) {
+cudaError_t bwd_dkv_tc(const void* q, const void* k, const void* v, const void* segq,
+                       const void* segk, const void* dout, const void* lse, const void* di,
+                       void* dk, void* dv, Rows r, cudaStream_t s) {
   auto kernel = HD == 128 ? tc::flash_bwd_dkv_tc_kernel : tc::flash_bwd_dkv_tc256_kernel;
   const int threads = HD == 128 ? tc::kThreads : tc::kDkv256Threads;
   const int smem = HD == 128 ? 6 * tc::Tiles<128>::kTileQ * 2 : tc::kDkv256Smem;
   cudaError_t err = opt_in(kernel, smem);
   if (err != cudaSuccess) return err;
-  kernel<<<dim3(Hkv, B, (Tn + tc::kBr - 1) / tc::kBr), threads, smem, s>>>(
+  kernel<<<dim3(r.Hkv, r.B, (r.Tk + tc::kBr - 1) / tc::kBr), threads, smem, s>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<const int*>(seg),
-      static_cast<const __nv_bfloat16*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(di), static_cast<__nv_bfloat16*>(dk),
-      static_cast<__nv_bfloat16*>(dv), Tn, Hq, Hkv, softcap, window);
+      static_cast<const __nv_bfloat16*>(v), static_cast<const int*>(segq),
+      static_cast<const int*>(segk), static_cast<const __nv_bfloat16*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(di),
+      static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), r.q_start, r.Tq,
+      r.Tk, r.Hq, r.Hkv, r.softcap, r.window);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // bf16: 1 for bfloat16 inputs, 0 for float32.  hd: 128 or 256.  softcap <=
-// 0 and window <= 0 are off.  q is the pre-scaled q_s.  Each entry picks its
-// kernel by dtype and head dim: bfloat16 runs on the tensor cores
-// (tc::flash_fwd_tc_kernel, tc::flash_bwd_dq_tc_kernel, and
-// tc::flash_bwd_dkv_tc_kernel or tc::flash_bwd_dkv_tc256_kernel), float32 on
-// the CUDA cores (flash_fwd_kernel, flash_bwd_dq_kernel,
+// 0 and window <= 0 are off.  q is the pre-scaled q_s of rows [q_start,
+// q_start + Tq) of each packed row of Tk keys; segq [B, Tq] and segk
+// [B, Tk] (one array for both, with q_start 0 and Tq = Tk, is the unsharded
+// call).  Each entry picks its kernel by dtype and head dim: bfloat16 runs
+// on the tensor cores (tc::flash_fwd_tc_kernel, tc::flash_bwd_dq_tc_kernel,
+// and tc::flash_bwd_dkv_tc_kernel or tc::flash_bwd_dkv_tc256_kernel),
+// float32 on the CUDA cores (flash_fwd_kernel, flash_bwd_dq_kernel,
 // flash_bwd_dkv_kernel), which keeps f32 products exact.
 extern "C" int flash_fwd(int device, int bf16, const void* q, const void* k, const void* v,
-                         const void* seg, void* out, void* lse, int B, int Tn, int Hq,
-                         int Hkv, int hd, float softcap, int window, void* stream) {
-  cudaError_t err = check_shape(hd, Hq, Hkv);
+                         const void* segq, const void* segk, void* out, void* lse, int B,
+                         int q_start, int Tq, int Tk, int Hq, int Hkv, int hd, float softcap,
+                         int window, void* stream) {
+  cudaError_t err = check_shape(hd, Hq, Hkv, q_start, Tq, Tk);
   if (err == cudaSuccess) err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Rows r{B, q_start, Tq, Tk, Hq, Hkv, softcap, window};
   if (hd == 128)
-    return (int)(bf16 ? fwd_tc<128>(q, k, v, seg, out, lse, B, Tn, Hq, Hkv, softcap, window, s)
-                      : fwd<float, 128>(q, k, v, seg, out, lse, B, Tn, Hq, Hkv, softcap,
-                                        window, s));
-  return (int)(bf16 ? fwd_tc<256>(q, k, v, seg, out, lse, B, Tn, Hq, Hkv, softcap, window, s)
-                    : fwd<float, 256>(q, k, v, seg, out, lse, B, Tn, Hq, Hkv, softcap, window,
-                                      s));
+    return (int)(bf16 ? fwd_tc<128>(q, k, v, segq, segk, out, lse, r, s)
+                      : fwd<float, 128>(q, k, v, segq, segk, out, lse, r, s));
+  return (int)(bf16 ? fwd_tc<256>(q, k, v, segq, segk, out, lse, r, s)
+                    : fwd<float, 256>(q, k, v, segq, segk, out, lse, r, s));
 }
 
 extern "C" int flash_bwd_dq(int device, int bf16, const void* q, const void* k, const void* v,
-                            const void* seg, const void* dout, const void* lse, const void* di,
-                            void* dq, int B, int Tn, int Hq, int Hkv, int hd, float softcap,
-                            int window, void* stream) {
-  cudaError_t err = check_shape(hd, Hq, Hkv);
+                            const void* segq, const void* segk, const void* dout,
+                            const void* lse, const void* di, void* dq, int B, int q_start,
+                            int Tq, int Tk, int Hq, int Hkv, int hd, float softcap, int window,
+                            void* stream) {
+  cudaError_t err = check_shape(hd, Hq, Hkv, q_start, Tq, Tk);
   if (err == cudaSuccess) err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Rows r{B, q_start, Tq, Tk, Hq, Hkv, softcap, window};
   if (hd == 128)
-    return (int)(bf16 ? bwd_dq_tc<128>(q, k, v, seg, dout, lse, di, dq, B, Tn, Hq, Hkv,
-                                       softcap, window, s)
-                      : bwd_dq<float, 128>(q, k, v, seg, dout, lse, di, dq, B, Tn, Hq, Hkv,
-                                           softcap, window, s));
-  return (int)(bf16 ? bwd_dq_tc<256>(q, k, v, seg, dout, lse, di, dq, B, Tn, Hq, Hkv, softcap,
-                                     window, s)
-                    : bwd_dq<float, 256>(q, k, v, seg, dout, lse, di, dq, B, Tn, Hq, Hkv,
-                                         softcap, window, s));
+    return (int)(bf16 ? bwd_dq_tc<128>(q, k, v, segq, segk, dout, lse, di, dq, r, s)
+                      : bwd_dq<float, 128>(q, k, v, segq, segk, dout, lse, di, dq, r, s));
+  return (int)(bf16 ? bwd_dq_tc<256>(q, k, v, segq, segk, dout, lse, di, dq, r, s)
+                    : bwd_dq<float, 256>(q, k, v, segq, segk, dout, lse, di, dq, r, s));
 }
 
 extern "C" int flash_bwd_dkv(int device, int bf16, const void* q, const void* k, const void* v,
-                             const void* seg, const void* dout, const void* lse,
-                             const void* di, void* dk, void* dv, int B, int Tn, int Hq, int Hkv,
-                             int hd, float softcap, int window, void* stream) {
-  cudaError_t err = check_shape(hd, Hq, Hkv);
+                             const void* segq, const void* segk, const void* dout,
+                             const void* lse, const void* di, void* dk, void* dv, int B,
+                             int q_start, int Tq, int Tk, int Hq, int Hkv, int hd,
+                             float softcap, int window, void* stream) {
+  cudaError_t err = check_shape(hd, Hq, Hkv, q_start, Tq, Tk);
   if (err == cudaSuccess) err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Rows r{B, q_start, Tq, Tk, Hq, Hkv, softcap, window};
   if (hd == 128)
-    return (int)(bf16 ? bwd_dkv_tc<128>(q, k, v, seg, dout, lse, di, dk, dv, B, Tn, Hq, Hkv,
-                                        softcap, window, s)
-                      : bwd_dkv<float, 128>(q, k, v, seg, dout, lse, di, dk, dv, B, Tn, Hq,
-                                            Hkv, softcap, window, s));
-  return (int)(bf16 ? bwd_dkv_tc<256>(q, k, v, seg, dout, lse, di, dk, dv, B, Tn, Hq, Hkv,
-                                      softcap, window, s)
-                    : bwd_dkv<float, 256>(q, k, v, seg, dout, lse, di, dk, dv, B, Tn, Hq, Hkv,
-                                          softcap, window, s));
+    return (int)(bf16 ? bwd_dkv_tc<128>(q, k, v, segq, segk, dout, lse, di, dk, dv, r, s)
+                      : bwd_dkv<float, 128>(q, k, v, segq, segk, dout, lse, di, dk, dv, r, s));
+  return (int)(bf16 ? bwd_dkv_tc<256>(q, k, v, segq, segk, dout, lse, di, dk, dv, r, s)
+                    : bwd_dkv<float, 256>(q, k, v, segq, segk, dout, lse, di, dk, dv, r, s));
 }

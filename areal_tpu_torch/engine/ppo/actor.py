@@ -23,7 +23,7 @@ import torch
 
 from areal_tpu_torch.api.config import NormConfig, PPOActorConfig
 from areal_tpu_torch.engine.torch_train import TorchTrainEngine
-from areal_tpu_torch.ops.functional import grpo_loss_fn, lm_logprobs_entropy
+from areal_tpu_torch.ops.functional import grpo_loss_fn, lm_logprobs_entropy, next_token_labels
 from areal_tpu_torch.ops.gae import gae_padded
 from areal_tpu_torch.utils import stats
 from areal_tpu_torch.utils.data import (
@@ -86,8 +86,7 @@ class PPOActor:
         vchunk = self.config.lm_head_chunk or None
 
         def hook(model_out, mb):
-            labels = torch.roll(mb["input_ids"], -1, dims=-1)
-            logp, _, _ = lm_logprobs_entropy(model_out, labels, temperature=temp,
+            logp, _, _ = lm_logprobs_entropy(model_out, next_token_labels(mb), temperature=temp,
                                              with_entropy=False, vocab_chunk=vchunk)
             return logp
 

@@ -1,5 +1,6 @@
-"""TorchTrainEngine: the single-GPU training backend (the port of
-`areal_tpu/engine/jax_train.py JaxTrainEngine`).
+"""TorchTrainEngine: the training backend (the port of
+`areal_tpu/engine/jax_train.py JaxTrainEngine`), on one device or over a
+(dp, sp) mesh of ranks.
 
 - Parameters are `param_dtype` masters (f32 by default) in the port's
   `Transformer`; the forward computes in `dtype` (bf16 by default),
@@ -46,9 +47,29 @@ hash) before packing; with telemetry on it observes each row's
 staleness at consumption (the trainer's version minus the row's newest
 behaviour version) and emits a `train_consume` event per row.
 
-Not ported yet: meshes beyond one device, LoRA, `async_stats`, the
-name_resolve version handshake and router notice of a publish, and the
-per-step train-stats gauges.
+Multi-process (`parallel/`): `initialize` joins the process group under
+the env contract of `parallel/distributed.py` (nothing with one process),
+puts the rank on its device and builds the mesh of `config.mesh` (dp and
+sp; fsdp, tp and ep raise).  The head's parameters are broadcast, so
+every rank starts bit-equal.  Every rank holds the same whole host batch
+(the head's rollout, broadcast by `core/dist_rollout.py`); packing
+rounds the row count to a multiple of n_mbs x dp, as the JAX engine
+does, and each micro-batch's device batch is the rank's shard: rows over
+dp, sequence over sp.  Next-token `labels` are formed from the whole rows
+before that, so a shard's last position is scored against the next
+shard's first token.  Each rank's loss is its tokens' sum over the whole
+batch's weight; losses, stats and gradients are summed over every rank
+of the mesh, the gradient before `AdamW.step` (whose norm is then the
+whole batch's), so the ranks' parameters stay bit-equal.  `forward`
+gathers every rank's logprobs, so each rank returns the whole batch's.
+`save`, `stage_weights` and `update_weights` write and post from the
+head alone, then wait at a barrier.  A departure: GSPMD pads a row
+length that sp does not divide, the port cannot, so `initialize` raises
+unless sp divides `pack_length_quantum` and `max_pack_length`.
+
+Not ported yet: the fsdp, tp and ep axes (FSDP2 and DTensor), ring
+attention, LoRA, `async_stats`, the name_resolve version handshake and
+router notice of a publish, and the per-step train-stats gauges.
 `warm_shapes` has no counterpart: eager PyTorch compiles nothing per
 shape.
 """
@@ -68,7 +89,7 @@ import torch
 
 from areal_tpu_torch.api.config import OptimizerConfig, TrainEngineConfig
 from areal_tpu_torch.api.io_struct import FinetuneSpec, SaveLoadMeta, WeightUpdateMeta
-from areal_tpu_torch.device import DeviceLike, resolve_device
+from areal_tpu_torch.device import DeviceLike
 from areal_tpu_torch.models import safetensors_io
 from areal_tpu_torch.models.hf import load_hf_params, params_to_hf_state, save_hf_checkpoint
 from areal_tpu_torch.models.model_config import TransformerConfig
@@ -80,7 +101,9 @@ from areal_tpu_torch.models.transformer import (
     init_params,
 )
 from areal_tpu_torch.ops.attention import ATTN_IMPLS
-from areal_tpu_torch.ops.functional import lm_logprobs_entropy
+from areal_tpu_torch.ops.functional import lm_logprobs_entropy, next_token_labels
+from areal_tpu_torch.parallel import distributed
+from areal_tpu_torch.parallel.mesh import Mesh, build_mesh, mesh_from_alloc
 from areal_tpu_torch.utils import telemetry
 from areal_tpu_torch.utils.data import RowPackedBatch, pack_into_rows, unpack_rows
 from areal_tpu_torch.utils.datapack import round_up_to_bucket
@@ -94,8 +117,7 @@ Batch = Dict[str, torch.Tensor]
 
 def _logp_hook(model_out, mb: Batch) -> torch.Tensor:
     """Default forward hook: next-token logprobs at predictor positions."""
-    labels = torch.roll(mb["input_ids"], -1, dims=-1)
-    logp, _, _ = lm_logprobs_entropy(model_out, labels, with_entropy=False)
+    logp, _, _ = lm_logprobs_entropy(model_out, next_token_labels(mb), with_entropy=False)
     return logp
 
 
@@ -230,6 +252,7 @@ class TorchTrainEngine:
         self.model_config = model_config
         self._device_arg = device
         self.device: Optional[torch.device] = None
+        self.mesh: Optional[Mesh] = None
         self.model = None
         self.step_count = 0
         self._version = 0
@@ -244,6 +267,24 @@ class TorchTrainEngine:
     # setup
     # ------------------------------------------------------------------
 
+    def create_process_group(self, alloc_mode=None) -> None:
+        """Join the process group (a no-op with one process) and build the
+        mesh: the allocation's train strategy when `alloc_mode` has one,
+        else `config.mesh`."""
+        if self.mesh is not None:
+            return
+        distributed.init_distributed(self._device_arg)
+        if alloc_mode is not None and getattr(alloc_mode, "train", None):
+            self.mesh = mesh_from_alloc(alloc_mode.train)
+        else:
+            m = self.config.mesh
+            self.mesh = build_mesh(dp=m.data_parallel_size, fsdp=m.fsdp_parallel_size,
+                                   sp=m.sequence_parallel_size, tp=m.tensor_parallel_size,
+                                   ep=m.expert_parallel_size)
+        logger.info("mesh %s, rank %d of %d (%s)", self.mesh.shape,
+                    distributed.process_index(), distributed.process_count(),
+                    distributed.backend() or "one process")
+
     def initialize(self, addr: Optional[str] = None,
                    ft_spec: Optional[FinetuneSpec] = None) -> None:
         cfg = self.config
@@ -252,7 +293,15 @@ class TorchTrainEngine:
             # silently take the auto ladder (JAX's engine refuses it too)
             raise ValueError(f"unknown attn_impl {cfg.attn_impl!r}: use auto, splash, "
                              "naive, or ring")
-        self.device = resolve_device(self._device_arg)
+        self.create_process_group()
+        sp = self.mesh.sp
+        if cfg.pack_length_quantum % sp or cfg.max_pack_length % sp:
+            raise ValueError(f"sequence parallelism over {sp} ranks needs row lengths it "
+                             f"divides: pack_length_quantum {cfg.pack_length_quantum} and "
+                             f"max_pack_length {cfg.max_pack_length} must be multiples of {sp}")
+        self.device = distributed.rank_device(self._device_arg)
+        if self.device.type == "cuda":
+            torch.cuda.set_device(self.device)
         self._ft_spec = ft_spec
         if cfg.path and not cfg.init_from_scratch:
             model, mc = load_hf_params(cfg.path, self.model_config, self.device,
@@ -273,6 +322,9 @@ class TorchTrainEngine:
         )
         check_trainable(self.model_config)
         model.cfg = self.model_config
+        with torch.no_grad():
+            for p in model.parameters():  # every rank starts from the head's values
+                distributed.broadcast_(p.data, self.mesh.group)
         self.model = model.requires_grad_(True)
         if cfg.optimizer is not None:
             self._build_optimizer(ft_spec)
@@ -301,11 +353,13 @@ class TorchTrainEngine:
         assert self.initialized
         if meta.weight_format != "safetensors":
             raise NotImplementedError(f"weight format {meta.weight_format!r}")
-        save_hf_checkpoint(self.model, meta.path,
-                           save_dtype="float32" if meta.with_optim else "bfloat16")
-        if meta.with_optim and self._optimizer is not None:
-            self._optimizer.save(os.path.join(meta.path, "optimizer"),
-                                 extra={"step_count": self.step_count})
+        if distributed.is_head():  # the ranks' parameters are bit-equal
+            save_hf_checkpoint(self.model, meta.path,
+                               save_dtype="float32" if meta.with_optim else "bfloat16")
+            if meta.with_optim and self._optimizer is not None:
+                self._optimizer.save(os.path.join(meta.path, "optimizer"),
+                                     extra={"step_count": self.step_count})
+        self._barrier()
 
     @torch.no_grad()
     def load(self, meta: SaveLoadMeta) -> None:
@@ -326,11 +380,33 @@ class TorchTrainEngine:
                                  "no optimizer")
             self.step_count = int(self._optimizer.load(opt_dir)["step_count"])
 
+    def _barrier(self) -> None:
+        if self.mesh is not None and self.mesh.group is not None:
+            torch.distributed.barrier(group=self.mesh.group)
+
     def set_version(self, version: int) -> None:
         self._version = version
 
     def get_version(self) -> int:
         return self._version
+
+    # ------------------------------------------------------------------
+    # data-parallel topology (the JAX engine's: one process a rank)
+    # ------------------------------------------------------------------
+
+    @property
+    def data_parallel_rank(self) -> int:
+        return distributed.process_index()
+
+    @property
+    def data_parallel_world_size(self) -> int:
+        return distributed.process_count()
+
+    def is_data_parallel_head(self) -> bool:
+        return distributed.is_head()
+
+    def current_data_parallel_head(self) -> int:
+        return 0
 
     # ------------------------------------------------------------------
     # batch preparation
@@ -344,11 +420,14 @@ class TorchTrainEngine:
 
     def _prepare_rows(self, batch: Dict[str, np.ndarray],
                       n_mbs: int) -> Tuple[RowPackedBatch, Dict[str, np.ndarray], int]:
-        """Row-pack a padded batch; the row count is divisible by n_mbs."""
+        """Row-pack a padded batch; the row count is divisible by n_mbs x
+        dp, and `labels` are the whole rows' next tokens."""
         row_len = self._row_len(batch)
-        rp = pack_into_rows(batch, row_len, rows_multiple=n_mbs, rows_bucket_pow2=True)
+        rp = pack_into_rows(batch, row_len, rows_multiple=n_mbs * self.mesh.row_shards,
+                            rows_bucket_pow2=True)
         data = dict(rp.data)
         data["input_ids"] = data["input_ids"].astype(np.int32)
+        data["labels"] = np.roll(data["input_ids"], -1, axis=-1)
         # filler rows and tokens never contribute to the loss
         if "loss_mask" in data:
             data["loss_mask"] = data["loss_mask"] * (data["segment_ids"] >= 0)
@@ -360,14 +439,22 @@ class TorchTrainEngine:
 
     def _micro_batches(self, data: Dict[str, np.ndarray], n_mbs: int) -> Iterator[Batch]:
         """[R, L] rows -> n_mbs device batches of R / n_mbs consecutive rows
-        (rows were FFD-balanced, so token counts are roughly even)."""
+        (rows were FFD-balanced, so token counts are roughly even), each
+        this rank's shard of them."""
         R = data["input_ids"].shape[0]
         per = R // n_mbs
         for i in range(n_mbs):
-            yield self._to_device({k: v[i * per:(i + 1) * per] for k, v in data.items()})
+            yield self._to_device(distributed.make_global_batch(
+                self.mesh, {k: v[i * per:(i + 1) * per] for k, v in data.items()}))
 
     def _call_model(self, mb: Batch):
-        return forward_lm(self.model, mb["input_ids"], mb["positions"], mb["segment_ids"])
+        return forward_lm(self.model, mb["input_ids"], mb["positions"], mb["segment_ids"],
+                          mesh=self.mesh)
+
+    def _sum_over_mesh(self, values: List[torch.Tensor]) -> List[float]:
+        """Sums over every rank of the mesh, in one collective and one host
+        transfer."""
+        return distributed.all_sum_(torch.stack(values), self.mesh.group).cpu().tolist()
 
     # ------------------------------------------------------------------
     # train / eval / forward
@@ -420,12 +507,18 @@ class TorchTrainEngine:
             loss_sum += loss.detach()
             for k, v in stats.items():
                 stat_sums[k] = stat_sums.get(k, 0.0) + v.detach().float()
+        if self.mesh.group is not None:  # the whole batch's gradient on every rank
+            for p in self.model.parameters():
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+            distributed.all_sum_grads_(self.model.parameters(), self.mesh.group)
         grad_norm, lr = self._optimizer.step()
         self.model.zero_grad(set_to_none=True)  # free the gradients until the next step
         self.step_count += 1
-        keys = list(stat_sums) + ["grad_norm", "loss"]
-        values = torch.stack([*stat_sums.values(), grad_norm.float(), loss_sum])
-        out = dict(zip(keys, values.cpu().tolist()))  # one host transfer, after the step
+        keys = list(stat_sums) + ["loss"]
+        sums = self._sum_over_mesh([*stat_sums.values(), loss_sum])
+        out = dict(zip(keys, sums))
+        out["grad_norm"] = grad_norm.item()  # one host transfer, after the step
         out["lr"] = lr
         out["total_loss_weight"] = total_weight
         out["step_time"] = time.perf_counter() - t0
@@ -435,8 +528,14 @@ class TorchTrainEngine:
         n_segs = int(np.sum(np.where(seg.max(axis=-1) >= 0, seg.max(axis=-1) + 1, 0)))
         mean_seg = max(1, tokens // max(1, n_segs))
         tps = tokens / max(out["step_time"], 1e-9)
-        out["tflops_per_chip"] = tps * train_flops_per_token(self.model_config, mean_seg) / 1e12
-        m = mfu(tps, self.model_config, mean_seg) if self.device.type == "cuda" else None
+        # the whole batch's tokens over the cards the mesh's ranks run on
+        # (ranks share a card when there are more of them than cards)
+        n_chips = (min(self.mesh.size, torch.cuda.device_count()) if self.device.type == "cuda"
+                   else self.mesh.size)
+        out["tflops_per_chip"] = (tps * train_flops_per_token(self.model_config, mean_seg)
+                                  / 1e12 / n_chips)
+        m = (mfu(tps, self.model_config, mean_seg, n_chips=n_chips)
+             if self.device.type == "cuda" else None)
         if m is not None:
             out["mfu"] = m
         return out
@@ -455,7 +554,7 @@ class TorchTrainEngine:
             loss_sum += loss.float()
             for k, v in stats.items():
                 stat_sums[k] = stat_sums.get(k, 0.0) + v.float()
-        values = torch.stack([*stat_sums.values(), loss_sum]).cpu().tolist()
+        values = self._sum_over_mesh([*stat_sums.values(), loss_sum])
         out = dict(zip(stat_sums, values[:-1]))
         out["loss"] = values[-1] / max(total_weight, 1e-8)
         return out
@@ -466,17 +565,21 @@ class TorchTrainEngine:
                 aggregate_fn: Optional[Callable] = None) -> np.ndarray:
         """No-grad forward over all rows at once; returns a padded [B, L]
         array aligned with the input batch (default: next-token logprobs at
-        predictor positions)."""
+        predictor positions).  Over a mesh each rank runs its shard and
+        every rank returns the whole batch's array."""
         assert self.initialized
         if output_key != "logprobs":
             raise NotImplementedError("forward() returns per-token arrays directly")
         if aggregate_fn is not None:
             raise NotImplementedError("forward() runs all rows at once; nothing to aggregate")
         rp, data, row_len = self._prepare_rows(input_, 1)
-        mb = self._to_device({k: data[k] for k in self.FORWARD_KEYS})
-        rows = (post_hook or _logp_hook)(self._call_model(mb), mb)
+        mb = next(self._micro_batches({k: data[k] for k in (*self.FORWARD_KEYS, "labels")}, 1))
+        rows = (post_hook or _logp_hook)(self._call_model(mb), mb).float()
+        R, T = data["input_ids"].shape
+        starts = (self.mesh.row_slice(R).start, self.mesh.seq_slice(T).start)
+        rows = distributed.gather_blocks(rows, (R, T), starts, self.mesh.group)
         B, L = input_["attention_mask"].shape
-        return unpack_rows(rp, rows.float().cpu().numpy(), B, L)
+        return unpack_rows(rp, rows.cpu().numpy(), B, L)
 
     # ------------------------------------------------------------------
     # weights
@@ -502,12 +605,14 @@ class TorchTrainEngine:
         tensor into the servers' staging buffers and `prepare` (assembly on
         their devices).  Nothing is swapped.  Call at the version
         `update_weights` publishes."""
-        if meta.type == "disk":
-            self._write_disk_snapshot(meta)
-        elif meta.type == "transfer":
-            self._push_transfer_chunks(meta)
-        else:
+        if meta.type not in ("disk", "transfer"):
             raise NotImplementedError(f"weight update type {meta.type!r}")
+        if distributed.is_head():
+            if meta.type == "disk":
+                self._write_disk_snapshot(meta)
+            else:
+                self._push_transfer_chunks(meta)
+        self._barrier()
         self._staged = (meta.type, self._version)
 
     def update_weights(self, meta: WeightUpdateMeta) -> None:
@@ -518,17 +623,19 @@ class TorchTrainEngine:
         consumed either way, so a failed commit is retried with a push."""
         t0 = time.perf_counter()
         try:
-            if meta.type == "disk":
-                if self._staged != ("disk", self._version):
-                    self._write_disk_snapshot(meta)
-            elif meta.type == "transfer":
-                if self._staged != ("transfer", self._version):
-                    self._push_transfer_chunks(meta)
-                self._commit_transfer(meta)
-            else:
+            if meta.type not in ("disk", "transfer"):
                 raise NotImplementedError(f"weight update type {meta.type!r}")
+            staged = self._staged == (meta.type, self._version)
+            if distributed.is_head():  # the head writes and posts for every rank
+                if meta.type == "disk" and not staged:
+                    self._write_disk_snapshot(meta)
+                elif meta.type == "transfer":
+                    if not staged:
+                        self._push_transfer_chunks(meta)
+                    self._commit_transfer(meta)
         finally:
             self._staged = None
+        self._barrier()
         self.last_weight_update_seconds = time.perf_counter() - t0
 
     def _write_disk_snapshot(self, meta: WeightUpdateMeta) -> None:

@@ -115,8 +115,8 @@ class TransformerConfig:
     layer_group_size: int = 1
     # training attention: "auto" and "splash" take the flash kernels where
     # flash_supported admits the shape, "naive" forces naive_attention,
-    # "ring" (sequence parallelism, which one card has not) warns and takes
-    # the auto ladder
+    # "ring" (ring attention, not ported) raises under an sp > 1 mesh and
+    # without one warns and takes the auto ladder, as JAX does
     attn_impl: str = "auto"  # auto | splash | naive | ring
 
     # vision-language (None = text-only); Qwen2-VL-style mrope: the rope

@@ -636,8 +636,13 @@ class LMOutput(NamedTuple):
 
 
 def _backbone(model: Transformer, input_ids: torch.Tensor, positions: torch.Tensor,
-              segment_ids: torch.Tensor) -> torch.Tensor:
+              segment_ids: torch.Tensor, mesh=None) -> torch.Tensor:
     """Layer loop -> final-norm hidden [B, T, D] in the compute dtype.
+
+    Under a `mesh` with an sp axis > 1 the inputs are this rank's sequence
+    shard of each row: embeddings, positions and rope come from the
+    shard's own tokens, and each layer's attention sees the whole row
+    (`make_segment_attention`'s sharded path).
 
     Attention is `make_segment_attention`'s: the flash kernels when the
     packed row shape passes `flash_supported`, the windows are uniform and
@@ -654,7 +659,7 @@ def _backbone(model: Transformer, input_ids: torch.Tensor, positions: torch.Tens
     attend = make_segment_attention(segment_ids, positions, cfg.num_heads, cfg.num_kv_heads,
                                     cfg.head_dim_, cfg.sliding_window, cfg.attn_logit_softcap,
                                     per_layer_window=_per_layer_window(cfg),
-                                    attn_impl=cfg.attn_impl)
+                                    attn_impl=cfg.attn_impl, mesh=mesh)
     layers = list(zip(model.model.layers, layer_sliding_flags(cfg)))
     G = max(1, cfg.layer_group_size)
 
@@ -674,9 +679,10 @@ def _backbone(model: Transformer, input_ids: torch.Tensor, positions: torch.Tens
 
 
 def forward_hidden(model: Transformer, input_ids: torch.Tensor, positions: torch.Tensor,
-                   segment_ids: torch.Tensor) -> torch.Tensor:
-    """Backbone forward -> final-norm hidden states [B, T, D]."""
-    return _backbone(model, input_ids, positions, segment_ids)
+                   segment_ids: torch.Tensor, mesh=None) -> torch.Tensor:
+    """Backbone forward -> final-norm hidden states [B, T, D] (a rank's
+    sequence shard under a `mesh` with sp > 1)."""
+    return _backbone(model, input_ids, positions, segment_ids, mesh)
 
 
 def forward(model: Transformer, input_ids: torch.Tensor, positions: torch.Tensor,
@@ -694,8 +700,9 @@ def forward_packed(model: Transformer, packed: Dict[str, torch.Tensor]) -> torch
 
 
 def forward_lm(model: Transformer, input_ids: torch.Tensor, positions: torch.Tensor,
-               segment_ids: torch.Tensor) -> LMOutput:
-    """Backbone forward with a deferred LM head (see LMOutput)."""
-    x = _backbone(model, input_ids, positions, segment_ids)
+               segment_ids: torch.Tensor, mesh=None) -> LMOutput:
+    """Backbone forward with a deferred LM head (see LMOutput); under a
+    `mesh` with sp > 1, over this rank's sequence shard."""
+    x = _backbone(model, input_ids, positions, segment_ids, mesh)
     return LMOutput(hidden=x, head=model.head().t(),
                     logit_softcap=model.cfg.final_logit_softcap)

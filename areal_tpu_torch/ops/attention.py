@@ -13,6 +13,19 @@ that gate, under gemma2's per-layer windows and when the config's
 dtype, then f32, scale, optional softcap, mask to `MASK_VALUE`, softmax,
 probabilities cast to the value dtype, then PV) is also the op order of
 the ragged decode kernel and its plain version (`ops/ragged_decode.py`).
+
+Under a mesh with an sp axis > 1 (`parallel/mesh.py`) the layer loop
+holds one sequence shard of each packed row, and `make_segment_attention`
+is the port of `_sharded_splash`: the rank's T/sp query rows attend the
+whole row's K/V.  The kv segment ids (and positions) are gathered over
+sp once per forward, K and V once per layer (`distributed.seq_gather`,
+whose backward sum-scatters the dK/dV partials of every shard back to
+their owner), and the flash kernels run with the shard's query offset.
+The naive rung and gemma2's per-layer windows mask the rank's rows
+against the gathered K/V with a [Tq, Tk] mask, which is what GSPMD
+makes of the JAX package's naive path when `splash_supported(..., sp)`
+fails.  `attn_impl="ring"` raises there: the JAX package runs
+`ring_attention`, which the port has not ported yet.
 """
 
 import math
@@ -22,6 +35,7 @@ from typing import Callable, Optional
 import torch
 
 from areal_tpu_torch.ops.flash_attention import flash_supported, segment_flash_attention
+from areal_tpu_torch.parallel import distributed
 
 MASK_VALUE = -2.3819763e38
 ATTN_IMPLS = ("auto", "splash", "naive", "ring")
@@ -31,15 +45,21 @@ def make_attention_mask(
     segment_ids: torch.Tensor,  # [B, T] int, -1 = padding
     positions: torch.Tensor,  # [B, T] int
     sliding_window: Optional[int] = None,
+    kv_segment_ids: Optional[torch.Tensor] = None,  # [B, S]; default segment_ids
+    kv_positions: Optional[torch.Tensor] = None,  # [B, S]; default positions
 ) -> torch.Tensor:
-    """-> bool [B, 1, T, T]: same segment, not padding, causal by position
-    within the segment (and inside the window when one is set)."""
+    """-> bool [B, 1, T, S]: same segment, not padding, causal by position
+    within the segment (and inside the window when one is set).  The keys
+    are the queries unless `kv_segment_ids` and `kv_positions` say
+    otherwise (a sequence shard's queries against the whole row)."""
+    kv_seg = segment_ids if kv_segment_ids is None else kv_segment_ids
+    kv_pos = positions if kv_positions is None else kv_positions
     seg_q = segment_ids[:, :, None]
-    seg_k = segment_ids[:, None, :]
+    seg_k = kv_seg[:, None, :]
     same = (seg_q == seg_k) & (seg_q >= 0)
-    mask = same & (positions[:, None, :] <= positions[:, :, None])
+    mask = same & (kv_pos[:, None, :] <= positions[:, :, None])
     if sliding_window is not None:
-        mask &= positions[:, None, :] > positions[:, :, None] - sliding_window
+        mask &= kv_pos[:, None, :] > positions[:, :, None] - sliding_window
     return mask[:, None, :, :]
 
 
@@ -84,6 +104,7 @@ def make_segment_attention(
     logit_softcap: Optional[float] = None,
     per_layer_window: bool = False,
     attn_impl: str = "auto",
+    mesh=None,
 ) -> Callable[..., torch.Tensor]:
     """`attend(q, k, v, sliding=False)` for packed rows with these segment
     ids, the ladder JAX's `_backbone` climbs: with `per_layer_window`
@@ -93,29 +114,53 @@ def make_segment_attention(
     uniform window and the softcap go to the kernels); else
     `naive_attention` over one mask built once, so a layer loop reuses it.
     "auto" and "splash" both mean the flash kernels where they fit.
-    "ring" needs a sequence-parallel mesh, which one card does not have:
-    it warns, as JAX does without one, and climbs the same ladder."""
-    T = segment_ids.shape[1]
+    Without a sequence-parallel mesh "ring" warns, as JAX does without
+    one, and climbs the same ladder; with one it raises (not ported).
+
+    Under a mesh (`parallel/mesh.py`) whose sp axis is > 1, `segment_ids`
+    and `positions` are this rank's sequence shard ([B, T/sp]) and so are
+    the q, k, v `attend` gets: the kv ids and positions are gathered here
+    once, K and V in each `attend`, and the shard's queries attend the
+    whole row (module docstring)."""
+    sp = mesh.sp if mesh is not None else 1
     if attn_impl == "ring":
+        if sp > 1:
+            raise NotImplementedError(
+                "attn_impl='ring' under an sp > 1 mesh runs the JAX package's ring_attention "
+                "(areal_tpu/ops/attention.py:248), which is not ported yet (ROADMAP M9b)")
         reason = ("per-layer sliding windows (gemma2) are mask-based" if per_layer_window
                   else "the mesh has no sp>1 axis")
         warnings.warn(f"attn_impl='ring' requested but unused: {reason}; falling back to "
                       "the splash/naive ladder", stacklevel=2)
+    group = mesh.groups["sp"] if sp > 1 else None
+    q_start = mesh.coords["sp"] * segment_ids.shape[1] if sp > 1 else 0
+    kv_seg = distributed.seq_gather(segment_ids, group)
+    kv_pos = distributed.seq_gather(positions, group)
+    T = kv_seg.shape[1]  # the whole row
+
+    def gathered(k, v):
+        return distributed.seq_gather(k, group), distributed.seq_gather(v, group)
+
     if per_layer_window:
-        mask = make_attention_mask(segment_ids, positions)
-        mask_win = make_attention_mask(segment_ids, positions, sliding_window)
+        mask = make_attention_mask(segment_ids, positions, None, kv_seg, kv_pos)
+        mask_win = make_attention_mask(segment_ids, positions, sliding_window, kv_seg, kv_pos)
 
         def attend(q, k, v, sliding=False):
+            k, v = gathered(k, v)
             return naive_attention(q, k, v, mask_win if sliding else mask, logit_softcap)
-    elif attn_impl != "naive" and flash_supported(T, num_heads, num_kv_heads, head_dim):
+    elif attn_impl != "naive" and flash_supported(T, num_heads, num_kv_heads, head_dim, sp):
         seg = segment_ids.to(torch.int32).contiguous()
+        kv_seg = kv_seg.to(torch.int32).contiguous() if sp > 1 else None
 
         def attend(q, k, v, sliding=False):
-            return segment_flash_attention(q, k, v, seg, sliding_window, logit_softcap)
+            k, v = gathered(k, v)
+            return segment_flash_attention(q, k, v, seg, sliding_window, logit_softcap,
+                                           q_start, kv_seg)
     else:
-        mask = make_attention_mask(segment_ids, positions, sliding_window)
+        mask = make_attention_mask(segment_ids, positions, sliding_window, kv_seg, kv_pos)
 
         def attend(q, k, v, sliding=False):
+            k, v = gathered(k, v)
             return naive_attention(q, k, v, mask, logit_softcap)
     return attend
 

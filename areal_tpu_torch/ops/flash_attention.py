@@ -33,6 +33,17 @@ bfloat16 runs on the tensor cores (counted again in `.launches_tc`),
 float32 on the CUDA cores, whose f32 products the tensor cores (TF32 at
 best) could not keep.
 
+Query offset.  Every function here also takes `q_start` and
+`kv_segment_ids`: the queries are then rows [q_start, q_start + Tq) of
+packed rows whose keys k and v hold all Tk positions, causality and the
+window are taken on global positions, `segment_ids` are the queries' [B,
+Tq] and `kv_segment_ids` the keys' [B, Tk] (of which the queries' are the
+slice).  That is one sequence-parallel shard of `_sharded_splash`
+(`ops/attention.py` runs it): dq is the shard's, and dk/dv are the shard's
+partials over every key (zero for keys no query of the shard sees), to be
+summed across shards.  q_start = 0 with no `kv_segment_ids` is the
+unsharded call, arithmetic unchanged.
+
 `segment_flash_attention` calls the forward through one
 `torch.library` custom op, `areal_torch::flash_attention` (out and lse,
 with the dq and dk/dv kernels as its registered backward), so that the
@@ -60,14 +71,16 @@ HEAD_DIMS = (128, 256)  # the kernels' head dims
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
-def flash_supported(T: int, Hq: int, Hkv: int, hd: int) -> bool:
+def flash_supported(T: int, Hq: int, Hkv: int, hd: int, sp: int = 1) -> bool:
     """Shapes the kernels take; everything else runs `naive_attention`, as
     JAX's `splash_supported` sends its misfits there.  It admits packed
-    training rows with T >= 256, T % 128 == 0 and a head dim of 128
-    (Qwen2.5, Qwen3, Llama) or 256 (Gemma); splash takes any multiple of
-    128, so a head dim of 384 or more takes the naive path here where JAX
-    would run splash."""
-    return T >= 256 and T % 128 == 0 and hd in HEAD_DIMS and Hkv > 0 and Hq % Hkv == 0
+    training rows with T >= 256, T % (128 * sp) == 0 (each of `sp`
+    sequence shards a multiple of 128 rows) and a head dim of 128 (Qwen2.5,
+    Qwen3, Llama) or 256 (Gemma); splash takes any multiple of 128, so a
+    head dim of 384 or more takes the naive path here where JAX would run
+    splash."""
+    return (T >= 256 and T % (128 * sp) == 0 and hd in HEAD_DIMS and Hkv > 0
+            and Hq % Hkv == 0)
 
 
 # ---------------------------------------------------------------------------
@@ -75,15 +88,18 @@ def flash_supported(T: int, Hq: int, Hkv: int, hd: int) -> bool:
 # ---------------------------------------------------------------------------
 
 
-def _allowed(segment_ids: torch.Tensor, window: Optional[int]) -> torch.Tensor:
-    """bool [B, 1, 1, T, T] (query, key): same valid segment, key at or
-    before the query, inside the window."""
-    T = segment_ids.shape[1]
-    idx = torch.arange(T, device=segment_ids.device)
-    sq, sk = segment_ids[:, :, None], segment_ids[:, None, :]
-    mask = (sq == sk) & (sq >= 0) & (idx[None, :] <= idx[:, None])
+def _allowed(segment_ids: torch.Tensor, window: Optional[int], q_start: int = 0,
+             kv_segment_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """bool [B, 1, 1, Tq, Tk] (query, key): same valid segment, key at or
+    before the query's global position q_start + i, inside the window."""
+    kv = segment_ids if kv_segment_ids is None else kv_segment_ids
+    Tq, Tk = segment_ids.shape[1], kv.shape[1]
+    qi = torch.arange(q_start, q_start + Tq, device=segment_ids.device)
+    kj = torch.arange(Tk, device=segment_ids.device)
+    sq, sk = segment_ids[:, :, None], kv[:, None, :]
+    mask = (sq == sk) & (sq >= 0) & (kj[None, :] <= qi[:, None])
     if window:
-        mask &= idx[None, :] > idx[:, None] - window
+        mask &= kj[None, :] > qi[:, None] - window
     return mask[:, None, None]
 
 
@@ -106,13 +122,15 @@ def _to_bkgt(x: torch.Tensor, Hkv: int) -> torch.Tensor:
 
 
 def flash_fwd_plain(qs, k, v, segment_ids, window: Optional[int] = None,
-                    softcap: Optional[float] = None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The forward kernel's function: (out [B, T, Hq, hd] in q's dtype,
-    lse f32 [B, Hq, T])."""
+                    softcap: Optional[float] = None, q_start: int = 0,
+                    kv_segment_ids: Optional[torch.Tensor] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The forward kernel's function: (out [B, Tq, Hq, hd] in q's dtype,
+    lse f32 [B, Hq, Tq])."""
     B, T, Hq, hd = qs.shape
     Hkv = k.shape[2]
     s, _ = _scores(qs, k, softcap)
-    mask = _allowed(segment_ids, window)
+    mask = _allowed(segment_ids, window, q_start, kv_segment_ids)
     m = torch.where(mask, s, -torch.inf).amax(dim=-1)
     p = torch.where(mask, torch.exp(s - m[..., None]), 0.0)
     l = p.sum(dim=-1)
@@ -123,12 +141,13 @@ def flash_fwd_plain(qs, k, v, segment_ids, window: Optional[int] = None,
     return out, lse
 
 
-def _probs_ds(qs, k, v, segment_ids, dout, lse, di, window, softcap):
-    """The backward's P and dS [B, Hkv, G, T, S] in f32."""
+def _probs_ds(qs, k, v, segment_ids, dout, lse, di, window, softcap, q_start=0,
+              kv_segment_ids=None):
+    """The backward's P and dS [B, Hkv, G, Tq, Tk] in f32."""
     Hkv = k.shape[2]
     B, T, Hq, hd = qs.shape
     s, t = _scores(qs, k, softcap)
-    mask = _allowed(segment_ids, window)
+    mask = _allowed(segment_ids, window, q_start, kv_segment_ids)
     p = torch.where(mask, torch.exp(s - _to_bkgt(lse, Hkv)[..., None]), 0.0)
     dp = torch.einsum("btkgh,bskh->bkgts", dout.reshape(B, T, Hkv, Hq // Hkv, hd).float(),
                       v.float())
@@ -139,22 +158,28 @@ def _probs_ds(qs, k, v, segment_ids, dout, lse, di, window, softcap):
 
 
 def flash_bwd_dq_plain(qs, k, v, segment_ids, dout, lse, di, window: Optional[int] = None,
-                       softcap: Optional[float] = None) -> torch.Tensor:
-    """The dq kernel's function: d loss / d q_s [B, T, Hq, hd] in q's dtype.
-    `di` [B, Hq, T] is sum(out * dout) over hd, in f32."""
+                       softcap: Optional[float] = None, q_start: int = 0,
+                       kv_segment_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The dq kernel's function: d loss / d q_s [B, Tq, Hq, hd] in q's
+    dtype.  `di` [B, Hq, Tq] is sum(out * dout) over hd, in f32."""
     B, T, Hq, hd = qs.shape
-    _, ds = _probs_ds(qs, k, v, segment_ids, dout, lse, di, window, softcap)
+    _, ds = _probs_ds(qs, k, v, segment_ids, dout, lse, di, window, softcap, q_start,
+                      kv_segment_ids)
     dq = torch.einsum("bkgts,bskh->btkgh", ds, k.float())
     return dq.reshape(B, T, Hq, hd).to(qs.dtype)
 
 
 def flash_bwd_dkv_plain(qs, k, v, segment_ids, dout, lse, di, window: Optional[int] = None,
-                        softcap: Optional[float] = None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The dk/dv kernel's function: (dk, dv) [B, T, Hkv, hd] in k's dtype,
-    summed over each kv head's q heads."""
+                        softcap: Optional[float] = None, q_start: int = 0,
+                        kv_segment_ids: Optional[torch.Tensor] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The dk/dv kernel's function: (dk, dv) [B, Tk, Hkv, hd] in k's
+    dtype, summed over each kv head's q heads (with an offset: the shard's
+    partials over every key)."""
     B, T, Hq, hd = qs.shape
     Hkv = k.shape[2]
-    p, ds = _probs_ds(qs, k, v, segment_ids, dout, lse, di, window, softcap)
+    p, ds = _probs_ds(qs, k, v, segment_ids, dout, lse, di, window, softcap, q_start,
+                      kv_segment_ids)
     q5 = qs.reshape(B, T, Hkv, Hq // Hkv, hd).float()
     do5 = dout.reshape(B, T, Hkv, Hq // Hkv, hd).float()
     dk = torch.einsum("bkgts,btkgh->bskh", ds, q5)
@@ -171,23 +196,28 @@ def flash_bwd_dkv_plain(qs, k, v, segment_ids, dout, lse, di, window: Optional[i
 def _lib():
     lib = _build.load("flash_attention")
     ptr, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    tail = [i] * 5 + [f, i, ptr]  # B, T, Hq, Hkv, hd, softcap, window, stream
-    lib.flash_fwd.argtypes = [i, i] + [ptr] * 6 + tail
-    lib.flash_bwd_dq.argtypes = [i, i] + [ptr] * 8 + tail
-    lib.flash_bwd_dkv.argtypes = [i, i] + [ptr] * 9 + tail
+    # B, q_start, Tq, Tk, Hq, Hkv, hd, softcap, window, stream
+    tail = [i] * 7 + [f, i, ptr]
+    lib.flash_fwd.argtypes = [i, i] + [ptr] * 7 + tail
+    lib.flash_bwd_dq.argtypes = [i, i] + [ptr] * 9 + tail
+    lib.flash_bwd_dkv.argtypes = [i, i] + [ptr] * 10 + tail
     for fn in (lib.flash_fwd, lib.flash_bwd_dq, lib.flash_bwd_dkv):
         fn.restype = ctypes.c_int
     return lib
 
 
-def _check(qs, k, v, segment_ids, *extra) -> None:
+def _check(qs, k, v, segment_ids, *extra, kv_segment_ids=None, q_start: int = 0) -> None:
+    if kv_segment_ids is None:
+        kv_segment_ids = segment_ids
     B, T, Hq, hd = qs.shape
-    Hkv = k.shape[2]
+    Tk, Hkv = k.shape[1], k.shape[2]
     if hd not in HEAD_DIMS or Hq % Hkv:
         raise ValueError(f"unsupported heads Hq={Hq} Hkv={Hkv} hd={hd} (hd in {HEAD_DIMS})")
     if qs.device.type != "cuda":
         raise ValueError(f"the flash kernels run on cuda, not {qs.device}")
-    for name, t in dict(k=k, v=v, segment_ids=segment_ids,
+    if q_start < 0 or q_start + T > Tk:
+        raise ValueError(f"query rows [{q_start}, {q_start + T}) outside the {Tk} keys")
+    for name, t in dict(k=k, v=v, segment_ids=segment_ids, kv_segment_ids=kv_segment_ids,
                         **{f"arg{i}": t for i, t in enumerate(extra)}).items():
         if t.device != qs.device:
             raise ValueError(f"{name} is on {t.device}, q on {qs.device}")
@@ -200,15 +230,19 @@ def _check(qs, k, v, segment_ids, *extra) -> None:
                         f"{k.dtype}, {v.dtype}")
     if segment_ids.dtype != torch.int32 or tuple(segment_ids.shape) != (B, T):
         raise TypeError(f"segment_ids must be int32 [{B}, {T}]")
-    if tuple(k.shape) != (B, T, Hkv, hd) or tuple(v.shape) != (B, T, Hkv, hd):
-        raise ValueError(f"k, v must be [{B}, {T}, Hkv, {hd}], got {tuple(k.shape)}, "
+    if kv_segment_ids.dtype != torch.int32 or tuple(kv_segment_ids.shape) != (B, Tk):
+        raise TypeError(f"kv_segment_ids must be int32 [{B}, {Tk}]")
+    if tuple(k.shape) != (B, Tk, Hkv, hd) or tuple(v.shape) != (B, Tk, Hkv, hd):
+        raise ValueError(f"k, v must be [{B}, {Tk}, Hkv, {hd}], got {tuple(k.shape)}, "
                          f"{tuple(v.shape)}")
 
 
-def _common(qs, window, softcap):
+def _rows(qs, k, window, softcap, q_start):
+    """The launch's trailing arguments: B, q_start, Tq, Tk, Hq, Hkv, hd,
+    softcap, window, stream."""
     B, T, Hq, hd = qs.shape
-    return (B, T, Hq, hd, float(softcap or 0.0), int(window or 0),
-            torch.cuda.current_stream(qs.device).cuda_stream)
+    return (B, q_start, T, k.shape[1], Hq, k.shape[2], hd, float(softcap or 0.0),
+            int(window or 0), torch.cuda.current_stream(qs.device).cuda_stream)
 
 
 def _raise(err: int, name: str) -> None:
@@ -217,59 +251,69 @@ def _raise(err: int, name: str) -> None:
 
 
 def flash_fwd(qs, k, v, segment_ids, window: Optional[int] = None,
-              softcap: Optional[float] = None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(out [B, T, Hq, hd], lse f32 [B, Hq, T]) of pre-scaled q_s; the
+              softcap: Optional[float] = None, q_start: int = 0,
+              kv_segment_ids: Optional[torch.Tensor] = None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(out [B, Tq, Hq, hd], lse f32 [B, Hq, Tq]) of pre-scaled q_s; the
     forward kernel on cuda, `flash_fwd_plain` on the CPU."""
     if qs.device.type == "cpu":
-        return flash_fwd_plain(qs, k, v, segment_ids, window, softcap)
-    _check(qs, k, v, segment_ids)
-    B, T, Hq, hd, cap, win, stream = _common(qs, window, softcap)
+        return flash_fwd_plain(qs, k, v, segment_ids, window, softcap, q_start, kv_segment_ids)
+    kv_seg = segment_ids if kv_segment_ids is None else kv_segment_ids
+    _check(qs, k, v, segment_ids, kv_segment_ids=kv_seg, q_start=q_start)
+    B, T, Hq, hd = qs.shape
     out = torch.empty_like(qs)
     lse = torch.empty((B, Hq, T), dtype=torch.float32, device=qs.device)
     bf16 = qs.dtype == torch.bfloat16
     _raise(_lib().flash_fwd(
-        qs.device.index or 0, int(bf16), qs.data_ptr(), k.data_ptr(),
-        v.data_ptr(), segment_ids.data_ptr(), out.data_ptr(), lse.data_ptr(),
-        B, T, Hq, k.shape[2], hd, cap, win, stream), "flash_fwd")
+        qs.device.index or 0, int(bf16), qs.data_ptr(), k.data_ptr(), v.data_ptr(),
+        segment_ids.data_ptr(), kv_seg.data_ptr(), out.data_ptr(), lse.data_ptr(),
+        *_rows(qs, k, window, softcap, q_start)), "flash_fwd")
     _build.count_launch(flash_fwd, tensor_cores=bf16, head_dim=hd)  # bf16: tensor cores
     return out, lse
 
 
 def flash_bwd_dq(qs, k, v, segment_ids, dout, lse, di, window: Optional[int] = None,
-                 softcap: Optional[float] = None) -> torch.Tensor:
+                 softcap: Optional[float] = None, q_start: int = 0,
+                 kv_segment_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
     """d loss / d q_s; the dq kernel on cuda, `flash_bwd_dq_plain` on the
     CPU."""
     if qs.device.type == "cpu":
-        return flash_bwd_dq_plain(qs, k, v, segment_ids, dout, lse, di, window, softcap)
-    _check(qs, k, v, segment_ids, dout, lse, di)
-    B, T, Hq, hd, cap, win, stream = _common(qs, window, softcap)
+        return flash_bwd_dq_plain(qs, k, v, segment_ids, dout, lse, di, window, softcap,
+                                  q_start, kv_segment_ids)
+    kv_seg = segment_ids if kv_segment_ids is None else kv_segment_ids
+    _check(qs, k, v, segment_ids, dout, lse, di, kv_segment_ids=kv_seg, q_start=q_start)
     dq = torch.empty_like(qs)
     bf16 = qs.dtype == torch.bfloat16
     _raise(_lib().flash_bwd_dq(
-        qs.device.index or 0, int(bf16), qs.data_ptr(), k.data_ptr(),
-        v.data_ptr(), segment_ids.data_ptr(), dout.data_ptr(), lse.data_ptr(),
-        di.data_ptr(), dq.data_ptr(), B, T, Hq, k.shape[2], hd, cap, win, stream),
+        qs.device.index or 0, int(bf16), qs.data_ptr(), k.data_ptr(), v.data_ptr(),
+        segment_ids.data_ptr(), kv_seg.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+        di.data_ptr(), dq.data_ptr(), *_rows(qs, k, window, softcap, q_start)),
         "flash_bwd_dq")
-    _build.count_launch(flash_bwd_dq, tensor_cores=bf16, head_dim=hd)  # bf16: tensor cores
+    _build.count_launch(flash_bwd_dq, tensor_cores=bf16,
+                        head_dim=qs.shape[-1])  # bf16: tensor cores
     return dq
 
 
 def flash_bwd_dkv(qs, k, v, segment_ids, dout, lse, di, window: Optional[int] = None,
-                  softcap: Optional[float] = None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(dk, dv), summed over each kv head's q heads; the dk/dv kernel on
-    cuda, `flash_bwd_dkv_plain` on the CPU."""
+                  softcap: Optional[float] = None, q_start: int = 0,
+                  kv_segment_ids: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dk, dv) over all Tk keys, summed over each kv head's q heads; the
+    dk/dv kernel on cuda, `flash_bwd_dkv_plain` on the CPU."""
     if qs.device.type == "cpu":
-        return flash_bwd_dkv_plain(qs, k, v, segment_ids, dout, lse, di, window, softcap)
-    _check(qs, k, v, segment_ids, dout, lse, di)
-    B, T, Hq, hd, cap, win, stream = _common(qs, window, softcap)
+        return flash_bwd_dkv_plain(qs, k, v, segment_ids, dout, lse, di, window, softcap,
+                                   q_start, kv_segment_ids)
+    kv_seg = segment_ids if kv_segment_ids is None else kv_segment_ids
+    _check(qs, k, v, segment_ids, dout, lse, di, kv_segment_ids=kv_seg, q_start=q_start)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     bf16 = qs.dtype == torch.bfloat16
     _raise(_lib().flash_bwd_dkv(
-        qs.device.index or 0, int(bf16), qs.data_ptr(), k.data_ptr(),
-        v.data_ptr(), segment_ids.data_ptr(), dout.data_ptr(), lse.data_ptr(),
-        di.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, T, Hq, k.shape[2], hd, cap, win,
-        stream), "flash_bwd_dkv")
-    _build.count_launch(flash_bwd_dkv, tensor_cores=bf16, head_dim=hd)  # bf16: tensor cores
+        qs.device.index or 0, int(bf16), qs.data_ptr(), k.data_ptr(), v.data_ptr(),
+        segment_ids.data_ptr(), kv_seg.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+        di.data_ptr(), dk.data_ptr(), dv.data_ptr(), *_rows(qs, k, window, softcap, q_start)),
+        "flash_bwd_dkv")
+    _build.count_launch(flash_bwd_dkv, tensor_cores=bf16,
+                        head_dim=qs.shape[-1])  # bf16: tensor cores
     return dk, dv
 
 
@@ -286,31 +330,33 @@ def attention_di(out: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:
 
 @torch.library.custom_op("areal_torch::flash_attention", mutates_args=())
 def flash_attention_op(qs: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                       segment_ids: torch.Tensor, window: int,
-                       softcap: float) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(out, lse) of pre-scaled q_s through `flash_fwd` (window 0 and
-    softcap 0 are off).  Its backward runs the dq and dk/dv kernels from
-    the saved q_s, k, v, out and lse; under `torch.utils.checkpoint` the
-    forward runs again during the backward unless the remat rung keeps its
-    outputs."""
-    return flash_fwd(qs, k, v, segment_ids, window or None, softcap or None)
+                       segment_ids: torch.Tensor, kv_segment_ids: torch.Tensor, q_start: int,
+                       window: int, softcap: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(out, lse) of pre-scaled q_s (query rows from `q_start` of the keys'
+    rows) through `flash_fwd` (window 0 and softcap 0 are off).  Its
+    backward runs the dq and dk/dv kernels from the saved q_s, k, v, out
+    and lse; under `torch.utils.checkpoint` the forward runs again during
+    the backward unless the remat rung keeps its outputs."""
+    return flash_fwd(qs, k, v, segment_ids, window or None, softcap or None, q_start,
+                     kv_segment_ids)
 
 
 def _flash_setup(ctx, inputs, output):
-    qs, k, v, segment_ids, window, softcap = inputs
+    qs, k, v, segment_ids, kv_segment_ids, q_start, window, softcap = inputs
     out, lse = output
     ctx.mark_non_differentiable(lse)
-    ctx.save_for_backward(qs, k, v, segment_ids, out, lse)
-    ctx.window, ctx.softcap = window or None, softcap or None
+    ctx.save_for_backward(qs, k, v, segment_ids, kv_segment_ids, out, lse)
+    ctx.q_start, ctx.window, ctx.softcap = q_start, window or None, softcap or None
 
 
 def _flash_backward(ctx, dout, _dlse):
-    qs, k, v, segment_ids, out, lse = ctx.saved_tensors
+    qs, k, v, segment_ids, kv_segment_ids, out, lse = ctx.saved_tensors
     dout = dout.contiguous()
     di = attention_di(out, dout)
-    dq = flash_bwd_dq(qs, k, v, segment_ids, dout, lse, di, ctx.window, ctx.softcap)
-    dk, dv = flash_bwd_dkv(qs, k, v, segment_ids, dout, lse, di, ctx.window, ctx.softcap)
-    return dq, dk, dv, None, None, None
+    args = (ctx.window, ctx.softcap, ctx.q_start, kv_segment_ids)
+    dq = flash_bwd_dq(qs, k, v, segment_ids, dout, lse, di, *args)
+    dk, dv = flash_bwd_dkv(qs, k, v, segment_ids, dout, lse, di, *args)
+    return dq, dk, dv, None, None, None, None, None
 
 
 flash_attention_op.register_autograd(_flash_backward, setup_context=_flash_setup)
@@ -324,18 +370,23 @@ def scale_query(q: torch.Tensor) -> torch.Tensor:
 
 
 def segment_flash_attention(
-    q: torch.Tensor,  # [B, T, Hq, hd] (rope applied, not scaled)
-    k: torch.Tensor,  # [B, T, Hkv, hd]
-    v: torch.Tensor,  # [B, T, Hkv, hd]
-    segment_ids: torch.Tensor,  # int [B, T], -1 = padding
+    q: torch.Tensor,  # [B, Tq, Hq, hd] (rope applied, not scaled)
+    k: torch.Tensor,  # [B, Tk, Hkv, hd]
+    v: torch.Tensor,  # [B, Tk, Hkv, hd]
+    segment_ids: torch.Tensor,  # int [B, Tq], -1 = padding
     sliding_window: Optional[int] = None,
     logit_softcap: Optional[float] = None,
+    q_start: int = 0,
+    kv_segment_ids: Optional[torch.Tensor] = None,  # int [B, Tk]; default segment_ids
 ) -> torch.Tensor:
     """Differentiable segment-masked causal attention over packed rows ->
-    [B, T, Hq, hd] in q's dtype.  Segments must be contiguous (the layout
-    `pack_into_rows` emits)."""
+    [B, Tq, Hq, hd] in q's dtype, the queries at rows [q_start, q_start +
+    Tq) of the keys' rows.  Segments must be contiguous (the layout
+    `pack_into_rows` emits).  With an offset, dk and dv are the shard's
+    partials over every key."""
     qs = scale_query(q).contiguous()
-    out, _ = flash_attention_op(qs, k.contiguous(), v.contiguous(),
-                                segment_ids.to(torch.int32).contiguous(),
+    seg = segment_ids.to(torch.int32).contiguous()
+    kv_seg = seg if kv_segment_ids is None else kv_segment_ids.to(torch.int32).contiguous()
+    out, _ = flash_attention_op(qs, k.contiguous(), v.contiguous(), seg, kv_seg, int(q_start),
                                 int(sliding_window or 0), float(logit_softcap or 0.0))
     return out

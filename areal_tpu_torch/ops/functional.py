@@ -37,6 +37,16 @@ def masked_normalize(x: torch.Tensor, mask: Optional[torch.Tensor], unbiased: bo
     return (x - mean) * torch.rsqrt(var + eps) * mask
 
 
+def next_token_labels(batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """The token each position predicts: the batch's `labels` when the
+    train engine formed them from whole rows before sharding them over sp
+    (a sequence shard's last position predicts the next shard's first
+    token), else the next token of the row (`input_ids` rolled by one; the
+    last position wraps to the first, where no loss is taken)."""
+    labels = batch.get("labels")
+    return labels if labels is not None else torch.roll(batch["input_ids"], -1, dims=-1)
+
+
 def gather_logprobs(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """log p(labels) from logits [..., V]; f32 log-softmax."""
     logits = logits.float()
@@ -239,8 +249,9 @@ def grpo_loss_fn(
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Packed GRPO/PPO policy loss over next-token logits.  batch keys
     ([..., T], predictor-aligned): input_ids, loss_mask, logprobs
-    (behaviour), advantages, and optionally prox_logp."""
-    labels = torch.roll(batch["input_ids"], -1, dims=-1)
+    (behaviour), advantages, and optionally prox_logp and labels
+    (`next_token_labels`)."""
+    labels = next_token_labels(batch)
     loss_mask = batch["loss_mask"].float()
     logprobs, entropy, _ = lm_logprobs_entropy(
         model_out, labels, temperature=temperature,

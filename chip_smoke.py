@@ -30,7 +30,16 @@ Phases, each printed with its wall time; any failure exits non-zero:
             256 on Gemma-2B's heads (Hq=8, Hkv=1) and Gemma-7B's (Hq=16,
             Hkv=16): T=2048 with 3 segments and tail padding, T=1024 with
             window 256, with softcap 30 and (Gemma-7B) with both, f32 at
-            T=256; every launch counted at its head dim
+            T=256; every launch counted at its head dim.  The offset
+            variant (a sequence shard's query rows against the whole row's
+            K/V): the T=2048 rows cut into shards at q_start {0, 1024}
+            (sp 2) and {0, 512, 1024, 1536} (sp 4), window 256 and softcap
+            30 at sp 2, f32 at T=256, at Qwen2.5's and Gemma-2B's heads:
+            each shard against its plain version (bf16 within the K1
+            limits, f32 forwards within 1e-6), its out, lse and dq bit-equal
+            to the unsharded kernels' rows, the shards' dk/dv partials
+            summed against the unsharded kernel, the keys past a shard's
+            last query exactly 0 in its partials, reruns bit-equal
 4. engine   a tiny f32 model served by the port's engine on the card and on
             the CPU: greedy streams equal, logprobs within 1e-4
 5. serve    random seeded bf16 Qwen2.5-1.5B weights at full width (28
@@ -83,6 +92,25 @@ Phases, each printed with its wall time; any failure exits non-zero:
             then the kernel, its plain version and torch SDPA (the forward,
             and forward + backward) timed, with each bound, and the kernels'
             and SDPA's device time per call by torch.profiler
+8b. sp      the sequence-parallel training path at full width and
+            SP_LAYERS (8) layers: the PPO actor of
+            `areal_tpu_torch/scripts/mp_train_worker.py` on its seeded batch
+            (8 prompts x group 4, 128..512-token prompts, 256 new tokens,
+            1024-token rows, two minibatches an update; random
+            weights from seed 0, f32 masters, bf16 compute, full remat) at
+            sp = 1 in this process, then as two ranks sharing the card at
+            sp = 2 (gloo: NCCL refuses two ranks on one device): the head
+            alone rolls out and broadcasts, logprobs, advantages and
+            SP_STEPS ppo_updates.  Prints the backend, each rank's peak
+            memory, seconds in collectives and K1 launches (exactly layers
+            x forwards on every rank, on the tensor cores), and the
+            logprob, loss and grad-norm differences from sp = 1; the ranks'
+            parameters must be bit-equal after every update.  Then f32 at
+            SP_F32_LAYERS layers: logprobs within 1e-5, losses within 1e-5
+            relative.  Then the offset kernels timed per shard on the
+            phase's rows and on 8 rows of 2048 (events, device time, plain
+            version, SDPA on the same [Tq, Tk] boolean mask, bound).
+            `--only sp` runs the build, the offset checks and this phase
 9. grpo     the asynchronous GRPO loop of `areal_tpu_torch.scripts.bench_e2e_grpo`
             at full width from the serve phase's checkpoint, trainer (f32
             masters, bf16 compute, full remat, decoupled loss, logprob
@@ -227,7 +255,9 @@ Phases, each printed with its wall time; any failure exits non-zero:
 Depth cuts, to keep the whole script near 600 s and under the card
 host's 45 GiB of disk writes a call: the remote loop at REMOTE_LAYERS
 (8) and the Qwen3-1.7B loop at QWEN3_LOOP_LAYERS (8) layers (both full
-width), the recover phase's launched run at RECOVER_RUN_LAYERS.
+width), the recover phase's launched run at RECOVER_RUN_LAYERS, and the
+sp phase's bf16 run at SP_LAYERS (8; at 28 its two ranks took 60.6 s on
+an H100, 16 of each update's 18 s summing f32 gradients through gloo).
 
 After the card's line comes the whole run's wall time.  The line before
 the last is the kernels' JSON record (`launches` sums the
@@ -269,6 +299,7 @@ from areal_tpu_torch.ops.ragged_decode import (
     ragged_paged_attention,
     ragged_paged_attention_plain,
 )
+from areal_tpu_torch.scripts import mp_train_worker as mp_worker
 from areal_tpu_torch.utils.data import split_padded_tensor_dict_into_mb_list
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -2963,6 +2994,403 @@ def time_flash(seg_rows, Hq=12, Hkv=2, hd=128):
     return timings, errs
 
 
+# ---------------------------------------------------------------------------
+# sequence parallelism: K1 at a query offset, and PPO over a (dp, sp) mesh
+# ---------------------------------------------------------------------------
+
+# the sp phase's bf16 depth (full width): at 28 layers its two ranks took
+# 60.6 s on an H100 (18 s an update, 16 of them summing 6.2 GB of f32
+# gradients through gloo)
+SP_LAYERS = 8
+SP_F32_LAYERS = 4  # its f32 run
+SP_STEPS = 2  # ppo_updates a run
+SP_SHARDS = {2: (0, 1024), 4: (0, 512, 1024, 1536)}  # q_start of each shard of T = 2048
+# the offset kernels against their plain versions: bf16 within the K1
+# limits (K1a's max |out - plain| and K1b/K1c's max |diff| over the largest
+# element, the worst of every earlier run); the summed
+# dk/dv partials against the unsharded kernel within the bf16 check's 2e-2
+# of the largest element (each partial is rounded to bf16 once before the
+# sum, where the unsharded kernel rounds once), in f32 within 1e-5
+# (K1a's 1.56e-2 is 2^-6 = 0.015625 rounded: one bf16 step at |out| in [2, 4)).
+# f32: the forward within 1e-6 (absolute, as every f32 forward so far), the
+# gradients within 1e-5 of the largest element (hd 256 sums 256-wide
+# products over 8 q heads in another order than the plain version: 1.4e-6
+# seen; the unsharded check holds them to 1e-4)
+K1A_OFFSET_ATOL, K1BC_OFFSET_RTOL = 2.0 ** -6, 7.6e-3
+F32_OFFSET_TOL, F32_OFFSET_GRAD_RTOL = 1e-6, 1e-5
+SUM_F32_TOL = 1e-5  # f32 partials summed in another order than one kernel's sum
+# sp = 2 against sp = 1 in the sp phase.  bf16: the two runs' products have
+# other row counts ([16 x 512] against [16 x 1024] per projection), so cuBLAS
+# may round them apart, and that compounds over 28 layers; the flash rows
+# are bit-equal.  The same mean logprob bound as trainer against server;
+# loss and grad norm within 5e-2 relative.  f32 at 4 layers: 1e-5 on
+# logprobs and on the loss (relative), 1e-4 relative on the grad norm.
+SP_BF16_STAT_RTOL = 5e-2
+SP_F32_LOGP_ATOL, SP_F32_LOSS_RTOL, SP_F32_GRAD_RTOL = 1e-5, 1e-5, 1e-4
+
+
+def compare_flash_offset(name, qs, k, v, dout, sg, sp, window=None, softcap=None):
+    """K1a/b/c at each query offset of `sp` shards of the rows `sg` against
+    their plain versions (the K1 limits), each shard's out, lse and dq
+    bit-equal to the unsharded kernels' rows (the shards start on a tile
+    boundary, so every row walks the same key tiles), the shards' dk/dv
+    partials summed against the unsharded dk/dv kernel, the key rows past a
+    shard's last query exactly 0 in its partials (written, not left: the
+    allocator's free blocks are filled with NaN first), every kernel run
+    twice bit-equal and on its variant.  Returns the worst |kernel - plain|
+    of each kernel."""
+    B, T = sg.shape
+    n = T // sp
+    f32 = qs.dtype == torch.float32
+    wrappers = (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv)
+    tc0 = [w.launches_tc for w in wrappers]
+    full_out, full_lse = fa.flash_fwd(qs, k, v, sg, window, softcap)
+    full_di = fa.attention_di(full_out, dout)
+    full_dq = fa.flash_bwd_dq(qs, k, v, sg, dout, full_lse, full_di, window, softcap)
+    full_dk, full_dv = fa.flash_bwd_dkv(qs, k, v, sg, dout, full_lse, full_di, window, softcap)
+    sum_dk, sum_dv = torch.zeros_like(k, dtype=torch.float32), torch.zeros_like(
+        v, dtype=torch.float32)
+    errs = dict.fromkeys(("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"), 0.0)
+    ok = True
+    for s in range(sp):
+        a = s * n
+        q_s, do_s, sg_s = (x[:, a:a + n].contiguous() for x in (qs, dout, sg))
+        kw = dict(q_start=a, kv_segment_ids=sg)
+        out, lse = fa.flash_fwd(q_s, k, v, sg_s, window, softcap, **kw)
+        out2, lse2 = fa.flash_fwd(q_s, k, v, sg_s, window, softcap, **kw)
+        di = full_di[:, :, a:a + n].contiguous()  # the same bits as the unsharded rows
+        dq = fa.flash_bwd_dq(q_s, k, v, sg_s, do_s, lse, di, window, softcap, **kw)
+        dq2 = fa.flash_bwd_dq(q_s, k, v, sg_s, do_s, lse, di, window, softcap, **kw)
+        poison = [torch.full_like(k, float("nan")) for _ in range(4)]
+        del poison
+        dk, dv = fa.flash_bwd_dkv(q_s, k, v, sg_s, do_s, lse, di, window, softcap, **kw)
+        dk2, dv2 = fa.flash_bwd_dkv(q_s, k, v, sg_s, do_s, lse, di, window, softcap, **kw)
+        p_out, p_lse = fa.flash_fwd_plain(q_s, k, v, sg_s, window, softcap, **kw)
+        p_dq = fa.flash_bwd_dq_plain(q_s, k, v, sg_s, do_s, p_lse, di, window, softcap, **kw)
+        p_dk, p_dv = fa.flash_bwd_dkv_plain(q_s, k, v, sg_s, do_s, p_lse, di, window, softcap,
+                                            **kw)
+        torch.cuda.synchronize()
+        valid = sg_s >= 0
+        e_out = float((out.float() - p_out.float()).abs()[valid].max())
+        rels, abss = [], []
+        for x, y in ((dq, p_dq), (dk, p_dk), (dv, p_dv)):
+            diff = (x.float() - y.float()).abs()
+            rels.append(float(diff.max() / y.float().abs().max().clamp_min(1e-30)))
+            abss.append(float(diff.max()))
+        reruns = (torch.equal(out, out2) and torch.equal(lse, lse2) and torch.equal(dq, dq2)
+                  and torch.equal(dk, dk2) and torch.equal(dv, dv2))
+        rows_equal = (torch.equal(out, full_out[:, a:a + n]) and torch.equal(
+            lse, full_lse[:, :, a:a + n]) and torch.equal(dq, full_dq[:, a:a + n]))
+        tail_zero = not (dk[:, a + n:].any() or dv[:, a + n:].any())
+        finite = all(bool(torch.isfinite(t).all()) for t in (out, dq, dk, dv))
+        sum_dk += dk.float()
+        sum_dv += dv.float()
+        errs["flash_fwd"] = max(errs["flash_fwd"], e_out)
+        errs["flash_bwd_dq"] = max(errs["flash_bwd_dq"], abss[0])
+        errs["flash_bwd_dkv"] = max(errs["flash_bwd_dkv"], abss[1], abss[2])
+        tol_out, tol_grad = ((F32_OFFSET_TOL, F32_OFFSET_GRAD_RTOL) if f32
+                             else (K1A_OFFSET_ATOL, K1BC_OFFSET_RTOL))
+        good = (e_out <= tol_out and max(rels) <= tol_grad and reruns and rows_equal
+                and tail_zero and finite)
+        print(f"  {name}, sp {sp} shard {s} (q_start {a}): max|out - plain| {e_out:.3e}; dq, "
+              f"dk, dv max|diff|/max {rels[0]:.2e}, {rels[1]:.2e}, {rels[2]:.2e} (tol "
+              f"{tol_out:g}, {tol_grad:g}); reruns equal {reruns}; out, lse, dq = the "
+              f"unsharded rows {rows_equal}; keys past the shard 0 {tail_zero}")
+        ok &= good
+    sum_err = [float((x - y.float()).abs().max() / y.float().abs().max())
+               for x, y in ((sum_dk, full_dk), (sum_dv, full_dv))]
+    sum_tol = SUM_F32_TOL if f32 else BF16_RTOL
+    tc_runs = [w.launches_tc - t for w, t in zip(wrappers, tc0)]
+    want_tc = [0, 0, 0] if f32 else [1 + 2 * sp] * 3
+    print(f"  {name}, sp {sp}: summed dk, dv partials against the unsharded kernel "
+          f"max|diff|/max {sum_err[0]:.2e}, {sum_err[1]:.2e} (tol {sum_tol:g}); "
+          f"tensor-core launches {tc_runs} (want {want_tc})")
+    if not ok or max(sum_err) > sum_tol or tc_runs != want_tc:
+        raise AssertionError(f"the offset flash kernels disagree: {name}, sp {sp}")
+    return errs
+
+
+def check_flash_offset():
+    """`compare_flash_offset` at Qwen2.5's training heads on T = 2048 (3
+    segments and tail padding) at sp 2 and 4, window 256 and softcap 30 at
+    sp 2, f32 at T = 256; the same at hd 256 on Gemma-2B's heads.  The
+    inputs are `check_flash`'s (same seeds).  Returns the worst bf16
+    |kernel - plain| of each kernel."""
+    seg2048 = packed_segments(2048, [700, 900, 300])
+    seg256 = packed_segments(256, [100, 140])
+    cases = []
+    for hd, heads in ((128, {}), (256, dict(GEMMA1_HEADS))):
+        cases += [
+            (200, f"hd {hd}, T=2048, 3 segments + padding", seg2048, dict(heads), (2, 4)),
+            (202, f"hd {hd}, T=2048, window 256", seg2048, dict(heads, window=256), (2,)),
+            (203, f"hd {hd}, T=2048, softcap 30", seg2048, dict(heads, softcap=30.0), (2,)),
+            (204, f"hd {hd} f32, T=256", seg256, dict(heads, dtype=torch.float32), (2,)),
+        ]
+    worst = dict.fromkeys(("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"), 0.0)
+    for seed, name, seg, kw, sps in cases:
+        dtype = kw.get("dtype", torch.bfloat16)
+        qs, k, v, dout, sg = flash_case(seed, seg, dtype=dtype, Hq=kw.get("Hq", 12),
+                                        Hkv=kw.get("Hkv", 2), hd=kw.get("hd", 128))
+        for sp in sps:
+            errs = compare_flash_offset(name, qs, k, v, dout, sg, sp, kw.get("window"),
+                                        kw.get("softcap"))
+            if dtype != torch.float32:
+                worst = {n: max(worst[n], errs[n]) for n in worst}
+    return worst
+
+
+def segment_positions(seg: np.ndarray) -> np.ndarray:
+    """Each token's position in its (contiguous) segment; -1 on padding."""
+    pos = np.full(seg.shape, -1, np.int64)
+    for b, row in enumerate(seg):
+        start = 0
+        for t in range(len(row)):
+            if t and row[t] != row[t - 1]:
+                start = t
+            if row[t] >= 0:
+                pos[b, t] = t - start
+    return pos
+
+
+def offset_bounds(qs, k, seg, q_start):
+    """Least time of each offset kernel for one shard: its causal share.
+    Operations: the (query, key) pairs of the shard's valid queries (each
+    sees its segment up to itself) x Hq x hd x 4 / 6 / 8 (forward, dq,
+    dk/dv).  Bytes: both segment-id arrays, the shard's valid q (and dout,
+    lse, di) rows, the K/V rows its queries see, once each; the outputs
+    written once (dk/dv over every key)."""
+    B, n, Hq, hd = qs.shape
+    T, Hkv = k.shape[1], k.shape[2]
+    item = qs.element_size()
+    s = seg.cpu().numpy()
+    pos = segment_positions(s)[:, q_start:q_start + n]
+    valid = pos >= 0
+    pairs = int((pos[valid] + 1).sum())
+    keys = 0  # the K/V rows the shard's queries see
+    for row in s:
+        shard = row[q_start:q_start + n]
+        for sid in np.unique(shard[shard >= 0]):
+            where = np.nonzero(row == sid)[0]
+            keys += min(int(where[-1]) + 1, q_start + n) - int(where[0])
+    n_valid = int(valid.sum())
+    ids = B * (n + T) * 4
+    q_in, kv_in, row_in = n_valid * Hq * hd * item, keys * Hkv * hd * item, n_valid * Hq * 4
+    q_out, kv_out, row_out = B * n * Hq * hd * item, B * T * Hkv * hd * item, B * Hq * n * 4
+    ops = pairs * Hq * hd
+    work = {
+        "flash_fwd": (ids + q_in + 2 * kv_in + q_out + row_out, 4 * ops),
+        "flash_bwd_dq": (ids + 2 * q_in + 2 * kv_in + 2 * row_in + q_out, 6 * ops),
+        "flash_bwd_dkv": (ids + 2 * q_in + 2 * kv_in + 2 * row_in + 2 * kv_out, 8 * ops),
+    }
+    out = {}
+    for name, (nbytes, flops) in work.items():
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / PEAK_FLOPS[qs.dtype] * 1e3
+        out[name] = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return out, pairs
+
+
+def time_flash_offset(seg_rows, sp=2, Hq=12, Hkv=2, hd=128, label=""):
+    """Each shard of `sp` over the packed rows `seg_rows` at Qwen2.5's
+    training heads in bf16: the offset kernels against their plain
+    versions (`compare_flash_offset`), then each shard's kernels, plain
+    versions and torch SDPA on the same [Tq, Tk] boolean mask timed (SDPA
+    forward for K1a, forward + backward for K1b and K1c), by CUDA events
+    and by device time, with the shard's bound.  Returns {shard: timings}
+    and the |kernel - plain| of each kernel."""
+    seg = torch.from_numpy(np.ascontiguousarray(seg_rows)).to(torch.int32)
+    qs, k, v, dout, sg = flash_case(310, seg, Hq=Hq, Hkv=Hkv, hd=hd)
+    errs = compare_flash_offset(f"{label} rows {tuple(seg.shape)}", qs, k, v, dout, sg, sp)
+    B, T = sg.shape
+    n = T // sp
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    idx = torch.arange(T, device=sg.device)
+    out = {}
+    for s in range(sp):
+        a = s * n
+        q_s, do_s, sg_s = (x[:, a:a + n].contiguous() for x in (qs, dout, sg))
+        kw = dict(q_start=a, kv_segment_ids=sg)
+        o, lse = fa.flash_fwd(q_s, k, v, sg_s, **kw)
+        di = fa.attention_di(o, do_s)
+        runs = {
+            "flash_fwd": (lambda: fa.flash_fwd(q_s, k, v, sg_s, **kw),
+                          lambda: fa.flash_fwd_plain(q_s, k, v, sg_s, **kw)),
+            "flash_bwd_dq": (lambda: fa.flash_bwd_dq(q_s, k, v, sg_s, do_s, lse, di, **kw),
+                             lambda: fa.flash_bwd_dq_plain(q_s, k, v, sg_s, do_s, lse, di,
+                                                           **kw)),
+            "flash_bwd_dkv": (lambda: fa.flash_bwd_dkv(q_s, k, v, sg_s, do_s, lse, di, **kw),
+                              lambda: fa.flash_bwd_dkv_plain(q_s, k, v, sg_s, do_s, lse, di,
+                                                             **kw)),
+        }
+        qi = idx[a:a + n]
+        same = (sg_s[:, :, None] == sg[:, None, :]) & (sg_s[:, :, None] >= 0)
+        mask = (same & (idx[None, None, :] <= qi[None, :, None])) | (
+            idx[None, None, :] == qi[None, :, None])  # pad queries see themselves
+        mask = mask[:, None]
+        q4 = q_s.transpose(1, 2).detach().requires_grad_(True)
+        k4 = k.transpose(1, 2).detach().requires_grad_(True)
+        v4 = v.transpose(1, 2).detach().requires_grad_(True)
+        g4 = do_s.transpose(1, 2)
+
+        def lib_fwd():
+            with torch.no_grad():
+                sdpa(q4, k4, v4, attn_mask=mask, scale=1.0, enable_gqa=True)
+
+        def lib_fwd_bwd():
+            torch.autograd.grad(sdpa(q4, k4, v4, attn_mask=mask, scale=1.0, enable_gqa=True),
+                                (q4, k4, v4), g4)
+
+        lib = {"flash_fwd": cuda_ms(lib_fwd, iters=20, warmup=3)}
+        lib["flash_bwd_dq"] = lib["flash_bwd_dkv"] = cuda_ms(lib_fwd_bwd, iters=10, warmup=2)
+        lib_dev = (device_ms(lib_fwd, iters=20), device_ms(lib_fwd_bwd, iters=10))
+        bounds, pairs = offset_bounds(q_s, k, sg, a)
+        shard = {}
+        for name, (kernel, plain) in runs.items():
+            ms = cuda_ms(kernel, iters=20, warmup=3)
+            dev = device_ms(kernel, iters=20)
+            plain_ms = cuda_ms(plain, iters=3, warmup=1)
+            shard[name] = dict(ms=ms, device_ms=dev, plain_ms=plain_ms, library_ms=lib[name],
+                               bound_ms=bounds[name][0], bound_by=bounds[name][1])
+            print(f"  {label} shard {s} (q_start {a}) {name}: kernel {ms:.4f} ms (device "
+                  f"{fmt_ms(dev)}), plain {plain_ms:.4f} ms, SDPA {lib[name]:.4f} ms, bound "
+                  f"{bounds[name][0]:.4f} ms ({bounds[name][1]})")
+        print(f"  {label} shard {s}: {pairs} attended pairs per q head; SDPA device time "
+              f"forward {fmt_ms(lib_dev[0])}, forward + backward {fmt_ms(lib_dev[1])}")
+        out[s] = shard
+    return out, errs
+
+
+def sp_rows():
+    """The sp phase's packed segment ids: the worker's seeded batch in rows
+    of 1024, as the engine packs it."""
+    from areal_tpu_torch.utils.data import pack_into_rows
+
+    batch = mp_worker.make_batch(qwen25_1p5b().vocab_size, "qwen2.5-1.5b")
+    row = mp_worker.BATCH_SHAPES["qwen2.5-1.5b"][4]
+    return pack_into_rows(batch, row, rows_bucket_pow2=True).data["segment_ids"]
+
+
+def fmt_list(xs, spec):
+    return "[" + ", ".join(format(x, spec) for x in xs) + "]"
+
+
+def sp_runs(cases):
+    """For each (dtype, layers) of `cases`: sp = 1 in this process; then
+    two ranks of the worker sharing the card run every case at sp = 2 (one
+    launch), on the same seeded batch and weights.  Checks each case as
+    `sp_phase` says and returns [(sp = 1 result, the ranks' results)]."""
+    ones = []
+    for dtype, layers in cases:
+        t0 = time.perf_counter()
+        one = mp_worker.run_case("qwen2.5-1.5b", 1, 1, dtype, SP_STEPS, layers=layers)
+        print(f"  sp=1 {dtype} at {layers} layers: compute_logp {one['logp_s']:.3f} s, "
+              f"ppo_update " + ", ".join(f"{s['ppo_update_s']:.3f}" for s in one["steps"])
+              + f" s, train_batch " + ", ".join(fmt_list(s["train_batch_s"], ".3f")
+                                                for s in one["steps"])
+              + f" s, peak {one['peak_gib']:.2f} GiB ({time.perf_counter() - t0:.1f} s in all)")
+        ones.append(one)
+        gc.collect()
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = mp_worker.collect(mp_worker.launch(2, [
+        "--meshes", ",".join(f"1x2:{dtype}:{layers}" for dtype, layers in cases),
+        "--steps", str(SP_STEPS)]), timeout=600)
+    print(f"  two ranks at sp=2: {time.perf_counter() - t0:.1f} s of wall, startup included")
+    n_mb = mp_worker.BATCH_SHAPES["qwen2.5-1.5b"][-1]
+    out = []
+    for c, (dtype, layers) in enumerate(cases):
+        two = [r[c] for r in ranks]
+        for r in two:
+            print(f"  {dtype} rank {r['proc']} ({r['backend']}, {r['device']}): compute_logp "
+                  f"{r['logp_s']:.3f} s ({r['logp_collective_s']:.3f} s in collectives), "
+                  + "; ".join(f"update {i}: loss {fmt_list(s['loss'], '+.6f')} grad_norm "
+                              f"{fmt_list(s['grad_norm'], '.6f')} ppo_update "
+                              f"{s['ppo_update_s']:.3f} s, train_batch "
+                              f"{fmt_list(s['train_batch_s'], '.3f')} s, collectives "
+                              f"{s['collective_s']:.3f} s" for i, s in enumerate(r["steps"]))
+                  + f"; {r['collective_calls']} collectives; peak {r['peak_gib']:.2f} GiB; K1 "
+                  f"launches fwd/dq/dkv: logp {r['logp_flash']}, updates "
+                  f"{[s['flash'] for s in r['steps']]} (tensor cores "
+                  f"{[s['flash_tc'] for s in r['steps']]})")
+        for i, (a, b) in enumerate(zip(*[r["steps"] for r in two])):
+            if a["params"] != b["params"] or a["loss"] != b["loss"] or a["grad_norm"] != b[
+                    "grad_norm"]:
+                raise AssertionError(f"the ranks' update {i} differs: {a} against {b}")
+        want_logp = [layers, 0, 0]
+        want_step = [2 * layers * n_mb, layers * n_mb, layers * n_mb]  # full remat
+        for r in two:
+            if r["logp_flash"] != want_logp or any(s["flash"] != want_step
+                                                   for s in r["steps"]):
+                raise AssertionError(f"rank {r['proc']}: K1 launches {r['logp_flash']}, "
+                                     f"{[s['flash'] for s in r['steps']]}; want {want_logp}, "
+                                     f"{want_step} an update")
+            if dtype == "bfloat16" and any(s["flash_tc"] != want_step for s in r["steps"]):
+                raise AssertionError(f"rank {r['proc']}: a bf16 K1 launch missed the tensor "
+                                     "cores")
+        if [r["rollout_calls"] for r in two] != [1, 0] or {r["backend"] for r in two} != {
+                "gloo"}:
+            raise AssertionError("the head alone must roll out, over gloo")
+        print(f"  {dtype}: the ranks' parameters bit-equal after every update: digests "
+              f"{[s['params'] for s in two[0]['steps']]}")
+        out.append((ones[c], two))
+    return out
+
+
+def sp_compare(one, two, dtype):
+    """sp = 2's head against sp = 1: logprobs on the loss-mask tokens, loss
+    and grad norm per update, at the dtype's tolerance."""
+    lp1, lp2 = mp_worker.decode_logp(one), mp_worker.decode_logp(two[0])
+    mask = mp_worker.make_batch(qwen25_1p5b().vocab_size, "qwen2.5-1.5b")["loss_mask"] > 0
+    pred = np.roll(mask, -1, axis=-1)  # predictor-aligned: the completion's tokens
+    d = np.abs(lp2 - lp1)[pred]
+    stats = [(abs(y - x), abs(y - x) / max(abs(x), 1e-12), k, i, x)
+             for i, (a, b) in enumerate(zip(one["steps"], two[0]["steps"]))
+             for k in ("loss", "grad_norm") for x, y in zip(a[k], b[k])]
+    print(f"  {dtype} sp=2 against sp=1: |logprob| max {d.max():.3e}, mean {d.mean():.3e} "
+          f"over {d.size} tokens; " + ", ".join(
+              f"update {i} {k} |diff| {ab:.3e} ({rel:.2e} relative)"
+              for ab, rel, k, i, _ in stats))
+    if dtype == "bfloat16":
+        bad = d.mean() > LOGP_MEAN_TOL or any(
+            ab > SP_BF16_STAT_RTOL * max(abs(x), 1e-2) for ab, _, _, _, x in stats)
+    else:
+        bad = d.max() > SP_F32_LOGP_ATOL or any(
+            rel > (SP_F32_LOSS_RTOL if k == "loss" else SP_F32_GRAD_RTOL)
+            for _, rel, k, _, _ in stats)
+    if bad or not np.isfinite(lp2).all():
+        raise AssertionError(f"{dtype}: sp=2 disagrees with sp=1")
+    return float(d.max())
+
+
+def sp_phase():
+    """The sequence-parallel training path at full width: PPOActor at
+    sp = 2 as two ranks sharing the card (gloo), against sp = 1, in bf16
+    at SP_LAYERS and in f32 at SP_F32_LAYERS; then the offset kernels
+    timed on the phase's rows and at T = 2048.  Returns the launches of
+    the bf16 and f32 runs' ranks, the timings and the kernels' errors."""
+    (one, two), (one32, two32) = sp_runs([("bfloat16", SP_LAYERS),
+                                          ("float32", SP_F32_LAYERS)])
+    bf16_max = sp_compare(one, two, "bfloat16")
+    sp_compare(one32, two32, "float32")
+
+    def launches(rs):
+        return [sum(r["logp_flash"][j] + sum(s["flash"][j] for s in r["steps"]) for r in rs)
+                for j in range(3)]
+
+    rows = sp_rows()
+    times, errs = time_flash_offset(rows, label="sp phase")
+    t2048, errs2 = time_flash_offset(packed_segments(2048, [700, 900, 300]).numpy()
+                                     .repeat(8, axis=0), label="T=2048 x 8 rows")
+    errs = {n: max(errs[n], errs2[n]) for n in errs}
+    split = [(s["collective_s"], sum(s["train_batch_s"])) for s in two[0]["steps"]]
+    print("  bf16 sp=2 ppo_updates (rank 0): collectives / train_batch calls "
+          + ", ".join(f"{c:.3f} / {t:.3f} s" for c, t in split)
+          + "; sp=1 train_batch " + ", ".join(fmt_list(s["train_batch_s"], ".3f")
+                                              for s in one["steps"])
+          + f" s; logprob max |diff| {bf16_max:.3e}")
+    return launches(two), launches(two32), times, t2048, errs
+
+
 def main(argv):
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -3007,6 +3435,11 @@ def main(argv):
                 spec_phase(ckpt_dir)
         finally:
             shutil.rmtree(ckpt_dir, ignore_errors=True)
+    elif only == "sp":
+        with phase("kernels (offset variant)"):
+            check_flash_offset()
+        with phase("sp"):
+            sp_phase()
     elif only == "recover-full-depth":
         fileroot = os.path.join(ROOT, "build", "recover_run")
         try:
@@ -3021,6 +3454,7 @@ def main(argv):
         max_err = check_kernel()
         flash_checks = check_flash()
         flash_err, flash_err256 = flash_checks[128], flash_checks[256]
+        offset_err = check_flash_offset()
     with phase("engine"):
         check_engine()
     build_dir = os.path.join(ROOT, "build")
@@ -3080,6 +3514,9 @@ def main(argv):
         with phase("flash timings"):
             flash_times, train_err = time_flash(seg_rows)
             flash_err = {n: max(flash_err[n], train_err[n]) for n in flash_err}
+        with phase("sp"):
+            sp_bf16, sp_f32, sp_times, sp_t2048, sp_err = sp_phase()
+            offset_err = {n: max(offset_err[n], sp_err[n]) for n in offset_err}
         with phase("grpo"):
             grpo_launches, grpo_err, _, grpo_rows = grpo_loop(ckpt_dir)
             max_err = max(max_err, grpo_err["ragged_paged_attention"])
@@ -3179,6 +3616,28 @@ def main(argv):
             "bound_ms": bound_ms,
             "bound_by": bound_by,
             "library_ms": lib_ms,
+        })
+    # the offset variant of the same kernels (q_start > 0 under sp), run by
+    # the sp phase's two ranks; its times are shard 1's (q_start 512, the
+    # larger causal share) on that phase's rows
+    for n_bf16, n_f32, name in zip(sp_bf16, sp_f32, ("flash_fwd", "flash_bwd_dq",
+                                                      "flash_bwd_dkv")):
+        t = sp_times[1][name]
+        records.append({
+            "name": f"{name}_sp",
+            "route": "cuda",
+            "source": "areal_tpu_torch/csrc/flash_attention.cu",
+            "replaces": "areal_tpu/ops/attention.py:386 (_sharded_splash: "
+                        + FLASH_REPLACES[name].split("(", 1)[1],
+            "launches": n_bf16 + n_f32,
+            "launches_by_path": {"sp_bf16": n_bf16, "sp_f32": n_f32},
+            "shards": {"sp_rows": sp_times, "T2048": sp_t2048},
+            "max_abs_err": offset_err[name],
+            "ms": t["ms"],
+            "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"],
         })
     print(f"card: {smi}")
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s of wall")
