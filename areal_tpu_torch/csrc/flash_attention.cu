@@ -67,17 +67,21 @@
 // them, and take 32-key tiles (a forward block then fits twice on an SM).
 // The dk/dv block at hd 256 has 8 warps in two groups over the same 64 keys:
 // one computes S^T and P^T and accumulates dV, the other dP^T and dS^T (with
-// P^T handed over through shared memory) and accumulates dK, so each thread
-// holds 128 accumulators, not 256, and no product is done twice.
+// P^T (1 - t^2) handed over through shared memory) and accumulates dK, so
+// each thread holds 128 accumulators, not 256, and no product is done twice.
 //
-// Grids: forward and dq one block per (q tile, q head, row); dk/dv one
-// block per (k tile, kv head, row), looping over the group's q heads and
-// the q tiles that see its keys, so GQA and MQA need no atomics and every
-// result is the same from run to run.
+// Grids: forward and dq one block per (q tile, q head, row); dk/dv at hd
+// 128 one block per (k tile, kv head, row), looping over the group's q
+// heads and the q tiles that see its keys; dk/dv at hd 256 a thread block
+// cluster per (k tile, kv head, row) whose blocks split the group's q heads
+// and sum their f32 partials through distributed shared memory in rank
+// order.  GQA and MQA need no atomics and every result is the same from run
+// to run.
 //
 // Interface: plain C entry points bound with ctypes; each launches on the
 // caller's stream and returns cudaGetLastError().
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -569,6 +573,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
 
 namespace tc {
 
+namespace cg = cooperative_groups;
+
 constexpr int kBr = 64;        // q rows per block (keys per dk/dv block)
 constexpr int kThreads = 128;  // 4 warps x 16 rows
 constexpr float kLog2e = 1.4426950408889634f;
@@ -901,8 +907,31 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd_tc_kernel(
 // dk/dv at hd 256 (flash_bwd_dkv_tc256_kernel): the same walk with 8 warps
 // in two groups over the block's 64 keys (16 a warp in each group).  Group
 // 0 computes S^T and P^T and accumulates dV; group 1 computes dP^T, reads
-// P^T (and the softcap's tanh) from shared memory, forms dS^T and
-// accumulates dK.  Each thread holds 128 accumulators, as at hd 128.
+// P^T (1 - t^2) from shared memory, forms dS^T and accumulates dK.  Each
+// thread holds 128 accumulators, as at hd 128.  Its 219 KB of shared memory
+// (K, V, two stages of 64 q and dO rows) hold one block per SM, and one
+// block per key tile walking every q head of the group left Gemma-2B's
+// MQA on 8 rows of 1024 with 128 blocks for 132 SMs, each walking 8 heads
+// one after another, the first key tile of a segment longest.  So a key
+// tile takes a thread block cluster of S blocks (ops/flash_attention.py
+// dkv_plan: S a power of two dividing the group, at most 8, picked so that
+// a block walks at most 4 heads and the grid has about two blocks per SM):
+// rank s walks heads [s group / S, (s + 1) group / S).  After the walk each
+// block leaves its f32 dV and dK partials in place of its q / dO stages,
+// and rank s sums rows [64 s / S, 64 (s + 1) / S) of both over the ranks in
+// rank order through distributed shared memory, rounds once and stores: no
+// scratch in device memory and no atomics, and S = 1 is the unsplit grid.
+// The P^T hand-over takes one buffer per half tile and a named barrier
+// (bar.arrive by group 0, bar.sync by group 1) in place of two block-wide
+// barriers a half, so the groups drift by up to a half within a tile.
+// Kept: the dV / dK split into two warp groups (one block of 8 warps, 128
+// accumulators a thread; 64 keys x 256 x 2 f32 accumulators are half an
+// SM's registers, so two such blocks cannot share an SM) and the
+// double-buffered 64-row q / dO stages.  What bounds it now is shared
+// memory: every warp of a group re-reads the same Q and dO fragments with
+// ldmatrix, about 2.5 cycles of shared-memory bandwidth per mma.sync;
+// wgmma, which reads B from shared memory once a warpgroup, is the step
+// after this one.
 //
 // Rounding: P (for dV) and dS (for dK and dQ) are rounded to bf16 before
 // those products (the tensor cores take bf16), where splash and the plain
@@ -1226,9 +1255,24 @@ __global__ void __launch_bounds__(kThreads, 2) flash_bwd_dkv_tc_kernel(
 
 constexpr int kDkv256Threads = 256;  // two groups of 4 warps
 constexpr int kXLD = 32;             // row stride of the P^T hand-over tile (floats)
-// K, V, Q x 2, dO x 2 (64 rows each), then P^T and tanh of a half tile
+constexpr int kMaxCluster = 8;       // blocks of a key tile's cluster: the portable size
+constexpr int kPartLD = 256 + 4;     // row stride of an f32 dK / dV partial (floats)
+// K, V, Q x 2, dO x 2 (64 rows each), then P^T of both halves of a q tile
 constexpr int kDkv256Smem = 6 * Tiles<256>::kTileQ * 2 + 2 * kBr * kXLD * 4;
+static_assert(2 * kBr * kPartLD * 4 <= 4 * Tiles<256>::kTileQ * 2,
+              "the f32 partials fit the Q and dO stages");
 
+// named barriers of the P^T hand-over, one per half of a q tile (0 is
+// __syncthreads'): group 0 arrives, group 1 waits
+__device__ __forceinline__ void handover_arrive(int half) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(1 + half), "r"(kDkv256Threads) : "memory");
+}
+__device__ __forceinline__ void handover_wait(int half) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(1 + half), "r"(kDkv256Threads) : "memory");
+}
+
+// One block per (kv head, cluster rank, row, key tile); the cluster's
+// `ranks` blocks share the key tile and split the group's q heads.
 __global__ void __launch_bounds__(kDkv256Threads, 1) flash_bwd_dkv_tc256_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, const int* __restrict__ segq,
@@ -1243,14 +1287,17 @@ __global__ void __launch_bounds__(kDkv256Threads, 1) flash_bwd_dkv_tc256_kernel(
   __nv_bfloat16* sV = sK + kTile;
   __nv_bfloat16* sQ = sV + kTile;       // two stages
   __nv_bfloat16* sdO = sQ + 2 * kTile;  // two stages
-  float* xP = reinterpret_cast<float*>(sdO + 2 * kTile);  // [64 keys][32 queries] P^T
-  float* xT = xP + kBr * kXLD;                            // tanh(S^T / softcap)
+  float* xP = reinterpret_cast<float*>(sdO + 2 * kTile);  // [2 halves][64 keys][32 queries]
+  float* part = reinterpret_cast<float*>(sQ);  // dV then dK partials, after the walk
   __shared__ int seg_k[kBr], seg_q[2][kBr];
   __shared__ float lse_q[2][kBr], di_q[2][kBr];
   __shared__ int s_first, s_last, s_hi;
-  const int kh = blockIdx.x, b = blockIdx.y;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int ranks = cluster.num_blocks(), rank = blockIdx.x % ranks;
+  const int kh = blockIdx.x / ranks, b = blockIdx.y;
   const int j0 = blockIdx.z * kBr;  // the first key tiles, longest query ranges, first
-  const int group = Hq / Hkv, h_lo = kh * group;  // the group's q heads
+  const int group = Hq / Hkv, heads = group / ranks;
+  const int h_lo = kh * group + rank * heads;  // this rank's q heads of the group
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int wg = warp >> 2;  // 0: S^T, P^T and dV; 1: dP^T, dS^T and dK
   const int g = lane >> 2, tig = lane & 3;
@@ -1275,7 +1322,7 @@ __global__ void __launch_bounds__(kDkv256Threads, 1) flash_bwd_dkv_tc256_kernel(
   }
   if (lo < hi) {
     const int ntiles = (hi - lo + kBr - 1) / kBr;
-    const int total = group * ntiles;  // (q head, q tile) steps
+    const int total = heads * ntiles;  // (q head, q tile) steps of this rank
     const int k_uniform = __syncthreads_and(tid >= kBr || seg_k[tid] == seg_k[0]) ? seg_k[0]
                                                                                   : -3;
     const int sk[2] = {seg_k[rk], seg_k[rk + 8]};
@@ -1318,6 +1365,7 @@ __global__ void __launch_bounds__(kDkv256Threads, 1) flash_bwd_dkv_tc256_kernel(
 #pragma unroll 1
       for (int half = 0; half < 2; ++half) {
         const int c0 = 32 * half;  // the half's first query in the tile
+        float* xh = xP + half * kBr * kXLD;
 
         // S^T = K Q^T (group 0) or dP^T = V dO^T (group 1): rows are keys,
         // 4 n-tiles of 8 queries
@@ -1337,7 +1385,7 @@ __global__ void __launch_bounds__(kDkv256Threads, 1) flash_bwd_dkv_tc256_kernel(
           }
         }
 
-        if (wg == 0) {  // P^T on the fragments, handed to group 1
+        if (wg == 0) {  // P^T on the fragments; P^T (1 - t^2) handed to group 1
 #pragma unroll
           for (int j = 0; j < 4; ++j) {
 #pragma unroll
@@ -1352,22 +1400,18 @@ __global__ void __launch_bounds__(kDkv256Threads, 1) flash_bwd_dkv_tc256_kernel(
                   full || allowed(seg_t[qc], sk[row], q_start + i0 + qc, kj[row], window);
               const float p = ok ? exp2f((s - lse_t[qc]) * kLog2e) : 0.f;
               x[j][e] = p;
-              xP[(rk + 8 * row) * kXLD + col] = p;
-              xT[(rk + 8 * row) * kXLD + col] = t;
+              xh[(rk + 8 * row) * kXLD + col] = softcap > 0.f ? p * (1.f - t * t) : p;
             }
           }
-        }
-        __syncthreads();  // P^T handed over
-        if (wg == 1) {  // dS^T = P^T * (dP^T - di), times 1 - t^2 under the softcap
+          handover_arrive(half);
+        } else {  // dS^T = P^T (1 - t^2) (dP^T - di)
+          handover_wait(half);
 #pragma unroll
           for (int j = 0; j < 4; ++j) {
 #pragma unroll
             for (int e = 0; e < 4; ++e) {
               const int row = e >> 1, col = 8 * j + 2 * tig + (e & 1);
-              const int at = (rk + 8 * row) * kXLD + col;
-              float ds = xP[at] * (x[j][e] - di_t[c0 + col]);
-              if (softcap > 0.f) ds *= 1.f - xT[at] * xT[at];
-              x[j][e] = ds;
+              x[j][e] = xh[(rk + 8 * row) * kXLD + col] * (x[j][e] - di_t[c0 + col]);
             }
           }
         }
@@ -1386,18 +1430,55 @@ __global__ void __launch_bounds__(kDkv256Threads, 1) flash_bwd_dkv_tc256_kernel(
             mma(acc[2 * c + 1], a, r[2], r[3]);
           }
         }
-        __syncthreads();  // the hand-over tile (and, after the second half, this stage) read
       }
+      __syncthreads();  // this stage and the hand-over tiles read before they are refilled
     }
     asm volatile("cp.async.wait_all;\n" ::);
   }
 
-  // dv (group 0) and dk (group 1) through shared memory (the Q stages),
-  // then out in 16-byte stores
-  stage_rows<HD>(sQ + wg * kTile, acc, rk, tig);
+  // the ranks' f32 partials (dV, then dK, in place of the Q and dO stages,
+  // which every reader passed at the walk's last barrier) summed over the
+  // cluster in rank order through distributed shared memory: rank s rounds
+  // and stores rows [s 64 / ranks, (s + 1) 64 / ranks) of both
   __syncthreads();
-  store_tile<HD, kNT>(dv, sQ, b, j0, Tk, Hkv, kh);
-  store_tile<HD, kNT>(dk, sQ + kTile, b, j0, Tk, Hkv, kh);
+  float* mine = part + wg * kBr * kPartLD;
+#pragma unroll
+  for (int j = 0; j < HD / 8; ++j) {
+    const int c = 8 * j + 2 * tig;
+    *reinterpret_cast<float2*>(mine + rk * kPartLD + c) = make_float2(acc[j][0], acc[j][1]);
+    *reinterpret_cast<float2*>(mine + (rk + 8) * kPartLD + c) =
+        make_float2(acc[j][2], acc[j][3]);
+  }
+  cluster.sync();
+  const int rows = kBr / ranks, row0 = rank * rows;
+  for (int i = tid; i < 2 * rows * (HD / 4); i += kNT) {
+    const int which = i / (rows * (HD / 4)), rest = i - which * rows * (HD / 4);
+    const int r = row0 + rest / (HD / 4), d = 4 * (rest % (HD / 4));
+    const int t = j0 + r;
+    float4 x[kMaxCluster];  // every rank's loaded first: one remote latency, not one a rank
+#pragma unroll
+    for (int rr = 0; rr < kMaxCluster; ++rr)
+      if (rr < ranks)
+        x[rr] = *reinterpret_cast<const float4*>(
+            cluster.map_shared_rank(part + (which * kBr + r) * kPartLD + d, rr));
+    float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int rr = 0; rr < kMaxCluster; ++rr) {
+      if (rr < ranks) {
+        sum.x += x[rr].x;
+        sum.y += x[rr].y;
+        sum.z += x[rr].z;
+        sum.w += x[rr].w;
+      }
+    }
+    if (t < Tk) {
+      __nv_bfloat162* dst = reinterpret_cast<__nv_bfloat162*>(
+          (which == 0 ? dv : dk) + (((long long)b * Tk + t) * Hkv + kh) * HD + d);
+      dst[0] = __floats2bfloat162_rn(sum.x, sum.y);
+      dst[1] = __floats2bfloat162_rn(sum.z, sum.w);
+    }
+  }
+  cluster.sync();  // no block leaves while another reads its partials
 }
 
 }  // namespace tc
@@ -1505,25 +1586,60 @@ cudaError_t bwd_dq_tc(const void* q, const void* k, const void* v, const void* s
   return cudaGetLastError();
 }
 
-// the dk/dv kernel of a head dim: 4 warps with dK and dV in each thread at
-// hd 128, two groups of 4 warps at hd 256
+// the bf16 dk/dv kernels: at hd 128 4 warps with dK and dV in each thread,
+// one block per (kv head, row, key tile); at hd 256 two groups of 4 warps,
+// `cluster` blocks per key tile (a thread block cluster splitting the
+// group's q heads)
 template <int HD>
 cudaError_t bwd_dkv_tc(const void* q, const void* k, const void* v, const void* segq,
                        const void* segk, const void* dout, const void* lse, const void* di,
-                       void* dk, void* dv, Rows r, cudaStream_t s) {
-  auto kernel = HD == 128 ? tc::flash_bwd_dkv_tc_kernel : tc::flash_bwd_dkv_tc256_kernel;
-  const int threads = HD == 128 ? tc::kThreads : tc::kDkv256Threads;
-  const int smem = HD == 128 ? 6 * tc::Tiles<128>::kTileQ * 2 : tc::kDkv256Smem;
-  cudaError_t err = opt_in(kernel, smem);
-  if (err != cudaSuccess) return err;
-  kernel<<<dim3(r.Hkv, r.B, (r.Tk + tc::kBr - 1) / tc::kBr), threads, smem, s>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<const int*>(segq),
-      static_cast<const int*>(segk), static_cast<const __nv_bfloat16*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(di),
-      static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), r.q_start, r.Tq,
-      r.Tk, r.Hq, r.Hkv, r.softcap, r.window);
-  return cudaGetLastError();
+                       void* dk, void* dv, Rows r, int cluster, cudaStream_t s) {
+  const auto* qb = static_cast<const __nv_bfloat16*>(q);
+  const auto* kb = static_cast<const __nv_bfloat16*>(k);
+  const auto* vb = static_cast<const __nv_bfloat16*>(v);
+  const auto* dob = static_cast<const __nv_bfloat16*>(dout);
+  const dim3 grid(r.Hkv * cluster, r.B, (r.Tk + tc::kBr - 1) / tc::kBr);
+  if constexpr (HD == 128) {
+    constexpr int kSmem = 6 * tc::Tiles<128>::kTileQ * 2;
+    cudaError_t err = opt_in(tc::flash_bwd_dkv_tc_kernel, kSmem);
+    if (err != cudaSuccess) return err;
+    tc::flash_bwd_dkv_tc_kernel<<<grid, tc::kThreads, kSmem, s>>>(
+        qb, kb, vb, static_cast<const int*>(segq), static_cast<const int*>(segk), dob,
+        static_cast<const float*>(lse), static_cast<const float*>(di),
+        static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), r.q_start, r.Tq,
+        r.Tk, r.Hq, r.Hkv, r.softcap, r.window);
+    return cudaGetLastError();
+  } else {
+    cudaError_t err = opt_in(tc::flash_bwd_dkv_tc256_kernel, tc::kDkv256Smem);
+    if (err != cudaSuccess) return err;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = grid;
+    cfg.blockDim = dim3(tc::kDkv256Threads);
+    cfg.dynamicSmemBytes = tc::kDkv256Smem;
+    cfg.stream = s;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = cluster;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    err = cudaLaunchKernelEx(&cfg, tc::flash_bwd_dkv_tc256_kernel, qb, kb, vb,
+                             static_cast<const int*>(segq), static_cast<const int*>(segk), dob,
+                             static_cast<const float*>(lse), static_cast<const float*>(di),
+                             static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv),
+                             r.q_start, r.Tq, r.Tk, r.Hq, r.Hkv, r.softcap, r.window);
+    return err != cudaSuccess ? err : cudaGetLastError();
+  }
+}
+
+// the cluster size ops/flash_attention.py dkv_plan picks: a power of two
+// up to tc::kMaxCluster dividing the group at hd 256 in bf16, 1 elsewhere
+cudaError_t check_dkv_cluster(int bf16, int hd, int Hq, int Hkv, int cluster) {
+  if (!(bf16 && hd == 256)) return cluster == 1 ? cudaSuccess : cudaErrorInvalidValue;
+  const bool ok = cluster >= 1 && cluster <= tc::kMaxCluster && (cluster & (cluster - 1)) == 0 &&
+                  (Hq / Hkv) % cluster == 0;
+  return ok ? cudaSuccess : cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -1572,17 +1688,18 @@ extern "C" int flash_bwd_dq(int device, int bf16, const void* q, const void* k, 
 
 extern "C" int flash_bwd_dkv(int device, int bf16, const void* q, const void* k, const void* v,
                              const void* segq, const void* segk, const void* dout,
-                             const void* lse, const void* di, void* dk, void* dv, int B,
-                             int q_start, int Tq, int Tk, int Hq, int Hkv, int hd,
-                             float softcap, int window, void* stream) {
+                             const void* lse, const void* di, void* dk, void* dv, int cluster,
+                             int B, int q_start, int Tq, int Tk, int Hq, int Hkv,
+                             int hd, float softcap, int window, void* stream) {
   cudaError_t err = check_shape(hd, Hq, Hkv, q_start, Tq, Tk);
+  if (err == cudaSuccess) err = check_dkv_cluster(bf16, hd, Hq, Hkv, cluster);
   if (err == cudaSuccess) err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Rows r{B, q_start, Tq, Tk, Hq, Hkv, softcap, window};
   if (hd == 128)
-    return (int)(bf16 ? bwd_dkv_tc<128>(q, k, v, segq, segk, dout, lse, di, dk, dv, r, s)
+    return (int)(bf16 ? bwd_dkv_tc<128>(q, k, v, segq, segk, dout, lse, di, dk, dv, r, 1, s)
                       : bwd_dkv<float, 128>(q, k, v, segq, segk, dout, lse, di, dk, dv, r, s));
-  return (int)(bf16 ? bwd_dkv_tc<256>(q, k, v, segq, segk, dout, lse, di, dk, dv, r, s)
+  return (int)(bf16 ? bwd_dkv_tc<256>(q, k, v, segq, segk, dout, lse, di, dk, dv, r, cluster, s)
                     : bwd_dkv<float, 256>(q, k, v, segq, segk, dout, lse, di, dk, dv, r, s));
 }

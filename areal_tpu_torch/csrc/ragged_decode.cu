@@ -15,42 +15,89 @@
 // add exp(0 - m) to l), no PV contribution, as in the TPU kernel's
 // zero-filled scratch.
 //
-// What bounds it on this card: bytes.  Per slot and kv head it reads the
-// occupied pages of K and V once (span x hd x 2 x itemsize) and does
-// ~4 x T x group x hd flops per column: ~6 flops per byte at T = 1, below
-// even the f32 CUDA cores' ~20, far below the tensor cores' ~300.
+// What bounds it on this card: bytes, and below them latency.  Per slot and
+// kv head it reads the occupied pages of K and V once (span x hd x 2 x
+// itemsize) and does ~4 x R x hd flops per column, R = T x group query
+// rows: ~6 flops per byte at T = 1 and ~50 at a verify's T = 8, both below
+// the bf16 tensor cores' ~300.  At these sizes (a few MB a call) the bound
+// is a few microseconds, so launches, dependent loads and barriers are
+// what a design has to keep short.
 //
-// What the design does about it: parallelism and wide, early loads.  The
-// key axis is cut into fixed chunks of kChunk positions, and every pass
-// runs one block per (chunk, kv head, slot): a few hundred blocks at the
-// serving shape instead of one per (slot, kv head).  A chunk's K or V rows
-// arrive by 16-byte cp.async into shared memory in the cache's own dtype
-// (rows padded by 16 bytes, so a warp's row-wise reads hit distinct
-// banks), issued before the block's other work, and are widened to f32 in
-// registers.  A block whose chunk lies wholly past the slot's copied span
-// reads no K/V.  The op order needs the global max and sum before any
-// probability is rounded, so the softmax takes two passes and the partial
-// outputs a third, with f32 scratch the wrapper allocates:
+// A verify (T > 1) with bf16 q and cache, of kMinRows to kMaxRows query
+// rows a kv head and hd <= 256: ragged_tc, one launch on the bf16 tensor
+// cores.  The key axis is cut into fixed chunks of kChunk positions and a
+// thread block cluster of up to kMaxCluster blocks takes one (kv head,
+// slot); block `rank` of the cluster owns the consecutive chunks
+// [rank x cpb, (rank + 1) x cpb), cpb = ceil(chunks / kMaxCluster), so the
+// split depends on K alone.  A block holds the kv head's R query rows
+// (padded to 16) in shared memory and walks its chunks twice, with the
+// chunk's K (and V) rows arriving by 16-byte cp.async into a two-slot
+// ring:
+//   pass 1: S = Q K^T on mma.sync.m16n8k16 (bf16 in, f32 sums; Q through
+//     ldmatrix, K as non-transposed B fragments), the score finished per
+//     element (rounded to bf16, scaled, capped, masked), and each row's
+//     running (max, sum of exp(s - max)) over the block's columns.  The
+//     cluster then folds the blocks' statistics in rank order through
+//     distributed shared memory: every block holds the global (m, l).
+//   pass 2: S again from the same keys (still in the ring when a block has
+//     at most two chunks, otherwise re-read from L2, which just served
+//     them), p = round(exp(s - m) / l) stored to shared memory as bf16 (its
+//     rounding point), and the block's partial P V on mma.sync with V read
+//     through ldmatrix.trans.  The partials meet in shared memory and each
+//     block sums a slice of the outputs over the cluster's ranks in rank
+//     order (distributed shared memory again), rounds once and stores.
+// The products of bf16 values are exact in f32, so against the CUDA-core
+// passes below only the order of the f32 sums moves, not a rounding point.
+// What was kept and why: the fixed chunk boundaries and the rank-order
+// folds, which make a row's bits independent of the batch, of T > 1 (a
+// row's fragments never mix with another row's) and of reruns; the append
+// by the block that owns the position.  What went: the [B, Hkv, R, K] f32
+// score scratch (3.1 MB written and read at T = 8; pass 2 recomputes S),
+// the chunk-statistics and partial-output scratch, and two of the three
+// launches.
+//
+// Decode (T = 1), other verifies, and f32 or mixed q / cache: the CUDA-core
+// passes.  Past kMaxRows rows ragged_tc's block would not fit (the passes'
+// block takes 280 at hd 128).  At 16 rows or fewer (Gemma-2-2B's and
+// Qwen3-1.7B's verifies: 8 rows at T = 4, 16 at T = 8) ragged_tc took
+// 1.08-1.99x the passes' device time on an H100, and 0.26-0.64x from 24
+// rows up, to a key window of 8192 (scripts/torch_k2_verify_timings.py):
+// a 16-row tile of mma costs the same at 8 rows as at 16, while the
+// passes' work shrinks with the rows over a wider grid.  At T = 1 a block
+// of ragged_tc has a few loads' work, and its chain of loads, cluster
+// barriers and remote reads took 1.1-3.4x these passes' device time at
+// four of the five decode shapes chip_smoke.py times (on an H100), whose
+// one block per chunk keeps more loads in flight; so decode keeps them.
+// Their sums run in another order than ragged_tc's: in bf16 a row on one
+// path may differ in the last bit from the same row on the other (at
+// T = 1 against inside a verify).  f32 keeps them
+// because the tensor cores would round f32 operands.  A chunk's K or V rows
+// arrive by 16-byte cp.async in the cache's own dtype (rows padded by 16
+// bytes) and are widened to f32 in registers; a block whose chunk lies
+// wholly past the slot's copied span reads no K/V.  Three launches, one
+// block per (chunk, kv head, slot) each, with f32 scratch the wrapper
+// allocates:
 //   (a) ragged_scores: append, scores of the chunk into scratch [B, Hkv,
-//       R, K] (R = T x group query rows per kv head), and the chunk's
-//       (max, sum of exp(s - max)) per row;
+//       R, K], and the chunk's (max, sum of exp(s - max)) per row;
 //   (b) ragged_pv: per row the global (m, l) folded from the chunk
 //       statistics in chunk order, p = round(exp(s - m) / l) for the
 //       chunk's copied columns, and the chunk's partial PV in f32;
 //   (c) ragged_combine: per output element the partials summed in chunk
 //       order, rounded once and stored.
-// Chunk boundaries are fixed key positions, independent of B, T and the
-// card, and nothing is combined by atomics: a slot's output does not
-// depend on which slots share the batch nor on T, and reruns are bit-equal.
+// Both use fixed key positions and no atomics: a slot's output does not
+// depend on which slots share the batch, and reruns are bit-equal.
 //
-// Fused append, write-then-read: the block whose chunk holds a write
-// position stores k_new / v_new there and uses the new key in place of
-// what its copy read; V is read only by pass (b), after pass (a) ended.
-// Positions in [K, M) are written by the last chunk's block and never read.
+// Fused append, write-then-read: the block that owns a write position
+// stores k_new / v_new there; a block copying a written position takes its
+// row from k_new / v_new (tensor cores) or patches its copy with it
+// (CUDA cores; V is read only by pass (b), after pass (a) ended).
+// Positions in [K, M) are written by the block owning the last chunk and
+// never read.
 //
-// Interface: a plain C entry point bound with ctypes; it launches the three
-// kernels on the caller's stream and returns cudaGetLastError().
+// Interface: a plain C entry point bound with ctypes; it launches on the
+// caller's stream and returns cudaGetLastError().
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -147,6 +194,7 @@ struct Args {
   float* csum;          // [B, Hkv, R, nchunks]
   float* partial;       // [B, Hkv, nchunks, R, hd]
   int T, Hq, Hkv, hd, M, K, page, nchunks;
+  int cpb;  // tensor cores: chunks per block of a cluster
   float scale, softcap;
 };
 
@@ -374,6 +422,508 @@ __global__ void __launch_bounds__(kThreads) ragged_combine(Args a) {
       from_f<QT>(acc);
 }
 
+// ---------------------------------------------------------------------------
+// bf16 q and cache: one launch on the tensor cores (see the note above)
+// ---------------------------------------------------------------------------
+
+namespace tc {
+
+namespace cg = cooperative_groups;
+using bf16 = __nv_bfloat16;
+
+constexpr int kThreads = 256;     // 8 warps
+constexpr int kMinRows = 17;      // query rows of a kv head (T x group): fewer take
+constexpr int kMaxRows = 64;      // the passes, more do not fit; padded to 16
+constexpr int kMaxCluster = 8;    // blocks per (kv head, slot): the portable cluster size
+constexpr int kLDP = kChunk + 8;  // bf16 row stride of the probability tile
+
+// the head dim padded to the kernel's instantiation
+__host__ __device__ constexpr int padded_hd(int hd) {
+  return hd <= 16 ? 16 : hd <= 64 ? 64 : hd <= 128 ? 128 : 256;
+}
+
+__host__ __device__ constexpr int align16(int n) { return (n + 15) & ~15; }
+
+// byte offsets of a block's dynamic shared memory
+struct Smem {
+  int q, ring, p, mask, widx, stats, total;
+};
+__host__ __device__ inline Smem smem_layout(int hdp, int rows_p, int T) {
+  Smem s;
+  const int ld = hdp + 8;
+  s.q = 0;                                    // [rows_p][ld] bf16 query rows
+  s.ring = s.q + rows_p * ld * 2;             // 2 slots x (K, V) x [kChunk][ld] bf16
+  s.p = s.ring + 4 * kChunk * ld * 2;         // [rows_p][kLDP] bf16 probabilities
+  s.mask = s.p + rows_p * kLDP * 2;           // 2 slots x [T][kChunk] mask bytes
+  s.widx = s.mask + align16(2 * T * kChunk);  // [T] write positions
+  s.stats = s.widx + align16(4 * T);          // f32 (max, sum): 4 key quarters, block, global
+  s.total = s.stats + 4 * 12 * rows_p;
+  return s;
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 16-byte async copy; src_bytes 0 fills the destination with zeros
+__device__ __forceinline__ void cp_async16z(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(src_bytes));
+}
+
+__device__ __forceinline__ void ldmatrix_x4(unsigned r[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(unsigned r[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+// c += a (16 x 16, row) * b (16 x 8, col), bf16 in, f32 accumulate
+__device__ __forceinline__ void mma(float c[4], const unsigned a[4], unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// ldmatrix addresses in a padded [rows][LD] tile: the A operand of rows
+// [r0, r0 + 16) and columns [16 c, 16 c + 16) (ldmatrix.trans from the same
+// address gives the B operand of a [k][n] tile, the n-tile pair at columns
+// 16 c); and the B operand of the n-tile pair (2 np, 2 np + 1) from an
+// [n][k] tile, k columns [16 kk, 16 kk + 16)
+template <int LD>
+__device__ __forceinline__ const bf16* a_frag(const bf16* t, int r0, int c, int lane) {
+  return t + (r0 + (lane & 7) + 8 * ((lane >> 3) & 1)) * LD + 16 * c + 8 * (lane >> 4);
+}
+template <int LD>
+__device__ __forceinline__ const bf16* b_frag(const bf16* t, int np, int kk, int lane) {
+  return t + (16 * np + (lane & 7) + 8 * (lane >> 4)) * LD + 16 * kk + 8 * ((lane >> 3) & 1);
+}
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// One block per (rank, kv head, slot); the cluster spans the ranks.  Warp
+// w computes S for key quarter w % 4 (16 keys) of m-tiles w / 4 and w / 4 +
+// 2, and P V for the head-dim column pairs w, w + 8, ... (16 columns each)
+// of every m-tile.
+template <int HDP>
+__global__ void __launch_bounds__(kThreads) ragged_tc(Args a) {
+  constexpr int kLD = HDP + 8;
+  constexpr int kTile = kChunk * kLD;          // elements of one K or V chunk
+  constexpr int kPieces = HDP / 8;             // 16-byte pieces of a padded row
+  constexpr int kPairs = HDP / 16;             // head-dim column pairs
+  constexpr int kPairsPerWarp = (kPairs + 7) / 8;
+  constexpr int kLDO = HDP + 4;                // f32 row stride of the partial output
+  extern __shared__ __align__(16) unsigned char smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = blockIdx.x, ranks = gridDim.x, h = blockIdx.y, b = blockIdx.z;
+  const int T = a.T, hd = a.hd, K = a.K, group = a.Hq / a.Hkv, R = T * group;
+  const int rows_p = (R + 15) & ~15, Mt = rows_p / 16;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, tig = lane & 3, kq = warp & 3;
+  const Smem L = smem_layout(HDP, rows_p, T);
+  bf16* sQ = reinterpret_cast<bf16*>(smem + L.q);
+  bf16* ring = reinterpret_cast<bf16*>(smem + L.ring);  // slot s: K at 2 s kTile, V after
+  bf16* sP = reinterpret_cast<bf16*>(smem + L.p);
+  uint8_t* sM = smem + L.mask;
+  int* sW = reinterpret_cast<int*>(smem + L.widx);
+  float* qm = reinterpret_cast<float*>(smem + L.stats);  // [4][rows_p] per key quarter
+  float* ql = qm + 4 * rows_p;
+  float* bm = ql + 4 * rows_p;  // [rows_p] the block's, read by the cluster
+  float* bl = bm + rows_p;
+  float* gm = bl + rows_p;      // [rows_p] over all K columns
+  float* gl = gm + rows_p;
+  float* sO = reinterpret_cast<float*>(smem + L.ring);  // [rows_p][kLDO], after pass 2
+
+  const long long pos_stride = (long long)a.Hkv * hd;
+  bf16* ck_row = static_cast<bf16*>(a.ck) + (long long)a.rows[b] * a.M * pos_stride + h * hd;
+  bf16* cv_row = static_cast<bf16*>(a.cv) + (long long)a.rows[b] * a.M * pos_stride + h * hd;
+  const bf16* kn = static_cast<const bf16*>(a.k_new);
+  const bf16* vn = static_cast<const bf16*>(a.v_new);
+  const int end = copied_end(a.lengths[b], T, K, a.page);
+  const int c_lo = rank * a.cpb, c_hi = min(c_lo + a.cpb, a.nchunks);
+  const int nmine = c_hi - c_lo;                        // >= 1
+  const int c_keys = (end + kChunk - 1) / kChunk;       // chunks holding copied columns
+  const int nkeys = max(0, min(c_hi, c_keys) - c_lo);   // this block's
+  const int used = min(ranks, (c_keys + a.cpb - 1) / a.cpb);  // ranks holding any
+  const bool resident = nmine <= 2;  // both passes' chunks fit the ring at once
+
+  // 1. write positions, the fused append of this block's positions (the
+  //    last rank also stores those in [K, M), which nothing reads), and the
+  //    query rows by cp.async (rows past R and columns past hd as zeros)
+  if (tid < T) sW[tid] = a.widx[b * T + tid];
+  for (int t = 0; t < T; ++t) {
+    const int wi = a.widx[b * T + t];
+    if (wi < 0 || wi >= a.M) continue;
+    const bool mine = wi >= c_lo * kChunk && wi < min(c_hi * kChunk, K);
+    if (!(mine || (rank == ranks - 1 && wi >= K))) continue;
+    const long long src = ((long long)(b * T + t) * a.Hkv + h) * hd;
+    for (int d = tid; d < hd; d += kThreads) {
+      ck_row[wi * pos_stride + d] = kn[src + d];
+      cv_row[wi * pos_stride + d] = vn[src + d];
+    }
+  }
+  const int live = hd / 8;  // pieces of a row holding data
+  const bf16* q = static_cast<const bf16*>(a.q);
+  for (int i = tid; i < rows_p * kPieces; i += kThreads) {
+    const int r = i / kPieces, c = i - r * kPieces;
+    const bool ok = r < R && c < live;
+    const bf16* src = q;
+    if (ok) {
+      const int t = r / group, gg = r - t * group;
+      src = q + ((long long)(b * T + t) * a.Hq + h * group + gg) * hd + 8 * c;
+    }
+    cp_async16z(sQ + r * kLD + 8 * c, src, ok ? 16 : 0);
+  }
+  __syncthreads();  // sW
+  int w_lo = a.M, w_hi = -1;  // the range of this slot's write positions
+  for (int t = 0; t < T; ++t) {
+    w_lo = min(w_lo, sW[t]);
+    w_hi = max(w_hi, sW[t]);
+  }
+
+  // chunk c into ring slot `slot`: its copied K (and V) rows, a written
+  // position's row from k_new / v_new, zeros past the copied columns, and
+  // its mask columns
+  const bool mask_vec = (K & 15) == 0 && (reinterpret_cast<uintptr_t>(a.mask) & 15) == 0;
+  auto load_chunk = [&](int c, int slot, bool with_v) {
+    const int start = c * kChunk, cols = min(kChunk, K - start);
+    if (c < c_keys) {
+      const int ncopy = min(end - start, cols);
+      bf16* dK = ring + slot * 2 * kTile;
+      for (int i = tid; i < kChunk * kPieces; i += kThreads) {
+        const int j = i / kPieces, c8 = i - j * kPieces;
+        const bool ok = j < ncopy && c8 < live;
+        const bf16 *sk = kn, *sv = vn;
+        if (ok) {
+          const int pos = start + j;
+          int tw = -1;
+          if (pos >= w_lo && pos <= w_hi)
+            for (int t = T - 1; t >= 0 && tw < 0; --t) tw = sW[t] == pos ? t : -1;
+          if (tw >= 0) {
+            const long long src = ((long long)(b * T + tw) * a.Hkv + h) * hd + 8 * c8;
+            sk = kn + src;
+            sv = vn + src;
+          } else {
+            sk = ck_row + pos * pos_stride + 8 * c8;
+            sv = cv_row + pos * pos_stride + 8 * c8;
+          }
+        }
+        cp_async16z(dK + j * kLD + 8 * c8, sk, ok ? 16 : 0);
+        if (with_v) cp_async16z(dK + kTile + j * kLD + 8 * c8, sv, ok ? 16 : 0);
+      }
+    }
+    uint8_t* dM = sM + slot * T * kChunk;
+    const uint8_t* mrow = a.mask + (long long)b * T * K + start;
+    if (mask_vec) {
+      const int n16 = cols / 16;
+      for (int i = tid; i < T * n16; i += kThreads) {
+        const int t = i / n16, p = i - t * n16;
+        cp_async16z(dM + t * kChunk + 16 * p, mrow + (long long)t * K + 16 * p, 16);
+      }
+    } else {
+      for (int i = tid; i < T * cols; i += kThreads) {
+        const int t = i / cols, j = i - t * cols;
+        dM[t * kChunk + j] = mrow[(long long)t * K + j];
+      }
+    }
+  };
+
+  // S of chunk c (in ring slot `slot`) for this warp's items, finished:
+  // s[i][n][e] of m-tile warp / 4 + 2 i, keys 16 kq + 8 n + 2 tig + (e & 1),
+  // rows g + 8 (e >> 1); -inf past K and on pad rows
+  auto scores = [&](int c, int slot, float s[2][2][4]) {
+    const int start = c * kChunk, cols = min(kChunk, K - start);
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int n = 0; n < 2; ++n) s[i][n][0] = s[i][n][1] = s[i][n][2] = s[i][n][3] = 0.f;
+    if (c < c_keys) {  // else every key is zero: every dot 0
+      const bf16* tK = ring + slot * 2 * kTile;
+#pragma unroll
+      for (int kk = 0; kk < HDP / 16; ++kk) {
+        unsigned kb[4];
+        ldmatrix_x4(kb, b_frag<kLD>(tK, kq, kk, lane));
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int mt = (warp >> 2) + 2 * i;
+          if (mt < Mt) {
+            unsigned qa[4];
+            ldmatrix_x4(qa, a_frag<kLD>(sQ, 16 * mt, kk, lane));
+            mma(s[i][0], qa, kb[0], kb[1]);
+            mma(s[i][1], qa, kb[2], kb[3]);
+          }
+        }
+      }
+    }
+    const uint8_t* tM = sM + slot * T * kChunk;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int mt = (warp >> 2) + 2 * i;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int r = 16 * mt + g + 8 * half;
+        const int t = r < R ? r / group : 0;
+#pragma unroll
+        for (int n = 0; n < 2; ++n)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int col = 16 * kq + 8 * n + 2 * tig + e;
+            float& x = s[i][n][2 * half + e];
+            x = col < cols && r < R
+                    ? finish_score<bf16>(x, a.scale, a.softcap, tM[t * kChunk + col])
+                    : -INFINITY;
+          }
+      }
+    }
+  };
+
+  // the chunk loop of one pass: double-buffered loads unless the block's
+  // chunks stayed resident from pass 1
+  auto walk = [&](int n, bool load, bool with_v, auto&& body) {
+    if (n == 0) return;
+    if (load) {
+      load_chunk(c_lo, 0, with_v);
+      asm volatile("cp.async.commit_group;\n" ::);
+    }
+    for (int i = 0; i < n; ++i) {
+      if (load) {
+        if (i + 1 < n) load_chunk(c_lo + i + 1, (i + 1) & 1, with_v);
+        asm volatile("cp.async.commit_group;\n" ::);
+        asm volatile("cp.async.wait_group 1;\n" ::);  // chunk i (and Q) landed
+      }
+      __syncthreads();
+      body(c_lo + i, i & 1);
+      __syncthreads();  // the slot's readers are done before it is refilled
+    }
+  };
+
+  // 2. pass 1: each row's running (max, sum of exp(s - max)) over the
+  //    warp's key quarter of the block's chunks
+  float rm[2][2], rl[2][2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) rm[i][0] = rm[i][1] = -INFINITY, rl[i][0] = rl[i][1] = 0.f;
+  walk(nmine, true, resident, [&](int c, int slot) {
+    float s[2][2][4];
+    scores(c, slot, s);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      if ((warp >> 2) + 2 * i >= Mt) continue;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const float* x0 = &s[i][0][2 * half];
+        const float* x1 = &s[i][1][2 * half];
+        const float mnew = fmaxf(rm[i][half],
+                                 quad_max(fmaxf(fmaxf(x0[0], x0[1]), fmaxf(x1[0], x1[1]))));
+        const float mref = mnew == -INFINITY ? 0.f : mnew;
+        const float sum = quad_sum(expf(x0[0] - mref) + expf(x0[1] - mref) +
+                                   expf(x1[0] - mref) + expf(x1[1] - mref));
+        rl[i][half] = rl[i][half] * expf(rm[i][half] - mref) + sum;
+        rm[i][half] = mnew;
+      }
+    }
+  });
+  asm volatile("cp.async.wait_all;\n" ::);
+  if (tig == 0) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int mt = (warp >> 2) + 2 * i;
+      if (mt >= Mt) continue;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int r = 16 * mt + g + 8 * half;
+        qm[kq * rows_p + r] = rm[i][half];
+        ql[kq * rows_p + r] = rl[i][half];
+      }
+    }
+  }
+  __syncthreads();
+  // the block's statistics, the key quarters folded in order; then the
+  // cluster's, the ranks folded in order
+  if (tid < R) {
+    float m = -INFINITY;
+    for (int k = 0; k < 4; ++k) m = fmaxf(m, qm[k * rows_p + tid]);
+    float l = 0.f;
+    for (int k = 0; k < 4; ++k) l += ql[k * rows_p + tid] * expf(qm[k * rows_p + tid] - m);
+    bm[tid] = m;
+    bl[tid] = l;
+  }
+  cluster.sync();
+  if (tid < R) {  // every rank's pair loaded first: one remote latency, not one a rank
+    float mr[kMaxCluster], lr[kMaxCluster];
+#pragma unroll
+    for (int r = 0; r < kMaxCluster; ++r) {
+      mr[r] = r < ranks ? *cluster.map_shared_rank(bm + tid, r) : -INFINITY;
+      lr[r] = r < ranks ? *cluster.map_shared_rank(bl + tid, r) : 0.f;
+    }
+    float m = -INFINITY;
+#pragma unroll
+    for (int r = 0; r < kMaxCluster; ++r) m = fmaxf(m, mr[r]);
+    float l = 0.f;
+#pragma unroll
+    for (int r = 0; r < kMaxCluster; ++r)
+      if (r < ranks) l += lr[r] * expf(mr[r] - m);
+    gm[tid] = m;
+    gl[tid] = l;
+  }
+  __syncthreads();
+
+  // 3. pass 2: probabilities and the block's partial P V
+  float o[kPairsPerWarp][4][2][4];
+#pragma unroll
+  for (int p = 0; p < kPairsPerWarp; ++p)
+#pragma unroll
+    for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+      for (int n = 0; n < 2; ++n) o[p][mt][n][0] = o[p][mt][n][1] = o[p][mt][n][2] =
+                                      o[p][mt][n][3] = 0.f;
+  walk(nkeys, !resident, true, [&](int c, int slot) {
+    float s[2][2][4];
+    scores(c, slot, s);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int mt = (warp >> 2) + 2 * i;
+      if (mt >= Mt) continue;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int r = 16 * mt + g + 8 * half;
+        const float m = gm[r], l = gl[r];
+#pragma unroll
+        for (int n = 0; n < 2; ++n) {
+          const float* x = &s[i][n][2 * half];
+          const float p0 = x[0] == -INFINITY ? 0.f : round_to<bf16>(expf(x[0] - m) / l);
+          const float p1 = x[1] == -INFINITY ? 0.f : round_to<bf16>(expf(x[1] - m) / l);
+          *reinterpret_cast<__nv_bfloat162*>(sP + r * kLDP + 16 * kq + 8 * n + 2 * tig) =
+              __floats2bfloat162_rn(p0, p1);
+        }
+      }
+    }
+    __syncthreads();  // the chunk's P
+    const bf16* tV = ring + slot * 2 * kTile + kTile;
+#pragma unroll
+    for (int p = 0; p < kPairsPerWarp; ++p) {
+      const int pair = warp + 8 * p;
+      if (pair >= kPairs || 16 * pair >= hd) continue;
+#pragma unroll
+      for (int kk = 0; kk < kChunk / 16; ++kk) {
+        unsigned vb[4];
+        ldmatrix_x4_trans(vb, a_frag<kLD>(tV, 16 * kk, pair, lane));
+#pragma unroll
+        for (int mt = 0; mt < 4; ++mt) {
+          if (mt < Mt) {
+            unsigned pa[4];
+            ldmatrix_x4(pa, a_frag<kLDP>(sP, 16 * mt, kk, lane));
+            mma(o[p][mt][0], pa, vb[0], vb[1]);
+            mma(o[p][mt][1], pa, vb[2], vb[3]);
+          }
+        }
+      }
+    }
+  });
+
+  // 4. the partials through distributed shared memory: every rank holding
+  //    copied columns leaves its partial in place of its ring; each block
+  //    sums a slice of the outputs over those ranks in rank order, rounds
+  //    once and stores
+  if (nkeys > 0) {
+#pragma unroll
+    for (int p = 0; p < kPairsPerWarp; ++p) {
+      const int pair = warp + 8 * p;
+      if (pair >= kPairs) continue;
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt) {
+        if (mt >= Mt) continue;
+#pragma unroll
+        for (int n = 0; n < 2; ++n) {
+          const int r = 16 * mt + g, col = 16 * pair + 8 * n + 2 * tig;
+          *reinterpret_cast<float2*>(sO + r * kLDO + col) = make_float2(o[p][mt][n][0],
+                                                                        o[p][mt][n][1]);
+          *reinterpret_cast<float2*>(sO + (r + 8) * kLDO + col) =
+              make_float2(o[p][mt][n][2], o[p][mt][n][3]);
+        }
+      }
+    }
+  }
+  cluster.sync();
+  bf16* out = static_cast<bf16*>(a.out);
+  const int nvec = R * hd / 4;
+  for (int v = rank * kThreads + tid; v < nvec; v += ranks * kThreads) {
+    const int r = 4 * v / hd, d = 4 * v - r * hd;
+    float4 x[kMaxCluster];
+#pragma unroll
+    for (int rr = 0; rr < kMaxCluster; ++rr)
+      if (rr < used)
+        x[rr] = *reinterpret_cast<const float4*>(cluster.map_shared_rank(sO + r * kLDO + d, rr));
+    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int rr = 0; rr < kMaxCluster; ++rr) {
+      if (rr < used) {
+        acc.x += x[rr].x;
+        acc.y += x[rr].y;
+        acc.z += x[rr].z;
+        acc.w += x[rr].w;
+      }
+    }
+    const int t = r / group, gg = r - t * group;
+    __nv_bfloat162* dst = reinterpret_cast<__nv_bfloat162*>(
+        out + ((long long)(b * T + t) * a.Hq + h * group + gg) * hd + d);
+    dst[0] = __floats2bfloat162_rn(acc.x, acc.y);
+    dst[1] = __floats2bfloat162_rn(acc.z, acc.w);
+  }
+  cluster.sync();  // no block leaves while another reads its partial
+}
+
+template <int HDP>
+cudaError_t launch(const Args& a, int B, cudaStream_t s) {
+  const int R = a.T * (a.Hq / a.Hkv);
+  const int smem = smem_layout(HDP, (R + 15) & ~15, a.T).total;
+  cudaError_t err =
+      cudaFuncSetAttribute(ragged_tc<HDP>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const unsigned ranks = (a.nchunks + a.cpb - 1) / a.cpb;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(ranks, a.Hkv, B);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = ranks;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, ragged_tc<HDP>, a);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+cudaError_t launch_any(Args& a, int B, cudaStream_t s) {
+  const int R = a.T * (a.Hq / a.Hkv);
+  if (R < kMinRows || R > kMaxRows || a.hd > 256) return cudaErrorInvalidValue;
+  a.cpb = (a.nchunks + kMaxCluster - 1) / kMaxCluster;
+  switch (padded_hd(a.hd)) {
+    case 16: return launch<16>(a, B, s);
+    case 64: return launch<64>(a, B, s);
+    case 128: return launch<128>(a, B, s);
+    default: return launch<256>(a, B, s);
+  }
+}
+
+}  // namespace tc
+
 template <typename K>
 cudaError_t opt_in(K kernel, int bytes) {
   if (bytes <= 48 * 1024) return cudaSuccess;
@@ -400,8 +950,11 @@ cudaError_t launch(const Args& a, int B, cudaStream_t s) {
 }  // namespace
 
 // q_bf16 / kv_bf16: 1 for bfloat16, 0 for float32.  softcap <= 0 is off.
-// scratch: f32, ragged_scratch_floats(...) elements (ops/ragged_decode.py),
-// laid out as scores, chunk maxima, chunk sums, partial outputs.
+// Both bfloat16 at T > 1 with tc::kMinRows to tc::kMaxRows query rows per
+// kv head and hd <= 256 (ops/ragged_decode.py on_tensor_cores):
+// tc::ragged_tc, no scratch.  Otherwise the CUDA-core passes with scratch: f32,
+// scratch_floats(...) elements (ops/ragged_decode.py), laid out as scores,
+// chunk maxima, chunk sums, partial outputs.
 extern "C" int ragged_decode_launch(int device, int q_bf16, int kv_bf16, const void* q,
                                     const void* k_new, const void* v_new, void* ck, void* cv,
                                     const void* rows, const void* lengths, const void* widx,
@@ -422,12 +975,16 @@ extern "C" int ragged_decode_launch(int device, int q_bf16, int kv_bf16, const v
   a.T = T; a.Hq = Hq; a.Hkv = Hkv; a.hd = hd; a.M = M; a.K = K; a.page = page;
   a.nchunks = (K + kChunk - 1) / kChunk;
   a.scale = scale; a.softcap = softcap;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int R = T * (Hq / Hkv);
+  if (q_bf16 && kv_bf16 && T > 1 && R >= tc::kMinRows && R <= tc::kMaxRows && hd <= 256)
+    return (int)tc::launch_any(a, B, s);
+  if (scratch == nullptr) return (int)cudaErrorInvalidValue;
   const long long rows_all = (long long)B * Hkv * T * (Hq / Hkv);
   a.scores = static_cast<float*>(scratch);
   a.cmax = a.scores + rows_all * K;
   a.csum = a.cmax + rows_all * a.nchunks;
   a.partial = a.csum + rows_all * a.nchunks;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (q_bf16 && kv_bf16)
     err = launch<__nv_bfloat16, __nv_bfloat16>(a, B, s);
   else if (q_bf16)

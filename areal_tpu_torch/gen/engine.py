@@ -81,7 +81,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from areal_tpu_torch.device import DeviceLike, resolve_device
+from areal_tpu_torch.device import DeviceLike, resolve_device, torch_dtype
 from areal_tpu_torch.gen.kv_pool import KVPool, lcp_ids
 from areal_tpu_torch.gen.sampling import root_key, sample_tokens_keyed, stream_keys
 from areal_tpu_torch.gen.spec import DEFAULT_SPEC_LADDER, SpecController, propose_draft
@@ -203,7 +203,8 @@ class GenEngine:
         # widest query tile (a verify at the ladder's top rung)
         T = max(self.spec_ladder) + 1 if spec_decode else 1
         if not ragged_supported(max_seq_len, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_,
-                                T=T):
+                                T=T, q_dtype=torch_dtype(cfg.dtype),
+                                kv_dtype=torch_dtype(kv_dtype)):
             raise ValueError(
                 f"the ragged decode kernel does not take {cfg.num_heads} q heads "
                 f"over {cfg.num_kv_heads} kv heads of dim {cfg.head_dim_} at "

@@ -31,7 +31,9 @@ wrapper counts its launches in `.launches`, and by head dim (128 or 256)
 in `.launches_hd`.  Every wrapper picks its kernel by dtype and head dim:
 bfloat16 runs on the tensor cores (counted again in `.launches_tc`),
 float32 on the CUDA cores, whose f32 products the tensor cores (TF32 at
-best) could not keep.
+best) could not keep.  The bf16 dk/dv kernel at hd 256 runs each key tile
+as a thread block cluster whose blocks split the GQA group's q heads;
+`dkv_plan` picks its size from the grid.
 
 Query offset.  Every function here also takes `q_start` and
 `kv_segment_ids`: the queries are then rows [q_start, q_start + Tq) of
@@ -69,6 +71,11 @@ from areal_tpu_torch.ops import _build
 
 HEAD_DIMS = (128, 256)  # the kernels' head dims
 _DTYPES = (torch.float32, torch.bfloat16)
+DKV_MAX_CLUSTER = 8  # the portable thread block cluster size
+# the hd-256 dk/dv grid's aim: about two blocks for each of the H100's 132
+# SMs, which hold one block each, and at most 4 q heads walked per block
+DKV_MIN_BLOCKS = 256
+DKV_MAX_HEADS = 4
 
 
 def flash_supported(T: int, Hq: int, Hkv: int, hd: int, sp: int = 1) -> bool:
@@ -81,6 +88,30 @@ def flash_supported(T: int, Hq: int, Hkv: int, hd: int, sp: int = 1) -> bool:
     splash."""
     return (T >= 256 and T % (128 * sp) == 0 and hd in HEAD_DIMS and Hkv > 0
             and Hq % Hkv == 0)
+
+
+def dkv_plan(Hq: int, Hkv: int, hd: int, bf16: bool, B: int = 1, Tk: int = 64) -> int:
+    """Blocks per key tile of the dk/dv kernel for [B, Tk] rows: 1, except
+    in bf16 at hd 256, where a thread block cluster per key tile splits the
+    GQA group's q heads.  That block holds its 64 keys, two stages of 64 q
+    and dO rows and the f32 P^T hand-over (219,136 bytes): one block per
+    SM.  So the cluster size S is picked by the grid: the smallest power of
+    two up to DKV_MAX_CLUSTER that divides the group, leaves each block at
+    most DKV_MAX_HEADS q heads to walk, and gives the grid at least
+    DKV_MIN_BLOCKS blocks (or the largest such divisor).  Each block beyond
+    those pays the block's fixed cost (its K/V tile, the segment scans and
+    the cluster's sum) for a shorter walk.  Gemma-2B's MQA (8 heads on one)
+    takes 2 on 8 rows of 1024 and 4 on 4 rows; Gemma-7B's MHA takes 1.  The
+    kernel refuses a size that is not a power of two dividing the group."""
+    if not (bf16 and hd == 256):
+        return 1
+    group = Hq // Hkv
+    base = Hkv * B * -(-Tk // 64)  # blocks at one per key tile
+    cluster = 1
+    while (cluster < DKV_MAX_CLUSTER and group % (2 * cluster) == 0
+           and (group // cluster > DKV_MAX_HEADS or base * cluster < DKV_MIN_BLOCKS)):
+        cluster *= 2
+    return cluster
 
 
 # ---------------------------------------------------------------------------
@@ -200,7 +231,7 @@ def _lib():
     tail = [i] * 7 + [f, i, ptr]
     lib.flash_fwd.argtypes = [i, i] + [ptr] * 7 + tail
     lib.flash_bwd_dq.argtypes = [i, i] + [ptr] * 9 + tail
-    lib.flash_bwd_dkv.argtypes = [i, i] + [ptr] * 10 + tail
+    lib.flash_bwd_dkv.argtypes = [i, i] + [ptr] * 10 + [i] + tail  # + dkv_plan
     for fn in (lib.flash_fwd, lib.flash_bwd_dq, lib.flash_bwd_dkv):
         fn.restype = ctypes.c_int
     return lib
@@ -310,8 +341,9 @@ def flash_bwd_dkv(qs, k, v, segment_ids, dout, lse, di, window: Optional[int] = 
     _raise(_lib().flash_bwd_dkv(
         qs.device.index or 0, int(bf16), qs.data_ptr(), k.data_ptr(), v.data_ptr(),
         segment_ids.data_ptr(), kv_seg.data_ptr(), dout.data_ptr(), lse.data_ptr(),
-        di.data_ptr(), dk.data_ptr(), dv.data_ptr(), *_rows(qs, k, window, softcap, q_start)),
-        "flash_bwd_dkv")
+        di.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        dkv_plan(qs.shape[2], k.shape[2], qs.shape[-1], bf16, k.shape[0], k.shape[1]),
+        *_rows(qs, k, window, softcap, q_start)), "flash_bwd_dkv")
     _build.count_launch(flash_bwd_dkv, tensor_cores=bf16,
                         head_dim=qs.shape[-1])  # bf16: tensor cores
     return dk, dv

@@ -19,7 +19,8 @@ Phases, each printed with its wall time; any failure exits non-zero:
             masks that drop keys, two runs bit-equal; Qwen3-1.7B's heads
             Hq=16, Hkv=8 at B=16; Gemma-2B's decode heads B=8, Hq=8, Hkv=1,
             hd=256 at K=2048), then one slot bit-equal alone and
-            in the B=16 grid, and two runs bit-equal.  Flash forward, dq and
+            in the grid, and two runs bit-equal, at B=16 T=1 (the CUDA-core
+            passes) and in a B=8 T=8 verify (the tensor cores).  Flash forward, dq and
             dk/dv at Qwen2.5's training heads (Hq=12, Hkv=2, hd=128, bf16):
             T=2048 packed with 3 segments and tail padding, T=1024 one
             segment, window 256, softcap 30, and f32 at T=256, and at
@@ -39,7 +40,14 @@ Phases, each printed with its wall time; any failure exits non-zero:
             limits, f32 forwards within 1e-6), its out, lse and dq bit-equal
             to the unsharded kernels' rows, the shards' dk/dv partials
             summed against the unsharded kernel, the keys past a shard's
-            last query exactly 0 in its partials, reruns bit-equal
+            last query exactly 0 in its partials, reruns bit-equal.  Every
+            ragged call is checked on its variant: a bf16 verify (T > 1, 17
+            to 64 rows a kv head) on the tensor-core kernel, decode, other
+            verifies and f32 on the CUDA-core passes.
+            `--only kernels` runs the build, these checks and 6b (a), then
+            times the five T = 1 decode shapes, the verify at T = 4 and 8,
+            K1 at hd 256 on rows shaped like the gemma1 phase's, the offset
+            kernels at hd 256, and K1c at hd 256 at each cluster size
 4. engine   a tiny f32 model served by the port's engine on the card and on
             the CPU: greedy streams equal, logprobs within 1e-4
 5. serve    random seeded bf16 Qwen2.5-1.5B weights at full width (28
@@ -58,12 +66,16 @@ Phases, each printed with its wall time; any failure exits non-zero:
 6b. spec    speculative decoding, K2's verify half at T = D + 1: (a) K2
             against its plain version at T = 4 and 8 on Qwen2.5-1.5B's heads
             and Gemma-2B's decode heads, with short drafts and idle slots,
-            the appended cache bit for bit; (b) in process, f32 at 4 layers
+            the appended cache bit for bit, every one on the tensor-core
+            kernel, and at T = 16 on Qwen2.5's heads (96 rows a kv head)
+            and T = 8 on Gemma-2-2B's (16 rows) on the CUDA-core passes;
+            (b) in process, f32 at 4 layers
             of full width, spec off, D = 3 and the ladder (0, 3, 7) on one
             greedy-and-sampled workload: equal token streams, logprobs
             within 1e-3, every accepted draft the sampled token, K2
             launches = 4 x (decode steps + verify calls), those at T > 1
-            counted apart = 4 x verify calls; (c) `python -m
+            counted apart = 4 x verify calls, none on the tensor cores
+            (f32); (c) `python -m
             areal_tpu_torch.gen.server` on the serve checkpoint with
             --spec-decode and without (8 slots each, the launch helper),
             the same 8 requests (64..512-token prompts of tiled spans, 128
@@ -72,9 +84,9 @@ Phases, each printed with its wall time; any failure exits non-zero:
             the server's count of those at T > 1 = 28 x verify calls, the
             Prometheus series, and the logprob gap on against off before
             each request's first divergent position; (d) K2 at T = 4 and 8
-            timed (events, profiler) with its bound, plain version and
-            SDPA on the same boolean mask.  `--only spec` runs the build,
-            a checkpoint and this phase alone
+            (on the tensor cores) timed (events, profiler) with its bound,
+            plain version and SDPA on the same boolean mask.  `--only spec`
+            runs the build, a checkpoint and this phase alone
 7. train    the PPO actor on the serve phase's checkpoint at full width (f32
             masters, bf16 compute, full remat) beside a server of the same
             checkpoint: 8 prompts x group 4 rolled out over HTTP (256 new
@@ -194,9 +206,11 @@ Phases, each printed with its wall time; any failure exits non-zero:
             updated masters bit-equal to full with one layer; each one's
             peak memory, train_batch time and K1a count (2 a layer under
             full, save_mlp and dots, 1 under save_attn and carry_offload).
-            Then K1a/b/c at hd 256 on the phase's train rows and K2 at its
-            decode shape timed against their plain versions and SDPA, with
-            bounds.  `--only gemma1` runs the build and this phase alone
+            Then K1a/b/c at hd 256 on the phase's train rows (K1c's cluster
+            size printed), K2 at its decode shape, and the offset kernels at
+            hd 256 per shard of phase 3's T=2048 rows at sp 2 and 4 timed
+            against their plain versions and SDPA, with bounds.  `--only
+            gemma1` runs the build and this phase alone
 13. remote  the same cell with trainer and server as two processes on the
             card: `areal_tpu_torch.gen.server` started by the launch helper
             (32 slots, max_seq_len 1024, bf16, from a checkpoint of the
@@ -296,6 +310,7 @@ from areal_tpu_torch.ops import _build
 from areal_tpu_torch.ops import flash_attention as fa
 from areal_tpu_torch.ops.ragged_decode import (
     _copied_end,
+    on_tensor_cores,
     ragged_paged_attention,
     ragged_paged_attention_plain,
 )
@@ -435,10 +450,18 @@ def check_kernel():
 def compare_ragged(name, case, softcap=None):
     """The ragged kernel against its plain version on one case (tolerances
     as in `check_kernel`).  Returns max|out - plain|."""
-    got, want = _run(ragged_paged_attention, case, softcap), _run(
-        ragged_paged_attention_plain, case, softcap)
+    tc0 = ragged_paged_attention.launches_tc
+    got = _run(ragged_paged_attention, case, softcap)
+    on_tc = ragged_paged_attention.launches_tc - tc0
+    want = _run(ragged_paged_attention_plain, case, softcap)
     torch.cuda.synchronize()
     f32 = case["q"].dtype == torch.float32
+    _, T, Hq, hd = case["q"].shape
+    if on_tc != int(on_tensor_cores(case["q"].dtype, case["ck"].dtype, T,
+                                    Hq // case["ck"].shape[2], hd)):
+        raise AssertionError(f"{name}: K2 ran on the wrong variant (a bf16 verify of 17 to "
+                             "64 rows a kv head takes the tensor cores; decode, other "
+                             "verifies, f32 and mixed calls the CUDA cores)")
     atol, rtol = (1e-5, 1e-5) if f32 else (BF16_ATOL, BF16_RTOL)
     err = (got[0].float() - want[0].float()).abs()
     bad = err > atol + rtol * want[0].float().abs()
@@ -453,22 +476,31 @@ def compare_ragged(name, case, softcap=None):
 
 
 def check_ragged_invariance():
-    """Fixed key chunks and no atomics: two runs of the B=16 grid are
-    bit-equal (out and caches), and a slot run alone (B=1) gives the same
-    out, bit for bit, as inside the grid."""
-    case = ragged_case(120, K=1024)
-    first, second = _run(ragged_paged_attention, case), _run(ragged_paged_attention, case)
-    torch.cuda.synchronize()
-    if not all(torch.equal(a, b) for a, b in zip(first, second)):
-        raise AssertionError("two ragged runs on the same inputs differ")
-    for slot in (0, 5, 15):
-        alone = {k: (v[slot:slot + 1] if k in ("q", "k_new", "v_new", "rows", "lengths",
-                                               "widx", "mask") else v)
-                 for k, v in case.items()}
-        out = _run(ragged_paged_attention, alone)[0]
-        if not torch.equal(out[0], first[0][slot]):
-            raise AssertionError(f"slot {slot} alone differs from slot {slot} in the grid")
-    print("  two B=16 runs bit-equal; slots 0, 5, 15 alone (B=1) bit-equal to the grid")
+    """Fixed key chunks and no atomics, on both of K2's paths: two runs of
+    the grid are bit-equal (out and caches), and a slot run alone (B=1)
+    gives the same out, bit for bit, as inside the grid.  Decode on the
+    CUDA-core passes (B=16, T=1) and a bf16 verify on the tensor cores (B=8,
+    T=8, Qwen2.5's heads, short drafts and idle slots)."""
+    for label, case, slots, tc in (
+            ("B=16 T=1", ragged_case(120, K=1024), (0, 5, 15), 0),
+            ("B=8 T=8 verify", verify_case(121, 8, B=SPEC_SLOTS, K=1024, M=1024), (0, 2, 6), 1)):
+        tc0 = ragged_paged_attention.launches_tc
+        first, second = _run(ragged_paged_attention, case), _run(ragged_paged_attention, case)
+        torch.cuda.synchronize()
+        if ragged_paged_attention.launches_tc - tc0 != 2 * tc:
+            raise AssertionError(f"{label}: K2 ran on the wrong variant")
+        if not all(torch.equal(a, b) for a, b in zip(first, second)):
+            raise AssertionError(f"two ragged runs on the same inputs differ ({label})")
+        for slot in slots:
+            alone = {k: (v[slot:slot + 1] if k in ("q", "k_new", "v_new", "rows", "lengths",
+                                                   "widx", "mask") else v)
+                     for k, v in case.items()}
+            out = _run(ragged_paged_attention, alone)[0]
+            if not torch.equal(out[0], first[0][slot]):
+                raise AssertionError(f"{label}: slot {slot} alone differs from slot {slot} "
+                                     "in the grid")
+        print(f"  {label} ({'tensor cores' if tc else 'CUDA cores'}): two runs bit-equal; "
+              f"slots {', '.join(map(str, slots))} alone (B=1) bit-equal to the grid")
 
 
 def packed_segments(T, seg_lens):
@@ -2476,39 +2508,73 @@ def gemma1_phase(ckpt_dir, publish_dir):
 
 def gemma1_timings(seg_rows):
     """K1a/b/c at hd 256 on the Gemma-2B phase's train rows (kernel, plain
-    version, SDPA, bound) and K2 at Gemma-2B's decode heads (8 slots, one
-    kv head of 256, spans 128..639 of K 2048)."""
-    lengths = torch.from_numpy(np.random.default_rng(22).integers(
-        GEMMA1_PROMPT_LEN[0], GEMMA1_PROMPT_LEN[1] + GEMMA1_NEW, GEMMA1_SLOTS)).to(torch.int32)
-    k2 = time_kernel(ragged_case(23, K=GEMMA1_SEQ, M=GEMMA1_SEQ, lengths=lengths,
-                                 **GEMMA1_DECODE))
-    print(f"  K2 at Gemma-2B decode (B={GEMMA1_SLOTS} Hq=8 Hkv=1 hd=256, K={GEMMA1_SEQ}, spans "
-          f"{GEMMA1_PROMPT_LEN[0]}..{GEMMA1_PROMPT_LEN[1] + GEMMA1_NEW - 1}): kernel "
-          f"{k2[0]:.4f} ms, plain {k2[1]:.4f} ms, SDPA {k2[2]:.4f} ms, bound {k2[3]:.4f} ms "
-          f"({k2[4]}); device time per call: kernel {fmt_ms(k2[5])}, SDPA {fmt_ms(k2[6])}")
-    print("  K1 at Gemma-2B's heads (Hq=8 Hkv=1 hd=256):")
-    return time_flash(seg_rows, **GEMMA1_HEADS)
+    version, SDPA, bound), K2 at Gemma-2B's decode heads (8 slots, one kv
+    head of 256, spans 128..639 of K 2048), and the offset kernels at
+    Gemma-2B's heads per shard of phase 3's T = 2048 rows at sp 2 and 4.
+    Returns time_flash's timings and errors."""
+    print_k2(*decode_case_timed("gemma1"))
+    print(f"  K1 at Gemma-2B's heads (Hq=8 Hkv=1 hd=256; dk/dv cluster of "
+          f"{fa.dkv_plan(8, 1, 256, True, *np.shape(seg_rows))} blocks a key tile):")
+    flash = time_flash(seg_rows, **GEMMA1_HEADS)
+    for sp in (2, 4):
+        time_flash_offset(packed_segments(2048, [700, 900, 300]).numpy(), sp=sp,
+                          label=f"hd 256 T=2048 sp {sp}", **GEMMA1_HEADS)
+    return flash
+
+
+def gemma1_like_rows(seed=0):
+    """Packed segment ids shaped like the gemma1 phase's train rows (for
+    `--only kernels`, which runs no model): one micro-batch of 4 seeded
+    prompts of GEMMA1_PROMPT_LEN tokens x group 4, each with GEMMA1_NEW new
+    tokens, packed into 1024-token rows as the actor packs them."""
+    from areal_tpu_torch.utils.data import pack_into_rows
+
+    lens = np.repeat(np.random.default_rng(seed).integers(*GEMMA1_PROMPT_LEN, 4) + GEMMA1_NEW, 4)
+    mask = np.arange(lens.max())[None, :] < lens[:, None]
+    return pack_into_rows({"attention_mask": mask}, 1024,
+                          rows_bucket_pow2=True).data["segment_ids"]
+
+
+def dkv_cluster_sweep():
+    """K1c at hd 256 on Gemma-2B's heads at every cluster size the kernel
+    takes (its C entry called with each), by device time, on 4, 8 and 16
+    of `gemma1_like_rows`' rows: the measurement `fa.dkv_plan`'s choice
+    (marked) rests on."""
+    rows = np.concatenate([gemma1_like_rows(0), gemma1_like_rows(1)])
+    lib = fa._lib()
+    for n in (4, 8, 16):
+        seg = torch.from_numpy(np.ascontiguousarray(rows[:n])).to(torch.int32)
+        qs, k, v, dout, sg = flash_case(300, seg, **GEMMA1_HEADS)
+        out, lse = fa.flash_fwd(qs, k, v, sg)
+        di = fa.attention_di(out, dout)
+        dk, dv = torch.empty_like(k), torch.empty_like(v)
+        pick = fa.dkv_plan(8, 1, 256, True, *seg.shape)
+        times = []
+        for cluster in (1, 2, 4, 8):
+            def run(cluster=cluster):
+                fa._raise(lib.flash_bwd_dkv(
+                    0, 1, qs.data_ptr(), k.data_ptr(), v.data_ptr(), sg.data_ptr(),
+                    sg.data_ptr(), dout.data_ptr(), lse.data_ptr(), di.data_ptr(),
+                    dk.data_ptr(), dv.data_ptr(), cluster,
+                    *fa._rows(qs, k, None, None, 0)), "flash_bwd_dkv")
+
+            times.append(f"{cluster}{'*' if cluster == pick else ''} "
+                         f"{fmt_ms(device_ms(run, iters=20))}")
+        print(f"  K1c hd 256 cluster sweep, {n} rows of 1024 ({attended_pairs(sg)} pairs a "
+              f"q head), device time by blocks a key tile (* dkv_plan's): " + ", ".join(times))
+
+
+def decode_case_timed(name):
+    """(label, time_kernel's tuple) of one of the five decode shapes."""
+    label, case, softcap = decode_case(name)
+    return label, time_kernel(case, softcap)
 
 
 def families_timings(qwen3_rows):
     """K2 at the families' decode shapes and K1 at Qwen3's heads on the
     Qwen3 loop's packed rows: kernel, plain version, SDPA, bound."""
-    lo, hi = LONG_PROMPT - 512, LONG_PROMPT + FAMILY_NEW
-    lengths = torch.from_numpy(np.random.default_rng(12).integers(
-        lo, hi, GEMMA_DECODE["B"])).to(torch.int32)
-    gemma = time_kernel(ragged_case(13, K=FAMILY_SEQ, M=FAMILY_SEQ, lengths=lengths,
-                                    window=4096, **GEMMA_DECODE), softcap=50.0)
-    lengths = torch.from_numpy(np.random.default_rng(14).integers(
-        GRPO_PROMPT_LEN[0], GRPO_PROMPT_LEN[1] + NEW_TOKENS, GRPO_SLOTS)).to(torch.int32)
-    qwen3 = time_kernel(ragged_case(15, B=GRPO_SLOTS, K=GRPO_SEQ, M=GRPO_SEQ, lengths=lengths,
-                                    **QWEN3_HEADS))
-    for name, t in ((f"Gemma-2-2B decode (B={GEMMA_DECODE['B']} K={FAMILY_SEQ}, spans "
-                     f"{lo}..{hi - 1}, window 4096, softcap 50; SDPA uncapped)", gemma),
-                    (f"Qwen3-1.7B decode (B={GRPO_SLOTS} K={GRPO_SEQ}, spans "
-                     f"{GRPO_PROMPT_LEN[0]}..{GRPO_PROMPT_LEN[1] + NEW_TOKENS - 1})", qwen3)):
-        print(f"  K2 at {name}: kernel {t[0]:.4f} ms, plain {t[1]:.4f} ms, SDPA {t[2]:.4f} ms, "
-              f"bound {t[3]:.4f} ms ({t[4]}); device time per call: kernel {fmt_ms(t[5])}, "
-              f"SDPA {fmt_ms(t[6])}")
+    for name in ("gemma2", "qwen3"):
+        print_k2(*decode_case_timed(name))
     print("  K1 at Qwen3-1.7B's heads (Hq=16 Hkv=8):")
     flash, errs = time_flash(qwen3_rows, **{k: QWEN3_HEADS[k] for k in ("Hq", "Hkv")})
     return errs
@@ -2574,8 +2640,10 @@ def verify_case(seed, T, **kw):
 
 def check_verify_kernel():
     """(a) K2 against its plain version at verify shapes: Qwen2.5-1.5B's
-    heads and Gemma-2B's decode heads at T = 4 and 8, with short drafts and
-    idle slots; the appended cache bit for bit.  Returns max|out - plain|."""
+    heads and Gemma-2B's decode heads at T = 4 and 8 (the tensor cores),
+    Qwen2.5's at T = 16 and Gemma-2-2B's at T = 8 (the CUDA-core passes),
+    with short drafts and idle slots; the appended cache bit for bit.
+    Returns max|out - plain|."""
     worst = 0.0
     for i, (label, kw) in enumerate((
             ("Qwen2.5-1.5B heads (B=8 Hq=12 Hkv=2 hd=128) K=1024", dict(B=SPEC_SLOTS, K=1024,
@@ -2585,6 +2653,17 @@ def check_verify_kernel():
             err = compare_ragged(f"verify T={T}, {label}, n_write < T and idle slots",
                                  verify_case(300 + 10 * i + T, T, **kw))
             worst = max(worst, err)
+    # the CUDA-core passes: a draft of 15 at Qwen2.5's heads (96 query rows
+    # a kv head, past the tensor-core kernel's 64), and Gemma-2-2B's heads
+    # at T = 8 (16 rows, where the passes are faster)
+    for i, (label, T, kw, softcap) in enumerate((
+            ("Qwen2.5-1.5B heads K=1024: 96 rows", 16, dict(B=SPEC_SLOTS, K=1024, M=1024),
+             None),
+            ("Gemma-2-2B decode heads K=2048, softcap 50: 16 rows", 8,
+             dict(GEMMA_DECODE, K=2048, M=2048), 50.0))):
+        err = compare_ragged(f"verify T={T}, {label} a kv head on the CUDA cores, n_write "
+                             "< T and idle slots", verify_case(330 + i, T, **kw), softcap)
+        worst = max(worst, err)
     return worst
 
 
@@ -2609,9 +2688,12 @@ def spec_f32_streams(cfg):
                            **b["sampling_params"]) for b in bodies]
         l0 = ragged_paged_attention.launches
         v0 = ragged_paged_attention.launches_verify
+        tc0 = ragged_paged_attention.launches_tc
         eng.generate_blocking(reqs)
         n = ragged_paged_attention.launches - l0
         n_verify = ragged_paged_attention.launches_verify - v0
+        if ragged_paged_attention.launches_tc != tc0:
+            raise AssertionError(f"spec {label}: an f32 K2 launch ran on the tensor cores")
         st = eng.stats
         want = SPEC_F32_LAYERS * (st["decode_steps"] + st["verify_calls"])
         print(f"  f32 {SPEC_F32_LAYERS} layers, spec {label}: drafted {st['spec_drafted']}, "
@@ -2777,6 +2859,10 @@ def spec_timings():
         case = ragged_case(400 + T, B=SPEC_SLOTS, T=T, K=1024, M=1024, lengths=lengths)
         case["widx"] = (case["lengths"].long()[:, None]
                         + torch.arange(T, device="cuda")[None, :]).to(torch.int32).contiguous()
+        tc0 = ragged_paged_attention.launches_tc
+        _run(ragged_paged_attention, case)
+        if ragged_paged_attention.launches_tc != tc0 + 1:
+            raise AssertionError(f"the bf16 verify at T={T} did not run on the tensor cores")
         t = time_kernel(case)
         out[T] = t
         print(f"  verify T={T} (B=8 Hq=12 Hkv=2 hd=128, K=1024): kernel {t[0]:.4f} ms, plain "
@@ -2853,6 +2939,50 @@ def kernel_bound(case):
     flops = 4 * end * Hkv * T * (Hq // Hkv) * hd
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / PEAK_FLOPS[q.dtype] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+DECODE_SHAPES = ("serving", "full window", "gemma2", "qwen3", "gemma1")
+
+
+def decode_case(name):
+    """One of the five T = 1 decode shapes the timings read: "serving" and
+    "full window" (Qwen2.5-1.5B, phase 6), "gemma2" and "qwen3" (the
+    families' decode grids, phase 11), "gemma1" (Gemma-2B, phase 12).
+    Returns (label, case, softcap)."""
+    rng = np.random.default_rng
+    if name == "serving":
+        lengths = torch.from_numpy(rng(2).integers(64, 965, 16)).to(torch.int32)
+        return ("serving shape (B=16 T=1 K=1024, spans 64..964)",
+                ragged_case(7, K=1024, lengths=lengths), None)
+    if name == "full window":
+        return "full window (B=16 T=1 K=2048, random spans)", ragged_case(8, K=2048), None
+    if name == "gemma2":
+        lo, hi = LONG_PROMPT - 512, LONG_PROMPT + FAMILY_NEW
+        lengths = torch.from_numpy(rng(12).integers(lo, hi, GEMMA_DECODE["B"])).to(torch.int32)
+        return (f"Gemma-2-2B decode (B={GEMMA_DECODE['B']} K={FAMILY_SEQ}, spans "
+                f"{lo}..{hi - 1}, window 4096, softcap 50; SDPA uncapped)",
+                ragged_case(13, K=FAMILY_SEQ, M=FAMILY_SEQ, lengths=lengths, window=4096,
+                            **GEMMA_DECODE), 50.0)
+    if name == "qwen3":
+        hi = GRPO_PROMPT_LEN[1] + NEW_TOKENS
+        lengths = torch.from_numpy(rng(14).integers(GRPO_PROMPT_LEN[0], hi, GRPO_SLOTS)).to(
+            torch.int32)
+        return (f"Qwen3-1.7B decode (B={GRPO_SLOTS} K={GRPO_SEQ}, spans "
+                f"{GRPO_PROMPT_LEN[0]}..{hi - 1})",
+                ragged_case(15, B=GRPO_SLOTS, K=GRPO_SEQ, M=GRPO_SEQ, lengths=lengths,
+                            **QWEN3_HEADS), None)
+    hi = GEMMA1_PROMPT_LEN[1] + GEMMA1_NEW
+    lengths = torch.from_numpy(rng(22).integers(GEMMA1_PROMPT_LEN[0], hi, GEMMA1_SLOTS)).to(
+        torch.int32)
+    return (f"Gemma-2B decode (B={GEMMA1_SLOTS} Hq=8 Hkv=1 hd=256, K={GEMMA1_SEQ}, spans "
+            f"{GEMMA1_PROMPT_LEN[0]}..{hi - 1})",
+            ragged_case(23, K=GEMMA1_SEQ, M=GEMMA1_SEQ, lengths=lengths, **GEMMA1_DECODE), None)
+
+
+def print_k2(label, t):
+    print(f"  K2 at {label}: kernel {t[0]:.4f} ms, plain {t[1]:.4f} ms, SDPA {t[2]:.4f} ms, "
+          f"bound {t[3]:.4f} ms ({t[4]}); device time per call: kernel {fmt_ms(t[5])}, "
+          f"SDPA {fmt_ms(t[6])}")
 
 
 def time_kernel(case, softcap=None):
@@ -3435,6 +3565,18 @@ def main(argv):
                 spec_phase(ckpt_dir)
         finally:
             shutil.rmtree(ckpt_dir, ignore_errors=True)
+    elif only == "kernels":
+        with phase("kernels"):
+            check_kernel()
+            check_verify_kernel()
+            check_flash()
+            check_flash_offset()
+        with phase("kernel timings"):
+            for name in DECODE_SHAPES[:-1]:
+                print_k2(*decode_case_timed(name))
+            spec_timings()
+            gemma1_timings(gemma1_like_rows())
+            dkv_cluster_sweep()
     elif only == "sp":
         with phase("kernels (offset variant)"):
             check_flash_offset()
@@ -3483,19 +3625,10 @@ def main(argv):
                       f"{dev_step:.3f} ms of device time: device busy "
                       f"{100 * dev_step / wall_step:.1f}%")
             del engine
-            lengths = torch.from_numpy(
-                np.random.default_rng(2).integers(64, 965, 16)).to(torch.int32)
-            main_case = ragged_case(7, K=1024, lengths=lengths)
-            kern, plain, sdpa, bound, by, kern_dev, sdpa_dev = time_kernel(main_case)
-            print(f"  serving shape (B=16 T=1 K=1024, spans 64..964): kernel {kern:.4f} ms, "
-                  f"plain {plain:.4f} ms, SDPA {sdpa:.4f} ms, bound {bound:.4f} ms ({by}); "
-                  f"device time per call (profiler): kernel {fmt_ms(kern_dev)}, "
-                  f"SDPA {fmt_ms(sdpa_dev)}")
-            full = time_kernel(ragged_case(8, K=2048))
-            print(f"  full window (B=16 T=1 K=2048, random spans): kernel {full[0]:.4f} ms, "
-                  f"plain {full[1]:.4f} ms, SDPA {full[2]:.4f} ms, bound {full[3]:.4f} ms "
-                  f"({full[4]}); device time per call: kernel {fmt_ms(full[5])}, "
-                  f"SDPA {fmt_ms(full[6])}")
+            label, main_t = decode_case_timed("serving")
+            print_k2(label, main_t)
+            kern, plain, sdpa, bound, by = main_t[:5]
+            print_k2(*decode_case_timed("full window"))
             print(f"  decode {tok_s:.1f} tokens/s (16 slots, 512-token prompts, greedy); "
                   f"serve window {tokens / wall:.1f} tokens/s incl. prefill")
             torch.cuda.empty_cache()

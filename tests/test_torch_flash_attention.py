@@ -174,6 +174,26 @@ def test_segment_attention_dispatch():
         assert bool((got[~seg.ge(0)] == 0).all()) == flash, T
 
 
+def test_dkv_plan():
+    """The dk/dv launch plan: the cluster size by group and grid (a power of
+    two up to 8 dividing the group, at most 4 heads a block, about 256
+    blocks) on the hd-256 bf16 kernel, 1 on every other dk/dv kernel."""
+    # Gemma-2B's MQA: 8 q heads on one kv head, rows of 1024 (16 key tiles)
+    assert [fa.dkv_plan(8, 1, 256, True, B, 1024) for B in (1, 2, 4, 8, 16, 24)] == [
+        8, 8, 4, 2, 2, 2]
+    assert fa.dkv_plan(8, 1, 256, True, 1, 2048) == 8
+    assert fa.dkv_plan(16, 16, 256, True, 8, 1024) == 1  # Gemma-7B's MHA
+    assert fa.dkv_plan(16, 16, 256, True, 1, 256) == 1
+    assert fa.dkv_plan(8, 4, 256, True, 8, 1024) == 1  # Gemma-2: 2 heads, 512 blocks
+    assert fa.dkv_plan(8, 4, 256, True, 1, 1024) == 2
+    assert fa.dkv_plan(16, 1, 256, True, 8, 1024) == 4  # at most 4 heads a block
+    assert fa.dkv_plan(12, 1, 256, True, 1, 1024) == 4  # powers of two dividing 12
+    assert fa.dkv_plan(6, 1, 256, True, 1, 1024) == 2
+    assert fa.dkv_plan(8, 1, 128, True, 1, 1024) == 1  # the hd-128 kernel: one block
+    assert fa.dkv_plan(12, 2, 128, False, 8, 1024) == 1  # f32
+    assert fa.dkv_plan(8, 1, 256, False, 1, 1024) == 1
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take():
     """CPU tensors never reach a kernel, and no kernel takes a head dim
     other than 128 and 256 (a device other than cuda is refused either
@@ -344,8 +364,10 @@ GEMMA_7B_HEADS = dict(hd=256, Hq=16, Hkv=16)
     dict(T=2048, n_segs=3, window=256),
     dict(T=1024, n_segs=2, softcap=30.0),
     dict(T=2048, n_segs=3, **GEMMA_2B_HEADS),
+    dict(T=1024, n_segs=2, B=8, **GEMMA_2B_HEADS),
     dict(T=1024, n_segs=2, window=256, softcap=30.0, **GEMMA_7B_HEADS),
-], ids=["packed", "window", "softcap", "gemma-2b", "gemma-7b-window-softcap"])
+], ids=["packed", "window", "softcap", "gemma-2b", "gemma-2b-8-rows",
+        "gemma-7b-window-softcap"])
 def test_cuda_tensor_core_forward(cuda_device, case):
     """The bf16 forward on the tensor cores at Qwen2.5's heads (Hq=12,
     Hkv=2, hd=128) and Gemma's (hd 256: 8 q heads on 1 kv head; 16 on 16)
@@ -381,8 +403,10 @@ def test_cuda_tensor_core_forward(cuda_device, case):
     dict(T=2048, n_segs=3, window=256),
     dict(T=1024, n_segs=2, softcap=30.0),
     dict(T=2048, n_segs=3, **GEMMA_2B_HEADS),
+    dict(T=1024, n_segs=2, B=8, **GEMMA_2B_HEADS),
     dict(T=1024, n_segs=2, window=256, softcap=30.0, **GEMMA_7B_HEADS),
-], ids=["packed", "window", "softcap", "gemma-2b", "gemma-7b-window-softcap"])
+], ids=["packed", "window", "softcap", "gemma-2b", "gemma-2b-8-rows",
+        "gemma-7b-window-softcap"])
 def test_cuda_tensor_core_backward(cuda_device, case):
     """The bf16 dq and dk/dv kernels on the tensor cores at Qwen2.5's heads
     (Hq=12, Hkv=2, hd=128) and Gemma's (hd 256) against the f32 plain versions: within 2e-2
@@ -391,7 +415,7 @@ def test_cuda_tensor_core_backward(cuda_device, case):
     once to bf16).  Pad rows get exactly 0; two runs are bit-equal (no
     atomics); every launch is counted on the tensor-core variant."""
     window, softcap = case.get("window"), case.get("softcap")
-    q, k, v, g, seg, _ = _packed(19, B=2, T=case["T"], Hq=case.get("Hq", 12),
+    q, k, v, g, seg, _ = _packed(19, B=case.get("B", 2), T=case["T"], Hq=case.get("Hq", 12),
                                  Hkv=case.get("Hkv", 2), hd=case.get("hd", 128),
                                  n_segs=case["n_segs"])
     qs, kk, vv, dout = (torch.from_numpy(x).to(cuda_device, torch.bfloat16) for x in (q, k, v, g))

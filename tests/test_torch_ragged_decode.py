@@ -196,6 +196,42 @@ def test_ragged_supported_gate():
     assert not port.ragged_supported(128, 4, 2, 100)  # hd not a multiple of 8
     assert not port.ragged_supported(128, 64, 1, 256, T=8)  # 512 rows overflow
     assert not port.ragged_supported(0, 12, 2, 128)
+    # a bf16 verify (T > 1) of 17 to 64 query rows (T * group) a kv head at
+    # hd <= 256 runs on the tensor cores, whose block those caps bound;
+    # decode (T = 1), other verifies (16 rows or fewer ran faster on the
+    # passes) and f32 or mixed calls keep the CUDA-core passes, whose
+    # scores block grows with the rows
+    bf16, f32 = torch.bfloat16, torch.float32
+    assert not port.on_tensor_cores(bf16, bf16, 1, 6, 128)
+    assert port.on_tensor_cores(bf16, bf16, 4, 6, 128)
+    assert not port.on_tensor_cores(f32, bf16, 8, 6, 128)
+    assert not port.on_tensor_cores(bf16, f32, 8, 6, 128)
+    assert port.on_tensor_cores(bf16, bf16, 8, 8, 256)  # Gemma-2B's verify: 64 rows
+    assert not port.on_tensor_cores(bf16, bf16, 9, 8, 256)  # 72 rows
+    assert not port.on_tensor_cores(bf16, bf16, 16, 6, 128)  # Qwen2.5 drafting 15: 96
+    assert not port.on_tensor_cores(bf16, bf16, 2, 8, 512)  # hd above 256
+    assert not port.on_tensor_cores(bf16, bf16, 8, 2, 256)  # Gemma-2-2B's: 16 rows
+    assert not port.on_tensor_cores(bf16, bf16, 4, 2, 128)  # Qwen3-1.7B's at T = 4: 8
+    assert port.on_tensor_cores(bf16, bf16, 3, 6, 128)  # 18 rows
+    for T in (1, 4, 8):
+        for group, hd in ((6, 128), (8, 256), (2, 256), (2, 128)):
+            assert port.smem_bytes(T, group, hd, 2) == (64 * (hd * 2 + 16)
+                                                        + 4 * T * group * (hd + 64))
+    # the gate takes each call's path at every T from 1 to the verify's:
+    # past the tensor cores' 64 rows the passes take up to 280 rows at hd
+    # 128 (bf16 cache) and 155 at hd 256
+    kw = dict(q_dtype=bf16, kv_dtype=bf16)
+    assert port.ragged_supported(2048, 12, 2, 128, T=8, **kw)
+    assert port.ragged_supported(2048, 8, 1, 256, T=8, **kw)  # 64 rows
+    assert port.ragged_supported(2048, 12, 2, 128, T=16, **kw)  # 96 rows: the passes
+    assert port.ragged_supported(2048, 8, 1, 256, T=9, **kw)  # 72 rows: the passes
+    assert port.ragged_supported(2048, 16, 1, 128, T=8, **kw)  # 128 rows
+    assert port.ragged_supported(2048, 1, 1, 128, T=280, **kw)
+    assert not port.ragged_supported(2048, 1, 1, 128, T=281, **kw)
+    assert port.ragged_supported(2048, 1, 1, 256, T=155, **kw)
+    assert not port.ragged_supported(2048, 1, 1, 256, T=156, **kw)
+    assert port.ragged_supported(2048, 16, 1, 128, T=8)  # f32: the passes' block
+    assert port.ragged_supported(2048, 8, 1, 512, T=2, **kw)  # hd above 256: the passes
 
 
 def test_chunk_plan_and_scratch():
@@ -209,6 +245,13 @@ def test_chunk_plan_and_scratch():
     nc = port.n_chunks(K)
     assert port.scratch_floats(B, T, Hq, Hkv, hd, K) == rows * (K + 2 * nc + nc * hd)
     assert port.scratch_floats(1, 4, 4, 2, 8, 40) == 16 * (40 + 2 * 1 + 1 * 8)
+    for T in (1, 4, 8):
+        for Hq, Hkv, hd in ((12, 2, 128), (8, 1, 256)):
+            rows = 8 * T * Hq
+            assert port.scratch_floats(8, T, Hq, Hkv, hd, 1024) == rows * (
+                1024 + 2 * 16 + 16 * hd)
+            # the tensor-core kernel keeps everything on chip
+            assert port.scratch_floats(8, T, Hq, Hkv, hd, 1024, tensor_cores=True) == 0
 
 
 def test_wrapper_refuses_other_devices():
@@ -218,9 +261,13 @@ def test_wrapper_refuses_other_devices():
         port.ragged_paged_attention(**t, **kw)
 
 
-@pytest.mark.parametrize("bad", ["rows_int64", "mask_shape", "kv_dtype", "window"])
+@pytest.mark.parametrize("bad", ["rows_int64", "mask_shape", "kv_dtype", "window",
+                                 "passes_rows"])
 def test_wrapper_checks(bad):
     arrays, dtypes, kw = _case(2)
+    if bad == "passes_rows":  # a bf16 verify of 64 q heads on one kv head: 512 rows
+        arrays, dtypes, kw = _case(2, T=8, Hq=64, Hkv=1, hd=256, qdtype="bfloat16",
+                                   kvdtype="bfloat16")
     t = _to_torch(arrays, dtypes)
     K = kw["key_window"]
     if bad == "rows_int64":
@@ -229,7 +276,7 @@ def test_wrapper_checks(bad):
         t["mask"] = t["mask"][:, :, :-1].contiguous()
     elif bad == "kv_dtype":
         t["k_new"] = t["k_new"].double()
-    else:  # an empty key window (any positive one fits: the kernel splits K)
+    elif bad == "window":  # an empty key window (any positive one fits: the kernel splits K)
         K = 0
         t["mask"] = torch.zeros(4, 1, K, dtype=torch.bool)
     with pytest.raises((TypeError, ValueError)):
@@ -322,6 +369,11 @@ def test_cuda_kernel_edge_cases(cuda_device, kind):
     # Qwen2.5-1.5B's heads at a serving window, bf16
     dict(Hq=12, Hkv=2, hd=128, K=1024, M=1024, page=128, qdtype="bfloat16",
          kvdtype="bfloat16"),
+    # the tensor-core kernel at hd 64 (half its warps idle in P V), and at a
+    # key window of one short chunk whose mask rows are not 16-byte aligned
+    dict(Hq=8, Hkv=2, hd=64, K=256, M=256, page=64, qdtype="bfloat16",
+         kvdtype="bfloat16"),
+    dict(K=40, page=16, Hq=6, qdtype="bfloat16", kvdtype="bfloat16"),
 ])
 def test_cuda_kernel_matches_plain_at_verify_shapes(cuda_device, case):
     """The CUDA kernel at T = 8 with mixed n_write and inactive slots
@@ -339,17 +391,47 @@ def test_cuda_kernel_matches_plain_at_verify_shapes(cuda_device, case):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("T,dtype,Hq,Hkv,on_tc", [
+    (8, "bfloat16", 12, 2, 1), (1, "bfloat16", 12, 2, 0), (8, "float32", 12, 2, 0),
+    (16, "bfloat16", 12, 2, 0), (8, "bfloat16", 16, 8, 0)])
+def test_cuda_kernel_variant(cuda_device, T, dtype, Hq, Hkv, on_tc):
+    """A bf16 verify of 17 to 64 rows a kv head launches the tensor-core
+    kernel; decode, f32, a verify of 96 rows (a draft of 15 at Qwen2.5's
+    heads) and one of 16 (Qwen3-1.7B's heads at T = 8) the CUDA-core
+    passes; each counted once, and against the plain version."""
+    arrays, dtypes, kw = _case(35, B=8, T=T, Hq=Hq, Hkv=Hkv, hd=128, K=1024, M=1024,
+                               page=128, qdtype=dtype, kvdtype=dtype)
+    before = port.ragged_paged_attention.launches_tc
+    got = _port(arrays, dtypes, kw, device=cuda_device)
+    assert port.ragged_paged_attention.launches_tc == before + on_tc
+    want = _port(arrays, dtypes, kw, fn=port.ragged_paged_attention_plain,
+                 device=cuda_device)
+    np.testing.assert_allclose(got[0], want[0], atol=BF16_ATOL if dtype == "bfloat16"
+                               else F32_ATOL, rtol=0)
+    np.testing.assert_array_equal(got[1], want[1])
+
+
+@pytest.mark.gpu
 def test_cuda_kernel_batch_invariant_and_deterministic(cuda_device):
     """Chunk boundaries are fixed key positions and nothing is combined by
-    atomics: a slot's output is bit-equal alone (B=1) and inside the B=16
-    grid, and two runs are bit-equal."""
-    arrays, dtypes, kw = _case(23, B=16, Hq=12, Hkv=2, hd=128, K=2048, M=2048, page=128,
-                               qdtype="bfloat16", kvdtype="bfloat16")
-    full = _port(arrays, dtypes, kw, device=cuda_device)
-    again = _port(arrays, dtypes, kw, device=cuda_device)
-    for a, b in zip(full, again):
-        np.testing.assert_array_equal(a, b)
-    for slot in (0, 5):
-        alone = {k: (v if k in ("ck", "cv") else v[slot:slot + 1]) for k, v in arrays.items()}
-        one = _port(alone, dtypes, kw, device=cuda_device)
-        np.testing.assert_array_equal(one[0][0], full[0][slot])
+    atomics, on both paths: a slot's output is bit-equal alone (B=1) and
+    inside the grid, and two runs are bit-equal; decode on the CUDA-core
+    passes (B=16), and a bf16 verify at T = 8 on the tensor cores (B=6,
+    mixed n_write and inactive slots)."""
+    bf16 = dict(qdtype="bfloat16", kvdtype="bfloat16")
+    for (arrays, dtypes, kw), slots, on_tc in (
+            (_case(23, B=16, Hq=12, Hkv=2, hd=128, K=2048, M=2048, page=128, **bf16),
+             (0, 5), 0),
+            (_verify_case(24, Hq=12, Hkv=2, hd=128, K=1024, M=1024, page=128, **bf16),
+             (0, 1, 2), 1)):
+        before = port.ragged_paged_attention.launches_tc
+        full = _port(arrays, dtypes, kw, device=cuda_device)
+        again = _port(arrays, dtypes, kw, device=cuda_device)
+        assert port.ragged_paged_attention.launches_tc == before + 2 * on_tc
+        for a, b in zip(full, again):
+            np.testing.assert_array_equal(a, b)
+        for slot in slots:
+            alone = {k: (v if k in ("ck", "cv") else v[slot:slot + 1])
+                     for k, v in arrays.items()}
+            one = _port(alone, dtypes, kw, device=cuda_device)
+            np.testing.assert_array_equal(one[0][0], full[0][slot])
