@@ -43,14 +43,17 @@
 // byte where the H100's arithmetic becomes the limit.
 //
 // What the design does about it.  For bf16 inputs all three kernels run
-// on the tensor cores (namespace tc below: mma.sync m16n8k16, bf16 operands
-// in padded shared memory read by ldmatrix, f32 accumulators in registers,
-// double-buffered 16-byte cp.async tile pipelines): the forward
-// (tc::flash_fwd_tc_kernel), dq (tc::flash_bwd_dq_tc_kernel) and dk/dv
-// (tc::flash_bwd_dkv_tc_kernel at hd 128, tc::flash_bwd_dkv_tc256_kernel at
-// hd 256).  The f32 kernels stay plain and right rather than fast: they run
-// on the CUDA cores in f32, because the tensor cores would round the f32
-// operands (TF32 at best).  Each such block stages tiles of q, k, v (and
+// on the tensor cores.  At hd 128, and for dk/dv at hd 256, that is
+// namespace tc below (mma.sync m16n8k16, bf16 operands in padded shared
+// memory read by ldmatrix, f32 accumulators in registers, double-buffered
+// 16-byte cp.async tile pipelines): the forward (tc::flash_fwd_tc_kernel),
+// dq (tc::flash_bwd_dq_tc_kernel) and dk/dv (tc::flash_bwd_dkv_tc_kernel at
+// hd 128, tc::flash_bwd_dkv_tc256_kernel at hd 256).  The forward and dq at
+// hd 256 run on Hopper's warpgroup products instead (namespace wg: wgmma on
+// K/V tiles that TMA brings into shared memory, which two q heads of a GQA
+// group share).  The f32 kernels stay plain and right rather than fast:
+// they run on the CUDA cores in f32, because the tensor cores would round
+// the f32 operands (TF32 at best).  Each such block stages tiles of q, k, v (and
 // dout) in shared memory as f32 (64 rows at hd 128, 32 at hd 256, where 64
 // rows of dq or dk/dv would need more than a block's 227 KB) and keeps a
 // score tile slice and head-dim slices per thread in registers.  What every
@@ -61,29 +64,32 @@
 // from its first key to the segment end of its last key); each block finds
 // that range from the segment ids, and the window narrows it further.
 //
-// Head dim 256 doubles every per-thread head-dim slice.  The tensor-core
-// forward and dq keep their 128 f32 accumulators a thread in registers,
-// read Q's fragments from shared memory at each key tile instead of holding
-// them, and take 32-key tiles (a forward block then fits twice on an SM).
-// The dk/dv block at hd 256 has 8 warps in two groups over the same 64 keys:
+// Head dim 256 doubles every per-thread head-dim slice.  The forward and
+// dq there hold a 64 x 256 f32 accumulator a warpgroup (128 registers a
+// thread) and read Q, dO, K and V from shared memory through wgmma.  The
+// dk/dv block at hd 256 has 8 warps in two groups over the same 64 keys:
 // one computes S^T and P^T and accumulates dV, the other dP^T and dS^T (with
 // P^T (1 - t^2) handed over through shared memory) and accumulates dK, so
 // each thread holds 128 accumulators, not 256, and no product is done twice.
 //
-// Grids: forward and dq one block per (q tile, q head, row); dk/dv at hd
-// 128 one block per (k tile, kv head, row), looping over the group's q
-// heads and the q tiles that see its keys; dk/dv at hd 256 a thread block
-// cluster per (k tile, kv head, row) whose blocks split the group's q heads
-// and sum their f32 partials through distributed shared memory in rank
-// order.  GQA and MQA need no atomics and every result is the same from run
-// to run.
+// Grids: forward and dq at hd 128 one block per (q tile, q head, row); at
+// hd 256 one persistent block an SM, walking items of two q heads' 64-row
+// tile (or two q tiles at group 1) of one kv head and row; dk/dv at hd 128
+// one block per (k tile, kv head, row), looping over the group's q heads
+// and the q tiles that see its keys; dk/dv at hd 256 a thread block cluster
+// per (k tile, kv head, row) whose blocks split the group's q heads and sum
+// their f32 partials through distributed shared memory in rank order.  GQA
+// and MQA need no atomics and every result is the same from run to run.
 //
 // Interface: plain C entry points bound with ctypes; each launches on the
 // caller's stream and returns cudaGetLastError().
 
+#include <algorithm>
 #include <cooperative_groups.h>
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <math.h>
 #include <stdint.h>
 
@@ -134,9 +140,11 @@ __device__ __forceinline__ float row8_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 4);
 }
 
-// may query i (segment sq) attend key j (segment sk)?
+// may query i (segment sq) attend key j (segment sk)?  Without branches:
+// code between a wgmma and its wait must have none, or ptxas serializes the
+// products
 __device__ __forceinline__ bool allowed(int sq, int sk, int i, int j, int window) {
-  return sq >= 0 && sq == sk && j <= i && (window <= 0 || j > i - window);
+  return (sq >= 0) & (sq == sk) & (j <= i) & ((window <= 0) | (j > i - window));
 }
 
 // the score after the dot product: softcap (t = tanh(raw / c) kept for the
@@ -550,15 +558,13 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
 // forward on the bf16 tensor cores (bf16 inputs)
 // ---------------------------------------------------------------------------
 //
-// FlashAttention-2's pattern with mma.sync.m16n8k16 (bf16 in, f32 sums).
-// A block owns 64 q rows of one q head; each of its 4 warps owns 16 rows.
-// At hd 128 a warp keeps its Q fragments in registers (loaded once by
-// ldmatrix); at hd 256, where the 128 output accumulators a thread holds
-// leave no room for them, it re-reads them from shared memory at each key
-// tile.  K and V tiles (64 keys at hd 128, 32 at hd 256) stay bf16 in
-// shared memory, rows padded by 16 bytes so ldmatrix reads hit distinct
-// banks, double-buffered and filled by 16-byte cp.async so the next tile's
-// copy overlaps this tile's products.  S = Q K^T runs on the tensor cores;
+// At hd 128 (hd 256 runs wg::flash_wg_kernel below): FlashAttention-2's
+// pattern with mma.sync.m16n8k16 (bf16 in, f32 sums).  A block owns 64 q
+// rows of one q head; each of its 4 warps owns 16 rows and keeps its Q
+// fragments in registers (loaded once by ldmatrix).  K and V tiles of 64
+// keys stay bf16 in shared memory, rows padded by 16 bytes so ldmatrix
+// reads hit distinct banks, double-buffered and filled by 16-byte cp.async
+// so the next tile's copy overlaps this tile's products.  S = Q K^T runs on the tensor cores;
 // the softcap and the segment / causal / window mask act on the accumulator
 // fragments (tiles wholly inside one segment and below the diagonal skip
 // the mask); the online softmax takes row max and sum across each quad with
@@ -581,17 +587,14 @@ constexpr float kLog2e = 1.4426950408889634f;
 
 template <int HD>
 struct Tiles {
-  static constexpr int kLDS = HD + 8;              // bf16 row stride in shared memory
-  static constexpr int kChunks = HD / 8;           // 16-byte chunks in a row
-  static constexpr int kBc = HD <= 128 ? 64 : 32;  // keys per tile of the forward and dq
-  static constexpr bool kQInRegs = HD <= 128;      // Q's A fragments held in registers
-  static constexpr int kTileQ = kBr * kLDS;        // elements of a 64-row tile
-  static constexpr int kTileK = kBc * kLDS;        // elements of a key tile
-  static constexpr int kSmem = (kTileQ + 4 * kTileK) * 2;        // Q, K x 2, V x 2
-  static constexpr int kDqSmem = (2 * kTileQ + 4 * kTileK) * 2;  // Q, dO, K x 2, V x 2
-  // blocks an SM holds: the forward twice at both head dims; dq twice at
-  // hd 128 (104,448 B), once at hd 256 (135,168 B)
-  static constexpr int kDqMinBlocks = HD <= 128 ? 2 : 1;
+  static constexpr int kLDS = HD + 8;        // bf16 row stride in shared memory
+  static constexpr int kChunks = HD / 8;     // 16-byte chunks in a row
+  static constexpr int kBc = 64;             // keys per tile of the forward and dq
+  static constexpr int kTileQ = kBr * kLDS;  // elements of a 64-row tile
+  static constexpr int kTileK = kBc * kLDS;  // elements of a key tile
+  // Q, K x 2, V x 2; dq adds dO (104,448 B): both twice an SM
+  static constexpr int kSmem = (kTileQ + 4 * kTileK) * 2;
+  static constexpr int kDqSmem = (2 * kTileQ + 4 * kTileK) * 2;
 };
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
@@ -711,6 +714,7 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd_tc_kernel(
     const __nv_bfloat16* __restrict__ v, const int* __restrict__ segq,
     const int* __restrict__ segk, __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
     int q_start, int Tq, int Tk, int Hq, int Hkv, float softcap, int window) {
+  static_assert(HD == 128, "hd 256 runs wg::flash_wg_kernel");
   using C = Tiles<HD>;
   constexpr int kBc = C::kBc, kLDS = C::kLDS;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -753,7 +757,7 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd_tc_kernel(
     asm volatile("cp.async.commit_group;\n" ::);
     if (tid < kBc) seg_k[0][tid] = lo + tid < Tk ? segkb[lo + tid] : -2;
 
-    unsigned qf[C::kQInRegs ? HD / 16 : 1][4];
+    unsigned qf[HD / 16][4];
     for (int n = 0; n < ntiles; ++n) {
       const int buf = n & 1, j0 = lo + n * kBc;
       if (n + 1 < ntiles) {  // prefetch the next tile into the other stage
@@ -766,12 +770,10 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd_tc_kernel(
       asm volatile("cp.async.wait_group 1;\n" ::);  // this tile (and Q) landed
       const bool full = __syncthreads_and(tid >= kBc || seg_k[buf][tid] == q_uniform) &&
                         q_uniform >= 0 && window <= 0 && j0 + kBc - 1 <= q_start + i0;
-      if constexpr (C::kQInRegs) {
-        if (n == 0) {
+      if (n == 0) {
 #pragma unroll
-          for (int kk = 0; kk < HD / 16; ++kk)
-            ldmatrix_x4(qf[kk], a_frag<kLDS>(sQ, warp * 16, kk, lane));
-        }
+        for (int kk = 0; kk < HD / 16; ++kk)
+          ldmatrix_x4(qf[kk], a_frag<kLDS>(sQ, warp * 16, kk, lane));
       }
       const __nv_bfloat16* tK = sK + buf * C::kTileK;
       const __nv_bfloat16* tV = sV + buf * C::kTileK;
@@ -782,18 +784,12 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd_tc_kernel(
       for (int j = 0; j < kBc / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
 #pragma unroll
       for (int kk = 0; kk < HD / 16; ++kk) {
-        unsigned qa[4];
-        if constexpr (C::kQInRegs) {
-          qa[0] = qf[kk][0], qa[1] = qf[kk][1], qa[2] = qf[kk][2], qa[3] = qf[kk][3];
-        } else {
-          ldmatrix_x4(qa, a_frag<kLDS>(sQ, warp * 16, kk, lane));
-        }
 #pragma unroll
         for (int np = 0; np < kBc / 16; ++np) {
           unsigned r[4];
           ldmatrix_x4(r, b_frag<kLDS>(tK, np, kk, lane));
-          mma(s[2 * np], qa, r[0], r[1]);
-          mma(s[2 * np + 1], qa, r[2], r[3]);
+          mma(s[2 * np], qf[kk], r[0], r[1]);
+          mma(s[2 * np + 1], qf[kk], r[2], r[3]);
         }
       }
 
@@ -883,14 +879,13 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd_tc_kernel(
 // accumulator fragments, masked as the forward masks S (tiles wholly inside
 // one segment, below the diagonal, with no window, skip the mask).
 //
-// dq: a block owns 64 q rows of one q head (4 warps x 16 rows; Q fragments
-// in registers at hd 128 and re-read from shared memory at hd 256, dO
+// dq at hd 128 (hd 256 runs wg::flash_wg_kernel below): a block owns 64 q
+// rows of one q head (4 warps x 16 rows; Q fragments in registers, dO
 // re-read by ldmatrix at each key tile) and walks its key range in
-// double-buffered cp.async K/V tiles (64 keys at hd 128, 32 at hd 256): S =
-// Q K^T and dP = dO V^T (K and V as non-transposed B fragments), then dQ +=
-// dS K with dS packed to bf16 A fragments and K read through
-// ldmatrix.trans.  The last q tiles, whose key ranges are longest, start
-// first.
+// double-buffered cp.async K/V tiles of 64 keys: S = Q K^T and dP = dO V^T
+// (K and V as non-transposed B fragments), then dQ += dS K with dS packed
+// to bf16 A fragments and K read through ldmatrix.trans.  The last q tiles,
+// whose key ranges are longest, start first.
 //
 // dk/dv at hd 128: a block owns 64 keys of one kv head (4 warps x 16
 // keys).  K and V stay in shared memory for the whole block and their A
@@ -938,13 +933,14 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd_tc_kernel(
 // versions keep them in f32; lse and di stay f32.
 
 template <int HD>
-__global__ void __launch_bounds__(kThreads, Tiles<HD>::kDqMinBlocks) flash_bwd_dq_tc_kernel(
+__global__ void __launch_bounds__(kThreads, 2) flash_bwd_dq_tc_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, const int* __restrict__ segq,
     const int* __restrict__ segk, const __nv_bfloat16* __restrict__ dout,
     const float* __restrict__ lse, const float* __restrict__ di,
     __nv_bfloat16* __restrict__ dq, int q_start, int Tq, int Tk, int Hq, int Hkv,
     float softcap, int window) {
+  static_assert(HD == 128, "hd 256 runs wg::flash_wg_kernel");
   using C = Tiles<HD>;
   constexpr int kBc = C::kBc, kLDS = C::kLDS;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -994,7 +990,7 @@ __global__ void __launch_bounds__(kThreads, Tiles<HD>::kDqMinBlocks) flash_bwd_d
     asm volatile("cp.async.commit_group;\n" ::);
     if (tid < kBc) seg_k[0][tid] = lo + tid < Tk ? segkb[lo + tid] : -2;
 
-    unsigned qf[C::kQInRegs ? HD / 16 : 1][4];
+    unsigned qf[HD / 16][4];
     for (int n = 0; n < ntiles; ++n) {
       const int buf = n & 1, j0 = lo + n * kBc;
       if (n + 1 < ntiles) {  // prefetch the next tile into the other stage
@@ -1007,12 +1003,10 @@ __global__ void __launch_bounds__(kThreads, Tiles<HD>::kDqMinBlocks) flash_bwd_d
       asm volatile("cp.async.wait_group 1;\n" ::);  // this tile (and Q, dO) landed
       const bool full = __syncthreads_and(tid >= kBc || seg_k[buf][tid] == q_uniform) &&
                         q_uniform >= 0 && window <= 0 && j0 + kBc - 1 <= q_start + i0;
-      if constexpr (C::kQInRegs) {
-        if (n == 0) {
+      if (n == 0) {
 #pragma unroll
-          for (int kk = 0; kk < HD / 16; ++kk)
-            ldmatrix_x4(qf[kk], a_frag<kLDS>(sQ, warp * 16, kk, lane));
-        }
+        for (int kk = 0; kk < HD / 16; ++kk)
+          ldmatrix_x4(qf[kk], a_frag<kLDS>(sQ, warp * 16, kk, lane));
       }
       const __nv_bfloat16* tK = sK + buf * C::kTileK;
       const __nv_bfloat16* tV = sV + buf * C::kTileK;
@@ -1025,19 +1019,14 @@ __global__ void __launch_bounds__(kThreads, Tiles<HD>::kDqMinBlocks) flash_bwd_d
         for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
 #pragma unroll
       for (int kk = 0; kk < HD / 16; ++kk) {
-        unsigned qa[4], da[4];
-        if constexpr (C::kQInRegs) {
-          qa[0] = qf[kk][0], qa[1] = qf[kk][1], qa[2] = qf[kk][2], qa[3] = qf[kk][3];
-        } else {
-          ldmatrix_x4(qa, a_frag<kLDS>(sQ, warp * 16, kk, lane));
-        }
+        unsigned da[4];
         ldmatrix_x4(da, a_frag<kLDS>(sdO, warp * 16, kk, lane));
 #pragma unroll
         for (int np = 0; np < kBc / 16; ++np) {
           unsigned r[4];
           ldmatrix_x4(r, b_frag<kLDS>(tK, np, kk, lane));
-          mma(s[2 * np], qa, r[0], r[1]);
-          mma(s[2 * np + 1], qa, r[2], r[3]);
+          mma(s[2 * np], qf[kk], r[0], r[1]);
+          mma(s[2 * np + 1], qf[kk], r[2], r[3]);
           ldmatrix_x4(r, b_frag<kLDS>(tV, np, kk, lane));
           mma(dp[2 * np], da, r[0], r[1]);
           mma(dp[2 * np + 1], da, r[2], r[3]);
@@ -1483,6 +1472,745 @@ __global__ void __launch_bounds__(kDkv256Threads, 1) flash_bwd_dkv_tc256_kernel(
 
 }  // namespace tc
 
+// ---------------------------------------------------------------------------
+// forward and dq at head dim 256 on wgmma, fed by TMA (bf16 inputs)
+// ---------------------------------------------------------------------------
+//
+// wg::flash_wg_kernel<false> replaces splash's forward
+// (splash_attention_kernel.py:1137) and wg::flash_wg_kernel<true> its dq
+// kernel (:1635, _splash_attention_bwd_dq) for bf16 at head dim 256.
+//
+// Bound on this card, on Gemma-2B's train rows (8 q heads on one kv head,
+// 8 rows of 1024, 6,692 tokens; chip_smoke.py flash_bounds): bytes, 0.0203
+// ms for the forward and 0.0286 ms for dq; the attended pairs' products
+// take less at 989 TFLOP/s.  The mma.sync kernels these replace took 6.7x
+// and 7.9x that: they re-read Q (and dO) fragments from shared memory at
+// every 32-key tile with ldmatrix, because 128 f32 accumulators a thread
+// left no registers to hold them; they held one or two 4-warp blocks an
+// SM; and each of a GQA group's q heads loaded the same K/V tiles.
+//
+// Design (FlashAttention-3's shape).  A block of three warpgroups: two
+// consumers and a producer (setmaxnreg: 240 registers a consumer thread, 24
+// a producer thread), one an SM.  The forward's grid is persistent, one
+// block an SM; dq's has a block a work item, whose longer and more uneven
+// items the hardware's block scheduling balances better.  A work item is a
+// pair of units of one (row, kv head); a unit is 64 q rows of one q head,
+// and a consumer owns one unit of each item, with its Q (and for dq, dO)
+// loaded once into shared memory by TMA.  The two units of an item are
+// consecutive in (q tile, q head of the kv head's group) order, heads
+// fastest: under GQA or MQA (even group) the same 64 rows of two q heads,
+// whose key ranges and masks are the same, so each K/V tile load serves
+// both; at group 1 (Gemma-7B) two consecutive 64-row tiles of the one head.
+// The items of the last q tiles, whose key ranges are longest, go first,
+// block i taking items i, i + gridDim.x, ...  An item walks the union of
+// its units' key ranges (each from the segment start of its first valid
+// query, or the window, to its last query); a consumer skips the tiles
+// outside its own range, which for it would add exactly nothing.
+//
+// The producer: three warps (the scheduler) compute the next item's key
+// ranges from the segment ids into one of two Info slots while the
+// consumers work on the current one; one warp (the loader) brings each
+// unit's Q once the consumer has read the last item's, and keeps TMA loads
+// of 64-key K and V tiles in flight into a ring (K: 2 stages; V: 2 in the
+// forward, 1 in dq, which holds dO as well) across items, writing each K
+// tile's key segment ids beside it.  Every hand-over is an mbarrier pair
+// (full and empty).  Operands sit in shared memory as four 64-column panels
+// of 128-byte rows in the 128-byte swizzle that TMA writes and wgmma
+// reads.  Shared memory: 196,608 bytes of tiles in the forward (Q x 2, K x
+// 2, V x 2), 229,376 in dq (Q x 2, dO x 2, K x 2, V x 1).
+//
+// Forward, per tile n: S_n = Q K^T (wgmma m64n64k16, Q and K from shared
+// memory, K-major) and O += P_{n-1} V_{n-1} (m64n256k16, P the bf16 A
+// operand from registers, V read MN-major) are issued together, then the
+// softcap, mask and online softmax of S_n run (a thread's rows skip the
+// mask when the tile lies inside their segment, below the diagonal, with
+// no window) and O is rescaled.  dq, per tile: S = Q K^T and dP = dO V^T
+// (m64n64k16), dS = P (dP - di) (times 1 - t^2 under the softcap) on the
+// f32 fragments, then dQ += dS K (m64n256k16, dS from registers, K read
+// MN-major), left in flight under the next tile's S and dP.  The results
+// go from registers to device memory (a quad writes 16 contiguous bytes),
+// so a unit's Q slot is free for the next item as soon as its last S is.
+// ptxas serializes every wgmma of a kernel when code it cannot prove
+// warp-uniform, or a write to an operand register, sits between a wgmma
+// and its wait: the softcap is a template parameter, the mask, the
+// barrier waits and the lane-0 arrivals are branch-free, the role comes
+// from lane 0 by a shuffle, and operands are pinned before each fence.  A
+// cluster with TMA multicast of the K/V tile over the rest of the group
+// was not built: the group's other items read the same tiles from L2.
+//
+// Kept from the mma.sync design: the key ranges from the segment ids, the
+// skipping of unmasked tiles' mask, the order of a row's sums (tile by
+// tile from the item's first key, which depends only on the item's
+// units, so shards whose q_start is a multiple of 128 rows give the
+// unsharded rows bit for bit), the rounding points (P and dS rounded to
+// bf16 before their products, l summing the f32 P, lse and di f32), pad
+// rows (out 0, lse -inf, dq 0), no atomics.
+
+namespace wg {
+
+constexpr int kRows = 64;                        // q rows of a unit, keys of a K/V tile
+constexpr int kConsumers = 2;                    // consumer warpgroups (units) a block
+constexpr int kThreads = 128 * (kConsumers + 1);  // + the producer warpgroup
+constexpr int kPanel = kRows * 128;              // bytes of a 64-column panel of a tile
+constexpr int kTile = 4 * kPanel;                // bytes of a [64, 256] bf16 tile
+constexpr int kConsumerRegs = 240, kProducerRegs = 24;
+static_assert(kConsumers * 128 * kConsumerRegs + 128 * kProducerRegs <= 384 * 168,
+              "setmaxnreg moves registers within the block's allocation at launch");
+
+// a work item's key ranges, published by the producer's scheduler warps:
+// each unit's [lo, hi) in global key positions (empty: lo >= hi) and the
+// segment ids of its 64 rows (-2 past Tq or past the last unit)
+struct Info {
+  int lo[kConsumers], hi[kConsumers];
+  int seg_q[kConsumers * kRows];
+};
+
+// shared memory, from a 1024-byte aligned base: tiles, then mbarriers,
+// then the K stages' key segment ids, two Info slots and the scheduler's
+// scratch
+template <bool DQ>
+struct Layout {
+  static constexpr int kKStages = 2, kVStages = DQ ? 1 : 2;
+  static constexpr int kQ = 0;
+  static constexpr int kdO = kQ + kConsumers * kTile;
+  static constexpr int kK = kdO + (DQ ? kConsumers * kTile : 0);
+  static constexpr int kV = kK + kKStages * kTile;
+  static constexpr int kBars = kV + kVStages * kTile;
+  // full and empty of each unit's Q (and dO), of each K and V stage, and
+  // of each Info slot
+  static constexpr int kNumBars = 2 * kConsumers + 2 * kKStages + 2 * kVStages + 4;
+  static constexpr int kSegK = kBars + 8 * kNumBars;
+  static constexpr int kInfo = kSegK + 4 * kKStages * kRows;
+  static constexpr int kScan = kInfo + 2 * (int)sizeof(Info);  // first[2], last[2], flag
+  static constexpr int kSmem = kScan + 4 * 8 + 1024;  // + the base's alignment
+};
+static_assert(Layout<true>::kSmem <= 232448, "dq fits a block's shared memory");
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(tc::smem_addr(bar)),
+               "r"(count)
+               : "memory");
+}
+
+// arrive, and expect `bytes` of TMA traffic before the phase completes
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   tc::smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(tc::smem_addr(bar))
+               : "memory");
+}
+
+// wait for the completion of the phase of parity `parity` (the spin loop
+// inside one asm block: a loop the compiler sees between a wgmma and its
+// wait makes ptxas serialize the products)
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  asm volatile(
+      "{\n.reg .pred done;\nWAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra WAIT;\n}\n" ::"r"(tc::smem_addr(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// every warp of a consumer warpgroup arrives once on an empty barrier:
+// lane 0 by a predicated instruction, not a branch (a branch while a wgmma
+// is in flight makes ptxas serialize the products)
+__device__ __forceinline__ void release(uint64_t* bar) {
+  __syncwarp();
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.eq.u32 p, %1, 0;\n@p mbarrier.arrive.shared::cta.b64 _, [%0];\n}\n" ::
+          "r"(tc::smem_addr(bar)),
+      "r"(threadIdx.x & 31)
+      : "memory");
+}
+
+// TMA: one 64-column panel of 64 rows of one head of a [B, T, H, 256]
+// tensor (coordinates: column, head, row, batch)
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                         int c, int h, int t, int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(tc::smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(tc::smem_addr(bar)), "r"(c), "r"(h), "r"(t),
+      "r"(b)
+      : "memory");
+}
+
+// the scheduler warps' named barrier (0 is __syncthreads'): warps 1-3 of
+// the producer warpgroup
+constexpr int kSchedThreads = 96;
+__device__ __forceinline__ void sched_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(kSchedThreads) : "memory");
+}
+
+// the same barrier, returning whether any scheduler thread passed true
+__device__ __forceinline__ bool sched_any(bool x) {
+  unsigned r;
+  asm volatile(
+      "{\n.reg .pred p, q;\nsetp.ne.u32 q, %1, 0;\nbar.red.or.pred p, 1, %2, q;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(r)
+      : "r"((unsigned)x), "n"(kSchedThreads)
+      : "memory");
+  return r != 0;
+}
+
+// segment_start over the scheduler's threads (t in [0, 96)): the first
+// index of the contiguous segment holding position i
+__device__ int sched_segment_start(const int* __restrict__ segb, int i, int* flag, int t) {
+  const int s = segb[i];
+  if (t == 0) *flag = 0;
+  sched_sync();
+  for (int base = i - 1; base >= 0; base -= kSchedThreads) {
+    const int j = base - t;
+    const bool hit = j >= 0 && segb[j] != s;
+    if (hit) atomicMax(flag, j + 1);
+    if (sched_any(hit)) break;
+  }
+  sched_sync();
+  const int start = *flag;
+  sched_sync();  // read by all before the next reset
+  return start;
+}
+
+// wgmma shared-memory descriptor, 128-byte swizzle
+__device__ __forceinline__ uint64_t desc(unsigned addr, unsigned lbo, unsigned sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+}
+
+// `x` as a value the compiler cannot see through: a descriptor built from
+// it is built where it is used, not hoisted with its 15 siblings into 30
+// registers held through the walk
+__device__ __forceinline__ unsigned opaque(unsigned x) {
+  asm volatile("" : "+r"(x));
+  return x;
+}
+
+// K-major operand (a tile's 64 rows x 256 columns; the columns are the
+// product's K dimension), k-step kk of 16 columns: 8-row groups 1024
+// bytes apart
+__device__ __forceinline__ uint64_t desc_k(unsigned tile, int kk) {
+  return desc(opaque(tile) + (kk >> 2) * kPanel + (kk & 3) * 32, 16, 1024);
+}
+
+// MN-major operand (a tile's rows are the product's K dimension, its 256
+// columns N), k-step kk of 16 rows: 8-row groups 1024 bytes apart, the
+// 64-column panels kPanel apart
+__device__ __forceinline__ uint64_t desc_mn(unsigned tile, int kk) {
+  return desc(opaque(tile) + kk * 2048, kPanel, 1024);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// wait until at most N committed groups are pending
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// pin registers in place around asynchronous products: before a
+// wgmma.fence, so that no write to an operand sinks past it (the compiler
+// would then insert a fence of its own and serialize the products), and
+// after a wait, so that no read of a result rises above it
+template <int N>
+__device__ __forceinline__ void reg_fence(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+__device__ __forceinline__ void reg_fence(unsigned (&r)[4][4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
+
+#define WG_F4(d, i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
+#define WG_F16(d, i) WG_F4(d, i), WG_F4(d, i + 4), WG_F4(d, i + 8), WG_F4(d, i + 12)
+#define WG_F32(d, i) WG_F16(d, i), WG_F16(d, i + 16)
+
+// d[64 x 64] (+)= A[64 x 16] B[16 x 64], both from shared memory, K-major
+// (accumulate: false overwrites d)
+__device__ __forceinline__ void wgmma_n64(float (&d)[32], uint64_t a, uint64_t b,
+                                          bool accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : WG_F32(d, 0)
+      : "l"(a), "l"(b), "r"((int)accumulate));
+}
+
+// d[64 x 256] += A[64 x 16] B[16 x 256]: A bf16 from registers, B from
+// shared memory MN-major
+__device__ __forceinline__ void wgmma_n256(float (&d)[128], const unsigned (&a)[4],
+                                           uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, "
+      "%110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, "
+      "%124, %125, %126, %127}, "
+      "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : WG_F32(d, 0), WG_F32(d, 32), WG_F32(d, 64), WG_F32(d, 96)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+#undef WG_F32
+#undef WG_F16
+#undef WG_F4
+
+// the bf16 A operand of k-step kk (16 keys) from a 64 x 64 f32 accumulator
+// (element 4 j + e: n-tile j of 8 columns; e: row g or g + 8, column pair)
+__device__ __forceinline__ void a_from_acc(unsigned (&a)[4], const float (&s)[32], int kk) {
+  a[0] = tc::pack_bf16(s[8 * kk], s[8 * kk + 1]);
+  a[1] = tc::pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+  a[2] = tc::pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+  a[3] = tc::pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+}
+
+// DQ false: the forward (out, lse); true: dq (reads lse and di, writes
+// dq into `out`).  CAP: a softcap is set (its tanh stays out of the
+// uncapped kernels).  Persistent: block i takes work items i, i +
+// gridDim.x, ...; an item is a pair of units of one (row, kv head), the
+// pairs of the last q tiles, whose key ranges are longest, first.
+template <bool DQ, bool CAP>
+__global__ void __launch_bounds__(kThreads, 1) flash_wg_kernel(
+    const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+    const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
+    const int* __restrict__ segq, const int* __restrict__ segk, __nv_bfloat16* __restrict__ out,
+    float* __restrict__ lse, const float* __restrict__ di, int B, int q_start, int Tq, int Tk,
+    int Hq, int Hkv, float softcap, int window) {
+  using L = Layout<DQ>;
+  constexpr int KS = L::kKStages, VS = L::kVStages;
+  extern __shared__ __align__(16) unsigned char smem_wg[];
+  unsigned char* smem = smem_wg + ((1024 - (tc::smem_addr(smem_wg) & 1023)) & 1023);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + L::kBars);
+  uint64_t* q_empty = q_full + kConsumers;
+  uint64_t* full_k = q_empty + kConsumers;
+  uint64_t* empty_k = full_k + KS;
+  uint64_t* full_v = empty_k + KS;
+  uint64_t* empty_v = full_v + VS;
+  uint64_t* info_full = empty_v + VS;
+  uint64_t* info_empty = info_full + 2;
+  int* seg_k = reinterpret_cast<int*>(smem + L::kSegK);  // [KS][64]
+  Info* info = reinterpret_cast<Info*>(smem + L::kInfo);  // [2]
+  int* scan = reinterpret_cast<int*>(smem + L::kScan);
+  const int tid = threadIdx.x;
+  const int group = Hq / Hkv, units = (Tq + kRows - 1) / kRows * group;
+  const int pairs = (units + kConsumers - 1) / kConsumers, items = B * Hkv * pairs;
+  // work item k of this block: row b, kv head kh, pair pr; false past the last
+  auto item = [&](int k, int& b, int& kh, int& pr) {
+    const int w = blockIdx.x + k * gridDim.x, rest = w % (B * Hkv);
+    pr = pairs - 1 - w / (B * Hkv);
+    b = rest / Hkv;
+    kh = rest % Hkv;
+    return w < items;
+  };
+  // unit u of pair pr: q head h, local rows [i0, i0 + 64); false past the last
+  auto unit = [&](int kh, int pr, int u, int& h, int& i0) {
+    const int n = kConsumers * pr + u;
+    h = kh * group + n % group;
+    i0 = n / group * kRows;
+    return n < units;
+  };
+
+  if (tid == 0) {
+    for (int u = 0; u < kConsumers; ++u) {
+      mbar_init(q_full + u, 1);
+      mbar_init(q_empty + u, 4);  // the unit's consumer warps
+    }
+    for (int s = 0; s < KS; ++s) {
+      mbar_init(full_k + s, 32);  // the loader warp: segment ids, and the TMA bytes
+      mbar_init(empty_k + s, 4 * kConsumers);
+    }
+    for (int s = 0; s < VS; ++s) {
+      mbar_init(full_v + s, 1);
+      mbar_init(empty_v + s, 4 * kConsumers);
+    }
+    for (int s = 0; s < 2; ++s) {
+      mbar_init(info_full + s, 1);
+      mbar_init(info_empty + s, 4 * kConsumers + 1);  // consumer warps and the loader
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  // the warpgroup, from lane 0: provably the same across a warp, so that
+  // the role branch is not a divergent path to ptxas
+  const int wgi = __shfl_sync(0xffffffffu, tid / 128, 0);
+
+  if (wgi == kConsumers) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    const int lane = tid & 31;
+    if (tid % 128 < 32) {
+      // the loader: each item's Q (and dO) once its unit's consumer has
+      // read the last item's, then its K/V tiles into the ring
+      int tile = 0, qloads[kConsumers] = {};
+      for (int k = 0;; ++k) {
+        int b, kh, pr;
+        if (!item(k, b, kh, pr)) break;
+        mbar_wait(info_full + (k & 1), (k >> 1) & 1);
+        const Info& in = info[k & 1];
+        const int lo_0 = in.lo[0], lo_1 = in.lo[1], hi_0 = in.hi[0], hi_1 = in.hi[1];
+        __syncwarp();
+        if (lane == 0) mbar_arrive(info_empty + (k & 1));
+        const int lo = min(lo_0, lo_1), hi = max(hi_0, hi_1);
+        const int ntiles = lo < hi ? (hi - lo + kRows - 1) / kRows : 0;
+        if (lane == 0) {
+#pragma unroll
+          for (int u = 0; u < kConsumers; ++u) {
+            int h, i0;
+            if (!unit(kh, pr, u, h, i0) || (u == 0 ? lo_0 >= hi_0 : lo_1 >= hi_1)) continue;
+            mbar_wait(q_empty + u, (qloads[u]++ & 1) ^ 1);
+            mbar_expect_tx(q_full + u, (DQ ? 2 : 1) * kTile);
+            for (int p = 0; p < 4; ++p) {
+              tma_load(smem + L::kQ + u * kTile + p * kPanel, &tq, q_full + u, 64 * p, h, i0, b);
+              if constexpr (DQ)
+                tma_load(smem + L::kdO + u * kTile + p * kPanel, &tdo, q_full + u, 64 * p, h,
+                         i0, b);
+            }
+          }
+        }
+        const int* segkb = segk + (long long)b * Tk;
+        for (int n = 0; n < ntiles; ++n, ++tile) {
+          const int j0 = lo + n * kRows, sk = tile % KS, sv = tile % VS;
+          mbar_wait(empty_k + sk, ((tile / KS) & 1) ^ 1);
+          for (int c = lane; c < kRows; c += 32)
+            seg_k[sk * kRows + c] = j0 + c < Tk ? segkb[j0 + c] : -2;
+          if (lane == 0) {
+            mbar_expect_tx(full_k + sk, kTile);
+            for (int p = 0; p < 4; ++p)
+              tma_load(smem + L::kK + sk * kTile + p * kPanel, &tk, full_k + sk, 64 * p, kh, j0,
+                       b);
+          } else {
+            mbar_arrive(full_k + sk);
+          }
+          mbar_wait(empty_v + sv, ((tile / VS) & 1) ^ 1);
+          if (lane == 0) {
+            mbar_expect_tx(full_v + sv, kTile);
+            for (int p = 0; p < 4; ++p)
+              tma_load(smem + L::kV + sv * kTile + p * kPanel, &tv, full_v + sv, 64 * p, kh, j0,
+                       b);
+          }
+        }
+      }
+    } else {
+      // the scheduler: each item's key ranges into an Info slot, one
+      // item ahead of the consumers
+      const int t = tid % 128 - 32;
+      for (int k = 0;; ++k) {
+        int b, kh, pr;
+        if (!item(k, b, kh, pr)) break;
+        mbar_wait(info_empty + (k & 1), ((k >> 1) & 1) ^ 1);
+        Info& in = info[k & 1];
+        const int* segqb = segq + (long long)b * Tq;
+        const int* segkb = segk + (long long)b * Tk;
+        if (t < 4) scan[t] = t < 2 ? kRows : -1;  // first, last of each unit
+        for (int r = t; r < kConsumers * kRows; r += kSchedThreads) {
+          int h, i0;
+          const bool exists = unit(kh, pr, r / kRows, h, i0);
+          const int row = i0 + r % kRows;
+          in.seg_q[r] = exists && row < Tq ? segqb[row] : -2;
+        }
+        sched_sync();
+        for (int r = t; r < kConsumers * kRows; r += kSchedThreads) {
+          if (in.seg_q[r] >= 0) {
+            atomicMin(&scan[r / kRows], r % kRows);
+            atomicMax(&scan[2 + r / kRows], r % kRows);
+          }
+        }
+        sched_sync();
+        int lo_0 = 0;
+#pragma unroll
+        for (int u = 0; u < kConsumers; ++u) {
+          int h, i0, h0, i00;
+          unit(kh, pr, u, h, i0);
+          unit(kh, pr, 0, h0, i00);
+          const int first = scan[u], last = scan[2 + u];
+          int lo_u = INT_MAX, hi_u = INT_MIN;
+          if (first <= last) {
+            const int i_first = q_start + i0 + first;
+            if (u > 0 && i0 == i00) {  // the same rows as unit 0
+              lo_u = lo_0;
+            } else {
+              lo_u = sched_segment_start(segkb, i_first, &scan[4], t);
+              if (window > 0) lo_u = max(lo_u, i_first - window + 1);
+            }
+            hi_u = q_start + i0 + last + 1;
+          }
+          if (u == 0) lo_0 = lo_u;
+          if (t == 0) {
+            in.lo[u] = lo_u;
+            in.hi[u] = hi_u;
+          }
+        }
+        sched_sync();  // the slot is written, and scan read before the next item resets it
+        if (t == 0) mbar_arrive(info_full + (k & 1));
+      }
+    }
+  } else {
+    // consumer warpgroup wgi: unit wgi of each item, 16 of its rows a warp
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+    const int w = wgi, lane = tid & 31, g = lane >> 2, tig = lane & 3;
+    const int rq = (tid % 128 / 32) * 16 + g;  // this thread's rows: rq and rq + 8
+    const unsigned sQ = tc::smem_addr(smem + L::kQ + w * kTile);
+    const unsigned sdO = tc::smem_addr(smem + L::kdO + w * kTile);
+    int tile = 0, qloads = 0;  // the ring's position; this unit's Q loads
+    for (int k = 0;; ++k) {
+      int b, kh, pr;
+      if (!item(k, b, kh, pr)) break;
+      mbar_wait(info_full + (k & 1), (k >> 1) & 1);
+      const Info& in = info[k & 1];
+      const int lo = min(in.lo[0], in.lo[1]), hi = max(in.hi[0], in.hi[1]);
+      const int my_lo = in.lo[w], my_hi = in.hi[w];
+      const int sq[2] = {in.seg_q[w * kRows + rq], in.seg_q[w * kRows + rq + 8]};
+      release(info_empty + (k & 1));
+      int h, i0;
+      unit(kh, pr, w, h, i0);
+      const int ntiles = lo < hi ? (hi - lo + kRows - 1) / kRows : 0;
+      // the unit's tiles of the item's walk, [n0, n1); none without a valid row
+      const int n0 = my_lo < my_hi ? (my_lo - lo) / kRows : 0;
+      const int n1 = my_lo < my_hi ? (my_hi - lo + kRows - 1) / kRows : 0;
+      const int qi0 = q_start + i0 + rq;  // this thread's first row, global
+      // tile n of the item is ring position tile + n
+      auto k_tile = [&](int n) { return tc::smem_addr(smem + L::kK + (tile + n) % KS * kTile); };
+      auto v_tile = [&](int n) { return tc::smem_addr(smem + L::kV + (tile + n) % VS * kTile); };
+      auto wait_k = [&](int n) { mbar_wait(full_k + (tile + n) % KS, ((tile + n) / KS) & 1); };
+      auto wait_v = [&](int n) { mbar_wait(full_v + (tile + n) % VS, ((tile + n) / VS) & 1); };
+      auto free_k = [&](int n) { release(empty_k + (tile + n) % KS); };
+      auto free_v = [&](int n) { release(empty_v + (tile + n) % VS); };
+      // a tile outside the unit's range: waited for and released unread
+      auto skip = [&](int n) {
+        wait_k(n);
+        free_k(n);
+        wait_v(n);
+        free_v(n);
+      };
+      // S = Q K^T of tile n into s (issued and committed, not waited for)
+      auto issue_s = [&](float (&s)[32], int n) {
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 16; ++kk)
+          wgmma_n64(s, desc_k(sQ, kk), desc_k(k_tile(n), kk), kk > 0);
+        wgmma_commit();
+      };
+      // may element i of a thread's S fragment of tile n be attended?  A
+      // thread's two rows need no mask when the tile lies inside their
+      // segment (segments are contiguous), below both, with no window.
+      auto mask_of = [&](int n) {
+        const int* sgk = seg_k + (tile + n) % KS * kRows;
+        const int j0 = lo + n * kRows, first = sgk[0], last = sgk[kRows - 1];
+        bool full = window <= 0;
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+          full &= (sq[r] >= 0) & (first == sq[r]) & (last == sq[r]) &
+                  (j0 + kRows - 1 <= qi0 + 8 * r);
+        return [=](int i) {
+          const int row = (i >> 1) & 1, col = 8 * (i >> 2) + 2 * tig + (i & 1);
+          return full | allowed(sq[row], sgk[col], qi0 + 8 * row, j0 + col, window);
+        };
+      };
+
+      float acc[128];  // O or dQ: element 4 j + e at n-tile j of 8 columns
+#pragma unroll
+      for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+      float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};  // forward
+      for (int n = 0; n < n0; ++n) skip(n);
+      if (n0 < n1) {
+        mbar_wait(q_full + w, qloads++ & 1);
+        if constexpr (DQ) {
+          float lse_r[2], di_r[2];
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const long long at = ((long long)b * Hq + h) * Tq + min(i0 + rq + 8 * r, Tq - 1);
+            lse_r[r] = lse[at];
+            di_r[r] = di[at];
+          }
+          // per tile: S and dP, then dS, then dQ += dS K left in flight
+          // under the next tile's S and dP
+          unsigned a[4][4];
+          for (int n = n0; n < n1; ++n) {
+            float s[32], dp[32];
+            wait_k(n);
+            issue_s(s, n);
+            wait_v(n);
+            wgmma_fence();
+#pragma unroll
+            for (int kk = 0; kk < 16; ++kk)
+              wgmma_n64(dp, desc_k(sdO, kk), desc_k(v_tile(n), kk), kk > 0);
+            wgmma_commit();
+            wgmma_wait<0>();
+            reg_fence(s);
+            reg_fence(dp);
+            reg_fence(acc);
+            if (n > n0) free_k(n - 1);  // the previous dQ read its K
+            free_v(n);
+            const auto ok = mask_of(n);
+#pragma unroll
+            for (int i = 0; i < 32; ++i) {
+              const int row = (i >> 1) & 1;
+              float x = s[i], t = 0.f;
+              if constexpr (CAP) {
+                t = tanhf(x / softcap);
+                x = t * softcap;
+              }
+              float ds =
+                  ok(i) ? exp2f((x - lse_r[row]) * tc::kLog2e) * (dp[i] - di_r[row]) : 0.f;
+              if constexpr (CAP) ds *= 1.f - t * t;
+              s[i] = ds;
+            }
+            // dQ += dS K: dS the bf16 A operand, K read MN-major
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk) a_from_acc(a[kk], s, kk);
+            reg_fence(a);
+            reg_fence(acc);
+            wgmma_fence();
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk) wgmma_n256(acc, a[kk], desc_mn(k_tile(n), kk));
+            wgmma_commit();
+          }
+          release(q_empty + w);  // Q and dO are read: the loader may bring the next item's
+          wgmma_wait<0>();
+          reg_fence(acc);
+          free_k(n1 - 1);
+        } else {
+          // softcap, mask and the online softmax on tile n's S, P into p;
+          // alpha: the factor for O
+          auto softmax = [&](float (&s)[32], int n, unsigned (&p)[4][4], float (&alpha)[2]) {
+            const auto ok = mask_of(n);
+            float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+            for (int i = 0; i < 32; ++i) {
+              float x = s[i];
+              if constexpr (CAP) x = tanhf(x / softcap) * softcap;
+              x = ok(i) ? x : -INFINITY;
+              s[i] = x;
+              mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], x);
+            }
+            float mb[2];
+#pragma unroll
+            for (int r = 0; r < 2; ++r) {
+              mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+              mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+              const float m_new = fmaxf(m[r], mx[r]);
+              mb[r] = m_new == -INFINITY ? 0.f : m_new * tc::kLog2e;
+              alpha[r] = exp2f(m[r] * tc::kLog2e - mb[r]);  // 0 while m is -inf
+              m[r] = m_new;
+              l[r] *= alpha[r];
+            }
+#pragma unroll
+            for (int i = 0; i < 32; ++i) {
+              s[i] = exp2f(s[i] * tc::kLog2e - mb[(i >> 1) & 1]);
+              l[(i >> 1) & 1] += s[i];
+            }
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk) a_from_acc(p[kk], s, kk);
+          };
+          // per tile n: S_n and O += P_{n-1} V_{n-1} issued together, then
+          // the softmax of S_n once both are done (run under the product,
+          // it made ptxas serialize every wgmma: 0.092 against 0.0825 ms on
+          // Gemma-2B's heads over 8 packed rows of 1024, same card)
+          unsigned pa[4][4];
+          float alpha[2];
+          {
+            float s[32];
+            wait_k(n0);
+            issue_s(s, n0);
+            wgmma_wait<0>();
+            reg_fence(s);
+            softmax(s, n0, pa, alpha);  // O is 0: no rescale
+            free_k(n0);
+            reg_fence(acc);
+            reg_fence(pa);
+          }
+          for (int n = n0 + 1; n < n1; ++n) {
+            float s[32];
+            wait_k(n);
+            issue_s(s, n);
+            wait_v(n - 1);
+            wgmma_fence();  // each batch of products its own fence
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk) wgmma_n256(acc, pa[kk], desc_mn(v_tile(n - 1), kk));
+            wgmma_commit();
+            wgmma_wait<0>();
+            reg_fence(s);
+            reg_fence(acc);
+            free_v(n - 1);
+            softmax(s, n, pa, alpha);
+            free_k(n);
+#pragma unroll
+            for (int i = 0; i < 128; ++i) acc[i] *= alpha[(i >> 1) & 1];
+            reg_fence(acc);  // the next tile's fence orders them for its products
+            reg_fence(pa);
+          }
+          release(q_empty + w);  // Q is read: the loader may bring the next item's
+          wait_v(n1 - 1);
+          reg_fence(acc);
+          reg_fence(pa);
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) wgmma_n256(acc, pa[kk], desc_mn(v_tile(n1 - 1), kk));
+          wgmma_commit();
+          wgmma_wait<0>();
+          reg_fence(acc);
+          free_v(n1 - 1);
+        }
+      }
+      for (int n = n1; n < ntiles; ++n) skip(n);
+      tile += ntiles;
+
+      // out (normalised, and lse) or dq, from registers: a quad writes 16
+      // contiguous bytes of a row.  The item's coordinates are derived
+      // again (from a k the compiler must treat as new), so that they hold
+      // no registers through the walk.
+      asm volatile("" : "+r"(k));
+      item(k, b, kh, pr);
+      const bool exists = unit(kh, pr, w, h, i0);
+      float sc[2] = {1.f, 1.f};
+      if constexpr (!DQ) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+          l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+          sc[r] = l[r] > 0.f ? 1.f / l[r] : 0.f;
+          const int t = i0 + rq + 8 * r;  // local
+          if (exists && tig == 0 && t < Tq)
+            lse[((long long)b * Hq + h) * Tq + t] = l[r] > 0.f ? m[r] + logf(l[r]) : -INFINITY;
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int t = i0 + rq + 8 * r;  // local
+        if (!exists || t >= Tq) continue;
+        __nv_bfloat16* row = out + (((long long)b * Tq + t) * Hq + h) * 256 + 2 * tig;
+#pragma unroll
+        for (int j = 0; j < 32; ++j)
+          *reinterpret_cast<__nv_bfloat162*>(row + 8 * j) =
+              __floats2bfloat162_rn(acc[4 * j + 2 * r] * sc[r], acc[4 * j + 2 * r + 1] * sc[r]);
+      }
+    }
+  }
+}
+
+}  // namespace wg
+
 template <typename K>
 cudaError_t opt_in(K kernel, int bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
@@ -1529,6 +2257,80 @@ cudaError_t fwd_tc(const void* q, const void* k, const void* v, const void* segq
       static_cast<const __nv_bfloat16*>(v), static_cast<const int*>(segq),
       static_cast<const int*>(segk), static_cast<__nv_bfloat16*>(out),
       static_cast<float*>(lse), r.q_start, r.Tq, r.Tk, r.Hq, r.Hkv, r.softcap, r.window);
+  return cudaGetLastError();
+}
+
+// cuTensorMapEncodeTiled, found through the runtime's entry-point query
+// (no link against libcuda)
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                             cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// a [B, T, H, 256] bf16 tensor as TMA boxes of one 64-column panel of 64
+// rows of one head, swizzled by 128 bytes (wgmma's layout); rows past T
+// read as zeros and are not written
+cudaError_t head_map(CUtensorMap* map, const void* ptr, int B, int T, int H) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[4] = {256, (cuuint64_t)H, (cuuint64_t)T, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {512, 512ull * H, 512ull * H * T};  // bytes, dims 1-3
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)wg::kRows, 1}, unit[4] = {1, 1, 1, 1};
+  const CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
+                              dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                              CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// the hd-256 bf16 forward (DQ false: out, lse) or dq (DQ true: reads dout,
+// lse, di; `result` is dq) on wgmma
+template <bool DQ>
+cudaError_t attn_wg(const void* q, const void* k, const void* v, const void* dout,
+                    const void* segq, const void* segk, void* result, float* lse,
+                    const float* di, Rows r, cudaStream_t s) {
+  CUtensorMap mq, mk, mv, mdo;
+  cudaError_t err = head_map(&mq, q, r.B, r.Tq, r.Hq);
+  if (err == cudaSuccess) err = head_map(&mk, k, r.B, r.Tk, r.Hkv);
+  if (err == cudaSuccess) err = head_map(&mv, v, r.B, r.Tk, r.Hkv);
+  if (err == cudaSuccess) err = head_map(&mdo, DQ ? dout : q, r.B, r.Tq, r.Hq);
+  int device = 0, sms = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&device);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  constexpr int kSmem = wg::Layout<DQ>::kSmem;
+  auto kernel = r.softcap > 0.f ? wg::flash_wg_kernel<DQ, true> : wg::flash_wg_kernel<DQ, false>;
+  if (err == cudaSuccess) err = opt_in(kernel, kSmem);
+  if (err != cudaSuccess) return err;
+  const int units = (r.Tq + wg::kRows - 1) / wg::kRows * (r.Hq / r.Hkv);
+  const int items = (units + wg::kConsumers - 1) / wg::kConsumers * r.Hkv * r.B;
+  // the forward persistent (its producer prefetches the next item's Q and
+  // K/V under the current one's products); dq one block an item, whose
+  // longer and more uneven items the hardware's block scheduling balances
+  // better (Gemma-2B's heads over 8 packed rows of 1024, same card: 0.1164
+  // against 0.1220 ms persistent; the forward 0.0825 against 0.0880 with a
+  // block an item)
+  kernel<<<DQ ? items : std::min(items, sms), wg::kThreads, kSmem, s>>>(
+      mq, mk, mv, mdo, static_cast<const int*>(segq), static_cast<const int*>(segk),
+      static_cast<__nv_bfloat16*>(result), lse, di, r.B, r.q_start, r.Tq, r.Tk, r.Hq, r.Hkv,
+      r.softcap, r.window);
   return cudaGetLastError();
 }
 
@@ -1649,8 +2451,9 @@ cudaError_t check_dkv_cluster(int bf16, int hd, int Hq, int Hkv, int cluster) {
 // q_start + Tq) of each packed row of Tk keys; segq [B, Tq] and segk
 // [B, Tk] (one array for both, with q_start 0 and Tq = Tk, is the unsharded
 // call).  Each entry picks its kernel by dtype and head dim: bfloat16 runs
-// on the tensor cores (tc::flash_fwd_tc_kernel, tc::flash_bwd_dq_tc_kernel,
-// and tc::flash_bwd_dkv_tc_kernel or tc::flash_bwd_dkv_tc256_kernel),
+// on the tensor cores (tc::flash_fwd_tc_kernel and tc::flash_bwd_dq_tc_kernel
+// at hd 128, wg::flash_wg_kernel at hd 256, and tc::flash_bwd_dkv_tc_kernel
+// or tc::flash_bwd_dkv_tc256_kernel),
 // float32 on the CUDA cores (flash_fwd_kernel, flash_bwd_dq_kernel,
 // flash_bwd_dkv_kernel), which keeps f32 products exact.
 extern "C" int flash_fwd(int device, int bf16, const void* q, const void* k, const void* v,
@@ -1665,7 +2468,8 @@ extern "C" int flash_fwd(int device, int bf16, const void* q, const void* k, con
   if (hd == 128)
     return (int)(bf16 ? fwd_tc<128>(q, k, v, segq, segk, out, lse, r, s)
                       : fwd<float, 128>(q, k, v, segq, segk, out, lse, r, s));
-  return (int)(bf16 ? fwd_tc<256>(q, k, v, segq, segk, out, lse, r, s)
+  return (int)(bf16 ? attn_wg<false>(q, k, v, nullptr, segq, segk, out, static_cast<float*>(lse),
+                                      nullptr, r, s)
                     : fwd<float, 256>(q, k, v, segq, segk, out, lse, r, s));
 }
 
@@ -1682,7 +2486,9 @@ extern "C" int flash_bwd_dq(int device, int bf16, const void* q, const void* k, 
   if (hd == 128)
     return (int)(bf16 ? bwd_dq_tc<128>(q, k, v, segq, segk, dout, lse, di, dq, r, s)
                       : bwd_dq<float, 128>(q, k, v, segq, segk, dout, lse, di, dq, r, s));
-  return (int)(bf16 ? bwd_dq_tc<256>(q, k, v, segq, segk, dout, lse, di, dq, r, s)
+  return (int)(bf16 ? attn_wg<true>(q, k, v, dout, segq, segk, dq,
+                                     static_cast<float*>(const_cast<void*>(lse)),
+                                     static_cast<const float*>(di), r, s)
                     : bwd_dq<float, 256>(q, k, v, segq, segk, dout, lse, di, dq, r, s));
 }
 

@@ -31,9 +31,11 @@ wrapper counts its launches in `.launches`, and by head dim (128 or 256)
 in `.launches_hd`.  Every wrapper picks its kernel by dtype and head dim:
 bfloat16 runs on the tensor cores (counted again in `.launches_tc`),
 float32 on the CUDA cores, whose f32 products the tensor cores (TF32 at
-best) could not keep.  The bf16 dk/dv kernel at hd 256 runs each key tile
-as a thread block cluster whose blocks split the GQA group's q heads;
-`dkv_plan` picks its size from the grid.
+best) could not keep.  At hd 256 the bf16 forward and dq run on Hopper's
+warpgroup products (`wgmma`) on K/V tiles that TMA loads once for two q
+heads of a GQA group, and the bf16 dk/dv kernel runs each key tile as a
+thread block cluster whose blocks split the group's q heads; `dkv_plan`
+picks its size from the grid.
 
 Query offset.  Every function here also takes `q_start` and
 `kv_segment_ids`: the queries are then rows [q_start, q_start + Tq) of

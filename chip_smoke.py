@@ -60,7 +60,7 @@ Phases, each printed with its wall time; any failure exits non-zero:
             kernel's launch count must equal 28 x the engine's decode steps
 6. timings  ragged kernel, plain version and torch SDPA on the serving
             shapes (CUDA events; the kernel's and SDPA's device time per
-            call by torch.profiler), the kernel's bound, decode tokens/s, and a
+            call, `device_ms`), the kernel's bound, decode tokens/s, and a
             torch.profiler window over steady decode steps (top device ops,
             the ragged kernel's share of device time)
 6b. spec    speculative decoding, K2's verify half at T = D + 1: (a) K2
@@ -84,7 +84,7 @@ Phases, each printed with its wall time; any failure exits non-zero:
             the server's count of those at T > 1 = 28 x verify calls, the
             Prometheus series, and the logprob gap on against off before
             each request's first divergent position; (d) K2 at T = 4 and 8
-            (on the tensor cores) timed (events, profiler) with its bound,
+            (on the tensor cores) timed (events, device time) with its bound,
             plain version and SDPA on the same boolean mask.  `--only spec`
             runs the build, a checkpoint and this phase alone
 7. train    the PPO actor on the serve phase's checkpoint at full width (f32
@@ -103,7 +103,8 @@ Phases, each printed with its wall time; any failure exits non-zero:
             Hkv=2, hd=128): each flash kernel against its plain version,
             then the kernel, its plain version and torch SDPA (the forward,
             and forward + backward) timed, with each bound, and the kernels'
-            and SDPA's device time per call by torch.profiler
+            and SDPA's device time per call (`device_ms`: a CUDA graph of
+            the calls replayed, timed by events)
 8b. sp      the sequence-parallel training path at full width and
             SP_LAYERS (8) layers: the PPO actor of
             `areal_tpu_torch/scripts/mp_train_worker.py` on its seeded batch
@@ -323,7 +324,8 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # H100 SXM, dense
 BF16_ATOL = BF16_RTOL = 2e-2  # see check_kernel
 SERVE_LAYERS = 28
 # the decode heads of the families phase's models (B = its slot grid)
-GEMMA_DECODE = dict(B=8, Hq=8, Hkv=4, hd=256)
+GEMMA2_HEADS = dict(Hq=8, Hkv=4, hd=256)  # Gemma-2-2B: 8 q heads on 4 kv heads
+GEMMA_DECODE = dict(B=8, **GEMMA2_HEADS)
 QWEN3_HEADS = dict(Hq=16, Hkv=8, hd=128)
 
 
@@ -590,7 +592,9 @@ def check_flash():
     """`compare_flash` on single packed rows at Qwen2.5's heads: several
     segments with tail padding, one segment, a window, a softcap, and f32;
     at Qwen3-1.7B's; and at head dim 256: Gemma-2B's (8 q heads on one kv
-    head) and Gemma-7B's (16 on 16) heads, on the same kinds of rows.
+    head) and Gemma-7B's (16 on 16) heads, on the same kinds of rows, and
+    Gemma-2-2B's (8 on 4) with its window and softcap on a row past the
+    window.
     Returns the worst bf16 |kernel - plain| per kernel at hd 128 and at hd
     256."""
     g2b, g7b = GEMMA1_HEADS, GEMMA7B_HEADS
@@ -612,6 +616,10 @@ def check_flash():
          dict(g2b, softcap=30.0)),
         ("hd 256, Gemma-7B heads, T=1024, window 256 and softcap 30",
          packed_segments(1024, [600, 380]), dict(g7b, window=256, softcap=30.0)),
+        ("hd 256, Gemma-7B heads, T=1088 (17 q tiles: a block with one)",
+         packed_segments(1088, [600, 450]), dict(g7b)),
+        ("hd 256, Gemma-2-2B heads (Hq=8 Hkv=4), T=6144, window 4096 and softcap 50",
+         packed_segments(6144, [5000, 1000]), dict(GEMMA2_HEADS, window=4096, softcap=50.0)),
         ("hd 256 f32, Gemma-2B heads, T=256", packed_segments(256, [100, 140]),
          dict(g2b, dtype=torch.float32)),
         ("hd 256 f32, Gemma-7B heads, T=256", packed_segments(256, [100, 140]),
@@ -2901,20 +2909,61 @@ def device_kernels(prof):
             if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
 
 
+# profiler windows a device_ms fallback may take before "not measured"
+DEVICE_MS_WINDOWS = 3
+
+
 def device_ms(fn, iters=50):
-    """Device time per call of `fn` from torch.profiler: the self device
-    time of every kernel it launched over `iters` calls, summed, per call.
-    Unlike `cuda_ms` it leaves out the host's share (Python, the launch
-    path) when the host is slower than the device.  None when the
-    profiler recorded no device time (it sometimes drops a window)."""
+    """Device time per call of `fn`, leaving out the host's share (Python,
+    the launch path) that `cuda_ms` includes when the host is slower than
+    the device.  The `iters` calls are captured into one CUDA graph and
+    replayed back to back, timed by CUDA events around the replay.
+
+    Not torch.profiler first: after a window of tens of thousands of
+    launches (the train phase's update window, the grpo phase's interrupt
+    run) the profiler loses kernel records for the rest of the process,
+    its own kernels' and the port's alike (a 40,000-launch window cost
+    every later window 1 record in 20, a 400,000-launch one half of them;
+    the whole script then read low device times, and none at all from the
+    families phase on).  Where `fn` cannot be captured, a profiler window
+    is taken, and kept only when every kernel was recorded a whole number
+    of times per call; else it is taken again, up to DEVICE_MS_WINDOWS in
+    all, and None when none was whole."""
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
+    try:
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
             fn()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(iters):
+                fn()
+        graph.replay()
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         torch.cuda.synchronize()
-    total = sum(e.self_device_time_total for e in device_kernels(prof))
-    return total / iters / 1e3 if total > 0 else None
+        start.record()
+        graph.replay()
+        stop.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(stop) / iters
+    except RuntimeError as exc:
+        torch.cuda.synchronize()
+        print(f"  device time by the profiler: the calls could not be captured "
+              f"({str(exc).splitlines()[0][:120]})")
+    for attempt in range(DEVICE_MS_WINDOWS):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        kernels = device_kernels(prof)
+        if kernels and all(e.count % iters == 0 for e in kernels):
+            return sum(e.self_device_time_total for e in kernels) / iters / 1e3
+        print(f"  profiler window {attempt + 1} of {DEVICE_MS_WINDOWS} lost kernel records "
+              f"({sum(e.count for e in kernels)} launches recorded for {iters} calls)")
+    return None
 
 
 def fmt_ms(t):
@@ -3107,7 +3156,7 @@ def time_flash(seg_rows, Hq=12, Hkv=2, hd=128):
     lib = {"flash_fwd": cuda_ms(lib_fwd, iters=20, warmup=3)}
     lib["flash_bwd_dq"] = lib["flash_bwd_dkv"] = cuda_ms(lib_fwd_bwd, iters=10, warmup=2)
     dev = {name: device_ms(kernel, iters=20) for name, (kernel, _) in runs.items()}
-    print("  device time per call (profiler): " + ", ".join(
+    print("  device time per call (graph replay): " + ", ".join(
         f"{name} {fmt_ms(t)}" for name, t in dev.items())
         + f"; SDPA forward {fmt_ms(device_ms(lib_fwd, iters=20))}, SDPA forward + backward "
           f"{fmt_ms(device_ms(lib_fwd_bwd, iters=10))}")
@@ -3730,8 +3779,8 @@ def main(argv):
             "bound_by": bound_by,
             "library_ms": lib_ms,
         })
-    # the same kernels' hd-256 variants (tc::flash_fwd_tc_kernel<256>,
-    # tc::flash_bwd_dq_tc_kernel<256>, tc::flash_bwd_dkv_tc256_kernel), run by
+    # the same kernels' hd-256 variants (wg::flash_wg_kernel<false>, the
+    # forward, and <true>, dq; tc::flash_bwd_dkv_tc256_kernel), run by
     # the gemma1 path only
     for name, n, n_ladder in zip(("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"), gemma1_flash,
                                  ladder_flash):

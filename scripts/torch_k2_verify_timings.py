@@ -13,7 +13,13 @@ is held against the plain version (bf16, within 2e-2, caches bit-equal).
 Per case it reports the device time per call by torch.profiler, the time
 per call by CUDA events over back-to-back calls, and whether the call ran
 on the tensor cores (`launches_tc`, null where the checkout has no such
-count).  Needs a CUDA device; the kernels build from DIR at first use.
+count); beside them the yardsticks: torch SDPA on the same mask (the K/V
+gathered and GQA-expanded outside the timing, uncapped under a softcap, as
+`chip_smoke.py time_kernel` times it), by device time and events, and the
+call's bound on an H100 SXM (the larger of its bytes over 3.35 TB/s and its
+QK and PV flops over 989 TFLOP/s, counted as `chip_smoke.py kernel_bound`
+counts them).  Needs a CUDA device; the kernels build from DIR at first
+use.
 """
 
 import argparse
@@ -27,6 +33,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 BF16_TOL = 2e-2
+HBM_BYTES_PER_S, BF16_FLOPS = 3.35e12, 989e12  # H100 SXM
 # (name, slots, q heads, kv heads, head dim, key window, spans [lo, hi), window, softcap)
 SHAPES = (
     ("spec (Qwen2.5-1.5B heads)", 8, 12, 2, 128, 1024, (64, 641), None, None),
@@ -77,18 +84,59 @@ def events_ms(fn, iters=200, warmup=20):
     return start.elapsed_time(stop) / iters
 
 
-def device_ms(fn, iters=50):
-    """Self device time of every kernel `fn` launched, per call; None when
-    the profiler recorded none."""
+def device_ms(fn, iters=50, windows=3):
+    """Self device time of every kernel `fn` launched, per call; a window
+    that recorded none is taken again, and None when all `windows` did."""
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    total = sum(e.self_device_time_total for e in prof.key_averages()
-                if e.device_type == torch.autograd.DeviceType.CUDA)
-    return total / iters / 1e3 if total > 0 else None
+    for _ in range(windows):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(e.self_device_time_total for e in prof.key_averages()
+                    if e.device_type == torch.autograd.DeviceType.CUDA)
+        if total > 0:
+            return total / iters / 1e3
+    return None
+
+
+def copied_end(lengths, T, K, page):
+    """Per slot, the end of the key columns K2 reads (its occupied span
+    rounded up to whole pages, or K past the last full page)."""
+    n_full = K // page
+    span = torch.clamp(lengths.long() + T, max=K)
+    npages = torch.clamp((span + page - 1) // page, max=n_full)
+    return torch.where(span > n_full * page, K, npages * page)
+
+
+def bound(case):
+    """(ms, "bytes" or "operations"): q in and out, the new K/V in and
+    appended, the K/V pages read, the mask and index arrays, against the QK
+    and PV flops over the rows' keys."""
+    q, ck = case["q"], case["ck"]
+    B, T, Hq, hd = q.shape
+    Hkv = ck.shape[2]
+    K = case["key_window"]
+    end = int(copied_end(case["lengths"], T, K, case["page_size"]).sum())
+    item = ck.element_size()
+    nbytes = (2 * q.numel() * item + 4 * case["k_new"].numel() * item + 2 * end * Hkv * hd * item
+              + case["mask"].numel() + 4 * (2 * B + B * T))
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 4 * end * T * Hq * hd / BF16_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def sdpa_call(case):
+    """torch SDPA on the case's mask over each slot's gathered keys."""
+    q, ck, cv = case["q"], case["ck"], case["cv"]
+    K = case["key_window"]
+    group = q.shape[2] // ck.shape[2]
+    rows = case["rows"].long()
+    k = ck[rows, :K].transpose(1, 2).repeat_interleave(group, dim=1)
+    v = cv[rows, :K].transpose(1, 2).repeat_interleave(group, dim=1)
+    qs, m = q.transpose(1, 2), case["mask"][:, None]
+    return lambda: torch.nn.functional.scaled_dot_product_attention(qs, k, v, attn_mask=m)
 
 
 def main(argv):
@@ -130,11 +178,17 @@ def main(argv):
             def timed(case=case):
                 fn(**case, logit_softcap=softcap)
 
+            sdpa = sdpa_call(case)
+            bound_ms, bound_by = bound(case)
             cases.append(dict(name=name, T=T, rows=T * Hq // Hkv, chunks=-(-K // 64),
                               on_tensor_cores=tc, max_abs_err=err,
-                              device_ms=device_ms(timed), events_ms=events_ms(timed)))
+                              device_ms=device_ms(timed), events_ms=events_ms(timed),
+                              sdpa_device_ms=device_ms(sdpa), sdpa_events_ms=events_ms(sdpa),
+                              bound_ms=bound_ms, bound_by=bound_by))
             print(f"  {name} T={T}: device {cases[-1]['device_ms']} ms, events "
-                  f"{cases[-1]['events_ms']:.4f} ms, tensor cores {tc}", file=sys.stderr)
+                  f"{cases[-1]['events_ms']:.4f} ms, tensor cores {tc}; SDPA device "
+                  f"{cases[-1]['sdpa_device_ms']} ms; bound {bound_ms:.4f} ms ({bound_by})",
+                  file=sys.stderr)
     print(json.dumps(dict(label=args.label, root=args.root, card=card.strip(), cases=cases)))
     return 0
 

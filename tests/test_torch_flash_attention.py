@@ -440,3 +440,97 @@ def test_cuda_tensor_core_backward(cuda_device, case):
     for name, a, b in (("dq", dq, p_dq), ("dk", dk, p_dk), ("dv", dv, p_dv)):
         rel = ((a.float() - b.float()).abs().max() / b.float().abs().max()).item()
         assert rel < 2e-2, (name, rel)
+
+
+GEMMA_2_2B_HEADS = dict(hd=256, Hq=8, Hkv=4)
+# the limits chip_smoke.py holds the offset kernels to: the forward's max
+# |out - plain| (one bf16 step at |out| in [2, 4)), dq's max |diff| over
+# the largest element (the worst of every earlier run)
+K1A_ATOL, K1B_RTOL = 2.0 ** -6, 7.6e-3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", [
+    dict(T=2048, n_segs=3, **GEMMA_2B_HEADS),
+    dict(T=1024, n_segs=2, B=8, **GEMMA_2B_HEADS),
+    dict(T=1024, n_segs=2, **GEMMA_7B_HEADS),
+    dict(T=1000, n_segs=2, **GEMMA_7B_HEADS),
+    dict(T=6144, n_segs=2, window=4096, softcap=50.0, **GEMMA_2_2B_HEADS),
+], ids=["gemma-2b-T2048", "gemma-2b-8-rows", "gemma-7b", "gemma-7b-partial-tile",
+        "gemma-2-2b-window-softcap"])
+def test_cuda_hd256_wgmma_forward_and_dq(cuda_device, case):
+    """The bf16 forward and dq at head dim 256 (`wg::flash_wg_kernel`:
+    wgmma on TMA-fed K/V tiles that two q heads of a group, or two q tiles
+    at group 1, share) against the plain versions at Gemma-2B's heads (8 q
+    on 1 kv), Gemma-7B's (16 on 16; also at T = 1000, whose last q tile
+    ends 24 rows short, rows the TMA store must clip) and Gemma-2-2B's (8
+    on 4, window 4096, softcap 50, a row past the window): out within 2^-6
+    on valid rows, lse within 1e-4, dq within 2e-2 of the largest element
+    (the other bf16 gradient checks' budget); pad rows get out 0, lse -inf
+    and dq 0; reruns are bit-equal; each launch is counted at hd 256 on the
+    tensor cores."""
+    window, softcap = case.get("window"), case.get("softcap")
+    q, k, v, g, seg, _ = _packed(31, B=case.get("B", 2), T=case["T"], Hq=case["Hq"],
+                                 Hkv=case["Hkv"], hd=256, n_segs=case["n_segs"])
+    qs, kk, vv, dout = (torch.from_numpy(x).to(cuda_device, torch.bfloat16) for x in (q, k, v, g))
+    qs = fa.scale_query(qs)
+    sg = torch.from_numpy(seg).to(cuda_device)
+    wrappers = (fa.flash_fwd, fa.flash_bwd_dq)
+    before = [(w.launches, w.launches_tc, w.launches_hd[256]) for w in wrappers]
+    out, lse = fa.flash_fwd(qs, kk, vv, sg, window, softcap)
+    out2, lse2 = fa.flash_fwd(qs, kk, vv, sg, window, softcap)
+    di = fa.attention_di(out, dout)
+    dq = fa.flash_bwd_dq(qs, kk, vv, sg, dout, lse, di, window, softcap)
+    dq2 = fa.flash_bwd_dq(qs, kk, vv, sg, dout, lse, di, window, softcap)
+    torch.cuda.synchronize()
+    assert [(w.launches, w.launches_tc, w.launches_hd[256]) for w in wrappers] == [
+        (n + 2, tc + 2, h + 2) for n, tc, h in before]
+    assert torch.equal(out, out2) and torch.equal(lse, lse2) and torch.equal(dq, dq2)
+    p_out, p_lse = fa.flash_fwd_plain(qs, kk, vv, sg, window, softcap)
+    p_dq = fa.flash_bwd_dq_plain(qs, kk, vv, sg, dout, lse, di, window, softcap)
+    valid = torch.from_numpy(seg >= 0).to(cuda_device)
+    err = (out.float() - p_out.float()).abs()[valid].max().item()
+    assert err <= K1A_ATOL, err
+    vl = valid.unsqueeze(1).expand_as(lse)
+    assert torch.allclose(lse[vl], p_lse[vl], atol=1e-4)
+    rel = ((dq.float() - p_dq.float()).abs().max() / p_dq.float().abs().max()).item()
+    assert rel < 2e-2, rel
+    assert not out[~valid].any() and not dq[~valid].any()
+    assert bool((lse[~vl] == -torch.inf).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sp", [2, 4])
+@pytest.mark.parametrize("heads", [GEMMA_2B_HEADS, GEMMA_7B_HEADS], ids=["gemma-2b", "gemma-7b"])
+def test_cuda_hd256_offset_shards_equal_unsharded_rows(cuda_device, heads, sp):
+    """Each sp shard of a row of 2048 (3 segments, tail padding) at its
+    query offset: its out, lse and dq bit-equal to the unsharded kernels'
+    rows (a shard starts on a multiple of 128 rows, so every row's key
+    tiles are the same), and against the plain offset versions within the
+    K1a and K1b limits."""
+    q, k, v, g, seg, _ = _packed(37, B=1, T=2048, Hq=heads["Hq"], Hkv=heads["Hkv"], hd=256,
+                                 n_segs=3)
+    qs, kk, vv, dout = (torch.from_numpy(x).to(cuda_device, torch.bfloat16) for x in (q, k, v, g))
+    qs = fa.scale_query(qs)
+    sg = torch.from_numpy(seg).to(cuda_device)
+    full_out, full_lse = fa.flash_fwd(qs, kk, vv, sg)
+    full_di = fa.attention_di(full_out, dout)
+    full_dq = fa.flash_bwd_dq(qs, kk, vv, sg, dout, full_lse, full_di)
+    n = 2048 // sp
+    for s in range(sp):
+        a = s * n
+        q_s, do_s, sg_s = (x[:, a:a + n].contiguous() for x in (qs, dout, sg))
+        kw = dict(q_start=a, kv_segment_ids=sg)
+        out, lse = fa.flash_fwd(q_s, kk, vv, sg_s, **kw)
+        di = full_di[:, :, a:a + n].contiguous()
+        dq = fa.flash_bwd_dq(q_s, kk, vv, sg_s, do_s, lse, di, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(out, full_out[:, a:a + n]), s
+        assert torch.equal(lse, full_lse[:, :, a:a + n]), s
+        assert torch.equal(dq, full_dq[:, a:a + n]), s
+        p_out, p_lse = fa.flash_fwd_plain(q_s, kk, vv, sg_s, **kw)
+        p_dq = fa.flash_bwd_dq_plain(q_s, kk, vv, sg_s, do_s, p_lse, di, **kw)
+        valid = sg_s >= 0
+        assert (out.float() - p_out.float()).abs()[valid].max().item() <= K1A_ATOL
+        rel = (dq.float() - p_dq.float()).abs().max() / p_dq.float().abs().max()
+        assert rel.item() <= K1B_RTOL, (s, rel.item())
