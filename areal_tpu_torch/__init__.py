@@ -25,6 +25,11 @@ What is ported so far:
   (`utils/recover.py`, the engine's `save`/`load`, `utils/faults.py`,
   `utils/shutdown.py`), `utils/stats_logger.py`, and the launcher's
   relaunch loop (`LocalLauncher.run`, `gsm8k_grpo --launch`).
+- the fleet: the router in front of N servers (`gen/router.py`, the
+  backend health checker `gen/health.py`), its fleet-wide staleness gate
+  and the client's side of it, and discovery of servers, router and
+  publishes through name_resolve (`utils/name_resolve.py`,
+  `utils/names.py`).
 
 Decode attention runs a hand-written CUDA kernel for Hopper
 (`csrc/ragged_decode.cu`, bound in `ops/ragged_decode.py`), training

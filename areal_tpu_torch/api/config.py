@@ -51,6 +51,9 @@ class InferenceEngineConfig:
     """Rollout-side config: the workflow executor's, and the remote
     client's (`core/remote.py`)."""
 
+    # the fleet's name_resolve keys: servers and router are found under them
+    experiment_name: str = ""
+    trial_name: str = ""
     max_concurrent_rollouts: Optional[int] = None
     consumer_batch_size: int = 1
     max_head_offpolicyness: int = 0  # max staleness eta
@@ -206,9 +209,20 @@ class GenServerConfig:
 
 
 @dataclass
+class NameResolveConfig:
+    """The rendezvous store (`utils/name_resolve.py`): memory (one process)
+    or nfs (a directory the fleet shares; "" = under the temp dir).  The
+    JAX package's http and etcd3 backends are not ported."""
+
+    type: str = "memory"  # memory | nfs
+    nfs_record_root: str = ""
+
+
+@dataclass
 class ClusterSpecConfig:
     # "" = `build/experiments` under the checkout (`examples/math/gsm8k_grpo.py`)
     fileroot: str = ""
+    name_resolve: NameResolveConfig = field(default_factory=NameResolveConfig)
 
 
 @dataclass
@@ -265,11 +279,13 @@ class StatsLoggerConfig:
 class GRPOConfig:
     """The GRPO experiment: the fields `examples/math/gsm8k_grpo.py`
     reads.  Left out with what they configure: the launcher's resources,
-    the allocation mode, the tokenizer path and the multi-turn and agent
-    workflows."""
+    the tokenizer path and the multi-turn and agent workflows."""
 
     experiment_name: str = "my-exp"
     trial_name: str = "my-trial"
+    # the device split (`api/alloc.py`); its gen part's dp size is the
+    # number of generation servers the launcher starts ("" = one)
+    allocation_mode: str = ""
     seed: int = 1
     total_train_epochs: int = 1
     total_train_steps: Optional[int] = None

@@ -10,8 +10,14 @@ consumes.  A trajectory the remote client could not finish on any server
 `lost_trajectories`; any other episode exception stays fatal.
 `restore_staleness` adopts a recovered ledger, counting the trajectories
 in flight at the crash as lost.  With telemetry on, each episode emits an
-`episode` event and each loss a `trajectory_lost` one.  Left out with the
-router: its fleet-wide admission gate; and the rollout tracing logs.
+`episode` event and each loss a `trajectory_lost` one.
+
+`fleet_gate` is the router's fleet-wide admission gate
+(`core/remote.py FleetStalenessGate`), which the remote client sets when
+it finds a router: each episode takes a lease before it runs and returns
+it on every exit path, errors included, with `accepted` as decided, so a
+crashed episode never holds a fleet admission until the lease's TTL.
+Left out: the rollout tracing logs.
 """
 
 import logging
@@ -95,6 +101,10 @@ class WorkflowExecutor:
         self._data_generator = None
         # trajectories abandoned after the failover budget ran out
         self.lost_trajectories = 0
+        # the router's fleet-wide admission gate (set by the remote client
+        # when it finds a router): N clients of one fleet share one
+        # staleness budget instead of applying N local ones
+        self.fleet_gate = None
 
     # --- lifecycle ---
     def initialize(self):
@@ -111,28 +121,40 @@ class WorkflowExecutor:
     # --- episode wrapper ---
     def _make_task(self, ti: _TaskInput):
         async def _run():
+            alloc_id = None
+            if self.fleet_gate is not None:
+                qid = str(ti.data.get("query_id", "")) if isinstance(ti.data, dict) else ""
+                alloc_id = await self.fleet_gate.allocate(qid)
+            # the lease goes back on every exit path (format check and
+            # should_accept errors included), or it holds a fleet admission
+            # until its TTL
+            accept = False
             try:
-                traj = await ti.workflow.arun_episode(self.inference_engine, ti.data)
-            except TrajectoryLostError as e:
-                # a fleet failure, not a code bug: the reject below
-                # settles submitted -> rejected, and the run goes on
-                self.lost_trajectories += 1
-                logger.warning("trajectory lost to fleet failure: %s", e)
-                if telemetry.is_enabled():
-                    telemetry.emit("trajectory_lost", lost_total=self.lost_trajectories)
-                traj = None
-            except BaseException:
-                # the submit-side increment must be balanced even on
-                # failure, or every crashed episode eats one capacity slot
-                self.staleness_manager.on_rollout_rejected()
-                raise
-            if traj is not None and self.config.check_trajectory_format:
-                check_trajectory_format(traj, self._expected_keys)
-                if self._expected_keys is None and "input_ids" in traj:
-                    self._expected_keys = set(traj.keys())
-            accept = traj is not None and (
-                ti.should_accept is None or ti.should_accept(traj)
-            )
+                try:
+                    traj = await ti.workflow.arun_episode(self.inference_engine, ti.data)
+                except TrajectoryLostError as e:
+                    # a fleet failure, not a code bug: the reject below
+                    # settles submitted -> rejected, and the run goes on
+                    self.lost_trajectories += 1
+                    logger.warning("trajectory lost to fleet failure: %s", e)
+                    if telemetry.is_enabled():
+                        telemetry.emit("trajectory_lost", lost_total=self.lost_trajectories)
+                    traj = None
+                except BaseException:
+                    # the submit-side increment must be balanced even on
+                    # failure, or every crashed episode eats one capacity slot
+                    self.staleness_manager.on_rollout_rejected()
+                    raise
+                if traj is not None and self.config.check_trajectory_format:
+                    check_trajectory_format(traj, self._expected_keys)
+                    if self._expected_keys is None and "input_ids" in traj:
+                        self._expected_keys = set(traj.keys())
+                accept = traj is not None and (
+                    ti.should_accept is None or ti.should_accept(traj)
+                )
+            finally:
+                if self.fleet_gate is not None:
+                    await self.fleet_gate.finish(alloc_id, accepted=accept)
             if telemetry.is_enabled():
                 telemetry.emit("episode", accepted=accept,
                                version=self.inference_engine.get_version())

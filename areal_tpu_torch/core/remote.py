@@ -1,9 +1,14 @@
 """HTTP client of remote generation servers (the port of
 `areal_tpu/core/remote.py RemoteInfEngine`, on the standard library).
 
-- Discovery: an explicit address list, or the `AREAL_LLM_SERVER_ADDRS`
+- Discovery: an explicit address list, the `AREAL_LLM_SERVER_ADDRS`
   environment variable (comma-separated host:port) that the launch helper
-  (`launcher/local.py`) exports.
+  (`launcher/local.py`) exports, or the servers registered in
+  name_resolve under the config's experiment and trial
+  (`names.gen_servers`), polled until `setup_timeout`.  A router found
+  through ``AREAL_GEN_ROUTER_ADDR`` or name_resolve (`names.gen_router`)
+  turns on the fleet-wide staleness gate (`FleetStalenessGate`): every
+  episode of the executor takes one of the router's leases.
 - Scheduling: round-robin or least-inflight, with rid (or GRPO group)
   affinity and failover: a server that failed mid-request is kept out of
   re-placement for `failover_cooldown` seconds, and every affinity pinned
@@ -31,8 +36,7 @@ finishes, so the calls run on a thread pool of the client's own, sized
 for the executor's concurrency: asyncio's default pool has `min(32, cpus +
 4)` workers and would cap the rollouts in flight without an error.
 
-Left out, as ROADMAP's M7 lists: the router's fleet-wide staleness gate
-and name_resolve discovery.
+The gate's calls run on the same pool.
 """
 
 import asyncio
@@ -56,8 +60,8 @@ from areal_tpu_torch.api.io_struct import (
     WeightUpdateRequests,
 )
 from areal_tpu_torch.core.executor import TrajectoryLostError, WorkflowExecutor
-from areal_tpu_torch.utils import telemetry
-from areal_tpu_torch.utils.http import HttpRequestError, request_with_retry
+from areal_tpu_torch.utils import name_resolve, names, telemetry
+from areal_tpu_torch.utils.http import HttpRequestError, exchange, request_with_retry
 
 logger = logging.getLogger("areal_tpu_torch.remote")
 
@@ -66,6 +70,72 @@ RID_CACHE_SIZE = 128
 # siblings); the pool starts its threads on demand, so the cap costs
 # nothing until the calls are there
 REQUESTS_PER_ROLLOUT = 16
+
+
+class FleetStalenessGate:
+    """The client of the router's fleet-wide staleness gate.
+
+    N clients of one fleet share one staleness budget (the reference's
+    `GserverManager.is_staled`), not N local ones.  `allocate` polls
+    `/allocate_request` until the router grants a lease (409: the fleet is
+    staleness-bound, counted in `n_staled`); `finish` returns the lease
+    through `/finish_request`.  After `max_failures` failed calls in a row
+    the gate degrades to a no-op, so the rollout falls back to the local
+    StalenessManager instead of deadlocking; a lease already granted is
+    still returned.  The calls run on `pool`, the client's threads.
+    """
+
+    def __init__(self, router_addr: str, pool: concurrent.futures.Executor,
+                 poll_interval: float = 0.5, max_failures: int = 5):
+        self.router_addr = router_addr
+        self.poll_interval = poll_interval
+        self.max_failures = max_failures
+        self.n_staled = 0  # 409s received (the rollout loop's thread only)
+        self._pool = pool
+        self._failures = 0
+        self._disabled = False
+
+    async def _post(self, endpoint: str, payload: dict):
+        loop = asyncio.get_running_loop()
+        return await loop.run_in_executor(self._pool, functools.partial(
+            exchange, self.router_addr, endpoint, payload, timeout=60.0))
+
+    async def allocate(self, qid: str) -> Optional[str]:
+        """Wait until the fleet grants an admission; the lease id (None
+        when the gate is off or unreachable)."""
+        while not self._disabled:
+            try:
+                status, out = await self._post("/allocate_request", {"qid": qid})
+                if status == 200:
+                    self._failures = 0
+                    return out.get("alloc_id")
+                if status != 409:
+                    raise RuntimeError(f"allocate -> HTTP {status}")
+                # staleness-bound: the router answers, so no failure
+                self._failures = 0
+                self.n_staled += 1
+            except Exception as e:  # noqa: BLE001 — degrade, never deadlock
+                self._failures += 1
+                if self._failures >= self.max_failures:
+                    logger.warning("fleet staleness gate unreachable (%s); falling back to "
+                                   "the local StalenessManager", e)
+                    self._disabled = True
+                    return None
+            await asyncio.sleep(self.poll_interval)
+        return None
+
+    async def finish(self, alloc_id: Optional[str], accepted: bool) -> None:
+        # a known lease goes back even after the gate degraded: left to the
+        # TTL it would hold a fleet admission for up to an hour
+        if alloc_id is None:
+            return
+        try:
+            status, _ = await self._post("/finish_request",
+                                         {"alloc_id": alloc_id, "accepted": accepted})
+            if status != 200:
+                raise RuntimeError(f"finish -> HTTP {status}")
+        except Exception as e:  # noqa: BLE001 — the router's TTL reclaims the lease
+            logger.warning("finish_request failed (lease will expire): %s", e)
 
 
 class RemoteInfBackendProtocol(Protocol):
@@ -116,15 +186,39 @@ class RemoteInfEngine(InferenceEngine):
         with self._lock:
             self._inflight = {a: 0 for a in self.addresses}
         logger.info("remote engine using servers: %s", self.addresses)
+        router_addr = self._discover_router()
+        if router_addr:
+            logger.info("fleet staleness gate via the router at %s", router_addr)
+            self.executor.fleet_gate = FleetStalenessGate(router_addr, self._pool)
         self.executor.initialize()
+
+    def _discover_router(self) -> Optional[str]:
+        """The router, if the fleet has one: `AREAL_GEN_ROUTER_ADDR`, then
+        name_resolve, without waiting.  A registered router means this
+        client may be one of many on the fleet, so admission is gated
+        fleet-wide."""
+        env = os.environ.get("AREAL_GEN_ROUTER_ADDR")
+        if env:
+            return env
+        try:
+            return name_resolve.get(names.gen_router(self.config.experiment_name,
+                                                     self.config.trial_name))
+        except name_resolve.NameEntryNotFoundError:
+            return None
 
     def _discover_servers(self) -> List[str]:
         env = os.environ.get("AREAL_LLM_SERVER_ADDRS")
-        if not env:
-            raise RuntimeError(
-                "no generation server addresses: pass them to initialize() or set "
-                "AREAL_LLM_SERVER_ADDRS (the launch helper exports it)")
-        return [a for a in env.split(",") if a]
+        if env:
+            return [a for a in env.split(",") if a]
+        key = names.gen_servers(self.config.experiment_name, self.config.trial_name)
+        deadline = time.monotonic() + self.config.setup_timeout
+        while time.monotonic() < deadline:
+            found = name_resolve.get_subtree(key)
+            if found:
+                return sorted(found)
+            time.sleep(0.5)
+        raise TimeoutError(f"no generation servers registered under {key} within "
+                           f"{self.config.setup_timeout}s")
 
     def destroy(self):
         self.executor.destroy()

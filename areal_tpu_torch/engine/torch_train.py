@@ -20,12 +20,17 @@
   `stage_weights` runs the expensive half while the servers go on
   generating, `update_weights` the commit (and the whole publish when
   nothing was staged for this version).  "disk": a bf16 HF snapshot
-  staged in `.tmp-v{N}-{pid}` and renamed to `v{N}`, the newest two kept;
-  servers reload it on `/update_weights_from_disk`.  "transfer": every
-  HF-named tensor in bf16, in the JAX engine's order and pieces of at most
+  staged in `.tmp-v{N}-{pid}` and renamed to `v{N}`, the newest two kept,
+  and the version's `names.update_weights_from_disk` key in name_resolve,
+  where a router's checkpoint watcher finds it; servers reload the
+  snapshot on `/update_weights_from_disk`.  "transfer": every HF-named
+  tensor in bf16, in the JAX engine's order and pieces of at most
   `chunk_mb` MiB, streamed to every server's `/update_weights_chunk`
-  (`AREAL_LLM_SERVER_ADDRS`), then `prepare`; the commit swaps them in,
-  live or after an abort.  The commit's wall time lands in
+  (`AREAL_LLM_SERVER_ADDRS`, else the servers registered in name_resolve
+  under the meta's experiment and trial), then `prepare`; the commit swaps
+  them in, live or after an abort, and a router registered for the
+  experiment is told the version (`/set_version`, fire-and-forget: a stale
+  address never stalls a publish).  The commit's wall time lands in
   `last_weight_update_seconds`.
   `export_device_params` is the colocated in-memory publish: copies of
   the masters in the compute dtype, on the card, for an engine in the same
@@ -68,8 +73,7 @@ length that sp does not divide, the port cannot, so `initialize` raises
 unless sp divides `pack_length_quantum` and `max_pack_length`.
 
 Not ported yet: the fsdp, tp and ep axes (FSDP2 and DTensor), ring
-attention, LoRA, `async_stats`, the name_resolve version handshake and
-router notice of a publish, and the per-step train-stats gauges.
+attention, LoRA, `async_stats`, and the per-step train-stats gauges.
 `warm_shapes` has no counterpart: eager PyTorch compiles nothing per
 shape.
 """
@@ -81,6 +85,7 @@ import math
 import os
 import re
 import shutil
+import threading
 import time
 from typing import Callable, Dict, Iterator, List, Optional, Tuple
 
@@ -104,7 +109,7 @@ from areal_tpu_torch.ops.attention import ATTN_IMPLS
 from areal_tpu_torch.ops.functional import lm_logprobs_entropy, next_token_labels
 from areal_tpu_torch.parallel import distributed
 from areal_tpu_torch.parallel.mesh import Mesh, build_mesh, mesh_from_alloc
-from areal_tpu_torch.utils import telemetry
+from areal_tpu_torch.utils import name_resolve, names, telemetry
 from areal_tpu_torch.utils.data import RowPackedBatch, pack_into_rows, unpack_rows
 from areal_tpu_torch.utils.datapack import round_up_to_bucket
 from areal_tpu_torch.utils.http import post_bytes_with_retry, request_with_retry
@@ -627,12 +632,17 @@ class TorchTrainEngine:
                 raise NotImplementedError(f"weight update type {meta.type!r}")
             staged = self._staged == (meta.type, self._version)
             if distributed.is_head():  # the head writes and posts for every rank
-                if meta.type == "disk" and not staged:
-                    self._write_disk_snapshot(meta)
-                elif meta.type == "transfer":
+                if meta.type == "disk":
+                    if not staged:
+                        self._write_disk_snapshot(meta)
+                    name_resolve.add(names.update_weights_from_disk(
+                        meta.experiment_name, meta.trial_name, self._version),
+                        str(time.time_ns()), replace=True)
+                else:
                     if not staged:
                         self._push_transfer_chunks(meta)
                     self._commit_transfer(meta)
+                    self._notify_router(meta)
         finally:
             self._staged = None
         self._barrier()
@@ -648,12 +658,44 @@ class TorchTrainEngine:
         self._prune_weight_dirs(meta.path, keep=2)
 
     @staticmethod
-    def _server_addrs() -> List[str]:
+    def _server_addrs(meta: WeightUpdateMeta, timeout: float = 30.0) -> List[str]:
+        """The rollout client's discovery: `AREAL_LLM_SERVER_ADDRS`, else
+        the servers registered under the meta's experiment and trial,
+        polled through a registration race."""
         addrs = [a for a in os.environ.get("AREAL_LLM_SERVER_ADDRS", "").split(",") if a]
-        if not addrs:
-            raise RuntimeError("a transfer publish needs the servers' addresses in "
-                               "AREAL_LLM_SERVER_ADDRS (the launch helper exports it)")
-        return addrs
+        if addrs:
+            return addrs
+        key = names.gen_servers(meta.experiment_name, meta.trial_name)
+        deadline = time.monotonic() + timeout
+        while True:
+            found = name_resolve.get_subtree(key)
+            if found:
+                return sorted(found)
+            if time.monotonic() >= deadline:
+                raise RuntimeError(f"a transfer publish found no servers: neither "
+                                   f"AREAL_LLM_SERVER_ADDRS nor name_resolve {key}")
+            time.sleep(0.5)
+
+    def _notify_router(self, meta: WeightUpdateMeta) -> None:
+        """Tell the experiment's router, if one is registered, the version of
+        a transfer publish, which leaves no checkpoint for its watcher: its
+        staleness gate's budget grows with it.  Fire-and-forget on a thread
+        of its own; the router's poll of the servers' versions covers a
+        miss."""
+        try:
+            addr = name_resolve.get(names.gen_router(meta.experiment_name, meta.trial_name))
+        except name_resolve.NameEntryNotFoundError:
+            return
+        version = self._version
+
+        def post() -> None:
+            try:
+                request_with_retry(addr, "/set_version", payload={"version": version},
+                                   max_retries=1, timeout=5)
+            except Exception as e:  # noqa: BLE001 — the router's poller covers the miss
+                logger.warning("router /set_version failed (its poll covers it): %s", e)
+
+        threading.Thread(target=post, daemon=True, name="notify-router").start()
 
     @staticmethod
     def _on_every_server(addrs: List[str], fn: Callable[[str], None]) -> None:
@@ -669,7 +711,7 @@ class TorchTrainEngine:
         offset in X-Weight-* headers: the JAX engine's wire form) into
         every server's staging buffer, then `prepare` there.  Swaps
         nothing, so it is safe while the servers generate."""
-        addrs = self._server_addrs()
+        addrs = self._server_addrs(meta)
         chunk = max(1, meta.chunk_mb) << 20
         state = [(name, t.to(torch.bfloat16).contiguous().cpu().view(torch.uint8).numpy(),
                   list(t.shape)) for name, t in params_to_hf_state(self.model)]
@@ -692,7 +734,7 @@ class TorchTrainEngine:
     def _commit_transfer(self, meta: WeightUpdateMeta) -> None:
         """Swap the staged weights in on every server."""
         payload = {"commit": True, "version": self._version, "live": meta.live_commit}
-        self._on_every_server(self._server_addrs(), lambda a: request_with_retry(
+        self._on_every_server(self._server_addrs(meta), lambda a: request_with_retry(
             a, "/update_weights_chunk", payload=payload, timeout=600.0))
 
     @staticmethod

@@ -12,8 +12,11 @@
 The trainer runs in this process; the generation servers are processes of
 their own, started through the launch helper (`launcher/local.py`) from
 `gen_server.model_path`, or from the trainer's v0 snapshot when that is
-empty, unless `AREAL_LLM_SERVER_ADDRS` already names running servers.  On
-one card, trainer and servers share it.  With `--launch` this process is
+empty, unless `AREAL_LLM_SERVER_ADDRS` already names running servers:
+as many as `allocation_mode`'s generation part has data-parallel ranks
+(``allocation_mode=jax:d2+d1`` starts two; one without a mode), each
+registered in name_resolve under the experiment and trial.  On one card,
+trainer and servers share it.  With `--launch` this process is
 the launcher instead (`LocalLauncher.run`): it starts the servers once
 (writing the v0 snapshot of the seeded random weights itself when there
 is no model path), runs the trainer as a subprocess with the same
@@ -293,10 +296,10 @@ def run(config: GRPOConfig, device: Optional[str] = None, model: str = "qwen2.5-
     from areal_tpu_torch.engine.ppo import TorchPPOActor
     from areal_tpu_torch.engine.torch_remote import RemoteTorchEngine
     from areal_tpu_torch.engine.torch_train import TorchTrainEngine
-    from areal_tpu_torch.launcher.local import LocalLauncher
+    from areal_tpu_torch.launcher.local import LocalLauncher, servers_for_allocation
     from areal_tpu_torch.ops import flash_attention as fa
     from areal_tpu_torch.reward import gsm8k_reward_fn
-    from areal_tpu_torch.utils import seeding, stats
+    from areal_tpu_torch.utils import name_resolve, seeding, stats
     from areal_tpu_torch.utils.dataloader import StatefulDataLoader
     from areal_tpu_torch.utils.evaluator import Evaluator
     from areal_tpu_torch.utils.faults import fault_point
@@ -313,6 +316,9 @@ def run(config: GRPOConfig, device: Optional[str] = None, model: str = "qwen2.5-
             raise ValueError(f"{name} dataset type {ds.type!r}: the port reads gsm8k-synth only")
     fileroot = resolve_fileroot(config)
     propagate_names(config, fileroot)
+    # the servers this process starts inherit the store through the env
+    name_resolve.export_env(config.cluster.name_resolve)
+    name_resolve.reconfigure_from_env(config.cluster.name_resolve)
     seeding.set_random_seed(config.seed, "trainer")
     run_id = int(os.environ.get("AREAL_RUN_ID", 0))
     tokenizer = WordTokenizer()
@@ -364,8 +370,11 @@ def run(config: GRPOConfig, device: Optional[str] = None, model: str = "qwen2.5-
                 actor.update_weights(v0)
                 server_cfg.model_path = os.path.join(v0.path, "v0")
             t0 = time.perf_counter()
-            launcher.start_gen_servers(server_cfg, device=device,
-                                       timeout=config.rollout.setup_timeout)
+            launcher.start_gen_servers(server_cfg,
+                                       servers_for_allocation(config.allocation_mode),
+                                       device=device, timeout=config.rollout.setup_timeout,
+                                       experiment_name=config.experiment_name,
+                                       trial_name=config.trial_name)
             logger.info("server up in %.1f s", time.perf_counter() - t0)
         rollout = RemoteTorchEngine(config.rollout)
         rollout.initialize()
@@ -570,9 +579,18 @@ def launch(config: GRPOConfig, args) -> int:
     """`--launch`: this process starts the servers and runs the trainer,
     `python -m` of this module with the same arguments, through
     `LocalLauncher.run`; returns the last trainer's exit code."""
-    from areal_tpu_torch.launcher.local import RECOVER_TIME_INTERVAL, LocalLauncher
+    from areal_tpu_torch.launcher.local import (
+        RECOVER_TIME_INTERVAL,
+        LocalLauncher,
+        servers_for_allocation,
+    )
+
+    from areal_tpu_torch.utils import name_resolve
 
     run_dir = os.path.join(resolve_fileroot(config), config.experiment_name, config.trial_name)
+    # servers and trainer rendezvous in the configured store: the launcher's
+    # children inherit it through the env
+    name_resolve.export_env(config.cluster.name_resolve)
     server_cfg = dataclasses.replace(config.gen_server)
     if not os.environ.get("AREAL_LLM_SERVER_ADDRS") and not server_cfg.model_path:
         server_cfg.model_path = config.actor.path or write_init_snapshot(
@@ -586,9 +604,12 @@ def launch(config: GRPOConfig, args) -> int:
     cmd += args.overrides
     launcher = LocalLauncher(os.path.join(run_dir, "logs"))
     delay = RECOVER_TIME_INTERVAL if args.relaunch_delay is None else args.relaunch_delay
-    return launcher.run(cmd, config.recover, server_cfg, device=args.device,
-                        relaunch_delay=delay, trainer_timeout=args.trainer_timeout,
-                        setup_timeout=config.rollout.setup_timeout)
+    return launcher.run(cmd, config.recover, server_cfg,
+                        n_servers=servers_for_allocation(config.allocation_mode),
+                        device=args.device, relaunch_delay=delay,
+                        trainer_timeout=args.trainer_timeout,
+                        setup_timeout=config.rollout.setup_timeout,
+                        experiment_name=config.experiment_name, trial_name=config.trial_name)
 
 
 def main(argv: Optional[List[str]] = None) -> int:

@@ -100,7 +100,7 @@ from areal_tpu_torch.models.hf import state_to_params
 from areal_tpu_torch.models.model_config import TransformerConfig, tiny_config
 from areal_tpu_torch.models.transformer import Transformer
 from areal_tpu_torch.ops.ragged_decode import ragged_paged_attention
-from areal_tpu_torch.utils import telemetry
+from areal_tpu_torch.utils import name_resolve, names, network, telemetry
 from areal_tpu_torch.utils.shutdown import exit_with_parent
 
 logger = logging.getLogger("areal_tpu_torch.gen.server")
@@ -585,8 +585,13 @@ def main(argv: Optional[List[str]] = None,
     process that started it is gone, so a killed trainer leaves no server
     holding the card), the JAX server's --spec-decode, --spec-ladder and
     --spec-draft-len (speculative decoding, verified through the ragged
-    kernel at T = D + 1) and --telemetry (lifecycle events; also
-    AREAL_TELEMETRY=1).  Decode attention is always the ragged kernel.
+    kernel at T = D + 1), --telemetry (lifecycle events; also
+    AREAL_TELEMETRY=1) and the JAX server's --experiment-name,
+    --trial-name and --server-idx: with an experiment name the server
+    reads the rendezvous store from ``AREAL_NAME_RESOLVE`` and registers
+    its address under `names.gen_server` once it listens (the host's
+    address when it binds every interface, else the one it binds).
+    Decode attention is always the ragged kernel.
     Without --model-path it serves a random tiny model, as the JAX server
     does."""
     p = argparse.ArgumentParser()
@@ -611,6 +616,10 @@ def main(argv: Optional[List[str]] = None,
                    help="pin the draft length instead of adapting along the ladder")
     p.add_argument("--telemetry", action="store_true",
                    help="emit trajectory lifecycle events (also AREAL_TELEMETRY=1)")
+    p.add_argument("--experiment-name", default="",
+                   help="register under this experiment's name_resolve keys")
+    p.add_argument("--trial-name", default="")
+    p.add_argument("--server-idx", type=int, default=0)
     args = p.parse_args(argv)
     if args.exit_with_parent:
         exit_with_parent(os.getppid())
@@ -628,7 +637,19 @@ def main(argv: Optional[List[str]] = None,
         engine = GenEngine(cfg, model_path=args.model_path, **kw)
     else:
         engine = GenEngine(tiny_config().replace(dtype=args.dtype), **kw)
-    serve(engine, host=args.host, port=args.port, on_ready=on_ready)
+    if args.experiment_name:
+        # launchers point every process of a fleet at one rendezvous store
+        name_resolve.reconfigure_from_env()
+
+    def ready(httpd: GenHTTPServer) -> None:
+        if args.experiment_name:
+            name_resolve.add(
+                names.gen_server(args.experiment_name, args.trial_name, str(args.server_idx)),
+                f"{network.advertised_host(args.host)}:{httpd.port}", replace=True)
+        if on_ready is not None:
+            on_ready(httpd)
+
+    serve(engine, host=args.host, port=args.port, on_ready=ready)
 
 
 if __name__ == "__main__":

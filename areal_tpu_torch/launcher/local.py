@@ -34,7 +34,14 @@ ends the run (rc 1).  Each start and exit of a trainer is a JSON line in
 `ts`), and so is each started server's last `/metrics` before the
 launcher stops it.
 
-Left out: allocation-mode parsing and name_resolve.  All servers run on
+The number of servers can come from an allocation mode
+(`servers_for_allocation`: the data-parallel size of its generation part,
+as the JAX launcher reads it).  Given an experiment and a trial, each
+server starts with `--experiment-name`, `--trial-name` and its
+`--server-idx` and registers itself in name_resolve once it listens.
+Every spawned process inherits this process's environment,
+``AREAL_NAME_RESOLVE`` included, so servers, router and trainer
+rendezvous in one store.  All servers run on
 the device the caller names (on one H100, trainer and servers share the
 card).
 """
@@ -44,13 +51,14 @@ import json
 import logging
 import os
 import signal
-import socket
 import subprocess
 import sys
 import time
 from typing import Dict, List, Optional
 
+from areal_tpu_torch.api.alloc import AllocationMode
 from areal_tpu_torch.api.config import GenServerConfig, RecoverConfig
+from areal_tpu_torch.utils.network import find_free_port
 from areal_tpu_torch.utils.shutdown import RESUME_EXIT_CODE
 
 logger = logging.getLogger("areal_tpu_torch.launcher")
@@ -60,15 +68,20 @@ RECOVER_TIME_INTERVAL = 10.0  # seconds before a crashed trainer is relaunched
 _PKG_PARENT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
-def find_free_port() -> int:
-    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+def servers_for_allocation(allocation_mode: str) -> int:
+    """Generation servers an allocation mode asks for: its gen part's
+    data-parallel size (1 without a gen part or a mode)."""
+    if not allocation_mode:
+        return 1
+    alloc = AllocationMode.from_str(allocation_mode)
+    return max(1, alloc.gen.dp_size) if alloc.gen is not None else 1
 
 
-def build_server_cmd(config: GenServerConfig, port: int,
-                     device: Optional[str] = None) -> List[str]:
-    """The command that starts one port server with `config`'s flags."""
+def build_server_cmd(config: GenServerConfig, port: int, device: Optional[str] = None,
+                     experiment_name: str = "", trial_name: str = "",
+                     server_idx: int = 0) -> List[str]:
+    """The command that starts one port server with `config`'s flags;
+    with an experiment name, the flags under which it registers."""
     cmd = [
         sys.executable, "-m", "areal_tpu_torch.gen.server",
         f"--host={config.host}",
@@ -90,6 +103,9 @@ def build_server_cmd(config: GenServerConfig, port: int,
             cmd.append(f"--spec-draft-len={config.spec_draft_len}")
     if device is not None:
         cmd.append(f"--device={device}")
+    if experiment_name:
+        cmd += [f"--experiment-name={experiment_name}", f"--trial-name={trial_name}",
+                f"--server-idx={server_idx}"]
     return cmd
 
 
@@ -145,16 +161,18 @@ class LocalLauncher:
             return ""
 
     def start_gen_servers(self, config: GenServerConfig, n_servers: int = 1,
-                          device: Optional[str] = None, timeout: float = 600.0) -> List[str]:
-        """Start `n_servers` servers and wait until each answers /health;
-        returns and exports their addresses.  Raises (after stopping what
-        it started) when one exits or `timeout` seconds pass first."""
+                          device: Optional[str] = None, timeout: float = 600.0,
+                          experiment_name: str = "", trial_name: str = "") -> List[str]:
+        """Start `n_servers` servers (registered under the experiment and
+        trial when given) and wait until each answers /health; returns and
+        exports their addresses.  Raises (after stopping what it started)
+        when one exits or `timeout` seconds pass first."""
         started = []
         for idx in range(n_servers):
             port = config.port + idx if config.port else find_free_port()
             tag = f"gen_server_{idx}"
-            started.append((tag, self._spawn(build_server_cmd(config, port, device), tag),
-                            f"{config.host}:{port}"))
+            cmd = build_server_cmd(config, port, device, experiment_name, trial_name, idx)
+            started.append((tag, self._spawn(cmd, tag), f"{config.host}:{port}"))
         deadline = time.monotonic() + timeout
         try:
             for tag, proc, addr in started:
@@ -222,7 +240,8 @@ class LocalLauncher:
     def run(self, trainer_cmd: List[str], recover: RecoverConfig,
             server_config: Optional[GenServerConfig] = None, n_servers: int = 1,
             device: Optional[str] = None, relaunch_delay: float = RECOVER_TIME_INTERVAL,
-            trainer_timeout: Optional[float] = None, setup_timeout: float = 600.0) -> int:
+            trainer_timeout: Optional[float] = None, setup_timeout: float = 600.0,
+            experiment_name: str = "", trial_name: str = "") -> int:
         """Start the servers (unless `AREAL_LLM_SERVER_ADDRS` names them),
         then the trainer, relaunched as the module docstring says; returns
         the last trainer's exit code.  A trainer that runs longer than
@@ -235,7 +254,8 @@ class LocalLauncher:
             if not addrs:
                 if server_config is None:
                     raise ValueError("no AREAL_LLM_SERVER_ADDRS and no server_config")
-                addrs = self.start_gen_servers(server_config, n_servers, device, setup_timeout)
+                addrs = self.start_gen_servers(server_config, n_servers, device, setup_timeout,
+                                               experiment_name, trial_name)
             while True:
                 trainer = self.start_trainer(trainer_cmd, run_id, addrs)
                 rc = self._babysit(trainer, trainer_timeout)

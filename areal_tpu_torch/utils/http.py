@@ -26,7 +26,7 @@ import json
 import random
 import socket
 import time
-from typing import Any, Dict, Optional, Union
+from typing import Any, Dict, Optional, Tuple, Union
 
 # Statuses worth retrying besides 5xx: request-timeout, too-early,
 # rate-limited.  Everything else in 4xx is the caller's bug or an
@@ -76,6 +76,21 @@ def _once(addr: str, method: str, endpoint: str, body: Optional[Body],
         return resp.status, resp.getheader("Content-Type", ""), resp.read()
     finally:
         conn.close()
+
+
+def exchange(addr: str, endpoint: str, payload: Optional[Dict[str, Any]] = None,
+             method: str = "POST", timeout: float = 3600) -> Tuple[int, Dict[str, Any]]:
+    """One JSON request on a fresh connection, without retry: (status,
+    JSON body, or {"text": ...} when the body is not JSON) whatever the
+    status.  A transport failure raises (`OSError`,
+    `http.client.HTTPException`): the router proxies with it and decides
+    on each failure itself."""
+    body = None if method == "GET" else json.dumps(payload if payload is not None else {}).encode()
+    hdrs = {} if body is None else {"Content-Type": "application/json"}
+    status, ctype, raw = _once(addr, method, endpoint, body, hdrs, timeout)
+    if "application/json" in ctype:
+        return status, json.loads(raw)
+    return status, {"text": raw.decode(errors="replace")}
 
 
 def request_with_retry(

@@ -19,8 +19,8 @@ Event emission is off by default; call :func:`set_enabled` (or set
 ``AREAL_TELEMETRY=1``) to turn it on.  Histogram observations at cold
 sites (weight-swap pause windows, admission waits) are always live, so
 the histograms fill on any scrape; the per-decode-chunk timing is gated
-on the flag.  Left out of the copy: the router registry and the KV
-handoff histogram (the port has neither component yet), the stats-key
+on the flag.  Left out of the copy: the KV handoff histogram (the port
+has no disaggregated serving yet), the stats-key
 miss counter of the reference server's tolerant JSON, and
 `publish_train_stats`, whose gauges are named at run time.
 """
@@ -345,6 +345,7 @@ def parse_prometheus_text(text: str) -> Dict[str, Dict[str, float]]:
 # ---------------------------------------------------------------------------
 
 GEN = registry("gen")
+ROUTER = registry("router")
 TRAIN = registry("train")
 
 PAUSE_WINDOW = GEN.histogram(
@@ -534,10 +535,10 @@ def _register_events_dropped(reg: Registry) -> None:
     reg.add_collector(lambda: c.set_total(float(EVENTS.dropped)))
 
 
-# Both surfaces (the gen server and the trainer endpoint) render these
-# registries, so ring overflow is visible wherever /metrics is; the name
+# All three surfaces (the gen server, the router and the trainer endpoint)
+# render these registries, so ring overflow is visible wherever /metrics is; the name
 # is fully qualified and therefore served verbatim on each.
-for _reg in (GEN, TRAIN):
+for _reg in (GEN, ROUTER, TRAIN):
     _register_events_dropped(_reg)
 del _reg
 

@@ -125,7 +125,9 @@ Phases, each printed with its wall time; any failure exits non-zero:
             version, SDPA on the same [Tq, Tk] boolean mask, bound).
             `--only sp` runs the build, the offset checks and this phase
 9. grpo     the asynchronous GRPO loop of `areal_tpu_torch.scripts.bench_e2e_grpo`
-            at full width from the serve phase's checkpoint, trainer (f32
+            at full width from a checkpoint of the serve phase's model cut
+            to REMOTE_LAYERS (8) layers, which the remote and router phases
+            then reuse, trainer (f32
             masters, bf16 compute, full remat, decoupled loss, logprob
             recompute) and `ColocatedEngine` (32 slots, max_seq_len 1024,
             bf16, prefix reuse and group fan-out on) in this process: 8
@@ -145,8 +147,8 @@ Phases, each printed with its wall time; any failure exits non-zero:
             accounting (cold, shared, suffix and reused tokens, fan-out
             copies; shared > 0 required) and the requests' TTFT, e2e and
             inter-token p50/p99 per mode.
-            Checks: ragged launches = 28 x decode steps, every flash launch
-            on its tensor-core kernel and exactly 84/28/28 per step, the
+            Checks: ragged launches = 8 x decode steps, every flash launch
+            on its tensor-core kernel and exactly 24/8/8 per step, the
             staleness ledger balanced, no consumed token from a version
             above the trainer's, trainer logprobs against the server's on
             same-version tokens, no reward timeout, and the served weights
@@ -214,8 +216,8 @@ Phases, each printed with its wall time; any failure exits non-zero:
             gemma1` runs the build and this phase alone
 13. remote  the same cell with trainer and server as two processes on the
             card: `areal_tpu_torch.gen.server` started by the launch helper
-            (32 slots, max_seq_len 1024, bf16, from a checkpoint of the
-            serve phase's model cut to REMOTE_LAYERS (8) layers), the
+            (32 slots, max_seq_len 1024, bf16, from the grpo phase's
+            checkpoint of REMOTE_LAYERS (8) layers), the
             trainer here, rollouts over HTTP through
             `RemoteTorchEngine` (`bench_e2e_grpo.run_mode_remote`).  Sync
             with the disk publish (1 + 1 steps), async with the transfer
@@ -232,6 +234,39 @@ Phases, each printed with its wall time; any failure exits non-zero:
             trainer's version, and after the last publish 4 greedy streams
             (and logprobs) from the server process bit-equal to a GenEngine
             built here from the trainer's bf16 export
+13b. router two servers behind the port's router on the remote phase's
+            checkpoint, every process found through name_resolve (NFS under
+            build/): the launcher starts the servers from the allocation
+            mode jax:d2+d1 (each registers), the router is `python -m
+            areal_tpu_torch.gen.router` (least_requests, the fleet gate at
+            --train-batch-size 32 --max-head-offpolicyness 1, the checkpoint
+            watcher on the trainer's publish directory, probes every 1 s,
+            threshold 3, probe timeout 2 s), the trainer here with two
+            `RemoteTorchEngine` clients that find the router's gate and send
+            their requests through it (failover_retries 5; 128 new tokens a
+            trajectory).  A sync step with a disk publish (the watcher, not
+            the trainer, flushes both servers), two async steps with
+            transfer publishes (the trainer finds the servers in
+            name_resolve and posts /set_version to the router), a sync step
+            with a disk publish, then a rollout in which server 1 is
+            SIGKILLed: it finishes on server 0, server 1 restarts at the same
+            address from the checkpoint (version 0), and the router
+            force-reloads it before it closes.  Checks: both servers
+            served, every group on one server (the servers' arrival logs),
+            shared prefill > 0 on each, K2 = 8 x decode steps on each server
+            process, flash 24/8/8 a step on the tensor cores, fleet and
+            router at the trainer's version after every publish, the breaker
+            open within threshold x interval + probe timeout + 2 s and
+            failovers >= 1, no trajectory lost, the gate's ledger balanced
+            (accepted = the clients', none running) and never over (1 +
+            version + 1) x 32 in the polled /metrics, the Prometheus
+            exposition's areal_router_* names, and 4 greedy streams from
+            each server (the rejoined one too) bit-equal to each other and to
+            a GenEngine on the trainer's bf16 export.  Prints
+            trajectories/s/chip per mode, requests per server, the gate's
+            409s, each flush's pause-to-resume time, kill to open and
+            restart to closed, and each process's peak memory.  `--only
+            router` runs the build and this phase alone
 14. recover the training job at full width.  In process: Qwen2.5-1.5B's
             width at 4 layers, the example's actor config, one update,
             `save` with the optimizer, `load` into a fresh actor (masters,
@@ -268,9 +303,10 @@ Phases, each printed with its wall time; any failure exits non-zero:
             alone at 28 layers (18.5 GB per recover generation)
 
 Depth cuts, to keep the whole script near 600 s and under the card
-host's 45 GiB of disk writes a call: the remote loop at REMOTE_LAYERS
-(8) and the Qwen3-1.7B loop at QWEN3_LOOP_LAYERS (8) layers (both full
-width), the recover phase's launched run at RECOVER_RUN_LAYERS, and the
+host's 45 GiB of disk writes a call: the colocated, remote and router
+loops at REMOTE_LAYERS (8) and the Qwen3-1.7B loop at QWEN3_LOOP_LAYERS
+(8) layers (all full width; the colocated loop ran 28 layers, 156 s of
+the script, until the router phase pushed the script near its limit), the recover phase's launched run at RECOVER_RUN_LAYERS, and the
 sp phase's bf16 run at SP_LAYERS (8; at 28 its two ranks took 60.6 s on
 an H100, 16 of each update's 18 s summing f32 gradients through gloo).
 
@@ -281,6 +317,7 @@ paths that ran each kernel, `launches_by_path` splits them); the last line is
 no result.
 """
 
+import asyncio
 import concurrent.futures
 import contextlib
 import gc
@@ -288,6 +325,7 @@ import json
 import os
 import re
 import shutil
+import signal
 import subprocess
 import sys
 import threading
@@ -1498,7 +1536,8 @@ def greedy_streams(generate, vocab_size):
     return out
 
 
-REMOTE_LAYERS = 8  # depth of the remote loop's checkpoint (full width)
+# depth of the GRPO loops' checkpoint (full width): colocated, remote, router
+REMOTE_LAYERS = 8
 QWEN3_LOOP_LAYERS = 8  # depth of the Qwen3-1.7B loop's checkpoint (full width)
 
 
@@ -1654,6 +1693,578 @@ def remote_qwen(ckpt_dir, publish_dir):
 def post_addr(addr, path, body, timeout=600):
     host, _, port = addr.rpartition(":")
     return post(int(port), path, body, timeout)
+
+
+# ---------------------------------------------------------------------------
+# the router phase: two servers behind the port's router, one trainer
+# ---------------------------------------------------------------------------
+
+ROUTER_EXP, ROUTER_TRIAL = "chip-smoke-router", "t0"
+ROUTER_ALLOC = "jax:d2+d1"  # the gen part's dp 2: two servers
+# the router's --train-batch-size, in episodes as the gate leases them (one
+# per prompt; a step consumes TRAIN_PROMPTS), and --max-head-offpolicyness
+ROUTER_BS, ROUTER_ETA = TRAIN_PROMPTS, 1
+# the health checker: probe interval (s), failure threshold, probe timeout (s)
+ROUTER_PROBE, ROUTER_THRESHOLD, ROUTER_PROBE_TIMEOUT = 1.0, 3, 2.0
+ROUTER_NEW_TOKENS = 128  # per trajectory (the remote phase's 256, halved for time)
+ROUTER_FAILOVERS = 5  # the client's failover_retries: above the breaker's threshold
+ROUTER_NAMES = ("areal_router_weight_version", "areal_router_rollout_running",
+                "areal_router_rollout_accepted_total", "areal_router_admission_capacity",
+                "areal_router_flushes_total", "areal_router_requests_routed_total",
+                "areal_router_requests_inflight", "areal_router_tokens_inflight",
+                "areal_router_failovers_total", "areal_router_handoffs_total",
+                "areal_router_handoff_fallbacks_total", "areal_router_backend_state")
+
+
+def get_addr(addr, path, timeout=60):
+    with urllib.request.urlopen(f"http://{addr}{path}", timeout=timeout) as resp:
+        return json.loads(resp.read())
+
+
+def wait_for(cond, what, timeout=120.0, step=0.1):
+    """Poll `cond()` until it holds; the seconds it took."""
+    t0 = time.perf_counter()
+    while not cond():
+        if time.perf_counter() - t0 > timeout:
+            raise AssertionError(f"router phase: {what} within {timeout:.0f} s")
+        time.sleep(step)
+    return time.perf_counter() - t0
+
+
+class RouterMonitor:
+    """Polls the router's /metrics on a thread: every snapshot's admissions
+    against the gate's formula, the time of each backend state change, and
+    the router process's resident set (its peak, sampled)."""
+
+    def __init__(self, addr, pid):
+        self.addr = addr
+        self.pid = pid
+        self.peak_rss = None
+        self.admissions_over = []  # (accepted + running, allowed) over the formula
+        self.max_admitted = 0
+        self.polls = 0
+        self.changes = []  # (time.perf_counter(), backend, state)
+        self._states = {}
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def _run(self):
+        while not self._stop.wait(0.05):
+            try:
+                m = get_addr(self.addr, "/metrics", timeout=10)
+            except OSError:
+                continue
+            now = time.perf_counter()
+            self.polls += 1
+            rss = resident_bytes(self.pid)
+            if rss is not None:
+                self.peak_rss = max(self.peak_rss or 0, rss)
+            admitted = m["accepted"] + m["running"]
+            allowed = (ROUTER_ETA + m["version"] + 1) * ROUTER_BS
+            self.max_admitted = max(self.max_admitted, admitted)
+            if admitted > allowed or m["capacity"] < 0:
+                self.admissions_over.append((admitted, allowed))
+            for a, st in m["backend_states"].items():
+                if self._states.get(a) != st["state"]:
+                    self._states[a] = st["state"]
+                    self.changes.append((now, a, st["state"]))
+
+    def first(self, addr, state, after):
+        return next((t for t, a, s in self.changes if a == addr and s == state and t >= after),
+                    None)
+
+    def stop(self):
+        self._stop.set()
+        self._thread.join(10)
+
+
+def arrivals(log_path, before=None):
+    """rid -> server arrival times of /generate in a server's log."""
+    out = []
+    with open(log_path, errors="replace") as f:
+        for line in f:
+            m = ARRIVAL_LINE.search(line)
+            if m and m.group(1) == "/generate":
+                t = float(m.group(2))
+                if before is None or t < before:
+                    out.append(json.loads(m.group(3))["rid"])
+    return out
+
+
+def resident_bytes(pid):
+    """A process's resident set now, from /proc/<pid>/statm (None when
+    unreadable)."""
+    try:
+        with open(f"/proc/{pid}/statm") as f:
+            return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+    except (OSError, ValueError, IndexError):
+        return None
+
+
+def router_qwen(ckpt_dir, build_dir):
+    """Two port servers behind the port's router at full width (the
+    remote phase's checkpoint of REMOTE_LAYERS layers), the PPO actor here,
+    every process found through name_resolve on NFS under `build_dir`.  One
+    sync step with a disk publish (the router's watcher flushes both
+    servers), two async steps with transfer publishes (the trainer finds
+    the servers in name_resolve and tells the router), one more sync step
+    with a disk publish, then a rollout during which server 1 is killed:
+    it finishes on server 0, server 1 restarts at version 0 and rejoins
+    through the router's forced reload.  Returns (K2 launches over the
+    servers, the trainer's flash launches)."""
+    from areal_tpu_torch.api.config import (
+        GenerationHyperparameters,
+        GenServerConfig,
+        InferenceEngineConfig,
+    )
+    from areal_tpu_torch.api.reward import prewarm_reward_pool, shutdown_reward_pool
+    from areal_tpu_torch.core.remote import FleetStalenessGate
+    from areal_tpu_torch.engine.torch_remote import RemoteTorchEngine
+    from areal_tpu_torch.launcher.local import (
+        LocalLauncher,
+        build_server_cmd,
+        servers_for_allocation,
+    )
+    from areal_tpu_torch.scripts import bench_e2e_grpo as bench
+    from areal_tpu_torch.utils import name_resolve, names
+    from areal_tpu_torch.utils.dataloader import StatefulDataLoader
+    from areal_tpu_torch.utils.telemetry import parse_prometheus_text
+    from areal_tpu_torch.workflow.rlvr import RLVRWorkflow
+
+    nr_root = os.path.join(build_dir, "router_nr")
+    meta_disk = WeightUpdateMeta.from_disk(ROUTER_EXP, ROUTER_TRIAL, build_dir, name="router")
+    publish_dir = meta_disk.path  # the router's --weights-path
+    publish_root = os.path.join(build_dir, "checkpoints", ROUTER_EXP)
+    log_dir = os.path.join(build_dir, "router_logs")
+    for d in (nr_root, publish_root, log_dir):
+        shutil.rmtree(d, ignore_errors=True)
+    spec = f"nfs:{nr_root}"
+    env_before = {k: os.environ.get(k) for k in ("AREAL_NAME_RESOLVE", "AREAL_LLM_SERVER_ADDRS")}
+    os.environ["AREAL_NAME_RESOLVE"] = spec
+    saved_store = name_resolve.DEFAULT_REPOSITORY
+    name_resolve.reconfigure_from_env()
+    launcher = LocalLauncher(log_dir)
+    extra = []  # processes started here: the router, the restarted server 1
+    clients = []
+    monitor = None
+    actor = None
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        t0 = time.perf_counter()
+        server_cfg = GenServerConfig(model_path=ckpt_dir, dtype="bfloat16", max_seqs=GRPO_SLOTS,
+                                     max_context_len=GRPO_SEQ, page_size=128, random_seed=0)
+        n_servers = servers_for_allocation(ROUTER_ALLOC)
+        addrs = launcher.start_gen_servers(server_cfg, n_servers, experiment_name=ROUTER_EXP,
+                                           trial_name=ROUTER_TRIAL)
+        # the trainer's transfer publish finds the servers in name_resolve
+        os.environ.pop("AREAL_LLM_SERVER_ADDRS", None)
+        registered = sorted(name_resolve.get_subtree(names.gen_servers(ROUTER_EXP,
+                                                                       ROUTER_TRIAL)))
+        if n_servers != 2 or registered != sorted(addrs):
+            raise AssertionError(f"router phase: {n_servers} servers, registered {registered}, "
+                                 f"started {addrs}")
+        with open(os.path.join(log_dir, "router.log"), "ab") as log_f:
+            extra.append(subprocess.Popen(
+                [sys.executable, "-m", "areal_tpu_torch.gen.router",
+                 f"--experiment-name={ROUTER_EXP}", f"--trial-name={ROUTER_TRIAL}",
+                 "--host=127.0.0.1", f"--train-batch-size={ROUTER_BS}",
+                 f"--max-head-offpolicyness={ROUTER_ETA}", f"--weights-path={publish_dir}",
+                 "--poll-interval=0.2", f"--health-check-interval={ROUTER_PROBE}",
+                 f"--health-failure-threshold={ROUTER_THRESHOLD}",
+                 f"--health-probe-timeout={ROUTER_PROBE_TIMEOUT}", "--exit-with-parent"],
+                env=dict(os.environ, PYTHONPATH=ROOT), cwd=ROOT, stdout=log_f,
+                stderr=subprocess.STDOUT, start_new_session=True))
+        router = name_resolve.wait(names.gen_router(ROUTER_EXP, ROUTER_TRIAL), timeout=120)
+        print(f"  two servers ({ROUTER_ALLOC}) at {addrs} and the router at {router}, found "
+              f"through name_resolve ({spec}), in {time.perf_counter() - t0:.1f} s")
+        monitor = RouterMonitor(router, extra[0].pid)
+        t0 = time.perf_counter()
+        actor, cfg = bench._make_actor("qwen2.5-1.5b", GRPO_SEQ, GROUP, model_path=ckpt_dir)
+        L = cfg.num_layers
+        prewarm_reward_pool()
+        print(f"  trainer up in {time.perf_counter() - t0:.1f} s")
+        workflow = RLVRWorkflow(
+            reward_fn=bench._reward_last_even, gconfig=GenerationHyperparameters(
+                n_samples=GROUP, max_new_tokens=ROUTER_NEW_TOKENS, temperature=1.0))
+        dataset = bench.make_dataset(256, cfg.vocab_size, GRPO_PROMPT_LEN[1],
+                                     GRPO_PROMPT_LEN[0], seed=3)
+
+        def client(max_staleness):
+            # one batch in flight beyond the one being consumed: with
+            # ROUTER_ETA 1 that takes each version's whole fleet budget, and
+            # more would leave the next sync step none at its version
+            c = RemoteTorchEngine(InferenceEngineConfig(
+                experiment_name=ROUTER_EXP, trial_name=ROUTER_TRIAL,
+                consumer_batch_size=TRAIN_PROMPTS, max_concurrent_rollouts=TRAIN_PROMPTS,
+                max_head_offpolicyness=max_staleness, failover_retries=ROUTER_FAILOVERS))
+            c.initialize(addr=router)  # generation goes through the router
+            if c.executor.fleet_gate is None or c.executor.fleet_gate.router_addr != router:
+                raise AssertionError("router phase: the client did not find the router's gate")
+            clients.append(c)
+            return c
+
+        sync_client = client(0)
+        data_iter = iter(np.random.default_rng(1).permutation(len(dataset)))
+
+        def items():
+            return [dataset[int(next(data_iter))] for _ in range(TRAIN_PROMPTS)]
+
+        def fleet_versions():
+            return [get_addr(a, "/health")["version"] for a in addrs + [router]]
+
+        def at_version(v):
+            return wait_for(lambda: fleet_versions() == [v] * 3,
+                            f"servers and router at version {v}", timeout=60, step=0.05)
+
+        flush_s = []
+        gaps = [0.0, 0]  # |trainer - server| logprob sum and count, same-version tokens
+        per_mode = {"sync": [0, 0.0], "async": [0, 0.0]}
+        launches = np.zeros(3, np.int64)
+        reset_flash_counts()
+
+        def step(mode, get_batch, publish):
+            t_step = time.perf_counter()
+            before = np.array(flash_counts())
+            t1 = time.perf_counter()
+            batch = get_batch()
+            t2 = time.perf_counter()
+            _, newest = bench._version_lag(batch, actor.get_version())
+            if newest > 0:
+                raise AssertionError("router phase: a token from a version above the trainer's")
+            stats, (gap, n_gap) = bench._train_consume(actor, batch)
+            torch.cuda.synchronize()
+            t3 = time.perf_counter()
+            got = np.array(flash_counts()) - before
+            if tuple(got) != (3 * L, L, L):
+                raise AssertionError(f"router phase: flash launches {tuple(got)} in a step, not "
+                                     f"{(3 * L, L, L)}")
+            if not all(np.isfinite([float(s["loss"]) for s in stats])):
+                raise AssertionError("router phase: a non-finite loss")
+            gaps[0] += gap
+            gaps[1] += n_gap
+            version = actor.get_version() + 1
+            actor.set_version(version)
+            t4 = time.perf_counter()
+            how = publish(version)
+            t5 = time.perf_counter()
+            n = int(np.asarray(batch["attention_mask"]).shape[0])
+            per_mode[mode][0] += n
+            per_mode[mode][1] += t5 - t_step
+            launches[:] += got
+            print(f"  {mode} step -> version {version}: {n} trajectories, rollout "
+                  f"{t2 - t1:.2f} s, train {t3 - t2:.2f} s, publish {how} {t5 - t4:.2f} s "
+                  f"(to the fleet and the router at version {version}); |trainer - server| "
+                  f"logprob {gap / max(n_gap, 1):.4f} over {n_gap} same-version tokens; "
+                  f"reward mean {float(np.asarray(batch['rewards']).mean()):.3f}")
+
+        def disk_publish(version):
+            # the trainer writes the snapshot and the name_resolve key; the
+            # router's watcher, not the trainer, flushes the servers
+            actor.update_weights(meta_disk)
+            at_version(version)
+            flush_s.append(get_addr(router, "/metrics")["last_flush_s"])
+            sync_client.set_version(version)
+            return f"disk (watcher flush {flush_s[-1] * 1e3:.1f} ms pause to resume)"
+
+        step("sync", lambda: sync_client.rollout_batch(items(), workflow=workflow), disk_publish)
+
+        # async: a client of its own (two clients of one fleet share the gate)
+        async_client = client(4)
+        origin = actor.get_version()
+        loader = StatefulDataLoader(dataset, batch_size=TRAIN_PROMPTS, seed=0)
+
+        def transfer_publish(version):
+            actor.update_weights(WeightUpdateMeta.from_transfer(ROUTER_EXP, ROUTER_TRIAL,
+                                                                live_commit=True))
+            at_version(version)  # the router by /set_version
+            async_client.set_version(version - origin)
+            sync_client.set_version(version)
+            return "transfer (live commit, /set_version to the router)"
+
+        for _ in range(2):
+            step("async", lambda: async_client.prepare_batch(loader, workflow=workflow),
+                 transfer_publish)
+        # the async client's rollouts still in flight finish before the fault
+        wait_for(lambda: async_client.executor.staleness_manager.get_stats().running == 0,
+                 "the async client's rollouts to finish", timeout=120)
+        step("sync", lambda: sync_client.rollout_batch(items(), workflow=workflow), disk_publish)
+        trainer_flash = tuple(int(x) for x in launches)
+        if gaps[1] == 0 or not gaps[0] / gaps[1] <= LOGP_MEAN_TOL:
+            raise AssertionError("router phase: trainer logprobs disagree with the servers'")
+        print(f"  |trainer - server| logprob on same-version tokens over the 4 steps: mean "
+              f"{gaps[0] / gaps[1]:.4f} over {gaps[1]} tokens (tolerance {LOGP_MEAN_TOL})")
+        if flash_counts_tc() != flash_counts():
+            raise AssertionError("a bf16 flash launch of the router phase missed its "
+                                 "tensor-core kernel")
+
+        # both servers idle: their K2 launches and prefix accounting so far
+        pre = [get_addr(a, "/metrics") for a in addrs]
+        for a, m in zip(addrs, pre):
+            if m["ragged_kernel_launches"] != L * m["decode_steps"] or m["decode_steps"] == 0:
+                raise AssertionError(f"router phase: {a} K2 launches "
+                                     f"{m['ragged_kernel_launches']} != {L} x "
+                                     f"{m['decode_steps']} decode steps")
+            if m["shared_tokens"] <= 0:
+                raise AssertionError(f"router phase: no group shared its prefix on {a}")
+        routed = get_addr(router, "/metrics")["requests_routed"]
+        if sorted(routed) != sorted(addrs) or min(routed.values()) <= 0:
+            raise AssertionError(f"router phase: requests_routed {routed}")
+        t_fault = time.time()
+        placed = {}
+        for i in range(n_servers):
+            for rid in arrivals(os.path.join(log_dir, f"gen_server_{i}.log"), before=t_fault):
+                placed.setdefault(rid.rsplit("-", 1)[0], set()).add(i)
+        split = sum(len(s) > 1 for s in placed.values())
+        if split or len(placed) < 4 * TRAIN_PROMPTS:
+            raise AssertionError(f"router phase: {split} of {len(placed)} groups were split "
+                                 "across servers")
+        print(f"  before the fault: requests_routed {routed}; {len(placed)} groups, each on "
+              f"one server; " + "; ".join(
+                  f"{a}: K2 {m['ragged_kernel_launches']} = {L} x {m['decode_steps']} decode "
+                  f"steps, prefill cold {m['prefill_tokens']} shared {m['shared_tokens']} "
+                  f"suffix {m['suffix_tokens']} reused {m['reused_tokens']}"
+                  for a, m in zip(addrs, pre)))
+
+        # the gate at its bound: a probe client takes every admission left
+        # at this version, is answered 409 for one more and polls through
+        # the 409s until it returns a lease; the fault rollout then gets
+        # the admissions back
+        m_gate = get_addr(router, "/metrics")
+        cap0 = m_gate["capacity"]
+        if cap0 != (ROUTER_ETA + m_gate["version"] + 1) * ROUTER_BS - m_gate["accepted"] or (
+                cap0 < TRAIN_PROMPTS or m_gate["running"]):
+            raise AssertionError(f"router phase: the gate has {cap0} admissions left at version "
+                                 f"{m_gate['version']} with {m_gate['accepted']} accepted and "
+                                 f"{m_gate['running']} running, the next rollout needs "
+                                 f"{TRAIN_PROMPTS}")
+        probe_pool = concurrent.futures.ThreadPoolExecutor(2)
+        probe = FleetStalenessGate(router, probe_pool, poll_interval=0.05)
+        leases = [asyncio.run(probe.allocate("probe")) for _ in range(cap0)]
+
+        async def poll_through():
+            task = asyncio.ensure_future(probe.allocate("probe"))
+            t_wait = time.perf_counter()
+            while probe.n_staled < 3 and not task.done():
+                if time.perf_counter() - t_wait > 30:
+                    break
+                await asyncio.sleep(0.01)
+            if task.done():
+                raise AssertionError("router phase: the gate granted an admission over its "
+                                     "formula")
+            await probe.finish(leases.pop(), accepted=False)
+            return await asyncio.wait_for(task, 30)
+
+        try:
+            if None in leases or probe.n_staled:
+                raise AssertionError(f"router phase: the gate refused one of the {cap0} "
+                                     "admissions it had left")
+            leases.append(asyncio.run(poll_through()))
+            probe_staled = probe.n_staled
+            if leases[-1] is None or probe_staled < 3:
+                raise AssertionError(f"router phase: the probe got {probe_staled} answers 409 "
+                                     "and no lease")
+        finally:
+            for lease in leases:
+                asyncio.run(probe.finish(lease, accepted=False))
+            probe_pool.shutdown()
+        m_after = get_addr(router, "/metrics")
+        if (m_after["capacity"], m_after["accepted"], m_after["running"]) != (
+                cap0, m_gate["accepted"], 0):
+            raise AssertionError(f"router phase: the gate did not take the probe's leases back: "
+                                 f"{m_after['capacity']} left, {m_after['accepted']} accepted, "
+                                 f"{m_after['running']} running")
+        print(f"  gate probe at version {m_gate['version']}: {cap0} admissions left = (1 + "
+              f"{m_gate['version']} + 1) x {ROUTER_BS} - {m_gate['accepted']} accepted; the "
+              f"probe took them all, was answered 409 {probe_staled} times for one more and got "
+              f"it once a lease came back; all returned unaccepted")
+
+        # the fault: server 1 killed partway through a rollout
+        fault_box = {}
+        lost0 = sync_client.executor.lost_trajectories
+
+        def fault_rollout():
+            try:
+                fault_box["batch"] = sync_client.rollout_batch(items(), workflow=workflow)
+            except BaseException as e:  # noqa: BLE001 — re-raised below
+                fault_box["error"] = e
+
+        rollout_thread = threading.Thread(target=fault_rollout, daemon=True)
+        t_roll = time.perf_counter()
+        rollout_thread.start()
+        victim = launcher.procs[1]
+        last1 = {}  # server 1's last /metrics before the kill
+
+        def server1_decoding():
+            last1.update(get_addr(addrs[1], "/metrics"))
+            return last1["decode_steps"] > pre[1]["decode_steps"] + 16
+
+        wait_for(server1_decoding, "server 1 decoding the rollout", timeout=60, step=0.02)
+        os.killpg(victim.pid, signal.SIGKILL)
+        t_kill = time.perf_counter()
+        victim.wait()
+        rollout_thread.join(300)
+        if rollout_thread.is_alive() or "error" in fault_box:
+            raise AssertionError(f"router phase: the rollout did not finish on server 0: "
+                                 f"{fault_box.get('error')!r}")
+        t_done = time.perf_counter()
+        bound = ROUTER_THRESHOLD * ROUTER_PROBE + ROUTER_PROBE_TIMEOUT + 2.0
+        wait_for(lambda: monitor.first(addrs[1], "open", t_kill) is not None,
+                 "the breaker open", timeout=bound + 10, step=0.05)
+        t_open = monitor.first(addrs[1], "open", t_kill)
+        if t_open - t_kill > bound:
+            raise AssertionError(f"router phase: the breaker did not open within {bound} s")
+        m_fault = get_addr(router, "/metrics")
+        if m_fault["failovers"] < 1:
+            raise AssertionError("router phase: no failover counted")
+        lost = sync_client.executor.lost_trajectories - lost0
+        n_fault = int(np.asarray(fault_box["batch"]["attention_mask"]).shape[0])
+        if lost or n_fault != TRAIN_PROMPTS * GROUP:
+            raise AssertionError(f"router phase: {lost} trajectories lost in the fault rollout")
+        print(f"  SIGKILL of server 1 {t_kill - t_roll:.2f} s into a rollout: breaker open "
+              f"{t_open - t_kill:.3f} s after the kill (bound {bound:.1f} s), the rollout "
+              f"finished on server 0 {t_done - t_kill:.2f} s after it: {n_fault} trajectories, "
+              f"none lost; router failovers {m_fault['failovers']}")
+
+        # server 1 back at the same address, from the original checkpoint
+        port1 = int(addrs[1].rpartition(":")[2])
+        with open(os.path.join(log_dir, "gen_server_1_restart.log"), "ab") as log_f:
+            extra.append(subprocess.Popen(
+                build_server_cmd(server_cfg, port1, None, ROUTER_EXP, ROUTER_TRIAL, 1),
+                env=dict(os.environ, PYTHONPATH=ROOT), cwd=ROOT, stdout=log_f,
+                stderr=subprocess.STDOUT, start_new_session=True))
+        t_restart = time.perf_counter()
+        wait_for(lambda: monitor.first(addrs[1], "closed", t_restart) is not None,
+                 "server 1 closed again after its restart", timeout=180, step=0.1)
+        t_half = monitor.first(addrs[1], "half_open", t_restart)
+        t_closed = monitor.first(addrs[1], "closed", t_restart)
+        version = actor.get_version()
+        if fleet_versions() != [version] * 3:
+            raise AssertionError(f"router phase: after the rejoin the fleet serves "
+                                 f"{fleet_versions()}, the trainer is at {version}")
+        print(f"  server 1 restarted at version 0: half-open "
+              f"{(t_half or t_closed) - t_restart:.2f} s and closed {t_closed - t_restart:.2f} s "
+              f"after the restart, force-reloaded to version {version}")
+
+        # the gate's ledger, balanced once every lease is back
+        wait_for(lambda: get_addr(router, "/metrics")["running"] == 0,
+                 "every lease returned", timeout=120)
+        m_end = get_addr(router, "/metrics")
+        local = [c.executor.staleness_manager.get_stats() for c in clients]
+        accepted = sum(s.accepted for s in local)
+        for c, s in zip(clients, local):
+            if s.submitted != s.accepted + s.rejected + s.running or s.running:
+                raise AssertionError("router phase: a client's staleness ledger does not "
+                                     "balance")
+            if c.executor.lost_trajectories:
+                raise AssertionError("router phase: a trajectory was lost")
+        if m_end["accepted"] != accepted:
+            raise AssertionError(f"router phase: the router accepted {m_end['accepted']}, the "
+                                 f"clients {accepted}")
+        monitor.stop()
+        if monitor.admissions_over or monitor.polls == 0:
+            raise AssertionError(f"router phase: admissions over the gate's formula "
+                                 f"{monitor.admissions_over[:5]}")
+        staled = sum(c.executor.fleet_gate.n_staled for c in clients)
+        if probe_staled <= 0:
+            raise AssertionError("router phase: the gate never answered 409")
+        with urllib.request.urlopen(f"http://{router}/metrics?format=prometheus",
+                                    timeout=60) as resp:
+            prom = parse_prometheus_text(resp.read().decode())
+        missing = [n for n in ROUTER_NAMES if n not in prom]
+        if missing:
+            raise AssertionError(f"router phase: Prometheus lacks {missing}")
+        print(f"  gate: {m_end['accepted']} accepted = the clients' {accepted}, 0 running, "
+              f"at most {monitor.max_admitted} admitted against (1 + version + 1) x "
+              f"{ROUTER_BS} over {monitor.polls} polls; answers 409: {staled} to the trainer's "
+              f"clients, {probe_staled} to the probe; flushes "
+              f"{m_end['n_flushes']}, publish partial failures "
+              f"{m_end['publish_partial_failures']}; Prometheus renders all "
+              f"{len(ROUTER_NAMES)} areal_router_* names")
+        for mode, (n, wall) in per_mode.items():
+            print(f"  {mode}: {n / wall:.4f} trajectories/s/chip through the router "
+                  f"({n} trajectories, {wall:.2f} s with training and publishes)")
+        print("  fleet flush, pause to resume over two servers: "
+              + ", ".join(f"{x * 1e3:.1f}" for x in flush_s) + " ms")
+
+        # the served weights after the last (disk) publish, rejoined server included
+        t0 = time.perf_counter()
+        served = [greedy_streams(lambda b, a=a: post_addr(a, "/generate", b), cfg.vocab_size)
+                  for a in addrs]
+        local_eng = GenEngine(cfg.replace(dtype="bfloat16"),
+                              params=actor.export_device_params(), n_slots=GRPO_SLOTS,
+                              max_seq_len=GRPO_SEQ, prompt_bucket=128, kv_dtype="bfloat16",
+                              seed=0)
+
+        def local_generate(body):
+            sp = body["sampling_params"]
+            req = GenRequest(rid=body["rid"], input_ids=body["input_ids"],
+                             max_new_tokens=sp["max_new_tokens"],
+                             min_new_tokens=sp["min_new_tokens"], temperature=0.0)
+            local_eng.generate_blocking([req])
+            return {"output_tokens": req.output_tokens, "output_logprobs": req.output_logprobs}
+
+        mine = greedy_streams(local_generate, cfg.vocab_size)
+        del local_eng
+        if not served[0] == served[1] == mine:
+            raise AssertionError("router phase: greedy streams or logprobs of the servers "
+                                 "differ from each other or from a GenEngine on the trainer's "
+                                 "bf16 export")
+        print(f"  after the last publish (version {version}): {REMOTE_EQUAL_PROMPTS} greedy "
+              f"streams x {REMOTE_EQUAL_TOKENS} tokens and their logprobs from each server "
+              f"(server 1 rejoined) equal each other and a GenEngine on the trainer's bf16 "
+              f"export here, bit for bit ({time.perf_counter() - t0:.1f} s)")
+
+        post = [get_addr(a, "/metrics") for a in addrs]
+        for a, m, label in zip(addrs, post, ("server 0", "server 1 (restarted)")):
+            if m["ragged_kernel_launches"] != L * m["decode_steps"]:
+                raise AssertionError(f"router phase: {label} K2 launches != {L} x decode steps")
+        # a read mid-step may fall between a step's launches and its count
+        if last1["ragged_kernel_launches"] < pre[1]["ragged_kernel_launches"] + 16 * L:
+            raise AssertionError("router phase: server 1's K2 launches did not grow with "
+                                 "its decode steps before the kill")
+        # server 1's first process: its launches up to its last read, a poll
+        # (<= 20 ms) before the kill; those after that read died with it, so
+        # the sum is a lower bound
+        k2 = post[0]["ragged_kernel_launches"] + last1["ragged_kernel_launches"] + post[1][
+            "ragged_kernel_launches"]
+        print(f"  K2: at least {k2}: server 0 {post[0]['ragged_kernel_launches']} = {L} x "
+              f"{post[0]['decode_steps']} decode steps; server 1 "
+              f"{last1['ragged_kernel_launches']} ({last1['decode_steps']} decode steps) at its "
+              f"last read before the kill (those after it died with it), restarted "
+              f"{post[1]['ragged_kernel_launches']} = {L} x {post[1]['decode_steps']}; trainer "
+              f"flash fwd/dq/dkv {trainer_flash} over 4 steps, on the tensor cores")
+        print(f"  peak memory: trainer {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
+              f"server 0 {post[0].get('max_memory_allocated', 0) / 2**30:.2f} GiB, server 1 "
+              f"before the fault {pre[1].get('max_memory_allocated', 0) / 2**30:.2f} GiB, "
+              f"restarted {post[1].get('max_memory_allocated', 0) / 2**30:.2f} GiB "
+              f"(torch.cuda.max_memory_allocated); router process: no device memory, "
+              + (f"resident at most {monitor.peak_rss / 2**30:.3f} GiB (/proc statm, sampled "
+                 f"every 50 ms)" if monitor.peak_rss else "resident set not measured"))
+    finally:
+        if monitor is not None:
+            monitor.stop()
+        for c in clients:
+            c.destroy()
+        for p in extra:
+            if p.poll() is None:
+                os.killpg(p.pid, signal.SIGKILL)
+            p.wait()
+        launcher.stop_all()
+        shutdown_reward_pool()
+        name_resolve.DEFAULT_REPOSITORY = saved_store
+        for k, v in env_before.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        for d in (nr_root, publish_root):
+            shutil.rmtree(d, ignore_errors=True)
+    if actor is not None:
+        actor.destroy()
+    del actor
+    torch.cuda.empty_cache()
+    return int(k2), trainer_flash
 
 
 # the recover phase: the example's run, killed after step 1 and relaunched
@@ -3631,6 +4242,16 @@ def main(argv):
             check_flash_offset()
         with phase("sp"):
             sp_phase()
+    elif only == "router":
+        # the router phase alone, on a checkpoint written as the remote phase writes it
+        remote_ckpt = os.path.join(ROOT, "build", "remote_ckpt")
+        try:
+            write_checkpoint(qwen25_1p5b().replace(num_layers=REMOTE_LAYERS).to_hf_dict(),
+                             remote_ckpt)
+            with phase("router"):
+                router_qwen(remote_ckpt, os.path.join(ROOT, "build"))
+        finally:
+            shutil.rmtree(remote_ckpt, ignore_errors=True)
     elif only == "recover-full-depth":
         fileroot = os.path.join(ROOT, "build", "recover_run")
         try:
@@ -3700,7 +4321,9 @@ def main(argv):
             sp_bf16, sp_f32, sp_times, sp_t2048, sp_err = sp_phase()
             offset_err = {n: max(offset_err[n], sp_err[n]) for n in offset_err}
         with phase("grpo"):
-            grpo_launches, grpo_err, _, grpo_rows = grpo_loop(ckpt_dir)
+            write_checkpoint(qwen25_1p5b().replace(num_layers=REMOTE_LAYERS).to_hf_dict(),
+                             remote_ckpt)
+            grpo_launches, grpo_err, _, grpo_rows = grpo_loop(remote_ckpt)
             max_err = max(max_err, grpo_err["ragged_paged_attention"])
             flash_err = {n: max(flash_err[n], grpo_err[n]) for n in flash_err}
         with phase("prefix"):
@@ -3724,9 +4347,9 @@ def main(argv):
             flash_times256, gemma1_err = gemma1_timings(gemma1_rows)
             flash_err256 = {n: max(flash_err256[n], gemma1_err[n]) for n in flash_err256}
         with phase("remote"):
-            write_checkpoint(qwen25_1p5b().replace(num_layers=REMOTE_LAYERS).to_hf_dict(),
-                             remote_ckpt)
             remote_ragged, remote_flash = remote_qwen(remote_ckpt, remote_dir)
+        with phase("router"):
+            router_ragged, router_flash = router_qwen(remote_ckpt, build_dir)
         with phase("recover"):
             recover_ragged, recover_flash = recover_phase(build_dir,
                                                           segment_lengths(grpo_rows))
@@ -3739,14 +4362,15 @@ def main(argv):
         "source": "areal_tpu_torch/csrc/ragged_decode.cu",
         "replaces": "areal_tpu/ops/ragged_decode.py:93",
         "launches": (launches + grpo_launches[0] + prefix_launches + family_launches[0]
-                     + gemma1_ragged + remote_ragged + recover_ragged + verify_launches
-                     + spec_decode_launches + spec_f32_launches),
+                     + gemma1_ragged + remote_ragged + router_ragged + recover_ragged
+                     + verify_launches + spec_decode_launches + spec_f32_launches),
         # "spec": the launches at T = D + 1 the --spec-decode server
         # counted; "spec_decode": both spec-phase servers' T = 1 launches;
         # "spec_f32": the in-process f32 runs at 4 layers
         "launches_by_path": {"serve": launches, "grpo": grpo_launches[0],
                              "prefix": prefix_launches, "families": family_launches[0],
                              "gemma1": gemma1_ragged, "remote": remote_ragged,
+                             "router": router_ragged,
                              "recover": recover_ragged, "spec": verify_launches,
                              "spec_decode": spec_decode_launches,
                              "spec_f32": spec_f32_launches},
@@ -3760,18 +4384,19 @@ def main(argv):
         "bound_by": by,
         "library_ms": sdpa,
     }]
-    for name, n, n_grpo, n_fam, n_remote, n_recover in zip(
+    for name, n, n_grpo, n_fam, n_remote, n_router, n_recover in zip(
             ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"), flash_launches, grpo_launches[1:],
-            family_launches[1:], remote_flash, recover_flash):
+            family_launches[1:], remote_flash, router_flash, recover_flash):
         ms, plain_ms, lib_ms, bound_ms, bound_by = flash_times[name]
         records.append({
             "name": name,
             "route": "cuda",
             "source": "areal_tpu_torch/csrc/flash_attention.cu",
             "replaces": FLASH_REPLACES[name],
-            "launches": n + n_grpo + n_fam + n_remote + n_recover,
+            "launches": n + n_grpo + n_fam + n_remote + n_router + n_recover,
             "launches_by_path": {"train": n, "grpo": n_grpo, "families": n_fam,
-                                 "remote": n_remote, "recover": n_recover},
+                                 "remote": n_remote, "router": n_router,
+                                 "recover": n_recover},
             "max_abs_err": flash_err[name],
             "ms": ms,
             "plain_ms": plain_ms,
