@@ -3,8 +3,10 @@
 loop reads: `GenerationHyperparameters`, `InferenceEngineConfig` with the
 remote client's fields, and of the experiment configs the remote example
 reads: `GenServerConfig`, `DatasetConfig`, `ClusterSpecConfig`,
-`GRPOConfig`), and of the training job's infrastructure: `TimerConfig`,
-`SaverConfig`, `EvaluatorConfig`, `RecoverConfig` and `StatsLoggerConfig`.
+`GRPOConfig`, and `PPOConfig` with its `PPOCriticConfig`), of the SFT and
+reward-model experiments (`SFTConfig`, `RWConfig`), and of the training
+job's infrastructure: `TimerConfig`, `SaverConfig`, `EvaluatorConfig`,
+`RecoverConfig` and `StatsLoggerConfig`.
 
 Field names and defaults are the JAX package's, for the fields the port
 reads; fields of what is not ported yet (LoRA, `async_stats`, the scan
@@ -187,6 +189,13 @@ class PPOActorConfig(TrainEngineConfig):
 
 
 @dataclass
+class PPOCriticConfig(TrainEngineConfig):
+    value_eps_clip: float = 0.2
+    ppo_n_minibatches: int = 4
+    mask_no_eos_with_zero: bool = False
+
+
+@dataclass
 class GenServerConfig:
     """The generation server a launcher starts (`launcher/local.py`), with
     the flags of `python -m areal_tpu_torch.gen.server`."""
@@ -309,6 +318,38 @@ class GRPOConfig:
     evaluator: EvaluatorConfig = field(default_factory=EvaluatorConfig)
     recover: RecoverConfig = field(default_factory=RecoverConfig)
     stats_logger: StatsLoggerConfig = field(default_factory=StatsLoggerConfig)
+
+
+@dataclass
+class PPOConfig(GRPOConfig):
+    """PPO with a learned critic: `GRPOConfig` plus the value model's
+    engine (`examples/math/gsm8k_ppo.py`)."""
+
+    critic: PPOCriticConfig = field(default_factory=PPOCriticConfig)
+
+
+@dataclass
+class SFTConfig:
+    """Supervised finetuning (`examples/sft/gsm8k_sft.py`): the fields of
+    the reference's experiment config that the SFT loop reads, and the
+    model's engine."""
+
+    experiment_name: str = "my-exp"
+    trial_name: str = "my-trial"
+    seed: int = 1
+    total_train_epochs: int = 1
+    total_train_steps: Optional[int] = None
+    cluster: ClusterSpecConfig = field(default_factory=ClusterSpecConfig)
+    train_dataset: DatasetConfig = field(default_factory=DatasetConfig)
+    saver: SaverConfig = field(default_factory=SaverConfig)
+    stats_logger: StatsLoggerConfig = field(default_factory=StatsLoggerConfig)
+    model: TrainEngineConfig = field(default_factory=TrainEngineConfig)
+
+
+@dataclass
+class RWConfig(SFTConfig):
+    """The Bradley-Terry reward model (`examples/rw/hhrlhf_rw.py`): the
+    same fields, the model a value head over the backbone."""
 
 
 def to_dict(cfg) -> Any:

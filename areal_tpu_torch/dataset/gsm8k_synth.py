@@ -1,6 +1,8 @@
 """GSM8K-style synthetic math word problems + a closed-vocabulary tokenizer
-(the port's copy of `areal_tpu/dataset/gsm8k_synth.py`, without the SFT
-row builder `sft_example`: SFT is not ported).
+(the port's copy of `areal_tpu/dataset/gsm8k_synth.py`), registered as
+the `gsm8k-synth` dataset, with the SFT row builder `sft_example` and the
+reward model's `preference_pair` (the port's own: a problem's correct
+solution against the same with a wrong final answer).
 
 Purpose (VERDICT r4 #1): the primary metric's quality half needs a
 reward-vs-wall-clock curve from the REAL async GRPO loop.  This rig has
@@ -21,9 +23,11 @@ re-spaces punctuation so the math parser sees literal `\\boxed{N}` syntax.
 
 import re
 from dataclasses import dataclass
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import numpy as np
+
+from areal_tpu_torch.dataset import register_dataset
 
 NAMES = [
     "Alex", "Sara", "Ben", "Mia", "Leo", "Ana", "Tom", "Lily",
@@ -226,3 +230,47 @@ def generate_problems(n: int, seed: int = 0) -> List[Dict]:
             "solution": p.solution,
         })
     return out
+
+
+@register_dataset("gsm8k-synth")
+def get_gsm8k_synth_dataset(path: str = "", split: str = "train", tokenizer=None,
+                            max_length: Optional[int] = None, n: int = 1024, seed: int = 1,
+                            **kwargs) -> List[Dict]:
+    """`n` problems drawn under `seed` for the train split and `seed + 1`
+    for any other (the generator has no fixed test split), each with its
+    prompt's `input_ids` when a tokenizer is given; with `max_length`,
+    only prompts that fit."""
+    rows = generate_problems(n, seed=seed if split == "train" else seed + 1)
+    if tokenizer is not None:
+        for r in rows:
+            r["input_ids"] = tokenizer.apply_chat_template(r["messages"],
+                                                           add_generation_prompt=True)
+        if max_length is not None:
+            rows = [r for r in rows if len(r["input_ids"]) <= max_length]
+    return rows
+
+
+def sft_example(tokenizer: WordTokenizer, item: Dict) -> Dict[str, np.ndarray]:
+    """(input_ids, loss_mask) for one SFT row: the loss on the assistant's
+    solution and eos only, the convention `TorchLMEngine.train_lm` reads."""
+    prompt_ids = tokenizer.apply_chat_template(item["messages"], add_generation_prompt=True)
+    sol_ids = tokenizer.encode(" " + item["solution"]) + [tokenizer.eos_token_id]
+    ids = np.asarray(prompt_ids + sol_ids, np.int32)
+    mask = np.asarray([0] * len(prompt_ids) + [1] * len(sol_ids), np.int32)
+    return {"input_ids": ids, "loss_mask": mask, "attention_mask": np.ones_like(ids)}
+
+
+_BOXED = re.compile(r"\\boxed\{(\d+)\}")
+
+
+def preference_pair(tokenizer: WordTokenizer, item: Dict,
+                    rng: np.random.Generator) -> Dict[str, List[int]]:
+    """A reward model's pair from one problem: chosen, the prompt with its
+    correct solution; rejected, the same with the final answer moved by 1
+    to 9.  Both end in eos."""
+    prompt = tokenizer.apply_chat_template(item["messages"], add_generation_prompt=True)
+    wrong = str(int(item["answer"]) + int(rng.integers(1, 10)))
+    rejected = _BOXED.sub(lambda m: "\\boxed{" + wrong + "}", item["solution"])
+    eos = [tokenizer.eos_token_id]
+    return {"chosen_ids": prompt + tokenizer.encode(" " + item["solution"]) + eos,
+            "rejected_ids": prompt + tokenizer.encode(" " + rejected) + eos}

@@ -67,6 +67,14 @@ overrides change any field; a path through an unset optional section
 (`ref.dtype=bfloat16`, `valid_dataset.batch_size=32`) creates it with
 its defaults.
 
+`run` is also the loop of PPO with a learned critic
+(`examples/math/gsm8k_ppo.py`): a config with a `critic` section
+(`PPOConfig`) adds a `TorchPPOCritic` whose per-token values go into the
+batch before `compute_advantages` (the GAE baseline), its `ppo_update`
+after the actor's (stats `critic/`-prefixed in the StatsLogger line), its
+save beside every actor save (name "critic", forced), and its state in
+every recover dump and load (`extra_engines`).
+
 Left out of the reference's example: the multi-turn and agent workflows,
 `warm_pack_shapes` (eager PyTorch compiles nothing per shape) and the
 generated-text dumps of the workflows.
@@ -192,7 +200,8 @@ def apply_overrides(config: Any, overrides: List[str]) -> Any:
     return config
 
 
-def parse_args(argv: Optional[List[str]] = None):
+def parse_args(argv: Optional[List[str]] = None,
+               default: Callable[[], GRPOConfig] = default_config):
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--device", default=None, help="cuda (default) or cpu, for trainer and servers")
     p.add_argument("--model", default="qwen2.5-1.5b", choices=MODELS,
@@ -211,12 +220,15 @@ def parse_args(argv: Optional[List[str]] = None):
     p.add_argument("overrides", nargs="*", help="key.sub=value, e.g. total_train_steps=2 "
                    "async_training=false weight_update_live_commit=false")
     args = p.parse_intermixed_args(argv)
-    config = default_config()
+    config = default()
     if args.model == "tiny":
         # the f32 CPU shape of the port's bench
-        config.actor.dtype = config.gen_server.dtype = "float32"
-        config.actor.pack_length_quantum = 256
-        config.actor.max_pack_length = 1024
+        config.gen_server.dtype = "float32"
+        for eng in (config.actor, getattr(config, "critic", None)):
+            if eng is not None:
+                eng.dtype = "float32"
+                eng.pack_length_quantum = 256
+                eng.max_pack_length = 1024
         config.gen_server.max_context_len = 1024
         config.gen_server.max_seqs = 8
     if args.weight_update_mode is not None:
@@ -288,12 +300,14 @@ def run(config: GRPOConfig, device: Optional[str] = None, model: str = "qwen2.5-
     """The training loop; returns the stats of each step this run trained.
     `reward_fn`, `dataset` and `valid_dataset` replace gsm8k_reward_fn and
     the gsm8k-synth problems, and `on_step(step, actor, batch, stats)` runs
-    after each step's commit (tests)."""
+    after each step's commit (tests).  A config with a `critic` section
+    runs PPO with that learned critic (module docstring); `on_step` then
+    finds it as `actor.critic`."""
     from areal_tpu_torch.api.config import propagate_names, to_dict
     from areal_tpu_torch.api.io_struct import FinetuneSpec, StepInfo, WeightUpdateMeta
     from areal_tpu_torch.api.reward import prewarm_reward_pool, shutdown_reward_pool
     from areal_tpu_torch.dataset.gsm8k_synth import WordTokenizer
-    from areal_tpu_torch.engine.ppo import TorchPPOActor
+    from areal_tpu_torch.engine.ppo import TorchPPOActor, TorchPPOCritic
     from areal_tpu_torch.engine.torch_remote import RemoteTorchEngine
     from areal_tpu_torch.engine.torch_train import TorchTrainEngine
     from areal_tpu_torch.launcher.local import LocalLauncher, servers_for_allocation
@@ -345,6 +359,19 @@ def run(config: GRPOConfig, device: Optional[str] = None, model: str = "qwen2.5-
         ref = TorchTrainEngine(dataclasses.replace(config.ref, path=ref_path, optimizer=None),
                                model_config=None if ref_path else mc, device=device)
         ref.initialize(ft_spec=ft_spec)
+    critic = None
+    extra_engines: Dict[str, Any] = {}
+    if getattr(config, "critic", None) is not None:
+        # without a path of its own the critic starts from the actor's
+        # backbone (its checkpoint, or the same seeded random weights)
+        ccfg = config.critic if config.critic.path else dataclasses.replace(
+            config.critic, path=config.actor.path,
+            init_from_scratch=config.actor.init_from_scratch)
+        critic = TorchPPOCritic(ccfg, model_config=None if ccfg.path else model_config_for(model),
+                                device=device)
+        critic.initialize(ft_spec=ft_spec)
+        actor.critic = critic
+        extra_engines["critic"] = critic
     if config.weight_update_mode == "transfer":
         meta = WeightUpdateMeta.from_transfer(config.experiment_name, config.trial_name,
                                               live_commit=config.weight_update_live_commit)
@@ -399,14 +426,16 @@ def run(config: GRPOConfig, device: Optional[str] = None, model: str = "qwen2.5-
                                  fingerprint=config_fingerprint(to_dict(config)))
         # what a dump needs, shared by the periodic dump and the preemption
         dump_kwargs = dict(saver=saver, evaluator=evaluator, stats_logger=stats_logger,
-                           dataloader=dataloader, inference_engine=rollout)
+                           dataloader=dataloader, inference_engine=rollout,
+                           extra_engines=extra_engines)
 
         start_step = 0
         recovered: Dict[str, Any] = {}
         if check_if_recover(config.recover, run_id=run_id):
             info = recover.load(actor, saver=saver, evaluator=evaluator,
                                 stats_logger=stats_logger, dataloader=dataloader,
-                                inference_engine=rollout, weight_update_meta=meta)
+                                inference_engine=rollout, weight_update_meta=meta,
+                                extra_engines=extra_engines)
             if info is not None:
                 start_step = info.recover_start.global_step
                 if eval_rollout is not None:
@@ -434,6 +463,11 @@ def run(config: GRPOConfig, device: Optional[str] = None, model: str = "qwen2.5-
             if config.actor.recompute_logprob:
                 batch["prox_logp"] = actor.compute_logp(batch)
             t["recompute_logp"] = time.perf_counter() - t0
+            if critic is not None:
+                # the critic's values are the GAE baseline, predictor-aligned
+                t0 = time.perf_counter()
+                batch["values"] = critic.compute_values(batch)
+                t["compute_values"] = time.perf_counter() - t0
             if ref is not None:
                 t0 = time.perf_counter()
                 batch["ref_logp"] = ref.forward(batch)
@@ -444,6 +478,14 @@ def run(config: GRPOConfig, device: Optional[str] = None, model: str = "qwen2.5-
             t0 = time.perf_counter()
             train_stats = actor.ppo_update(batch)
             t["ppo_update"] = time.perf_counter() - t0
+            critic_stats: List[Dict[str, float]] = []
+            if critic is not None:
+                t0 = time.perf_counter()
+                # prefixed, so the critic's loss and grad norm do not shadow
+                # the actor's in the merged line
+                critic_stats = [{f"critic/{k}": v for k, v in d.items()}
+                                for d in critic.ppo_update(batch)]
+                t["critic_update"] = time.perf_counter() - t0
             # the expensive half (snapshot write, chunk streaming) runs
             # while generation goes on; only the commit needs the pause
             t0 = time.perf_counter()
@@ -463,7 +505,10 @@ def run(config: GRPOConfig, device: Optional[str] = None, model: str = "qwen2.5-
                 rollout.resume()
             t["update_weights"] = time.perf_counter() - t0
             t0 = time.perf_counter()
-            saver.save(actor, epoch, epoch_step, global_step)
+            if (saver.save(actor, epoch, epoch_step, global_step) is not None
+                    and critic is not None):
+                # forced: the actor's save took this step's frequency trigger
+                saver.save(critic, epoch, epoch_step, global_step, name="critic", force=True)
             t["save"] = time.perf_counter() - t0
             dumped: Dict[str, Any] = {}
             if checkpointer.freq.check(epoch, global_step):
@@ -513,12 +558,14 @@ def run(config: GRPOConfig, device: Optional[str] = None, model: str = "qwen2.5-
                                "recover/replay_s": recovered["replay_seconds"],
                                "recover/settled_inflight": recovered["settled_inflight"],
                                "recover/recovered_step": recovered["recovered_step"]})
-            stats_logger.commit(epoch, epoch_step, global_step, [stats.export(), record])
+            stats_logger.commit(epoch, epoch_step, global_step,
+                                [stats.export(), record, *critic_stats])
             line = {
                 "step": global_step + 1, "global_step": global_step, "run_id": run_id,
                 "version": actor.get_version(), "n_seqs": int(rewards.size),
                 "reward": record["reward"], "adv_abs_mean": record["adv_abs_mean"],
                 "loss": [float(s["loss"]) for s in train_stats],
+                "critic_loss": [float(s["critic/loss"]) for s in critic_stats],
                 "lost_trajectories": record["lost_trajectories"],
                 "ledger": dataclasses.asdict(led), "kl_ref": record.get("kl_ref"),
                 "eval": evaluated, "timing_s": t,
@@ -575,9 +622,10 @@ def write_init_snapshot(config: GRPOConfig, model: str, device: Optional[str]) -
     return path
 
 
-def launch(config: GRPOConfig, args) -> int:
+def launch(config: GRPOConfig, args, module: str = "areal_tpu_torch.examples.math.gsm8k_grpo"
+           ) -> int:
     """`--launch`: this process starts the servers and runs the trainer,
-    `python -m` of this module with the same arguments, through
+    `python -m <module>` with the same arguments, through
     `LocalLauncher.run`; returns the last trainer's exit code."""
     from areal_tpu_torch.launcher.local import (
         RECOVER_TIME_INTERVAL,
@@ -595,8 +643,7 @@ def launch(config: GRPOConfig, args) -> int:
     if not os.environ.get("AREAL_LLM_SERVER_ADDRS") and not server_cfg.model_path:
         server_cfg.model_path = config.actor.path or write_init_snapshot(
             config, args.model, args.device)
-    cmd = [sys.executable, "-m", "areal_tpu_torch.examples.math.gsm8k_grpo",
-           "--model", args.model, "--exit-with-parent"]
+    cmd = [sys.executable, "-m", module, "--model", args.model, "--exit-with-parent"]
     if args.device is not None:
         cmd += ["--device", args.device]
     if args.weight_update_mode is not None:
@@ -612,14 +659,17 @@ def launch(config: GRPOConfig, args) -> int:
                         experiment_name=config.experiment_name, trial_name=config.trial_name)
 
 
-def main(argv: Optional[List[str]] = None) -> int:
-    config, args = parse_args(argv)
+def main(argv: Optional[List[str]] = None, default: Callable[[], GRPOConfig] = default_config,
+         module: str = "areal_tpu_torch.examples.math.gsm8k_grpo") -> int:
+    """The command line of this example (and, with its `default` config and
+    `module`, of `gsm8k_ppo`)."""
+    config, args = parse_args(argv, default)
     if args.exit_with_parent:
         from areal_tpu_torch.utils.shutdown import exit_with_parent
 
         exit_with_parent(os.getppid())
     if args.launch:
-        return launch(config, args)
+        return launch(config, args, module)
     run(config, device=args.device, model=args.model)
     return 0
 

@@ -4,6 +4,9 @@
 `init_params` emits (as numpy arrays: `tree["layers"]["attn"]["wq"]` is
 [L, D, Hq*hd], matrices are [in, out]) and returns the port's model with
 the same weights, so tests can run both packages on one set of weights.
+A critic's or reward model's tree carries a `value_head` [D] beside the
+backbone (and no `lm_head`): the port's model gets it as its `value_head`
+parameter (`engine/ppo/critic.py`).
 """
 
 from typing import Any, Dict, Iterator, Optional, Tuple
@@ -12,7 +15,7 @@ import numpy as np
 import torch
 
 from areal_tpu_torch.device import DeviceLike
-from areal_tpu_torch.models.hf import layer_name_map, state_to_params
+from areal_tpu_torch.models.hf import attach_value_head, layer_name_map, state_to_params
 from areal_tpu_torch.models.model_config import TransformerConfig
 from areal_tpu_torch.models.transformer import Transformer
 
@@ -51,6 +54,10 @@ def params_from_jax(tree: Dict[str, Any], cfg: TransformerConfig,
     """The port's model (on `device`, the card by default) holding the
     weights of a JAX param tree in `param_dtype` (default: the config's
     compute dtype; "float32" builds the trainer's f32 masters), with
-    gradients enabled when `trainable`."""
+    gradients enabled when `trainable`.  A tree with a `value_head` (a
+    critic's: its `lm_head` dropped, so it loads under a tied `cfg`) gives
+    the model that head as its `value_head` parameter."""
     model = state_to_params(jax_tree_to_hf(tree, cfg), cfg, device, param_dtype)
+    if "value_head" in tree:
+        attach_value_head(model, tree["value_head"])
     return model.requires_grad_(trainable)

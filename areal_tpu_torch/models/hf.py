@@ -11,6 +11,12 @@ nowhere else.  Checkpoints are read and written by
 `layer_name_map` records how each per-layer name corresponds to the JAX
 package's scan-stacked tree; the weight bridge (`models/convert.py`) uses
 it.
+
+A value model (the critic, the reward model: `engine/ppo/critic.py`)
+holds a `value_head` [D] parameter and no `lm_head`; its checkpoint is the
+backbone as a tied HF checkpoint (config.json says tied, no `lm_head`
+tensor) with the head beside it as `value_head.npy`, in f32, the JAX
+package's convention, so either package loads the other's.
 """
 
 import json
@@ -19,6 +25,7 @@ import os
 import re
 from typing import Dict, Iterable, Iterator, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from areal_tpu_torch.device import DeviceLike
@@ -49,6 +56,7 @@ _GPT2_TOP = {
     "ln_f.bias": "model.norm.bias",
 }
 _GPT2_H = re.compile(r"h\.(\d+)\.(.+)")
+VALUE_HEAD_FILE = "value_head.npy"
 
 
 def _layer_norms(cfg: TransformerConfig) -> List[Tuple[str, str]]:
@@ -183,11 +191,15 @@ def load_hf_params(
     param_dtype: Optional[str] = None,
 ) -> Tuple[Transformer, TransformerConfig]:
     """Load an HF checkpoint dir onto `device` (the card by default), with
-    weights in `param_dtype` (default: the config's compute dtype)."""
+    weights in `param_dtype` (default: the config's compute dtype); a value
+    model's dir gives the model its `value_head` too."""
     if cfg is None:
         cfg = TransformerConfig.from_hf(path)
-    return state_to_params(safetensors_io.iter_safetensors(path), cfg, device,
-                           param_dtype), cfg
+    model = state_to_params(safetensors_io.iter_safetensors(path), cfg, device, param_dtype)
+    head = load_value_head(path)
+    if head is not None:
+        attach_value_head(model, head)
+    return model, cfg
 
 
 def params_to_hf_state(model: Transformer) -> Iterator[Tuple[str, torch.Tensor]]:
@@ -197,6 +209,7 @@ def params_to_hf_state(model: Transformer) -> Iterator[Tuple[str, torch.Tensor]]
     head (a tied one is not emitted); gpt2 in its own dialect.  The disk
     and transfer publishes write them so."""
     state = model.state_dict()
+    state.pop("value_head", None)  # a value model's head goes beside (VALUE_HEAD_FILE)
     cfg = model.cfg
     if cfg.hf_architecture == GPT2:
         yield from _to_gpt2(state, cfg)
@@ -222,7 +235,8 @@ def save_hf_checkpoint(
     max_shard_bytes: int = 4 * 1024**3,
 ) -> None:
     """Write an HF-format checkpoint dir: config.json, safetensors shards
-    of at most `max_shard_bytes`, and the weight index when sharded."""
+    of at most `max_shard_bytes`, the weight index when sharded, and a
+    value model's head as `VALUE_HEAD_FILE`."""
     cfg = model.cfg
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "config.json"), "w") as f:
@@ -234,3 +248,22 @@ def save_hf_checkpoint(
     if len(set(weight_map.values())) > 1:
         with open(os.path.join(out_dir, "model.safetensors.index.json"), "w") as f:
             json.dump({"metadata": {"total_size": total}, "weight_map": weight_map}, f)
+    head = getattr(model, "value_head", None)
+    if head is not None:
+        np.save(os.path.join(out_dir, VALUE_HEAD_FILE), head.detach().float().cpu().numpy())
+
+
+def attach_value_head(model: Transformer, head: np.ndarray) -> None:
+    """Give `model` a value head [D] (gradients off, as `build_model`
+    leaves every weight), on its device and in its weights' dtype."""
+    ref = model.model.norm.weight
+    model.value_head = torch.nn.Parameter(
+        torch.tensor(np.asarray(head, np.float32)).to(device=ref.device, dtype=ref.dtype),
+        requires_grad=False)
+
+
+def load_value_head(path: str) -> Optional[np.ndarray]:
+    """A value model's head [D] from a checkpoint dir (f32), or None when
+    the dir has none."""
+    f = os.path.join(path, VALUE_HEAD_FILE)
+    return np.load(f).astype(np.float32) if os.path.exists(f) else None

@@ -1,6 +1,7 @@
 """Loss functions and token-level numerics in plain PyTorch (the port of
 `areal_tpu/ops/functional.py`: masked means, logprob gathering, the KL
-estimators, the decoupled-PPO / GRPO actor loss and the LM heads).
+estimators, the decoupled-PPO / GRPO actor loss, the LM heads with the
+clamped entropy, and the critic, SFT, pairwise reward and DPO losses).
 
 All reductions are masked *sums* plus explicit weights, so the engine can
 normalise globally across micro-batches; softmax and log-softmax run in
@@ -11,6 +12,7 @@ import os
 from typing import Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from areal_tpu_torch.models.transformer import LMOutput
@@ -73,9 +75,31 @@ def _chunk_len(n: int, target: int) -> int:
     return c
 
 
+def _clamped_entropy(logits: torch.Tensor, entropy_clamp: float) -> torch.Tensor:
+    """Entropy of the policy renormalised over the top (1 - entropy_clamp)
+    fraction of the vocabulary: the bottom tail is masked out before the
+    softmax (the AEnt recipe's clamped softmax entropy), so an entropy bonus
+    cannot be farmed by spreading mass over junk tokens.
+
+    The threshold is the keep-th largest logit of each row, found as the
+    (V - keep + 1)-th smallest by `torch.kthvalue` (JAX takes `top_k`,
+    whose [tokens, keep] indices at a 151,936-token vocab would be
+    gigabytes a chunk); `logits >= kth` keeps ties exactly as JAX does.
+    Gradients flow through the masked softmax only: the mask carries none."""
+    V = logits.shape[-1]
+    keep = max(1, V - int(V * entropy_clamp))
+    with torch.no_grad():
+        kth = torch.kthvalue(logits, V - keep + 1, dim=-1, keepdim=True).values
+        mask = logits >= kth
+    clamped = torch.where(mask, logits, torch.finfo(logits.dtype).min)
+    logz = torch.logsumexp(clamped, dim=-1)
+    p = torch.softmax(clamped, dim=-1)
+    return logz - torch.where(mask, p * logits, 0.0).sum(dim=-1)
+
+
 def _head_chunk(hc: torch.Tensor, head: torch.Tensor, lc: torch.Tensor,
                 cap: Optional[float], inv_t: float, with_entropy: bool,
-                entropy_grad: bool):
+                entropy_grad: bool, entropy_clamp: float = 0.0):
     """One token chunk of the chunked head: (logprobs, entropy, correct)."""
     logits = (hc @ head).float()
     if cap:
@@ -87,7 +111,10 @@ def _head_chunk(hc: torch.Tensor, head: torch.Tensor, lc: torch.Tensor,
     picked = torch.gather(logits, -1, lc[:, None].long())[:, 0]
     if with_entropy:
         z, lz = (logits, logz) if entropy_grad else (logits.detach(), logz.detach())
-        ent = lz - (torch.softmax(z, dim=-1) * z).sum(dim=-1)
+        if entropy_clamp > 0:
+            ent = _clamped_entropy(z, entropy_clamp)
+        else:
+            ent = lz - (torch.softmax(z, dim=-1) * z).sum(dim=-1)
         corr = (logits.argmax(dim=-1) == lc).float()
     else:
         ent = corr = torch.zeros_like(logz)
@@ -103,12 +130,14 @@ def chunked_logprobs_entropy(
     chunk: int = 1024,
     with_entropy: bool = True,
     entropy_grad: bool = True,
+    entropy_clamp: float = 0.0,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The token-chunked head (JAX's `lm_logprobs_entropy` chunked path,
     there a rematerialised `lax.scan`): f32 logits of one chunk of tokens
     at a time, the softcap before temperature, each chunk recomputed in the
     backward (`torch.utils.checkpoint`), so only one chunk's [c, V] logits
     exist at once.  Chunks are the largest divisor of N up to `chunk`.
+    With `entropy_clamp > 0` the entropy is `_clamped_entropy`'s.
 
     `entropy_grad=False` computes the entropy outside the autograd graph
     (the GRPO stats-only case), as the fused head does.  JAX's chunked
@@ -121,7 +150,7 @@ def chunked_logprobs_entropy(
     inv_t = float(1.0 / temperature)
     parts = [
         checkpoint(_head_chunk, hidden[i:i + c], head, labels[i:i + c], logit_softcap, inv_t,
-                   with_entropy, entropy_grad, use_reentrant=False)
+                   with_entropy, entropy_grad, entropy_clamp, use_reentrant=False)
         for i in range(0, N, c)
     ]
     return tuple(torch.cat(p) for p in zip(*parts))
@@ -135,26 +164,29 @@ def lm_logprobs_entropy(
     entropy_grad: bool = True,
     vocab_chunk: Optional[int] = None,  # None -> AREAL_LM_HEAD_CHUNK or 8192
     chunk: int = 1024,
+    entropy_clamp: float = 0.0,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(logprobs, entropy, argmax-correct) of `labels`, f32.
 
     With an `LMOutput` this runs the vocab-chunked fused head
-    (`ops/fused_xent.py`), or, under a final-logit softcap (gemma2), the
-    token-chunked head (`chunked_logprobs_entropy`, `chunk` tokens at a
-    time), as the JAX package decides.  The JAX package's entropy clamp
-    is not ported."""
+    (`ops/fused_xent.py`), or, under a final-logit softcap (gemma2) or an
+    entropy clamp (AEnt: a per-token threshold over the whole vocab row),
+    the token-chunked head (`chunked_logprobs_entropy`, `chunk` tokens at a
+    time), as the JAX package decides."""
     inv_t = float(1.0 / temperature)
     if not isinstance(out, LMOutput):
         logits = out.float() * inv_t
         logp, ent = gather_logprobs_entropy(logits, labels)
+        if entropy_clamp > 0:
+            ent = _clamped_entropy(logits, entropy_clamp)
         corr = (logits.argmax(dim=-1) == labels).float()
         return logp, ent, corr
     shape = labels.shape
     D = out.hidden.shape[-1]
-    if out.logit_softcap is not None:
+    if out.logit_softcap is not None or entropy_clamp > 0:
         lp, ent, corr = chunked_logprobs_entropy(
             out.hidden.reshape(-1, D), out.head, labels.reshape(-1), temperature,
-            out.logit_softcap, chunk, with_entropy, entropy_grad)
+            out.logit_softcap, chunk, with_entropy, entropy_grad, entropy_clamp)
     else:
         lp, ent, corr = fused_logprobs_entropy(
             out.hidden.reshape(-1, D), out.head, labels.reshape(-1), temperature=temperature,
@@ -271,3 +303,78 @@ def grpo_loss_fn(
     stats["new_logp"] = (logprobs * loss_mask).sum()
     stats["old_logp"] = (old_logp * loss_mask).sum()
     return loss, stats
+
+
+def ppo_critic_loss_fn(
+    values: torch.Tensor,
+    old_values: torch.Tensor,
+    returns: torch.Tensor,
+    loss_mask: torch.Tensor,
+    eps_clip_value: Optional[float] = None,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Clipped value loss: 0.5 * the masked sum of the larger of the plain
+    and the clipped squared error."""
+    loss_mask = loss_mask.float()
+    err = (values - returns).square()
+    if eps_clip_value is not None:
+        clipped = old_values + torch.clamp(values - old_values, -eps_clip_value, eps_clip_value)
+        err_clipped = (clipped - returns).square()
+        clip_mask = err_clipped > err
+        err = torch.maximum(err, err_clipped)
+    else:
+        clip_mask = torch.zeros_like(err, dtype=torch.bool)
+    loss = 0.5 * (err * loss_mask).sum()
+    return loss, {
+        "value_clip_ratio": (clip_mask * loss_mask).sum(),
+        "n_valid_tokens": loss_mask.sum(),
+    }
+
+
+def sft_loss_fn(model_out, batch: Dict[str, torch.Tensor],
+                vocab_chunk: Optional[int] = None
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Token cross-entropy over next-token targets, a masked sum, with a
+    MoE penalty weighted per valid token when the model has one."""
+    mask = batch["loss_mask"].float()
+    logprobs, _, correct = lm_logprobs_entropy(model_out, next_token_labels(batch),
+                                               entropy_grad=False, vocab_chunk=vocab_chunk)
+    loss = -(logprobs * mask).sum()
+    aux = getattr(model_out, "aux_loss", None)
+    if aux is not None:
+        loss = loss + aux * mask.sum()
+    return loss, {
+        "loss_sum": loss,
+        "n_valid_tokens": mask.sum(),
+        "correct_tokens": (correct * mask).sum(),
+    }
+
+
+def pairwise_reward_loss_fn(
+    chosen_scores: torch.Tensor,
+    rejected_scores: torch.Tensor,
+    pair_mask: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Bradley-Terry pairwise loss; `pair_mask` leaves filler pairs out."""
+    margin = chosen_scores - rejected_scores
+    pair_mask = torch.ones_like(margin) if pair_mask is None else pair_mask.float()
+    loss = -(F.logsigmoid(margin) * pair_mask).sum()
+    return loss, {
+        "acc": ((margin > 0) * pair_mask).sum(),
+        "margin": (margin * pair_mask).sum(),
+        "n_pairs": pair_mask.sum(),
+    }
+
+
+def dpo_loss_fn(
+    policy_chosen_logp: torch.Tensor,
+    policy_rejected_logp: torch.Tensor,
+    ref_chosen_logp: torch.Tensor,
+    ref_rejected_logp: torch.Tensor,
+    beta: float = 0.1,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Direct preference optimization loss over sequence logprobs."""
+    h = beta * ((policy_chosen_logp - policy_rejected_logp)
+                - (ref_chosen_logp - ref_rejected_logp))
+    loss = -F.logsigmoid(h).sum()
+    return loss, {"acc": (h > 0).sum().float(),
+                  "n_pairs": torch.tensor(float(h.numel()), device=h.device)}

@@ -26,8 +26,10 @@ the last good state, losing at most one step:
   disk reload aborts in-flight requests, and a transfer replay commits
   with `live_commit=False`, which aborts them too.
 
-The reference's `extra_engines` (a critic saved beside the actor) wait
-for the critic (M10).  The digests are computed file by file on a thread pool (hashlib releases
+`extra_engines` ({"critic": engine, ...}) are dumped beside the main
+engine, each with its optimizer state, in ``checkpoint_<name>``, listed in
+the manifest, and restored with it; a generation without one's checkpoint
+leaves that engine at its initial weights, with a warning.  The digests are computed file by file on a thread pool (hashlib releases
 the GIL on large buffers); `last_dump` and `last_load` keep the wall times
 of each part, the digests' apart.  A load counts in
 `areal_train_recover_total` and emits a `run_restart` event.
@@ -155,10 +157,10 @@ class RecoverHandler:
     # ------------------------------------------------------------------
 
     def dump(self, engine, step_info: StepInfo, saver=None, evaluator=None, stats_logger=None,
-             dataloader=None, inference_engine=None) -> str:
+             dataloader=None, inference_engine=None, extra_engines=None) -> str:
         """Write the generation of `step_info` (module docstring); returns
         its path.  `inference_engine`'s ledger and version go into the
-        manifest."""
+        manifest; `extra_engines` are saved beside `engine`."""
         t_start = time.perf_counter()
         root = self.recover_root()
         os.makedirs(root, exist_ok=True)
@@ -170,6 +172,9 @@ class RecoverHandler:
                 shutil.rmtree(stale)
 
         engine.save(SaveLoadMeta(path=os.path.join(staging, "checkpoint"), with_optim=True))
+        for name, eng in (extra_engines or {}).items():
+            eng.save(SaveLoadMeta(path=os.path.join(staging, f"checkpoint_{name}"),
+                                  with_optim=True))
 
         info = RecoverInfo(
             recover_start=StepInfo(
@@ -196,6 +201,7 @@ class RecoverHandler:
             "run_id": int(os.environ.get("AREAL_RUN_ID", 0)),
             "created_ts": time.time(),
             "config_fingerprint": self.fingerprint,
+            "extra_engines": sorted(extra_engines or {}),
             "async_state": self._async_state(inference_engine),
             "files": {},
         }
@@ -327,10 +333,10 @@ class RecoverHandler:
         return manifest
 
     def load(self, engine, saver=None, evaluator=None, stats_logger=None, dataloader=None,
-             inference_engine=None, weight_update_meta: Optional[WeightUpdateMeta] = None
-             ) -> Optional[RecoverInfo]:
-        """Restore from the newest intact generation (module docstring);
-        None when there is none."""
+             inference_engine=None, weight_update_meta: Optional[WeightUpdateMeta] = None,
+             extra_engines=None) -> Optional[RecoverInfo]:
+        """Restore from the newest intact generation (module docstring),
+        `extra_engines` too; None when there is none."""
         t_start = time.perf_counter()
         manifest = gen_dir = None
         for cand in reversed(self.generations()):
@@ -347,6 +353,13 @@ class RecoverHandler:
         with open(os.path.join(gen_dir, "recover_state.pkl"), "rb") as f:
             info: RecoverInfo = pickle.load(f)
         engine.load(SaveLoadMeta(path=os.path.join(gen_dir, "checkpoint"), with_optim=True))
+        for name, eng in (extra_engines or {}).items():
+            sub = os.path.join(gen_dir, f"checkpoint_{name}")
+            if os.path.isdir(sub):
+                eng.load(SaveLoadMeta(path=sub, with_optim=True))
+            else:
+                logger.warning("recover generation %s has no %s engine state; it resumes from "
+                               "its initial weights", gen_dir, name)
         if saver is not None and info.saver_info:
             saver.load_state_dict(info.saver_info)
         if evaluator is not None and info.evaluator_info:

@@ -76,12 +76,14 @@ Phases, each printed with its wall time; any failure exits non-zero:
             launches = 4 x (decode steps + verify calls), those at T > 1
             counted apart = 4 x verify calls, none on the tensor cores
             (f32); (c) `python -m
-            areal_tpu_torch.gen.server` on the serve checkpoint with
+            areal_tpu_torch.gen.server` on a checkpoint of the serve
+            phase's model cut to SPEC_PPO_LAYERS (8) layers with
             --spec-decode and without (8 slots each, the launch helper),
             the same 8 requests (64..512-token prompts of tiled spans, 128
             new tokens, half greedy): tokens/s, drafted, accepted, verify
-            calls, K2 launches = 28 x (decode steps + verify calls) and
-            the server's count of those at T > 1 = 28 x verify calls, the
+            calls, K2 launches = layers x (decode steps + verify calls)
+            and the server's count of those at T > 1 = layers x verify
+            calls, the
             Prometheus series, and the logprob gap on against off before
             each request's first divergent position; (d) K2 at T = 4 and 8
             (on the tensor cores) timed (events, device time) with its bound,
@@ -126,8 +128,8 @@ Phases, each printed with its wall time; any failure exits non-zero:
             `--only sp` runs the build, the offset checks and this phase
 9. grpo     the asynchronous GRPO loop of `areal_tpu_torch.scripts.bench_e2e_grpo`
             at full width from a checkpoint of the serve phase's model cut
-            to REMOTE_LAYERS (8) layers, which the remote and router phases
-            then reuse, trainer (f32
+            to REMOTE_LAYERS (4) layers, which the remote and router
+            phases then reuse, trainer (f32
             masters, bf16 compute, full remat, decoupled loss, logprob
             recompute) and `ColocatedEngine` (32 slots, max_seq_len 1024,
             bf16, prefix reuse and group fan-out on) in this process: 8
@@ -147,8 +149,9 @@ Phases, each printed with its wall time; any failure exits non-zero:
             accounting (cold, shared, suffix and reused tokens, fan-out
             copies; shared > 0 required) and the requests' TTFT, e2e and
             inter-token p50/p99 per mode.
-            Checks: ragged launches = 8 x decode steps, every flash launch
-            on its tensor-core kernel and exactly 24/8/8 per step, the
+            Checks: ragged launches = layers x decode steps, every flash
+            launch on its tensor-core kernel and exactly 3/1/1 x layers per
+            step, the
             staleness ledger balanced, no consumed token from a version
             above the trainer's, trainer logprobs against the server's on
             same-version tokens, no reward timeout, and the served weights
@@ -168,11 +171,12 @@ Phases, each printed with its wall time; any failure exits non-zero:
             in every run
 11. families  the dense families at full width, random weights from seed 0,
             each written as an HF checkpoint by the port's writer from its
-            published config.json.  Gemma-2-2B (26 layers, d=2304, 8 q / 4
-            kv heads of 256, vocab 256000, softcaps 50/30, window 4096 on
-            even layers) through `gen.server.main` (8 slots, max_seq_len
-            8192): a greedy request with a 4,500-token prompt, then three
-            shorter (64 new tokens each); K2 launches = 26 x decode steps
+            published config.json.  Gemma-2-2B (GEMMA2_LAYERS, 10, of its
+            26 layers, d=2304, 8 q / 4 kv heads of 256, vocab 256000,
+            softcaps 50/30, window 4096 on even layers) through
+            `gen.server.main` (8 slots, max_seq_len 8192): a greedy request
+            with a 4,500-token prompt, then three shorter (64 new tokens
+            each); K2 launches = layers x decode steps
             (/metrics); the long request's served logprobs against the
             packed forward with the per-layer windows (within LOGP_MEAN_TOL
             on the mean), which without the windows must move by more than
@@ -183,23 +187,24 @@ Phases, each printed with its wall time; any failure exits non-zero:
             head; loss, grad norm, tokens/s, MFU), a disk publish the
             server reloads (snapshot bit-equal to the trainer's bf16 cast),
             decode tokens/s.  Qwen3-1.7B (d=2048, 16 q / 8 kv heads, qk
-            norm; its 28 layers cut to QWEN3_LOOP_LAYERS, 8) through the
+            norm; its 28 layers cut to QWEN3_LOOP_LAYERS, 4) through the
             grpo phase's colocated loop from its checkpoint: sync and async
             (live publish), 1 + 1 steps each, with the grpo phase's checks.  Then K2 at both models' decode
             shapes and K1 at Qwen3's heads on its train rows timed against
             their plain versions and SDPA, with bounds
-12. gemma1  Gemma-2B (google/gemma-2b's config.json: 18 layers, d=2048,
-            8 q heads on 1 kv head of 256, vocab 256000, exact gelu, tied
-            head), random bf16 weights from seed 0 written by the port's
-            writer, served through `gen.server.main` (8 slots, max_seq_len
-            2048): 8 prompts of 128..512 tokens x group 4, 128 new tokens
-            each over HTTP, K2 = 18 x decode steps (/metrics); the PPO
+12. gemma1  Gemma-2B (google/gemma-2b's config.json, its 18 layers cut to
+            GEMMA1_LAYERS, 6: d=2048, 8 q heads on 1 kv head of 256, vocab
+            256000, exact gelu, tied head), random bf16 weights from seed 0
+            written by the port's writer, served through `gen.server.main`
+            (8 slots, max_seq_len 2048): 8 prompts of 128..512 tokens x
+            group 4, 128 new tokens each over HTTP, K2 = layers x decode
+            steps (/metrics); the PPO
             actor (f32 masters, bf16 compute, full remat) on the rollouts
             in 1024-token rows: the logprob recompute against the server's
             within LOGP_MEAN_TOL, 2 ppo_updates (loss, grad norm, tokens/s,
-            MFU), every K1 launch at hd 256 on the tensor cores, exactly 18
-            K1a in the recompute and 36 K1a, 18 K1b and 18 K1c per update
-            micro-batch; a disk publish the server reloads (snapshot
+            MFU), every K1 launch at hd 256 on the tensor cores, exactly one
+            K1a a layer in the recompute and two K1a, one K1b and one K1c a
+            layer per update micro-batch; a disk publish the server reloads (snapshot
             bit-equal to the trainer's bf16 cast).  Then, the server
             stopped, the rung ladder: from the actor's state (masters and
             Adam's moments parked in pinned host memory), one update on one
@@ -217,7 +222,7 @@ Phases, each printed with its wall time; any failure exits non-zero:
 13. remote  the same cell with trainer and server as two processes on the
             card: `areal_tpu_torch.gen.server` started by the launch helper
             (32 slots, max_seq_len 1024, bf16, from the grpo phase's
-            checkpoint of REMOTE_LAYERS (8) layers), the
+            checkpoint of REMOTE_LAYERS (4) layers), the
             trainer here, rollouts over HTTP through
             `RemoteTorchEngine` (`bench_e2e_grpo.run_mode_remote`).  Sync
             with the disk publish (1 + 1 steps), async with the transfer
@@ -227,15 +232,17 @@ Phases, each printed with its wall time; any failure exits non-zero:
             and commit times, the server's pause windows, version lags,
             both processes' peak memory and the server's prefill accounting
             from /metrics (shared > 0 required).  Checks: the server's ragged
-            launches (over HTTP, /metrics) = 8 x its decode steps, the
-            trainer's flash launches 24/8/8 per step on the tensor cores,
+            launches (over HTTP, /metrics) = layers x its decode steps, the
+            trainer's flash launches 3/1/1 x layers per step on the tensor
+            cores,
             the ledger balanced, no token from a future version, the logprob
             gap, no reward timeout, no lost trajectory, the server at the
             trainer's version, and after the last publish 4 greedy streams
             (and logprobs) from the server process bit-equal to a GenEngine
             built here from the trainer's bf16 export
-13b. router two servers behind the port's router on the remote phase's
-            checkpoint, every process found through name_resolve (NFS under
+13b. router two servers behind the port's router on the grpo phase's
+            checkpoint of REMOTE_LAYERS (4) layers, every process found
+            through name_resolve (NFS under
             build/): the launcher starts the servers from the allocation
             mode jax:d2+d1 (each registers), the router is `python -m
             areal_tpu_torch.gen.router` (least_requests, the fleet gate at
@@ -253,8 +260,9 @@ Phases, each printed with its wall time; any failure exits non-zero:
             address from the checkpoint (version 0), and the router
             force-reloads it before it closes.  Checks: both servers
             served, every group on one server (the servers' arrival logs),
-            shared prefill > 0 on each, K2 = 8 x decode steps on each server
-            process, flash 24/8/8 a step on the tensor cores, fleet and
+            shared prefill > 0 on each, K2 = layers x decode steps on each
+            server process, flash 3/1/1 x layers a step on the tensor
+            cores, fleet and
             router at the trainer's version after every publish, the breaker
             open within threshold x interval + probe timeout + 2 s and
             failovers >= 1, no trajectory lost, the gate's ledger balanced
@@ -267,6 +275,47 @@ Phases, each printed with its wall time; any failure exits non-zero:
             409s, each flush's pause-to-resume time, kill to open and
             restart to closed, and each process's peak memory.  `--only
             router` runs the build and this phase alone
+13c. ppo    PPO with a learned critic, `python -m
+            areal_tpu_torch.examples.math.gsm8k_ppo`'s loop (`gsm8k_grpo.run`
+            with a `PPOConfig`, the example yaml's values) on the spec
+            phase's checkpoint of SPEC_PPO_LAYERS (8) layers: actor and
+            critic (f32 masters, bf16 compute, full remat, 2 minibatches of
+            2 micro-batches each) here, one server process on the card (32
+            slots, max_seq_len 1024, the launch helper); 8 prompts x group
+            4, PPO_NEW (128) new tokens, PPO_STEPS (3) asynchronous steps
+            (the first finds nothing in flight, as a sync step), transfer
+            publishes (nothing written to disk), the parity reward.
+            Checks: the trainer-against-server logprob gap on same-version
+            tokens over the phase, the critic's values finite and nonzero
+            after step 1, the flash launches of every step exactly layers
+            x (2 forwards + 2 x 8 train micro-batches) K1a and layers x 8
+            K1b and K1c, all on the tensor cores, the server's K2 = layers x
+            decode steps (/metrics); then the critic's values through K1
+            against naive attention (mean |diff| within VALUE_REL_TOL of the
+            mean |value|), and the forced critic save of the last step (a
+            tied bf16 backbone and `value_head.npy`) reloaded into a fresh
+            critic: values bit-equal to the live critic's on its masters
+            rounded to bf16.  `--only ppo` runs the build, an 8-layer
+            checkpoint and this phase
+13d. algo   SFT, the reward model, AEnt and the critic at Qwen2.5-1.5B's
+            full width and 28 layers, in process, one engine at a time
+            from one seeded init (f32 masters, bf16 compute, full remat,
+            the example yamls' optimizers), no disk writes.  SFT: the loss
+            through K1 against naive attention within LOGP_MEAN_TOL, then
+            3 `train_lm` steps on 16 packed rows of 1024 of gsm8k-synth
+            solutions (tokens/s, MFU, loss and ppl finite).  RW: 3
+            `train_rw` steps on RW_PAIRS (15) gsm8k-synth preference pairs,
+            one sequence a row of 1024 (two rows filler end to end); K1 on
+            one micro-batch of those rows against its plain version and
+            timed with its bound and SDPA, each filler row's out 0, lse
+            -inf and gradients exactly 0 on the kernels and the plain
+            versions.  AEnt: one update with the entropy clamp 0.2 at vocab
+            151936, the kthvalue threshold against an f32 full sort on a
+            chunk of the update's logits (within 1e-3) and the clamp's time.
+            Critic: one `ppo_update` with a seeded nonzero value head, the
+            last layer's dq and dk/dv inputs replayed through K1b and K1c
+            and their plain versions (a nonzero dout).  `--only algo` runs
+            the build and this phase
 14. recover the training job at full width.  In process: Qwen2.5-1.5B's
             width at 4 layers, the example's actor config, one update,
             `save` with the optimizer, `load` into a fresh actor (masters,
@@ -276,7 +325,7 @@ Phases, each printed with its wall time; any failure exits non-zero:
             the grpo phase's sequences: one K1a per layer, within
             LOGP_MEAN_TOL of naive attention.  Then `python -m
             areal_tpu_torch.examples.math.gsm8k_grpo --launch` for 3 steps
-            at full width and RECOVER_RUN_LAYERS (4) layers, from a random
+            at full width and RECOVER_RUN_LAYERS (2) layers, from a random
             bf16 HF checkpoint (seed 0) that trainer, ref engine and server
             load: 256 new tokens, the transfer publish, kl_ctl 0.001 with
             the ref engine, 32 held-out gsm8k-synth problems evaluated at
@@ -302,13 +351,19 @@ Phases, each printed with its wall time; any failure exits non-zero:
             `--only recover-full-depth` the build and the launched run
             alone at 28 layers (18.5 GB per recover generation)
 
-Depth cuts, to keep the whole script near 600 s and under the card
-host's 45 GiB of disk writes a call: the colocated, remote and router
-loops at REMOTE_LAYERS (8) and the Qwen3-1.7B loop at QWEN3_LOOP_LAYERS
-(8) layers (all full width; the colocated loop ran 28 layers, 156 s of
-the script, until the router phase pushed the script near its limit), the recover phase's launched run at RECOVER_RUN_LAYERS, and the
-sp phase's bf16 run at SP_LAYERS (8; at 28 its two ranks took 60.6 s on
-an H100, 16 of each update's 18 s summing f32 gradients through gloo).
+Depth cuts, to keep the whole script under 900 s and under the card
+host's 45 GiB of disk writes a call (all at full width): the spec
+servers and the ppo loop at SPEC_PPO_LAYERS (8; the spec servers ran the
+serve phase's 28 layers before the ppo phase came), the sp phase's bf16 run at
+SP_LAYERS (8; at 28 its two ranks took 60.6 s on an H100, 16 of each
+update's 18 s summing f32 gradients through gloo, and at 4 they took no
+less than at 8) and its f32 run at SP_F32_LAYERS (2; 4 before).  To make
+room for the ppo and algo phases (about 80 s together) the colocated,
+remote and router loops went to REMOTE_LAYERS (4; 8 before, and the
+colocated loop 28 before that), Gemma-2-2B to GEMMA2_LAYERS (10 of 26),
+Gemma-2B to GEMMA1_LAYERS (6 of 18), the Qwen3-1.7B loop to
+QWEN3_LOOP_LAYERS (4; 8 before) and the recover phase's launched run to
+RECOVER_RUN_LAYERS (2; 4 before).
 
 After the card's line comes the whole run's wall time.  The line before
 the last is the kernels' JSON record (`launches` sums the
@@ -320,6 +375,7 @@ no result.
 import asyncio
 import concurrent.futures
 import contextlib
+import dataclasses
 import gc
 import json
 import os
@@ -1536,9 +1592,12 @@ def greedy_streams(generate, vocab_size):
     return out
 
 
-# depth of the GRPO loops' checkpoint (full width): colocated, remote, router
-REMOTE_LAYERS = 8
-QWEN3_LOOP_LAYERS = 8  # depth of the Qwen3-1.7B loop's checkpoint (full width)
+# depth of the colocated, remote and router loops' checkpoint (full width)
+REMOTE_LAYERS = 4
+# depth of the spec servers' and the ppo loop's checkpoint (full width),
+# written in the spec phase and kept for the ppo phase
+SPEC_PPO_LAYERS = 8
+QWEN3_LOOP_LAYERS = 4  # depth of the Qwen3-1.7B loop's checkpoint (full width)
 
 
 def remote_qwen(ckpt_dir, publish_dir):
@@ -1803,8 +1862,8 @@ def resident_bytes(pid):
 
 
 def router_qwen(ckpt_dir, build_dir):
-    """Two port servers behind the port's router at full width (the
-    remote phase's checkpoint of REMOTE_LAYERS layers), the PPO actor here,
+    """Two port servers behind the port's router at full width (the grpo
+    phase's checkpoint of REMOTE_LAYERS layers), the PPO actor here,
     every process found through name_resolve on NFS under `build_dir`.  One
     sync step with a disk publish (the router's watcher flushes both
     servers), two async steps with transfer publishes (the trainer finds
@@ -2274,7 +2333,7 @@ RECOVER_LAYERS = 4  # depth of the in-process save/load checks (full width)
 # about 26 GB, and at 28 layers one recover generation is 18.5 GB (two
 # dumps, the checkpoint and the export: 43 GB).  `--only recover-full-depth`
 # runs the launched run alone at 28 layers.
-RECOVER_RUN_LAYERS = 4
+RECOVER_RUN_LAYERS = 2
 RECOVER_STEPS = 3
 RECOVER_KILL = "train_step@2:kill"  # SIGKILL at the end of global step 1
 RECOVER_OVERRIDES = [
@@ -2629,6 +2688,10 @@ QWEN3_1P7B = {
     "bos_token_id": 151643, "eos_token_id": 151645,
 }
 FAMILY_SLOTS, FAMILY_SEQ = 8, 8192
+# Gemma-2-2B's 26 layers cut to 10 (5 of them windowed): the windows must
+# still move the long request's logprobs by more than LOGP_MEAN_TOL (a
+# mean 0.0947 at 26 layers, 0.2464 at 18 and 0.3080 at 10 on an H100)
+GEMMA2_LAYERS = 10
 LONG_PROMPT = 4500  # past Gemma-2's window of 4096
 SHORT_PROMPTS = (300, 700, 1200)  # the long request's three companions
 FAMILY_NEW = 64  # new tokens per request of the Gemma-2 server
@@ -2675,7 +2738,8 @@ def packed_logprobs(model, ids, window=True):
 
 
 def gemma_serve_and_train(ckpt_dir, publish_dir):
-    """Gemma-2-2B at full width (26 layers), random weights from seed 0,
+    """Gemma-2-2B at full width (GEMMA2_LAYERS of its 26 layers), random
+    weights from seed 0,
     through `areal_tpu_torch.gen.server.main` (8 slots, max_seq_len 8192):
     a greedy request with a prompt past the window and three shorter ones
     (64 new tokens each); the long request's served logprobs against the
@@ -2686,7 +2750,7 @@ def gemma_serve_and_train(ckpt_dir, publish_dir):
     JAX, the softcapped chunked head); a disk publish the server reloads.
     Then decode tokens/s on the engine.  Returns the K2 launches (the
     server's /metrics) and the train stats."""
-    cfg = write_checkpoint(GEMMA2_2B, ckpt_dir)
+    cfg = write_checkpoint(dict(GEMMA2_2B, num_hidden_layers=GEMMA2_LAYERS), ckpt_dir)
     L, V = cfg.num_layers, cfg.vocab_size
     rng = np.random.default_rng(8)
     t0 = time.perf_counter()
@@ -2847,6 +2911,9 @@ GEMMA_2B = {
     "tie_word_embeddings": True, "bos_token_id": 2, "eos_token_id": 1, "pad_token_id": 0,
 }
 GEMMA1_SLOTS, GEMMA1_SEQ, GEMMA1_NEW = 8, 2048, 128
+# Gemma-2B's 18 layers cut to 6, the least depth that one and two and three
+# layers a checkpoint divide (the rung ladder)
+GEMMA1_LAYERS = 6
 GEMMA1_PROMPT_LEN = (128, 512)
 GEMMA1_HEADS = dict(Hq=8, Hkv=1, hd=256)  # Gemma-2B: MQA, 8 q heads on one kv head
 GEMMA7B_HEADS = dict(Hq=16, Hkv=16, hd=256)  # Gemma-7B: MHA
@@ -2968,25 +3035,27 @@ def rung_ladder(actor, batch, L):
 
 
 def gemma1_phase(ckpt_dir, publish_dir):
-    """Gemma-2B at full width (18 layers, d 2048, 8 q heads on one kv head
-    of 256, vocab 256000), random bf16 weights from seed 0 written as an HF
-    checkpoint by the port's writer: served through `gen.server.main` (8
-    slots, max_seq_len 2048), 8 prompts of 128..512 tokens x group 4, 128
-    new tokens each over HTTP, K2 = 18 x decode steps (/metrics); the PPO
-    actor (f32 masters, bf16 compute, full remat) on the rollouts packed in
-    1024-token rows: the logprob recompute against the server's, 2
-    ppo_updates, every K1 launch at hd 256 on the tensor cores and exactly
-    18 K1a a micro-batch in the recompute and 36 K1a, 18 K1b, 18 K1c in
-    an update; a disk publish the server reloads (snapshot bit-equal to the
-    trainer's bf16 cast).  Then, the server stopped, the rung ladder
+    """Gemma-2B at full width (GEMMA1_LAYERS of its 18 layers, d 2048, 8 q
+    heads on one kv head of 256, vocab 256000), random bf16 weights from
+    seed 0 written as an HF checkpoint by the port's writer: served through
+    `gen.server.main` (8 slots, max_seq_len 2048), 8 prompts of 128..512
+    tokens x group 4, 128 new tokens each over HTTP, K2 = layers x decode
+    steps (/metrics); the PPO actor (f32 masters, bf16 compute, full remat)
+    on the rollouts packed in 1024-token rows: the logprob recompute
+    against the server's, 2 ppo_updates, every K1 launch at hd 256 on the
+    tensor cores and exactly one K1a a layer and micro-batch in the
+    recompute and two K1a, one K1b and one K1c in an update; a disk
+    publish the server reloads (snapshot bit-equal to the trainer's bf16
+    cast).  Then, the server stopped, the rung ladder
     (`rung_ladder`).  Returns the K2 launches, the flash launches at hd 256
     (recompute and updates, ladder), the update stats and one update
     micro-batch's packed segment ids."""
-    cfg = write_checkpoint(GEMMA_2B, ckpt_dir)
+    cfg = write_checkpoint(dict(GEMMA_2B, num_hidden_layers=GEMMA1_LAYERS), ckpt_dir)
     shape = (cfg.num_layers, cfg.hidden_size, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_,
              cfg.vocab_size, cfg.hidden_act, cfg.sliding_window, cfg.attn_impl)
     print(f"  from_hf: layers, d, q heads, kv heads, hd, vocab, act, window, attn_impl {shape}")
-    if shape != (18, 2048, 8, 1, 256, 256000, "gelu", None, "auto") or not fa.flash_supported(
+    want = (GEMMA1_LAYERS, 2048, 8, 1, 256, 256000, "gelu", None, "auto")
+    if shape != want or not fa.flash_supported(
             ROW_LEN, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_):
         raise AssertionError("google/gemma-2b's config did not parse into the flash path's shape")
     L, V = cfg.num_layers, cfg.vocab_size
@@ -3368,8 +3437,8 @@ def record_verifies(eng):
 
 
 def spec_servers(ckpt_dir):
-    """(c) `python -m areal_tpu_torch.gen.server` on the 28-layer bf16
-    checkpoint, with --spec-decode and without (the launch helper, 8
+    """(c) `python -m areal_tpu_torch.gen.server` on the bf16 checkpoint
+    `ckpt_dir`, with --spec-decode and without (the launch helper, 8
     slots), each sent the same 8 requests at once.  Returns the launches
     the servers counted: (the spec server's at T > 1, both servers' at
     T = 1, the servers' figures)."""
@@ -3378,7 +3447,8 @@ def spec_servers(ckpt_dir):
     from areal_tpu_torch.scripts.bench_e2e_grpo import server_metrics
     from areal_tpu_torch.utils.telemetry import parse_prometheus_text
 
-    cfg = qwen25_1p5b()
+    cfg = TransformerConfig.from_hf(ckpt_dir)
+    L = cfg.num_layers
     bodies = spec_requests(cfg.vocab_size, SPEC_SLOTS, SPEC_PROMPT_LEN, SPEC_NEW, 42, "s")
     launchers = {k: LocalLauncher(os.path.join(ROOT, "build", f"spec_logs_{k}"))
                  for k in ("off", "on")}
@@ -3403,21 +3473,20 @@ def spec_servers(ckpt_dir):
             d = {key: m1[key] - m0[key] for key in (
                 "decode_steps", "verify_calls", "spec_drafted", "spec_accepted",
                 "ragged_kernel_launches", "ragged_verify_launches", "tokens_generated")}
-            want = SERVE_LAYERS * (d["decode_steps"] + d["verify_calls"])
+            want = L * (d["decode_steps"] + d["verify_calls"])
             figs[k] = dict(d, wall=wall, tok_s=sum(len(r["output_tokens"]) for r in res[k]) / wall)
             rate = d["spec_accepted"] / d["spec_drafted"] if d["spec_drafted"] else 0.0
             print(f"  spec {k}: 8 x {SPEC_NEW} tokens in {wall:.2f} s = {figs[k]['tok_s']:.1f} "
                   f"tokens/s (prefill included); decode steps {d['decode_steps']}, verify calls "
                   f"{d['verify_calls']}, drafted {d['spec_drafted']}, accepted "
                   f"{d['spec_accepted']} (rate {rate:.3f}); K2 launches "
-                  f"{d['ragged_kernel_launches']} = {SERVE_LAYERS} x (decode steps + verify "
+                  f"{d['ragged_kernel_launches']} = {L} x (decode steps + verify "
                   f"calls) = {want}, of them at T > 1 {d['ragged_verify_launches']} = "
-                  f"{SERVE_LAYERS} x verify calls")
+                  f"{L} x verify calls")
             if (d["ragged_kernel_launches"] != want
-                    or d["ragged_verify_launches"] != SERVE_LAYERS * d["verify_calls"]):
-                raise AssertionError(f"spec {k}: K2 launches != {SERVE_LAYERS} x (decode steps + "
-                                     "verify calls), or those at T > 1 != "
-                                     f"{SERVE_LAYERS} x verify calls")
+                    or d["ragged_verify_launches"] != L * d["verify_calls"]):
+                raise AssertionError(f"spec {k}: K2 launches != {L} x (decode steps + "
+                                     f"verify calls), or those at T > 1 != {L} x verify calls")
             for b, r in zip(bodies, res[k]):
                 lp = np.asarray(r["output_logprobs"], np.float64)
                 if len(r["output_tokens"]) != SPEC_NEW or not (np.isfinite(lp).all()
@@ -3454,7 +3523,7 @@ def spec_servers(ckpt_dir):
         gaps.extend(np.abs(np.subtract(a["output_logprobs"][:first],
                                        b["output_logprobs"][:first])).tolist())
     gaps = np.asarray(gaps)
-    print(f"  on against off (bf16, 28 layers): first divergent position per request "
+    print(f"  on against off (bf16, {L} layers): first divergent position per request "
           f"{firsts} ({SPEC_NEW} = none); logprob |diff| before it: mean {gaps.mean():.5f}, "
           f"max {gaps.max():.5f} over {gaps.size} tokens (tolerance: mean "
           f"{SPEC_LOGP_MEAN_TOL}). Acceptance on random weights says nothing about a "
@@ -3790,9 +3859,10 @@ def time_flash(seg_rows, Hq=12, Hkv=2, hd=128):
 
 # the sp phase's bf16 depth (full width): at 28 layers its two ranks took
 # 60.6 s on an H100 (18 s an update, 16 of them summing 6.2 GB of f32
-# gradients through gloo)
+# gradients through gloo), 61.1 s at 8 and 65.1 s at 4 (the embedding's
+# gradient dominates the sum)
 SP_LAYERS = 8
-SP_F32_LAYERS = 4  # its f32 run
+SP_F32_LAYERS = 2  # its f32 run (4 before the ppo and algo phases came)
 SP_STEPS = 2  # ppo_updates a run
 SP_SHARDS = {2: (0, 1024), 4: (0, 512, 1024, 1536)}  # q_start of each shard of T = 2048
 # the offset kernels against their plain versions: bf16 within the K1
@@ -3813,7 +3883,7 @@ SUM_F32_TOL = 1e-5  # f32 partials summed in another order than one kernel's sum
 # other row counts ([16 x 512] against [16 x 1024] per projection), so cuBLAS
 # may round them apart, and that compounds over 28 layers; the flash rows
 # are bit-equal.  The same mean logprob bound as trainer against server;
-# loss and grad norm within 5e-2 relative.  f32 at 4 layers: 1e-5 on
+# loss and grad norm within 5e-2 relative.  f32 (SP_F32_LAYERS): 1e-5 on
 # logprobs and on the loss (relative), 1e-4 relative on the grad norm.
 SP_BF16_STAT_RTOL = 5e-2
 SP_F32_LOGP_ATOL, SP_F32_LOSS_RTOL, SP_F32_GRAD_RTOL = 1e-5, 1e-5, 1e-4
@@ -4181,6 +4251,503 @@ def sp_phase():
     return launches(two), launches(two32), times, t2048, errs
 
 
+# ---------------------------------------------------------------------------
+# the algorithms beyond GRPO: PPO with a learned critic, SFT, the reward
+# model, AEnt
+# ---------------------------------------------------------------------------
+
+PPO_STEPS = 3
+PPO_NEW = 128  # new tokens a trajectory
+# the critic's values through the flash kernels against naive attention:
+# the mean |difference| over the mean |value| (values scale with the head,
+# so the limit is relative; bf16 hidden states differ by the K1 rounding)
+VALUE_REL_TOL = 5e-2
+CLAMP = 0.2  # AEnt's entropy clamp
+CLAMP_ATOL = 1e-3  # the kthvalue threshold against a full f32 sort
+SFT_ROWS, ALGO_ROW = 16, 1024  # the SFT batch: 16 packed rows of 1024
+RW_PAIRS = 15  # odd: the last pair of the last micro-batch is filler
+
+
+def wait_idle(addr, timeout=60.0):
+    """The server's /metrics once its decode steps stop moving (the
+    trainer's last in-flight requests finished)."""
+    from areal_tpu_torch.scripts import bench_e2e_grpo as bench
+
+    deadline = time.monotonic() + timeout
+    last = bench.server_metrics(addr)
+    while time.monotonic() < deadline:
+        time.sleep(0.5)
+        m = bench.server_metrics(addr)
+        if m["decode_steps"] == last["decode_steps"]:
+            return m
+        last = m
+    raise AssertionError(f"the server at {addr} did not go idle in {timeout} s")
+
+
+def ppo_phase(ckpt_dir):
+    """PPO with a learned critic through the port's example
+    (`examples/math/gsm8k_ppo.py`, `gsm8k_grpo.run` with a `PPOConfig`) at
+    full width from the SPEC_PPO_LAYERS checkpoint: actor and critic (f32
+    masters, bf16 compute, full remat, the yaml's minibatches) in this
+    process, one server process on the card (32 slots, max_seq_len 1024,
+    the launch helper), 8 prompts x group 4, PPO_NEW new tokens, PPO_STEPS
+    asynchronous steps (the first finds nothing in flight: its rollouts are
+    a sync step's), transfer publishes (no snapshot on disk), the parity
+    reward.  Checks the trainer-against-server logprob gap on same-version
+    tokens, values finite and nonzero after step 1, exact flash launches a
+    step (the actor's and the critic's), all on the tensor cores, the
+    server's K2 = layers x decode steps; then the critic's values through
+    the flash kernels against naive attention on the last batch, and a
+    forced critic save (bf16 backbone, f32 `value_head.npy`) reloaded into
+    a fresh critic: values bit-equal to the live critic's on its masters
+    rounded to bf16.  Returns (K2 launches, flash launches)."""
+    from areal_tpu_torch.api.config import GenServerConfig
+    from areal_tpu_torch.engine.ppo import TorchPPOActor, TorchPPOCritic
+    from areal_tpu_torch.examples.math import gsm8k_grpo, gsm8k_ppo
+    from areal_tpu_torch.launcher.local import LocalLauncher
+    from areal_tpu_torch.scripts import bench_e2e_grpo as bench
+    from areal_tpu_torch.utils.saver import Saver
+
+    fileroot = os.path.join(ROOT, "build", "ppo_run")
+    shutil.rmtree(fileroot, ignore_errors=True)
+    config, _ = gsm8k_ppo.parse_args([
+        f"cluster.fileroot={fileroot}", f"total_train_steps={PPO_STEPS}",
+        "async_training=true", "weight_update_mode=transfer", f"actor.path={ckpt_dir}",
+        "actor.init_from_scratch=false", f"gconfig.max_new_tokens={PPO_NEW}",
+        f"gconfig.n_samples={GROUP}", f"actor.group_size={GROUP}",
+        f"train_dataset.batch_size={TRAIN_PROMPTS}",
+        f"rollout.consumer_batch_size={TRAIN_PROMPTS}"])
+    launcher = LocalLauncher(os.path.join(ROOT, "build", "ppo_logs"))
+    steps, gaps = [], []
+    compute_advantages = TorchPPOActor.compute_advantages
+
+    def spy_advantages(actor, batch):
+        # the batch before the advantages rewrite it: the recompute against
+        # the behaviour logprobs on tokens of the trainer's version
+        gaps.append(bench.same_version_logp_gap(batch, actor.get_version()))
+        compute_advantages(actor, batch)
+
+    def on_step(step, actor, batch, line):
+        steps.append(dict(counts=np.array(flash_counts()), values=batch["values"],
+                          mask=batch["loss_mask"] > 0, line=line))
+        if step == PPO_STEPS - 1:  # the forced critic save of the last step
+            steps[-1]["batch"] = {k: batch[k] for k in ("input_ids", "attention_mask")}
+            steps[-1]["saved"] = Saver(config.saver).save(
+                actor.critic, 0, step, step, name="critic", force=True)
+            steps[-1]["critic"] = actor.critic
+
+    t0 = time.perf_counter()
+    old_addrs = os.environ.get("AREAL_LLM_SERVER_ADDRS")
+    try:
+        addr = launcher.start_gen_servers(GenServerConfig(
+            model_path=ckpt_dir, dtype="bfloat16", max_seqs=GRPO_SLOTS,
+            max_context_len=GRPO_SEQ, page_size=128, random_seed=0))[0]
+        print(f"  server process up at {addr} in {time.perf_counter() - t0:.1f} s")
+        os.environ["AREAL_LLM_SERVER_ADDRS"] = addr
+        m0 = bench.server_metrics(addr)
+        V = TransformerConfig.from_hf(ckpt_dir).vocab_size
+        dataset = bench.make_dataset(256, V, GRPO_PROMPT_LEN[1], GRPO_PROMPT_LEN[0])
+        reset_flash_counts()
+        TorchPPOActor.compute_advantages = spy_advantages
+        t0 = time.perf_counter()
+        try:
+            stats = gsm8k_grpo.run(config, reward_fn=bench._reward_last_even, dataset=dataset,
+                                   on_step=on_step)
+        finally:
+            TorchPPOActor.compute_advantages = compute_advantages
+        wall = time.perf_counter() - t0
+        m1 = wait_idle(addr)
+    finally:
+        launcher.stop_all()
+        if old_addrs is None:
+            os.environ.pop("AREAL_LLM_SERVER_ADDRS", None)
+        else:
+            os.environ["AREAL_LLM_SERVER_ADDRS"] = old_addrs
+    critic = steps[-1]["critic"]
+    acfg, ccfg = config.actor, config.critic
+    L = critic.model_config.num_layers
+    ragged = m1["ragged_kernel_launches"] - m0["ragged_kernel_launches"]
+    decode = m1["decode_steps"] - m0["decode_steps"]
+    print(f"  {PPO_STEPS} steps in {wall:.1f} s (engines' start included); server: ragged "
+          f"{ragged} = {L} x {decode} decode steps")
+    if ragged != L * decode or decode == 0:
+        raise AssertionError("ppo: the server's ragged launches != layers x decode steps")
+    # a step: the actor's recompute and the critic's values (one forward
+    # each), then every train micro-batch of both (full remat: the forward
+    # twice, dq and dk/dv once)
+    mbs = (acfg.ppo_n_minibatches * acfg.mb_spec.n_mbs
+           + ccfg.ppo_n_minibatches * ccfg.mb_spec.n_mbs)
+    want = np.array([L * (2 + 2 * mbs), L * mbs, L * mbs])
+    prev = np.zeros(3, np.int64)
+    for i, (st, (gap_sum, gap_n)) in enumerate(zip(steps, gaps)):
+        got = st["counts"] - prev
+        prev = st["counts"]
+        v = st["values"][st["mask"]]
+        line = st["line"]
+        print(f"  step {i}: reward {line['reward']:.3f}, actor losses "
+              + ", ".join(f"{x:+.5f}" for x in line["loss"]) + "; critic losses "
+              + ", ".join(f"{x:.6f}" for x in line["critic_loss"])
+              + f"; |trainer - server| logprob mean {gap_sum / max(gap_n, 1):.4f} over "
+              f"{gap_n} same-version tokens; values mean |v| {np.abs(v).mean():.3e}, max "
+              f"{np.abs(v).max():.3e}; flash fwd/dq/dkv {tuple(int(x) for x in got)} (want "
+              f"{tuple(int(x) for x in want)}); timing "
+              + ", ".join(f"{k} {t:.3f}" for k, t in line["timing_s"].items()) + " s")
+        if tuple(got) != tuple(want):
+            raise AssertionError(f"ppo step {i}: a forward or an update missed the flash "
+                                 "kernels")
+        if not (np.isfinite(v).all() and np.isfinite(line["loss"]).all()
+                and np.isfinite(line["critic_loss"]).all()):
+            raise AssertionError(f"ppo step {i}: a non-finite value or loss")
+        if i >= 1 and not np.abs(v).max() > 0:
+            raise AssertionError(f"ppo step {i}: the critic's values are still 0")
+    # over the phase: an async step's batch can come from the previous
+    # version alone
+    gap_sum, gap_n = np.sum(gaps, axis=0)
+    print(f"  |trainer - server| logprob over the phase: mean {gap_sum / max(gap_n, 1):.4f} "
+          f"over {int(gap_n)} same-version tokens (tolerance on the mean {LOGP_MEAN_TOL})")
+    if gap_n == 0 or not gap_sum / gap_n <= LOGP_MEAN_TOL:
+        raise AssertionError("ppo: trainer logprobs disagree with the server's")
+    if flash_counts_tc() != flash_counts():
+        raise AssertionError("a bf16 flash launch of the ppo phase missed its tensor-core kernel")
+    flash = flash_counts()
+    # the critic's values through the kernels against naive attention
+    batch = steps[-1]["batch"]
+    valid = batch["attention_mask"].astype(bool)
+    values = critic.compute_values(batch)
+    cfg = critic.model.cfg
+    critic.model.cfg = cfg.replace(attn_impl="naive")
+    try:
+        naive = critic.compute_values(batch)
+    finally:
+        critic.model.cfg = cfg
+    diff = np.abs(values - naive)[valid]
+    rel = diff.mean() / np.abs(naive[valid]).mean()
+    print(f"  critic values, flash against naive attention on the last batch: mean |diff| "
+          f"{diff.mean():.3e} over mean |value| {np.abs(naive[valid]).mean():.3e} ({rel:.2e}, "
+          f"tolerance {VALUE_REL_TOL}), max |diff| {diff.max():.3e}")
+    if not rel <= VALUE_REL_TOL:
+        raise AssertionError("ppo: the critic's values through the flash kernels disagree with "
+                             "naive attention")
+    # the forced save, reloaded: values bit-equal to the live critic's on
+    # its masters rounded to bf16 (the checkpoint's backbone dtype)
+    saved = steps[-1]["saved"]
+    fresh = TorchPPOCritic(dataclasses.replace(ccfg, path=saved, init_from_scratch=False,
+                                               optimizer=None))
+    fresh.initialize()
+    reloaded = fresh.compute_values(batch)
+    del fresh
+    with torch.no_grad():
+        for name, p in critic.model.named_parameters():
+            if name != "value_head":  # value_head.npy keeps the f32 master
+                p.copy_(p.to(torch.bfloat16))
+    live = critic.compute_values(batch)
+    size = sum(os.path.getsize(os.path.join(saved, f)) for f in os.listdir(saved))
+    print(f"  critic saved to {os.path.relpath(saved, ROOT)} ({size / 1e9:.2f} GB, "
+          f"value_head.npy {os.path.exists(os.path.join(saved, 'value_head.npy'))}), reloaded: "
+          f"values bit-equal to the live critic's on bf16-rounded masters: "
+          f"{np.array_equal(reloaded, live)}")
+    if not np.array_equal(reloaded, live):
+        raise AssertionError("ppo: the saved critic does not reload to the same values")
+    shutil.rmtree(fileroot, ignore_errors=True)
+    del critic, steps, stats
+    gc.collect()
+    torch.cuda.empty_cache()
+    return int(ragged), tuple(int(x) for x in flash)
+
+
+def clamped_entropy_by_sort(logits, clamp):
+    """AEnt's clamped entropy with the threshold from a full descending
+    sort of each row (what JAX's `top_k` computes), f32."""
+    V = logits.shape[-1]
+    keep = max(1, V - int(V * clamp))
+    kth = logits.sort(dim=-1, descending=True).values[..., keep - 1:keep]
+    mask = logits >= kth
+    clamped = torch.where(mask, logits, torch.finfo(logits.dtype).min)
+    p = torch.softmax(clamped, dim=-1)
+    return torch.logsumexp(clamped, dim=-1) - torch.where(mask, p * logits, 0.0).sum(dim=-1)
+
+
+def check_filler_rows(name, seg):
+    """K1a/b/c at Qwen2.5's heads on the reward model's rows `seg` (one
+    sequence a row, rows that are filler end to end; `time_flash` holds
+    them against the plain versions): each filler row's out 0, lse -inf and
+    dq, dk, dv exactly 0 on the kernels and on the plain versions."""
+    qs, k, v, dout, sg = flash_case(400, seg)
+    filler = ~(sg >= 0).any(dim=-1)
+    out, lse = fa.flash_fwd(qs, k, v, sg)
+    di = fa.attention_di(out, dout)
+    dq = fa.flash_bwd_dq(qs, k, v, sg, dout, lse, di)
+    dk, dv = fa.flash_bwd_dkv(qs, k, v, sg, dout, lse, di)
+    p_out, p_lse = fa.flash_fwd_plain(qs, k, v, sg)
+    p_dq = fa.flash_bwd_dq_plain(qs, k, v, sg, dout, p_lse, di)
+    p_dk, p_dv = fa.flash_bwd_dkv_plain(qs, k, v, sg, dout, p_lse, di)
+    ok = all(not t[filler].any() for t in (out, dq, dk, dv, p_out, p_dq, p_dk, p_dv))
+    ok = ok and bool((lse[filler] == -torch.inf).all() and (p_lse[filler] == -torch.inf).all())
+    print(f"  {int(filler.sum())} filler rows: out 0, lse -inf, dq = dk = dv = 0 on the "
+          f"kernels and the plain versions: {ok}")
+    if not int(filler.sum()) or not ok:
+        raise AssertionError(f"{name}: the filler rows' K1 outputs or gradients are not 0")
+
+
+def time_clamp(hidden, head, clamp):
+    """The clamped entropy's forward and forward + backward ms (events) on
+    one token chunk's f32 logits, and the same for the plain entropy."""
+    logits = (hidden @ head).float().detach()
+
+    def run(fn, backward):
+        x = logits.requires_grad_(backward)
+        e = fn(x)
+        if backward:
+            e.sum().backward()
+            x.grad = None
+
+    from areal_tpu_torch.ops.functional import _clamped_entropy
+
+    def plain(x):
+        return torch.logsumexp(x, -1) - (torch.softmax(x, -1) * x).sum(-1)
+
+    def clamped(x):
+        return _clamped_entropy(x, clamp)
+
+    return {name: (cuda_ms(lambda: run(fn, False), iters=10, warmup=2),
+                   cuda_ms(lambda: run(fn, True), iters=10, warmup=2))
+            for name, fn in (("clamped", clamped), ("plain", plain))}
+
+
+def algo_phase():
+    """The SFT, reward-model, AEnt and critic engines at Qwen2.5-1.5B's full
+    width and 28 layers, one at a time from one seeded init (f32 masters,
+    bf16 compute, full remat, the example yamls' optimizers), in process,
+    no disk writes.  SFT: the loss on the flash path against naive
+    attention, then 3 `train_lm` steps on 16 packed rows of 1024 of
+    gsm8k-synth solutions (loss on the solution span), tokens/s and MFU.
+    RW: 3 `train_rw` steps on RW_PAIRS (odd) preference pairs, one sequence
+    a row of 1024 (the last pair of a micro-batch filler); K1 on those rows
+    checked with their filler rows and timed.  AEnt: one update with the
+    entropy clamp at the full vocab, the clamped entropy against an f32
+    full sort, the clamp's time.  Critic: one `ppo_update` with a seeded
+    nonzero head, its last layer's dq and dk/dv inputs replayed through the
+    kernels and the plain versions.  Returns (flash launches, the RW rows'
+    timings, the worst bf16 |kernel - plain|)."""
+    from areal_tpu_torch.api import config as tc
+    from areal_tpu_torch.dataset.gsm8k_synth import WordTokenizer, generate_problems
+    from areal_tpu_torch.engine.ppo import TorchPPOCritic
+    from areal_tpu_torch.engine.rw import TorchRewardModelEngine
+    from areal_tpu_torch.engine.sft import TorchLMEngine
+    from areal_tpu_torch.examples.math.gsm8k_ppo import default_config as ppo_config
+    from areal_tpu_torch.examples.rw.hhrlhf_rw import collate as rw_collate
+    from areal_tpu_torch.examples.rw.hhrlhf_rw import default_config as rw_config
+    from areal_tpu_torch.examples.rw.hhrlhf_rw import synth_pairs
+    from areal_tpu_torch.examples.sft.gsm8k_sft import collate as sft_collate
+    from areal_tpu_torch.examples.sft.gsm8k_sft import default_config as sft_config
+    from areal_tpu_torch.models.transformer import forward_lm
+    from areal_tpu_torch.ops.functional import _clamped_entropy
+    from areal_tpu_torch.recipes import AEntConfig, AEntPPOActorConfig, TorchAEntPPOActor
+
+    mc = qwen25_1p5b()
+    L = mc.num_layers
+    tok = WordTokenizer()
+    spec = FinetuneSpec(1, 1024, 8)
+    rows = dict(pack_length_quantum=ALGO_ROW, max_pack_length=ALGO_ROW)
+    reset_flash_counts()
+    counted = np.zeros(3, np.int64)  # the path's launches, comparisons left out
+    errs = dict.fromkeys(("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"), 0.0)
+
+    def make(cls, cfg):
+        t0 = time.perf_counter()
+        eng = cls(cfg, model_config=mc)
+        eng.initialize(ft_spec=spec)
+        torch.cuda.synchronize()
+        print(f"  {cls.__name__} up in {time.perf_counter() - t0:.1f} s "
+              f"({torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated)")
+        return eng
+
+    def done(eng):
+        eng.destroy()
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def step_line(what, st):
+        tps = st["tokens"] / st["step_time"]
+        return (f"  {what}: loss {st['loss']:.5f} grad_norm {st['grad_norm']:.4f} "
+                f"train_batch {st['step_time']:.3f} s, {tps:.1f} tokens/s, mfu "
+                f"{st.get('mfu', float('nan')):.4f}")
+
+    # --- SFT
+    eng = make(TorchLMEngine, dataclasses.replace(sft_config().model, **rows))
+    problems = generate_problems(4096, seed=1)
+    samples, total = [], 0
+    for item in problems:  # rows of 9..16 sequences' worth pack into 16 rows
+        n = len(tok.apply_chat_template(item["messages"])) + len(tok.encode(
+            " " + item["solution"])) + 1
+        if total + n > (SFT_ROWS - 1) * ALGO_ROW:
+            break
+        samples.append(item)
+        total += n
+    batch = sft_collate(samples, tok)
+    n_rows = eng._prepare_rows(eng._predictor_align(batch), eng.config.mb_spec.n_mbs)[1][
+        "input_ids"].shape[0]
+    ev = eng.evaluate_lm(batch)
+    cfg = eng.model.cfg
+    eng.model.cfg = cfg.replace(attn_impl="naive")
+    try:
+        ev_naive = eng.evaluate_lm(batch)
+    finally:
+        eng.model.cfg = cfg
+    print(f"  SFT batch: {len(samples)} gsm8k-synth solutions, {total} tokens in {n_rows} rows of "
+          f"{ALGO_ROW}; eval loss flash {ev['loss']:.5f}, naive {ev_naive['loss']:.5f} "
+          f"(|diff| {abs(ev['loss'] - ev_naive['loss']):.2e}, tolerance {LOGP_MEAN_TOL}), ppl "
+          f"{ev['ppl']:.1f}")
+    if n_rows != SFT_ROWS or not abs(ev["loss"] - ev_naive["loss"]) <= LOGP_MEAN_TOL:
+        raise AssertionError("algo SFT: the flash path's loss disagrees with naive attention, "
+                             "or the batch did not pack into 16 rows")
+    before = np.array(flash_counts())
+    for i in range(3):
+        st = eng.train_lm(batch)
+        st["tokens"] = total
+        print(step_line(f"SFT step {i}", st) + f", ppl {st['ppl']:.1f}, token_acc "
+              f"{st['token_acc']:.4f}")
+        if not (np.isfinite(st["loss"]) and np.isfinite(st["ppl"])):
+            raise AssertionError("algo SFT: a non-finite loss or ppl")
+    counted += np.array(flash_counts()) - before
+    done(eng)
+
+    # --- RW
+    eng = make(TorchRewardModelEngine, dataclasses.replace(rw_config().model, **rows))
+    pairs = synth_pairs(RW_PAIRS, 1, tok)
+    batch = rw_collate(pairs)
+    _, data, _ = eng._prepare_rows(batch, eng.config.mb_spec.n_mbs)
+    seg = data["segment_ids"]
+    per = seg.shape[0] // eng.config.mb_spec.n_mbs
+    print(f"  RW batch: {RW_PAIRS} pairs in {seg.shape[0]} rows of {seg.shape[1]} "
+          f"({int((seg >= 0).sum())} tokens, {int((~(seg >= 0).any(-1)).sum())} filler rows)")
+    before = np.array(flash_counts())
+    for i in range(3):
+        st = eng.train_rw(batch)
+        st["tokens"] = int((seg >= 0).sum())
+        print(step_line(f"RW step {i}", st) + f", acc {st['acc']:.3f}, margin "
+              f"{st['margin']:.4f} over {st['n_pairs']:.0f} pairs")
+        if not (np.isfinite(st["loss"]) and np.isfinite(st["acc"])):
+            raise AssertionError("algo RW: a non-finite loss or accuracy")
+    counted += np.array(flash_counts()) - before
+    done(eng)
+    rw_rows = seg[per:]  # the second micro-batch: its last pair is filler
+    rw_times, rw_err = time_flash(rw_rows)
+    check_filler_rows(f"RW rows {rw_rows.shape}", torch.from_numpy(rw_rows))
+    errs = {n: max(errs[n], rw_err[n]) for n in errs}
+
+    # --- AEnt
+    base = ppo_config().actor
+    acfg = AEntPPOActorConfig(**{f.name: getattr(base, f.name)
+                                 for f in dataclasses.fields(base)}, aent=AEntConfig(
+                                     entropy_clamp=CLAMP))
+    acfg = dataclasses.replace(acfg, **rows)
+    eng = make(TorchAEntPPOActor, acfg)
+    rng = np.random.default_rng(31)
+    B, P, N = TRAIN_PROMPTS * GROUP, 128, 384
+    ids = rng.integers(0, mc.vocab_size, (B, P + N)).astype(np.int32)
+    lm = np.zeros((B, P + N), np.float32)
+    lm[:, P:] = 1.0
+    rl_batch = {"input_ids": ids, "attention_mask": np.ones((B, P + N), bool), "loss_mask": lm,
+                "logprobs": rng.normal(-12.0, 0.5, (B, P + N)).astype(np.float32) * lm,
+                "rewards": rng.integers(0, 2, B).astype(np.float32)}
+    ab = dict(rl_batch)
+    before = np.array(flash_counts())
+    ab["prox_logp"] = eng.compute_logp(ab)
+    eng.compute_advantages(ab)
+    t0 = time.perf_counter()
+    ast = eng.ppo_update(ab)
+    torch.cuda.synchronize()
+    upd = time.perf_counter() - t0
+    counted += np.array(flash_counts()) - before
+    for i, st in enumerate(ast):
+        st["tokens"] = int(ab["attention_mask"].sum()) // len(ast)
+        print(step_line(f"AEnt update, minibatch {i}", st) + f", clamped entropy "
+              f"{st['entropy']:.4f}, coefficient {st['entropy_coeff']:.3e}")
+    # the clamp on one chunk of the update's real logits
+    _, data, _ = eng._prepare_rows(ab, 1)
+    mb = eng._to_device({k: data[k][:2] for k in ("input_ids", "positions", "segment_ids")})
+    with torch.no_grad():
+        out = forward_lm(eng.model, mb["input_ids"], mb["positions"], mb["segment_ids"])
+        hidden = out.hidden.reshape(-1, out.hidden.shape[-1])[:ALGO_ROW]
+        logits = (hidden @ out.head).float()
+        got, want = _clamped_entropy(logits, CLAMP), clamped_entropy_by_sort(logits, CLAMP)
+        full = _clamped_entropy(logits, 0.0)
+    ent_err = (got - want).abs().max().item()
+    t = time_clamp(hidden, out.head, CLAMP)
+    n_chunks = -(-int(data["input_ids"].size) // ALGO_ROW)
+    # a chunk's entropy runs in the forward, then again in the checkpointed
+    # recompute with its backward: forward + (forward + backward)
+    extra = n_chunks * (sum(t["clamped"]) - sum(t["plain"]))
+    print(f"  AEnt clamp {CLAMP} at vocab {mc.vocab_size} on {ALGO_ROW} tokens: kthvalue "
+          f"against a full f32 sort max |diff| {ent_err:.2e} (tolerance {CLAMP_ATOL}); clamped "
+          f"entropy mean {got.mean().item():.4f} against the plain {full.mean().item():.4f}; a "
+          f"chunk's clamped entropy {t['clamped'][0]:.2f} ms forward, {t['clamped'][1]:.2f} ms "
+          f"forward + backward (plain {t['plain'][0]:.2f}, {t['plain'][1]:.2f} ms); "
+          f"{n_chunks} chunks an update: the clamp adds about {extra / 1e3:.3f} s to the "
+          f"update's {upd:.3f} s")
+    if not ent_err <= CLAMP_ATOL or not all(np.isfinite(st["loss"]) for st in ast):
+        raise AssertionError("algo AEnt: the clamped entropy disagrees with the full sort")
+    del out, hidden, logits, mb
+    done(eng)
+
+    # --- critic
+    eng = make(TorchPPOCritic, dataclasses.replace(ppo_config().critic, **rows))
+    g = torch.Generator(device="cuda").manual_seed(5)
+    with torch.no_grad():
+        D = mc.hidden_size
+        eng.model.value_head.copy_(torch.randn(D, generator=g, device="cuda") / D ** 0.5)
+    cb = {k: rl_batch[k] for k in ("input_ids", "attention_mask")}
+    cb["loss_mask"] = np.roll(rl_batch["loss_mask"], -1, axis=-1)
+    cb["loss_mask"][:, -1] = 0
+    cb["returns"] = rng.standard_normal(cb["loss_mask"].shape).astype(np.float32) * cb["loss_mask"]
+    before = np.array(flash_counts())
+    cb["values"] = eng.compute_values(cb)
+    seen = []
+    check = fa._check
+
+    def record(qs, k, v, segment_ids, *extra, **kw):
+        if len(extra) == 3 and not seen:  # the first backward call: the last layer
+            seen.append(tuple(t.detach() for t in (qs, k, v, segment_ids, *extra)))
+        return check(qs, k, v, segment_ids, *extra, **kw)
+
+    fa._check = record
+    try:
+        cst = eng.ppo_update(cb)
+    finally:
+        fa._check = check
+    counted += np.array(flash_counts()) - before
+    for i, st in enumerate(cst):
+        st["tokens"] = int(cb["attention_mask"].sum()) // len(cst)
+        print(step_line(f"critic minibatch {i}", st) + f", value_clip_ratio "
+              f"{st['value_clip_ratio']:.0f} of {st['n_valid_tokens']:.0f}")
+    qs, k, v, sg, dout, lse, di = seen[0]
+    dq = fa.flash_bwd_dq(qs, k, v, sg, dout, lse, di)
+    dk, dv = fa.flash_bwd_dkv(qs, k, v, sg, dout, lse, di)
+    p_dq = fa.flash_bwd_dq_plain(qs, k, v, sg, dout, lse, di)
+    p_dk, p_dv = fa.flash_bwd_dkv_plain(qs, k, v, sg, dout, lse, di)
+    rels = [float((a.float() - b.float()).abs().max() / b.float().abs().max())
+            for a, b in ((dq, p_dq), (dk, p_dk), (dv, p_dv))]
+    print(f"  critic update, the last layer's backward inputs {tuple(qs.shape)} (max |dout| "
+          f"{dout.abs().max().item():.3e}): dq, dk, dv max|diff|/max against the plain "
+          f"versions {rels[0]:.2e}, {rels[1]:.2e}, {rels[2]:.2e} (tol {BF16_RTOL})")
+    if not dout.abs().max().item() > 0 or max(rels) > BF16_RTOL or not all(
+            np.isfinite(st["loss"]) for st in cst):
+        raise AssertionError("algo critic: K1b or K1c disagrees with its plain version on the "
+                             "critic's update, or no gradient reached the backbone")
+    errs["flash_bwd_dq"] = max(errs["flash_bwd_dq"], float((dq - p_dq).abs().max()))
+    errs["flash_bwd_dkv"] = max(errs["flash_bwd_dkv"], float((dk - p_dk).abs().max()),
+                                float((dv - p_dv).abs().max()))
+    del seen, qs, k, v, sg, dout, lse, di, dq, dk, dv, p_dq, p_dk, p_dv
+    done(eng)
+    print(f"  launches over the path: flash fwd/dq/dkv {tuple(int(x) for x in counted)} "
+          f"({L} layers)")
+    if flash_counts_tc() != flash_counts():
+        raise AssertionError("a bf16 flash launch of the algo phase missed its tensor-core "
+                             "kernel")
+    return tuple(int(x) for x in counted), rw_times, errs
+
+
 def main(argv):
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -4214,13 +4781,11 @@ def main(argv):
             for d in (g1_dir, g1_publish):
                 shutil.rmtree(d, ignore_errors=True)
     elif only == "spec":
-        # the spec phase alone, on a checkpoint written as the serve phase writes it
-        ckpt_dir = os.path.join(ROOT, "build", "smoke_ckpt")
+        # the spec phase alone, on a checkpoint written as the whole script writes it
+        ckpt_dir = os.path.join(ROOT, "build", "spec_ppo_ckpt")
         try:
-            model = init_params(qwen25_1p5b(), seed=0, device="cuda")
-            save_hf_checkpoint(model, ckpt_dir)
-            del model
-            torch.cuda.empty_cache()
+            write_checkpoint(qwen25_1p5b().replace(num_layers=SPEC_PPO_LAYERS).to_hf_dict(),
+                             ckpt_dir)
             with phase("spec"):
                 spec_phase(ckpt_dir)
         finally:
@@ -4242,16 +4807,22 @@ def main(argv):
             check_flash_offset()
         with phase("sp"):
             sp_phase()
-    elif only == "router":
-        # the router phase alone, on a checkpoint written as the remote phase writes it
-        remote_ckpt = os.path.join(ROOT, "build", "remote_ckpt")
+    elif only in ("router", "ppo"):
+        # the phase alone, on a checkpoint written as the whole script writes it
+        layers = REMOTE_LAYERS if only == "router" else SPEC_PPO_LAYERS
+        ckpt_dir = os.path.join(ROOT, "build", f"{only}_ckpt")
         try:
-            write_checkpoint(qwen25_1p5b().replace(num_layers=REMOTE_LAYERS).to_hf_dict(),
-                             remote_ckpt)
-            with phase("router"):
-                router_qwen(remote_ckpt, os.path.join(ROOT, "build"))
+            write_checkpoint(qwen25_1p5b().replace(num_layers=layers).to_hf_dict(), ckpt_dir)
+            with phase(only):
+                if only == "router":
+                    router_qwen(ckpt_dir, os.path.join(ROOT, "build"))
+                else:
+                    ppo_phase(ckpt_dir)
         finally:
-            shutil.rmtree(remote_ckpt, ignore_errors=True)
+            shutil.rmtree(ckpt_dir, ignore_errors=True)
+    elif only == "algo":
+        with phase("algo"):
+            algo_phase()
     elif only == "recover-full-depth":
         fileroot = os.path.join(ROOT, "build", "recover_run")
         try:
@@ -4279,8 +4850,9 @@ def main(argv):
     gemma1_dir = os.path.join(build_dir, "gemma1_ckpt")
     gemma1_publish = os.path.join(build_dir, "gemma1_publish")
     remote_ckpt = os.path.join(build_dir, "remote_ckpt")
+    spec_ppo_ckpt = os.path.join(build_dir, "spec_ppo_ckpt")
     scratch = (ckpt_dir, publish_dir, remote_dir, gemma_dir, gemma_publish, qwen3_dir,
-               gemma1_dir, gemma1_publish, remote_ckpt)
+               gemma1_dir, gemma1_publish, remote_ckpt, spec_ppo_ckpt)
     for d in scratch:
         shutil.rmtree(d, ignore_errors=True)
     try:
@@ -4303,8 +4875,10 @@ def main(argv):
                   f"serve window {tokens / wall:.1f} tokens/s incl. prefill")
             torch.cuda.empty_cache()
         with phase("spec"):
+            write_checkpoint(qwen25_1p5b().replace(num_layers=SPEC_PPO_LAYERS).to_hf_dict(),
+                             spec_ppo_ckpt)
             spec_err, verify_launches, spec_decode_launches, spec_f32_launches, verify_times = (
-                spec_phase(ckpt_dir))
+                spec_phase(spec_ppo_ckpt))
             max_err = max(max_err, spec_err)
         with phase("train"):
             flash_launches, train_stats, seg_rows = train_qwen(ckpt_dir, publish_dir)
@@ -4350,6 +4924,12 @@ def main(argv):
             remote_ragged, remote_flash = remote_qwen(remote_ckpt, remote_dir)
         with phase("router"):
             router_ragged, router_flash = router_qwen(remote_ckpt, build_dir)
+            shutil.rmtree(remote_ckpt, ignore_errors=True)
+        with phase("ppo"):
+            ppo_ragged, ppo_flash = ppo_phase(spec_ppo_ckpt)
+        with phase("algo"):
+            algo_flash, rw_times, algo_err = algo_phase()
+            flash_err = {n: max(flash_err[n], algo_err[n]) for n in flash_err}
         with phase("recover"):
             recover_ragged, recover_flash = recover_phase(build_dir,
                                                           segment_lengths(grpo_rows))
@@ -4362,15 +4942,16 @@ def main(argv):
         "source": "areal_tpu_torch/csrc/ragged_decode.cu",
         "replaces": "areal_tpu/ops/ragged_decode.py:93",
         "launches": (launches + grpo_launches[0] + prefix_launches + family_launches[0]
-                     + gemma1_ragged + remote_ragged + router_ragged + recover_ragged
-                     + verify_launches + spec_decode_launches + spec_f32_launches),
+                     + gemma1_ragged + remote_ragged + router_ragged + ppo_ragged
+                     + recover_ragged + verify_launches + spec_decode_launches
+                     + spec_f32_launches),
         # "spec": the launches at T = D + 1 the --spec-decode server
         # counted; "spec_decode": both spec-phase servers' T = 1 launches;
         # "spec_f32": the in-process f32 runs at 4 layers
         "launches_by_path": {"serve": launches, "grpo": grpo_launches[0],
                              "prefix": prefix_launches, "families": family_launches[0],
                              "gemma1": gemma1_ragged, "remote": remote_ragged,
-                             "router": router_ragged,
+                             "router": router_ragged, "ppo": ppo_ragged,
                              "recover": recover_ragged, "spec": verify_launches,
                              "spec_decode": spec_decode_launches,
                              "spec_f32": spec_f32_launches},
@@ -4384,19 +4965,24 @@ def main(argv):
         "bound_by": by,
         "library_ms": sdpa,
     }]
-    for name, n, n_grpo, n_fam, n_remote, n_router, n_recover in zip(
+    for name, n, n_grpo, n_fam, n_remote, n_router, n_ppo, n_algo, n_recover in zip(
             ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"), flash_launches, grpo_launches[1:],
-            family_launches[1:], remote_flash, router_flash, recover_flash):
+            family_launches[1:], remote_flash, router_flash, ppo_flash, algo_flash,
+            recover_flash):
         ms, plain_ms, lib_ms, bound_ms, bound_by = flash_times[name]
         records.append({
             "name": name,
             "route": "cuda",
             "source": "areal_tpu_torch/csrc/flash_attention.cu",
             "replaces": FLASH_REPLACES[name],
-            "launches": n + n_grpo + n_fam + n_remote + n_router + n_recover,
+            "launches": (n + n_grpo + n_fam + n_remote + n_router + n_ppo + n_algo
+                         + n_recover),
             "launches_by_path": {"train": n, "grpo": n_grpo, "families": n_fam,
-                                 "remote": n_remote, "router": n_router,
-                                 "recover": n_recover},
+                                 "remote": n_remote, "router": n_router, "ppo": n_ppo,
+                                 "algo": n_algo, "recover": n_recover},
+            # the reward model's rows: one sequence a row of 1024, filler rows
+            "rw_rows": dict(zip(("ms", "plain_ms", "library_ms", "bound_ms", "bound_by"),
+                                rw_times[name])),
             "max_abs_err": flash_err[name],
             "ms": ms,
             "plain_ms": plain_ms,

@@ -534,3 +534,58 @@ def test_cuda_hd256_offset_shards_equal_unsharded_rows(cuda_device, heads, sp):
         assert (out.float() - p_out.float()).abs()[valid].max().item() <= K1A_ATOL
         rel = (dq.float() - p_dq.float()).abs().max() / p_dq.float().abs().max()
         assert rel.item() <= K1B_RTOL, (s, rel.item())
+
+
+def _rw_rows(seed, lens=(1024, 300, 700, 0), T=1024, Hq=12, Hkv=2, hd=128):
+    """The reward model's layout: one sequence a row from position 0, tail
+    padding after it, and (length 0) a row that is filler end to end."""
+    rng = np.random.default_rng(seed)
+    B = len(lens)
+    q, g = (rng.standard_normal((B, T, Hq, hd)).astype(np.float32) for _ in range(2))
+    k, v = (rng.standard_normal((B, T, Hkv, hd)).astype(np.float32) for _ in range(2))
+    seg = np.full((B, T), -1, np.int32)
+    for b, n in enumerate(lens):
+        seg[b, :n] = 0
+    return q, k, v, g, seg
+
+
+@pytest.mark.gpu
+def test_cuda_kernels_on_filler_and_one_sequence_rows(cuda_device):
+    """K1a, K1b and K1c (bf16, Qwen2.5's heads) on rows of 1024 that each
+    hold one sequence, short ones mostly padding, and one row that is
+    filler from end to end: every output finite, the filler's out 0 and
+    lse -inf as the plain version's, its dq, dk and dv exactly 0 (and every
+    pad row's), reruns bit-equal, and the valid rows against the plain
+    versions within the K1 limits."""
+    q, k, v, g, seg = _rw_rows(41)
+    qs, kk, vv, dout = (torch.from_numpy(x).to(cuda_device, torch.bfloat16) for x in (q, k, v, g))
+    qs = fa.scale_query(qs)
+    sg = torch.from_numpy(seg).to(cuda_device)
+    wrappers = (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv)
+    tc0 = [w.launches_tc for w in wrappers]
+    runs = []
+    for _ in range(2):
+        out, lse = fa.flash_fwd(qs, kk, vv, sg)
+        di = fa.attention_di(out, dout)
+        dq = fa.flash_bwd_dq(qs, kk, vv, sg, dout, lse, di)
+        dk, dv = fa.flash_bwd_dkv(qs, kk, vv, sg, dout, lse, di)
+        runs.append((out, lse, dq, dk, dv))
+    torch.cuda.synchronize()
+    assert [w.launches_tc for w in wrappers] == [c + 2 for c in tc0]
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+    out, lse, dq, dk, dv = runs[0]
+    pad = sg < 0
+    for t in (out, dq, dk, dv):
+        assert bool(torch.isfinite(t).all())
+        assert not t[pad].any()
+    assert not out[3].any() and bool((lse[3] == -torch.inf).all())
+    p_out, p_lse = fa.flash_fwd_plain(qs, kk, vv, sg)
+    assert bool((p_lse[3] == -torch.inf).all()) and not p_out[3].any()
+    p_dq = fa.flash_bwd_dq_plain(qs, kk, vv, sg, dout, lse, di)
+    p_dk, p_dv = fa.flash_bwd_dkv_plain(qs, kk, vv, sg, dout, lse, di)
+    for p in (p_dq, p_dk, p_dv):
+        assert not p[pad].any() and bool(torch.isfinite(p).all())
+    assert (out.float() - p_out.float()).abs()[~pad].max().item() <= K1A_ATOL
+    for name, a, b in (("dq", dq, p_dq), ("dk", dk, p_dk), ("dv", dv, p_dv)):
+        rel = ((a.float() - b.float()).abs().max() / b.float().abs().max()).item()
+        assert rel < 2e-2, (name, rel)

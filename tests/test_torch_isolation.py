@@ -2,8 +2,9 @@
 chip_smoke.py, imports `jax` or anything of `areal_tpu`, and every port
 module imports in a fresh interpreter where both are blocked, and so are
 the packages the card's machine lacks or may lack (`yaml`, `optax`,
-`safetensors`, `ml_dtypes`, `transformers`, `aiohttp`, `sympy`: the math
-reward imports it lazily, inside the functions that need it)."""
+`safetensors`, `ml_dtypes`, `transformers`, `aiohttp`, HF `datasets`,
+`sympy`: the math reward imports it lazily, inside the functions that
+need it)."""
 
 import ast
 import os
@@ -22,7 +23,7 @@ def _port_files():
 
 
 BLOCKED = ("jax", "jaxlib", "areal_tpu", "yaml", "optax", "safetensors", "ml_dtypes",
-           "transformers", "aiohttp", "sympy")
+           "transformers", "aiohttp", "sympy", "datasets")
 
 
 # may be imported inside a function (the path that needs it), never at
