@@ -32,16 +32,29 @@
   through the page table (`KVPool`).  Idle slots ride along with their
   cache writes dropped.  There is no dense decode path: on the card decode
   attention always goes through the kernel.
+- **Length-cohort tiers** (`decode_tiers`, or `decode_tier_lens` with
+  `decode_tier_slots`): the slot grid splits into contiguous blocks with
+  ascending length ceilings (`plan_decode_tiers`).  Admission places a
+  request in the smallest tier whose ceiling covers its prompt plus its
+  token budget (up to roomier tiers when that one is full, down only as a
+  last resort), and `step` migrates a slot about to outgrow its ceiling
+  into a free slot of a roomier tier: a host-side remap of the page table
+  (`KVPool.swap`), no device copy, the destination's retained prefix
+  re-homed at the vacated slot.  As in the reference under its ragged
+  kernel, tiers are placement policy only: the grid still decodes in ONE
+  dispatch, and the counter-keyed sampler makes streams independent of
+  where a request sits.
 - **Counter-keyed sampling**: the token at cache position p of stream s is
   drawn with key f(seed, s, p), so a stream does not depend on which slot
   it sits in, what else is batched with it, or whether its prompt was
   prefilled fresh, as a suffix, or from a sibling's copied prefix.
 - **Speculative decoding** (`spec_decode`): before a step, each active
   slot drafts up to D tokens by prompt lookup over its own history
-  (`gen/spec.py`); D is pinned (`spec_draft_len`) or picked from a static
-  ladder by the windowed acceptance rate.  When any slot drafted, the
-  step is ONE verify dispatch for the whole grid: `forward_verify` at
-  T = D + 1, whose attention is the ragged kernel at that T.  Every
+  (`gen/spec.py`); D is pinned (`spec_draft_len`) or picked for each tier
+  from a static ladder by that tier's windowed acceptance rate.  When any
+  slot drafted, the step is ONE verify dispatch for the whole grid:
+  `forward_verify` at T = D + 1, D the largest that a drafting tier chose,
+  whose attention is the ragged kernel at that T.  Every
   position is sampled with the counter key it would have had in plain
   decode, the leading run of drafts equal to what the sampler drew is
   accepted, and the slot advances by that run plus one (the first
@@ -49,9 +62,24 @@
   plain stream at any temperature.  The K/V that rejected positions wrote
   is zeroed before the dispatch returns; `seq_tokens`, `lengths` and the
   radix index only ever see accepted tokens.
+- **Host KV tier** (`host_offload`, `host_cache_mb`, `host_min_tokens`):
+  a retained prefix about to be overwritten is gathered to host memory
+  (`ops.kv_copy.gather_kv_prefix`, through a pinned buffer sized for the
+  largest block bucket) and kept in `KVPool`'s LRU host tier in the
+  cache's dtype; a later radix hit scatters it back into a free row and
+  the request suffix-prefills as if the prefix had never left the device.
+  The round trip is bit-identical.
+- **Disaggregated handoff**: `export_request_kv` gathers the resident
+  prefix covering a request's tokens (a device-retained slot first, then
+  the host tier) into a host-tier entry; `import_request_kv` installs
+  such an entry (off the wire, `gen.kv_pool.wire_decode_entry`) in the
+  host tier, where the request that follows hits it through the swap-in.
+  A pinned `stream_id` makes the continuation the stream the exporting
+  engine would have produced.
 - **Telemetry** (`utils/telemetry.py`): `decode_chunk` and `spec_verify`
   events with the `decode_chunk_seconds` histogram (when telemetry is
-  on), `admission`/`prefill` events and the admission-wait histogram,
+  on), one per occupied tier with that tier's label, `admission`/`prefill`
+  events (with the slot's tier) and the admission-wait histogram,
   `interrupt` events from `abort_all`, and a `pause` event with the
   pause-window histogram at every weight swap.
 
@@ -59,14 +87,17 @@
   request finishes with "abort", then the new weights (a trainer's `v{N}`
   snapshot, or a model in memory) replace the old and the version
   advances.  `swap_weights_live` is the colocated in-memory publish that
-  aborts nothing; `release_memory` and `restage` free and re-arm the
+  aborts nothing.  `stage_params` builds the next weights on the device
+  while decoding goes on (a second copy of the weights), and
+  `commit_staged` swaps them in by pointer, aborting in-flight requests or
+  live: the pause is O(abort), not O(model bytes).  A standby older than
+  what a swap installs is dropped, so a later commit never rolls the
+  version back.  `release_memory` and `restage` free and re-arm the
   engine's device memory around a colocated train step.  `step` runs under
   `torch.no_grad()`, because grad mode is per thread and a colocated
   engine steps on its own thread beside a training one.
 
-Left for later slices: length-cohort tiers and migration (the spec
-controller so has one tier, 0), the host KV tier, disaggregated handoff,
-VLM requests, tensor/expert parallelism and the staged weight swap.
+Left for later slices: VLM requests and tensor/expert parallelism.
 """
 
 import logging
@@ -82,10 +113,10 @@ import numpy as np
 import torch
 
 from areal_tpu_torch.device import DeviceLike, resolve_device, torch_dtype
-from areal_tpu_torch.gen.kv_pool import KVPool, lcp_ids
+from areal_tpu_torch.gen.kv_pool import KVPool, lcp_ids, nbytes_of
 from areal_tpu_torch.gen.sampling import root_key, sample_tokens_keyed, stream_keys
 from areal_tpu_torch.gen.spec import DEFAULT_SPEC_LADDER, SpecController, propose_draft
-from areal_tpu_torch.models.hf import load_hf_params
+from areal_tpu_torch.models.hf import load_hf_params, params_to_hf_state, state_to_params
 from areal_tpu_torch.models.model_config import TransformerConfig
 from areal_tpu_torch.models.transformer import (
     Transformer,
@@ -93,14 +124,34 @@ from areal_tpu_torch.models.transformer import (
     forward_prefill,
     forward_prefill_cached,
     forward_verify,
+    build_model,
     init_kv_cache,
     init_params,
 )
+from areal_tpu_torch.ops.kv_copy import gather_kv_prefix, scatter_kv_prefix
 from areal_tpu_torch.ops.ragged_decode import ragged_supported
 from areal_tpu_torch.utils import telemetry
 from areal_tpu_torch.utils.datapack import round_up_to_bucket
 
 logger = logging.getLogger("areal_tpu_torch.gen.engine")
+
+def plan_decode_tiers(n_slots: int, max_seq_len: int, n_tiers: int,
+                      quantum: int = 128) -> Tuple[List[int], List[int]]:
+    """The default length-cohort layout: (tier ceilings, slots per tier).
+
+    Ceilings double up to `max_seq_len` (each at least 2 x quantum); slot
+    counts halve away from tier 0, where most rollouts live, with the last
+    two tiers equal so that the counts sum to `n_slots`:
+    n_slots=64, n_tiers=3, max=16384 -> ([4096, 8192, 16384], [32, 16, 16])."""
+    if n_tiers <= 1:
+        return [max_seq_len], [n_slots]
+    if n_slots >> (n_tiers - 1) < 1:
+        raise ValueError(f"decode_tiers={n_tiers} needs n_slots >= {1 << (n_tiers - 1)}")
+    slots = [n_slots >> (i + 1) for i in range(n_tiers - 1)]
+    slots.append(n_slots - sum(slots))
+    lens = [max(2 * quantum, max_seq_len >> (n_tiers - 1 - i)) for i in range(n_tiers)]
+    lens[-1] = max_seq_len
+    return lens, slots
 
 
 @dataclass
@@ -167,6 +218,12 @@ class GenEngine:
         spec_decode: bool = False,
         spec_ladder: Optional[List[int]] = None,
         spec_draft_len: Optional[int] = None,
+        decode_tiers: int = 1,
+        decode_tier_lens: Optional[List[int]] = None,
+        decode_tier_slots: Optional[List[int]] = None,
+        host_offload: bool = False,
+        host_cache_mb: int = 64,
+        host_min_tokens: int = 32,
     ):
         self.device = resolve_device(device)
         cfg = model_config
@@ -220,6 +277,8 @@ class GenEngine:
         self.version = 0
         self.cache = init_kv_cache(cfg, n_slots + 1, max_seq_len, kv_dtype, self.device)
         self._root_key = root_key(seed, self.device)
+        # staged weights: (model on the device, version) awaiting commit_staged
+        self._standby: Optional[Tuple[Transformer, Optional[int]]] = None  # guarded-by: _lock
 
         # host-side slot state (scratch slot included, never assigned)
         S = n_slots + 1
@@ -230,7 +289,17 @@ class GenEngine:
         self.top_p = np.ones(S, np.float32)
         self.top_k = np.zeros(S, np.int32)
         self.stream_ids = np.zeros(S, np.int64)
-        self.pool = KVPool(n_slots)
+        # the page table, the radix index and (with host_offload) the LRU
+        # host tier; prefixes shorter than host_min_tokens are not worth a
+        # device<->host round trip and just evict
+        self.host_min_tokens = host_min_tokens
+        self.pool = KVPool(n_slots, host_bytes=(int(host_cache_mb) << 20) if host_offload else 0)
+        # the host tier's staging buffer, one row's largest block bucket
+        # ([L, max_seq_len, Hkv, hd] per K and V, pinned on the card)
+        self._host_buf: Optional[Dict[str, torch.Tensor]] = None
+        if self.pool.host is not None and self.device.type == "cuda":
+            self._staging()
+        self._init_tiers(decode_tiers, decode_tier_lens, decode_tier_slots)
         self.pending: "queue.Queue[GenRequest]" = queue.Queue()
         self._lock = threading.Lock()
         # requests drained from `pending` whose admission pass is in
@@ -300,7 +369,47 @@ class GenEngine:
             "spec_drafted": 0,
             "spec_accepted": 0,
             "verify_calls": 0,
+            # slots moved to a roomier length-cohort tier (page-table remaps)
+            "tier_migrations": 0,
+            # device<->host prefix transfers: spills and swap-ins
+            "prefix_cache_host_swaps": 0,
+            # the disaggregated handoff: /kv_export gathers, /kv_import
+            # installs, their K/V bytes both ways, and failures (an export
+            # with nothing resident, an import without a host tier)
+            "kv_handoff_exports": 0,
+            "kv_handoff_imports": 0,
+            "kv_handoff_bytes": 0,
+            "kv_handoff_failures": 0,
         }
+
+    def _init_tiers(self, n_tiers: int, lens: Optional[List[int]],
+                    slots: Optional[List[int]]) -> None:
+        """The length-cohort layout: tier t is the contiguous slot block
+        [tier_start[t], tier_start[t] + tier_size[t]) with ceiling
+        tier_bounds[t] (ascending, the last max_seq_len).  The ceilings
+        steer admission and migration; correctness never depends on them."""
+        if lens is not None or slots is not None:
+            if not (lens and slots):
+                raise ValueError("decode_tier_lens and decode_tier_slots come together")
+            if len(lens) != len(slots):
+                raise ValueError("tier lens/slots length mismatch")
+        else:
+            lens, slots = plan_decode_tiers(self.n_slots, self.max_seq_len, max(1, n_tiers),
+                                            self.prompt_bucket)
+        if sum(slots) != self.n_slots:
+            raise ValueError(f"decode_tier_slots {slots} must sum to n_slots={self.n_slots}")
+        if list(lens) != sorted(lens):
+            raise ValueError("decode_tier_lens must ascend")
+        self.tier_bounds = [min(int(b), self.max_seq_len) for b in lens]
+        self.tier_bounds[-1] = self.max_seq_len
+        self.tier_size = [int(c) for c in slots]
+        self.tier_start = [int(x) for x in np.cumsum([0] + self.tier_size[:-1])]
+        self.n_tiers = len(self.tier_size)
+        self.slot_tier = np.zeros(self.n_slots + 1, np.int32)
+        for t in range(self.n_tiers):
+            lo = self.tier_start[t]
+            self.slot_tier[lo:lo + self.tier_size[t]] = t
+        self.slot_tier[self.n_slots] = self.n_tiers - 1  # scratch: never decoded
 
     # ------------------------------------------------------------------
     # submission
@@ -556,6 +665,8 @@ class GenEngine:
                     dev_claimed.add(s)
                     slot_of_entry[i] = (s, -neg)
                     reuse_admitted.append((s, entries[i], -neg, s, False))
+        if self.kv_reuse and self.pool.host is not None and free_set:
+            self._swap_in_host_hits(entries, matched, free_set, slot_of_entry, reuse_admitted)
         # a request whose best match lost its donor to a longer match
         # inherits the donor's prefix up to a page boundary: the donor is
         # claimed this pass (its K/V survives until the suffix call) and
@@ -588,20 +699,39 @@ class GenEngine:
             if 0.0 < self._reserved_until[s] <= now:  # the owner never came back
                 self._reserved_until[s] = 0.0
                 self.stats["reservations_lapsed"] += 1
-        open_slots = sorted((s for s in free_set if self._reserved_until[s] <= now),
-                            key=lambda s: int(self.retained_len[s]))
+        # open slots by tier, least valuable retained prefix first; a
+        # request lands in the smallest tier whose ceiling covers its
+        # prompt and budget, up to roomier tiers when that one is full and
+        # down only as a last resort (a migration may follow): a request
+        # waits only when no slot is open anywhere
+        open_by_tier: List[List[int]] = [[] for _ in range(self.n_tiers)]
+        for s in sorted((s for s in free_set if self._reserved_until[s] <= now),
+                        key=lambda s: int(self.retained_len[s])):
+            open_by_tier[int(self.slot_tier[s])].append(s)
+        n_open = sum(len(t) for t in open_by_tier)
+
+        def pick_slot(req: GenRequest) -> int:
+            budget = len(req.input_ids) + req.max_new_tokens + 1
+            pref = next((t for t, b in enumerate(self.tier_bounds) if b >= budget),
+                        self.n_tiers - 1)
+            for t in list(range(pref, self.n_tiers)) + list(range(pref - 1, -1, -1)):
+                if open_by_tier[t]:
+                    return open_by_tier[t].pop(0)
+            raise AssertionError("pick_slot with no open slot")
+
         leftover: List[GenRequest] = list(held)
         for i, req in enumerate(entries):
             if i in matched:
                 continue
-            if not open_slots:
+            if not n_open:
                 leftover.append(req)
                 if req.group_id:
                     # the group had its window; its leftover members admit
                     # at the next pass instead of waiting out another hold
                     self._group_first_seen[req.group_id] = 0.0
                 continue
-            s = open_slots.pop(0)
+            s = pick_slot(req)
+            n_open -= 1
             cid = cluster_of.get(i)
             if cid is not None and clusters[cid].get("rep_slot") is not None:
                 shared_admitted.append(
@@ -627,6 +757,11 @@ class GenEngine:
             self._parked_until = min(expiries) if expiries else now + 0.05
         self.stats["prefix_cache_hits"] += len(reuse_admitted) + len(shared_admitted)
         self.stats["prefix_cache_misses"] += len(admitted)
+        # retained prefixes about to be overwritten spill to the host tier
+        # before a prefill call writes their rows
+        overwrite = [s for s, _ in admitted] + [s for s, *_ in shared_admitted]
+        if overwrite:
+            self._maybe_spill(overwrite)
         if telemetry.is_enabled():
             # before the prefill calls, so a request's admission event
             # precedes its first decode and its finish in the log
@@ -640,8 +775,7 @@ class GenEngine:
         if reuse_admitted or shared_admitted:
             self._admit_suffix_batch(reuse_admitted + shared_admitted, abort_gen)
 
-    @staticmethod
-    def _emit_admission(req: GenRequest, slot: int, kind: str, inherited: int,
+    def _emit_admission(self, req: GenRequest, slot: int, kind: str, inherited: int,
                         now_pc: float) -> None:
         """Admission and prefill events of one admitted request: its queue
         wait (submit to slot grant, holdback and group hold included) and
@@ -651,8 +785,8 @@ class GenEngine:
         wait = max(0.0, now_pc - req.submit_ts) if req.submit_ts else 0.0
         telemetry.ADMISSION_WAIT.observe(wait)
         tid = req.trace_id or req.rid
-        telemetry.emit("admission", trace_id=tid, kind=kind, slot=int(slot), tier=0,
-                       queue_wait_s=wait)
+        telemetry.emit("admission", trace_id=tid, kind=kind, slot=int(slot),
+                       tier=int(self.slot_tier[slot]), queue_wait_s=wait)
         total = len(req.input_ids)
         telemetry.emit("prefill", trace_id=tid, kind=kind, total_tokens=total,
                        inherited_tokens=int(inherited), cold_tokens=total - int(inherited))
@@ -856,6 +990,230 @@ class GenEngine:
         m = self.stats["prefix_cache_misses"]
         return h / (h + m) if (h + m) else 0.0
 
+    def tier_occupancy(self) -> List[int]:
+        """Active slots per length-cohort tier (a metrics surface, read from
+        the server's threads: a snapshot under the lock)."""
+        with self._lock:
+            return [sum(self.slot_req[s] is not None
+                        for s in range(self.tier_start[t], self.tier_start[t] + self.tier_size[t]))
+                    for t in range(self.n_tiers)]
+
+    # ------------------------------------------------------------------
+    # the host tier and the disaggregated handoff
+    # ------------------------------------------------------------------
+
+    def _host_gather(self, row: int, block: int) -> Dict[str, torch.Tensor]:
+        """Positions [0, block) of physical row `row`, copied to host
+        memory in the cache's dtype ({key: [L, block, Hkv, hd]}), through
+        the pinned staging buffer on the card."""
+        src = gather_kv_prefix(self.cache, row, block)
+        if self.device.type != "cuda":
+            return {k: v.clone() for k, v in src.items()}
+        staged = {k: self._staged_view(k, v.shape) for k, v in src.items()}
+        for k, v in src.items():
+            staged[k].copy_(v, non_blocking=True)
+        torch.cuda.current_stream(self.device).synchronize()
+        return {k: v.clone() for k, v in staged.items()}
+
+    def _host_scatter(self, kv: Dict[str, torch.Tensor], row: int) -> None:
+        """Write a host entry's K/V back into physical row `row`, through
+        the pinned staging buffer on the card; the bytes land unchanged."""
+        if self.device.type != "cuda":
+            scatter_kv_prefix(self.cache, kv, row)
+            return
+        staged = {}
+        for k, v in kv.items():
+            staged[k] = self._staged_view(k, v.shape)
+            staged[k].copy_(v)
+        scatter_kv_prefix(self.cache, staged, row)
+        # the buffer is reused by the next transfer: wait for this copy
+        torch.cuda.current_stream(self.device).synchronize()
+
+    def _staging(self) -> Dict[str, torch.Tensor]:
+        """The pinned staging buffer, flat, one row's largest block per K
+        and V (an engine without a host tier makes it at its first handoff
+        export)."""
+        if self._host_buf is None:
+            self._host_buf = {k: torch.empty(v[:, 0].numel(), dtype=v.dtype, pin_memory=True)
+                              for k, v in self.cache.items()}
+        return self._host_buf
+
+    def _staged_view(self, key: str, shape) -> torch.Tensor:
+        """A contiguous [L, block, Hkv, hd] view at the buffer's start: one
+        DMA each way."""
+        n = int(np.prod(shape))
+        return self._staging()[key][:n].view(tuple(shape))
+
+    def _maybe_spill(self, slots: List[int]) -> None:
+        """Spill the retained prefixes of `slots`, about to be overwritten,
+        to the host tier (a no-op without `host_offload`).  A prefix below
+        `host_min_tokens` is not worth the round trip and just evicts."""
+        if self.pool.host is None or self.cache is None:
+            return
+        for s in slots:
+            vlen = int(self.retained_len[s])
+            toks = self.pool.device_tokens(s)
+            if toks is None or vlen < self.host_min_tokens or len(toks) != vlen:
+                continue  # nothing, too short, or a stale index entry
+            block = round_up_to_bucket(vlen, self.prompt_bucket, self.max_seq_len)
+            kv = self._host_gather(self.pool.row(s), block)
+            evicted = self.pool.host_put(self.seq_tokens[s], vlen, int(self.kv_version[s]),
+                                         block, kv)
+            self.pool.drop_device(s)
+            self.stats["prefix_cache_host_swaps"] += 1
+            self.stats["prefix_cache_evictions"] += evicted
+
+    def _swap_in_host_hits(self, entries: List[GenRequest], matched: set, free_set: set,
+                           slot_of_entry: Dict[int, Tuple[int, int]],
+                           reuse_admitted: List[tuple]) -> None:
+        """Admission stage of the host tier: a request the device match
+        left cold probes the radix over host-spilled prefixes; a hit
+        scatters the spilled K/V back into a free row (the least valuable
+        one, whose own prefix spills first when it is worth keeping), and
+        the request rides the suffix prefill as a retained hit."""
+        now = time.monotonic()
+        for i, req in enumerate(entries[: self.match_window]):
+            if i in matched or not free_set:
+                continue
+            host_m = self.pool.match_host(req.input_ids)
+            if not host_m:
+                continue
+            limit = len(req.input_ids) - 1
+            best_hid, best_l = None, 0
+            for hid, lcp in host_m.items():
+                ent = self.pool.host_entry(hid)
+                if ent is None:
+                    continue
+                lcp = min(int(lcp), ent.valid_len, limit)
+                if lcp >= self.reuse_min_tokens and lcp > best_l:
+                    best_hid, best_l = hid, lcp
+            if best_hid is None:
+                continue
+            open_slots = [s for s in free_set if self._reserved_until[s] <= now]
+            if not open_slots:
+                return  # nothing can land anywhere this pass
+            s = min(open_slots, key=lambda u: int(self.retained_len[u]))
+            self._maybe_spill([s])
+            ent = self.pool.host_take(best_hid)
+            if ent is None:
+                continue
+            self._host_scatter(ent.kv, self.pool.row(s))
+            vlen = ent.valid_len
+            with self._lock:
+                if self.pool.drop_device(s):
+                    self.stats["prefix_cache_evictions"] += 1
+                self.seq_tokens[s, :vlen] = ent.tokens
+                self.retained_len[s] = vlen
+                self.kv_version[s] = ent.version
+                self._reserved_until[s] = 0.0
+                self.pool.note_free(s, self.seq_tokens[s], vlen)
+            self.stats["prefix_cache_host_swaps"] += 1
+            matched.add(i)
+            free_set.remove(s)
+            slot_of_entry[i] = (s, best_l)
+            reuse_admitted.append((s, req, best_l, s, False))
+
+    def export_request_kv(self, input_ids: List[int]) -> Optional[dict]:
+        """The resident K/V prefix covering `input_ids` as a host-tier
+        entry {tokens, valid_len, version, block, kv} for a cross-server
+        handoff (/kv_export): the best device-retained match (normally the
+        slot of the leg that just finished), else the host tier.  The donor
+        stays resident, so a failed import loses nothing.  None (counting a
+        failure) when nothing covering `reuse_min_tokens` is resident.
+        Call from the thread that steps the engine."""
+        limit = len(input_ids) - 1
+        best_slot, best_l = None, 0
+        if self.cache is not None:
+            for s, lcp in self.pool.match_device(input_ids).items():
+                toks = self.pool.device_tokens(s)
+                if toks is None or len(toks) != int(self.retained_len[s]):
+                    continue
+                lcp = min(int(lcp), limit)
+                if lcp > best_l:
+                    best_slot, best_l = s, lcp
+        if best_slot is not None and best_l >= self.reuse_min_tokens:
+            block = round_up_to_bucket(best_l, self.prompt_bucket, self.max_seq_len)
+            entry = {
+                "tokens": np.asarray(self.pool.device_tokens(best_slot)[:best_l], np.int64),
+                "valid_len": int(best_l),
+                "version": int(self.kv_version[best_slot]),
+                "block": int(block),
+                "kv": self._host_gather(self.pool.row(best_slot), block),
+            }
+        else:
+            best_hid, best_hl = None, 0
+            if self.pool.host is not None:
+                for hid, lcp in self.pool.match_host(input_ids).items():
+                    ent = self.pool.host_entry(hid)
+                    if ent is None:
+                        continue
+                    lcp = min(int(lcp), ent.valid_len, limit)
+                    if lcp > best_hl:
+                        best_hid, best_hl = hid, lcp
+            if best_hid is None or best_hl < self.reuse_min_tokens:
+                self.stats["kv_handoff_failures"] += 1
+                return None
+            ent = self.pool.host_entry(best_hid)
+            self.pool.host.touch(best_hid)
+            # a partial host match exports the entry's whole block: the
+            # importer attends nothing past valid_len
+            entry = {"tokens": np.asarray(ent.tokens[:best_hl], np.int64),
+                     "valid_len": int(best_hl), "version": int(ent.version),
+                     "block": int(ent.block), "kv": ent.kv}
+        self.stats["kv_handoff_exports"] += 1
+        self.stats["kv_handoff_bytes"] += sum(nbytes_of(a) for a in entry["kv"].values())
+        return entry
+
+    def import_request_kv(self, entry: dict) -> bool:
+        """Install an exported prefix (/kv_import) as a host-tier entry; the
+        request that follows admits through the radix match and the
+        swap-in as a warm hit.  False (counting a failure) without a host
+        tier; ValueError (counting a failure) for an entry this cache
+        cannot take, before anything changes.  Call from the thread that
+        steps the engine."""
+        if self.pool.host is None:
+            self.stats["kv_handoff_failures"] += 1
+            return False
+        kv = {k: v if isinstance(v, torch.Tensor) else torch.from_numpy(np.asarray(v))
+              for k, v in entry["kv"].items()}
+        fault = self._entry_fault(entry, kv)
+        if fault is not None:
+            self.stats["kv_handoff_failures"] += 1
+            raise ValueError(f"handoff entry refused: {fault}")
+        evicted = self.pool.host_put(np.asarray(entry["tokens"], np.int64),
+                                     int(entry["valid_len"]), int(entry["version"]),
+                                     int(entry["block"]), kv)
+        self.stats["prefix_cache_evictions"] += evicted
+        self.stats["kv_handoff_imports"] += 1
+        self.stats["kv_handoff_bytes"] += sum(nbytes_of(a) for a in kv.values())
+        return True
+
+    def _entry_fault(self, entry: dict, kv: Dict[str, torch.Tensor]) -> Optional[str]:
+        """Why a handoff entry cannot land in this engine's cache (another
+        depth, kv width, dtype or a block past `max_seq_len`, which the
+        swap-in would only find inside a later step), or None.  A dtype
+        differing from the cache's is refused, never converted: the swap-in
+        must land the exporter's bytes."""
+        cfg = self.model_config
+        valid, block = int(entry["valid_len"]), int(entry["block"])
+        tokens = np.asarray(entry["tokens"], np.int64)
+        if not 0 < valid <= block <= self.max_seq_len:
+            return (f"valid_len {valid} and block {block} must satisfy 0 < valid_len <= "
+                    f"block <= max_seq_len {self.max_seq_len}")
+        if len(tokens) != valid:
+            return f"{len(tokens)} tokens for valid_len {valid}"
+        if tokens.min() < 0 or tokens.max() >= cfg.vocab_size:
+            return f"token ids outside the vocabulary of {cfg.vocab_size}"
+        if set(kv) != {"k", "v"}:
+            return f"kv arrays {sorted(kv)}, want ['k', 'v']"
+        want = (cfg.num_layers, block, cfg.num_kv_heads, cfg.head_dim_)
+        dtype = torch_dtype(self.kv_dtype)
+        for name, a in sorted(kv.items()):
+            if tuple(a.shape) != want or a.dtype != dtype:
+                return (f"{name} is {tuple(a.shape)} {a.dtype}, this cache takes {want} "
+                        f"{dtype}")
+        return None
+
     # ------------------------------------------------------------------
     # decode
     # ------------------------------------------------------------------
@@ -914,30 +1272,102 @@ class GenEngine:
         self.stats["ragged_attended_pages"] += int(((attended + page - 1) // page).sum())
         return out.cpu().numpy()
 
-    def _plan_drafts(self, active: List[int]) -> Optional[Tuple[int, np.ndarray, np.ndarray]]:
+    def _plan_drafts(self, active: List[int]
+                     ) -> Optional[Tuple[int, np.ndarray, np.ndarray, Dict[int, int]]]:
         """Prompt-lookup drafts for this step: (D, drafts [n_slots, D],
-        draft lengths [n_slots]), or None when no slot drafted.  D is
-        pinned or the controller's rung; each slot's draft is capped by its
-        cache room and by the tokens its request has left (the verify
-        always emits one token more than it accepts)."""
-        d = self.spec_draft_len if self.spec_draft_len is not None else self._spec.draft_len(0)
-        if d <= 0:
+        draft lengths [n_slots], {tier: its D}), or None when no slot
+        drafted.  Each occupied tier's D is pinned or its controller's rung;
+        the grid verifies at the largest D a drafting tier chose.  Each
+        slot's draft is capped by its tier's D, its cache room and the
+        tokens its request has left (the verify always emits one token more
+        than it accepts)."""
+        tier_d: Dict[int, int] = {}
+        for s in active:
+            t = int(self.slot_tier[s])
+            if t not in tier_d:
+                tier_d[t] = (self.spec_draft_len if self.spec_draft_len is not None
+                             else self._spec.draft_len(t))
+        d_max = max(tier_d.values(), default=0)
+        if d_max <= 0:
             return None
-        drafts = np.zeros((self.n_slots, d), np.int64)
+        drafts = np.zeros((self.n_slots, d_max), np.int64)
         dlens = np.zeros(self.n_slots, np.int64)
         for s in active:
             req = self.slot_req[s]
             if req is None:
                 continue
             L = int(self.lengths[s])
-            cap = min(d, self.max_seq_len - 2 - L,
+            cap = min(tier_d[int(self.slot_tier[s])], self.max_seq_len - 2 - L,
                       req.max_new_tokens - len(req.output_tokens) - 1)
             if cap <= 0:
                 continue
             draft = propose_draft(self.seq_tokens[s, :L + 1], cap)
             drafts[s, :draft.size] = draft
             dlens[s] = draft.size
-        return (d, drafts, dlens) if dlens.any() else None
+        drafting = {int(self.slot_tier[s]) for s in np.flatnonzero(dlens)}
+        if not drafting:
+            return None
+        d = max(tier_d[t] for t in drafting)
+        return d, np.ascontiguousarray(drafts[:, :d]), dlens, {t: tier_d[t] for t in drafting}
+
+    def _plan_migrations(self, n: int) -> None:
+        """Move each slot about to outgrow its tier's ceiling within the
+        next `n` tokens into a free slot of the smallest roomier tier that
+        covers its budget (the top tier always qualifies).  A host-side
+        remap: the request keeps its physical row under the new logical
+        slot (`KVPool.swap`), the destination's retained prefix re-homes at
+        the vacated slot, and nothing is copied on the device.  With no
+        roomier slot free the request stays, and its window grows: the
+        ceilings are placement hints, never correctness."""
+        if self.n_tiers == 1:
+            return
+        now = time.monotonic()
+        free_by_tier: List[List[int]] = [[] for _ in range(self.n_tiers)]
+        for s in range(self.n_slots):
+            if self.slot_req[s] is None and self._reserved_until[s] <= now:
+                free_by_tier[int(self.slot_tier[s])].append(s)
+        for slots in free_by_tier:  # overwrite the least valuable retained prefix first
+            slots.sort(key=lambda u: int(self.retained_len[u]))
+        moves: List[Tuple[int, int]] = []
+        for s in range(self.n_slots):
+            req = self.slot_req[s]
+            t = int(self.slot_tier[s])
+            if req is None or t == self.n_tiers - 1:
+                continue
+            L = int(self.lengths[s])
+            if L + n < self.tier_bounds[t]:
+                continue  # inside its cohort for the whole step
+            need = min(L + max(0, req.max_new_tokens - len(req.output_tokens)) + 1,
+                       self.max_seq_len)
+            for u in range(t + 1, self.n_tiers):
+                if (free_by_tier[u] and self.tier_bounds[u] >= min(need, L + n + 1)
+                        and (self.tier_bounds[u] >= need or u == self.n_tiers - 1)):
+                    moves.append((s, free_by_tier[u].pop(0)))
+                    break
+        if not moves:
+            return
+        with self._lock:
+            for s, dst in moves:
+                req = self.slot_req[s]
+                if req is None:  # aborted since planning
+                    continue
+                dst_retained = int(self.retained_len[dst])
+                dst_version = int(self.kv_version[dst])
+                dst_tokens = self.seq_tokens[dst].copy()
+                self.slot_req[dst], self.slot_req[s] = req, None
+                for arr in (self.lengths, self.last_tokens, self.temperature, self.top_p,
+                            self.top_k, self.kv_version, self.stream_ids):
+                    arr[dst] = arr[s]
+                self.seq_tokens[dst] = self.seq_tokens[s]
+                self.retained_len[dst] = 0
+                self._reserved_until[dst] = 0.0
+                self.pool.swap(s, dst)
+                self.seq_tokens[s] = dst_tokens
+                self.retained_len[s] = dst_retained
+                self.kv_version[s] = dst_version
+                self._reserved_until[s] = 0.0
+                self.stats["tier_migrations"] += 1
+            self._state_dirty = True
 
     def _dispatch_verify(self, st: Dict[str, torch.Tensor], active: List[int], d: int,
                          drafts: np.ndarray, dlens: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
@@ -1008,6 +1438,9 @@ class GenEngine:
             raise RuntimeError("step() after release_memory: restage() first")
         self._admit()
         n = chunk or self.decode_chunk
+        # a verify advances a slot by up to D + 1 tokens: migration planning
+        # must see the larger step
+        self._plan_migrations(max(n, max(self.spec_ladder) + 1) if self.spec_decode else n)
         with self._lock:
             active = [s for s in range(self.n_slots) if self.slot_req[s] is not None]
             if not active:
@@ -1020,35 +1453,46 @@ class GenEngine:
         # gated on the flag as a whole
         tele = telemetry.is_enabled()
         if tele:
-            trace_ids = [r.trace_id or r.rid for s in active
-                         if (r := self.slot_req[s]) is not None]
+            tier_trace: Dict[int, List[str]] = {}
+            for s in active:
+                if (r := self.slot_req[s]) is not None:
+                    tier_trace.setdefault(int(self.slot_tier[s]), []).append(r.trace_id or r.rid)
             t_dispatch = time.perf_counter()
         try:
             if plan is None:
                 out = self._dispatch_ragged(st, n, active)
                 avail = np.full(self.n_slots, n, np.int64)
             else:
-                out, avail = self._dispatch_verify(st, active, *plan)
+                out, avail = self._dispatch_verify(st, active, *plan[:3])
         except Exception:
             with self._lock:  # the device state may be half advanced
                 self._dev_state = None
                 self._state_dirty = True
             raise
+        tier_spec: Dict[int, Tuple[int, int]] = {}  # tier -> (drafted, accepted)
         if plan is not None:
-            drafted = int(plan[2].sum())
-            accepted = int(np.maximum(avail - 1, 0).sum())
-            self.stats["spec_accepted"] += accepted
-            self._spec.record(0, drafted, accepted)
+            dlens = plan[2]
+            accepted_s = np.maximum(avail - 1, 0)
+            self.stats["spec_accepted"] += int(accepted_s.sum())
+            # each drafting tier's controller learns from its own slots
+            for t in plan[3]:
+                lo, hi = self.tier_start[t], self.tier_start[t] + self.tier_size[t]
+                tier_spec[t] = (int(dlens[lo:hi].sum()), int(accepted_s[lo:hi].sum()))
+                self._spec.record(t, *tier_spec[t])
         if tele:
+            # one event per occupied tier, with its label; the grid ran
+            # one dispatch, so every tier's latency is that dispatch's
             lat = time.perf_counter() - t_dispatch
-            telemetry.DECODE_CHUNK.observe(lat, tier="0")
-            if plan is None:
-                telemetry.emit("decode_chunk", tier=0, chunk=n, n_active=len(active),
-                               latency_s=lat, trace_ids=trace_ids)
-            else:
-                telemetry.emit("spec_verify", tier=0, draft_len=plan[0], drafted=drafted,
-                               accepted=accepted, n_active=len(active), latency_s=lat,
-                               trace_ids=trace_ids)
+            for t, ids in sorted(tier_trace.items()):
+                telemetry.DECODE_CHUNK.observe(lat, tier=str(t))
+                if plan is None:
+                    telemetry.emit("decode_chunk", tier=t, chunk=n, n_active=len(ids),
+                                   latency_s=lat, trace_ids=ids)
+                else:
+                    drafted, accepted = tier_spec.get(t, (0, 0))
+                    telemetry.emit("spec_verify", tier=t, draft_len=plan[3].get(t, 0),
+                                   drafted=drafted, accepted=accepted, n_active=len(ids),
+                                   latency_s=lat, trace_ids=ids)
         toks = out[0].astype(np.int64)  # [rows, n_slots]
         logps = out[1]
         delivered = 0
@@ -1094,9 +1538,9 @@ class GenEngine:
         return delivered
 
     def spec_acceptance_rates(self) -> List[float]:
-        """The controller's windowed acceptance rate per tier (one tier
-        here); 0.0 before any verify has reported."""
-        return [self._spec.acceptance_rate(0) or 0.0]
+        """The controller's windowed acceptance rate per tier; 0.0 for a
+        tier no verify has reported on."""
+        return [self._spec.acceptance_rate(t) or 0.0 for t in range(self.n_tiers)]
 
     # ------------------------------------------------------------------
     # weights
@@ -1192,14 +1636,96 @@ class GenEngine:
         return self.version
 
     def _swap(self, model: Transformer, version: Optional[int]) -> None:
-        """Adopt `model` and advance the version (both swap paths)."""
+        """Adopt `model` and advance the version (every swap path).  A
+        standby staged at this version or before, or at no version, is
+        dropped: committing it later would roll the version back, or
+        install older weights under a newer number.  A strictly newer one
+        stays for its pending commit."""
         self._adopt(model)
         self.version = int(version) if version is not None else self.version + 1
         if not self.retain_kv_on_reload:
+            # the host tier holds old-policy K/V too: every prefix goes
             self.retained_len[:] = 0
             self._reserved_until[:] = 0.0
             self.kv_version[:] = self.version
             self.pool.clear()
+        with self._lock:
+            if self._standby is not None:
+                staged_v = self._standby[1]
+                if staged_v is None or staged_v <= self.version:
+                    logger.warning("weight swap drops the superseded standby (staged v%s, "
+                                   "now v%d)", staged_v, self.version)
+                    self._standby = None
+
+    def stage_params(self, params, version: Optional[int] = None) -> bool:
+        """Build the next weights on the device while decoding goes on, for
+        `commit_staged` to swap in by pointer.  `params` is a `Transformer`
+        (one on the engine's device is held as it is; another is copied)
+        or HF-named host tensors ({name: tensor}, what a transfer publish
+        assembles).  The standby is a second copy of the weights on the
+        device: when it does not fit, returns False and the caller keeps
+        its host copy for the commit.  Safe from a thread other than the
+        stepping one (only the standby slot is shared, under `_lock`)."""
+        try:
+            model = self.place_params(params)
+        except (torch.cuda.OutOfMemoryError, MemoryError) as e:
+            logger.warning("weight staging failed (%s); the commit places from host",
+                           str(e)[:120])
+            with self._lock:
+                self._standby = None
+            return False
+        with self._lock:
+            self._standby = (model, None if version is None else int(version))
+        return True
+
+    def place_params(self, params) -> Transformer:
+        """`params` as a model on the engine's device in the served weights'
+        dtype (a model already there is used as it is).  The copies run on
+        the calling thread's current stream, the one the decode loop
+        launches on, so the standby's memory returns to that stream's pool
+        when a later swap frees it."""
+        if isinstance(params, Transformer):
+            if next(params.parameters()).device == self.device:
+                return params
+            items = params_to_hf_state(params)
+        else:
+            items = iter(params.items())
+        ref = next(self.model.parameters()) if self.model is not None else None
+        dtype = str(ref.dtype).split(".")[-1] if ref is not None else None
+        return state_to_params(items, self.model_config, self.device, dtype)
+
+    @property
+    def staged_version(self) -> Optional[int]:
+        """The staged standby's version, or None when nothing is staged."""
+        with self._lock:
+            return self._standby[1] if self._standby is not None else None
+
+    @property
+    def has_standby(self) -> bool:
+        with self._lock:
+            return self._standby is not None
+
+    def commit_staged(self, live: bool = False) -> int:
+        """Swap the staged weights in: after aborting in-flight requests
+        (the default), or live, as `swap_weights_live` does (in-flight
+        requests decode on under the new weights, their per-token versions
+        record it).  Either way the pause is the abort and a pointer swap.
+        Call from the thread that steps the engine.  Returns the version."""
+        t0 = time.perf_counter()
+        version_before = self.version
+        with self._lock:
+            if self._standby is None:
+                raise RuntimeError("commit_staged without stage_params")
+            model, version = self._standby
+            self._standby = None
+        if not live:
+            aborted = self.abort_all("abort")
+            if aborted:
+                logger.info("aborted %d requests for a staged weight swap", aborted)
+        self._swap(model, version)
+        self._record_pause(time.perf_counter() - t0, "commit_live" if live else "commit_abort",
+                           version_before)
+        return self.version
 
     def _record_pause(self, dur: float, kind: str, version_before: int) -> None:
         """Every weight swap's pause window lands in the pause histogram
@@ -1219,7 +1745,8 @@ class GenEngine:
         with self._lock:
             self._dev_state = None  # rebuilt from the host mirrors at restage
             self._state_dirty = True
-        # the cache is gone: no prefix survives
+            self._standby = None
+        # the cache is gone: no prefix survives, on the device or the host
         self.retained_len[:] = 0
         self._reserved_until[:] = 0.0
         self.kv_version[:] = self.version

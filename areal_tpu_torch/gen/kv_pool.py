@@ -2,11 +2,20 @@
 host-DRAM overflow tier (the port's copy of `areal_tpu/gen/kv_pool.py`,
 which is numpy only).
 
-The serving slice uses the page table: `KVPool.row` and `device_rows` map
-a logical slot to its physical cache row, and every decode dispatch reads
-and writes the cache through that table.  The radix index, the host tier
-and the handoff wire format serve prefix reuse, host offload and
-disaggregated handoff, which later slices port.
+- The page table (`KVPool.row`, `device_rows`) maps a logical slot to its
+  physical cache row; every decode and verify dispatch reads and writes
+  the cache through it, so a tier migration is a host-side remap
+  (`swap`).
+- The radix index holds every resident prefix, device-retained and
+  host-spilled alike; admission, the fan-out and a handoff export match
+  through one walk.
+- The host tier keeps spilled prefixes as CPU tensors in the cache's
+  dtype, LRU under a byte cap.
+- The handoff wire format carries an exported prefix as JSON with each
+  K/V array's raw bytes: a bf16 cache travels as its 16-bit words under
+  the dtype tag "bfloat16" (the tag the reference writes under
+  `ml_dtypes`), never through another float type, so an entry exported by
+  either package decodes in the other byte for byte.
 """
 
 import base64
@@ -15,6 +24,7 @@ from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
 
 
 def lcp_ids(a, b) -> int:
@@ -36,7 +46,23 @@ def lcp_ids(a, b) -> int:
 # sampler streams).
 
 
-def _wire_array(a: np.ndarray) -> Dict:
+# wire dtype tags (numpy's names, and ml_dtypes' "bfloat16") <-> torch
+_WIRE_DTYPES = {
+    "float32": torch.float32, "float16": torch.float16, "bfloat16": torch.bfloat16,
+    "float64": torch.float64, "int64": torch.int64, "int32": torch.int32,
+    "int16": torch.int16, "int8": torch.int8, "uint8": torch.uint8,
+}
+_WIRE_TAGS = {dt: tag for tag, dt in _WIRE_DTYPES.items()}
+
+
+def _wire_array(a) -> Dict:
+    """One K/V array (a torch tensor or a numpy array) as raw bytes with its
+    dtype tag and shape."""
+    if isinstance(a, torch.Tensor):
+        t = a.detach().to("cpu").contiguous()
+        raw = t.reshape(-1).view(torch.uint8).numpy().tobytes()
+        return {"dtype": _WIRE_TAGS[t.dtype], "shape": list(t.shape),
+                "b64": base64.b64encode(raw).decode("ascii")}
     a = np.ascontiguousarray(a)
     return {
         "dtype": str(a.dtype),
@@ -45,17 +71,29 @@ def _wire_array(a: np.ndarray) -> Dict:
     }
 
 
-def _unwire_array(doc: Dict) -> np.ndarray:
-    flat = np.frombuffer(
-        base64.b64decode(doc["b64"]), dtype=np.dtype(doc["dtype"])
-    )
-    return flat.reshape(doc["shape"])
+def _unwire_array(doc: Dict) -> torch.Tensor:
+    """Inverse of `_wire_array`: a CPU tensor over the decoded bytes, in
+    the tagged dtype (a bf16 entry is viewed as torch.bfloat16, never
+    converted)."""
+    dtype = _WIRE_DTYPES[doc["dtype"]]
+    shape = [int(d) for d in doc["shape"]]
+    raw = bytearray(base64.b64decode(doc["b64"]))
+    if not raw:
+        return torch.empty(shape, dtype=dtype)
+    return torch.frombuffer(raw, dtype=torch.uint8).view(dtype).reshape(shape)
+
+
+def nbytes_of(a) -> int:
+    """Bytes of one K/V array, a torch tensor or a numpy array."""
+    if isinstance(a, torch.Tensor):
+        return a.numel() * a.element_size()
+    return int(np.asarray(a).nbytes)
 
 
 def wire_encode_entry(entry: Dict) -> Dict:
     """JSON-safe wire form of an exported KV entry (the /kv_export
     response body / /kv_import request body)."""
-    kv = {k: np.asarray(v) for k, v in entry["kv"].items()}
+    kv = dict(entry["kv"])
     return {
         "tokens": [int(t) for t in entry["tokens"]],
         "valid_len": int(entry["valid_len"]),
@@ -63,15 +101,14 @@ def wire_encode_entry(entry: Dict) -> Dict:
         "block": int(entry["block"]),
         # payload size before base64 inflation — the router's transfer
         # ledger and the handoff telemetry read this
-        "nbytes": int(sum(a.nbytes for a in kv.values())),
+        "nbytes": int(sum(nbytes_of(a) for a in kv.values())),
         "kv": {k: _wire_array(a) for k, a in kv.items()},
     }
 
 
 def wire_decode_entry(doc: Dict) -> Dict:
-    """Inverse of wire_encode_entry; KV arrays come back bit-identical
-    (read-only views over the decoded buffer — the import path never
-    mutates them)."""
+    """Inverse of wire_encode_entry; KV arrays come back bit-identical, as
+    CPU tensors over the decoded buffers."""
     return {
         "tokens": np.asarray(doc["tokens"], np.int64),
         "valid_len": int(doc["valid_len"]),
@@ -227,11 +264,11 @@ class HostEntry:
     valid_len: int
     version: int
     block: int  # bucketed positions held by the kv arrays
-    kv: Dict[str, np.ndarray]  # {"k": [L, block, Hkv, hd], "v": ...}
+    kv: Dict[str, torch.Tensor]  # {"k": [L, block, Hkv, hd], "v": ...} on the host
     nbytes: int = field(init=False)
 
     def __post_init__(self):
-        self.nbytes = sum(int(a.nbytes) for a in self.kv.values())
+        self.nbytes = sum(nbytes_of(a) for a in self.kv.values())
 
 
 class HostOverflowTier:
@@ -394,7 +431,7 @@ class KVPool:
         valid_len: int,
         version: int,
         block: int,
-        kv: Dict[str, np.ndarray],
+        kv: Dict[str, torch.Tensor],
     ) -> int:
         """Spill an evicted prefix to host DRAM; returns how many OLDER
         host entries the LRU evicted to make room (0 when it fit)."""

@@ -28,6 +28,17 @@ that
   half-open until `_verify_rejoin` has force-reloaded it from the last disk
   publish when it serves an older version than the fleet's.
 
+- **disaggregates prefill and decode** (`RouterConfig.disagg`): with a
+  prefill-role and a decode-role backend placeable, `/generate` runs as
+  two legs.  Leg 1 (admission, prefill and the first
+  `handoff_leg1_tokens` tokens) goes to a prefill server (rid or group
+  affinity first); its prefix K/V moves `/kv_export` -> `/kv_import` to the
+  decode server of lowest polled tier occupancy; leg 2 (the tail) runs
+  there with leg 1's `stream_id`, so the merged stream is the one a
+  single server would sample.  A failed transfer continues the tail on
+  the prefill server; an empty role pool, the transfer backpressure
+  (`handoff_max_inflight`) or a failed leg 1 serve the request colocated.
+
 Clients speak the generation server's wire format to it, so the remote
 client points at the router as at one big server.  Routes:
 
@@ -42,19 +53,21 @@ client points at the router as at one big server.  Routes:
     GET  /metrics                               JSON, or Prometheus (`areal_router_*`)
                                                 with ?format=prometheus
 
-The JSON `/metrics` adds one key to the reference's: `last_flush_s`, the
-last fleet flush's wall time from the first pause to the last resume.
+The JSON `/metrics` adds keys to the reference's: `last_flush_s`, the last
+fleet flush's wall time from the first pause to the last resume, and
+`handoff_bytes` and `handoff_seconds`, the K/V bytes the handoffs moved and
+their export-to-import wall time, summed.
 
 `ThreadingHTTPServer` handles each connection on a thread of its own, and
 backend calls are `http.client` calls on those threads: the ledger lock
 is a `threading.Lock`, the flush serializer a lock of its own taken before
-it, and the probe loop, the checkpoint watcher and the version poller are
-daemon threads that `stop` joins.  The disaggregated prefill/decode legs
-(`RouterConfig.disagg`, `/kv_export` and `/kv_import`) are not ported:
-`disagg=True` raises.
+it, the transfer backpressure a `threading.BoundedSemaphore`, and the probe
+loop, the checkpoint watcher, the version poller and the decode-occupancy
+poller are daemon threads that `stop` joins.
 
     python -m areal_tpu_torch.gen.router --experiment-name E --trial-name T \\
         --train-batch-size 32 --max-head-offpolicyness 1 --weights-path DIR
+    python -m areal_tpu_torch.gen.router --addrs PREFILL,DECODE --disagg
 """
 
 import argparse
@@ -110,8 +123,17 @@ class RouterConfig:
     health_check_interval: float = 5.0
     health_failure_threshold: int = 3
     health_probe_timeout: float = 2.0
-    # disaggregated prefill/decode serving: not ported (raises)
+    # disaggregated prefill/decode serving: with both role pools placeable,
+    # /generate runs as a prefill leg, a K/V transfer and a decode leg
     disagg: bool = False
+    # backpressure: transfers in flight fleet-wide; beyond it, colocated
+    handoff_max_inflight: int = 4
+    # tokens sampled on the prefill server before the handoff (>= 1: the
+    # prefill samples the first)
+    handoff_leg1_tokens: int = 1
+    # poll decode servers' /metrics for tier occupancy at this cadence (0:
+    # place by in-flight counts alone)
+    occupancy_poll_interval: float = 1.0
 
 
 class Router:
@@ -124,16 +146,16 @@ class Router:
         "_failovers": "_lock",
         "_publish_partial_failures": "_lock",
         "_last_publish": "_lock",
+        "_handoffs": "_lock",
+        "_handoff_fallbacks": "_lock",
+        "_handoff_bytes": "_lock",
+        "_handoff_seconds": "_lock",
     }
     # _flush_and_update holds the flush serializer across the backend
     # fan-out, then takes the ledger lock to commit; never the other way
     # lock-order: _flush_lock -> _lock
 
     def __init__(self, config: RouterConfig, addresses: Optional[List[str]] = None):
-        if config.disagg:
-            raise NotImplementedError(
-                "disaggregated prefill/decode serving (RouterConfig.disagg) is not ported: "
-                "the port's servers have no /kv_export or /kv_import")
         self.config = config
         self.addresses: List[str] = list(addresses or [])
         self.version = 0
@@ -157,6 +179,17 @@ class Router:
         # (path, version) of the last disk publish: a rejoining backend is
         # reloaded from it before it takes placements again
         self._last_publish: Optional[Tuple[str, int]] = None
+        # disaggregated serving: each backend's advertised role (from its
+        # /health), the decode servers' polled occupancy (plain dict writes
+        # from the probe and poller threads), the transfer backpressure and
+        # the handoff ledger
+        self._roles: Dict[str, str] = {}
+        self._decode_occ: Dict[str, float] = {}
+        self._handoff_sem = threading.BoundedSemaphore(max(1, config.handoff_max_inflight))
+        self._handoffs = 0
+        self._handoff_fallbacks = 0
+        self._handoff_bytes = 0
+        self._handoff_seconds = 0.0
 
     # ---------------------------- scheduling ----------------------------
 
@@ -196,6 +229,31 @@ class Router:
                 self._rid_to_addr.popitem(last=False)
             self._rid_to_addr[rid] = addr
         return addr
+
+    # --------------------- disaggregated placement ----------------------
+
+    def _role_pool(self, role: str) -> List[str]:
+        """Placeable backends advertising exactly `role`: `both` servers
+        stay out of the pools, as the colocated fallback."""
+        return [a for a in self._placeable() if self._roles.get(a, "both") == role]
+
+    def _prefill_for_rid(self, rid: str, pool: List[str]) -> str:  # holds: _lock
+        """Prefill placement: rid or group affinity first (a group's fan-out
+        shares its prefix inside one engine), else the shallowest queue."""
+        if rid and self._rid_to_addr.get(rid) in pool:
+            self._rid_to_addr.move_to_end(rid)
+            return self._rid_to_addr[rid]
+        addr = min(pool, key=lambda a: self._inflight.get(a, 0))
+        if rid:
+            if len(self._rid_to_addr) >= RID_CACHE_SIZE:
+                self._rid_to_addr.popitem(last=False)
+            self._rid_to_addr[rid] = addr
+        return addr
+
+    def _decode_pick(self, pool: List[str]) -> str:
+        """Decode placement: the lowest polled tier occupancy, in-flight
+        requests as the tiebreak."""
+        return min(pool, key=lambda a: (self._decode_occ.get(a, 0.0), self._inflight.get(a, 0)))
 
     def _evict_backend_locked(self, addr: str) -> int:  # holds: _lock
         """Drop every affinity pinned to `addr`; each one is a failover."""
@@ -241,6 +299,11 @@ class Router:
         # shared only within one cache): the key is the group when one is
         # declared, the rid otherwise
         key = body.get("group_id") or body.get("rid", "")
+        if self.config.disagg:
+            reply = self._generate_disagg(body, key)
+            if reply is not None:
+                return reply
+            # colocated: an empty role pool, backpressure or a failed leg 1
         return self._proxy("/generate", body, key, 1, len(body.get("input_ids", ())))
 
     def generate_batch(self, body: dict) -> Reply:
@@ -273,6 +336,136 @@ class Router:
         if self._health is not None and status == 200:
             self._health.report_success(addr)
         return status, payload
+
+    # ------------------------ disaggregated legs ------------------------
+
+    def _leg_post(self, addr: str, body: dict, n_tokens: int) -> Tuple[int, dict]:
+        """One /generate leg with the colocated path's in-flight and token
+        bookkeeping; a transport failure raises to the caller."""
+        with self._lock:
+            self._inflight[addr] = self._inflight.get(addr, 0) + 1
+            self._routed[addr] = self._routed.get(addr, 0) + 1
+            self._tokens[addr] = self._tokens.get(addr, 0) + n_tokens
+        try:
+            return exchange(addr, "/generate", body, timeout=self.config.request_timeout)
+        finally:
+            with self._lock:
+                self._inflight[addr] = max(0, self._inflight.get(addr, 1) - 1)
+                self._tokens[addr] = max(0, self._tokens.get(addr, 0) - n_tokens)
+
+    def _transfer(self, src: str, dst: str, ids: List[int]) -> Tuple[bool, int]:
+        """/kv_export on `src` -> /kv_import on `dst`, under the
+        backpressure semaphore: (moved, payload bytes)."""
+        with self._handoff_sem:
+            try:
+                status, doc = exchange(src, "/kv_export", {"input_ids": ids},
+                                       timeout=self.config.request_timeout)
+                if status != 200:
+                    return False, 0
+                status, _ = exchange(dst, "/kv_import", doc, timeout=self.config.request_timeout)
+                return status == 200, int(doc.get("nbytes", 0) or 0)
+            except TRANSPORT_ERRORS:
+                return False, 0
+
+    def _generate_disagg(self, body: dict, key: str) -> Optional[Reply]:
+        """Two-leg /generate: leg 1 on a prefill server, the K/V transfer,
+        leg 2 on a decode server.  None sends the caller to colocated
+        placement, which is always exact: the counter-keyed sampler makes
+        the stream a function of (stream_id, position)."""
+        sp = dict(body.get("sampling_params") or {})
+        orig_max = int(sp.get("max_new_tokens", 256))
+        orig_min = int(sp.get("min_new_tokens", 0) or 0)
+        leg1_n = max(1, self.config.handoff_leg1_tokens)
+        # backpressure: a transfer slot must be free now (a peek; the
+        # transfer takes one for real)
+        if not self._handoff_sem.acquire(blocking=False):
+            return None
+        self._handoff_sem.release()
+        with self._lock:
+            prefill_pool = self._role_pool("prefill")
+            decode_pool = self._role_pool("decode")
+            if not prefill_pool or not decode_pool or orig_max <= leg1_n:
+                return None
+            prefill_addr = self._prefill_for_rid(key, prefill_pool)
+            decode_addr = self._decode_pick(decode_pool)
+
+        # --- leg 1 ---
+        leg1_body = dict(body, sampling_params=dict(
+            sp, max_new_tokens=leg1_n, min_new_tokens=min(orig_min, leg1_n)))
+        n_prompt = len(body.get("input_ids", ()))
+        try:
+            status, leg1 = self._leg_post(prefill_addr, leg1_body, n_prompt)
+        except TRANSPORT_ERRORS as e:
+            # no token was delivered: nothing is lost, place it colocated
+            if self._health is not None:
+                self._health.report_failure(prefill_addr, repr(e))
+            with self._lock:
+                if self._rid_to_addr.get(key) == prefill_addr:
+                    del self._rid_to_addr[key]
+                    self._failovers += 1
+                self._handoff_fallbacks += 1
+            return None
+        if status != 200:
+            with self._lock:
+                self._handoff_fallbacks += 1
+            return None
+        if self._health is not None:
+            self._health.report_success(prefill_addr)
+        toks = [int(t) for t in leg1.get("output_tokens", [])]
+        if leg1.get("stop_reason") != "length" or not toks:
+            return 200, leg1  # finished inside leg 1: nothing to hand off
+
+        # --- the K/V transfer ---
+        full_ids = [int(t) for t in body["input_ids"]] + toks
+        t0 = time.perf_counter()
+        moved, nbytes = self._transfer(prefill_addr, decode_addr, full_ids)
+        dt = time.perf_counter() - t0
+        if moved:
+            telemetry.emit("handoff", trace_id=str(body.get("trace_id", "") or "") or None,
+                           latency_s=dt, bytes=nbytes, src=prefill_addr, dst=decode_addr)
+            with self._lock:
+                self._handoffs += 1
+                self._handoff_bytes += nbytes
+                self._handoff_seconds += dt
+        else:
+            # a cache miss, a refusing or dead decode server: the tail
+            # continues on the prefill server, exact all the same
+            decode_addr = prefill_addr
+            with self._lock:
+                self._handoff_fallbacks += 1
+
+        # --- leg 2 ---
+        leg2_body = dict(body, input_ids=full_ids,
+                         stream_id=int(leg1.get("stream_id", 0) or 0),
+                         sampling_params=dict(sp, max_new_tokens=orig_max - len(toks),
+                                              min_new_tokens=max(0, orig_min - len(toks))))
+        try:
+            status2, leg2 = self._leg_post(decode_addr, leg2_body, len(full_ids))
+        except TRANSPORT_ERRORS as e:
+            if decode_addr == prefill_addr:
+                return self._proxy_failed(prefill_addr, key, e)
+            if self._health is not None:
+                self._health.report_failure(decode_addr, repr(e))
+            # the decode server died in the tail; the prefill server still
+            # holds the prefix
+            try:
+                status2, leg2 = self._leg_post(prefill_addr, leg2_body, len(full_ids))
+            except TRANSPORT_ERRORS as e2:
+                return self._proxy_failed(prefill_addr, key, e2)
+        if status2 != 200:
+            return status2, leg2
+        if self._health is not None:
+            self._health.report_success(decode_addr)
+        merged = dict(leg2)
+        merged["output_tokens"] = toks + [int(t) for t in leg2.get("output_tokens", [])]
+        merged["output_logprobs"] = (list(leg1.get("output_logprobs", []))
+                                     + list(leg2.get("output_logprobs", [])))
+        merged["output_versions"] = (list(leg1.get("output_versions", []))
+                                     + list(leg2.get("output_versions", [])))
+        # the admission that counts for warm-start accounting is leg 1's
+        merged["cache_hit_tokens"] = leg1.get("cache_hit_tokens", 0)
+        merged["handoff"] = moved
+        return 200, merged
 
     def _proxy_failed(self, addr: str, key: str, exc: BaseException) -> Reply:
         """A proxied call died in transport: strike the backend's breaker,
@@ -385,10 +578,11 @@ class Router:
                 "last_flush_s": self.last_flush_s,
                 "failovers": self._failovers,
                 "publish_partial_failures": self._publish_partial_failures,
-                # the disaggregated legs are not ported: no handoffs
-                "handoffs": 0,
-                "handoff_fallbacks": 0,
-                "roles": {},
+                "handoffs": self._handoffs,
+                "handoff_fallbacks": self._handoff_fallbacks,
+                "handoff_bytes": self._handoff_bytes,
+                "handoff_seconds": self._handoff_seconds,
+                "roles": dict(self._roles),
             }
         snap["backend_states"] = self._health.snapshot() if self._health is not None else {}
         if not prometheus:
@@ -508,7 +702,24 @@ class Router:
                                   timeout=self.config.health_probe_timeout)
         if status != 200:
             raise RuntimeError(f"GET {addr}/health -> HTTP {status}")
+        # the role rides the probe: a backend restarted in another role is
+        # re-pooled within one sweep
+        if health.get("role"):
+            self._roles[addr] = str(health["role"])
         return health
+
+    def _poll_decode_occupancy(self) -> None:
+        """The decode pool's placement signal: each decode server's occupied
+        slots over its slots, from its /metrics."""
+        while not self._stop.wait(self.config.occupancy_poll_interval):
+            for addr in [a for a in self.addresses if self._roles.get(a) == "decode"]:
+                try:
+                    status, m = exchange(addr, "/metrics", method="GET", timeout=2)
+                except TRANSPORT_ERRORS:
+                    continue  # unreachable: no information
+                total = sum(m.get("tier_slots") or []) if status == 200 else 0
+                if total:
+                    self._decode_occ[addr] = float(sum(m.get("tier_occupancy") or [])) / total
 
     def _verify_rejoin(self, addr: str, health: dict) -> bool:
         """The gate of half_open -> closed: a backend that answers after
@@ -597,6 +808,18 @@ class Router:
             interval=self.config.health_check_interval,
             on_death=self._on_backend_death, verify_rejoin=self._verify_rejoin)
         self._health.start()
+        if self.config.disagg:
+            # know the roles before the first /generate (the probes keep
+            # them fresh afterwards)
+            for a in self.addresses:
+                try:
+                    self._probe_backend(a)
+                except Exception:  # noqa: BLE001 — not up yet: the probe thread retries
+                    continue
+            if self.config.occupancy_poll_interval > 0:
+                self._spawn(self._poll_decode_occupancy, "decode-occupancy-poller")
+            logger.info("disaggregated serving on: roles %s",
+                        {a: self._roles.get(a, "?") for a in self.addresses})
         if self.config.weights_path and self.config.experiment_name:
             self._spawn(self._watch_checkpoints, "checkpoint-watcher")
         elif self.config.train_batch_size > 0 and self.config.version_poll_interval > 0:
@@ -722,9 +945,9 @@ def serve(router: Router, host: str = "0.0.0.0", port: int = 0,
 
 def main(argv: Optional[List[str]] = None,
          on_ready: Optional[Callable[[RouterHTTPServer], None]] = None) -> None:
-    """`python -m areal_tpu_torch.gen.router`: the JAX router's flags
-    (without --disagg and --handoff-max-inflight), plus --host, the
-    health checker's and the gate's timings, and --exit-with-parent.
+    """`python -m areal_tpu_torch.gen.router`: the JAX router's flags, plus
+    --host, the health checker's and the gate's timings, the handoff's
+    leg-1 tokens and occupancy poll, and --exit-with-parent.
     With --experiment-name it finds the servers through name_resolve
     (``AREAL_NAME_RESOLVE``) unless --addrs names them, and registers
     itself under `names.gen_router` once it listens (the host's address
@@ -747,6 +970,10 @@ def main(argv: Optional[List[str]] = None,
     p.add_argument("--health-check-interval", type=float, default=5.0)
     p.add_argument("--health-failure-threshold", type=int, default=3)
     p.add_argument("--health-probe-timeout", type=float, default=2.0)
+    p.add_argument("--disagg", action="store_true",
+                   help="disaggregated prefill/decode serving: /generate as a prefill "
+                        "leg, a K/V handoff and a decode leg when both role pools exist")
+    p.add_argument("--handoff-max-inflight", type=int, default=4)
     p.add_argument("--exit-with-parent", action="store_true",
                    help="exit when the process that started this one is gone")
     args = p.parse_args(argv)
@@ -759,7 +986,8 @@ def main(argv: Optional[List[str]] = None,
         poll_interval=args.poll_interval,
         health_check_interval=args.health_check_interval,
         health_failure_threshold=args.health_failure_threshold,
-        health_probe_timeout=args.health_probe_timeout)
+        health_probe_timeout=args.health_probe_timeout, disagg=args.disagg,
+        handoff_max_inflight=args.handoff_max_inflight)
     router = Router(cfg, addresses=args.addrs.split(",") if args.addrs else None)
 
     def register(httpd: RouterHTTPServer) -> None:

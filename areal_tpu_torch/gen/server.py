@@ -16,11 +16,24 @@ Same paths and JSON keys as the JAX server:
                                (X-Weight-Name/Dtype/Shape/Nbytes/Offset
                                headers) or JSON {name, dtype, shape, nbytes,
                                offset, data_b64}; then {prepare, version}
-                               assembles them into a model on the engine's
-                               device while decoding goes on, and {commit,
-                               version, live} swaps it in: live
-                               (`swap_weights_live`) or after aborting
-                               in-flight requests
+                               stages them on the engine's device while
+                               decoding goes on (`GenEngine.stage_params`,
+                               a second copy of the weights) and answers
+                               {"staged": true}, or {"staged": false} with
+                               the host copy kept when the standby does not
+                               fit; {commit, version, live} swaps it in
+                               (`commit_staged`: a pointer swap, live or
+                               after aborting in-flight requests; unstaged,
+                               the placement runs inside the pause)
+    POST /kv_export            {input_ids} -> the resident K/V prefix
+                               covering them in the wire format
+                               (`gen.kv_pool.wire_encode_entry`); 404 when
+                               none is resident
+    POST /kv_import            a wire entry -> installed in the host tier
+                               ({ok, valid_len}); 409 without one, 400 for
+                               an entry this cache cannot take (another
+                               depth, kv width or dtype, a block past
+                               --max-seq-len)
     GET  /health
     GET  /metrics              JSON counters (below); the Prometheus text
                                exposition with ?format=prometheus or an
@@ -34,13 +47,17 @@ end; a request aborted by a weight update is answered 200 with
 `/metrics` keys: `decode_steps` (forward_decode steps of the slot grid,
 one per token position; the reference's server counted decode chunks,
 which the port reports as `decode_calls`), `decode_calls`,
-`tokens_generated`, `active`, `version`, `last_pause_s` (the decode
-loop's idle window in the last weight swap), `staged` (a transfer is
-assembled and waits for its commit), the prefill accounting
+`tokens_generated`, `active`, `role`, `version`, `last_pause_s` (the decode
+loop's idle window in the last weight swap), `staged` (a standby waits for
+its commit), the prefill accounting
 (`prefill_tokens` cold, `suffix_tokens`, `reused_tokens` from retained
 prefixes, `shared_tokens` from a group's fanned-out prefix, `copy_calls`)
 and `reservations_lapsed` (abort reservations whose owner did not
-resubmit in time), `ragged_dispatches`,
+resubmit in time), the tiers (`tier_occupancy`, `tier_slots`,
+`tier_lens`, `tier_migrations`), the prefix cache (`prefix_cache_hits`,
+`_misses`, `_evictions`, `_host_swaps`, `_partial_hits`, `_hit_rate`),
+the handoff ledger (`kv_handoff_exports`, `_imports`, `_bytes`,
+`_failures`), `ragged_dispatches`,
 `ragged_attended_pages`, `ragged_kernel_launches` (launches of the ragged
 decode kernel in this process, 0 on the CPU) and `ragged_verify_launches`
 (those at T > 1, a verify's), speculative decoding's
@@ -52,10 +69,17 @@ The Prometheus surface renders the process's `gen` registry
 (`utils/telemetry.py`): a scrape-time collector mirrors the engine's
 counters, each under its own name pinned in
 `tests/data/metrics_schema.json` (`areal_gen_<stat>_total`), plus the
-gauges (active requests, weight version, the last pause, the prefix-cache
-hit rate, the acceptance rate over the server's life and per tier as
-`{tier="0"}`, the mean pages a ragged dispatch read) and the histograms
-the engine observes (pause window, admission wait, decode chunk).
+gauges (active requests, weight version, the last pause, the staged
+standby, the prefix-cache hit rate, each tier's occupancy and acceptance
+rate as `{tier="t"}`, the acceptance rate over the server's life, the mean
+pages a ragged dispatch read) and the histograms the engine and the
+worker observe (pause window, admission wait, decode chunk, handoff).
+
+`--role` (prefill, decode or both) is what the server advertises to a
+disaggregating router (`/health`, `/metrics`); the engine serves every
+route whatever the role, so the router can always fall back to a
+colocated request.  A decode server gets its work as `/kv_import` entries
+and so always runs the host tier.
 
 A request's `group_id`/`group_n` reach the engine, which holds and
 clusters a GRPO group to prefill its prompt once; each answer carries its
@@ -72,11 +96,15 @@ load's reload, pinned to the recovered version, before any generate).
 `http.server.ThreadingHTTPServer` handles each connection on its own
 thread; a dedicated worker thread owns the engine and the device's decode
 loop (every admission, decode step and weight swap runs there), and
-handler threads wait on the request's completion.  The KV handoff
-endpoints come with a later slice.
+handler threads wait on the request's completion.  `/kv_export` and
+`/kv_import` touch the device cache, so they run on the worker too, from
+a mailbox it drains between steps (even while paused), and answer 503
+when it does not serve them within 30 s.
 
     python -m areal_tpu_torch.gen.server --model-path <hf dir> --port 8000
     python -m areal_tpu_torch.gen.server --model-path <hf dir> --spec-decode
+    python -m areal_tpu_torch.gen.server --model-path <hf dir> --role decode \
+        --decode-tiers 2 --host-cache-mb 1024
 """
 
 import argparse
@@ -95,10 +123,9 @@ from urllib.parse import parse_qs, urlsplit
 import torch
 
 from areal_tpu_torch.device import torch_dtype
+from areal_tpu_torch.gen import kv_pool
 from areal_tpu_torch.gen.engine import GenEngine, GenRequest
-from areal_tpu_torch.models.hf import state_to_params
 from areal_tpu_torch.models.model_config import TransformerConfig, tiny_config
-from areal_tpu_torch.models.transformer import Transformer
 from areal_tpu_torch.ops.ragged_decode import ragged_paged_attention
 from areal_tpu_torch.utils import name_resolve, names, network, telemetry
 from areal_tpu_torch.utils.shutdown import exit_with_parent
@@ -107,13 +134,19 @@ logger = logging.getLogger("areal_tpu_torch.gen.server")
 
 # the stop reason of requests a failed decode step finished: answered 500
 STEP_FAILED = "error"
+ROLES = ("prefill", "decode", "both")
+# how long /kv_export and /kv_import wait for the worker before a 503
+HANDOFF_TIMEOUT_S = 30.0
 
 
 class GenServer:
     """The engine's worker thread plus the request/response translation."""
 
-    def __init__(self, engine: GenEngine):
+    def __init__(self, engine: GenEngine, role: str = "both"):
+        if role not in ROLES:
+            raise ValueError(f"unknown server role: {role!r}")
         self.engine = engine
+        self.role = role
         self.paused = threading.Event()  # set => the decode loop parks
         self.shutdown = threading.Event()
         self.worker = threading.Thread(target=self._run, daemon=True)
@@ -124,10 +157,13 @@ class GenServer:
         self._cmd_lock = threading.Lock()
         self._pending_weight_update: Optional[dict] = None
         self._last_committed_version: Optional[int] = None
-        # the transfer publish: pieces by name, then the assembled model
+        # /kv_export and /kv_import handed to the worker
+        self._pending_handoffs: List[dict] = []  # guarded-by: _cmd_lock
+        # the transfer publish: pieces by name; a prepare whose standby did
+        # not fit keeps the assembled host tensors for the commit
         self._chunk_lock = threading.Lock()
         self._chunk_buf: Dict[str, dict] = {}  # guarded-by: _chunk_lock
-        self._staged: Optional[Tuple[Transformer, Optional[int]]] = None  # guarded-by: _chunk_lock
+        self._unstaged: Optional[Tuple[dict, Optional[int]]] = None  # guarded-by: _chunk_lock
         self._register_telemetry()
 
     def _register_telemetry(self) -> None:
@@ -171,6 +207,18 @@ class GenServer:
             ("spec_drafted", reg.counter("spec_drafted_total", "Draft tokens proposed")),
             ("spec_accepted", reg.counter("spec_accepted_total", "Draft tokens accepted")),
             ("verify_calls", reg.counter("verify_calls_total", "Speculative verify dispatches")),
+            ("tier_migrations", reg.counter("tier_migrations_total",
+                                            "Slots moved to a roomier length-cohort tier")),
+            ("prefix_cache_host_swaps", reg.counter(
+                "prefix_cache_host_swaps_total", "Prefix spills to the host tier and swap-ins")),
+            ("kv_handoff_exports", reg.counter("kv_handoff_exports_total",
+                                               "K/V prefixes exported for a handoff")),
+            ("kv_handoff_imports", reg.counter("kv_handoff_imports_total",
+                                               "K/V prefixes imported into the host tier")),
+            ("kv_handoff_bytes", reg.counter("kv_handoff_bytes_total",
+                                             "K/V bytes exported and imported")),
+            ("kv_handoff_failures", reg.counter(
+                "kv_handoff_failures_total", "Exports with nothing resident, refused imports")),
         )
         tokens = reg.counter("tokens_generated_total", "Decode tokens delivered")
         active = reg.gauge("active_requests", "Requests in slots, admitting or queued")
@@ -178,7 +226,8 @@ class GenServer:
         pause = reg.gauge("last_pause_seconds",
                           "Most recent weight-swap pause window (histogram: "
                           "areal_gen_pause_window_seconds)")
-        staged = reg.gauge("staged_standby", "Transfer staged and awaiting its commit (0/1)")
+        staged = reg.gauge("staged_standby", "Standby weights staged on the device (0/1)")
+        occupancy = reg.gauge("tier_occupancy", "Occupied slots per decode tier")
         hit_rate = reg.gauge("prefix_cache_hit_rate",
                              "Admissions served from a resident prefix")
         rate = reg.gauge("spec_acceptance_rate",
@@ -199,8 +248,9 @@ class GenServer:
             active.set(eng.active_count())
             version.set(eng.version)
             pause.set(srv.last_pause_s)
-            with srv._chunk_lock:
-                staged.set(1.0 if srv._staged is not None else 0.0)
+            staged.set(1.0 if eng.has_standby else 0.0)
+            for t, occ in enumerate(eng.tier_occupancy()):
+                occupancy.set(occ, tier=str(t))
             hit_rate.set(eng.prefix_cache_hit_rate())
             drafted = float(st["spec_drafted"])
             rate.set(st["spec_accepted"] / drafted if drafted else 0.0)
@@ -256,6 +306,7 @@ class GenServer:
         while not self.shutdown.is_set():
             if self._apply_weight_update():
                 continue
+            self._service_handoffs()
             if self.paused.is_set():
                 time.sleep(0.005)
                 continue
@@ -270,6 +321,61 @@ class GenServer:
             if not stepped:
                 time.sleep(0.002)
 
+    # --------------------------- the KV handoff -----------------------
+
+    def _service_handoffs(self) -> None:
+        """Run the queued exports and imports on the worker, where every
+        other touch of the device cache runs, between decode steps."""
+        with self._cmd_lock:
+            ops, self._pending_handoffs = self._pending_handoffs, []
+        for op in ops:
+            t0 = time.perf_counter()
+            try:
+                if op["kind"] == "export":
+                    result = self.engine.export_request_kv(op["input_ids"])
+                else:
+                    result = self.engine.import_request_kv(op["entry"])
+            except Exception as e:  # noqa: BLE001 — surfaced to the waiting handler
+                op["future"].set_exception(e)
+                continue
+            telemetry.HANDOFF.observe(time.perf_counter() - t0, op=op["kind"])
+            op["future"].set_result(result)
+
+    def _handoff(self, **op):
+        """Queue one export or import for the worker and wait for it;
+        raises concurrent.futures.TimeoutError after HANDOFF_TIMEOUT_S."""
+        fut: concurrent.futures.Future = concurrent.futures.Future()
+        with self._cmd_lock:
+            self._pending_handoffs.append(dict(op, future=fut))
+        return fut.result(timeout=HANDOFF_TIMEOUT_S)
+
+    def kv_export(self, body: dict) -> Tuple[int, dict]:
+        """The resident prefix covering `input_ids`, in the wire format."""
+        try:
+            entry = self._handoff(kind="export", input_ids=[int(t) for t in body["input_ids"]])
+        except concurrent.futures.TimeoutError:
+            return 503, {"error": "kv_export timed out"}
+        if entry is None:
+            return 404, {"error": "no exportable prefix"}
+        return 200, kv_pool.wire_encode_entry(entry)
+
+    def kv_import(self, body: dict) -> Tuple[int, dict]:
+        """Install a wire entry in the host tier; the next admission that
+        matches its tokens swaps it in."""
+        try:
+            entry = kv_pool.wire_decode_entry(body)
+        except (KeyError, ValueError, TypeError) as e:
+            return 400, {"error": f"malformed wire entry: {e!r}"}
+        try:
+            ok = self._handoff(kind="import", entry=entry)
+        except concurrent.futures.TimeoutError:
+            return 503, {"error": "kv_import timed out"}
+        except ValueError as e:  # an entry this engine's cache cannot take
+            return 400, {"error": str(e)}
+        if not ok:
+            return 409, {"error": "no host tier on this server (start with --host-offload)"}
+        return 200, {"ok": True, "valid_len": int(entry["valid_len"])}
+
     # ------------------------- the transfer publish ---------------------
 
     def receive_chunk(self, name: str, data, nbytes: int, dtype: str, shape: List[int],
@@ -280,70 +386,94 @@ class GenServer:
                 name, {"buf": bytearray(nbytes), "dtype": dtype, "shape": list(shape)})
             entry["buf"][offset:offset + len(data)] = data
 
-    def _assemble_locked(self) -> Transformer:  # holds: _chunk_lock
-        """Drain the chunk buffer into a model on the engine's device, in
-        the engine's weight dtype (bf16 pieces round-trip exactly)."""
+    def _assemble_locked(self) -> dict:  # holds: _chunk_lock
+        """Drain the chunk buffer into HF-named host tensors (views over the
+        received bytes)."""
         buf, self._chunk_buf = self._chunk_buf, {}
-        items = ((name, torch.frombuffer(e["buf"], dtype=torch_dtype(e["dtype"])
-                                         ).reshape(e["shape"]))
-                 for name, e in buf.items())
-        model = state_to_params(items, self.engine.model_config, device=self.engine.device)
-        if self.engine.device.type == "cuda":
-            # the copies are done when `prepare` answers: the commit swaps
-            # a model that is already on the card
-            torch.cuda.synchronize(self.engine.device)
-        return model
+        return {name: torch.frombuffer(e["buf"], dtype=torch_dtype(e["dtype"])
+                                       ).reshape(e["shape"])
+                for name, e in buf.items()}
 
     def prepare(self, version: Optional[int]) -> Tuple[int, dict]:
-        """Assemble the received pieces on the device; decoding goes on."""
+        """Stage the received pieces as standby weights on the device;
+        decoding goes on.  Without room for the standby the assembled host
+        tensors wait for the commit, which then places them in its pause."""
         with self._chunk_lock:
             if not self._chunk_buf:
                 return 409, {"error": "prepare without staged chunks"}
-            self._staged = (self._assemble_locked(), version)
-        return 200, {"ok": True, "staged": True}
+            host = self._assemble_locked()
+            staged = self.engine.stage_params(host, version)
+            self._unstaged = None if staged else (host, version)
+        return 200, {"ok": True, "staged": staged}
+
+    def _place_and_swap(self, host: dict, version: Optional[int], live: bool):
+        """The unstaged commit, for the worker: place the weights (inside
+        the pause, O(model bytes)), then swap live or after the abort."""
+        def fn() -> int:
+            model = self.engine.place_params(host)
+            if live:
+                return self.engine.swap_weights_live(model, version=version)
+            return self.engine.load_weights(model=model, version=version)
+        return fn
 
     def commit(self, version: Optional[int], live: bool) -> Tuple[int, dict]:
-        """Swap in the prepared model (or the received pieces): live, or
-        after aborting in-flight requests.  A commit retried after its
-        response was lost answers 200 when that version is already live."""
+        """Swap in the staged standby (a pointer swap), or place and swap
+        the unstaged host copy or the received pieces: live, or after
+        aborting in-flight requests.  A commit of another version than the
+        one staged is refused (409) and the standby kept; a commit retried
+        after its response was lost answers 200 when that version is
+        already live."""
+        eng = self.engine
         with self._chunk_lock:
-            staged, self._staged = self._staged, None
-            if staged is not None and version not in (None, staged[1]):
-                self._staged = staged  # another version's: keep it, refuse
-                return 409, {"error": f"staged version {staged[1]}, commit of {version}"}
-            if staged is None and self._chunk_buf:
-                staged = (self._assemble_locked(), version)
-        if staged is None:
-            if version is None or version == self._last_committed_version:
-                return 200, {"ok": True, "version": self.engine.version}
-            return 409, {"error": "commit without staged chunks"}
-        model, v = staged
-        if live:
-            fut = self._queue(lambda: self.engine.swap_weights_live(model, version=v))
-        else:
-            fut = self._queue(lambda: self.engine.load_weights(model=model, version=v))
-        new_version = fut.result()
+            staged_v = eng.staged_version
+            if eng.has_standby:
+                if version not in (None, staged_v):
+                    return 409, {"error": f"staged version {staged_v}, commit of {version}"}
+                fn = lambda: eng.commit_staged(live=live)  # noqa: E731
+            elif self._unstaged is not None:
+                host, v = self._unstaged
+                if version not in (None, v):
+                    return 409, {"error": f"staged version {v}, commit of {version}"}
+                self._unstaged = None
+                fn = self._place_and_swap(host, v, live)
+            elif self._chunk_buf:
+                fn = self._place_and_swap(self._assemble_locked(), version, live)
+            elif version is None or version == self._last_committed_version:
+                return 200, {"ok": True, "version": eng.version}
+            else:
+                return 409, {"error": "commit without staged chunks"}
+        new_version = self._queue(fn).result()
         self._last_committed_version = new_version
         return 200, {"ok": True, "version": new_version}
 
     def metrics(self) -> dict:
-        stats = self.engine.stats
-        with self._chunk_lock:
-            staged = self._staged is not None
+        eng = self.engine
+        stats = eng.stats
         out = {
             "decode_steps": stats["decode_steps"],
             "decode_calls": stats["decode_calls"],
             "tokens_generated": self.tokens_out,
-            "active": self.engine.active_count(),
-            "version": self.engine.version,
+            "active": eng.active_count(),
+            "role": self.role,
+            "version": eng.version,
             "last_pause_s": self.last_pause_s,
-            "staged": staged,
+            "staged": eng.has_standby,
             "prefill_tokens": stats["prefill_tokens"],
             "suffix_tokens": stats["suffix_tokens"],
             "reused_tokens": stats["reused_tokens"],
             "shared_tokens": stats["shared_tokens"],
             "copy_calls": stats["copy_calls"],
             "reservations_lapsed": stats["reservations_lapsed"],
+            # the router's decode placement reads the occupancy
+            "tier_occupancy": eng.tier_occupancy(),
+            "tier_slots": list(eng.tier_size),
+            "tier_lens": list(eng.tier_bounds),
+            **{k: stats[k] for k in (
+                "tier_migrations", "prefix_cache_hits", "prefix_cache_misses",
+                "prefix_cache_evictions", "prefix_cache_host_swaps",
+                "prefix_cache_partial_hits", "kv_handoff_exports", "kv_handoff_imports",
+                "kv_handoff_bytes", "kv_handoff_failures")},
+            "prefix_cache_hit_rate": round(eng.prefix_cache_hit_rate(), 4),
             "ragged_dispatches": stats["ragged_dispatches"],
             "ragged_attended_pages": stats["ragged_attended_pages"],
             "ragged_kernel_launches": ragged_paged_attention.launches,
@@ -354,8 +484,8 @@ class GenServer:
                 stats["spec_accepted"] / max(1, stats["spec_drafted"]), 4),
             "verify_calls": stats["verify_calls"],
         }
-        if self.engine.device.type == "cuda":
-            out["max_memory_allocated"] = torch.cuda.max_memory_allocated(self.engine.device)
+        if eng.device.type == "cuda":
+            out["max_memory_allocated"] = torch.cuda.max_memory_allocated(eng.device)
         return out
 
     @staticmethod
@@ -413,6 +543,7 @@ class GenServer:
             return 500, {"status": "dead"}
         return 200, {
             "status": "paused" if self.paused.is_set() else "ok",
+            "role": self.role,
             "version": self.engine.version,
             "active": self.engine.active_count(),
             "last_error": self.last_error,
@@ -536,6 +667,10 @@ class _Handler(BaseHTTPRequestHandler):
                 self._reply(200, {"ok": True, "version": fut.result()})
             elif self.path == "/update_weights_chunk":
                 self._update_weights_chunk(body)
+            elif self.path == "/kv_export":
+                self._reply(*gen.kv_export(body))
+            elif self.path == "/kv_import":
+                self._reply(*gen.kv_import(body))
             else:
                 self._reply(404, {"error": f"no route {self.path}"})
         except Exception as e:  # noqa: BLE001 — the failure goes to the client as a 500
@@ -561,10 +696,11 @@ class GenHTTPServer(ThreadingHTTPServer):
 
 
 def serve(engine: GenEngine, host: str = "0.0.0.0", port: int = 0,
-          on_ready: Optional[Callable[[GenHTTPServer], None]] = None) -> None:
+          on_ready: Optional[Callable[[GenHTTPServer], None]] = None,
+          role: str = "both") -> None:
     """Blocking serve: start the worker, bind, call `on_ready(httpd)`, and
     handle requests until `httpd.shutdown()`; then stop the worker."""
-    gen = GenServer(engine)
+    gen = GenServer(engine, role=role)
     gen.start()
     try:
         with GenHTTPServer(gen, host, port) as httpd:
@@ -586,7 +722,10 @@ def main(argv: Optional[List[str]] = None,
     holding the card), the JAX server's --spec-decode, --spec-ladder and
     --spec-draft-len (speculative decoding, verified through the ragged
     kernel at T = D + 1), --telemetry (lifecycle events; also
-    AREAL_TELEMETRY=1) and the JAX server's --experiment-name,
+    AREAL_TELEMETRY=1), the JAX server's --decode-tiers, --decode-tier-lens
+    and --decode-tier-slots (length-cohort tiers), --host-offload and
+    --host-cache-mb (the host KV tier), --role (prefill, decode or both;
+    decode turns the host tier on) and --experiment-name,
     --trial-name and --server-idx: with an experiment name the server
     reads the rendezvous store from ``AREAL_NAME_RESOLVE`` and registers
     its address under `names.gen_server` once it listens (the host's
@@ -614,6 +753,22 @@ def main(argv: Optional[List[str]] = None,
                    help="static draft-length ladder (comma list incl. 0, e.g. '0,3,7')")
     p.add_argument("--spec-draft-len", type=int, default=0,
                    help="pin the draft length instead of adapting along the ladder")
+    p.add_argument("--decode-tiers", type=int, default=1,
+                   help="length-cohort slot tiers (placement and migration; one dispatch)")
+    p.add_argument("--decode-tier-lens", default="",
+                   help="per-tier length ceilings (comma list, ascending; with "
+                        "--decode-tier-slots, overrides --decode-tiers)")
+    p.add_argument("--decode-tier-slots", default="",
+                   help="per-tier slot counts (comma list summing to --n-slots)")
+    p.add_argument("--role", choices=ROLES, default="both",
+                   help="what a disaggregating router sees: prefill servers take "
+                        "admissions and export K/V, decode servers import it and "
+                        "continue the stream; both is the colocated default")
+    p.add_argument("--host-offload", action="store_true",
+                   help="spill evicted retained prefixes to a host-memory LRU tier and "
+                        "swap them back on a radix hit")
+    p.add_argument("--host-cache-mb", type=int, default=64,
+                   help="the host tier's capacity in MiB (with --host-offload)")
     p.add_argument("--telemetry", action="store_true",
                    help="emit trajectory lifecycle events (also AREAL_TELEMETRY=1)")
     p.add_argument("--experiment-name", default="",
@@ -625,13 +780,23 @@ def main(argv: Optional[List[str]] = None,
         exit_with_parent(os.getppid())
     if args.telemetry:
         telemetry.set_enabled(True)
+    if args.role == "decode" and not args.host_offload:
+        # a decode server's work arrives as /kv_import host-tier entries
+        logger.info("--role decode implies --host-offload; enabling it")
+        args.host_offload = True
+
+    def ints(text: str) -> Optional[List[int]]:
+        return [int(x) for x in text.split(",")] if text else None
+
     kw = dict(n_slots=args.n_slots, max_seq_len=args.max_seq_len,
               prompt_bucket=args.page_size, kv_dtype=args.dtype, seed=args.seed,
               decode_chunk=args.decode_chunk, device=args.device,
               spec_decode=args.spec_decode,
-              spec_ladder=[int(x) for x in args.spec_ladder.split(",")] if args.spec_ladder
-              else None,
-              spec_draft_len=args.spec_draft_len or None)
+              spec_ladder=ints(args.spec_ladder),
+              spec_draft_len=args.spec_draft_len or None,
+              decode_tiers=args.decode_tiers, decode_tier_lens=ints(args.decode_tier_lens),
+              decode_tier_slots=ints(args.decode_tier_slots),
+              host_offload=args.host_offload, host_cache_mb=args.host_cache_mb)
     if args.model_path:
         cfg = TransformerConfig.from_hf(args.model_path).replace(dtype=args.dtype)
         engine = GenEngine(cfg, model_path=args.model_path, **kw)
@@ -649,7 +814,7 @@ def main(argv: Optional[List[str]] = None,
         if on_ready is not None:
             on_ready(httpd)
 
-    serve(engine, host=args.host, port=args.port, on_ready=ready)
+    serve(engine, host=args.host, port=args.port, on_ready=ready, role=args.role)
 
 
 if __name__ == "__main__":

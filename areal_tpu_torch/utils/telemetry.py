@@ -19,10 +19,9 @@ Event emission is off by default; call :func:`set_enabled` (or set
 ``AREAL_TELEMETRY=1``) to turn it on.  Histogram observations at cold
 sites (weight-swap pause windows, admission waits) are always live, so
 the histograms fill on any scrape; the per-decode-chunk timing is gated
-on the flag.  Left out of the copy: the KV handoff histogram (the port
-has no disaggregated serving yet), the stats-key
-miss counter of the reference server's tolerant JSON, and
-`publish_train_stats`, whose gauges are named at run time.
+on the flag.  Left out of the copy: the stats-key miss counter of the
+reference server's tolerant JSON, and `publish_train_stats`, whose gauges
+are named at run time.
 """
 
 import hashlib
@@ -360,6 +359,11 @@ ADMISSION_WAIT = GEN.histogram(
 DECODE_CHUNK = GEN.histogram(
     "decode_chunk_seconds",
     "Per-tier decode-chunk dispatch+fetch latency (label: tier)",
+)
+HANDOFF = GEN.histogram(
+    "kv_handoff_seconds",
+    "Prefill->decode KV handoff latency (label: op=export|import): the "
+    "worker-thread service time of one page-set transfer leg",
 )
 STALENESS_AT_CONSUMPTION = TRAIN.histogram(
     "staleness_at_consumption",

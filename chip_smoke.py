@@ -89,6 +89,25 @@ Phases, each printed with its wall time; any failure exits non-zero:
             (on the tensor cores) timed (events, device time) with its bound,
             plain version and SDPA on the same boolean mask.  `--only spec`
             runs the build, a checkpoint and this phase alone
+6c. tiers   the serve phase's model (28 layers) in process, two engines of
+            16 slots x 2048: tiered (decode_tiers=2: ceilings 1024 and 2048,
+            8 slots each; the host tier on, 2048 MiB) and untiered.  16 greedy
+            requests (8 of 900..950 tokens and 128 new, 4 "movers" of
+            760..800 and 256 new that find the long tier full and start in
+            the short one, 4 of 700..900 and 64 new) through both (after a
+            warm-up batch of the same shapes, untiered first, both timed): streams
+            equal token for token, migrations > 0, K2 = 28 x (decode steps +
+            verify calls) on the tiered run.  16 fillers spill every
+            retained prefix to the host tier; a mover's transcript comes back
+            and swaps in: its row's bytes equal the spilled bytes and its
+            greedy continuation equals the untiered engine's, whose prefix
+            never left the device; spill and swap-in of a 1024-token block
+            (29.4 MB) timed through the pinned staging buffer.  Staged
+            weights: `stage_params` from host tensors on a thread while 16
+            requests decode, `commit_staged(live=True)` and `(live=False)`
+            each advancing the version, their pauses against `load_weights`
+            of the same host tensors.  `--only tiers` runs the build, a
+            28-layer checkpoint and this phase
 7. train    the PPO actor on the serve phase's checkpoint at full width (f32
             masters, bf16 compute, full remat) beside a server of the same
             checkpoint: 8 prompts x group 4 rolled out over HTTP (256 new
@@ -316,6 +335,22 @@ Phases, each printed with its wall time; any failure exits non-zero:
             last layer's dq and dk/dv inputs replayed through K1b and K1c
             and their plain versions (a nonzero dout).  `--only algo` runs
             the build and this phase
+13e. disagg  run right after the router phase, on its checkpoint of
+            REMOTE_LAYERS (4) layers: `python -m areal_tpu_torch.gen.server
+            --role prefill` and `--role decode` (8 slots x 2048 each; decode
+            runs the host tier) behind `python -m areal_tpu_torch.gen.router
+            --disagg`.  8 requests of 256..900-token prompts and 64 new
+            tokens, half greedy and half sampled, streams pinned, one after
+            another through the router.  Checks: handoffs 8 and fallbacks 0
+            (the router's /metrics), the decode server's 8 imports swapped
+            in and its K2 = layers x its decode steps, and each merged
+            stream (tokens and logprobs) equal to the same two-leg split
+            served by the prefill server alone (its retained prefixes first
+            overwritten by a batch of fillers, so that leg 1 prefills cold
+            there too).  Prints the bytes a handoff, export + import ms
+            through the router and its MB/s, and the workers' export and
+            import service times.  `--only disagg` runs the build, a 4-layer
+            checkpoint and this phase
 14. recover the training job at full width.  In process: Qwen2.5-1.5B's
             width at 4 layers, the example's actor config, one update,
             `save` with the optimizer, `load` into a fresh actor (masters,
@@ -4748,6 +4783,371 @@ def algo_phase():
     return tuple(int(x) for x in counted), rw_times, errs
 
 
+# ---------------------------------------------------------------------------
+# the tiers phase: length-cohort tiers, migration, the host tier and the
+# staged weights, in process at 28 layers
+# ---------------------------------------------------------------------------
+
+TIER_SLOTS, TIER_SEQ = 16, 2048  # decode_tiers=2: ceilings (1024, 2048), (8, 8) slots
+TIER_HOST_MB = 2048  # the host tier: 16 spilled prefixes of up to 2048 tokens fit
+
+
+def _tier_requests(vocab, seed=7):
+    """16 greedy requests, in the order admission places them: 8 long-tier
+    blockers (900..950-token prompts, 128 new tokens: budgets above 1024),
+    4 movers (760..800, 256 new) that find the long tier full and start in
+    the short one, which they outgrow after the blockers have left, and 4
+    short ones (700..900, 64 new)."""
+    rng = np.random.default_rng(seed)
+    plan = [("blocker", 900, 951, 128)] * 8 + [("mover", 760, 801, 256)] * 4 + \
+        [("short", 700, 901, 64)] * 4
+    return [GenRequest(rid=f"{kind}{i}", input_ids=rng.integers(
+                0, vocab, int(rng.integers(lo, hi))).tolist(), max_new_tokens=new,
+                min_new_tokens=new, temperature=0.0)
+            for i, (kind, lo, hi, new) in enumerate(plan)]
+
+
+def _drive(eng, reqs):
+    """Submit `reqs` and step the engine until they finish: (engine steps'
+    K2 launches, decode steps, verify calls, wall seconds, the first engine
+    step's seconds: admission, the prefills and one chunk)."""
+    launches0 = ragged_paged_attention.launches
+    steps0, verifies0 = eng.stats["decode_steps"], eng.stats["verify_calls"]
+    t0 = time.perf_counter()
+    first = None
+    for r in reqs:
+        eng.submit(r)
+    while any(not r.stop_reason for r in reqs):
+        eng.step()
+        if first is None:
+            torch.cuda.synchronize()
+            first = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return (ragged_paged_attention.launches - launches0, eng.stats["decode_steps"] - steps0,
+            eng.stats["verify_calls"] - verifies0, time.perf_counter() - t0, first)
+
+
+def tiers_phase(ckpt_dir):
+    """The serve phase's model (28 layers, bf16) in two engines of 16 slots x
+    2048: tiered (decode_tiers=2, the host tier on) and untiered.  Tiers: the
+    same 16 greedy requests through both (after a warm-up batch of the
+    same shapes; untiered first, both walls printed), token streams equal,
+    migrations > 0, K2 = 28 x (decode steps + verify calls) on the tiered
+    run.  Host
+    tier: 16 filler prompts overwrite every tiered slot (16 spills), then a
+    mover's transcript comes back: it swaps in, its row's bytes equal the
+    spilled bytes, and its greedy continuation equals the untiered
+    engine's, whose prefix never left the device; spill and swap-in of a
+    1024-token block timed.  Staged weights: `stage_params` from host
+    tensors on a thread while the engine decodes, `commit_staged` live and
+    aborting, each advancing the version, their pauses against
+    `load_weights` of the same host tensors.  Returns the phase's K2
+    launches."""
+    from areal_tpu_torch.models.hf import load_hf_params
+
+    launches0 = ragged_paged_attention.launches
+    t0 = time.perf_counter()
+    model, cfg = load_hf_params(ckpt_dir, qwen25_1p5b(), "cuda")
+    L = cfg.num_layers
+    kw = dict(n_slots=TIER_SLOTS, max_seq_len=TIER_SEQ, prompt_bucket=128, kv_dtype="bfloat16",
+              seed=0)
+    tiered = GenEngine(cfg, params=model, decode_tiers=2, host_offload=True,
+                       host_cache_mb=TIER_HOST_MB, **kw)
+    untiered = GenEngine(cfg, params=model, **kw)
+    if (tiered.tier_bounds, tiered.tier_size) != ([1024, 2048], [8, 8]):
+        raise AssertionError(f"tiers phase: layout {tiered.tier_bounds} {tiered.tier_size}")
+    print(f"  {L} layers loaded, two engines in {time.perf_counter() - t0:.1f} s")
+
+    # --- tiers and migration ---
+    # the first run at these shapes in a process is slower whichever
+    # engine takes it: a batch of the same shapes (other tokens) through
+    # the untiered engine first, so the two timed runs are both warm
+    _drive(untiered, _tier_requests(cfg.vocab_size, seed=5))
+    t_reqs, u_reqs = _tier_requests(cfg.vocab_size), _tier_requests(cfg.vocab_size)
+    _, u_steps, _, u_wall, u_first = _drive(untiered, u_reqs)
+    launches, steps, verifies, wall, first = _drive(tiered, t_reqs)
+    occupancy_seen = tiered.stats["tier_migrations"]
+    tokens = sum(len(r.output_tokens) for r in t_reqs)
+    print(f"  {tokens} tokens a run; untiered {u_wall:.4f} s ({u_steps} decode steps; the first "
+          f"engine step {u_first:.4f} s, the rest {u_wall - u_first:.4f} s), then tiered "
+          f"{wall:.4f} s ({steps} decode steps, {verifies} verify calls; the first engine step "
+          f"{first:.4f} s, the rest {wall - first:.4f} s), {occupancy_seen} migrations; K2 "
+          f"launches {launches} = {L} x {steps + verifies}: {launches == L * (steps + verifies)}")
+    for a, b in zip(t_reqs, u_reqs):
+        if a.output_tokens != b.output_tokens or len(a.output_tokens) != a.max_new_tokens:
+            raise AssertionError(f"tiers phase: {a.rid}'s tiered stream differs from the "
+                                 "untiered engine's")
+    if occupancy_seen == 0:
+        raise AssertionError("tiers phase: no request migrated")
+    if launches != L * (steps + verifies):
+        raise AssertionError("tiers phase: K2 launches are not layers x (steps + verifies)")
+    tiered.pool.check_page_table()
+    print(f"  tiered and untiered greedy streams equal, all {len(t_reqs)} requests; page table "
+          "a permutation")
+
+    # --- the host tier ---
+    rng = np.random.default_rng(8)
+    fillers = [GenRequest(rid=f"fill{i}", input_ids=rng.integers(0, cfg.vocab_size, 200).tolist(),
+                          max_new_tokens=8, temperature=0.0) for i in range(TIER_SLOTS)]
+    swaps0 = tiered.stats["prefix_cache_host_swaps"]
+    _drive(tiered, fillers)
+    spills = tiered.stats["prefix_cache_host_swaps"] - swaps0
+    if spills != TIER_SLOTS:
+        raise AssertionError(f"tiers phase: {spills} spills, want {TIER_SLOTS}")
+    mover = next(r for r in t_reqs if r.rid.startswith("mover"))
+    again = mover.input_ids + mover.output_tokens
+    (hid, lcp), = ((h, n) for h, n in tiered.pool.match_host(again).items() if n > 1000)
+    ent = tiered.pool.host_entry(hid)
+    spilled = {k: v.clone() for k, v in ent.kv.items()}
+    resub = [GenRequest(rid="again", input_ids=list(again), max_new_tokens=32,
+                        min_new_tokens=32, temperature=0.0) for _ in range(2)]
+    tiered.submit(resub[0])
+    tiered._admit()
+    slot = next(s for s in range(TIER_SLOTS) if tiered.slot_req[s] is resub[0])
+    row = tiered.pool.row(slot)
+    equal = all(torch.equal(tiered.cache[k][:, row, :ent.valid_len].cpu(),
+                            v[:, :ent.valid_len]) for k, v in spilled.items())
+    while not resub[0].stop_reason:
+        tiered.step()
+    _drive(untiered, resub[1:])
+    print(f"  {spills} spills of retained prefixes; the mover's transcript ({len(again)} tokens) "
+          f"swapped back in: {ent.valid_len} positions, row bytes equal the spilled bytes: "
+          f"{equal}; cache hit {resub[0].cache_hit_tokens} (untiered, never left the device: "
+          f"{resub[1].cache_hit_tokens}); continuations equal: "
+          f"{resub[0].output_tokens == resub[1].output_tokens}")
+    if not equal:
+        raise AssertionError("tiers phase: a swapped-in row differs from its spilled bytes")
+    if (resub[0].output_tokens != resub[1].output_tokens
+            or resub[0].cache_hit_tokens != ent.valid_len):
+        raise AssertionError("tiers phase: the swapped-in continuation differs from the "
+                             "device-resident one")
+    # spill and swap-in of a 1024-token block, through the pinned buffer,
+    # on the scratch row
+    block, nbytes = 1024, None
+    spill_s, swap_s = [], []
+    for _ in range(5):
+        t1 = time.perf_counter()
+        kv = tiered._host_gather(TIER_SLOTS, block)
+        t2 = time.perf_counter()
+        tiered._host_scatter(kv, TIER_SLOTS)
+        t3 = time.perf_counter()
+        spill_s.append(t2 - t1)
+        swap_s.append(t3 - t2)
+        nbytes = sum(v.numel() * v.element_size() for v in kv.values())
+    sp, sw = float(np.median(spill_s)), float(np.median(swap_s))
+    print(f"  a {block}-token block ({nbytes / 1e6:.1f} MB, {nbytes // block} B a token): spill "
+          f"{sp * 1e3:.2f} ms ({nbytes / sp / 1e9:.1f} GB/s), swap-in {sw * 1e3:.2f} ms "
+          f"({nbytes / sw / 1e9:.1f} GB/s); median of 5, the pinned staging buffer")
+
+    # --- the staged weights ---
+    t1 = time.perf_counter()
+    host = {n: p.detach().cpu() for n, p in model.state_dict().items()}
+    print(f"  the weights copied to host memory in {time.perf_counter() - t1:.2f} s "
+          f"({sum(v.numel() * v.element_size() for v in host.values()) / 1e9:.2f} GB)")
+    # budgets that outlast both stagings: the commits land mid-stream
+    reqs = [GenRequest(rid=f"st{i}", input_ids=rng.integers(0, cfg.vocab_size, 128).tolist(),
+                       max_new_tokens=1536, min_new_tokens=1536, temperature=0.0)
+            for i in range(TIER_SLOTS)]
+    for r in reqs:
+        tiered.submit(r)
+    tiered.step()
+    box = {}
+
+    def stage(version):
+        t = time.perf_counter()
+        box["ok"] = tiered.stage_params(host, version)
+        box["s"] = time.perf_counter() - t
+
+    th = threading.Thread(target=stage, args=(1,))
+    th.start()
+    during = steps_during = 0
+    while th.is_alive():
+        during += tiered.step()
+        steps_during += 1
+    th.join()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    v_live = tiered.commit_staged(live=True)
+    torch.cuda.synchronize()
+    live_s = time.perf_counter() - t1
+    tiered.step()
+    stage(2)
+    t1 = time.perf_counter()
+    v_abort = tiered.commit_staged(live=False)
+    torch.cuda.synchronize()
+    abort_s = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    v_load = tiered.load_weights(model=tiered.place_params(host), version=3)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t1
+    versions = sorted({v for r in reqs for v in r.output_versions})
+    print(f"  stage_params on a thread while decoding: {box['ok']} in {box['s']:.2f} s, "
+          f"{during} tokens in {steps_during} engine steps decoded meanwhile "
+          f"({during / box['s']:.0f} tokens/s); commit_staged(live=True) -> v{v_live} in "
+          f"{live_s * 1e3:.2f} ms, commit_staged(live=False) -> v{v_abort} in "
+          f"{abort_s * 1e3:.2f} ms (aborting {sum(r.stop_reason == 'abort' for r in reqs)}); "
+          f"load_weights of the same host tensors -> v{v_load} in {load_s * 1e3:.1f} ms; the "
+          f"requests' token versions {versions}")
+    if not (box["ok"] and (v_live, v_abort, v_load) == (1, 2, 3) and versions == [0, 1]):
+        raise AssertionError("tiers phase: the staged commits did not advance the version")
+    if not all(r.stop_reason == "abort" for r in reqs):
+        raise AssertionError("tiers phase: the aborting commit left a request running")
+    del tiered, untiered, model, host
+    gc.collect()
+    torch.cuda.empty_cache()
+    return ragged_paged_attention.launches - launches0
+
+
+# ---------------------------------------------------------------------------
+# the disagg phase: a prefill and a decode server behind the router
+# ---------------------------------------------------------------------------
+
+DISAGG_SLOTS, DISAGG_NEW = 8, 64
+
+
+def _spawn(cmd, log_path):
+    log_f = open(log_path, "ab")
+    return subprocess.Popen(cmd, env=dict(os.environ, PYTHONPATH=ROOT), cwd=ROOT, stdout=log_f,
+                            stderr=subprocess.STDOUT, start_new_session=True)
+
+
+def _await(cond, what, timeout=180.0):
+    t0 = time.perf_counter()
+    while True:
+        try:
+            if cond():
+                return time.perf_counter() - t0
+        except OSError:
+            pass
+        if time.perf_counter() - t0 > timeout:
+            raise AssertionError(f"disagg phase: {what} within {timeout:.0f} s")
+        time.sleep(0.2)
+
+
+def disagg_phase(ckpt_dir, build_dir):
+    """`python -m areal_tpu_torch.gen.server --role prefill` and `--role
+    decode` (8 slots x 2048 each, the router phase's checkpoint of
+    REMOTE_LAYERS layers) behind `python -m areal_tpu_torch.gen.router
+    --disagg`.  8 requests of 256..900-token prompts and 64 new tokens, half
+    greedy and half sampled, each with a pinned stream, one after another
+    through the router (so that each server's calls have the shapes the
+    control's have).  Checks: 8 handoffs and 0 fallbacks (router
+    /metrics), the decode server's 8 imports swapped in and its K2 =
+    layers x its decode steps, then, the prefill server's retained
+    prefixes overwritten by a batch of fillers, each merged stream (tokens
+    and logprobs) equal to the same two-leg split served by the prefill
+    server alone.  Returns the K2 launches of both server processes."""
+    from areal_tpu_torch.api.config import GenServerConfig
+    from areal_tpu_torch.launcher.local import build_server_cmd
+    from areal_tpu_torch.utils.network import find_free_ports
+    from areal_tpu_torch.utils.telemetry import parse_prometheus_text
+
+    log_dir = os.path.join(build_dir, "disagg_logs")
+    shutil.rmtree(log_dir, ignore_errors=True)
+    os.makedirs(log_dir)
+    cfg = GenServerConfig(model_path=ckpt_dir, dtype="bfloat16", max_seqs=DISAGG_SLOTS,
+                          max_context_len=2048, page_size=128, random_seed=0)
+    ports = find_free_ports(3)
+    addrs = [f"127.0.0.1:{p}" for p in ports[:2]]
+    raddr = f"127.0.0.1:{ports[2]}"
+    procs = []
+    try:
+        t0 = time.perf_counter()
+        for port, role in zip(ports[:2], ("prefill", "decode")):
+            procs.append(_spawn(build_server_cmd(cfg, port) + [f"--role={role}"],
+                                os.path.join(log_dir, f"{role}.log")))
+        for a in addrs:
+            _await(lambda a=a: get_addr(a, "/health", timeout=2)["status"] == "ok",
+                   f"server {a} up")
+        procs.append(_spawn([sys.executable, "-m", "areal_tpu_torch.gen.router",
+                             f"--addrs={','.join(addrs)}", "--disagg", "--host=127.0.0.1",
+                             f"--port={ports[2]}", "--exit-with-parent"],
+                            os.path.join(log_dir, "router.log")))
+        _await(lambda: get_addr(raddr, "/metrics", timeout=2)["roles"] == dict(
+            zip(addrs, ("prefill", "decode"))), "the router and its roles")
+        print(f"  prefill and decode servers and the router up in "
+              f"{time.perf_counter() - t0:.1f} s; roles {get_addr(raddr, '/metrics')['roles']}")
+        vocab = qwen25_1p5b().vocab_size
+        rng = np.random.default_rng(9)
+        bodies = []
+        for i in range(8):
+            greedy = i % 2 == 0
+            sp = dict(max_new_tokens=DISAGG_NEW, min_new_tokens=DISAGG_NEW,
+                      temperature=0.0 if greedy else 1.0, top_p=1.0 if greedy else 0.9)
+            bodies.append(dict(rid=f"dg{i}", stream_id=1000 + i, sampling_params=sp,
+                               input_ids=rng.integers(0, vocab, int(rng.integers(256, 901))
+                                                      ).tolist()))
+        t0 = time.perf_counter()
+        merged = [post_addr(raddr, "/generate", b) for b in bodies]
+        wall = time.perf_counter() - t0
+        rm = get_addr(raddr, "/metrics")
+        pre, dec = (get_addr(a, "/metrics") for a in addrs)
+        prom = {a: parse_prometheus_text(urllib.request.urlopen(
+            f"http://{a}/metrics?format=prometheus", timeout=60).read().decode()) for a in addrs}
+        L = REMOTE_LAYERS
+        nh = max(1, rm["handoffs"])
+        svc = {op: prom[a]["areal_gen_kv_handoff_seconds_sum"][f'{{op="{op}"}}']
+               / prom[a]["areal_gen_kv_handoff_seconds_count"][f'{{op="{op}"}}']
+               for a, op in zip(addrs, ("export", "import"))}
+        print(f"  8 requests in {wall:.2f} s through the router: handoffs {rm['handoffs']}, "
+              f"fallbacks {rm['handoff_fallbacks']}; {rm['handoff_bytes'] / nh / 1e6:.2f} MB a "
+              f"handoff, export + import {rm['handoff_seconds'] / nh * 1e3:.1f} ms through the "
+              f"router ({rm['handoff_bytes'] / max(rm['handoff_seconds'], 1e-9) / 1e6:.1f} MB/s "
+              f"of K/V over the JSON wire); the workers' service: export "
+              f"{svc['export'] * 1e3:.2f} ms, import {svc['import'] * 1e3:.2f} ms")
+        print(f"  prefill server: exports {pre['kv_handoff_exports']}, decode steps "
+              f"{pre['decode_steps']}; decode server: imports {dec['kv_handoff_imports']}, host "
+              f"swaps {dec['prefix_cache_host_swaps']}, K2 {dec['ragged_kernel_launches']} = "
+              f"{L} x {dec['decode_steps']} decode steps")
+        if (rm["handoffs"], rm["handoff_fallbacks"]) != (8, 0):
+            raise AssertionError("disagg phase: want 8 handoffs and 0 fallbacks")
+        if not all(r.get("handoff") is True and len(r["output_tokens"]) == DISAGG_NEW
+                   for r in merged):
+            raise AssertionError("disagg phase: a merged stream is short or was not handed off")
+        if dec["kv_handoff_imports"] != 8 or dec["prefix_cache_host_swaps"] < 8:
+            raise AssertionError("disagg phase: the decode server did not swap in every import")
+        if dec["decode_steps"] == 0 or dec["ragged_kernel_launches"] != L * dec["decode_steps"]:
+            raise AssertionError("disagg phase: the decode server's K2 launches are not layers x "
+                                 "its decode steps")
+        # the control: the prefill server's retained prefixes overwritten (one
+        # batch of fillers takes every slot), then the same two legs on it
+        post_addr(addrs[0], "/generate_batch", {"requests": [
+            dict(rid=f"fill{i}", input_ids=rng.integers(0, vocab, 64).tolist(),
+                 sampling_params=dict(max_new_tokens=1)) for i in range(DISAGG_SLOTS)]})
+        same = 0
+        for b, got in zip(bodies, merged):
+            sp = b["sampling_params"]
+            leg1 = post_addr(addrs[0], "/generate", dict(b, sampling_params=dict(
+                sp, max_new_tokens=1, min_new_tokens=1)))
+            leg2 = post_addr(addrs[0], "/generate", dict(
+                b, input_ids=b["input_ids"] + leg1["output_tokens"],
+                sampling_params=dict(sp, max_new_tokens=DISAGG_NEW - 1,
+                                     min_new_tokens=DISAGG_NEW - 1)))
+            want_t = leg1["output_tokens"] + leg2["output_tokens"]
+            want_l = leg1["output_logprobs"] + leg2["output_logprobs"]
+            same += (got["output_tokens"], got["output_logprobs"]) == (want_t, want_l)
+        pre2 = get_addr(addrs[0], "/metrics")
+        print(f"  against the two-leg split on the prefill server alone: {same} of 8 merged "
+              f"streams equal, tokens and logprobs (its K2 {pre2['ragged_kernel_launches']} = "
+              f"{L} x {pre2['decode_steps']})")
+        if same != 8:
+            raise AssertionError("disagg phase: a merged stream differs from the single-server "
+                                 "two-leg split")
+        if pre2["ragged_kernel_launches"] != L * pre2["decode_steps"]:
+            raise AssertionError("disagg phase: the prefill server's K2 launches are not layers "
+                                 "x its decode steps")
+        return dec["ragged_kernel_launches"] + pre2["ragged_kernel_launches"]
+    finally:
+        for p in procs[::-1]:
+            p.terminate()
+        for p in procs[::-1]:
+            try:
+                p.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait()
+
+
 def main(argv):
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -4823,6 +5223,20 @@ def main(argv):
     elif only == "algo":
         with phase("algo"):
             algo_phase()
+    elif only in ("tiers", "disagg"):
+        # the phase alone, on a checkpoint written as the whole script writes
+        # it: the serve phase's 28 layers, the router phase's REMOTE_LAYERS
+        layers = SERVE_LAYERS if only == "tiers" else REMOTE_LAYERS
+        ckpt_dir = os.path.join(ROOT, "build", f"{only}_ckpt")
+        try:
+            write_checkpoint(qwen25_1p5b().replace(num_layers=layers).to_hf_dict(), ckpt_dir)
+            with phase(only):
+                if only == "tiers":
+                    tiers_phase(ckpt_dir)
+                else:
+                    disagg_phase(ckpt_dir, os.path.join(ROOT, "build"))
+        finally:
+            shutil.rmtree(ckpt_dir, ignore_errors=True)
     elif only == "recover-full-depth":
         fileroot = os.path.join(ROOT, "build", "recover_run")
         try:
@@ -4880,6 +5294,8 @@ def main(argv):
             spec_err, verify_launches, spec_decode_launches, spec_f32_launches, verify_times = (
                 spec_phase(spec_ppo_ckpt))
             max_err = max(max_err, spec_err)
+        with phase("tiers"):
+            tiers_launches = tiers_phase(ckpt_dir)
         with phase("train"):
             flash_launches, train_stats, seg_rows = train_qwen(ckpt_dir, publish_dir)
             on_tc = flash_counts_tc()
@@ -4924,6 +5340,8 @@ def main(argv):
             remote_ragged, remote_flash = remote_qwen(remote_ckpt, remote_dir)
         with phase("router"):
             router_ragged, router_flash = router_qwen(remote_ckpt, build_dir)
+        with phase("disagg"):
+            disagg_launches = disagg_phase(remote_ckpt, build_dir)
             shutil.rmtree(remote_ckpt, ignore_errors=True)
         with phase("ppo"):
             ppo_ragged, ppo_flash = ppo_phase(spec_ppo_ckpt)
@@ -4944,17 +5362,19 @@ def main(argv):
         "launches": (launches + grpo_launches[0] + prefix_launches + family_launches[0]
                      + gemma1_ragged + remote_ragged + router_ragged + ppo_ragged
                      + recover_ragged + verify_launches + spec_decode_launches
-                     + spec_f32_launches),
+                     + spec_f32_launches + tiers_launches + disagg_launches),
         # "spec": the launches at T = D + 1 the --spec-decode server
         # counted; "spec_decode": both spec-phase servers' T = 1 launches;
-        # "spec_f32": the in-process f32 runs at 4 layers
+        # "spec_f32": the in-process f32 runs at 4 layers; "tiers": every
+        # engine run of that phase; "disagg": both of its server processes
         "launches_by_path": {"serve": launches, "grpo": grpo_launches[0],
                              "prefix": prefix_launches, "families": family_launches[0],
                              "gemma1": gemma1_ragged, "remote": remote_ragged,
                              "router": router_ragged, "ppo": ppo_ragged,
                              "recover": recover_ragged, "spec": verify_launches,
                              "spec_decode": spec_decode_launches,
-                             "spec_f32": spec_f32_launches},
+                             "spec_f32": spec_f32_launches, "tiers": tiers_launches,
+                             "disagg": disagg_launches},
         # the verify half at the spec servers' shape, T = 4 and 8
         "verify": {f"T{T}": dict(zip(("ms", "plain_ms", "library_ms", "bound_ms", "bound_by"),
                                      verify_times[T][:5])) for T in verify_times},

@@ -7,12 +7,14 @@
   then the gate (allocate, finish, set_version, a TTL-expired lease).  The
   same backend for every request; the same status, lease and capacity for
   every gate call.
-- The reference's router behaviours (tests/test_router.py, without the
-  disaggregated cases) against the port's router: policies and affinity,
-  least_tokens, the gate, a manual update flushing the fleet, the
-  checkpoint watcher, the transfer-mode version sources, two port clients
-  sharing one budget, lease TTL expiry, cached health with the breaker,
-  drain.
+- The reference's router behaviours (tests/test_router.py) against the
+  port's router: policies and affinity, least_tokens, the gate, a manual
+  update flushing the fleet, the checkpoint watcher, the transfer-mode
+  version sources, two port clients sharing one budget, lease TTL expiry,
+  cached health with the breaker, drain, and the disaggregated legs (the
+  two-leg merge, an empty role pool served colocated, a failed import
+  continued on the prefill server, a request finished in leg 1, group
+  affinity to one prefill server, the decode pick by occupancy).
 - The breaker alone: open after the threshold with one `on_death`; a
   half-open backend at a stale version force-reloaded before it closes.
 - The client's gate (`FleetStalenessGate`, the executor's `fleet_gate`):
@@ -26,6 +28,8 @@
   (tokens exact, logprobs within 1e-4) before and after an
   /update_weights through the router from an HF checkpoint both packages
   load; every server then reports the new version and the tokens carry it.
+- Disaggregated: a prefill and a decode port server behind the router;
+  each merged stream equals the two-leg split on one engine.
 - `gpu`: two server processes on the card behind the router process; a
   disk publish that the watcher picks up, then both servers' greedy
   streams bit-equal to a `GenEngine` on the published weights.
@@ -556,9 +560,140 @@ def test_drain_excludes_placement_but_keeps_fanout(fleet):
         h.stop()
 
 
-def test_disaggregated_serving_is_not_ported():
-    with pytest.raises(NotImplementedError, match="disagg"):
-        Router(RouterConfig(disagg=True), addresses=["127.0.0.1:1"])
+# ---------------------------------------------------------------------------
+# disaggregated prefill/decode serving (tests/test_router.py's cases)
+# ---------------------------------------------------------------------------
+
+def _disagg_fleet(roles, completion=None):
+    servers = [_fake(completion=list(completion or range(100, 108)), role=r) for r in roles]
+    return servers, [s.start() for s in servers]
+
+
+@pytest.fixture()
+def disagg(request):
+    """A fake fleet of the given roles behind a disaggregating router ->
+    (servers, addrs, router addr); everything stops after the test."""
+    made = []
+
+    def make(roles, completion=None, **cfg):
+        servers, addrs = _disagg_fleet(roles, completion)
+        made.append(servers)
+        h = PortRouterHarness(Router(RouterConfig(disagg=True, **cfg), addresses=addrs))
+        made.append(h)
+        return servers, addrs, h.start()
+
+    yield make
+    for m in reversed(made):
+        if isinstance(m, PortRouterHarness):
+            m.stop()
+        else:
+            for s in m:
+                s.stop()
+
+
+def test_disagg_two_leg_handoff_merges_stream(disagg):
+    """Leg 1 (one token) on the prefill server, /kv_export -> /kv_import,
+    leg 2 on ONE decode server with the pinned stream id; the merged
+    response carries the whole stream."""
+    servers, addrs, raddr = disagg(["prefill", "decode", "decode"])
+    status, out = _post(raddr, "/generate", {"rid": "d0", "input_ids": [1, 2, 3], "stream_id": 77,
+                                             "sampling_params": {"max_new_tokens": 8}})
+    assert status == 200
+    assert out["output_tokens"] == list(range(100, 108))
+    assert len(out["output_logprobs"]) == 8 and out["handoff"] is True
+    prefill, d1, d2 = servers
+    assert len(prefill.requests) == 1
+    assert prefill.requests[0]["sampling_params"]["max_new_tokens"] == 1
+    assert prefill.requests[0]["stream_id"] == 77
+    assert [e["input_ids"] for e in prefill.kv_exports] == [[1, 2, 3, 100]]
+    leg2 = [r for s in (d1, d2) for r in s.requests]
+    assert len(leg2) == 1
+    assert leg2[0]["input_ids"] == [1, 2, 3, 100] and leg2[0]["stream_id"] == 77
+    assert leg2[0]["sampling_params"]["max_new_tokens"] == 7
+    assert sum(len(s.kv_imports) for s in (d1, d2)) == 1
+    m = _get(raddr, "/metrics")
+    assert m["handoffs"] == 1 and m["handoff_fallbacks"] == 0
+    assert m["handoff_bytes"] == 64 * 4 and m["handoff_seconds"] > 0
+    assert m["roles"][addrs[0]] == "prefill"
+
+
+def test_disagg_empty_role_pool_falls_back_colocated(disagg):
+    """`both` servers stay out of the role pools: with no prefill/decode
+    split the router serves the request colocated in one leg."""
+    servers, _, raddr = disagg(["both", "both"])
+    status, out = _post(raddr, "/generate", {"rid": "c0", "input_ids": [1, 2],
+                                             "sampling_params": {"max_new_tokens": 8}})
+    assert status == 200 and out["output_tokens"] == list(range(100, 108))
+    assert "handoff" not in out
+    reqs = [r for s in servers for r in s.requests]
+    assert len(reqs) == 1 and reqs[0]["sampling_params"]["max_new_tokens"] == 8
+    assert not any(s.kv_exports or s.kv_imports for s in servers)
+    assert _get(raddr, "/metrics")["handoffs"] == 0
+
+
+def test_disagg_import_failure_continues_on_prefill(disagg):
+    """A refused import loses nothing: leg 2 runs on the prefill server
+    itself (exact under the counter-keyed sampler) and counts a
+    fallback."""
+    from areal_tpu.utils.faults import Fault, FaultPlan
+
+    servers, _, raddr = disagg(["prefill", "decode"])
+    servers[1].fault_plan = FaultPlan({("/kv_import", 0): Fault("http_500")})
+    status, out = _post(raddr, "/generate", {"rid": "f0", "input_ids": [4, 5, 6],
+                                             "sampling_params": {"max_new_tokens": 8}})
+    assert status == 200 and out["output_tokens"] == list(range(100, 108))
+    assert out["handoff"] is False
+    prefill, decode = servers
+    assert len(prefill.requests) == 2 and not decode.requests  # leg 1 and the tail
+    m = _get(raddr, "/metrics")
+    assert m["handoffs"] == 0 and m["handoff_fallbacks"] == 1
+
+
+def test_disagg_finished_in_leg1_skips_transfer(disagg):
+    """A stop inside leg 1 (a one-token completion): the leg-1 answer is
+    returned and nothing moves."""
+    servers, _, raddr = disagg(["prefill", "decode"], completion=[42])
+    status, out = _post(raddr, "/generate", {"rid": "e0", "input_ids": [9],
+                                             "sampling_params": {"max_new_tokens": 8}})
+    assert status == 200 and out["output_tokens"] == [42] and out["stop_reason"] == "stop"
+    assert not servers[0].kv_exports and not servers[1].kv_imports
+    assert not servers[1].requests
+
+
+def test_disagg_group_affinity_sticks_to_one_prefill(disagg):
+    """A group's members land on ONE prefill server (the fan-out shares a
+    prefix inside one engine only)."""
+    servers, _, raddr = disagg(["prefill", "prefill", "decode"])
+    for i in range(4):
+        status, _ = _post(raddr, "/generate", {"rid": f"g0-{i}", "group_id": "g0",
+                                               "input_ids": [1, 2],
+                                               "sampling_params": {"max_new_tokens": 8}})
+        assert status == 200
+    assert sorted(len(s.requests) for s in servers[:2]) == [0, 4]
+
+
+def test_disagg_decode_pick_prefers_low_occupancy(disagg):
+    """The decode leg goes to the server of lowest polled tier occupancy."""
+    def occupied(servers):
+        servers[1].tier_occupancy, servers[1].tier_slots = [8], [8]  # full
+        servers[2].tier_occupancy, servers[2].tier_slots = [0], [8]  # idle
+
+    servers, addrs = _disagg_fleet(["prefill", "decode", "decode"])
+    occupied(servers)
+    h = PortRouterHarness(Router(RouterConfig(disagg=True, occupancy_poll_interval=0.1),
+                                 addresses=addrs))
+    raddr = h.start()
+    try:
+        assert _wait(lambda: len(h.router._decode_occ) == 2, timeout=5)
+        for i in range(3):
+            status, _ = _post(raddr, "/generate", {"rid": f"o{i}", "input_ids": [1, 2, 3],
+                                                   "sampling_params": {"max_new_tokens": 8}})
+            assert status == 200
+        assert len(servers[2].requests) == 3 and not servers[1].requests
+    finally:
+        h.stop()
+        for s in servers:
+            s.stop()
 
 
 # ---------------------------------------------------------------------------
@@ -849,6 +984,68 @@ def test_rollouts_through_the_router_balance_the_gate_ledger(slice_fleet):
     m1 = _get(router_addr, "/metrics")
     assert m1["running"] == 0 and m1["accepted"] - m0["accepted"] == 2
     assert sum(m1["requests_routed"].values()) - sum(m0["requests_routed"].values()) == 4
+
+
+def test_prefill_and_decode_port_servers_behind_the_router_give_one_servers_stream(tmp_path):
+    """A prefill and a decode port server (tiny f32, CPU) behind the
+    disaggregating router: every request hands off (the decode server
+    imports its prefix and swaps it in), and each merged stream, tokens
+    and logprobs, is the two-leg split on one engine of the same weights;
+    its tokens are also the one-shot stream's."""
+    from areal_tpu_torch.gen import server as server_mod
+    from areal_tpu_torch.gen.engine import GenEngine, GenRequest
+    from areal_tpu_torch.models.hf import save_hf_checkpoint
+    from areal_tpu_torch.models.model_config import tiny_config
+    from areal_tpu_torch.models.transformer import init_params
+
+    cfg = tiny_config(**KW)
+    ckpt = str(tmp_path / "ckpt")
+    save_hf_checkpoint(init_params(cfg, 3, "cpu"), ckpt, save_dtype="float32")
+    args = ["--model-path", ckpt, "--device", "cpu", "--dtype", "float32", "--host", "127.0.0.1",
+            "--n-slots", str(SLOTS), "--max-seq-len", str(SEQ), "--page-size", str(PAGE)]
+    servers = [_in_thread(server_mod.main, args + ["--role", role])
+               for role in ("prefill", "decode")]
+    addrs = [f"127.0.0.1:{h.port}" for h, _ in servers]
+    h = PortRouterHarness(Router(RouterConfig(disagg=True, occupancy_poll_interval=0.1),
+                                 addresses=addrs))
+    raddr = h.start()
+    engine = dict(n_slots=SLOTS, max_seq_len=SEQ, prompt_bucket=PAGE, kv_dtype="float32",
+                  device="cpu")
+    split = GenEngine(cfg, model_path=ckpt, **engine)
+    rng = np.random.default_rng(7)
+    try:
+        assert _get(raddr, "/metrics")["roles"] == dict(zip(addrs, ("prefill", "decode")))
+        for i in range(3):
+            ids = rng.integers(0, 97, int(rng.integers(20, 40))).tolist()
+            temp = 0.0 if i % 2 == 0 else 1.0
+            sp = {"max_new_tokens": 8, "min_new_tokens": 8, "temperature": temp, "top_p": 0.9}
+            status, out = _post(raddr, "/generate", {"rid": f"d{i}", "input_ids": ids,
+                                                     "stream_id": 500 + i, "sampling_params": sp})
+            assert status == 200 and out["handoff"] is True and out["stream_id"] == 500 + i
+
+            def req(rid, prompt, n):
+                return GenRequest(rid=rid, input_ids=list(prompt), max_new_tokens=n,
+                                  min_new_tokens=n, temperature=temp, top_p=0.9,
+                                  stream_id=500 + i)
+            leg1 = split.generate_blocking([req("l1", ids, 1)])[0]
+            leg2 = split.generate_blocking([req("l2", ids + leg1.output_tokens, 7)])[0]
+            assert out["output_tokens"] == leg1.output_tokens + leg2.output_tokens
+            assert out["output_logprobs"] == leg1.output_logprobs + leg2.output_logprobs
+            one = GenEngine(cfg, model_path=ckpt, **engine).generate_blocking(
+                [req("one", ids, 8)])[0]
+            assert out["output_tokens"] == one.output_tokens
+        m = _get(raddr, "/metrics")
+        assert (m["handoffs"], m["handoff_fallbacks"]) == (3, 0)
+        pre, dec = (_get(a, "/metrics") for a in addrs)
+        assert (pre["role"], dec["role"]) == ("prefill", "decode")
+        assert pre["kv_handoff_exports"] == 3 and dec["kv_handoff_imports"] == 3
+        assert dec["prefix_cache_host_swaps"] == 3 and pre["decode_steps"] == 0
+        assert pre["kv_handoff_bytes"] == dec["kv_handoff_bytes"] == m["handoff_bytes"]
+    finally:
+        h.stop()
+        for httpd, t in servers:
+            httpd.shutdown()
+            t.join(30)
 
 
 # ---------------------------------------------------------------------------
