@@ -43,15 +43,14 @@
 // byte where the H100's arithmetic becomes the limit.
 //
 // What the design does about it.  For bf16 inputs all three kernels run
-// on the tensor cores.  At hd 128, and for dk/dv at hd 256, that is
-// namespace tc below (mma.sync m16n8k16, bf16 operands in padded shared
-// memory read by ldmatrix, f32 accumulators in registers, double-buffered
-// 16-byte cp.async tile pipelines): the forward (tc::flash_fwd_tc_kernel),
-// dq (tc::flash_bwd_dq_tc_kernel) and dk/dv (tc::flash_bwd_dkv_tc_kernel at
-// hd 128, tc::flash_bwd_dkv_tc256_kernel at hd 256).  The forward and dq at
-// hd 256 run on Hopper's warpgroup products instead (namespace wg: wgmma on
-// K/V tiles that TMA brings into shared memory, which two q heads of a GQA
-// group share).  The f32 kernels stay plain and right rather than fast:
+// on the tensor cores.  The forward at hd 128 and 256, and dq at hd 256,
+// run on Hopper's warpgroup products (namespace wg: wgmma on K/V tiles
+// that TMA brings into shared memory, which two q heads of a GQA group
+// share).  dq at hd 128 and dk/dv are namespace tc below (mma.sync
+// m16n8k16, bf16 operands in padded shared memory read by ldmatrix, f32
+// accumulators in registers, double-buffered 16-byte cp.async tile
+// pipelines): tc::flash_bwd_dq_tc_kernel, tc::flash_bwd_dkv_tc_kernel at
+// hd 128 and tc::flash_bwd_dkv_tc256_kernel at hd 256.  The f32 kernels stay plain and right rather than fast:
 // they run on the CUDA cores in f32, because the tensor cores would round
 // the f32 operands (TF32 at best).  Each such block stages tiles of q, k, v (and
 // dout) in shared memory as f32 (64 rows at hd 128, 32 at hd 256, where 64
@@ -64,17 +63,18 @@
 // from its first key to the segment end of its last key); each block finds
 // that range from the segment ids, and the window narrows it further.
 //
-// Head dim 256 doubles every per-thread head-dim slice.  The forward and
-// dq there hold a 64 x 256 f32 accumulator a warpgroup (128 registers a
-// thread) and read Q, dO, K and V from shared memory through wgmma.  The
+// Head dim 256 doubles every per-thread head-dim slice.  The wgmma kernels
+// hold a 64 x hd f32 accumulator a warpgroup (64 registers a thread at hd
+// 128, 128 at 256) and read Q, dO, K and V from shared memory.  The
 // dk/dv block at hd 256 has 8 warps in two groups over the same 64 keys:
 // one computes S^T and P^T and accumulates dV, the other dP^T and dS^T (with
 // P^T (1 - t^2) handed over through shared memory) and accumulates dK, so
 // each thread holds 128 accumulators, not 256, and no product is done twice.
 //
-// Grids: forward and dq at hd 128 one block per (q tile, q head, row); at
-// hd 256 one persistent block an SM, walking items of two q heads' 64-row
-// tile (or two q tiles at group 1) of one kv head and row; dk/dv at hd 128
+// Grids: the wgmma forward one persistent block an SM, walking items of two
+// q heads' 64-row tile (or two q tiles at group 1) of one kv head and row,
+// and dq at hd 256 a block an item; dq at hd 128 one block per (q tile, q
+// head, row); dk/dv at hd 128
 // one block per (k tile, kv head, row), looping over the group's q heads
 // and the q tiles that see its keys; dk/dv at hd 256 a thread block cluster
 // per (k tile, kv head, row) whose blocks split the group's q heads and sum
@@ -554,29 +554,6 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
   store_rows<T, HD, TILE>(dv, dv_acc, b, j0, Tk, Hkv, kh, tr, tc);
 }
 
-// ---------------------------------------------------------------------------
-// forward on the bf16 tensor cores (bf16 inputs)
-// ---------------------------------------------------------------------------
-//
-// At hd 128 (hd 256 runs wg::flash_wg_kernel below): FlashAttention-2's
-// pattern with mma.sync.m16n8k16 (bf16 in, f32 sums).  A block owns 64 q
-// rows of one q head; each of its 4 warps owns 16 rows and keeps its Q
-// fragments in registers (loaded once by ldmatrix).  K and V tiles of 64
-// keys stay bf16 in shared memory, rows padded by 16 bytes so ldmatrix
-// reads hit distinct banks, double-buffered and filled by 16-byte cp.async
-// so the next tile's copy overlaps this tile's products.  S = Q K^T runs on the tensor cores;
-// the softcap and the segment / causal / window mask act on the accumulator
-// fragments (tiles wholly inside one segment and below the diagonal skip
-// the mask); the online softmax takes row max and sum across each quad with
-// shuffles.  P becomes bf16 A fragments in registers and O += P V reads V
-// through ldmatrix.trans.  The output goes out through shared memory in
-// 16-byte stores.  Key ranges come from the segment ids as in
-// flash_fwd_kernel.
-//
-// P rounding: P is rounded to bf16 before the PV product (the tensor cores
-// take bf16), where splash and flash_fwd_plain keep P in f32; l sums the
-// unrounded f32 P, and lse is f32 as before.
-
 namespace tc {
 
 namespace cg = cooperative_groups;
@@ -592,8 +569,7 @@ struct Tiles {
   static constexpr int kBc = 64;             // keys per tile of the forward and dq
   static constexpr int kTileQ = kBr * kLDS;  // elements of a 64-row tile
   static constexpr int kTileK = kBc * kLDS;  // elements of a key tile
-  // Q, K x 2, V x 2; dq adds dO (104,448 B): both twice an SM
-  static constexpr int kSmem = (kTileQ + 4 * kTileK) * 2;
+  // dq: Q, dO, K x 2, V x 2 (104,448 B): twice an SM
   static constexpr int kDqSmem = (2 * kTileQ + 4 * kTileK) * 2;
 };
 
@@ -706,167 +682,6 @@ __device__ __forceinline__ void store_tile(__nv_bfloat16* __restrict__ dst,
       *reinterpret_cast<uint4*>(dst + (((long long)b * Tn + t) * H + h) * HD + c) =
           *reinterpret_cast<const uint4*>(src + r * C::kLDS + c);
   }
-}
-
-template <int HD>
-__global__ void __launch_bounds__(kThreads, 2) flash_fwd_tc_kernel(
-    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-    const __nv_bfloat16* __restrict__ v, const int* __restrict__ segq,
-    const int* __restrict__ segk, __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
-    int q_start, int Tq, int Tk, int Hq, int Hkv, float softcap, int window) {
-  static_assert(HD == 128, "hd 256 runs wg::flash_wg_kernel");
-  using C = Tiles<HD>;
-  constexpr int kBc = C::kBc, kLDS = C::kLDS;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* sK = sQ + C::kTileQ;       // two stages
-  __nv_bfloat16* sV = sK + 2 * C::kTileK;   // two stages
-  __shared__ int seg_q[kBr], seg_k[2][kBc];
-  __shared__ int s_first, s_last, s_lo;
-  const int b = blockIdx.z, h = blockIdx.y;
-  const int i0 = (gridDim.x - 1 - blockIdx.x) * kBr;  // local; longest key ranges first
-  const int kh = h / (Hq / Hkv);
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, tig = lane & 3;
-  const int* segqb = segq + (long long)b * Tq;
-  const int* segkb = segk + (long long)b * Tk;
-
-  float o[HD / 8][4];  // n-tiles of d
-#pragma unroll
-  for (int j = 0; j < HD / 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-
-  tile_span<kBr>(segqb, i0, Tq, seg_q, &s_first, &s_last);
-  const int first = s_first, last = s_last;
-  const int rq = warp * 16 + g;  // this thread's rows: rq and rq + 8
-  if (first <= last) {
-    const int i_first = q_start + i0 + first;  // global positions from here on
-    int lo = segment_start(segkb, i_first, &s_lo);
-    if (window > 0) lo = max(lo, i_first - window + 1);
-    const int hi = q_start + i0 + last + 1;
-    const int ntiles = (hi - lo + kBc - 1) / kBc;
-    // one segment id over all 64 q rows, or -3
-    const int q_uniform = __syncthreads_and(tid >= kBr || seg_q[tid] == seg_q[0]) ? seg_q[0]
-                                                                                  : -3;
-    const int sq[2] = {seg_q[rq], seg_q[rq + 8]};
-    const int qi[2] = {q_start + i0 + rq, q_start + i0 + rq + 8};
-
-    load_tile_async<HD, kBr>(sQ, q, b, i0, Tq, Hq, h);
-    load_tile_async<HD, kBc>(sK, k, b, lo, Tk, Hkv, kh);
-    load_tile_async<HD, kBc>(sV, v, b, lo, Tk, Hkv, kh);
-    asm volatile("cp.async.commit_group;\n" ::);
-    if (tid < kBc) seg_k[0][tid] = lo + tid < Tk ? segkb[lo + tid] : -2;
-
-    unsigned qf[HD / 16][4];
-    for (int n = 0; n < ntiles; ++n) {
-      const int buf = n & 1, j0 = lo + n * kBc;
-      if (n + 1 < ntiles) {  // prefetch the next tile into the other stage
-        const int j1 = j0 + kBc;
-        load_tile_async<HD, kBc>(sK + (buf ^ 1) * C::kTileK, k, b, j1, Tk, Hkv, kh);
-        load_tile_async<HD, kBc>(sV + (buf ^ 1) * C::kTileK, v, b, j1, Tk, Hkv, kh);
-        if (tid < kBc) seg_k[buf ^ 1][tid] = j1 + tid < Tk ? segkb[j1 + tid] : -2;
-      }
-      asm volatile("cp.async.commit_group;\n" ::);
-      asm volatile("cp.async.wait_group 1;\n" ::);  // this tile (and Q) landed
-      const bool full = __syncthreads_and(tid >= kBc || seg_k[buf][tid] == q_uniform) &&
-                        q_uniform >= 0 && window <= 0 && j0 + kBc - 1 <= q_start + i0;
-      if (n == 0) {
-#pragma unroll
-        for (int kk = 0; kk < HD / 16; ++kk)
-          ldmatrix_x4(qf[kk], a_frag<kLDS>(sQ, warp * 16, kk, lane));
-      }
-      const __nv_bfloat16* tK = sK + buf * C::kTileK;
-      const __nv_bfloat16* tV = sV + buf * C::kTileK;
-
-      // S = Q K^T: n-tiles of 8 keys
-      float s[kBc / 8][4];
-#pragma unroll
-      for (int j = 0; j < kBc / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < HD / 16; ++kk) {
-#pragma unroll
-        for (int np = 0; np < kBc / 16; ++np) {
-          unsigned r[4];
-          ldmatrix_x4(r, b_frag<kLDS>(tK, np, kk, lane));
-          mma(s[2 * np], qf[kk], r[0], r[1]);
-          mma(s[2 * np + 1], qf[kk], r[2], r[3]);
-        }
-      }
-
-      // softcap and mask on the fragments; row max across the quad
-      float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-      for (int j = 0; j < kBc / 8; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int row = e >> 1, col = 8 * j + 2 * tig + (e & 1);
-          float x = s[j][e];
-          if (softcap > 0.f) x = tanhf(x / softcap) * softcap;
-          if (!full && !allowed(sq[row], seg_k[buf][col], qi[row], j0 + col, window))
-            x = -INFINITY;
-          s[j][e] = x;
-          mx[row] = fmaxf(mx[row], x);
-        }
-      }
-      float alpha[2], mb[2];
-#pragma unroll
-      for (int row = 0; row < 2; ++row) {
-        mx[row] = fmaxf(mx[row], __shfl_xor_sync(0xffffffffu, mx[row], 1));
-        mx[row] = fmaxf(mx[row], __shfl_xor_sync(0xffffffffu, mx[row], 2));
-        const float m_new = fmaxf(m[row], mx[row]);
-        mb[row] = m_new == -INFINITY ? 0.f : m_new * kLog2e;
-        alpha[row] = exp2f(m[row] * kLog2e - mb[row]);  // 0 while m is -inf
-        m[row] = m_new;
-        l[row] *= alpha[row];
-      }
-#pragma unroll
-      for (int j = 0; j < HD / 8; ++j) {
-        o[j][0] *= alpha[0];
-        o[j][1] *= alpha[0];
-        o[j][2] *= alpha[1];
-        o[j][3] *= alpha[1];
-      }
-#pragma unroll
-      for (int j = 0; j < kBc / 8; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float p = exp2f(s[j][e] * kLog2e - mb[e >> 1]);
-          s[j][e] = p;
-          l[e >> 1] += p;
-        }
-      }
-
-      // O += P V: P as bf16 A fragments, V through ldmatrix.trans
-#pragma unroll
-      for (int kk = 0; kk < kBc / 16; ++kk) {
-        unsigned a[4];
-        pack_a(a, s[2 * kk], s[2 * kk + 1]);
-#pragma unroll
-        for (int dp = 0; dp < HD / 16; ++dp) {
-          unsigned r[4];
-          ldmatrix_x4_trans(r, a_frag<kLDS>(tV, 16 * kk, dp, lane));
-          mma(o[2 * dp], a, r[0], r[1]);
-          mma(o[2 * dp + 1], a, r[2], r[3]);
-        }
-      }
-      __syncthreads();  // this stage's readers are done before it is refilled
-    }
-    asm volatile("cp.async.wait_all;\n" ::);
-  }
-
-  // normalise, lse, and the output through shared memory (each warp writes
-  // the rows of sQ that only it read)
-#pragma unroll
-  for (int row = 0; row < 2; ++row) {
-    l[row] += __shfl_xor_sync(0xffffffffu, l[row], 1);
-    l[row] += __shfl_xor_sync(0xffffffffu, l[row], 2);
-    const int t = i0 + rq + 8 * row;  // local
-    if (tig == 0 && t < Tq)
-      lse[((long long)b * Hq + h) * Tq + t] = l[row] > 0.f ? m[row] + logf(l[row]) : -INFINITY;
-  }
-  stage_rows<HD>(sQ, o, rq, tig, l[0] > 0.f ? 1.f / l[0] : 0.f, l[1] > 0.f ? 1.f / l[1] : 0.f);
-  __syncthreads();
-  store_tile<HD>(out, sQ, b, i0, Tq, Hq, h);
 }
 
 // ---------------------------------------------------------------------------
@@ -1473,12 +1288,15 @@ __global__ void __launch_bounds__(kDkv256Threads, 1) flash_bwd_dkv_tc256_kernel(
 }  // namespace tc
 
 // ---------------------------------------------------------------------------
-// forward and dq at head dim 256 on wgmma, fed by TMA (bf16 inputs)
+// the forward at head dim 128 and 256 and dq at 256 on wgmma, fed by TMA
+// (bf16 inputs)
 // ---------------------------------------------------------------------------
 //
-// wg::flash_wg_kernel<false> replaces splash's forward
-// (splash_attention_kernel.py:1137) and wg::flash_wg_kernel<true> its dq
-// kernel (:1635, _splash_attention_bwd_dq) for bf16 at head dim 256.
+// wg::flash_wg_kernel<false, CAP, HD> replaces splash's forward
+// (splash_attention_kernel.py:1137) for bf16 at head dim 128 and 256, and
+// wg::flash_wg_kernel<true, CAP, 256> its dq kernel (:1635,
+// _splash_attention_bwd_dq) at 256.  The head dim is a template parameter:
+// a tile is HD / 64 panels, O a 64 x HD accumulator.
 //
 // Bound on this card, on Gemma-2B's train rows (8 q heads on one kv head,
 // 8 rows of 1024, 6,692 tokens; chip_smoke.py flash_bounds): bytes, 0.0203
@@ -1487,7 +1305,12 @@ __global__ void __launch_bounds__(kDkv256Threads, 1) flash_bwd_dkv_tc256_kernel(
 // and 7.9x that: they re-read Q (and dO) fragments from shared memory at
 // every 32-key tile with ldmatrix, because 128 f32 accumulators a thread
 // left no registers to hold them; they held one or two 4-warp blocks an
-// SM; and each of a GQA group's q heads loaded the same K/V tiles.
+// SM; and each of a GQA group's q heads loaded the same K/V tiles.  At hd
+// 128 the forward was still that mma.sync kernel (FlashAttention-2 on 4
+// warps over 64 q rows, two blocks an SM, 64-key tiles double-buffered by
+// cp.async, every q head of a group loading the same tiles: six times over
+// at Qwen2.5-1.5B's 12 / 2 heads), at 7.6x its bound on 16 packed rows of
+// 1024 (0.2137 against 0.0281 ms of bytes, an H100 at 700 W).
 //
 // Design (FlashAttention-3's shape).  A block of three warpgroups: two
 // consumers and a producer (setmaxnreg: 240 registers a consumer thread, 24
@@ -1514,13 +1337,16 @@ __global__ void __launch_bounds__(kDkv256Threads, 1) flash_bwd_dkv_tc256_kernel(
 // of 64-key K and V tiles in flight into a ring (K: 2 stages; V: 2 in the
 // forward, 1 in dq, which holds dO as well) across items, writing each K
 // tile's key segment ids beside it.  Every hand-over is an mbarrier pair
-// (full and empty).  Operands sit in shared memory as four 64-column panels
-// of 128-byte rows in the 128-byte swizzle that TMA writes and wgmma
-// reads.  Shared memory: 196,608 bytes of tiles in the forward (Q x 2, K x
-// 2, V x 2), 229,376 in dq (Q x 2, dO x 2, K x 2, V x 1).
+// (full and empty).  Operands sit in shared memory as HD / 64 64-column
+// panels of 128-byte rows in the 128-byte swizzle that TMA writes and wgmma
+// reads.  Shared memory: 196,608 bytes of tiles in the forward at hd 256
+// (Q x 2, K x 2, V x 2), 98,304 at hd 128, 229,376 in dq (Q x 2, dO x 2,
+// K x 2, V x 1).  At hd 128 a ring of 3 or 4 stages, which the halved
+// tiles leave room for, timed the same as 2 on an H100 (the walk waits on
+// its products and softmax, not on loads), so the ring stays at 2.
 //
 // Forward, per tile n: S_n = Q K^T (wgmma m64n64k16, Q and K from shared
-// memory, K-major) and O += P_{n-1} V_{n-1} (m64n256k16, P the bf16 A
+// memory, K-major) and O += P_{n-1} V_{n-1} (m64nHDk16, P the bf16 A
 // operand from registers, V read MN-major) are issued together, then the
 // softcap, mask and online softmax of S_n run (a thread's rows skip the
 // mask when the tile lies inside their segment, below the diagonal, with
@@ -1552,7 +1378,6 @@ constexpr int kRows = 64;                        // q rows of a unit, keys of a 
 constexpr int kConsumers = 2;                    // consumer warpgroups (units) a block
 constexpr int kThreads = 128 * (kConsumers + 1);  // + the producer warpgroup
 constexpr int kPanel = kRows * 128;              // bytes of a 64-column panel of a tile
-constexpr int kTile = 4 * kPanel;                // bytes of a [64, 256] bf16 tile
 constexpr int kConsumerRegs = 240, kProducerRegs = 24;
 static_assert(kConsumers * 128 * kConsumerRegs + 128 * kProducerRegs <= 384 * 168,
               "setmaxnreg moves registers within the block's allocation at launch");
@@ -1568,8 +1393,10 @@ struct Info {
 // shared memory, from a 1024-byte aligned base: tiles, then mbarriers,
 // then the K stages' key segment ids, two Info slots and the scheduler's
 // scratch
-template <bool DQ>
+template <bool DQ, int HD>
 struct Layout {
+  static constexpr int kPanels = HD / 64;         // 64-column panels of a tile
+  static constexpr int kTile = kPanels * kPanel;  // bytes of a [64, HD] bf16 tile
   static constexpr int kKStages = 2, kVStages = DQ ? 1 : 2;
   static constexpr int kQ = 0;
   static constexpr int kdO = kQ + kConsumers * kTile;
@@ -1584,7 +1411,8 @@ struct Layout {
   static constexpr int kScan = kInfo + 2 * (int)sizeof(Info);  // first[2], last[2], flag
   static constexpr int kSmem = kScan + 4 * 8 + 1024;  // + the base's alignment
 };
-static_assert(Layout<true>::kSmem <= 232448, "dq fits a block's shared memory");
+static_assert(Layout<true, 256>::kSmem <= 232448, "dq fits a block's shared memory");
+static_assert(Layout<false, 128>::kSmem <= 232448, "the hd-128 forward fits");
 
 __device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(tc::smem_addr(bar)),
@@ -1773,9 +1601,31 @@ __device__ __forceinline__ void wgmma_n256(float (&d)[128], const unsigned (&a)[
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
+// d[64 x 128] += A[64 x 16] B[16 x 128]: as wgmma_n256, at hd 128
+__device__ __forceinline__ void wgmma_n128(float (&d)[64], const unsigned (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : WG_F32(d, 0), WG_F32(d, 32)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
 #undef WG_F32
 #undef WG_F16
 #undef WG_F4
+
+// O (or dQ) += A B over the whole head dim
+__device__ __forceinline__ void wgmma_pv(float (&d)[128], const unsigned (&a)[4], uint64_t b) {
+  wgmma_n256(d, a, b);
+}
+__device__ __forceinline__ void wgmma_pv(float (&d)[64], const unsigned (&a)[4], uint64_t b) {
+  wgmma_n128(d, a, b);
+}
 
 // the bf16 A operand of k-step kk (16 keys) from a 64 x 64 f32 accumulator
 // (element 4 j + e: n-tile j of 8 columns; e: row g or g + 8, column pair)
@@ -1791,14 +1641,15 @@ __device__ __forceinline__ void a_from_acc(unsigned (&a)[4], const float (&s)[32
 // uncapped kernels).  Persistent: block i takes work items i, i +
 // gridDim.x, ...; an item is a pair of units of one (row, kv head), the
 // pairs of the last q tiles, whose key ranges are longest, first.
-template <bool DQ, bool CAP>
+template <bool DQ, bool CAP, int HD>
 __global__ void __launch_bounds__(kThreads, 1) flash_wg_kernel(
     const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
     const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
     const int* __restrict__ segq, const int* __restrict__ segk, __nv_bfloat16* __restrict__ out,
     float* __restrict__ lse, const float* __restrict__ di, int B, int q_start, int Tq, int Tk,
     int Hq, int Hkv, float softcap, int window) {
-  using L = Layout<DQ>;
+  using L = Layout<DQ, HD>;
+  constexpr int kTile = L::kTile, kPanels = L::kPanels;
   constexpr int KS = L::kKStages, VS = L::kVStages;
   extern __shared__ __align__(16) unsigned char smem_wg[];
   unsigned char* smem = smem_wg + ((1024 - (tc::smem_addr(smem_wg) & 1023)) & 1023);
@@ -1880,7 +1731,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_wg_kernel(
             if (!unit(kh, pr, u, h, i0) || (u == 0 ? lo_0 >= hi_0 : lo_1 >= hi_1)) continue;
             mbar_wait(q_empty + u, (qloads[u]++ & 1) ^ 1);
             mbar_expect_tx(q_full + u, (DQ ? 2 : 1) * kTile);
-            for (int p = 0; p < 4; ++p) {
+            for (int p = 0; p < kPanels; ++p) {
               tma_load(smem + L::kQ + u * kTile + p * kPanel, &tq, q_full + u, 64 * p, h, i0, b);
               if constexpr (DQ)
                 tma_load(smem + L::kdO + u * kTile + p * kPanel, &tdo, q_full + u, 64 * p, h,
@@ -1896,7 +1747,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_wg_kernel(
             seg_k[sk * kRows + c] = j0 + c < Tk ? segkb[j0 + c] : -2;
           if (lane == 0) {
             mbar_expect_tx(full_k + sk, kTile);
-            for (int p = 0; p < 4; ++p)
+            for (int p = 0; p < kPanels; ++p)
               tma_load(smem + L::kK + sk * kTile + p * kPanel, &tk, full_k + sk, 64 * p, kh, j0,
                        b);
           } else {
@@ -1905,7 +1756,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_wg_kernel(
           mbar_wait(empty_v + sv, ((tile / VS) & 1) ^ 1);
           if (lane == 0) {
             mbar_expect_tx(full_v + sv, kTile);
-            for (int p = 0; p < 4; ++p)
+            for (int p = 0; p < kPanels; ++p)
               tma_load(smem + L::kV + sv * kTile + p * kPanel, &tv, full_v + sv, 64 * p, kh, j0,
                        b);
           }
@@ -2007,7 +1858,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_wg_kernel(
       auto issue_s = [&](float (&s)[32], int n) {
         wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < 16; ++kk)
+        for (int kk = 0; kk < HD / 16; ++kk)
           wgmma_n64(s, desc_k(sQ, kk), desc_k(k_tile(n), kk), kk > 0);
         wgmma_commit();
       };
@@ -2028,9 +1879,9 @@ __global__ void __launch_bounds__(kThreads, 1) flash_wg_kernel(
         };
       };
 
-      float acc[128];  // O or dQ: element 4 j + e at n-tile j of 8 columns
+      float acc[HD / 2];  // O or dQ: element 4 j + e at n-tile j of 8 columns
 #pragma unroll
-      for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+      for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
       float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};  // forward
       for (int n = 0; n < n0; ++n) skip(n);
       if (n0 < n1) {
@@ -2053,7 +1904,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_wg_kernel(
             wait_v(n);
             wgmma_fence();
 #pragma unroll
-            for (int kk = 0; kk < 16; ++kk)
+            for (int kk = 0; kk < HD / 16; ++kk)
               wgmma_n64(dp, desc_k(sdO, kk), desc_k(v_tile(n), kk), kk > 0);
             wgmma_commit();
             wgmma_wait<0>();
@@ -2083,7 +1934,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_wg_kernel(
             reg_fence(acc);
             wgmma_fence();
 #pragma unroll
-            for (int kk = 0; kk < 4; ++kk) wgmma_n256(acc, a[kk], desc_mn(k_tile(n), kk));
+            for (int kk = 0; kk < 4; ++kk) wgmma_pv(acc, a[kk], desc_mn(k_tile(n), kk));
             wgmma_commit();
           }
           release(q_empty + w);  // Q and dO are read: the loader may bring the next item's
@@ -2147,7 +1998,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_wg_kernel(
             wait_v(n - 1);
             wgmma_fence();  // each batch of products its own fence
 #pragma unroll
-            for (int kk = 0; kk < 4; ++kk) wgmma_n256(acc, pa[kk], desc_mn(v_tile(n - 1), kk));
+            for (int kk = 0; kk < 4; ++kk) wgmma_pv(acc, pa[kk], desc_mn(v_tile(n - 1), kk));
             wgmma_commit();
             wgmma_wait<0>();
             reg_fence(s);
@@ -2156,7 +2007,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_wg_kernel(
             softmax(s, n, pa, alpha);
             free_k(n);
 #pragma unroll
-            for (int i = 0; i < 128; ++i) acc[i] *= alpha[(i >> 1) & 1];
+            for (int i = 0; i < HD / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
             reg_fence(acc);  // the next tile's fence orders them for its products
             reg_fence(pa);
           }
@@ -2166,7 +2017,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_wg_kernel(
           reg_fence(pa);
           wgmma_fence();
 #pragma unroll
-          for (int kk = 0; kk < 4; ++kk) wgmma_n256(acc, pa[kk], desc_mn(v_tile(n1 - 1), kk));
+          for (int kk = 0; kk < 4; ++kk) wgmma_pv(acc, pa[kk], desc_mn(v_tile(n1 - 1), kk));
           wgmma_commit();
           wgmma_wait<0>();
           reg_fence(acc);
@@ -2199,9 +2050,9 @@ __global__ void __launch_bounds__(kThreads, 1) flash_wg_kernel(
       for (int r = 0; r < 2; ++r) {
         const int t = i0 + rq + 8 * r;  // local
         if (!exists || t >= Tq) continue;
-        __nv_bfloat16* row = out + (((long long)b * Tq + t) * Hq + h) * 256 + 2 * tig;
+        __nv_bfloat16* row = out + (((long long)b * Tq + t) * Hq + h) * HD + 2 * tig;
 #pragma unroll
-        for (int j = 0; j < 32; ++j)
+        for (int j = 0; j < HD / 8; ++j)
           *reinterpret_cast<__nv_bfloat162*>(row + 8 * j) =
               __floats2bfloat162_rn(acc[4 * j + 2 * r] * sc[r], acc[4 * j + 2 * r + 1] * sc[r]);
       }
@@ -2245,21 +2096,6 @@ cudaError_t fwd(const void* q, const void* k, const void* v, const void* segq,
   return cudaGetLastError();
 }
 
-template <int HD>
-cudaError_t fwd_tc(const void* q, const void* k, const void* v, const void* segq,
-                   const void* segk, void* out, void* lse, Rows r, cudaStream_t s) {
-  constexpr int kSmem = tc::Tiles<HD>::kSmem;
-  auto kernel = tc::flash_fwd_tc_kernel<HD>;
-  cudaError_t err = opt_in(kernel, kSmem);
-  if (err != cudaSuccess) return err;
-  kernel<<<dim3((r.Tq + tc::kBr - 1) / tc::kBr, r.Hq, r.B), tc::kThreads, kSmem, s>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<const int*>(segq),
-      static_cast<const int*>(segk), static_cast<__nv_bfloat16*>(out),
-      static_cast<float*>(lse), r.q_start, r.Tq, r.Tk, r.Hq, r.Hkv, r.softcap, r.window);
-  return cudaGetLastError();
-}
-
 // cuTensorMapEncodeTiled, found through the runtime's entry-point query
 // (no link against libcuda)
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -2285,14 +2121,16 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// a [B, T, H, 256] bf16 tensor as TMA boxes of one 64-column panel of 64
+// a [B, T, H, HD] bf16 tensor as TMA boxes of one 64-column panel of 64
 // rows of one head, swizzled by 128 bytes (wgmma's layout); rows past T
 // read as zeros and are not written
+template <int HD>
 cudaError_t head_map(CUtensorMap* map, const void* ptr, int B, int T, int H) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
-  const cuuint64_t dims[4] = {256, (cuuint64_t)H, (cuuint64_t)T, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {512, 512ull * H, 512ull * H * T};  // bytes, dims 1-3
+  constexpr cuuint64_t kRow = 2 * HD;  // bytes of one head's row
+  const cuuint64_t dims[4] = {HD, (cuuint64_t)H, (cuuint64_t)T, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {kRow, kRow * H, kRow * H * T};  // bytes, dims 1-3
   const cuuint32_t box[4] = {64, 1, (cuuint32_t)wg::kRows, 1}, unit[4] = {1, 1, 1, 1};
   const CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
                               dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
@@ -2301,22 +2139,23 @@ cudaError_t head_map(CUtensorMap* map, const void* ptr, int B, int T, int H) {
   return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-// the hd-256 bf16 forward (DQ false: out, lse) or dq (DQ true: reads dout,
-// lse, di; `result` is dq) on wgmma
-template <bool DQ>
+// the bf16 forward (DQ false: out, lse; hd 128 and 256) or dq (DQ true:
+// reads dout, lse, di; `result` is dq; hd 256) on wgmma
+template <bool DQ, int HD>
 cudaError_t attn_wg(const void* q, const void* k, const void* v, const void* dout,
                     const void* segq, const void* segk, void* result, float* lse,
                     const float* di, Rows r, cudaStream_t s) {
   CUtensorMap mq, mk, mv, mdo;
-  cudaError_t err = head_map(&mq, q, r.B, r.Tq, r.Hq);
-  if (err == cudaSuccess) err = head_map(&mk, k, r.B, r.Tk, r.Hkv);
-  if (err == cudaSuccess) err = head_map(&mv, v, r.B, r.Tk, r.Hkv);
-  if (err == cudaSuccess) err = head_map(&mdo, DQ ? dout : q, r.B, r.Tq, r.Hq);
+  cudaError_t err = head_map<HD>(&mq, q, r.B, r.Tq, r.Hq);
+  if (err == cudaSuccess) err = head_map<HD>(&mk, k, r.B, r.Tk, r.Hkv);
+  if (err == cudaSuccess) err = head_map<HD>(&mv, v, r.B, r.Tk, r.Hkv);
+  if (err == cudaSuccess) err = head_map<HD>(&mdo, DQ ? dout : q, r.B, r.Tq, r.Hq);
   int device = 0, sms = 0;
   if (err == cudaSuccess) err = cudaGetDevice(&device);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  constexpr int kSmem = wg::Layout<DQ>::kSmem;
-  auto kernel = r.softcap > 0.f ? wg::flash_wg_kernel<DQ, true> : wg::flash_wg_kernel<DQ, false>;
+  constexpr int kSmem = wg::Layout<DQ, HD>::kSmem;
+  auto kernel = r.softcap > 0.f ? wg::flash_wg_kernel<DQ, true, HD>
+                                : wg::flash_wg_kernel<DQ, false, HD>;
   if (err == cudaSuccess) err = opt_in(kernel, kSmem);
   if (err != cudaSuccess) return err;
   const int units = (r.Tq + wg::kRows - 1) / wg::kRows * (r.Hq / r.Hkv);
@@ -2326,7 +2165,7 @@ cudaError_t attn_wg(const void* q, const void* k, const void* v, const void* dou
   // longer and more uneven items the hardware's block scheduling balances
   // better (Gemma-2B's heads over 8 packed rows of 1024, same card: 0.1164
   // against 0.1220 ms persistent; the forward 0.0825 against 0.0880 with a
-  // block an item)
+  // block an item; at hd 128 a block an item was slower too, on an H100)
   kernel<<<DQ ? items : std::min(items, sms), wg::kThreads, kSmem, s>>>(
       mq, mk, mv, mdo, static_cast<const int*>(segq), static_cast<const int*>(segk),
       static_cast<__nv_bfloat16*>(result), lse, di, r.B, r.q_start, r.Tq, r.Tk, r.Hq, r.Hkv,
@@ -2451,9 +2290,9 @@ cudaError_t check_dkv_cluster(int bf16, int hd, int Hq, int Hkv, int cluster) {
 // q_start + Tq) of each packed row of Tk keys; segq [B, Tq] and segk
 // [B, Tk] (one array for both, with q_start 0 and Tq = Tk, is the unsharded
 // call).  Each entry picks its kernel by dtype and head dim: bfloat16 runs
-// on the tensor cores (tc::flash_fwd_tc_kernel and tc::flash_bwd_dq_tc_kernel
-// at hd 128, wg::flash_wg_kernel at hd 256, and tc::flash_bwd_dkv_tc_kernel
-// or tc::flash_bwd_dkv_tc256_kernel),
+// on the tensor cores (the forward wg::flash_wg_kernel at hd 128 and 256,
+// dq tc::flash_bwd_dq_tc_kernel at hd 128 and wg::flash_wg_kernel at 256,
+// dk/dv tc::flash_bwd_dkv_tc_kernel or tc::flash_bwd_dkv_tc256_kernel),
 // float32 on the CUDA cores (flash_fwd_kernel, flash_bwd_dq_kernel,
 // flash_bwd_dkv_kernel), which keeps f32 products exact.
 extern "C" int flash_fwd(int device, int bf16, const void* q, const void* k, const void* v,
@@ -2465,11 +2304,11 @@ extern "C" int flash_fwd(int device, int bf16, const void* q, const void* k, con
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Rows r{B, q_start, Tq, Tk, Hq, Hkv, softcap, window};
+  float* lse_f = static_cast<float*>(lse);
   if (hd == 128)
-    return (int)(bf16 ? fwd_tc<128>(q, k, v, segq, segk, out, lse, r, s)
+    return (int)(bf16 ? attn_wg<false, 128>(q, k, v, nullptr, segq, segk, out, lse_f, nullptr, r, s)
                       : fwd<float, 128>(q, k, v, segq, segk, out, lse, r, s));
-  return (int)(bf16 ? attn_wg<false>(q, k, v, nullptr, segq, segk, out, static_cast<float*>(lse),
-                                      nullptr, r, s)
+  return (int)(bf16 ? attn_wg<false, 256>(q, k, v, nullptr, segq, segk, out, lse_f, nullptr, r, s)
                     : fwd<float, 256>(q, k, v, segq, segk, out, lse, r, s));
 }
 
@@ -2486,7 +2325,7 @@ extern "C" int flash_bwd_dq(int device, int bf16, const void* q, const void* k, 
   if (hd == 128)
     return (int)(bf16 ? bwd_dq_tc<128>(q, k, v, segq, segk, dout, lse, di, dq, r, s)
                       : bwd_dq<float, 128>(q, k, v, segq, segk, dout, lse, di, dq, r, s));
-  return (int)(bf16 ? attn_wg<true>(q, k, v, dout, segq, segk, dq,
+  return (int)(bf16 ? attn_wg<true, 256>(q, k, v, dout, segq, segk, dq,
                                      static_cast<float*>(const_cast<void*>(lse)),
                                      static_cast<const float*>(di), r, s)
                     : bwd_dq<float, 256>(q, k, v, segq, segk, dout, lse, di, dq, r, s));

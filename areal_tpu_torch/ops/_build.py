@@ -81,15 +81,18 @@ _count_lock = threading.Lock()
 
 
 def count_launch(wrapper, tensor_cores: bool = False, head_dim: Optional[int] = None,
-                 verify: bool = False) -> None:
+                 verify: bool = False, counter: Optional[str] = None) -> None:
     """Add one launch to `wrapper.launches` (and to `wrapper.launches_tc`
     when it ran on the tensor cores, to `wrapper.launches_hd[head_dim]`
-    when the wrapper counts by head dim, and to `wrapper.launches_verify`
-    when it took more than one query row a slot) under a lock: a colocated
+    when the wrapper counts by head dim, to `wrapper.launches_verify`
+    when it took more than one query row a slot, and to the attribute
+    named `counter`, a variant's own count) under a lock: a colocated
     engine's decode stepper and the trainer launch from two threads, and a
     bare `+=` there can lose an increment."""
     with _count_lock:
         wrapper.launches += 1
+        if counter is not None:
+            setattr(wrapper, counter, getattr(wrapper, counter) + 1)
         if tensor_cores:
             wrapper.launches_tc += 1
         if head_dim is not None:

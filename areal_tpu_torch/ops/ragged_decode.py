@@ -12,22 +12,29 @@ slot's span covers (columns past them count as zero K/V).
 `ragged_paged_attention` launches the kernel for CUDA tensors and raises
 on what the kernel does not take; for CPU tensors it runs
 `ragged_paged_attention_plain`.  There is no fallback between the two.
-On the card, a verify (T > 1) with bf16 q and cache, TC_MIN_ROWS to
-TC_MAX_ROWS query rows a kv head and a head dim of at most
-TC_MAX_HEAD_DIM, runs ONE
-launch on the tensor cores: a thread block cluster per (kv head, slot)
-splits the key axis into fixed chunks of CHUNK positions, folds the
-softmax statistics and sums the partial PV across its blocks through
-distributed shared memory, with no scratch.  Decode (T = 1), other
-verifies, and f32 and mixed calls, run the CUDA-core passes over the
-same chunks (scores, then probabilities and partial PV, then the
-partials combined in chunk order; see `csrc/ragged_decode.cu`) with f32
-scratch allocated here.  The two sum in other orders, so in bf16 a row
-computed on one path may differ in the last bit from the same row on the
-other (at T = 1 against inside a verify).
-`ragged_paged_attention.launches` counts one per call,
-`.launches_tc` the calls on the tensor cores, and `.launches_verify` the
-calls at T > 1 (a speculative verify).
+On the card the variant follows from (dtype, T, rows, hd) alone
+(`variant`), two of them ONE launch with no scratch for bf16 q and cache:
+- "dec": at most DEC_MAX_ROWS query rows a kv head (T * group) at a head
+  dim in DEC_HEAD_DIMS, which is every family's decode (T = 1) and the
+  short verifies.  A thread block cluster per (kv head, slot) splits the
+  key axis into fixed chunks of CHUNK positions dealt out to its blocks by
+  position; each block brings the K and V tiles of its copied chunks by
+  TMA and walks them once with FlashAttention's online softmax (P
+  rounded against a running maximum, within the bf16 tolerance of the
+  plain version); the partials meet in fixed order through distributed
+  shared memory.
+- "tc": a verify (T > 1) of TC_MIN_ROWS to TC_MAX_ROWS rows a kv head at
+  a head dim of at most TC_MAX_HEAD_DIM, a cluster per (kv head, slot) on
+  wider tensor-core tiles.
+- "passes": the rest (f32 and mixed calls, longer verifies) run the
+  CUDA-core passes over the same chunks (scores, then probabilities and
+  partial PV, then the partials combined in chunk order; see
+  `csrc/ragged_decode.cu`) with f32 scratch allocated here.
+The three sum in other orders, so in bf16 a row computed on one variant
+may differ in the last bit from the same row on another.
+`ragged_paged_attention.launches` counts one per call, `.launches_dec`
+and `.launches_tc` the calls on those variants, and `.launches_verify`
+the calls at T > 1 (a speculative verify).
 """
 
 import ctypes
@@ -43,10 +50,12 @@ from areal_tpu_torch.ops.attention import naive_attention
 # dynamic shared memory a Hopper block may opt into (H100 / H200)
 SMEM_LIMIT = 232448
 CHUNK = 64  # key positions per block of the kernel's split-K grid
-# query rows of a kv head (T * group) the tensor-core kernel takes: past 64
-# its block would not fit, and at 16 or fewer the passes' wider grid was
-# faster (8 and 16 rows at Gemma-2-2B's and Qwen3-1.7B's decode shapes)
-TC_MIN_ROWS, TC_MAX_ROWS = 17, 64
+# query rows of a kv head (T * group) each one-launch variant takes: up to
+# 16 the decode kernel (one m16 tile of rows); 17 to 64 at T > 1 the
+# verify kernel, whose block past 64 rows would not fit
+DEC_MAX_ROWS = 16
+TC_MIN_ROWS, TC_MAX_ROWS = DEC_MAX_ROWS + 1, 64
+DEC_HEAD_DIMS = (64, 128, 256)  # whole 64-column panels of its TMA tiles
 TC_MAX_HEAD_DIM = 256
 
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -62,17 +71,18 @@ def smem_bytes(T: int, group: int, head_dim: int, kv_itemsize: int = 4) -> int:
     the passes; it does not grow with the key window: one chunk of cached
     keys, each row padded by 16 bytes, the f32 query rows [R, hd] and the
     chunk's f32 scores [R, CHUNK], R = T * group.  (The tensor-core
-    kernel's block is bounded by TC_MAX_ROWS and TC_MAX_HEAD_DIM.)"""
+    one-launch variants' blocks are bounded by their rows and head dims.)"""
     R = T * group
     return CHUNK * (head_dim * kv_itemsize + 16) + 4 * R * (head_dim + CHUNK)
 
 
 def scratch_floats(B: int, T: int, Hq: int, Hkv: int, head_dim: int,
                    key_window: int, tensor_cores: bool = False) -> int:
-    """f32 scratch of one call.  None on the tensor cores (the cluster
-    keeps everything on chip); on the CUDA cores scores [B, Hkv, R, K],
-    chunk maxima and sums [B, Hkv, R, chunks] each, partial outputs [B,
-    Hkv, chunks, R, hd], with R = T * Hq / Hkv query rows per kv head."""
+    """f32 scratch of one call.  None for the one-launch variants (both on
+    the tensor cores, they keep everything on chip); on the CUDA-core
+    passes scores [B, Hkv, R, K], chunk maxima and sums [B, Hkv, R,
+    chunks] each, partial outputs [B, Hkv, chunks, R, hd], with R = T * Hq
+    / Hkv query rows per kv head."""
     if tensor_cores:
         return 0
     rows = B * T * Hq  # B * Hkv * R
@@ -80,16 +90,22 @@ def scratch_floats(B: int, T: int, Hq: int, Hkv: int, head_dim: int,
     return rows * (key_window + 2 * nc + nc * head_dim)
 
 
-def on_tensor_cores(q_dtype: torch.dtype, kv_dtype: torch.dtype, T: int, group: int,
-                    head_dim: int) -> bool:
-    """Whether a call runs the tensor-core kernel: bf16 q and cache at T > 1
-    (a verify) with TC_MIN_ROWS to TC_MAX_ROWS query rows (T * group) a kv
-    head and a head dim of at most TC_MAX_HEAD_DIM; `ragged_decode_launch`
-    picks by the same rule.  Other verifies, decode (T = 1), where the
-    passes were faster, and f32 and mixed calls (the tensor cores would
-    round f32 operands) run the CUDA-core passes."""
-    return (q_dtype == kv_dtype == torch.bfloat16 and T > 1
-            and TC_MIN_ROWS <= T * group <= TC_MAX_ROWS and head_dim <= TC_MAX_HEAD_DIM)
+def variant(q_dtype: torch.dtype, kv_dtype: torch.dtype, T: int, group: int,
+            head_dim: int) -> str:
+    """The kernel a call runs, by (dtype, T, rows, hd) alone, as
+    `ragged_decode_launch` picks it: "dec" for bf16 q and cache with at
+    most DEC_MAX_ROWS query rows (T * group) a kv head at a head dim in
+    DEC_HEAD_DIMS; "tc" for a bf16 verify (T > 1) of TC_MIN_ROWS to
+    TC_MAX_ROWS at a head dim of at most TC_MAX_HEAD_DIM; "passes" (the
+    CUDA-core passes) for the rest: f32 and mixed calls (the tensor cores
+    would round f32 operands), longer verifies, other head dims."""
+    R = T * group
+    if q_dtype == kv_dtype == torch.bfloat16:
+        if R <= DEC_MAX_ROWS and head_dim in DEC_HEAD_DIMS:
+            return "dec"
+        if T > 1 and TC_MIN_ROWS <= R <= TC_MAX_ROWS and head_dim <= TC_MAX_HEAD_DIM:
+            return "tc"
+    return "passes"
 
 
 def ragged_supported(max_key_window: int, num_heads: int, num_kv_heads: int,
@@ -97,9 +113,9 @@ def ragged_supported(max_key_window: int, num_heads: int, num_kv_heads: int,
                      kv_dtype: torch.dtype = torch.float32) -> bool:
     """Static gate for an engine that decodes (T = 1) and verifies at up to
     T rows a slot: heads that group, a head dim of whole 16-byte vectors,
-    and every call from T = 1 to T on a path that takes it: the tensor
-    cores (`on_tensor_cores`), or the CUDA-core passes, whose scores pass
-    must fit its shared memory at the cache's itemsize.  The key window
+    and every call from T = 1 to T on a variant that takes it: a
+    one-launch variant (`variant`), or the CUDA-core passes, whose scores
+    pass must fit its shared memory at the cache's itemsize.  The key window
     only sizes the scratch.  Evaluated once at engine init; an engine that
     fails it raises there."""
     if not (max_key_window > 0 and num_kv_heads > 0 and num_heads % num_kv_heads == 0
@@ -107,7 +123,7 @@ def ragged_supported(max_key_window: int, num_heads: int, num_kv_heads: int,
         return False
     group = num_heads // num_kv_heads
     item = torch.empty((), dtype=kv_dtype).element_size()
-    return all(on_tensor_cores(q_dtype, kv_dtype, t, group, head_dim)
+    return all(variant(q_dtype, kv_dtype, t, group, head_dim) != "passes"
                or smem_bytes(t, group, head_dim, item) <= SMEM_LIMIT
                for t in range(1, T + 1))
 
@@ -149,7 +165,7 @@ def ragged_paged_attention_plain(
 def _launcher():
     fn = _build.load("ragged_decode").ragged_decode_launch
     fn.argtypes = (
-        [ctypes.c_int] * 3 + [ctypes.c_void_p] * 11 + [ctypes.c_int] * 8
+        [ctypes.c_int] * 3 + [ctypes.c_void_p] * 11 + [ctypes.c_int] * 9
         + [ctypes.c_float] * 2 + [ctypes.c_void_p]
     )
     fn.restype = ctypes.c_int
@@ -192,14 +208,14 @@ def _check(q, k_new, v_new, ck, cv, rows, lengths, widx, mask, K) -> None:
     if hd_c != hd or Hq % Hkv or hd % 8:
         raise ValueError(f"unsupported heads: Hq={Hq} Hkv={Hkv} hd={hd} "
                          f"(cache hd {hd_c}; hd a multiple of 8)")
-    tc = on_tensor_cores(q.dtype, ck.dtype, T, Hq // Hkv, hd)
+    on_chip = variant(q.dtype, ck.dtype, T, Hq // Hkv, hd) != "passes"
     need = smem_bytes(T, Hq // Hkv, hd, ck.element_size())
-    if not tc and need > SMEM_LIMIT:
+    if not on_chip and need > SMEM_LIMIT:
         raise ValueError(f"{T * Hq // Hkv} query rows per kv head at hd {hd} need "
                          f"{need} bytes of shared memory per block, above {SMEM_LIMIT}")
     # the kernels copy 16-byte vectors: the caches always, q and the new
-    # rows too on the tensor cores
-    for name in ("ck", "cv") + (("q", "k_new", "v_new") if tc else ()):
+    # rows too on the one-launch variants
+    for name in ("ck", "cv") + (("q", "k_new", "v_new") if on_chip else ()):
         if tensors[name].data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned (the kernel copies "
                              "16-byte vectors)")
@@ -236,9 +252,9 @@ def ragged_paged_attention(
     K = min(key_window, M)
     page = min(page_size, K)
     _check(q, k_new, v_new, ck, cv, rows, lengths, widx, mask, K)
-    tc = on_tensor_cores(q.dtype, ck.dtype, T, Hq // Hkv, hd)
+    v = variant(q.dtype, ck.dtype, T, Hq // Hkv, hd)
     out = torch.empty_like(q)
-    n_scratch = scratch_floats(B, T, Hq, Hkv, hd, K, tc)
+    n_scratch = scratch_floats(B, T, Hq, Hkv, hd, K, v != "passes")
     scratch = (torch.empty(n_scratch, dtype=torch.float32, device=q.device)
                if n_scratch else None)
     err = _launcher()(
@@ -247,15 +263,16 @@ def ragged_paged_attention(
         q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), ck.data_ptr(),
         cv.data_ptr(), rows.data_ptr(), lengths.data_ptr(), widx.data_ptr(),
         mask.data_ptr(), out.data_ptr(), None if scratch is None else scratch.data_ptr(),
-        B, T, Hq, Hkv, hd, M, K, page,
+        B, T, Hq, Hkv, hd, M, S, K, page,
         1.0 / math.sqrt(hd), float(logit_softcap or 0.0),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     if err:
         raise RuntimeError(f"ragged_decode kernel launch failed: CUDA error {err}")
-    _build.count_launch(ragged_paged_attention, tensor_cores=tc, verify=T > 1)
+    _build.count_launch(ragged_paged_attention, tensor_cores=v == "tc", verify=T > 1,
+                        counter="launches_dec" if v == "dec" else None)
     return out, ck, cv
 
 
 ragged_paged_attention.launches = ragged_paged_attention.launches_tc = 0
-ragged_paged_attention.launches_verify = 0
+ragged_paged_attention.launches_dec = ragged_paged_attention.launches_verify = 0

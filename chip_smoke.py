@@ -41,9 +41,11 @@ Phases, each printed with its wall time; any failure exits non-zero:
             to the unsharded kernels' rows, the shards' dk/dv partials
             summed against the unsharded kernel, the keys past a shard's
             last query exactly 0 in its partials, reruns bit-equal.  Every
-            ragged call is checked on its variant: a bf16 verify (T > 1, 17
-            to 64 rows a kv head) on the tensor-core kernel, decode, other
-            verifies and f32 on the CUDA-core passes.
+            ragged call is checked on its variant: bf16 with at most 16
+            rows a kv head at hd 64, 128 or 256 (decode, the short
+            verifies) on the decode kernel `dec`, a bf16 verify of 17 to
+            64 rows on the verify kernel `tc`, f32, mixed and longer
+            verifies on the CUDA-core passes.
             `--only kernels` runs the build, these checks and 6b (a), then
             times the five T = 1 decode shapes, the verify at T = 4 and 8,
             K1 at hd 256 on rows shaped like the gemma1 phase's, the offset
@@ -57,7 +59,8 @@ Phases, each printed with its wall time; any failure exits non-zero:
             the batch's are a declared greedy group over one prompt, whose
             two siblings (its K/V fanned out from the representative, cache
             hits of all but one token) must return bit-equal streams; the
-            kernel's launch count must equal 28 x the engine's decode steps
+            kernel's launch count must equal 28 x the engine's decode steps,
+            every launch on the decode kernel (`launches_dec`)
 6. timings  ragged kernel, plain version and torch SDPA on the serving
             shapes (CUDA events; the kernel's and SDPA's device time per
             call, `device_ms`), the kernel's bound, decode tokens/s, and a
@@ -66,16 +69,17 @@ Phases, each printed with its wall time; any failure exits non-zero:
 6b. spec    speculative decoding, K2's verify half at T = D + 1: (a) K2
             against its plain version at T = 4 and 8 on Qwen2.5-1.5B's heads
             and Gemma-2B's decode heads, with short drafts and idle slots,
-            the appended cache bit for bit, every one on the tensor-core
-            kernel, and at T = 16 on Qwen2.5's heads (96 rows a kv head)
-            and T = 8 on Gemma-2-2B's (16 rows) on the CUDA-core passes;
+            the appended cache bit for bit, every one on the verify kernel
+            `tc`; at T = 4 and 8 on Qwen3-1.7B's and Gemma-2-2B's heads (8
+            and 16 rows) on the decode kernel `dec`; at T = 16 on Qwen2.5's
+            heads (96 rows a kv head) on the CUDA-core passes;
             (b) in process, f32 at 4 layers
             of full width, spec off, D = 3 and the ladder (0, 3, 7) on one
             greedy-and-sampled workload: equal token streams, logprobs
             within 1e-3, every accepted draft the sampled token, K2
             launches = 4 x (decode steps + verify calls), those at T > 1
-            counted apart = 4 x verify calls, none on the tensor cores
-            (f32); (c) `python -m
+            counted apart = 4 x verify calls, none on `dec` or `tc` (f32);
+            (c) `python -m
             areal_tpu_torch.gen.server` on a checkpoint of the serve
             phase's model cut to SPEC_PPO_LAYERS (8) layers with
             --spec-decode and without (8 slots each, the launch helper),
@@ -440,9 +444,9 @@ from areal_tpu_torch.ops import _build
 from areal_tpu_torch.ops import flash_attention as fa
 from areal_tpu_torch.ops.ragged_decode import (
     _copied_end,
-    on_tensor_cores,
     ragged_paged_attention,
     ragged_paged_attention_plain,
+    variant,
 )
 from areal_tpu_torch.scripts import mp_train_worker as mp_worker
 from areal_tpu_torch.utils.data import split_padded_tensor_dict_into_mb_list
@@ -578,27 +582,47 @@ def check_kernel():
     return worst
 
 
+def k2_variant(case):
+    """The variant `ragged_decode_launch` picks for a case."""
+    _, T, Hq, hd = case["q"].shape
+    return variant(case["q"].dtype, case["ck"].dtype, T, Hq // case["ck"].shape[2], hd)
+
+
+def k2_variant_counts():
+    """(calls on dec::ragged_dec, on tc::ragged_tc, all calls) so far."""
+    w = ragged_paged_attention
+    return np.array([w.launches_dec, w.launches_tc, w.launches])
+
+
+def ran_variant(before, n=1):
+    """The variant of the last `n` K2 calls since `before`
+    (`k2_variant_counts`), all one; "mixed" when they were not."""
+    dec, tc, total = k2_variant_counts() - before
+    if total != n:
+        return "mixed"
+    return "dec" if dec == n else "tc" if tc == n else "passes" if dec == tc == 0 else "mixed"
+
+
 def compare_ragged(name, case, softcap=None):
     """The ragged kernel against its plain version on one case (tolerances
-    as in `check_kernel`).  Returns max|out - plain|."""
-    tc0 = ragged_paged_attention.launches_tc
+    as in `check_kernel`), on the variant the rule picks.  Returns
+    max|out - plain|."""
+    before = k2_variant_counts()
     got = _run(ragged_paged_attention, case, softcap)
-    on_tc = ragged_paged_attention.launches_tc - tc0
+    ran = ran_variant(before)
     want = _run(ragged_paged_attention_plain, case, softcap)
     torch.cuda.synchronize()
     f32 = case["q"].dtype == torch.float32
-    _, T, Hq, hd = case["q"].shape
-    if on_tc != int(on_tensor_cores(case["q"].dtype, case["ck"].dtype, T,
-                                    Hq // case["ck"].shape[2], hd)):
-        raise AssertionError(f"{name}: K2 ran on the wrong variant (a bf16 verify of 17 to "
-                             "64 rows a kv head takes the tensor cores; decode, other "
-                             "verifies, f32 and mixed calls the CUDA cores)")
+    if ran != k2_variant(case):
+        raise AssertionError(f"{name}: K2 ran on {ran}, the rule says {k2_variant(case)} "
+                             "(bf16 with at most 16 rows a kv head: dec; a bf16 verify of "
+                             "17 to 64: tc; the rest: the CUDA-core passes)")
     atol, rtol = (1e-5, 1e-5) if f32 else (BF16_ATOL, BF16_RTOL)
     err = (got[0].float() - want[0].float()).abs()
     bad = err > atol + rtol * want[0].float().abs()
     max_err = float(err.max())
     cache_ok = torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
-    print(f"  {name}: max|out - plain| = {max_err:.3e} "
+    print(f"  {name} [{ran}]: max|out - plain| = {max_err:.3e} "
           f"(atol {atol}, rtol {rtol}), {int(bad.sum())} outside, "
           f"cache equal: {cache_ok}")
     if bad.any() or not cache_ok or not torch.isfinite(got[0]).all():
@@ -607,19 +631,25 @@ def compare_ragged(name, case, softcap=None):
 
 
 def check_ragged_invariance():
-    """Fixed key chunks and no atomics, on both of K2's paths: two runs of
-    the grid are bit-equal (out and caches), and a slot run alone (B=1)
-    gives the same out, bit for bit, as inside the grid.  Decode on the
-    CUDA-core passes (B=16, T=1) and a bf16 verify on the tensor cores (B=8,
-    T=8, Qwen2.5's heads, short drafts and idle slots)."""
-    for label, case, slots, tc in (
-            ("B=16 T=1", ragged_case(120, K=1024), (0, 5, 15), 0),
-            ("B=8 T=8 verify", verify_case(121, 8, B=SPEC_SLOTS, K=1024, M=1024), (0, 2, 6), 1)):
-        tc0 = ragged_paged_attention.launches_tc
+    """Fixed key chunks and no atomics, on each of K2's variants: two runs
+    of the grid are bit-equal (out and caches), and a slot run alone (B=1)
+    gives the same out, bit for bit, as inside the grid.  dec: decode
+    (B=16, T=1, Qwen2.5's heads) and Qwen3-1.7B's T = 8 verify (16 rows);
+    tc: a bf16 verify at T = 8 (B=8, Qwen2.5's heads); the passes: f32
+    decode.  The verifies with short drafts and idle slots."""
+    for label, case, slots in (
+            ("B=16 T=1", ragged_case(120, K=1024), (0, 5, 15)),
+            ("B=8 T=8 verify, Qwen3-1.7B's heads", verify_case(122, 8, B=SPEC_SLOTS, K=1024,
+                                                               M=1024, **QWEN3_HEADS),
+             (0, 2, 6)),
+            ("B=8 T=8 verify", verify_case(121, 8, B=SPEC_SLOTS, K=1024, M=1024), (0, 2, 6)),
+            ("f32 B=16 T=1", ragged_case(123, K=1024, dtype=torch.float32), (0, 5))):
+        before = k2_variant_counts()
         first, second = _run(ragged_paged_attention, case), _run(ragged_paged_attention, case)
         torch.cuda.synchronize()
-        if ragged_paged_attention.launches_tc - tc0 != 2 * tc:
-            raise AssertionError(f"{label}: K2 ran on the wrong variant")
+        ran = ran_variant(before, 2)
+        if ran != k2_variant(case):
+            raise AssertionError(f"{label}: K2 ran on {ran}, the rule says {k2_variant(case)}")
         if not all(torch.equal(a, b) for a, b in zip(first, second)):
             raise AssertionError(f"two ragged runs on the same inputs differ ({label})")
         for slot in slots:
@@ -630,7 +660,7 @@ def check_ragged_invariance():
             if not torch.equal(out[0], first[0][slot]):
                 raise AssertionError(f"{label}: slot {slot} alone differs from slot {slot} "
                                      "in the grid")
-        print(f"  {label} ({'tensor cores' if tc else 'CUDA cores'}): two runs bit-equal; "
+        print(f"  {label} [{ran}]: two runs bit-equal; "
               f"slots {', '.join(map(str, slots))} alone (B=1) bit-equal to the grid")
 
 
@@ -882,7 +912,7 @@ def serve_qwen(ckpt_dir):
         for i in group:
             bodies[i].update(input_ids=list(bodies[8]["input_ids"]), group_id="g",
                              group_n=len(group), sampling_params=dict(bodies[8]["sampling_params"]))
-        ragged_paged_attention.launches = 0
+        ragged_paged_attention.launches = ragged_paged_attention.launches_dec = 0
         steps0 = engine.stats["decode_steps"]
         t0 = time.perf_counter()
         with concurrent.futures.ThreadPoolExecutor(9) as pool:
@@ -891,6 +921,7 @@ def serve_qwen(ckpt_dir):
             results = [f.result() for f in singles] + batch.result()["results"]
         wall = time.perf_counter() - t0
         launches = ragged_paged_attention.launches
+        dec_launches = ragged_paged_attention.launches_dec
         steps = engine.stats["decode_steps"] - steps0
         health = get(httpd.port, "/health")
     for b, r in zip(bodies, results):
@@ -918,11 +949,15 @@ def serve_qwen(ckpt_dir):
           f"{abs(rep['output_logprobs'][0] - sibs[0]['output_logprobs'][0]):.5f}, streams equal "
           f"for {same} of 64 tokens (bf16)")
     print(f"  12 requests x 64 tokens in {wall:.2f} s; health {health}")
-    print(f"  kernel launches {launches}, decode steps {steps}, "
-          f"{SERVE_LAYERS} x steps = {SERVE_LAYERS * steps}")
+    print(f"  kernel launches {launches} (on the decode kernel dec::ragged_dec: "
+          f"{dec_launches}), decode steps {steps}, {SERVE_LAYERS} x steps = "
+          f"{SERVE_LAYERS * steps}")
     if steps == 0 or launches != SERVE_LAYERS * steps:
         raise AssertionError("the serving path did not run every decode layer "
                              "through the ragged kernel")
+    if dec_launches != launches:
+        raise AssertionError("a bf16 decode launch of the serving path missed the decode "
+                             "kernel")
     return engine, launches, steps, wall, sum(len(r["output_tokens"]) for r in results)
 
 
@@ -3362,32 +3397,31 @@ def verify_case(seed, T, **kw):
 
 
 def check_verify_kernel():
-    """(a) K2 against its plain version at verify shapes: Qwen2.5-1.5B's
-    heads and Gemma-2B's decode heads at T = 4 and 8 (the tensor cores),
-    Qwen2.5's at T = 16 and Gemma-2-2B's at T = 8 (the CUDA-core passes),
-    with short drafts and idle slots; the appended cache bit for bit.
-    Returns max|out - plain|."""
+    """(a) K2 against its plain version at verify shapes, with short drafts
+    and idle slots, on the variant the rule picks; the appended cache bit
+    for bit.  tc: Qwen2.5-1.5B's heads and Gemma-2B's decode heads at T = 4
+    and 8 (24 to 64 rows a kv head); dec: Qwen3-1.7B's and Gemma-2-2B's at
+    T = 4 and 8 (8 and 16 rows); the passes: Qwen2.5's at T = 16 (96
+    rows).  Returns max|out - plain|."""
     worst = 0.0
-    for i, (label, kw) in enumerate((
-            ("Qwen2.5-1.5B heads (B=8 Hq=12 Hkv=2 hd=128) K=1024", dict(B=SPEC_SLOTS, K=1024,
-                                                                      M=1024)),
-            ("Gemma-2B decode heads (B=8 Hq=8 Hkv=1 hd=256) K=2048", dict(GEMMA1_DECODE)))):
+    for i, (label, kw, softcap) in enumerate((
+            ("Qwen2.5-1.5B heads (B=8 Hq=12 Hkv=2 hd=128) K=1024",
+             dict(B=SPEC_SLOTS, K=1024, M=1024), None),
+            ("Gemma-2B decode heads (B=8 Hq=8 Hkv=1 hd=256) K=2048", dict(GEMMA1_DECODE), None),
+            ("Qwen3-1.7B heads (B=8 Hq=16 Hkv=8 hd=128) K=1024",
+             dict(B=SPEC_SLOTS, K=1024, M=1024, **QWEN3_HEADS), None),
+            ("Gemma-2-2B decode heads (B=8 Hq=8 Hkv=4 hd=256) K=2048, softcap 50",
+             dict(GEMMA_DECODE, K=2048, M=2048), 50.0))):
         for T in (4, 8):
             err = compare_ragged(f"verify T={T}, {label}, n_write < T and idle slots",
-                                 verify_case(300 + 10 * i + T, T, **kw))
+                                 verify_case(300 + 10 * i + T, T, **kw), softcap)
             worst = max(worst, err)
     # the CUDA-core passes: a draft of 15 at Qwen2.5's heads (96 query rows
-    # a kv head, past the tensor-core kernel's 64), and Gemma-2-2B's heads
-    # at T = 8 (16 rows, where the passes are faster)
-    for i, (label, T, kw, softcap) in enumerate((
-            ("Qwen2.5-1.5B heads K=1024: 96 rows", 16, dict(B=SPEC_SLOTS, K=1024, M=1024),
-             None),
-            ("Gemma-2-2B decode heads K=2048, softcap 50: 16 rows", 8,
-             dict(GEMMA_DECODE, K=2048, M=2048), 50.0))):
-        err = compare_ragged(f"verify T={T}, {label} a kv head on the CUDA cores, n_write "
-                             "< T and idle slots", verify_case(330 + i, T, **kw), softcap)
-        worst = max(worst, err)
-    return worst
+    # a kv head, past the tensor-core kernel's 64)
+    err = compare_ragged("verify T=16, Qwen2.5-1.5B heads K=1024: 96 rows a kv head, n_write "
+                         "< T and idle slots", verify_case(330, 16, B=SPEC_SLOTS, K=1024,
+                                                           M=1024))
+    return max(worst, err)
 
 
 def spec_f32_streams(cfg):
@@ -3411,11 +3445,11 @@ def spec_f32_streams(cfg):
                            **b["sampling_params"]) for b in bodies]
         l0 = ragged_paged_attention.launches
         v0 = ragged_paged_attention.launches_verify
-        tc0 = ragged_paged_attention.launches_tc
+        on_tc0 = k2_variant_counts()[:2]
         eng.generate_blocking(reqs)
         n = ragged_paged_attention.launches - l0
         n_verify = ragged_paged_attention.launches_verify - v0
-        if ragged_paged_attention.launches_tc != tc0:
+        if (k2_variant_counts()[:2] != on_tc0).any():
             raise AssertionError(f"spec {label}: an f32 K2 launch ran on the tensor cores")
         st = eng.stats
         want = SPEC_F32_LAYERS * (st["decode_steps"] + st["verify_calls"])
@@ -5378,6 +5412,22 @@ def main(argv):
         # the verify half at the spec servers' shape, T = 4 and 8
         "verify": {f"T{T}": dict(zip(("ms", "plain_ms", "library_ms", "bound_ms", "bound_by"),
                                      verify_times[T][:5])) for T in verify_times},
+        "max_abs_err": max_err,
+        "ms": kern,
+        "plain_ms": plain,
+        "bound_ms": bound,
+        "bound_by": by,
+        "library_ms": sdpa,
+    }, {
+        # its variant for bf16 calls of at most 16 rows a kv head, which
+        # took every decode launch of the serve phase (counted there); the
+        # times are the serving shape's, as above
+        "name": "ragged_paged_attention_dec",
+        "route": "cuda",
+        "source": "areal_tpu_torch/csrc/ragged_decode.cu",
+        "replaces": "areal_tpu/ops/ragged_decode.py:93",
+        "launches": launches,
+        "launches_by_path": {"serve": launches},
         "max_abs_err": max_err,
         "ms": kern,
         "plain_ms": plain,

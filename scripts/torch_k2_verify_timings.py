@@ -1,19 +1,21 @@
 """Time K2 of the PyTorch port (`areal_tpu_torch.ops.ragged_decode
-.ragged_paged_attention`) on bf16 verifies at the decode shapes of the
-port's model families, and print one JSON line.
+.ragged_paged_attention`) on bf16 decode (T = 1) at the five decode shapes
+`chip_smoke.py` times and on bf16 verifies (T = 4 and 8) at the decode
+shapes of the port's model families, and print one JSON line.
 
     python scripts/torch_k2_verify_timings.py [--root DIR] [--label NAME]
 
 `--root` is the checkout whose `areal_tpu_torch` is imported (default: the
 one this script is in), so that two checkouts' kernels can be timed on the
 same card, one process each: the wrapper's signature is the same in both.
-For each shape and T in (4, 8) the inputs are seeded, every slot drafts
-T - 1 tokens on spans drawn as the serving paths draw them, and the output
-is held against the plain version (bf16, within 2e-2, caches bit-equal).
-Per case it reports the device time per call by torch.profiler, the time
-per call by CUDA events over back-to-back calls, and whether the call ran
-on the tensor cores (`launches_tc`, null where the checkout has no such
-count); beside them the yardsticks: torch SDPA on the same mask (the K/V
+For each shape and T the inputs are seeded, every slot drafts T - 1 tokens
+on spans drawn as the serving paths draw them, and the output is held
+against the plain version (bf16, within 2e-2, caches bit-equal).  Per case
+it reports the device time per call by torch.profiler, the time per call by
+CUDA events over back-to-back calls, and the variant the call ran on
+("dec" or "tc" by the wrapper's `launches_dec` / `launches_tc`, "passes"
+when neither moved; a checkout without such a count ran none); beside
+them the yardsticks: torch SDPA on the same mask (the K/V
 gathered and GQA-expanded outside the timing, uncapped under a softcap, as
 `chip_smoke.py time_kernel` times it), by device time and events, and the
 call's bound on an H100 SXM (the larger of its bytes over 3.35 TB/s and its
@@ -35,6 +37,16 @@ from torch.profiler import ProfilerActivity, profile
 BF16_TOL = 2e-2
 HBM_BYTES_PER_S, BF16_FLOPS = 3.35e12, 989e12  # H100 SXM
 # (name, slots, q heads, kv heads, head dim, key window, spans [lo, hi), window, softcap)
+# the five decode shapes of chip_smoke.py (DECODE_SHAPES), at T = 1
+DECODE = (
+    ("serving shape", 16, 12, 2, 128, 1024, (64, 965), None, None),
+    ("full window", 16, 12, 2, 128, 2048, (0, 2048), None, None),
+    ("Gemma-2-2B decode, K 8192, window 4096, softcap 50", 8, 8, 4, 256, 8192, (3988, 4564),
+     4096, 50.0),
+    ("Qwen3-1.7B decode, 32 slots", 32, 16, 8, 128, 1024, (64, 512), None, None),
+    ("Gemma-2B decode (8 q on 1 kv)", 8, 8, 1, 256, 2048, (128, 640), None, None),
+)
+# verifies at T = 4 and 8
 SHAPES = (
     ("spec (Qwen2.5-1.5B heads)", 8, 12, 2, 128, 1024, (64, 641), None, None),
     ("Qwen2.5-1.5B serving, K 2048", 16, 12, 2, 128, 2048, (64, 1985), None, None),
@@ -155,40 +167,43 @@ def main(argv):
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True).stdout
     cases = []
-    for i, (name, B, Hq, Hkv, hd, K, spans, window, softcap) in enumerate(SHAPES):
-        for T in (4, 8):
-            case = make_case(1000 + 10 * i + T, B, Hq, Hkv, hd, K, spans, window, T)
+    plan = [(i, shape, 1) for i, shape in enumerate(DECODE)] + [
+        (len(DECODE) + i, shape, T) for i, shape in enumerate(SHAPES) for T in (4, 8)]
+    for i, (name, B, Hq, Hkv, hd, K, spans, window, softcap), T in plan:
+        case = make_case(1000 + 10 * i + T, B, Hq, Hkv, hd, K, spans, window, T)
 
-            def call(case=case):
-                return fn(**dict(case, ck=case["ck"].clone(), cv=case["cv"].clone()),
-                          logit_softcap=softcap)
+        def call(case=case):
+            return fn(**dict(case, ck=case["ck"].clone(), cv=case["cv"].clone()),
+                      logit_softcap=softcap)
 
-            tc0 = getattr(fn, "launches_tc", None)
-            got = call()
-            tc = None if tc0 is None else fn.launches_tc - tc0
-            want = rd.ragged_paged_attention_plain(
-                **dict(case, ck=case["ck"].clone(), cv=case["cv"].clone()),
-                logit_softcap=softcap)
-            torch.cuda.synchronize()
-            err = float((got[0].float() - want[0].float()).abs().max())
-            if (err > BF16_TOL or not torch.equal(got[1], want[1])
-                    or not torch.equal(got[2], want[2])):
-                raise AssertionError(f"{name} T={T}: max|out - plain| {err}")
+        counts = [getattr(fn, n, 0) for n in ("launches_dec", "launches_tc")]
+        got = call()
+        dec, tc = (getattr(fn, n, 0) - c for c, n in zip(counts, ("launches_dec",
+                                                                   "launches_tc")))
+        ran = "dec" if dec else "tc" if tc else "passes"
+        want = rd.ragged_paged_attention_plain(
+            **dict(case, ck=case["ck"].clone(), cv=case["cv"].clone()),
+            logit_softcap=softcap)
+        torch.cuda.synchronize()
+        err = float((got[0].float() - want[0].float()).abs().max())
+        if (err > BF16_TOL or not torch.equal(got[1], want[1])
+                or not torch.equal(got[2], want[2])):
+            raise AssertionError(f"{name} T={T}: max|out - plain| {err}")
 
-            def timed(case=case):
-                fn(**case, logit_softcap=softcap)
+        def timed(case=case):
+            fn(**case, logit_softcap=softcap)
 
-            sdpa = sdpa_call(case)
-            bound_ms, bound_by = bound(case)
-            cases.append(dict(name=name, T=T, rows=T * Hq // Hkv, chunks=-(-K // 64),
-                              on_tensor_cores=tc, max_abs_err=err,
-                              device_ms=device_ms(timed), events_ms=events_ms(timed),
-                              sdpa_device_ms=device_ms(sdpa), sdpa_events_ms=events_ms(sdpa),
-                              bound_ms=bound_ms, bound_by=bound_by))
-            print(f"  {name} T={T}: device {cases[-1]['device_ms']} ms, events "
-                  f"{cases[-1]['events_ms']:.4f} ms, tensor cores {tc}; SDPA device "
-                  f"{cases[-1]['sdpa_device_ms']} ms; bound {bound_ms:.4f} ms ({bound_by})",
-                  file=sys.stderr)
+        sdpa = sdpa_call(case)
+        bound_ms, bound_by = bound(case)
+        cases.append(dict(name=name, T=T, rows=T * Hq // Hkv, chunks=-(-K // 64),
+                          variant=ran, max_abs_err=err,
+                          device_ms=device_ms(timed), events_ms=events_ms(timed),
+                          sdpa_device_ms=device_ms(sdpa), sdpa_events_ms=events_ms(sdpa),
+                          bound_ms=bound_ms, bound_by=bound_by))
+        print(f"  {name} T={T}: device {cases[-1]['device_ms']} ms, events "
+              f"{cases[-1]['events_ms']:.4f} ms, variant {ran}; SDPA device "
+              f"{cases[-1]['sdpa_device_ms']} ms; bound {bound_ms:.4f} ms ({bound_by})",
+              file=sys.stderr)
     print(json.dumps(dict(label=args.label, root=args.root, card=card.strip(), cases=cases)))
     return 0
 

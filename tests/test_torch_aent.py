@@ -14,6 +14,7 @@ from areal_tpu_torch.models.convert import params_from_jax
 from areal_tpu_torch.models.model_config import tiny_config
 from areal_tpu_torch.ops.functional import _clamped_entropy
 from areal_tpu_torch.recipes import AEntConfig, AEntPPOActorConfig, TorchAEntPPOActor
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 MODEL = dict(vocab_size=64, qkv_bias=True, hf_architecture="Qwen2ForCausalLM")
 # f32 on both sides: stats are sums over the batch in another order, the

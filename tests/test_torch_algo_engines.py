@@ -20,6 +20,7 @@ from areal_tpu_torch.engine.rw import TorchRewardModelEngine
 from areal_tpu_torch.engine.sft import TorchLMEngine
 from areal_tpu_torch.models.convert import params_from_jax
 from areal_tpu_torch.models.model_config import tiny_config
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 # f32 on both sides: values and losses are sums of two layers of products
 # in another order; the parameters after one Adam step at lr 1e-3 move by

@@ -14,6 +14,7 @@ import torch
 from areal_tpu_torch.models.transformer import LMOutput
 from areal_tpu_torch.ops import functional as F
 from areal_tpu_torch.ops.gae import gae_segments
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 # f32 elementwise math and sums over <= a few hundred elements in another
 # order: 1e-5 on losses, stats, entropies and gradients; GAE is the same

@@ -33,6 +33,7 @@ from areal_tpu_torch.api.config import GenerationHyperparameters
 from areal_tpu_torch.models.convert import params_from_jax
 from areal_tpu_torch.scripts import bench_e2e_grpo as bench
 from areal_tpu_torch.workflow.rlvr import RLVRWorkflow
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 LOGP_ATOL = 1e-4

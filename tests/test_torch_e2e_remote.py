@@ -36,6 +36,7 @@ from areal_tpu_torch.launcher.local import LocalLauncher, find_free_port
 from areal_tpu_torch.models.convert import params_from_jax
 from areal_tpu_torch.models.model_config import TransformerConfig
 from areal_tpu_torch.utils.http import request_with_retry
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 LOGP_ATOL = ADV_ATOL = 1e-4
 PARAM_ATOL = 1e-5

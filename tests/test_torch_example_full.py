@@ -25,6 +25,7 @@ from areal_tpu_torch.engine.ppo import TorchPPOActor
 from areal_tpu_torch.examples.math import gsm8k_grpo
 from areal_tpu_torch.launcher.local import LocalLauncher
 from areal_tpu_torch.utils.evaluator import Evaluator
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 LOGP_ATOL = 1e-4
 ADV_ATOL = 1e-5

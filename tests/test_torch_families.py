@@ -45,6 +45,7 @@ from areal_tpu_torch.models.hf import layer_name_map, load_hf_params, save_hf_ch
 from areal_tpu_torch.models.model_config import TransformerConfig
 from areal_tpu_torch.ops.functional import lm_logprobs_entropy
 from areal_tpu_torch.utils.data import pack_into_rows
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 # Tolerances.  Logits: f32 on both sides, products in another op order over
 # two layers of widths <= 128 -> 1e-4 against JAX; HF's own modules differ

@@ -21,6 +21,7 @@ import torch
 
 from areal_tpu_torch.ops import attention as port_attn
 from areal_tpu_torch.ops import flash_attention as fa
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 # out: f32 on both sides, the same softmax in another summation order
 # (blockwise online against one pass) -> 1e-4 on valid rows, as
@@ -534,6 +535,85 @@ def test_cuda_hd256_offset_shards_equal_unsharded_rows(cuda_device, heads, sp):
         assert (out.float() - p_out.float()).abs()[valid].max().item() <= K1A_ATOL
         rel = (dq.float() - p_dq.float()).abs().max() / p_dq.float().abs().max()
         assert rel.item() <= K1B_RTOL, (s, rel.item())
+
+
+QWEN25_HEADS, QWEN3_HEADS = dict(Hq=12, Hkv=2), dict(Hq=16, Hkv=8)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", [
+    dict(T=2048, n_segs=3, **QWEN25_HEADS),
+    dict(T=1024, n_segs=2, B=8, **QWEN3_HEADS),
+    dict(T=1024, n_segs=2, Hq=4, Hkv=4),
+    dict(T=1000, n_segs=2, **QWEN25_HEADS),
+    dict(T=1024, n_segs=2, window=256, **QWEN25_HEADS),
+    dict(T=1024, n_segs=2, softcap=30.0, **QWEN3_HEADS),
+], ids=["qwen2.5-T2048", "qwen3-8-rows", "mha", "partial-tile", "window", "softcap"])
+def test_cuda_hd128_wgmma_forward(cuda_device, case):
+    """The bf16 forward at head dim 128 (`wg::flash_wg_kernel<false, CAP,
+    128>`: wgmma on TMA-fed K/V tiles that two q heads of a group, or two
+    q tiles at group 1, share) against the plain version at Qwen2.5-1.5B's
+    heads (12 q on 2 kv; also at T = 1000, a partial last q tile),
+    Qwen3-1.7B's (16 on 8), group 1, a window and a softcap: out within
+    2^-6 on valid rows, lse within 1e-4; pad rows get out 0 and lse -inf;
+    reruns are bit-equal; each launch is counted at hd 128 on the tensor
+    cores."""
+    window, softcap = case.get("window"), case.get("softcap")
+    q, k, v, _, seg, _ = _packed(43, B=case.get("B", 2), T=case["T"], Hq=case["Hq"],
+                                 Hkv=case["Hkv"], hd=128, n_segs=case["n_segs"])
+    qs, kk, vv = (torch.from_numpy(x).to(cuda_device, torch.bfloat16) for x in (q, k, v))
+    qs = fa.scale_query(qs)
+    sg = torch.from_numpy(seg).to(cuda_device)
+    w = fa.flash_fwd
+    before = (w.launches, w.launches_tc, w.launches_hd[128])
+    out, lse = fa.flash_fwd(qs, kk, vv, sg, window, softcap)
+    out2, lse2 = fa.flash_fwd(qs, kk, vv, sg, window, softcap)
+    torch.cuda.synchronize()
+    assert (w.launches, w.launches_tc, w.launches_hd[128]) == tuple(n + 2 for n in before)
+    assert torch.equal(out, out2) and torch.equal(lse, lse2)
+    p_out, p_lse = fa.flash_fwd_plain(qs, kk, vv, sg, window, softcap)
+    valid = torch.from_numpy(seg >= 0).to(cuda_device)
+    err = (out.float() - p_out.float()).abs()[valid].max().item()
+    assert err <= K1A_ATOL, err
+    vl = valid.unsqueeze(1).expand_as(lse)
+    assert torch.allclose(lse[vl], p_lse[vl], atol=1e-4)
+    assert not out[~valid].any()
+    assert bool((lse[~vl] == -torch.inf).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sp", [2, 4])
+@pytest.mark.parametrize("heads", [QWEN25_HEADS, QWEN3_HEADS], ids=["qwen2.5", "qwen3"])
+def test_cuda_hd128_offset_shards_equal_unsharded_rows(cuda_device, heads, sp):
+    """Each sp shard of a row of 2048 (3 segments, tail padding) at its
+    query offset, through the hd-128 wgmma forward: its out and lse
+    bit-equal to the unsharded kernel's rows (a shard starts on a multiple
+    of 128 rows, so every row's key tiles are the same), and against the
+    plain offset version within the K1a limit; the shards' dq against the
+    unsharded dq kernel fed the same lse, bit for bit."""
+    q, k, v, g, seg, _ = _packed(47, B=1, T=2048, Hq=heads["Hq"], Hkv=heads["Hkv"], hd=128,
+                                 n_segs=3)
+    qs, kk, vv, dout = (torch.from_numpy(x).to(cuda_device, torch.bfloat16) for x in (q, k, v, g))
+    qs = fa.scale_query(qs)
+    sg = torch.from_numpy(seg).to(cuda_device)
+    full_out, full_lse = fa.flash_fwd(qs, kk, vv, sg)
+    full_di = fa.attention_di(full_out, dout)
+    full_dq = fa.flash_bwd_dq(qs, kk, vv, sg, dout, full_lse, full_di)
+    n = 2048 // sp
+    for s in range(sp):
+        a = s * n
+        q_s, do_s, sg_s = (x[:, a:a + n].contiguous() for x in (qs, dout, sg))
+        kw = dict(q_start=a, kv_segment_ids=sg)
+        out, lse = fa.flash_fwd(q_s, kk, vv, sg_s, **kw)
+        di = full_di[:, :, a:a + n].contiguous()
+        dq = fa.flash_bwd_dq(q_s, kk, vv, sg_s, do_s, lse, di, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(out, full_out[:, a:a + n]), s
+        assert torch.equal(lse, full_lse[:, :, a:a + n]), s
+        assert torch.equal(dq, full_dq[:, a:a + n]), s
+        p_out, _ = fa.flash_fwd_plain(q_s, kk, vv, sg_s, **kw)
+        valid = sg_s >= 0
+        assert (out.float() - p_out.float()).abs()[valid].max().item() <= K1A_ATOL
 
 
 def _rw_rows(seed, lens=(1024, 300, 700, 0), T=1024, Hq=12, Hkv=2, hd=128):

@@ -11,6 +11,7 @@ import torch
 
 from areal_tpu_torch.ops import functional as F
 from areal_tpu_torch.ops.gae import gae_padded
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 # f32 elementwise math and masked sums over <= 400 elements in another
 # order -> 1e-5 absolute on losses and stats, 1e-5 relative on gradients.

@@ -10,6 +10,7 @@ import pytest
 import torch
 
 from areal_tpu_torch.ops.fused_xent import fused_logprobs_entropy, vocab_chunk
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 # f32 on both sides; the chunk products and exp sums run in another order
 # (XLA against torch) over D = 32 and V = 300 -> 1e-5 on values, 1e-5

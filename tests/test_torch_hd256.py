@@ -22,6 +22,7 @@ from areal_tpu_torch.models.convert import params_from_jax
 from areal_tpu_torch.models.model_config import TransformerConfig
 from areal_tpu_torch.ops import flash_attention as fa
 from areal_tpu_torch.utils.data import pack_into_rows
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 # Tolerances: as tests/test_torch_families.py (f32 on both sides, the
 # blockwise softmax against splash's own blocks).

@@ -16,6 +16,7 @@ from areal_tpu_torch.models.convert import jax_tree_to_hf
 from areal_tpu_torch.models.hf import load_hf_params, save_hf_checkpoint, state_to_params
 from areal_tpu_torch.models.model_config import TransformerConfig, tiny_config
 from areal_tpu_torch.models.transformer import init_params
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 KW = dict(vocab_size=97, qkv_bias=True, hf_architecture="Qwen2ForCausalLM",
           eos_token_id=None)

@@ -22,6 +22,7 @@ from areal_tpu_torch.gen.engine import GenEngine, GenRequest
 from areal_tpu_torch.models.model_config import tiny_config
 from areal_tpu_torch.models.transformer import init_params
 from areal_tpu_torch.ops.kv_copy import gather_kv_prefix, scatter_kv_prefix
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 KW = dict(vocab_size=97, qkv_bias=True, hf_architecture="Qwen2ForCausalLM", eos_token_id=None)
 ENGINE = dict(n_slots=2, max_seq_len=128, prompt_bucket=16, kv_dtype="float32",

@@ -10,6 +10,7 @@ import ast
 import os
 import subprocess
 import sys
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "areal_tpu_torch")

@@ -6,6 +6,7 @@ import numpy as np
 
 from areal_tpu.gen import kv_pool as ref
 from areal_tpu_torch.gen import kv_pool as port
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _run(mod, seed=0):

@@ -13,6 +13,7 @@ import torch
 from areal_tpu_torch.models import transformer as pt
 from areal_tpu_torch.models.convert import jax_tree_to_hf, params_from_jax
 from areal_tpu_torch.models.model_config import VisionConfig, tiny_config
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 # logits and K/V: f32 on both sides, products and sums in another order
 # (XLA's einsum against torch's linear) over widths <= 128 -> 1e-4 covers

@@ -16,6 +16,7 @@ from areal_tpu_torch.utils.name_resolve import (
     NameEntryNotFoundError,
     NfsNameRecordRepository,
 )
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 @pytest.fixture(params=["memory", "nfs"])

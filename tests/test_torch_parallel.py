@@ -35,6 +35,7 @@ from areal_tpu_torch.models.hf import save_hf_checkpoint
 from areal_tpu_torch.parallel import distributed
 from areal_tpu_torch.parallel.mesh import Mesh, mesh_from_alloc, mesh_shape_from_alloc
 from areal_tpu_torch.scripts import mp_train_worker as worker
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 MESHES = ((1, 2), (2, 1))
 STEPS = 3

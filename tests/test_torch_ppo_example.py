@@ -27,6 +27,7 @@ from areal_tpu_torch.engine.ppo import TorchPPOCritic
 from areal_tpu_torch.examples.math import gsm8k_grpo, gsm8k_ppo
 from areal_tpu_torch.launcher.local import LocalLauncher
 from areal_tpu_torch.utils.recover import RecoverHandler
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 # f32 on both sides: two layers of products in another order
 VALUE_ATOL = 1e-5

@@ -25,6 +25,7 @@ from areal_tpu_torch.gen import engine as engine_mod
 from areal_tpu_torch.gen.engine import GenEngine, GenRequest
 from areal_tpu_torch.models.model_config import tiny_config
 from areal_tpu_torch.models.transformer import init_params
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 KW = dict(vocab_size=97, qkv_bias=True, hf_architecture="Qwen2ForCausalLM",
           eos_token_id=None)

@@ -31,6 +31,7 @@ from areal_tpu_torch.models.convert import params_from_jax
 from areal_tpu_torch.models.model_config import tiny_config
 from areal_tpu_torch.models.transformer import forward_prefill_cached
 from areal_tpu_torch.ops.kv_copy import copy_kv_prefix
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 LOGP_ATOL = 1e-4
 LOGIT_ATOL = 1e-4

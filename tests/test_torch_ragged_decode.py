@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from areal_tpu_torch.ops import ragged_decode as port
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 # out: f32 sums of <= 48 products in another order than XLA's -> 1e-5.
 # bf16: both frameworks round scores/probabilities/out to bf16 after f32
@@ -196,23 +197,25 @@ def test_ragged_supported_gate():
     assert not port.ragged_supported(128, 4, 2, 100)  # hd not a multiple of 8
     assert not port.ragged_supported(128, 64, 1, 256, T=8)  # 512 rows overflow
     assert not port.ragged_supported(0, 12, 2, 128)
-    # a bf16 verify (T > 1) of 17 to 64 query rows (T * group) a kv head at
-    # hd <= 256 runs on the tensor cores, whose block those caps bound;
-    # decode (T = 1), other verifies (16 rows or fewer ran faster on the
-    # passes) and f32 or mixed calls keep the CUDA-core passes, whose
-    # scores block grows with the rows
+    # bf16 at hd <= 256: up to 16 query rows (T * group) a kv head run the
+    # decode kernel ("dec"), a verify (T > 1) of 17 to 64 the verify kernel
+    # ("tc"), each bounded by those caps; f32 or mixed calls and longer
+    # verifies keep the CUDA-core passes, whose scores block grows with the
+    # rows
     bf16, f32 = torch.bfloat16, torch.float32
-    assert not port.on_tensor_cores(bf16, bf16, 1, 6, 128)
-    assert port.on_tensor_cores(bf16, bf16, 4, 6, 128)
-    assert not port.on_tensor_cores(f32, bf16, 8, 6, 128)
-    assert not port.on_tensor_cores(bf16, f32, 8, 6, 128)
-    assert port.on_tensor_cores(bf16, bf16, 8, 8, 256)  # Gemma-2B's verify: 64 rows
-    assert not port.on_tensor_cores(bf16, bf16, 9, 8, 256)  # 72 rows
-    assert not port.on_tensor_cores(bf16, bf16, 16, 6, 128)  # Qwen2.5 drafting 15: 96
-    assert not port.on_tensor_cores(bf16, bf16, 2, 8, 512)  # hd above 256
-    assert not port.on_tensor_cores(bf16, bf16, 8, 2, 256)  # Gemma-2-2B's: 16 rows
-    assert not port.on_tensor_cores(bf16, bf16, 4, 2, 128)  # Qwen3-1.7B's at T = 4: 8
-    assert port.on_tensor_cores(bf16, bf16, 3, 6, 128)  # 18 rows
+    assert port.variant(bf16, bf16, 1, 6, 128) == "dec"  # Qwen2.5-1.5B's decode
+    assert port.variant(bf16, bf16, 4, 6, 128) == "tc"
+    assert port.variant(f32, bf16, 8, 6, 128) == "passes"
+    assert port.variant(bf16, f32, 8, 6, 128) == "passes"
+    assert port.variant(bf16, bf16, 8, 8, 256) == "tc"  # Gemma-2B's verify: 64 rows
+    assert port.variant(bf16, bf16, 9, 8, 256) == "passes"  # 72 rows
+    assert port.variant(bf16, bf16, 16, 6, 128) == "passes"  # Qwen2.5 drafting 15: 96
+    assert port.variant(bf16, bf16, 2, 8, 512) == "passes"  # hd above 256
+    assert port.variant(bf16, bf16, 1, 2, 16) == "passes"  # hd of no whole 64-column panel
+    assert port.variant(bf16, bf16, 8, 2, 256) == "dec"  # Gemma-2-2B's: 16 rows
+    assert port.variant(bf16, bf16, 4, 2, 128) == "dec"  # Qwen3-1.7B's at T = 4: 8
+    assert port.variant(bf16, bf16, 3, 6, 128) == "tc"  # 18 rows
+    assert port.variant(f32, f32, 1, 6, 128) == "passes"
     for T in (1, 4, 8):
         for group, hd in ((6, 128), (8, 256), (2, 256), (2, 128)):
             assert port.smem_bytes(T, group, hd, 2) == (64 * (hd * 2 + 16)
@@ -390,20 +393,35 @@ def test_cuda_kernel_matches_plain_at_verify_shapes(cuda_device, case):
     np.testing.assert_array_equal(got[2], want[2])
 
 
+def _variant_counts():
+    w = port.ragged_paged_attention
+    return np.array([w.launches_dec, w.launches_tc, w.launches])
+
+
+def _ran(before, n=1):
+    """The variant of the last `n` calls since `before` (`_variant_counts`)."""
+    dec, tc, total = _variant_counts() - before
+    assert total == n
+    return "dec" if dec == n else "tc" if tc == n else "passes" if dec == tc == 0 else "mixed"
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("T,dtype,Hq,Hkv,on_tc", [
-    (8, "bfloat16", 12, 2, 1), (1, "bfloat16", 12, 2, 0), (8, "float32", 12, 2, 0),
-    (16, "bfloat16", 12, 2, 0), (8, "bfloat16", 16, 8, 0)])
-def test_cuda_kernel_variant(cuda_device, T, dtype, Hq, Hkv, on_tc):
-    """A bf16 verify of 17 to 64 rows a kv head launches the tensor-core
-    kernel; decode, f32, a verify of 96 rows (a draft of 15 at Qwen2.5's
-    heads) and one of 16 (Qwen3-1.7B's heads at T = 8) the CUDA-core
-    passes; each counted once, and against the plain version."""
+@pytest.mark.parametrize("T,dtype,Hq,Hkv,expect", [
+    (8, "bfloat16", 12, 2, "tc"), (1, "bfloat16", 12, 2, "dec"), (8, "float32", 12, 2, "passes"),
+    (16, "bfloat16", 12, 2, "passes"), (8, "bfloat16", 16, 8, "dec")])
+def test_cuda_kernel_variant(cuda_device, T, dtype, Hq, Hkv, expect):
+    """A bf16 call of at most 16 rows a kv head (decode, Qwen3-1.7B's heads
+    at T = 8) launches the decode kernel, a bf16 verify of 17 to 64 rows
+    the verify kernel; f32 and a verify of 96 rows (a draft of 15 at
+    Qwen2.5's heads) the CUDA-core passes; each counted once, as `variant`
+    says, and against the plain version."""
     arrays, dtypes, kw = _case(35, B=8, T=T, Hq=Hq, Hkv=Hkv, hd=128, K=1024, M=1024,
                                page=128, qdtype=dtype, kvdtype=dtype)
-    before = port.ragged_paged_attention.launches_tc
+    dt = getattr(torch, dtype)
+    assert port.variant(dt, dt, T, Hq // Hkv, 128) == expect
+    before = _variant_counts()
     got = _port(arrays, dtypes, kw, device=cuda_device)
-    assert port.ragged_paged_attention.launches_tc == before + on_tc
+    assert _ran(before) == expect
     want = _port(arrays, dtypes, kw, fn=port.ragged_paged_attention_plain,
                  device=cuda_device)
     np.testing.assert_allclose(got[0], want[0], atol=BF16_ATOL if dtype == "bfloat16"
@@ -414,20 +432,26 @@ def test_cuda_kernel_variant(cuda_device, T, dtype, Hq, Hkv, on_tc):
 @pytest.mark.gpu
 def test_cuda_kernel_batch_invariant_and_deterministic(cuda_device):
     """Chunk boundaries are fixed key positions and nothing is combined by
-    atomics, on both paths: a slot's output is bit-equal alone (B=1) and
-    inside the grid, and two runs are bit-equal; decode on the CUDA-core
-    passes (B=16), and a bf16 verify at T = 8 on the tensor cores (B=6,
-    mixed n_write and inactive slots)."""
+    atomics, on every variant: a slot's output is bit-equal alone (B=1) and
+    inside the grid, and two runs are bit-equal; bf16 decode (B=16) and a
+    bf16 verify at Qwen3-1.7B's heads (T = 8, 16 rows) on the decode
+    kernel, a bf16 verify at Qwen2.5's (48 rows) on the verify kernel, f32
+    decode on the CUDA-core passes (the verifies with mixed n_write and
+    inactive slots)."""
     bf16 = dict(qdtype="bfloat16", kvdtype="bfloat16")
-    for (arrays, dtypes, kw), slots, on_tc in (
+    for (arrays, dtypes, kw), slots, want in (
             (_case(23, B=16, Hq=12, Hkv=2, hd=128, K=2048, M=2048, page=128, **bf16),
-             (0, 5), 0),
+             (0, 5), "dec"),
+            (_verify_case(25, Hq=16, Hkv=8, hd=128, K=1024, M=1024, page=128, **bf16),
+             (0, 1, 2), "dec"),
             (_verify_case(24, Hq=12, Hkv=2, hd=128, K=1024, M=1024, page=128, **bf16),
-             (0, 1, 2), 1)):
-        before = port.ragged_paged_attention.launches_tc
+             (0, 1, 2), "tc"),
+            (_case(26, B=16, Hq=12, Hkv=2, hd=128, K=2048, M=2048, page=128), (0, 5),
+             "passes")):
+        before = _variant_counts()
         full = _port(arrays, dtypes, kw, device=cuda_device)
         again = _port(arrays, dtypes, kw, device=cuda_device)
-        assert port.ragged_paged_attention.launches_tc == before + 2 * on_tc
+        assert _ran(before, 2) == want
         for a, b in zip(full, again):
             np.testing.assert_array_equal(a, b)
         for slot in slots:
@@ -435,3 +459,107 @@ def test_cuda_kernel_batch_invariant_and_deterministic(cuda_device):
                      for k, v in arrays.items()}
             one = _port(alone, dtypes, kw, device=cuda_device)
             np.testing.assert_array_equal(one[0][0], full[0][slot])
+
+
+def _c_rule():
+    """`ragged_decode_launch`'s choice of variant, read from the CUDA source:
+    its row caps, the decode kernel's head dims, and the two conditions in
+    the order the entry point tests them."""
+    import os
+    import re
+
+    src = open(os.path.join(os.path.dirname(port.__file__), "..", "csrc",
+                            "ragged_decode.cu")).read()
+
+    def const(ns, name):
+        body = src[src.index(f"namespace {ns} {{"):]
+        return int(re.search(rf"constexpr int {name} = (\d+);", body).group(1))
+
+    dec_max, tc_min, tc_max = const("dec", "kMaxRows"), const("tc", "kMinRows"), const(
+        "tc", "kMaxRows")
+    dec_hds = tuple(int(x) for x in re.findall(
+        r"hd == (\d+)", re.search(r"bool takes_hd\(int hd\) \{([^}]*)\}", src).group(1)))
+    entry = src[src.index('extern "C" int ragged_decode_launch'):]
+    dec_at = entry.index("q_bf16 && kv_bf16 && dec::takes_hd(hd) && R <= dec::kMaxRows)")
+    tc_at = entry.index("q_bf16 && kv_bf16 && hd <= 256 && T > 1 && R >= tc::kMinRows && "
+                        "R <= tc::kMaxRows)")
+    assert dec_at < tc_at
+
+    def rule(bf16, T, group, hd):
+        R = T * group
+        if bf16 and hd in dec_hds and R <= dec_max:
+            return "dec"
+        if bf16 and hd <= 256 and T > 1 and tc_min <= R <= tc_max:
+            return "tc"
+        return "passes"
+
+    return rule, (dec_max, tc_min, tc_max, dec_hds)
+
+
+def test_variant_rule_matches_the_cuda_entry_point():
+    """`variant` mirrors `ragged_decode_launch`: the same caps (16 rows at
+    hd 64, 128 or 256 for the decode kernel, 17 to 64 at T > 1 and hd <=
+    256 for the verify kernel), and the same variant for every dtype pair,
+    T, group and head dim, including each family's decode and verify
+    shapes."""
+    rule, caps = _c_rule()
+    assert caps == (port.DEC_MAX_ROWS, port.TC_MIN_ROWS, port.TC_MAX_ROWS,
+                    port.DEC_HEAD_DIMS) == (16, 17, 64, (64, 128, 256))
+    assert port.TC_MAX_HEAD_DIM == 256
+    bf16, f32 = torch.bfloat16, torch.float32
+    for q_dt, kv_dt in ((bf16, bf16), (f32, f32), (bf16, f32), (f32, bf16)):
+        for T in (1, 2, 3, 4, 8, 9, 16):
+            for group in (1, 2, 6, 8, 16, 32):
+                for hd in (16, 32, 64, 96, 128, 192, 256, 512):
+                    both = q_dt == kv_dt == bf16
+                    assert port.variant(q_dt, kv_dt, T, group, hd) == rule(both, T, group, hd)
+    # every family's decode takes the decode kernel in bf16
+    for group, hd in ((6, 128), (2, 128), (2, 256), (8, 256), (4, 128), (1, 64)):
+        assert port.variant(bf16, bf16, 1, group, hd) == "dec"
+        assert port.variant(f32, f32, 1, group, hd) == "passes"
+    # a head dim that is not whole 64-column panels keeps the passes (tiny
+    # test models' hd 16), or the verify kernel at 17 to 64 rows
+    assert port.variant(bf16, bf16, 1, 2, 16) == "passes"
+    assert port.variant(bf16, bf16, 4, 6, 16) == "tc"
+
+
+def _family_case(kind, seed):
+    """bf16 inputs at one family's decode (T = 1) or <= 16-row verify shape:
+    (arrays, dtypes, kwargs)."""
+    bf16 = dict(qdtype="bfloat16", kvdtype="bfloat16", page=128)
+    heads = {
+        "qwen2.5": dict(Hq=12, Hkv=2, hd=128, K=1024, M=1024),
+        "qwen3": dict(Hq=16, Hkv=8, hd=128, K=1024, M=1024),
+        "gemma2": dict(Hq=8, Hkv=4, hd=256, K=8192, M=8192, softcap=50.0, window=4096),
+        "gemma1": dict(Hq=8, Hkv=1, hd=256, K=2048, M=2048),
+    }
+    family, T = kind
+    if T == 1:
+        return _case(seed, B=8, **heads[family], **bf16)
+    return _verify_case(seed, T=T, **heads[family], **bf16)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", [("qwen2.5", 1), ("qwen3", 1), ("gemma2", 1), ("gemma1", 1),
+                                  ("qwen3", 4), ("qwen3", 8), ("gemma2", 4), ("gemma2", 8)],
+                         ids=lambda k: f"{k[0]}-T{k[1]}" if isinstance(k, tuple) else str(k))
+def test_cuda_decode_kernel_at_family_shapes(cuda_device, kind):
+    """The decode kernel at each family's decode and <= 16-row verify: out
+    within the bf16 tolerance of the plain version, the caches bit-equal,
+    two runs bit-equal, and slots run alone bit-equal to the grid."""
+    arrays, dtypes, kw = _family_case(kind, 41)
+    before = _variant_counts()
+    got = _port(arrays, dtypes, kw, device=cuda_device)
+    again = _port(arrays, dtypes, kw, device=cuda_device)
+    assert _ran(before, 2) == "dec"
+    want = _port(arrays, dtypes, kw, fn=port.ragged_paged_attention_plain,
+                 device=cuda_device)
+    np.testing.assert_allclose(got[0], want[0], atol=BF16_ATOL, rtol=0)
+    np.testing.assert_array_equal(got[1], want[1])
+    np.testing.assert_array_equal(got[2], want[2])
+    for a, b in zip(got, again):
+        np.testing.assert_array_equal(a, b)
+    for slot in (0, 2, 5):
+        alone = {k: (v if k in ("ck", "cv") else v[slot:slot + 1]) for k, v in arrays.items()}
+        one = _port(alone, dtypes, kw, device=cuda_device)
+        np.testing.assert_array_equal(one[0][0], got[0][slot])

@@ -43,6 +43,7 @@ from areal_tpu_torch.utils.recover import (
     config_fingerprint,
 )
 from areal_tpu_torch.utils.saver import Saver
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 V = 64
 

@@ -32,6 +32,7 @@ from areal_tpu_torch.api.config import GenServerConfig
 from areal_tpu_torch.examples.math import gsm8k_grpo
 from areal_tpu_torch.launcher.local import LocalLauncher
 from areal_tpu_torch.utils.http import request_with_retry
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 ARRIVAL = re.compile(r"arrival (\S+) at (\S+) (.*)$")  # the server's arrival log line
 TRAINER_TIMEOUT = 120  # seconds, per trainer process

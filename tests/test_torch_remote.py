@@ -29,6 +29,7 @@ import pytest
 from areal_tpu_torch.scripts.bench_e2e_grpo import _reward_any_even
 
 from tests.fake_server import FakeGenServer
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 IMPLS = ("jax", "torch")
 COMPLETION = list(range(100, 110))

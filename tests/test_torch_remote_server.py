@@ -40,6 +40,7 @@ from areal_tpu_torch.launcher.local import LocalLauncher, find_free_port
 from areal_tpu_torch.models.convert import params_from_jax
 from areal_tpu_torch.models.hf import save_hf_checkpoint
 from areal_tpu_torch.models.model_config import tiny_config
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 ATOL = 1e-4
 KW = dict(vocab_size=97, qkv_bias=True, hf_architecture="Qwen2ForCausalLM",

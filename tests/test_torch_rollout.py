@@ -22,6 +22,7 @@ from areal_tpu_torch.dataset.gsm8k_synth import WordTokenizer, generate_problems
 from areal_tpu_torch.reward import gsm8k_reward_fn
 from areal_tpu_torch.utils.dataloader import StatefulDataLoader
 from areal_tpu_torch.workflow.rlvr import RLVRWorkflow
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 # (max_concurrent_rollouts, consumer_batch_size, max_staleness, events):
 # the sequences of tests/test_staleness.py.  An event is "submit",

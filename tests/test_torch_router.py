@@ -54,6 +54,7 @@ import torch
 from areal_tpu_torch.gen import health as port_health
 from areal_tpu_torch.gen.router import Router, RouterConfig, RouterHTTPServer
 from areal_tpu_torch.utils import name_resolve, names
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _fake(**kw):

@@ -14,6 +14,7 @@ import torch
 from scipy import stats
 
 from areal_tpu_torch.gen import sampling as ps
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 # logprobs: one f32 logsumexp over <= 300 logits on each side -> 1e-5
 ATOL = 1e-5

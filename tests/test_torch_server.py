@@ -20,6 +20,7 @@ from areal_tpu_torch.gen import server
 from areal_tpu_torch.gen.engine import GenEngine
 from areal_tpu_torch.models.model_config import tiny_config
 from areal_tpu_torch.models.transformer import init_params
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

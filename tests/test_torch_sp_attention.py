@@ -26,6 +26,7 @@ import torch
 from areal_tpu_torch.ops import attention as port_attn
 from areal_tpu_torch.ops import flash_attention as fa
 from areal_tpu_torch.parallel.mesh import Mesh
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 OUT_ATOL = 1e-4  # as test_torch_flash_attention.py: f32, another summation order
 GRAD_RTOL = 1e-3

@@ -31,6 +31,7 @@ from areal_tpu_torch.utils.telemetry import (
     parse_prometheus_text,
     trace_key,
 )
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 SCHEMA_PATH = os.path.join(os.path.dirname(__file__), "data", "metrics_schema.json")
 KW = dict(vocab_size=89, qkv_bias=True, hf_architecture="Qwen2ForCausalLM",

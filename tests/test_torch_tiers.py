@@ -25,6 +25,7 @@ from areal_tpu_torch.models.convert import params_from_jax
 from areal_tpu_torch.models.model_config import tiny_config
 from areal_tpu_torch.models.transformer import init_params
 from areal_tpu_torch.utils import telemetry
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 KW = dict(vocab_size=97, qkv_bias=True, hf_architecture="Qwen2ForCausalLM", eos_token_id=None)
 ENGINE = dict(n_slots=4, max_seq_len=256, prompt_bucket=16, kv_dtype="float32",

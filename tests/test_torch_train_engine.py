@@ -34,6 +34,7 @@ from areal_tpu_torch.models.convert import params_from_jax
 from areal_tpu_torch.models.hf import save_hf_checkpoint
 from areal_tpu_torch.models.model_config import tiny_config
 from areal_tpu_torch.models.transformer import init_params
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 # Tolerances (f32 on both sides).  Logprobs: two layers of products in
 # another order -> 1e-4.  Advantages: numpy on the same logprob inputs ->

@@ -26,6 +26,7 @@ from areal_tpu_torch.models.model_config import tiny_config
 from areal_tpu_torch.ops import flash_attention as fa
 from areal_tpu_torch.ops.functional import lm_logprobs_entropy
 from areal_tpu_torch.utils.data import pack_into_rows
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 # logits: f32 on both sides, products in another order over two layers of
 # widths <= 256 -> 1e-4 (as tests/test_torch_model.py).

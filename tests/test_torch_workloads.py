@@ -30,6 +30,7 @@ from areal_tpu_torch.models.transformer import init_params
 from areal_tpu_torch.scripts import bench_e2e_grpo as bench
 from areal_tpu_torch.workflow.multi_turn import MultiTurnWorkflow
 from areal_tpu_torch.workflow.rlvr import RLVRWorkflow
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 KW = dict(vocab_size=97, qkv_bias=True, hf_architecture="Qwen2ForCausalLM",
           eos_token_id=None)
