@@ -35,51 +35,71 @@
 // and the accumulators are f32, outputs are rounded once to the input type.
 // The exceptions are the bf16 kernels' tensor-core operands: the forward
 // rounds P to bf16 before its PV product, and the backward rounds P (for
-// dV) and dS (for dK and dQ) to bf16 before those products.
+// dV) and dS (for dK and dQ) to bf16 before those products (under the
+// softcap dS is P (1 - t^2) (dP - di), the factors in that order).
 //
 // What bounds it on this card: operations.  Attention over a packed row
 // does ~4 hd flops per attended (q, k) pair forward (8 and 6 for dk/dv and
 // dq) against ~2 hd bytes of q/k/v per token, far above the ~300 flops per
 // byte where the H100's arithmetic becomes the limit.
 //
-// What the design does about it.  For bf16 inputs all three kernels run
-// on the tensor cores.  The forward at hd 128 and 256, and dq at hd 256,
-// run on Hopper's warpgroup products (namespace wg: wgmma on K/V tiles
-// that TMA brings into shared memory, which two q heads of a GQA group
-// share).  dq at hd 128 and dk/dv are namespace tc below (mma.sync
-// m16n8k16, bf16 operands in padded shared memory read by ldmatrix, f32
-// accumulators in registers, double-buffered 16-byte cp.async tile
-// pipelines): tc::flash_bwd_dq_tc_kernel, tc::flash_bwd_dkv_tc_kernel at
-// hd 128 and tc::flash_bwd_dkv_tc256_kernel at hd 256.  The f32 kernels stay plain and right rather than fast:
-// they run on the CUDA cores in f32, because the tensor cores would round
-// the f32 operands (TF32 at best).  Each such block stages tiles of q, k, v (and
-// dout) in shared memory as f32 (64 rows at hd 128, 32 at hd 256, where 64
-// rows of dq or dk/dv would need more than a block's 227 KB) and keeps a
-// score tile slice and head-dim slices per thread in registers.  What every
-// kernel keeps from splash: the blockwise softmax (no [T, T] score matrix
-// ever reaches device memory) and the skipping of masked tiles.  Segments
-// are contiguous, so a q tile needs only the keys from the segment start of
-// its first valid query to its last query (and a k tile only the queries
-// from its first key to the segment end of its last key); each block finds
-// that range from the segment ids, and the window narrows it further.
+// What the design does about it.  For bf16 inputs every kernel runs on
+// the tensor cores, and all but one on Hopper's warpgroup products
+// (namespace wg: wgmma on tiles that TMA brings into shared memory in the
+// 128-byte swizzle wgmma reads, mbarrier rings between a producer warp and
+// two consumer warpgroups, setmaxnreg 240 / 24): the forward and dq at hd
+// 128 and 256 (wg::flash_wg_kernel, whose K/V tiles two q heads of a GQA
+// group share) and dk/dv at hd 128 (wg::flash_dkv_wg_kernel: 64 keys' K
+// and V resident, the group's Q and dO tiles streamed past them, the two
+// consumers taking alternate tiles and summing their partials).  dk/dv
+// at hd 256 stays on mma.sync (namespace tc: tc::flash_bwd_dkv_tc256_kernel,
+// a thread block cluster a key tile), because a warpgroup's 64 x 256 dK
+// and dV would take 256 accumulator registers a thread.  What bounds each
+// now (their times beside their bounds are in PERF.md): the wgmma kernels,
+// the chain a 64-key (or 64-query) tile takes (wait for its tiles, the
+// products of 64-row tiles, the softmax or the dS on the fragments, the
+// hand-backs), so that they run at 4-7x the time their operations need;
+// the hd-256 dk/dv, shared memory (every warp re-reads Q and dO fragments
+// through ldmatrix).  The f32 kernels stay plain and right rather than
+// fast: they run on the CUDA cores in f32, because the tensor cores would
+// round the f32 operands (TF32 at best).  Each such block stages tiles of
+// q, k, v (and dout) in shared memory as f32 (64 rows at hd 128, 32 at hd
+// 256, where 64 rows of dq or dk/dv would need more than a block's 227 KB)
+// and keeps a score tile slice and head-dim slices per thread in
+// registers.  What every kernel keeps from splash: the blockwise softmax
+// (no [T, T] score matrix ever reaches device memory) and the skipping of
+// masked tiles.  Segments are contiguous, so a q tile needs only the keys
+// from the segment start of its first valid query to its last query (and
+// a k tile only the queries from its first key to the segment end of its
+// last key); each block finds that range from the segment ids, and the
+// window narrows it further.  Work of padding alone costs no walk: the
+// scheduler of the forward and dq finds an all-padding item by ballots
+// over segment ids it prefetched, and its consumers write the item's
+// zeros (and lse -inf) with no tile loaded; a dk/dv block whose keys no
+// query sees writes its zeros and leaves.
 //
 // Head dim 256 doubles every per-thread head-dim slice.  The wgmma kernels
 // hold a 64 x hd f32 accumulator a warpgroup (64 registers a thread at hd
-// 128, 128 at 256) and read Q, dO, K and V from shared memory.  The
-// dk/dv block at hd 256 has 8 warps in two groups over the same 64 keys:
-// one computes S^T and P^T and accumulates dV, the other dP^T and dS^T (with
-// P^T (1 - t^2) handed over through shared memory) and accumulates dK, so
-// each thread holds 128 accumulators, not 256, and no product is done twice.
+// 128, 128 at 256; dk/dv at hd 128 two, dK and dV) and read their B
+// operands from shared memory.  The dk/dv block at hd 256 has 8 warps in
+// two groups over the same 64 keys: one computes S^T and P^T and
+// accumulates dV, the other dP^T and dS^T (with P^T (1 - t^2) handed over
+// through shared memory) and accumulates dK, so each thread holds 128
+// accumulators, not 256, and no product is done twice.
 //
-// Grids: the wgmma forward one persistent block an SM, walking items of two
-// q heads' 64-row tile (or two q tiles at group 1) of one kv head and row,
-// and dq at hd 256 a block an item; dq at hd 128 one block per (q tile, q
-// head, row); dk/dv at hd 128
-// one block per (k tile, kv head, row), looping over the group's q heads
-// and the q tiles that see its keys; dk/dv at hd 256 a thread block cluster
-// per (k tile, kv head, row) whose blocks split the group's q heads and sum
-// their f32 partials through distributed shared memory in rank order.  GQA
-// and MQA need no atomics and every result is the same from run to run.
+// Grids: the forward and dq one persistent block an SM, walking items of
+// two q heads' 64-row tile (or two q tiles at group 1) of one kv head and
+// row (dq at hd 256 a block an item); dk/dv at hd 128 a block per (64
+// keys, kv head, row), walking the group's q heads and the q tiles that
+// see its keys, the first keys of a row, whose walks are longest, first;
+// dk/dv at hd 256 a thread block cluster per (64 keys, kv head, row) whose
+// blocks split the group's q heads and sum their f32 partials through
+// distributed shared memory in rank order.  GQA and MQA need no atomics
+// and every result is the same from run to run.  (dk/dv at hd 128 first
+// paired two key tiles a block over one Q/dO stream and left dV and dK in
+// flight under the next step's products, which ptxas serialized for want
+// of registers: 0.208 ms on Qwen2.5's train micro-batch against 0.150 ms
+// for this design, an H100 at 700 W.)
 //
 // Interface: plain C entry points bound with ctypes; each launches on the
 // caller's stream and returns cudaGetLastError().
@@ -558,19 +578,14 @@ namespace tc {
 
 namespace cg = cooperative_groups;
 
-constexpr int kBr = 64;        // q rows per block (keys per dk/dv block)
-constexpr int kThreads = 128;  // 4 warps x 16 rows
+constexpr int kBr = 64;  // keys of a dk/dv block, q and dO rows of a stage
 constexpr float kLog2e = 1.4426950408889634f;
 
 template <int HD>
 struct Tiles {
   static constexpr int kLDS = HD + 8;        // bf16 row stride in shared memory
   static constexpr int kChunks = HD / 8;     // 16-byte chunks in a row
-  static constexpr int kBc = 64;             // keys per tile of the forward and dq
   static constexpr int kTileQ = kBr * kLDS;  // elements of a 64-row tile
-  static constexpr int kTileK = kBc * kLDS;  // elements of a key tile
-  // dq: Q, dO, K x 2, V x 2 (104,448 B): twice an SM
-  static constexpr int kDqSmem = (2 * kTileQ + 4 * kTileK) * 2;
 };
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
@@ -612,7 +627,7 @@ __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
 // rows [r0, r0 + ROWS) of head h of a [B, T, H, hd] bf16 tensor -> padded
 // shared tile, by cp.async from NT threads (rows outside [0, T) become
 // zeros)
-template <int HD, int ROWS, int NT = kThreads>
+template <int HD, int ROWS, int NT>
 __device__ __forceinline__ void load_tile_async(__nv_bfloat16* dst,
                                                 const __nv_bfloat16* __restrict__ src, int b,
                                                 int r0, int Tn, int H, int h) {
@@ -653,409 +668,53 @@ __device__ __forceinline__ void pack_a(unsigned a[4], const float lo[4], const f
   a[3] = pack_bf16(hi[2], hi[3]);
 }
 
-// a warp's 16 rows x hd accumulators -> its rows of a padded bf16 tile
-template <int HD>
-__device__ __forceinline__ void stage_rows(__nv_bfloat16* dst, const float acc[HD / 8][4],
-                                           int r, int tig, float s0 = 1.f, float s1 = 1.f) {
-  constexpr int kLDS = Tiles<HD>::kLDS;
-#pragma unroll
-  for (int j = 0; j < HD / 8; ++j) {
-    const int c = 8 * j + 2 * tig;
-    *reinterpret_cast<__nv_bfloat162*>(dst + r * kLDS + c) =
-        __floats2bfloat162_rn(acc[j][0] * s0, acc[j][1] * s0);
-    *reinterpret_cast<__nv_bfloat162*>(dst + (r + 8) * kLDS + c) =
-        __floats2bfloat162_rn(acc[j][2] * s1, acc[j][3] * s1);
-  }
-}
-
-// 64 rows of a padded bf16 tile -> rows [r0, r0 + 64) of head h of a
-// [B, T, H, hd] tensor, in 16-byte stores by NT threads
-template <int HD, int NT = kThreads>
-__device__ __forceinline__ void store_tile(__nv_bfloat16* __restrict__ dst,
-                                           const __nv_bfloat16* src, int b, int r0, int Tn,
-                                           int H, int h) {
-  using C = Tiles<HD>;
-  for (int i = threadIdx.x; i < kBr * C::kChunks; i += NT) {
-    const int r = i / C::kChunks, c = (i % C::kChunks) * 8;
-    const int t = r0 + r;
-    if (t < Tn)
-      *reinterpret_cast<uint4*>(dst + (((long long)b * Tn + t) * H + h) * HD + c) =
-          *reinterpret_cast<const uint4*>(src + r * C::kLDS + c);
-  }
-}
-
 // ---------------------------------------------------------------------------
-// backward on the bf16 tensor cores (bf16 inputs)
+// dk/dv at head dim 256 on the bf16 tensor cores (mma.sync)
 // ---------------------------------------------------------------------------
 //
-// FlashAttention-2's backward on the forward's mma.sync fragments.  P =
-// exp(S - lse) comes from the forward's f32 lse (no running max), and dS =
-// P * (dP - di), times 1 - t^2 under the softcap; both stay f32 on the
-// accumulator fragments, masked as the forward masks S (tiles wholly inside
-// one segment, below the diagonal, with no window, skip the mask).
+// FlashAttention-2's backward on mma.sync fragments (m16n8k16, bf16
+// operands in padded shared memory read by ldmatrix, f32 accumulators in
+// registers, double-buffered 16-byte cp.async tiles of 64 q and dO rows
+// with their lse, di and segment ids).  P^T = exp(S^T - lse) comes from
+// the forward's f32 lse (no running max), and dS^T = P^T (dP^T - di),
+// times 1 - t^2 under the softcap, both f32 on the accumulator fragments,
+// masked as the forward masks S (tiles wholly inside one segment, at or
+// after the keys, with no window, skip the mask).
 //
-// dq at hd 128 (hd 256 runs wg::flash_wg_kernel below): a block owns 64 q
-// rows of one q head (4 warps x 16 rows; Q fragments in registers, dO
-// re-read by ldmatrix at each key tile) and walks its key range in
-// double-buffered cp.async K/V tiles of 64 keys: S = Q K^T and dP = dO V^T
-// (K and V as non-transposed B fragments), then dQ += dS K with dS packed
-// to bf16 A fragments and K read through ldmatrix.trans.  The last q tiles,
-// whose key ranges are longest, start first.
-//
-// dk/dv at hd 128: a block owns 64 keys of one kv head (4 warps x 16
-// keys).  K and V stay in shared memory for the whole block and their A
-// fragments are re-read at every q tile, which keeps the 128 f32 dK/dV
-// accumulators a thread holds in registers.  It walks (q head of the group,
-// q tile of its range) with double-buffered cp.async Q/dO tiles and their
-// lse, di and segment ids in shared memory, and takes each tile in two
-// halves of 32 queries, so that S^T and dP^T add only 32 registers: S^T = K
-// Q^T and dP^T = V dO^T (Q and dO as non-transposed B fragments), then dV
-// += P^T dO and dK += dS^T Q with P^T and dS^T packed to bf16 A fragments
-// and dO and Q read through ldmatrix.trans.  The first key tiles, whose
-// query ranges are longest, start first.  No atomics.
-//
-// dk/dv at hd 256 (flash_bwd_dkv_tc256_kernel): the same walk with 8 warps
-// in two groups over the block's 64 keys (16 a warp in each group).  Group
-// 0 computes S^T and P^T and accumulates dV; group 1 computes dP^T, reads
-// P^T (1 - t^2) from shared memory, forms dS^T and accumulates dK.  Each
-// thread holds 128 accumulators, as at hd 128.  Its 219 KB of shared memory
-// (K, V, two stages of 64 q and dO rows) hold one block per SM, and one
-// block per key tile walking every q head of the group left Gemma-2B's
-// MQA on 8 rows of 1024 with 128 blocks for 132 SMs, each walking 8 heads
-// one after another, the first key tile of a segment longest.  So a key
-// tile takes a thread block cluster of S blocks (ops/flash_attention.py
-// dkv_plan: S a power of two dividing the group, at most 8, picked so that
-// a block walks at most 4 heads and the grid has about two blocks per SM):
-// rank s walks heads [s group / S, (s + 1) group / S).  After the walk each
-// block leaves its f32 dV and dK partials in place of its q / dO stages,
-// and rank s sums rows [64 s / S, 64 (s + 1) / S) of both over the ranks in
-// rank order through distributed shared memory, rounds once and stores: no
-// scratch in device memory and no atomics, and S = 1 is the unsplit grid.
-// The P^T hand-over takes one buffer per half tile and a named barrier
-// (bar.arrive by group 0, bar.sync by group 1) in place of two block-wide
-// barriers a half, so the groups drift by up to a half within a tile.
-// Kept: the dV / dK split into two warp groups (one block of 8 warps, 128
-// accumulators a thread; 64 keys x 256 x 2 f32 accumulators are half an
-// SM's registers, so two such blocks cannot share an SM) and the
-// double-buffered 64-row q / dO stages.  What bounds it now is shared
+// flash_bwd_dkv_tc256_kernel: a block owns 64 keys of one kv head, with 8
+// warps in two groups over them (16 keys a warp in each group).  K and V
+// stay in shared memory; the block walks (q head, q tile of its range),
+// each tile in two halves of 32 queries.  Group 0 computes S^T = K Q^T
+// and P^T and accumulates dV += P^T dO; group 1 computes dP^T = V dO^T,
+// reads P^T (1 - t^2) from shared memory, forms dS^T and accumulates dK
+// += dS^T Q (P^T and dS^T packed to bf16 A fragments, dO and Q through
+// ldmatrix.trans).  Each thread holds 128 accumulators.  Its 219 KB of
+// shared memory (K, V, two stages of 64 q and dO rows) hold one block per
+// SM, and one block per key tile walking every q head of the group left
+// Gemma-2B's MQA on 8 rows of 1024 with 128 blocks for 132 SMs, each
+// walking 8 heads one after another, the first key tile of a segment
+// longest.  So a key tile takes a thread block cluster of S blocks
+// (ops/flash_attention.py dkv_plan: S a power of two dividing the group,
+// at most 8, picked so that a block walks at most 4 heads and the grid has
+// about two blocks per SM): rank s walks heads [s group / S, (s + 1) group
+// / S).  After the walk each block leaves its f32 dV and dK partials in
+// place of its q / dO stages, and rank s sums rows [64 s / S, 64 (s + 1) /
+// S) of both over the ranks in rank order through distributed shared
+// memory, rounds once and stores: no scratch in device memory and no
+// atomics, and S = 1 is the unsplit grid.  The P^T hand-over takes one
+// buffer per half tile and a named barrier (bar.arrive by group 0,
+// bar.sync by group 1) in place of two block-wide barriers a half, so the
+// groups drift by up to a half within a tile.  What bounds it is shared
 // memory: every warp of a group re-reads the same Q and dO fragments with
-// ldmatrix, about 2.5 cycles of shared-memory bandwidth per mma.sync;
+// ldmatrix, about 2.5 cycles of shared-memory bandwidth per mma.sync.
 // wgmma, which reads B from shared memory once a warpgroup, is the step
-// after this one.
+// its hd-128 sister took (wg::flash_dkv_wg_kernel below); at hd 256 the
+// 64 x 256 dK and dV of a warpgroup's keys take 256 registers a thread,
+// more than a thread has.
 //
-// Rounding: P (for dV) and dS (for dK and dQ) are rounded to bf16 before
+// Rounding: P^T (for dV) and dS^T (for dK) are rounded to bf16 before
 // those products (the tensor cores take bf16), where splash and the plain
 // versions keep them in f32; lse and di stay f32.
-
-template <int HD>
-__global__ void __launch_bounds__(kThreads, 2) flash_bwd_dq_tc_kernel(
-    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-    const __nv_bfloat16* __restrict__ v, const int* __restrict__ segq,
-    const int* __restrict__ segk, const __nv_bfloat16* __restrict__ dout,
-    const float* __restrict__ lse, const float* __restrict__ di,
-    __nv_bfloat16* __restrict__ dq, int q_start, int Tq, int Tk, int Hq, int Hkv,
-    float softcap, int window) {
-  static_assert(HD == 128, "hd 256 runs wg::flash_wg_kernel");
-  using C = Tiles<HD>;
-  constexpr int kBc = C::kBc, kLDS = C::kLDS;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* sdO = sQ + C::kTileQ;
-  __nv_bfloat16* sK = sdO + C::kTileQ;      // two stages
-  __nv_bfloat16* sV = sK + 2 * C::kTileK;   // two stages
-  __shared__ int seg_q[kBr], seg_k[2][kBc];
-  __shared__ int s_first, s_last, s_lo;
-  const int h = blockIdx.x, b = blockIdx.y;
-  const int i0 = (gridDim.z - 1 - blockIdx.z) * kBr;  // local; longest key ranges first
-  const int kh = h / (Hq / Hkv);
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, tig = lane & 3;
-  const int* segqb = segq + (long long)b * Tq;
-  const int* segkb = segk + (long long)b * Tk;
-
-  float acc[HD / 8][4];  // n-tiles of d
-#pragma unroll
-  for (int j = 0; j < HD / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-
-  tile_span<kBr>(segqb, i0, Tq, seg_q, &s_first, &s_last);
-  const int first = s_first, last = s_last;
-  const int rq = warp * 16 + g;  // this thread's rows: rq and rq + 8
-  if (first <= last) {
-    const int i_first = q_start + i0 + first;  // global positions from here on
-    int lo = segment_start(segkb, i_first, &s_lo);
-    if (window > 0) lo = max(lo, i_first - window + 1);
-    const int hi = q_start + i0 + last + 1;
-    const int ntiles = (hi - lo + kBc - 1) / kBc;
-    const int q_uniform = __syncthreads_and(tid >= kBr || seg_q[tid] == seg_q[0]) ? seg_q[0]
-                                                                                  : -3;
-    const int sq[2] = {seg_q[rq], seg_q[rq + 8]};
-    const int qi[2] = {q_start + i0 + rq, q_start + i0 + rq + 8};
-    float lse_r[2], di_r[2];
-#pragma unroll
-    for (int row = 0; row < 2; ++row) {
-      const long long at = ((long long)b * Hq + h) * Tq + min(i0 + rq + 8 * row, Tq - 1);
-      lse_r[row] = lse[at];
-      di_r[row] = di[at];
-    }
-
-    load_tile_async<HD, kBr>(sQ, q, b, i0, Tq, Hq, h);
-    load_tile_async<HD, kBr>(sdO, dout, b, i0, Tq, Hq, h);
-    load_tile_async<HD, kBc>(sK, k, b, lo, Tk, Hkv, kh);
-    load_tile_async<HD, kBc>(sV, v, b, lo, Tk, Hkv, kh);
-    asm volatile("cp.async.commit_group;\n" ::);
-    if (tid < kBc) seg_k[0][tid] = lo + tid < Tk ? segkb[lo + tid] : -2;
-
-    unsigned qf[HD / 16][4];
-    for (int n = 0; n < ntiles; ++n) {
-      const int buf = n & 1, j0 = lo + n * kBc;
-      if (n + 1 < ntiles) {  // prefetch the next tile into the other stage
-        const int j1 = j0 + kBc;
-        load_tile_async<HD, kBc>(sK + (buf ^ 1) * C::kTileK, k, b, j1, Tk, Hkv, kh);
-        load_tile_async<HD, kBc>(sV + (buf ^ 1) * C::kTileK, v, b, j1, Tk, Hkv, kh);
-        if (tid < kBc) seg_k[buf ^ 1][tid] = j1 + tid < Tk ? segkb[j1 + tid] : -2;
-      }
-      asm volatile("cp.async.commit_group;\n" ::);
-      asm volatile("cp.async.wait_group 1;\n" ::);  // this tile (and Q, dO) landed
-      const bool full = __syncthreads_and(tid >= kBc || seg_k[buf][tid] == q_uniform) &&
-                        q_uniform >= 0 && window <= 0 && j0 + kBc - 1 <= q_start + i0;
-      if (n == 0) {
-#pragma unroll
-        for (int kk = 0; kk < HD / 16; ++kk)
-          ldmatrix_x4(qf[kk], a_frag<kLDS>(sQ, warp * 16, kk, lane));
-      }
-      const __nv_bfloat16* tK = sK + buf * C::kTileK;
-      const __nv_bfloat16* tV = sV + buf * C::kTileK;
-
-      // S = Q K^T and dP = dO V^T: n-tiles of 8 keys each
-      float s[kBc / 8][4], dp[kBc / 8][4];
-#pragma unroll
-      for (int j = 0; j < kBc / 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < HD / 16; ++kk) {
-        unsigned da[4];
-        ldmatrix_x4(da, a_frag<kLDS>(sdO, warp * 16, kk, lane));
-#pragma unroll
-        for (int np = 0; np < kBc / 16; ++np) {
-          unsigned r[4];
-          ldmatrix_x4(r, b_frag<kLDS>(tK, np, kk, lane));
-          mma(s[2 * np], qf[kk], r[0], r[1]);
-          mma(s[2 * np + 1], qf[kk], r[2], r[3]);
-          ldmatrix_x4(r, b_frag<kLDS>(tV, np, kk, lane));
-          mma(dp[2 * np], da, r[0], r[1]);
-          mma(dp[2 * np + 1], da, r[2], r[3]);
-        }
-      }
-
-      // dS on the fragments (rows: queries, columns: keys), into s
-#pragma unroll
-      for (int j = 0; j < kBc / 8; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int row = e >> 1, col = 8 * j + 2 * tig + (e & 1);
-          float x = s[j][e], t = 0.f;
-          if (softcap > 0.f) {
-            t = tanhf(x / softcap);
-            x = t * softcap;
-          }
-          const bool ok =
-              full || allowed(sq[row], seg_k[buf][col], qi[row], j0 + col, window);
-          float ds = ok ? exp2f((x - lse_r[row]) * kLog2e) * (dp[j][e] - di_r[row]) : 0.f;
-          if (softcap > 0.f) ds *= 1.f - t * t;
-          s[j][e] = ds;
-        }
-      }
-
-      // dQ += dS K: dS as bf16 A fragments, K through ldmatrix.trans
-#pragma unroll
-      for (int kk = 0; kk < kBc / 16; ++kk) {
-        unsigned a[4];
-        pack_a(a, s[2 * kk], s[2 * kk + 1]);
-#pragma unroll
-        for (int c = 0; c < HD / 16; ++c) {
-          unsigned r[4];
-          ldmatrix_x4_trans(r, a_frag<kLDS>(tK, 16 * kk, c, lane));
-          mma(acc[2 * c], a, r[0], r[1]);
-          mma(acc[2 * c + 1], a, r[2], r[3]);
-        }
-      }
-      __syncthreads();  // this stage's readers are done before it is refilled
-    }
-    asm volatile("cp.async.wait_all;\n" ::);
-  }
-
-  // dq through shared memory: each warp writes its own rows of sQ, which
-  // only that warp read
-  stage_rows<HD>(sQ, acc, rq, tig);
-  __syncthreads();
-  store_tile<HD>(dq, sQ, b, i0, Tq, Hq, h);
-}
-
-__global__ void __launch_bounds__(kThreads, 2) flash_bwd_dkv_tc_kernel(
-    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-    const __nv_bfloat16* __restrict__ v, const int* __restrict__ segq,
-    const int* __restrict__ segk, const __nv_bfloat16* __restrict__ dout,
-    const float* __restrict__ lse, const float* __restrict__ di,
-    __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int q_start, int Tq,
-    int Tk, int Hq, int Hkv, float softcap, int window) {
-  constexpr int HD = 128, kBc = kBr, kLDS = Tiles<HD>::kLDS, kTile = Tiles<HD>::kTileQ;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* sV = sK + kTile;
-  __nv_bfloat16* sQ = sV + kTile;       // two stages
-  __nv_bfloat16* sdO = sQ + 2 * kTile;  // two stages
-  __shared__ int seg_k[kBc], seg_q[2][kBr];
-  __shared__ float lse_q[2][kBr], di_q[2][kBr];
-  __shared__ int s_first, s_last, s_hi;
-  const int kh = blockIdx.x, b = blockIdx.y;
-  const int j0 = blockIdx.z * kBc;  // the first key tiles, longest query ranges, first
-  const int group = Hq / Hkv, h_lo = kh * group;  // the group's q heads
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, tig = lane & 3;
-  const int* segqb = segq + (long long)b * Tq;
-  const int* segkb = segk + (long long)b * Tk;
-
-  float dk_acc[HD / 8][4], dv_acc[HD / 8][4];
-#pragma unroll
-  for (int j = 0; j < HD / 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk_acc[j][e] = dv_acc[j][e] = 0.f;
-
-  tile_span<kBc>(segkb, j0, Tk, seg_k, &s_first, &s_last);
-  const int first = s_first, last = s_last;
-  const int rk = warp * 16 + g;  // this thread's keys: rk and rk + 8
-  int lo = 0, hi = 0;  // the shard's queries that see these keys: local rows [lo, hi)
-  if (first <= last) {
-    const int j_last = j0 + last;
-    lo = max(j0 + first, q_start) - q_start;  // causal: a query sees only keys at or before it
-    hi = segment_end(segkb, j_last, Tk, &s_hi);
-    if (window > 0) hi = min(hi, j_last + window);
-    hi = min(hi, q_start + Tq) - q_start;
-  }
-  if (lo < hi) {
-    const int ntiles = (hi - lo + kBr - 1) / kBr;
-    const int total = group * ntiles;  // (q head, q tile) steps
-    // one segment id over all 64 keys, or -3
-    const int k_uniform = __syncthreads_and(tid >= kBc || seg_k[tid] == seg_k[0]) ? seg_k[0]
-                                                                                  : -3;
-    const int sk[2] = {seg_k[rk], seg_k[rk + 8]};
-    const int kj[2] = {j0 + rk, j0 + rk + 8};
-
-    // step n's Q and dO tiles by cp.async, its segment ids, lse and di by
-    // plain loads, into stage `buf`
-    auto stage = [&](int n, int buf) {
-      const int h = h_lo + n / ntiles, i0 = lo + (n % ntiles) * kBr;  // local
-      load_tile_async<HD, kBr>(sQ + buf * kTile, q, b, i0, Tq, Hq, h);
-      load_tile_async<HD, kBr>(sdO + buf * kTile, dout, b, i0, Tq, Hq, h);
-      if (tid < kBr) {
-        const int t = i0 + tid;
-        const long long at = ((long long)b * Hq + h) * Tq + t;
-        seg_q[buf][tid] = t < Tq ? segqb[t] : -2;
-        lse_q[buf][tid] = t < Tq ? lse[at] : 0.f;
-        di_q[buf][tid] = t < Tq ? di[at] : 0.f;
-      }
-    };
-    load_tile_async<HD, kBc>(sK, k, b, j0, Tk, Hkv, kh);
-    load_tile_async<HD, kBc>(sV, v, b, j0, Tk, Hkv, kh);
-    stage(0, 0);
-    asm volatile("cp.async.commit_group;\n" ::);
-
-    for (int n = 0; n < total; ++n) {
-      const int buf = n & 1, i0 = lo + (n % ntiles) * kBr;
-      if (n + 1 < total) stage(n + 1, buf ^ 1);  // prefetch into the other stage
-      asm volatile("cp.async.commit_group;\n" ::);
-      asm volatile("cp.async.wait_group 1;\n" ::);  // this step (and K, V) landed
-      const bool full = __syncthreads_and(tid >= kBr || seg_q[buf][tid] == k_uniform) &&
-                        k_uniform >= 0 && window <= 0 && q_start + i0 >= j0 + kBc - 1;
-      const __nv_bfloat16* tQ = sQ + buf * kTile;
-      const __nv_bfloat16* tdO = sdO + buf * kTile;
-      const int* seg_t = seg_q[buf];
-      const float* lse_t = lse_q[buf];
-      const float* di_t = di_q[buf];
-
-      // the tile in two halves of 32 queries: S^T and dP^T of a half take
-      // 32 registers beside the 128 of dK and dV
-#pragma unroll 1
-      for (int half = 0; half < 2; ++half) {
-        const int c0 = 32 * half;  // the half's first query in the tile
-
-        // S^T = K Q^T and dP^T = V dO^T: rows are keys, 4 n-tiles of 8 queries
-        float st[4][4], dpt[4][4];
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) st[j][e] = dpt[j][e] = 0.f;
-#pragma unroll
-        for (int kk = 0; kk < HD / 16; ++kk) {
-          unsigned ka[4], va[4];
-          ldmatrix_x4(ka, a_frag<kLDS>(sK, warp * 16, kk, lane));
-          ldmatrix_x4(va, a_frag<kLDS>(sV, warp * 16, kk, lane));
-#pragma unroll
-          for (int np = 0; np < 2; ++np) {
-            unsigned r[4];
-            ldmatrix_x4(r, b_frag<kLDS>(tQ, 2 * half + np, kk, lane));
-            mma(st[2 * np], ka, r[0], r[1]);
-            mma(st[2 * np + 1], ka, r[2], r[3]);
-            ldmatrix_x4(r, b_frag<kLDS>(tdO, 2 * half + np, kk, lane));
-            mma(dpt[2 * np], va, r[0], r[1]);
-            mma(dpt[2 * np + 1], va, r[2], r[3]);
-          }
-        }
-
-        // P^T into st and dS^T into dpt, on the fragments
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int row = e >> 1, col = c0 + 8 * j + 2 * tig + (e & 1);
-            float x = st[j][e], t = 0.f;
-            if (softcap > 0.f) {
-              t = tanhf(x / softcap);
-              x = t * softcap;
-            }
-            const bool ok =
-                full || allowed(seg_t[col], sk[row], q_start + i0 + col, kj[row], window);
-            const float p = ok ? exp2f((x - lse_t[col]) * kLog2e) : 0.f;
-            float ds = p * (dpt[j][e] - di_t[col]);
-            if (softcap > 0.f) ds *= 1.f - t * t;
-            st[j][e] = p;
-            dpt[j][e] = ds;
-          }
-        }
-
-        // dV += P^T dO and dK += dS^T Q: bf16 A fragments, dO and Q through
-        // ldmatrix.trans
-#pragma unroll
-        for (int kk = 0; kk < 2; ++kk) {
-          unsigned pa[4], sa[4];
-          pack_a(pa, st[2 * kk], st[2 * kk + 1]);
-          pack_a(sa, dpt[2 * kk], dpt[2 * kk + 1]);
-#pragma unroll
-          for (int c = 0; c < HD / 16; ++c) {
-            unsigned r[4];
-            ldmatrix_x4_trans(r, a_frag<kLDS>(tdO, c0 + 16 * kk, c, lane));
-            mma(dv_acc[2 * c], pa, r[0], r[1]);
-            mma(dv_acc[2 * c + 1], pa, r[2], r[3]);
-            ldmatrix_x4_trans(r, a_frag<kLDS>(tQ, c0 + 16 * kk, c, lane));
-            mma(dk_acc[2 * c], sa, r[0], r[1]);
-            mma(dk_acc[2 * c + 1], sa, r[2], r[3]);
-          }
-        }
-      }
-      __syncthreads();  // this stage's readers are done before it is refilled
-    }
-    asm volatile("cp.async.wait_all;\n" ::);
-  }
-
-  // dk and dv through shared memory (the Q stages: every reader passed
-  // the loop's last barrier), then out in 16-byte stores
-  stage_rows<HD>(sQ, dk_acc, rk, tig);
-  stage_rows<HD>(sQ + kTile, dv_acc, rk, tig);
-  __syncthreads();
-  store_tile<HD>(dk, sQ, b, j0, Tk, Hkv, kh);
-  store_tile<HD>(dv, sQ + kTile, b, j0, Tk, Hkv, kh);
-}
 
 constexpr int kDkv256Threads = 256;  // two groups of 4 warps
 constexpr int kXLD = 32;             // row stride of the P^T hand-over tile (floats)
@@ -1288,15 +947,17 @@ __global__ void __launch_bounds__(kDkv256Threads, 1) flash_bwd_dkv_tc256_kernel(
 }  // namespace tc
 
 // ---------------------------------------------------------------------------
-// the forward at head dim 128 and 256 and dq at 256 on wgmma, fed by TMA
-// (bf16 inputs)
+// the forward and dq at head dim 128 and 256, and dk/dv at 128, on wgmma,
+// fed by TMA (bf16 inputs)
 // ---------------------------------------------------------------------------
 //
 // wg::flash_wg_kernel<false, CAP, HD> replaces splash's forward
 // (splash_attention_kernel.py:1137) for bf16 at head dim 128 and 256, and
-// wg::flash_wg_kernel<true, CAP, 256> its dq kernel (:1635,
-// _splash_attention_bwd_dq) at 256.  The head dim is a template parameter:
-// a tile is HD / 64 panels, O a 64 x HD accumulator.
+// wg::flash_wg_kernel<true, CAP, HD> its dq kernel (:1635,
+// _splash_attention_bwd_dq).  The head dim is a template parameter: a tile
+// is HD / 64 panels, O a 64 x HD accumulator.  wg::flash_dkv_wg_kernel
+// (after it) replaces the dk/dv kernel (:2196, _splash_attention_bwd_dkv)
+// at 128.
 //
 // Bound on this card, on Gemma-2B's train rows (8 q heads on one kv head,
 // 8 rows of 1024, 6,692 tokens; chip_smoke.py flash_bounds): bytes, 0.0203
@@ -1310,12 +971,14 @@ __global__ void __launch_bounds__(kDkv256Threads, 1) flash_bwd_dkv_tc256_kernel(
 // warps over 64 q rows, two blocks an SM, 64-key tiles double-buffered by
 // cp.async, every q head of a group loading the same tiles: six times over
 // at Qwen2.5-1.5B's 12 / 2 heads), at 7.6x its bound on 16 packed rows of
-// 1024 (0.2137 against 0.0281 ms of bytes, an H100 at 700 W).
+// 1024 (0.2137 against 0.0281 ms of bytes, an H100 at 700 W), and dq at
+// hd 128 the mma.sync dq (the same shape, K and V re-read for each q head
+// of the group) at 6.8x (0.2581 against 0.0377 ms).
 //
 // Design (FlashAttention-3's shape).  A block of three warpgroups: two
 // consumers and a producer (setmaxnreg: 240 registers a consumer thread, 24
-// a producer thread), one an SM.  The forward's grid is persistent, one
-// block an SM; dq's has a block a work item, whose longer and more uneven
+// a producer thread), one an SM.  The grid is persistent, one block an SM,
+// except dq's at hd 256, a block a work item, whose longer and more uneven
 // items the hardware's block scheduling balances better.  A work item is a
 // pair of units of one (row, kv head); a unit is 64 q rows of one q head,
 // and a consumer owns one unit of each item, with its Q (and for dq, dO)
@@ -1332,18 +995,24 @@ __global__ void __launch_bounds__(kDkv256Threads, 1) flash_bwd_dkv_tc256_kernel(
 //
 // The producer: three warps (the scheduler) compute the next item's key
 // ranges from the segment ids into one of two Info slots while the
-// consumers work on the current one; one warp (the loader) brings each
+// consumers work on the current one (each warp holds the item's 128 query
+// segment ids in registers, loaded under the previous item, and finds a
+// unit's first and last valid row by ballots, so that an item of padding,
+// most of the reward model's rows, costs no barrier and no scan: K1a on
+// those rows took 0.0614 ms with a scan a unit, 1.6x the mma.sync kernel's
+// 0.0374, on an H100 at 700 W); one warp (the loader) brings each
 // unit's Q once the consumer has read the last item's, and keeps TMA loads
-// of 64-key K and V tiles in flight into a ring (K: 2 stages; V: 2 in the
-// forward, 1 in dq, which holds dO as well) across items, writing each K
+// of 64-key K and V tiles in flight into a ring (K: 2 stages; V: 2, but 1
+// in dq at hd 256, which holds dO as well) across items, writing each K
 // tile's key segment ids beside it.  Every hand-over is an mbarrier pair
 // (full and empty).  Operands sit in shared memory as HD / 64 64-column
 // panels of 128-byte rows in the 128-byte swizzle that TMA writes and wgmma
 // reads.  Shared memory: 196,608 bytes of tiles in the forward at hd 256
-// (Q x 2, K x 2, V x 2), 98,304 at hd 128, 229,376 in dq (Q x 2, dO x 2,
-// K x 2, V x 1).  At hd 128 a ring of 3 or 4 stages, which the halved
-// tiles leave room for, timed the same as 2 on an H100 (the walk waits on
-// its products and softmax, not on loads), so the ring stays at 2.
+// (Q x 2, K x 2, V x 2), 98,304 at hd 128, 229,376 in dq at hd 256 (Q x 2,
+// dO x 2, K x 2, V x 1), 131,072 at hd 128 (V x 2).  At hd 128 a ring of
+// 3 or 4 stages, which the halved tiles leave room for, timed the same as
+// 2 on an H100, in the forward and in dq (the walk waits on its products
+// and softmax, not on loads), so the ring stays at 2.
 //
 // Forward, per tile n: S_n = Q K^T (wgmma m64n64k16, Q and K from shared
 // memory, K-major) and O += P_{n-1} V_{n-1} (m64nHDk16, P the bf16 A
@@ -1351,9 +1020,10 @@ __global__ void __launch_bounds__(kDkv256Threads, 1) flash_bwd_dkv_tc256_kernel(
 // softcap, mask and online softmax of S_n run (a thread's rows skip the
 // mask when the tile lies inside their segment, below the diagonal, with
 // no window) and O is rescaled.  dq, per tile: S = Q K^T and dP = dO V^T
-// (m64n64k16), dS = P (dP - di) (times 1 - t^2 under the softcap) on the
-// f32 fragments, then dQ += dS K (m64n256k16, dS from registers, K read
-// MN-major), left in flight under the next tile's S and dP.  The results
+// (m64n64k16, two commit groups), P (times 1 - t^2 under the softcap) on
+// S's f32 fragments while dP is still in flight, dS = P (dP - di), then
+// dQ += dS K (m64nHDk16, dS from registers, K read MN-major), left in
+// flight under the next tile's S and dP.  The results
 // go from registers to device memory (a quad writes 16 contiguous bytes),
 // so a unit's Q slot is free for the next item as soon as its last S is.
 // ptxas serializes every wgmma of a kernel when code it cannot prove
@@ -1397,7 +1067,7 @@ template <bool DQ, int HD>
 struct Layout {
   static constexpr int kPanels = HD / 64;         // 64-column panels of a tile
   static constexpr int kTile = kPanels * kPanel;  // bytes of a [64, HD] bf16 tile
-  static constexpr int kKStages = 2, kVStages = DQ ? 1 : 2;
+  static constexpr int kKStages = 2, kVStages = DQ && HD == 256 ? 1 : 2;
   static constexpr int kQ = 0;
   static constexpr int kdO = kQ + kConsumers * kTile;
   static constexpr int kK = kdO + (DQ ? kConsumers * kTile : 0);
@@ -1408,11 +1078,12 @@ struct Layout {
   static constexpr int kNumBars = 2 * kConsumers + 2 * kKStages + 2 * kVStages + 4;
   static constexpr int kSegK = kBars + 8 * kNumBars;
   static constexpr int kInfo = kSegK + 4 * kKStages * kRows;
-  static constexpr int kScan = kInfo + 2 * (int)sizeof(Info);  // first[2], last[2], flag
-  static constexpr int kSmem = kScan + 4 * 8 + 1024;  // + the base's alignment
+  static constexpr int kScan = kInfo + 2 * (int)sizeof(Info);  // the segment scan's flag
+  static constexpr int kSmem = kScan + 4 + 1024;  // + the base's alignment
 };
 static_assert(Layout<true, 256>::kSmem <= 232448, "dq fits a block's shared memory");
 static_assert(Layout<false, 128>::kSmem <= 232448, "the hd-128 forward fits");
+static_assert(Layout<true, 128>::kSmem <= 232448, "dq at hd 128 fits (Q and dO side by side)");
 
 __device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(tc::smem_addr(bar)),
@@ -1663,7 +1334,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_wg_kernel(
   uint64_t* info_empty = info_full + 2;
   int* seg_k = reinterpret_cast<int*>(smem + L::kSegK);  // [KS][64]
   Info* info = reinterpret_cast<Info*>(smem + L::kInfo);  // [2]
-  int* scan = reinterpret_cast<int*>(smem + L::kScan);
+  int* scan_flag = reinterpret_cast<int*>(smem + L::kScan);
   const int tid = threadIdx.x;
   const int group = Hq / Hkv, units = (Tq + kRows - 1) / kRows * group;
   const int pairs = (units + kConsumers - 1) / kConsumers, items = B * Hkv * pairs;
@@ -1764,44 +1435,62 @@ __global__ void __launch_bounds__(kThreads, 1) flash_wg_kernel(
       }
     } else {
       // the scheduler: each item's key ranges into an Info slot, one
-      // item ahead of the consumers
+      // item ahead of the consumers.  Each of its three warps holds the
+      // item's 128 query segment ids in registers (rows lane + 32 c),
+      // loaded while the previous item was published, and finds each
+      // unit's first and last valid row by ballots: an item of padding
+      // costs no barrier, no scan and no wait on a load.  The first
+      // warp writes the slot; all three scan for a segment start.
       const int t = tid % 128 - 32;
+      int sg[4];
+      auto fetch = [&](int k) {
+        int b, kh, pr;
+        const bool ok = item(k, b, kh, pr);
+        const int* segqb = segq + (long long)b * Tq;
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int r = lane + 32 * c;
+          int h, i0;
+          const bool exists = ok && unit(kh, pr, r / kRows, h, i0);
+          const int row = i0 + r % kRows;
+          sg[c] = exists && row < Tq ? segqb[row] : -2;
+        }
+      };
+      fetch(0);
       for (int k = 0;; ++k) {
         int b, kh, pr;
         if (!item(k, b, kh, pr)) break;
-        mbar_wait(info_empty + (k & 1), ((k >> 1) & 1) ^ 1);
+        const int cur[4] = {sg[0], sg[1], sg[2], sg[3]};
+        fetch(k + 1);  // in flight while this item is published
+        int firsts[kConsumers], lasts[kConsumers];
+#pragma unroll
+        for (int u = 0; u < kConsumers; ++u) {
+          const unsigned a = __ballot_sync(0xffffffffu, cur[2 * u] >= 0);
+          const unsigned z = __ballot_sync(0xffffffffu, cur[2 * u + 1] >= 0);
+          firsts[u] = a ? __ffs(a) - 1 : z ? 31 + __ffs(z) : kRows;
+          lasts[u] = z ? 63 - __clz(z) : a ? 31 - __clz(a) : -1;
+        }
         Info& in = info[k & 1];
-        const int* segqb = segq + (long long)b * Tq;
+        if (t < 32) {
+          mbar_wait(info_empty + (k & 1), ((k >> 1) & 1) ^ 1);
+#pragma unroll
+          for (int c = 0; c < 4; ++c) in.seg_q[lane + 32 * c] = cur[c];
+        }
         const int* segkb = segk + (long long)b * Tk;
-        if (t < 4) scan[t] = t < 2 ? kRows : -1;  // first, last of each unit
-        for (int r = t; r < kConsumers * kRows; r += kSchedThreads) {
-          int h, i0;
-          const bool exists = unit(kh, pr, r / kRows, h, i0);
-          const int row = i0 + r % kRows;
-          in.seg_q[r] = exists && row < Tq ? segqb[row] : -2;
-        }
-        sched_sync();
-        for (int r = t; r < kConsumers * kRows; r += kSchedThreads) {
-          if (in.seg_q[r] >= 0) {
-            atomicMin(&scan[r / kRows], r % kRows);
-            atomicMax(&scan[2 + r / kRows], r % kRows);
-          }
-        }
-        sched_sync();
         int lo_0 = 0;
 #pragma unroll
         for (int u = 0; u < kConsumers; ++u) {
           int h, i0, h0, i00;
           unit(kh, pr, u, h, i0);
           unit(kh, pr, 0, h0, i00);
-          const int first = scan[u], last = scan[2 + u];
+          const int first = firsts[u], last = lasts[u];
           int lo_u = INT_MAX, hi_u = INT_MIN;
           if (first <= last) {
             const int i_first = q_start + i0 + first;
             if (u > 0 && i0 == i00) {  // the same rows as unit 0
               lo_u = lo_0;
             } else {
-              lo_u = sched_segment_start(segkb, i_first, &scan[4], t);
+              lo_u = sched_segment_start(segkb, i_first, scan_flag, t);
               if (window > 0) lo_u = max(lo_u, i_first - window + 1);
             }
             hi_u = q_start + i0 + last + 1;
@@ -1812,8 +1501,10 @@ __global__ void __launch_bounds__(kThreads, 1) flash_wg_kernel(
             in.hi[u] = hi_u;
           }
         }
-        sched_sync();  // the slot is written, and scan read before the next item resets it
-        if (t == 0) mbar_arrive(info_full + (k & 1));
+        if (t < 32) {
+          __syncwarp();  // the slot is written
+          if (t == 0) mbar_arrive(info_full + (k & 1));
+        }
       }
     }
   } else {
@@ -1894,8 +1585,8 @@ __global__ void __launch_bounds__(kThreads, 1) flash_wg_kernel(
             lse_r[r] = lse[at];
             di_r[r] = di[at];
           }
-          // per tile: S and dP, then dS, then dQ += dS K left in flight
-          // under the next tile's S and dP
+          // per tile: S and dP, P under the dP product, then dS, then dQ
+          // += dS K left in flight under the next tile's S and dP
           unsigned a[4][4];
           for (int n = n0; n < n1; ++n) {
             float s[32], dp[32];
@@ -1907,13 +1598,12 @@ __global__ void __launch_bounds__(kThreads, 1) flash_wg_kernel(
             for (int kk = 0; kk < HD / 16; ++kk)
               wgmma_n64(dp, desc_k(sdO, kk), desc_k(v_tile(n), kk), kk > 0);
             wgmma_commit();
-            wgmma_wait<0>();
+            wgmma_wait<1>();  // S (and the previous dQ) done; dP in flight
             reg_fence(s);
-            reg_fence(dp);
             reg_fence(acc);
             if (n > n0) free_k(n - 1);  // the previous dQ read its K
-            free_v(n);
             const auto ok = mask_of(n);
+            // P, times 1 - t^2 under the softcap (dS's factor)
 #pragma unroll
             for (int i = 0; i < 32; ++i) {
               const int row = (i >> 1) & 1;
@@ -1922,11 +1612,15 @@ __global__ void __launch_bounds__(kThreads, 1) flash_wg_kernel(
                 t = tanhf(x / softcap);
                 x = t * softcap;
               }
-              float ds =
-                  ok(i) ? exp2f((x - lse_r[row]) * tc::kLog2e) * (dp[i] - di_r[row]) : 0.f;
-              if constexpr (CAP) ds *= 1.f - t * t;
-              s[i] = ds;
+              float p = ok(i) ? exp2f((x - lse_r[row]) * tc::kLog2e) : 0.f;
+              if constexpr (CAP) p *= 1.f - t * t;
+              s[i] = p;
             }
+            wgmma_wait<0>();
+            reg_fence(dp);
+            free_v(n);
+#pragma unroll
+            for (int i = 0; i < 32; ++i) s[i] *= dp[i] - di_r[(i >> 1) & 1];
             // dQ += dS K: dS the bf16 A operand, K read MN-major
 #pragma unroll
             for (int kk = 0; kk < 4; ++kk) a_from_acc(a[kk], s, kk);
@@ -2034,6 +1728,22 @@ __global__ void __launch_bounds__(kThreads, 1) flash_wg_kernel(
       asm volatile("" : "+r"(k));
       item(k, b, kh, pr);
       const bool exists = unit(kh, pr, w, h, i0);
+      if (n0 >= n1) {
+        // no valid row (padding): out or dq 0, and lse -inf, in 16-byte
+        // stores of whole rows
+        for (int i = tid % 128; i < kRows * (HD / 8); i += 128) {
+          const int t = i0 + i / (HD / 8);  // local
+          if (exists && t < Tq)
+            *reinterpret_cast<uint4*>(out + (((long long)b * Tq + t) * Hq + h) * HD +
+                                      i % (HD / 8) * 8) = make_uint4(0u, 0u, 0u, 0u);
+        }
+        if constexpr (!DQ) {
+          const int t = i0 + tid % 128;
+          if (exists && tid % 128 < kRows && t < Tq)
+            lse[((long long)b * Hq + h) * Tq + t] = -INFINITY;
+        }
+        continue;
+      }
       float sc[2] = {1.f, 1.f};
       if constexpr (!DQ) {
 #pragma unroll
@@ -2060,6 +1770,283 @@ __global__ void __launch_bounds__(kThreads, 1) flash_wg_kernel(
   }
 }
 
+// dk/dv at head dim 128: shared memory, from a 1024-byte aligned base:
+// the block's K and V tile, the ring's Q and dO tiles (after the walk, the
+// second consumer's f32 dK and dV), each stage's query segment ids, lse
+// and di, the mbarriers (K/V full; each stage's full and empty), the
+// block's 64 key segment ids and the prologue's scratch
+constexpr int kDkvStages = 4;
+struct DkvLayout {
+  static constexpr int kTile = 2 * kPanel;  // a [64, 128] bf16 tile: two panels
+  static constexpr int kK = 0;
+  static constexpr int kV = kK + kTile;
+  static constexpr int kQ = kV + kTile;
+  static constexpr int kdO = kQ + kDkvStages * kTile;
+  static constexpr int kSegQ = kdO + kDkvStages * kTile;       // int [stages][64]
+  static constexpr int kLse = kSegQ + 4 * kDkvStages * kRows;  // float [stages][64]
+  static constexpr int kDi = kLse + 4 * kDkvStages * kRows;    // float [stages][64]
+  static constexpr int kBars = kDi + 4 * kDkvStages * kRows;
+  static constexpr int kSegK = kBars + 8 * (1 + 2 * kDkvStages);  // int [64]
+  static constexpr int kScan = kSegK + 4 * kRows;                 // int [4]
+  static constexpr int kSmem = kScan + 4 * 4 + 1024;  // + the base's alignment
+};
+static_assert(DkvLayout::kSmem <= 232448, "dk/dv at hd 128 fits a block's shared memory");
+static_assert(kRows * 128 * 4 * 2 <= kDkvStages * DkvLayout::kTile,
+              "the second consumer's f32 dK and dV fit the ring's Q tiles");
+
+// the consumers' named barrier (0 is __syncthreads'): the hand-over of the
+// second consumer's partials
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(128 * kConsumers) : "memory");
+}
+
+// dk/dv at hd 128 (bf16).  A block owns 64 keys of one (row, kv head),
+// their K and V loaded once by TMA.  It walks the steps (q head of the
+// group, 64-row q tile of the range of queries that see its keys), heads
+// outermost; the producer's loader warp streams each step's Q and dO
+// tiles (and the rows' segment ids, lse and di) into a ring of kDkvStages,
+// and the two consumer warpgroups take alternate steps.  Per step a
+// consumer computes S^T = K Q^T and dP^T = V dO^T (m64n64k16, both
+// operands from shared memory, K-major, two commit groups), P^T = exp(S^T
+// - lse) on S^T's f32 fragments while dP^T is in flight, dS^T = P^T (dP^T
+// - di) (P^T times 1 - t^2 under the softcap), then dV += P^T dO and dK +=
+// dS^T Q (m64n128k16, P^T and dS^T the bf16 A operand from registers, dO
+// and Q read MN-major).  After the walk the second consumer leaves its
+// f32 dK and dV in the ring and the first adds them to its own, rounds
+// once and stores.  A block a (row, kv head, 64 keys), the first keys of a
+// row, whose walks are longest, first.
+template <bool CAP>
+__global__ void __launch_bounds__(kThreads, 1) flash_dkv_wg_kernel(
+    const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+    const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
+    const int* __restrict__ segq, const int* __restrict__ segk, const float* __restrict__ lse,
+    const float* __restrict__ di, __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
+    int B, int q_start, int Tq, int Tk, int Hq, int Hkv, float softcap, int window) {
+  using L = DkvLayout;
+  constexpr int HD = 128, S = kDkvStages, kTile = L::kTile;
+  extern __shared__ __align__(16) unsigned char smem_wg[];
+  unsigned char* smem = smem_wg + ((1024 - (tc::smem_addr(smem_wg) & 1023)) & 1023);
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(smem + L::kBars);
+  uint64_t* full = kv_full + 1;
+  uint64_t* empty = full + S;
+  int* seg_k = reinterpret_cast<int*>(smem + L::kSegK);
+  int* scan = reinterpret_cast<int*>(smem + L::kScan);
+  int* seg_rows = reinterpret_cast<int*>(smem + L::kSegQ);
+  float* lse_rows = reinterpret_cast<float*>(smem + L::kLse);
+  float* di_rows = reinterpret_cast<float*>(smem + L::kDi);
+  const int tid = threadIdx.x;
+  const int group = Hq / Hkv;
+  const int rest = blockIdx.x % (B * Hkv), b = rest / Hkv, kh = rest % Hkv;
+  const int j0 = blockIdx.x / (B * Hkv) * kRows;  // the block's first key
+  const int* segqb = segq + (long long)b * Tq;
+  const int* segkb = segk + (long long)b * Tk;
+
+  // the prologue, by the whole block: the first and last valid key, and
+  // the shard's queries that see them (local rows [lo, hi))
+  if (tid < 2) scan[tid] = tid == 0 ? kRows : -1;
+  if (tid < kRows) seg_k[tid] = j0 + tid < Tk ? segkb[j0 + tid] : -2;
+  __syncthreads();
+  if (tid < kRows && seg_k[tid] >= 0) {
+    atomicMin(&scan[0], tid);
+    atomicMax(&scan[1], tid);
+  }
+  __syncthreads();
+  const int first = scan[0], last = scan[1];
+  int lo = 0, hi = 0;
+  if (first <= last) {
+    const int j_last = j0 + last;
+    int end = segment_end(segkb, j_last, Tk, &scan[2]);  // one past j_last's segment
+    if (window > 0) end = min(end, j_last + window);
+    lo = max(j0 + first, q_start) - q_start;
+    hi = min(end, q_start + Tq) - q_start;
+  }
+  if (lo >= hi) {
+    // no query of the shard sees these keys: dk and dv are 0
+    for (int i = tid; i < kRows * (HD / 8); i += kThreads) {
+      const int t = j0 + i / (HD / 8);
+      if (t < Tk) {
+        const long long at = (((long long)b * Tk + t) * Hkv + kh) * HD + i % (HD / 8) * 8;
+        *reinterpret_cast<uint4*>(dk + at) = make_uint4(0u, 0u, 0u, 0u);
+        *reinterpret_cast<uint4*>(dv + at) = make_uint4(0u, 0u, 0u, 0u);
+      }
+    }
+    return;
+  }
+  const int ntiles = (hi - lo + kRows - 1) / kRows, total = group * ntiles;
+
+  if (tid == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < S; ++s) {
+      mbar_init(full + s, 32);  // the loader warp: the rows' values, and the TMA bytes
+      mbar_init(empty + s, 4);  // the step's consumer warps
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const int wgi = __shfl_sync(0xffffffffu, tid / 128, 0);
+
+  if (wgi == kConsumers) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (tid % 128 >= 32) return;  // one loader warp
+    const int lane = tid & 31;
+    if (lane == 0) {
+      mbar_expect_tx(kv_full, 2 * kTile);
+      for (int p = 0; p < 2; ++p) {
+        tma_load(smem + L::kK + p * kPanel, &tk, kv_full, 64 * p, kh, j0, b);
+        tma_load(smem + L::kV + p * kPanel, &tv, kv_full, 64 * p, kh, j0, b);
+      }
+    }
+    for (int n = 0; n < total; ++n) {
+      const int s = n % S, h = kh * group + n / ntiles, i0 = lo + n % ntiles * kRows;
+      mbar_wait(empty + s, ((n / S) & 1) ^ 1);
+      const long long row0 = ((long long)b * Hq + h) * Tq;
+      for (int c = lane; c < kRows; c += 32) {
+        const int t = i0 + c;  // local
+        seg_rows[s * kRows + c] = t < Tq ? segqb[t] : -2;
+        lse_rows[s * kRows + c] = t < Tq ? lse[row0 + t] : 0.f;
+        di_rows[s * kRows + c] = t < Tq ? di[row0 + t] : 0.f;
+      }
+      if (lane == 0) {
+        mbar_expect_tx(full + s, 2 * kTile);
+        for (int p = 0; p < 2; ++p) {
+          tma_load(smem + L::kQ + s * kTile + p * kPanel, &tq, full + s, 64 * p, h, i0, b);
+          tma_load(smem + L::kdO + s * kTile + p * kPanel, &tdo, full + s, 64 * p, h, i0, b);
+        }
+      } else {
+        mbar_arrive(full + s);
+      }
+    }
+    return;
+  }
+
+  // consumer warpgroup u: steps u, u + 2, ...; the block's 64 keys, 16 a warp
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+  const int u = wgi, lane = tid & 31, g = lane >> 2, tig = lane & 3;
+  const int rk = (tid % 128 / 32) * 16 + g;  // this thread's keys: rk and rk + 8
+  const int sk[2] = {seg_k[rk], seg_k[rk + 8]};
+  const int kj[2] = {j0 + rk, j0 + rk + 8};
+  const unsigned sK = tc::smem_addr(smem + L::kK), sV = tc::smem_addr(smem + L::kV);
+
+  float dka[HD / 2], dva[HD / 2];  // element 4 j + e at n-tile j of 8 columns
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) dka[i] = dva[i] = 0.f;
+  mbar_wait(kv_full, 0);
+  for (int n = u; n < total; n += kConsumers) {
+    const int s = n % S, i0 = lo + n % ntiles * kRows;  // i0: local
+    const unsigned sQ = tc::smem_addr(smem + L::kQ + s * kTile);
+    const unsigned sdO = tc::smem_addr(smem + L::kdO + s * kTile);
+    float st[32], dpt[32];
+    mbar_wait(full + s, (n / S) & 1);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) wgmma_n64(st, desc_k(sK, kk), desc_k(sQ, kk), kk > 0);
+    wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk)
+      wgmma_n64(dpt, desc_k(sV, kk), desc_k(sdO, kk), kk > 0);
+    wgmma_commit();
+    wgmma_wait<1>();  // S^T done; dP^T in flight
+    reg_fence(st);
+
+    // P^T, as bf16 A operands, and its product with 1 - t^2 under the
+    // softcap (dS^T's factor) into st, under the dP^T product; then dS^T
+    // into dpt (rows: the block's keys, columns: the tile's queries).  A
+    // thread's two keys need no mask when the tile's queries all lie in
+    // their segment, at or after both, with no window.
+    const int* sgq = seg_rows + s * kRows;
+    const float* lse_t = lse_rows + s * kRows;
+    const float* di_t = di_rows + s * kRows;
+    const int q_first = sgq[0], q_last = sgq[kRows - 1], qi0 = q_start + i0;
+    bool whole = window <= 0;
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      whole &= (sk[r] >= 0) & (q_first == sk[r]) & (q_last == sk[r]) & (qi0 >= kj[r]);
+    unsigned pa[4][4], sa[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      float f[8];  // 1 - t^2 under the softcap
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const int i = 8 * kk + e, row = (i >> 1) & 1, col = 8 * (i >> 2) + 2 * tig + (i & 1);
+        float x = st[i], t = 0.f;
+        if constexpr (CAP) {
+          t = tanhf(x / softcap);
+          x = t * softcap;
+        }
+        f[e] = 1.f - t * t;
+        const bool ok = whole | allowed(sgq[col], sk[row], qi0 + col, kj[row], window);
+        st[i] = ok ? exp2f((x - lse_t[col]) * tc::kLog2e) : 0.f;
+      }
+      a_from_acc(pa[kk], st, kk);
+      if constexpr (CAP) {
+#pragma unroll
+        for (int e = 0; e < 8; ++e) st[8 * kk + e] *= f[e];
+      }
+    }
+    wgmma_wait<0>();
+    reg_fence(dpt);
+#pragma unroll
+    for (int i = 0; i < 32; ++i)
+      dpt[i] = st[i] * (dpt[i] - di_t[8 * (i >> 2) + 2 * tig + (i & 1)]);
+
+    // dV += P^T dO and dK += dS^T Q: bf16 A operands from registers, dO
+    // and Q read MN-major; done before the next step's products, so that
+    // no more than one step's operands hold registers
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) a_from_acc(sa[kk], dpt, kk);
+    reg_fence(pa);
+    reg_fence(sa);
+    reg_fence(dka);
+    reg_fence(dva);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_n128(dva, pa[kk], desc_mn(sdO, kk));
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_n128(dka, sa[kk], desc_mn(sQ, kk));
+    wgmma_commit();
+    wgmma_wait<0>();
+    reg_fence(dka);
+    reg_fence(dva);
+    release(empty + s);  // the step's Q and dO are read
+  }
+
+  // the second consumer's partials through the ring's Q tiles (free once
+  // both walks are done: the loader is done too), added by the first in a
+  // fixed order, rounded once
+  float* part = reinterpret_cast<float*>(smem + L::kQ);  // [64 dK, then 64 dV][128 threads]
+  const int pt = tid % 128;
+  consumers_sync();
+  if (u == 1) {
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) {
+      part[i * 128 + pt] = dka[i];
+      part[(HD / 2 + i) * 128 + pt] = dva[i];
+    }
+  }
+  consumers_sync();
+  if (u == 1) return;
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) {
+    dka[i] += part[i * 128 + pt];
+    dva[i] += part[(HD / 2 + i) * 128 + pt];
+  }
+
+  // dk and dv from registers: a quad writes 16 contiguous bytes of a row
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int t = kj[r];
+    if (t >= Tk) continue;
+    const long long at = (((long long)b * Tk + t) * Hkv + kh) * HD + 2 * tig;
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j) {
+      *reinterpret_cast<__nv_bfloat162*>(dk + at + 8 * j) =
+          __floats2bfloat162_rn(dka[4 * j + 2 * r], dka[4 * j + 2 * r + 1]);
+      *reinterpret_cast<__nv_bfloat162*>(dv + at + 8 * j) =
+          __floats2bfloat162_rn(dva[4 * j + 2 * r], dva[4 * j + 2 * r + 1]);
+    }
+  }
+}
+
 }  // namespace wg
 
 template <typename K>
@@ -2082,9 +2069,20 @@ struct Rows {
   int window;
 };
 
+// the kernel family a launcher ran, which each entry reports to its
+// wrapper (ops/flash_attention.py `_VARIANTS` reads the codes): the CUDA
+// cores, mma.sync, wgmma
+enum Variant : int { kCores = 0, kTc = 1, kWg = 2 };
+
+// err, after writing `v` to *launched if the launch went out
+cudaError_t report(cudaError_t err, Variant v, int* launched) {
+  if (err == cudaSuccess) *launched = v;
+  return err;
+}
+
 template <typename T, int HD>
 cudaError_t fwd(const void* q, const void* k, const void* v, const void* segq,
-                const void* segk, void* out, void* lse, Rows r, cudaStream_t s) {
+                const void* segk, void* out, void* lse, Rows r, cudaStream_t s, int* launched) {
   constexpr int TILE = f32_tile<HD>(), kSmem = F32Tiles<HD, TILE>::kFwdSmem;
   auto kernel = flash_fwd_kernel<T, HD, TILE>;
   cudaError_t err = opt_in(kernel, kSmem);
@@ -2093,7 +2091,7 @@ cudaError_t fwd(const void* q, const void* k, const void* v, const void* segq,
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const int*>(segq), static_cast<const int*>(segk), static_cast<T*>(out),
       static_cast<float*>(lse), r.q_start, r.Tq, r.Tk, r.Hq, r.Hkv, r.softcap, r.window);
-  return cudaGetLastError();
+  return report(cudaGetLastError(), kCores, launched);
 }
 
 // cuTensorMapEncodeTiled, found through the runtime's entry-point query
@@ -2140,11 +2138,11 @@ cudaError_t head_map(CUtensorMap* map, const void* ptr, int B, int T, int H) {
 }
 
 // the bf16 forward (DQ false: out, lse; hd 128 and 256) or dq (DQ true:
-// reads dout, lse, di; `result` is dq; hd 256) on wgmma
+// reads dout, lse, di; `result` is dq; hd 128 and 256) on wgmma
 template <bool DQ, int HD>
 cudaError_t attn_wg(const void* q, const void* k, const void* v, const void* dout,
                     const void* segq, const void* segk, void* result, float* lse,
-                    const float* di, Rows r, cudaStream_t s) {
+                    const float* di, Rows r, cudaStream_t s, int* launched) {
   CUtensorMap mq, mk, mv, mdo;
   cudaError_t err = head_map<HD>(&mq, q, r.B, r.Tq, r.Hq);
   if (err == cudaSuccess) err = head_map<HD>(&mk, k, r.B, r.Tk, r.Hkv);
@@ -2160,23 +2158,26 @@ cudaError_t attn_wg(const void* q, const void* k, const void* v, const void* dou
   if (err != cudaSuccess) return err;
   const int units = (r.Tq + wg::kRows - 1) / wg::kRows * (r.Hq / r.Hkv);
   const int items = (units + wg::kConsumers - 1) / wg::kConsumers * r.Hkv * r.B;
-  // the forward persistent (its producer prefetches the next item's Q and
-  // K/V under the current one's products); dq one block an item, whose
-  // longer and more uneven items the hardware's block scheduling balances
-  // better (Gemma-2B's heads over 8 packed rows of 1024, same card: 0.1164
-  // against 0.1220 ms persistent; the forward 0.0825 against 0.0880 with a
-  // block an item; at hd 128 a block an item was slower too, on an H100)
-  kernel<<<DQ ? items : std::min(items, sms), wg::kThreads, kSmem, s>>>(
+  // persistent, a block an SM (its producer prefetches the next item's Q
+  // and K/V under the current one's products), except dq at hd 256, a
+  // block an item.  On an H100 at 700 W, with the scheduler's ballots:
+  // dq at hd 128 persistent was the faster on Qwen2.5's train micro-batch
+  // (0.166 against 0.180 ms a block an item), Qwen3-1.7B's heads and the
+  // reward model's rows, and slower on 32 rows of 512 (0.159 against
+  // 0.137); dq at hd 256 a block an item the faster on Gemma-2B's heads
+  // over 8 packed rows of 1024 (0.1044-0.1047 against 0.1061-0.1067 ms
+  // persistent) and level on their sp shards
+  kernel<<<DQ && HD == 256 ? items : std::min(items, sms), wg::kThreads, kSmem, s>>>(
       mq, mk, mv, mdo, static_cast<const int*>(segq), static_cast<const int*>(segk),
       static_cast<__nv_bfloat16*>(result), lse, di, r.B, r.q_start, r.Tq, r.Tk, r.Hq, r.Hkv,
       r.softcap, r.window);
-  return cudaGetLastError();
+  return report(cudaGetLastError(), kWg, launched);
 }
 
 template <typename T, int HD>
 cudaError_t bwd_dq(const void* q, const void* k, const void* v, const void* segq,
                    const void* segk, const void* dout, const void* lse, const void* di,
-                   void* dq, Rows r, cudaStream_t s) {
+                   void* dq, Rows r, cudaStream_t s, int* launched) {
   constexpr int TILE = f32_tile<HD>(), kSmem = F32Tiles<HD, TILE>::kDqSmem;
   auto kernel = flash_bwd_dq_kernel<T, HD, TILE>;
   cudaError_t err = opt_in(kernel, kSmem);
@@ -2187,7 +2188,7 @@ cudaError_t bwd_dq(const void* q, const void* k, const void* v, const void* segq
       static_cast<const T*>(dout), static_cast<const float*>(lse),
       static_cast<const float*>(di), static_cast<T*>(dq), r.q_start, r.Tq, r.Tk, r.Hq,
       r.Hkv, r.softcap, r.window);
-  return cudaGetLastError();
+  return report(cudaGetLastError(), kCores, launched);
 }
 
 // dk/dv: one block per key tile over all Tk keys (tiles no query of the
@@ -2195,7 +2196,7 @@ cudaError_t bwd_dq(const void* q, const void* k, const void* v, const void* segq
 template <typename T, int HD>
 cudaError_t bwd_dkv(const void* q, const void* k, const void* v, const void* segq,
                     const void* segk, const void* dout, const void* lse, const void* di,
-                    void* dk, void* dv, Rows r, cudaStream_t s) {
+                    void* dk, void* dv, Rows r, cudaStream_t s, int* launched) {
   constexpr int TILE = f32_tile<HD>(), kSmem = F32Tiles<HD, TILE>::kDkvSmem;
   auto kernel = flash_bwd_dkv_kernel<T, HD, TILE>;
   cudaError_t err = opt_in(kernel, kSmem);
@@ -2206,72 +2207,61 @@ cudaError_t bwd_dkv(const void* q, const void* k, const void* v, const void* seg
       static_cast<const T*>(dout), static_cast<const float*>(lse),
       static_cast<const float*>(di), static_cast<T*>(dk), static_cast<T*>(dv), r.q_start,
       r.Tq, r.Tk, r.Hq, r.Hkv, r.softcap, r.window);
-  return cudaGetLastError();
+  return report(cudaGetLastError(), kCores, launched);
 }
 
-template <int HD>
-cudaError_t bwd_dq_tc(const void* q, const void* k, const void* v, const void* segq,
-                      const void* segk, const void* dout, const void* lse, const void* di,
-                      void* dq, Rows r, cudaStream_t s) {
-  constexpr int kSmem = tc::Tiles<HD>::kDqSmem;
-  auto kernel = tc::flash_bwd_dq_tc_kernel<HD>;
-  cudaError_t err = opt_in(kernel, kSmem);
-  if (err != cudaSuccess) return err;
-  kernel<<<dim3(r.Hq, r.B, (r.Tq + tc::kBr - 1) / tc::kBr), tc::kThreads, kSmem, s>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<const int*>(segq),
-      static_cast<const int*>(segk), static_cast<const __nv_bfloat16*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(di),
-      static_cast<__nv_bfloat16*>(dq), r.q_start, r.Tq, r.Tk, r.Hq, r.Hkv, r.softcap,
-      r.window);
-  return cudaGetLastError();
-}
-
-// the bf16 dk/dv kernels: at hd 128 4 warps with dK and dV in each thread,
-// one block per (kv head, row, key tile); at hd 256 two groups of 4 warps,
-// `cluster` blocks per key tile (a thread block cluster splitting the
-// group's q heads)
-template <int HD>
-cudaError_t bwd_dkv_tc(const void* q, const void* k, const void* v, const void* segq,
+// the bf16 dk/dv at hd 128 on wgmma: a block per (row, kv head, 64-key
+// tile), the first tiles, whose query ranges are longest, first
+cudaError_t bwd_dkv_wg(const void* q, const void* k, const void* v, const void* segq,
                        const void* segk, const void* dout, const void* lse, const void* di,
-                       void* dk, void* dv, Rows r, int cluster, cudaStream_t s) {
-  const auto* qb = static_cast<const __nv_bfloat16*>(q);
-  const auto* kb = static_cast<const __nv_bfloat16*>(k);
-  const auto* vb = static_cast<const __nv_bfloat16*>(v);
-  const auto* dob = static_cast<const __nv_bfloat16*>(dout);
-  const dim3 grid(r.Hkv * cluster, r.B, (r.Tk + tc::kBr - 1) / tc::kBr);
-  if constexpr (HD == 128) {
-    constexpr int kSmem = 6 * tc::Tiles<128>::kTileQ * 2;
-    cudaError_t err = opt_in(tc::flash_bwd_dkv_tc_kernel, kSmem);
-    if (err != cudaSuccess) return err;
-    tc::flash_bwd_dkv_tc_kernel<<<grid, tc::kThreads, kSmem, s>>>(
-        qb, kb, vb, static_cast<const int*>(segq), static_cast<const int*>(segk), dob,
-        static_cast<const float*>(lse), static_cast<const float*>(di),
-        static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), r.q_start, r.Tq,
-        r.Tk, r.Hq, r.Hkv, r.softcap, r.window);
-    return cudaGetLastError();
-  } else {
-    cudaError_t err = opt_in(tc::flash_bwd_dkv_tc256_kernel, tc::kDkv256Smem);
-    if (err != cudaSuccess) return err;
-    cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = grid;
-    cfg.blockDim = dim3(tc::kDkv256Threads);
-    cfg.dynamicSmemBytes = tc::kDkv256Smem;
-    cfg.stream = s;
-    cudaLaunchAttribute attr[1];
-    attr[0].id = cudaLaunchAttributeClusterDimension;
-    attr[0].val.clusterDim.x = cluster;
-    attr[0].val.clusterDim.y = 1;
-    attr[0].val.clusterDim.z = 1;
-    cfg.attrs = attr;
-    cfg.numAttrs = 1;
-    err = cudaLaunchKernelEx(&cfg, tc::flash_bwd_dkv_tc256_kernel, qb, kb, vb,
-                             static_cast<const int*>(segq), static_cast<const int*>(segk), dob,
-                             static_cast<const float*>(lse), static_cast<const float*>(di),
-                             static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv),
-                             r.q_start, r.Tq, r.Tk, r.Hq, r.Hkv, r.softcap, r.window);
-    return err != cudaSuccess ? err : cudaGetLastError();
-  }
+                       void* dk, void* dv, Rows r, cudaStream_t s, int* launched) {
+  CUtensorMap mq, mk, mv, mdo;
+  cudaError_t err = head_map<128>(&mq, q, r.B, r.Tq, r.Hq);
+  if (err == cudaSuccess) err = head_map<128>(&mk, k, r.B, r.Tk, r.Hkv);
+  if (err == cudaSuccess) err = head_map<128>(&mv, v, r.B, r.Tk, r.Hkv);
+  if (err == cudaSuccess) err = head_map<128>(&mdo, dout, r.B, r.Tq, r.Hq);
+  constexpr int kSmem = wg::DkvLayout::kSmem;
+  auto kernel = r.softcap > 0.f ? wg::flash_dkv_wg_kernel<true> : wg::flash_dkv_wg_kernel<false>;
+  if (err == cudaSuccess) err = opt_in(kernel, kSmem);
+  if (err != cudaSuccess) return err;
+  const int tiles = (r.Tk + wg::kRows - 1) / wg::kRows;
+  kernel<<<tiles * r.Hkv * r.B, wg::kThreads, kSmem, s>>>(
+      mq, mk, mv, mdo, static_cast<const int*>(segq), static_cast<const int*>(segk),
+      static_cast<const float*>(lse), static_cast<const float*>(di),
+      static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), r.B, r.q_start, r.Tq,
+      r.Tk, r.Hq, r.Hkv, r.softcap, r.window);
+  return report(cudaGetLastError(), kWg, launched);
+}
+
+// the bf16 dk/dv at hd 256 on mma.sync: two groups of 4 warps, `cluster`
+// blocks per key tile (a thread block cluster splitting the group's q
+// heads), one per (kv head, row, key tile)
+cudaError_t bwd_dkv_tc256(const void* q, const void* k, const void* v, const void* segq,
+                          const void* segk, const void* dout, const void* lse, const void* di,
+                          void* dk, void* dv, Rows r, int cluster, cudaStream_t s, int* launched) {
+  cudaError_t err = opt_in(tc::flash_bwd_dkv_tc256_kernel, tc::kDkv256Smem);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(r.Hkv * cluster, r.B, (r.Tk + tc::kBr - 1) / tc::kBr);
+  cfg.blockDim = dim3(tc::kDkv256Threads);
+  cfg.dynamicSmemBytes = tc::kDkv256Smem;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, tc::flash_bwd_dkv_tc256_kernel,
+                           static_cast<const __nv_bfloat16*>(q),
+                           static_cast<const __nv_bfloat16*>(k),
+                           static_cast<const __nv_bfloat16*>(v), static_cast<const int*>(segq),
+                           static_cast<const int*>(segk), static_cast<const __nv_bfloat16*>(dout),
+                           static_cast<const float*>(lse), static_cast<const float*>(di),
+                           static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv),
+                           r.q_start, r.Tq, r.Tk, r.Hq, r.Hkv, r.softcap, r.window);
+  return report(err != cudaSuccess ? err : cudaGetLastError(), kTc, launched);
 }
 
 // the cluster size ops/flash_attention.py dkv_plan picks: a power of two
@@ -2289,62 +2279,74 @@ cudaError_t check_dkv_cluster(int bf16, int hd, int Hq, int Hkv, int cluster) {
 // 0 and window <= 0 are off.  q is the pre-scaled q_s of rows [q_start,
 // q_start + Tq) of each packed row of Tk keys; segq [B, Tq] and segk
 // [B, Tk] (one array for both, with q_start 0 and Tq = Tk, is the unsharded
-// call).  Each entry picks its kernel by dtype and head dim: bfloat16 runs
-// on the tensor cores (the forward wg::flash_wg_kernel at hd 128 and 256,
-// dq tc::flash_bwd_dq_tc_kernel at hd 128 and wg::flash_wg_kernel at 256,
-// dk/dv tc::flash_bwd_dkv_tc_kernel or tc::flash_bwd_dkv_tc256_kernel),
-// float32 on the CUDA cores (flash_fwd_kernel, flash_bwd_dq_kernel,
-// flash_bwd_dkv_kernel), which keeps f32 products exact.
+// call).  Each entry picks its kernel by dtype and head dim (the rule
+// ops/flash_attention.py `variant` mirrors): float32 runs on the CUDA
+// cores (flash_fwd_kernel, flash_bwd_dq_kernel, flash_bwd_dkv_kernel),
+// which keeps f32 products exact; bfloat16 on Hopper's warpgroup products
+// (wg::flash_wg_kernel for the forward and dq, wg::flash_dkv_wg_kernel for
+// dk/dv at hd 128), except dk/dv at hd 256 (tc::flash_bwd_dkv_tc256_kernel,
+// mma.sync).  Each writes the `Variant` of the kernel it launched to
+// *launched, by which its wrapper counts the launch.
 extern "C" int flash_fwd(int device, int bf16, const void* q, const void* k, const void* v,
                          const void* segq, const void* segk, void* out, void* lse, int B,
                          int q_start, int Tq, int Tk, int Hq, int Hkv, int hd, float softcap,
-                         int window, void* stream) {
+                         int window, void* stream, int* launched) {
   cudaError_t err = check_shape(hd, Hq, Hkv, q_start, Tq, Tk);
   if (err == cudaSuccess) err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Rows r{B, q_start, Tq, Tk, Hq, Hkv, softcap, window};
   float* lse_f = static_cast<float*>(lse);
-  if (hd == 128)
-    return (int)(bf16 ? attn_wg<false, 128>(q, k, v, nullptr, segq, segk, out, lse_f, nullptr, r, s)
-                      : fwd<float, 128>(q, k, v, segq, segk, out, lse, r, s));
-  return (int)(bf16 ? attn_wg<false, 256>(q, k, v, nullptr, segq, segk, out, lse_f, nullptr, r, s)
-                    : fwd<float, 256>(q, k, v, segq, segk, out, lse, r, s));
+  if (!bf16)
+    return (int)(hd == 128 ? fwd<float, 128>(q, k, v, segq, segk, out, lse, r, s, launched)
+                           : fwd<float, 256>(q, k, v, segq, segk, out, lse, r, s, launched));
+  return (int)(hd == 128 ? attn_wg<false, 128>(q, k, v, nullptr, segq, segk, out, lse_f,
+                                                nullptr, r, s, launched)
+                         : attn_wg<false, 256>(q, k, v, nullptr, segq, segk, out, lse_f,
+                                                nullptr, r, s, launched));
 }
 
 extern "C" int flash_bwd_dq(int device, int bf16, const void* q, const void* k, const void* v,
                             const void* segq, const void* segk, const void* dout,
                             const void* lse, const void* di, void* dq, int B, int q_start,
                             int Tq, int Tk, int Hq, int Hkv, int hd, float softcap, int window,
-                            void* stream) {
+                            void* stream, int* launched) {
   cudaError_t err = check_shape(hd, Hq, Hkv, q_start, Tq, Tk);
   if (err == cudaSuccess) err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Rows r{B, q_start, Tq, Tk, Hq, Hkv, softcap, window};
-  if (hd == 128)
-    return (int)(bf16 ? bwd_dq_tc<128>(q, k, v, segq, segk, dout, lse, di, dq, r, s)
-                      : bwd_dq<float, 128>(q, k, v, segq, segk, dout, lse, di, dq, r, s));
-  return (int)(bf16 ? attn_wg<true, 256>(q, k, v, dout, segq, segk, dq,
-                                     static_cast<float*>(const_cast<void*>(lse)),
-                                     static_cast<const float*>(di), r, s)
-                    : bwd_dq<float, 256>(q, k, v, segq, segk, dout, lse, di, dq, r, s));
+  if (!bf16)
+    return (int)(hd == 128 ? bwd_dq<float, 128>(q, k, v, segq, segk, dout, lse, di, dq, r, s,
+                                                launched)
+                           : bwd_dq<float, 256>(q, k, v, segq, segk, dout, lse, di, dq, r, s,
+                                                launched));
+  float* lse_f = static_cast<float*>(const_cast<void*>(lse));
+  const float* di_f = static_cast<const float*>(di);
+  return (int)(hd == 128 ? attn_wg<true, 128>(q, k, v, dout, segq, segk, dq, lse_f, di_f, r, s,
+                                               launched)
+                         : attn_wg<true, 256>(q, k, v, dout, segq, segk, dq, lse_f, di_f, r, s,
+                                               launched));
 }
 
 extern "C" int flash_bwd_dkv(int device, int bf16, const void* q, const void* k, const void* v,
                              const void* segq, const void* segk, const void* dout,
                              const void* lse, const void* di, void* dk, void* dv, int cluster,
                              int B, int q_start, int Tq, int Tk, int Hq, int Hkv,
-                             int hd, float softcap, int window, void* stream) {
+                             int hd, float softcap, int window, void* stream, int* launched) {
   cudaError_t err = check_shape(hd, Hq, Hkv, q_start, Tq, Tk);
   if (err == cudaSuccess) err = check_dkv_cluster(bf16, hd, Hq, Hkv, cluster);
   if (err == cudaSuccess) err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Rows r{B, q_start, Tq, Tk, Hq, Hkv, softcap, window};
-  if (hd == 128)
-    return (int)(bf16 ? bwd_dkv_tc<128>(q, k, v, segq, segk, dout, lse, di, dk, dv, r, 1, s)
-                      : bwd_dkv<float, 128>(q, k, v, segq, segk, dout, lse, di, dk, dv, r, s));
-  return (int)(bf16 ? bwd_dkv_tc<256>(q, k, v, segq, segk, dout, lse, di, dk, dv, r, cluster, s)
-                    : bwd_dkv<float, 256>(q, k, v, segq, segk, dout, lse, di, dk, dv, r, s));
+  if (!bf16)
+    return (int)(hd == 128 ? bwd_dkv<float, 128>(q, k, v, segq, segk, dout, lse, di, dk, dv, r,
+                                                 s, launched)
+                           : bwd_dkv<float, 256>(q, k, v, segq, segk, dout, lse, di, dk, dv, r,
+                                                 s, launched));
+  return (int)(hd == 128
+                   ? bwd_dkv_wg(q, k, v, segq, segk, dout, lse, di, dk, dv, r, s, launched)
+                   : bwd_dkv_tc256(q, k, v, segq, segk, dout, lse, di, dk, dv, r, cluster, s,
+                                   launched));
 }

@@ -28,15 +28,19 @@ for CPU tensors they run the plain versions (`*_plain`), which repeat the
 kernels' arithmetic (f32 products and statistics, outputs rounded once to
 the input dtype).  There is no fallback between the two.  Each kernel
 wrapper counts its launches in `.launches`, and by head dim (128 or 256)
-in `.launches_hd`.  Every wrapper picks its kernel by dtype and head dim:
-bfloat16 runs on the tensor cores (counted again in `.launches_tc`),
-float32 on the CUDA cores, whose f32 products the tensor cores (TF32 at
-best) could not keep.  The bf16 forward at hd 128 and 256, and dq at hd
-256, run on Hopper's warpgroup products (`wgmma`) on K/V tiles that TMA
-loads once for two q heads of a GQA group, in a persistent grid for the
-forward; at hd 256 the bf16 dk/dv kernel runs each key tile as a thread
-block cluster whose blocks split the group's q heads; `dkv_plan` picks
-its size from the grid.
+in `.launches_hd`.  The CUDA entry points pick the kernel by dtype and
+head dim (`variant` is their rule) and report which family they launched,
+and the wrapper counts the launch by that report: bfloat16 runs on the
+tensor cores (counted again in `.launches_tc`), float32 on the CUDA cores,
+whose f32 products the tensor cores (TF32 at best) could not keep.  The
+bf16 forward and dq at hd 128 and 256, and dk/dv at hd 128, run on
+Hopper's warpgroup products (`wgmma`) on tiles that TMA loads (counted
+again in `.launches_wg`): the forward and dq share each K/V tile between
+two q heads of a GQA group, in a persistent grid (dq at hd 256 a block
+an item); dk/dv keeps 64 keys' K and V resident and streams the group's
+Q and dO tiles past them.  At hd 256 the bf16 dk/dv kernel (`mma.sync`)
+runs each key tile as a thread block cluster whose blocks split the
+group's q heads; `dkv_plan` picks its size from the grid.
 
 Query offset.  Every function here also takes `q_start` and
 `kv_segment_ids`: the queries are then rows [q_start, q_start + Tq) of
@@ -91,6 +95,18 @@ def flash_supported(T: int, Hq: int, Hkv: int, hd: int, sp: int = 1) -> bool:
     splash."""
     return (T >= 256 and T % (128 * sp) == 0 and hd in HEAD_DIMS and Hkv > 0
             and Hq % Hkv == 0)
+
+
+def variant(kernel: str, dtype: torch.dtype, head_dim: int) -> str:
+    """The kernel a call of `kernel` ("fwd", "dq" or "dkv") runs, by dtype
+    and head dim alone, as the CUDA entry points pick it: "cores" (the
+    CUDA-core kernels) for float32; for bfloat16 "wg" (`wgmma` on
+    TMA-fed tiles: `wg::flash_wg_kernel`, and `wg::flash_dkv_wg_kernel`
+    for dk/dv at hd 128), except dk/dv at hd 256, "tc" (`mma.sync`, a
+    thread block cluster a key tile)."""
+    if dtype != torch.bfloat16:
+        return "cores"
+    return "tc" if kernel == "dkv" and head_dim == 256 else "wg"
 
 
 def dkv_plan(Hq: int, Hkv: int, hd: int, bf16: bool, B: int = 1, Tk: int = 64) -> int:
@@ -230,8 +246,8 @@ def flash_bwd_dkv_plain(qs, k, v, segment_ids, dout, lse, di, window: Optional[i
 def _lib():
     lib = _build.load("flash_attention")
     ptr, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    # B, q_start, Tq, Tk, Hq, Hkv, hd, softcap, window, stream
-    tail = [i] * 7 + [f, i, ptr]
+    # B, q_start, Tq, Tk, Hq, Hkv, hd, softcap, window, stream, launched
+    tail = [i] * 7 + [f, i, ptr, ctypes.POINTER(i)]
     lib.flash_fwd.argtypes = [i, i] + [ptr] * 7 + tail
     lib.flash_bwd_dq.argtypes = [i, i] + [ptr] * 9 + tail
     lib.flash_bwd_dkv.argtypes = [i, i] + [ptr] * 10 + [i] + tail  # + dkv_plan
@@ -279,6 +295,22 @@ def _rows(qs, k, window, softcap, q_start):
             int(window or 0), torch.cuda.current_stream(qs.device).cuda_stream)
 
 
+# the kernel families by the code a C entry writes to its `launched`
+# argument (the `Variant` of csrc/flash_attention.cu)
+_VARIANTS = ("cores", "tc", "wg")
+
+
+def _count(wrapper, launched: int, head_dim: int) -> None:
+    """Count a launch by the kernel family its C entry reports it ran:
+    `.launches_tc` for the tensor cores (mma.sync or wgmma), `.launches_wg`
+    again for wgmma."""
+    if not 0 <= launched < len(_VARIANTS):
+        raise RuntimeError(f"{wrapper.__name__}: the entry reported no kernel ({launched})")
+    ran = _VARIANTS[launched]
+    _build.count_launch(wrapper, tensor_cores=ran != "cores", head_dim=head_dim,
+                        counter="launches_wg" if ran == "wg" else None)
+
+
 def _raise(err: int, name: str) -> None:
     if err:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
@@ -298,11 +330,12 @@ def flash_fwd(qs, k, v, segment_ids, window: Optional[int] = None,
     out = torch.empty_like(qs)
     lse = torch.empty((B, Hq, T), dtype=torch.float32, device=qs.device)
     bf16 = qs.dtype == torch.bfloat16
+    launched = ctypes.c_int(-1)
     _raise(_lib().flash_fwd(
         qs.device.index or 0, int(bf16), qs.data_ptr(), k.data_ptr(), v.data_ptr(),
         segment_ids.data_ptr(), kv_seg.data_ptr(), out.data_ptr(), lse.data_ptr(),
-        *_rows(qs, k, window, softcap, q_start)), "flash_fwd")
-    _build.count_launch(flash_fwd, tensor_cores=bf16, head_dim=hd)  # bf16: tensor cores
+        *_rows(qs, k, window, softcap, q_start), ctypes.byref(launched)), "flash_fwd")
+    _count(flash_fwd, launched.value, hd)
     return out, lse
 
 
@@ -318,13 +351,13 @@ def flash_bwd_dq(qs, k, v, segment_ids, dout, lse, di, window: Optional[int] = N
     _check(qs, k, v, segment_ids, dout, lse, di, kv_segment_ids=kv_seg, q_start=q_start)
     dq = torch.empty_like(qs)
     bf16 = qs.dtype == torch.bfloat16
+    launched = ctypes.c_int(-1)
     _raise(_lib().flash_bwd_dq(
         qs.device.index or 0, int(bf16), qs.data_ptr(), k.data_ptr(), v.data_ptr(),
         segment_ids.data_ptr(), kv_seg.data_ptr(), dout.data_ptr(), lse.data_ptr(),
-        di.data_ptr(), dq.data_ptr(), *_rows(qs, k, window, softcap, q_start)),
-        "flash_bwd_dq")
-    _build.count_launch(flash_bwd_dq, tensor_cores=bf16,
-                        head_dim=qs.shape[-1])  # bf16: tensor cores
+        di.data_ptr(), dq.data_ptr(), *_rows(qs, k, window, softcap, q_start),
+        ctypes.byref(launched)), "flash_bwd_dq")
+    _count(flash_bwd_dq, launched.value, qs.shape[-1])
     return dq
 
 
@@ -341,19 +374,19 @@ def flash_bwd_dkv(qs, k, v, segment_ids, dout, lse, di, window: Optional[int] = 
     _check(qs, k, v, segment_ids, dout, lse, di, kv_segment_ids=kv_seg, q_start=q_start)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     bf16 = qs.dtype == torch.bfloat16
+    launched = ctypes.c_int(-1)
     _raise(_lib().flash_bwd_dkv(
         qs.device.index or 0, int(bf16), qs.data_ptr(), k.data_ptr(), v.data_ptr(),
         segment_ids.data_ptr(), kv_seg.data_ptr(), dout.data_ptr(), lse.data_ptr(),
         di.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         dkv_plan(qs.shape[2], k.shape[2], qs.shape[-1], bf16, k.shape[0], k.shape[1]),
-        *_rows(qs, k, window, softcap, q_start)), "flash_bwd_dkv")
-    _build.count_launch(flash_bwd_dkv, tensor_cores=bf16,
-                        head_dim=qs.shape[-1])  # bf16: tensor cores
+        *_rows(qs, k, window, softcap, q_start), ctypes.byref(launched)), "flash_bwd_dkv")
+    _count(flash_bwd_dkv, launched.value, qs.shape[-1])
     return dk, dv
 
 
 for _wrapper in (flash_fwd, flash_bwd_dq, flash_bwd_dkv):
-    _wrapper.launches = _wrapper.launches_tc = 0
+    _wrapper.launches = _wrapper.launches_tc = _wrapper.launches_wg = 0
     _wrapper.launches_hd = dict.fromkeys(HEAD_DIMS, 0)
 
 

@@ -150,6 +150,11 @@ def flash_counts_tc() -> List[int]:
             fa.flash_bwd_dkv.launches_tc]
 
 
+def flash_counts_wg() -> List[int]:
+    return [fa.flash_fwd.launches_wg, fa.flash_bwd_dq.launches_wg,
+            fa.flash_bwd_dkv.launches_wg]
+
+
 class CollectiveTimer:
     """Seconds spent in `distributed.all_sum_` (every collective of the
     training step: the K/V gathers, the dK/dV sum-scatters, the gradient
@@ -233,7 +238,8 @@ def run_case(model: str, dp: int, sp: int, dtype: str, steps: int, device=None,
         actor.compute_advantages(batch)
         out["steps"] = []
         for _ in range(steps):
-            c0, tc0, s0 = flash_counts(), flash_counts_tc(), timer.seconds
+            c0, tc0, wg0 = flash_counts(), flash_counts_tc(), flash_counts_wg()
+            s0 = timer.seconds
             _sync(dev)
             t0 = time.perf_counter()
             st = actor.ppo_update(batch)
@@ -245,6 +251,7 @@ def run_case(model: str, dp: int, sp: int, dtype: str, steps: int, device=None,
                 "collective_s": timer.seconds - s0,
                 "flash": list(np.subtract(flash_counts(), c0).tolist()),
                 "flash_tc": list(np.subtract(flash_counts_tc(), tc0).tolist()),
+                "flash_wg": list(np.subtract(flash_counts_wg(), wg0).tolist()),
                 "params": params_digest(actor.model)})
         out["collective_calls"] = timer.calls
     out["peak_gib"] = (torch.cuda.max_memory_allocated(dev) / 2**30 if dev.type == "cuda"

@@ -414,6 +414,7 @@ no result.
 import asyncio
 import concurrent.futures
 import contextlib
+import ctypes
 import dataclasses
 import gc
 import json
@@ -703,6 +704,7 @@ def compare_flash(name, qs, k, v, dout, sg, window=None, softcap=None):
     hd = qs.shape[-1]
     tc0 = [w.launches_tc for w in wrappers]
     hd0 = [w.launches_hd[hd] for w in wrappers]
+    wg0 = [w.launches_wg for w in wrappers]
     out, lse = fa.flash_fwd(qs, k, v, sg, window, softcap)
     out2, lse2 = fa.flash_fwd(qs, k, v, sg, window, softcap)
     di = fa.attention_di(out, dout)
@@ -712,6 +714,8 @@ def compare_flash(name, qs, k, v, dout, sg, window=None, softcap=None):
     dk2, dv2 = fa.flash_bwd_dkv(qs, k, v, sg, dout, lse, di, window, softcap)
     tc_runs = [w.launches_tc - n for w, n in zip(wrappers, tc0)]
     hd_runs = [w.launches_hd[hd] - n for w, n in zip(wrappers, hd0)]
+    wg_runs = [w.launches_wg - n for w, n in zip(wrappers, wg0)]
+    want_wg = [2 if fa.variant(kn, qs.dtype, hd) == "wg" else 0 for kn in ("fwd", "dq", "dkv")]
     p_out, p_lse = fa.flash_fwd_plain(qs, k, v, sg, window, softcap)
     p_dq = fa.flash_bwd_dq_plain(qs, k, v, sg, dout, p_lse, di, window, softcap)
     p_dk, p_dv = fa.flash_bwd_dkv_plain(qs, k, v, sg, dout, p_lse, di, window, softcap)
@@ -736,12 +740,12 @@ def compare_flash(name, qs, k, v, dout, sg, window=None, softcap=None):
           f"{rels[0]:.2e}, {rels[1]:.2e}, {rels[2]:.2e} (tol {grad_tol}); "
           f"forward and dq, dk/dv reruns equal: {fwd_equal}, {rerun_equal}; "
           f"pad rows' grads 0: {pad_zero}; fwd/dq/dkv runs on the tensor cores: "
-          f"{tc_runs} of 2 each")
+          f"{tc_runs} of 2 each, on wgmma {wg_runs}")
     finite = all(bool(torch.isfinite(t).all()) for t in (out, dq, dk, dv))
     if (bad or max(rels) > grad_tol or not rerun_equal or not fwd_equal or not finite
             or not pad_zero):
         raise AssertionError(f"flash kernels disagree with their plain versions: {name}")
-    if tc_runs != [0 if f32 else 2] * 3 or hd_runs != [2] * 3:
+    if tc_runs != [0 if f32 else 2] * 3 or hd_runs != [2] * 3 or wg_runs != want_wg:
         raise AssertionError(f"{name}: a kernel ran on the wrong variant")
     return {"flash_fwd": float(err.max()), "flash_bwd_dq": abss[0],
             "flash_bwd_dkv": max(abss[1], abss[2])}
@@ -750,7 +754,8 @@ def compare_flash(name, qs, k, v, dout, sg, window=None, softcap=None):
 def check_flash():
     """`compare_flash` on single packed rows at Qwen2.5's heads: several
     segments with tail padding, one segment, a window, a softcap, and f32;
-    at Qwen3-1.7B's; and at head dim 256: Gemma-2B's (8 q heads on one kv
+    at Qwen3-1.7B's; at group 1 (12 q heads on 12 kv heads); and at head
+    dim 256: Gemma-2B's (8 q heads on one kv
     head) and Gemma-7B's (16 on 16) heads, on the same kinds of rows, and
     Gemma-2-2B's (8 on 4) with its window and softcap on a row past the
     window.
@@ -765,6 +770,8 @@ def check_flash():
         ("f32 T=256", packed_segments(256, [100, 140]), dict(dtype=torch.float32)),
         ("Qwen3-1.7B heads (Hq=16 Hkv=8), T=2048, 3 segments + padding",
          packed_segments(2048, [700, 900, 300]), dict(Hq=16, Hkv=8)),
+        ("group 1 at hd 128 (Hq=Hkv=12), T=2048, 3 segments + padding",
+         packed_segments(2048, [700, 900, 300]), dict(Hq=12, Hkv=12)),
         ("hd 256, Gemma-2B heads (Hq=8 Hkv=1), T=2048, 3 segments + padding",
          packed_segments(2048, [700, 900, 300]), dict(g2b)),
         ("hd 256, Gemma-7B heads (Hq=16 Hkv=16), T=2048, 3 segments + padding",
@@ -1047,10 +1054,32 @@ def flash_counts_tc():
             fa.flash_bwd_dkv.launches_tc)
 
 
+def flash_counts_wg():
+    return (fa.flash_fwd.launches_wg, fa.flash_bwd_dq.launches_wg,
+            fa.flash_bwd_dkv.launches_wg)
+
+
 def reset_flash_counts():
     for w in (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv):
-        w.launches = w.launches_tc = 0
+        w.launches = w.launches_tc = w.launches_wg = 0
         w.launches_hd = dict.fromkeys(fa.HEAD_DIMS, 0)
+
+
+def check_flash_wg(label):
+    """Every flash launch since the last reset (of a phase that runs bf16
+    alone) ran its wgmma kernel, as the C entries report the kernel they
+    launched: the forward and dq at both head dims, dk/dv at hd 128
+    (`fa.variant`; dk/dv at hd 256 runs the mma.sync cluster kernel).
+    Returns the wgmma launches fwd/dq/dkv."""
+    dkv = fa.flash_bwd_dkv
+    want = (fa.flash_fwd.launches, fa.flash_bwd_dq.launches,
+            dkv.launches - dkv.launches_hd[256])
+    got = flash_counts_wg()
+    print(f"  {label}: flash launches on wgmma fwd/dq/dkv {got} (want {want})")
+    if got != want:
+        raise AssertionError(f"a bf16 flash launch of the {label} phase missed its wgmma "
+                             f"kernel: {got} of {want}")
+    return got
 
 
 # kernel groups of the train profile, by substrings of the kernel's name
@@ -1062,7 +1091,9 @@ TRAIN_OP_GROUPS = (
     ("elementwise", ("elementwise",)),
     ("reductions", ("reduce",)),
 )
-FLASH_KERNELS = ("flash_fwd_tc_kernel", "flash_bwd_dq_tc_kernel", "flash_bwd_dkv_tc_kernel")
+# the bf16 flash kernels, by a substring of the profiler's (demangled) name
+FLASH_KERNELS = (("forward", "flash_wg_kernel<false"), ("dq", "flash_wg_kernel<true"),
+                 ("dk/dv", "flash_dkv_wg_kernel"), ("dk/dv at hd 256", "flash_bwd_dkv_tc256"))
 
 
 def report_train_profile(prof, wall_us, what, top=12):
@@ -1090,8 +1121,8 @@ def report_train_profile(prof, wall_us, what, top=12):
     print("  by group: " + ", ".join(
         f"{lab} {t / 1e3:.2f} ms ({100 * t / total:.1f}%)"
         for lab, t in sorted(groups.items(), key=lambda kv: -kv[1])))
-    flash = [(n, sum(e.self_device_time_total for e in kernels if n in e.key))
-             for n in FLASH_KERNELS]
+    flash = [(n, sum(e.self_device_time_total for e in kernels if key in e.key))
+             for n, key in FLASH_KERNELS]
     print("  flash kernels: " + ", ".join(
         f"{n} {t / 1e3:.2f} ms ({100 * t / total:.1f}%)" for n, t in flash))
     print(f"  device busy {100 * total / wall_us:.1f}% of the window's wall time")
@@ -1425,6 +1456,7 @@ def grpo_loop(ckpt_dir, model="qwen2.5-1.5b", plans=GRPO_PLANS):
         if on_tc != flash_counts():
             raise AssertionError("a bf16 flash launch of the grpo phase missed its "
                                  "tensor-core kernel")
+        check_flash_wg(f"grpo ({model})")
         served = dict(serving.engine.model.named_parameters())
         if serving.get_version() != actor.get_version() or not all(
                 torch.equal(served[n], p.detach().to(torch.bfloat16))
@@ -1782,6 +1814,7 @@ def remote_qwen(ckpt_dir, publish_dir):
         if flash_counts_tc() != flash_counts():
             raise AssertionError("a bf16 flash launch of the remote phase missed its "
                                  "tensor-core kernel")
+        check_flash_wg("remote")
         trainer_peak = torch.cuda.max_memory_allocated()
         server_peak = bench.server_metrics(addr).get("max_memory_allocated", 0)
         print(f"  peak memory: trainer process {trainer_peak / 2**30:.2f} GiB, server process "
@@ -2126,6 +2159,7 @@ def router_qwen(ckpt_dir, build_dir):
         if flash_counts_tc() != flash_counts():
             raise AssertionError("a bf16 flash launch of the router phase missed its "
                                  "tensor-core kernel")
+        check_flash_wg("router")
 
         # both servers idle: their K2 launches and prefix accounting so far
         pre = [get_addr(a, "/metrics") for a in addrs]
@@ -2263,8 +2297,14 @@ def router_qwen(ckpt_dir, build_dir):
                 env=dict(os.environ, PYTHONPATH=ROOT), cwd=ROOT, stdout=log_f,
                 stderr=subprocess.STDOUT, start_new_session=True))
         t_restart = time.perf_counter()
-        wait_for(lambda: monitor.first(addrs[1], "closed", t_restart) is not None,
-                 "server 1 closed again after its restart", timeout=180, step=0.1)
+        try:
+            wait_for(lambda: monitor.first(addrs[1], "closed", t_restart) is not None,
+                     "server 1 closed again after its restart", timeout=180, step=0.1)
+        except AssertionError:
+            with open(os.path.join(log_dir, "gen_server_1_restart.log"), "rb") as log_f:
+                tail = log_f.read()[-4000:].decode(errors="replace")
+            print(f"  the restarted server's log ends:\n{tail}", flush=True)
+            raise
         t_half = monitor.first(addrs[1], "half_open", t_restart)
         t_closed = monitor.first(addrs[1], "closed", t_restart)
         version = actor.get_version()
@@ -2502,6 +2542,7 @@ def recover_save_load(work_dir):
     if launches != (2 * L * n_mb, L * n_mb, L * n_mb) or on_tc != launches:
         raise AssertionError(f"the two updates launched {launches} flash kernels ({on_tc} on "
                              f"the tensor cores), not {(2 * L * n_mb, L * n_mb, L * n_mb)}")
+    check_flash_wg("recover")
     if not same_state():
         raise AssertionError("one ppo_update from the loaded state is not bit-equal to the "
                              "update from the live state")
@@ -3314,7 +3355,8 @@ def dkv_cluster_sweep():
                     0, 1, qs.data_ptr(), k.data_ptr(), v.data_ptr(), sg.data_ptr(),
                     sg.data_ptr(), dout.data_ptr(), lse.data_ptr(), di.data_ptr(),
                     dk.data_ptr(), dv.data_ptr(), cluster,
-                    *fa._rows(qs, k, None, None, 0)), "flash_bwd_dkv")
+                    *fa._rows(qs, k, None, None, 0), ctypes.byref(ctypes.c_int())),
+                    "flash_bwd_dkv")
 
             times.append(f"{cluster}{'*' if cluster == pick else ''} "
                          f"{fmt_ms(device_ms(run, iters=20))}")
@@ -3817,6 +3859,8 @@ FLASH_REPLACES = {
     "flash_bwd_dkv": "areal_tpu/ops/attention.py:176 (splash dk/dv, "
                      "splash_attention_kernel.py:2196, jax 0.9.0)",
 }
+# the `fa.variant` name of each wrapper's kernel
+FLASH_KIND = {"flash_fwd": "fwd", "flash_bwd_dq": "dq", "flash_bwd_dkv": "dkv"}
 
 
 def attended_pairs(seg: torch.Tensor) -> int:
@@ -3973,6 +4017,7 @@ def compare_flash_offset(name, qs, k, v, dout, sg, sp, window=None, softcap=None
     f32 = qs.dtype == torch.float32
     wrappers = (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv)
     tc0 = [w.launches_tc for w in wrappers]
+    wg0 = [w.launches_wg for w in wrappers]
     full_out, full_lse = fa.flash_fwd(qs, k, v, sg, window, softcap)
     full_di = fa.attention_di(full_out, dout)
     full_dq = fa.flash_bwd_dq(qs, k, v, sg, dout, full_lse, full_di, window, softcap)
@@ -4031,10 +4076,14 @@ def compare_flash_offset(name, qs, k, v, dout, sg, sp, window=None, softcap=None
     sum_tol = SUM_F32_TOL if f32 else BF16_RTOL
     tc_runs = [w.launches_tc - t for w, t in zip(wrappers, tc0)]
     want_tc = [0, 0, 0] if f32 else [1 + 2 * sp] * 3
+    wg_runs = [w.launches_wg - t for w, t in zip(wrappers, wg0)]
+    want_wg = [1 + 2 * sp if fa.variant(kn, qs.dtype, qs.shape[-1]) == "wg" else 0
+               for kn in ("fwd", "dq", "dkv")]
     print(f"  {name}, sp {sp}: summed dk, dv partials against the unsharded kernel "
           f"max|diff|/max {sum_err[0]:.2e}, {sum_err[1]:.2e} (tol {sum_tol:g}); "
-          f"tensor-core launches {tc_runs} (want {want_tc})")
-    if not ok or max(sum_err) > sum_tol or tc_runs != want_tc:
+          f"tensor-core launches {tc_runs} (want {want_tc}), on wgmma {wg_runs} (want "
+          f"{want_wg})")
+    if not ok or max(sum_err) > sum_tol or tc_runs != want_tc or wg_runs != want_wg:
         raise AssertionError(f"the offset flash kernels disagree: {name}, sp {sp}")
     return errs
 
@@ -4240,7 +4289,8 @@ def sp_runs(cases):
                   + f"; {r['collective_calls']} collectives; peak {r['peak_gib']:.2f} GiB; K1 "
                   f"launches fwd/dq/dkv: logp {r['logp_flash']}, updates "
                   f"{[s['flash'] for s in r['steps']]} (tensor cores "
-                  f"{[s['flash_tc'] for s in r['steps']]})")
+                  f"{[s['flash_tc'] for s in r['steps']]}, wgmma "
+                  f"{[s['flash_wg'] for s in r['steps']]})")
         for i, (a, b) in enumerate(zip(*[r["steps"] for r in two])):
             if a["params"] != b["params"] or a["loss"] != b["loss"] or a["grad_norm"] != b[
                     "grad_norm"]:
@@ -4256,6 +4306,11 @@ def sp_runs(cases):
             if dtype == "bfloat16" and any(s["flash_tc"] != want_step for s in r["steps"]):
                 raise AssertionError(f"rank {r['proc']}: a bf16 K1 launch missed the tensor "
                                      "cores")
+            # hd 128: every bf16 launch on the wgmma kernels
+            want_wg = want_step if dtype == "bfloat16" else [0, 0, 0]
+            if any(s["flash_wg"] != want_wg for s in r["steps"]):
+                raise AssertionError(f"rank {r['proc']}: {dtype} K1 launches on wgmma "
+                                     f"{[s['flash_wg'] for s in r['steps']]}, want {want_wg}")
         if [r["rollout_calls"] for r in two] != [1, 0] or {r["backend"] for r in two} != {
                 "gloo"}:
             raise AssertionError("the head alone must roll out, over gloo")
@@ -4478,6 +4533,7 @@ def ppo_phase(ckpt_dir):
         raise AssertionError("ppo: trainer logprobs disagree with the server's")
     if flash_counts_tc() != flash_counts():
         raise AssertionError("a bf16 flash launch of the ppo phase missed its tensor-core kernel")
+    check_flash_wg("ppo")
     flash = flash_counts()
     # the critic's values through the kernels against naive attention
     batch = steps[-1]["batch"]
@@ -4814,6 +4870,7 @@ def algo_phase():
     if flash_counts_tc() != flash_counts():
         raise AssertionError("a bf16 flash launch of the algo phase missed its tensor-core "
                              "kernel")
+    check_flash_wg("algo")
     return tuple(int(x) for x in counted), rw_times, errs
 
 
@@ -5338,6 +5395,7 @@ def main(argv):
             if on_tc != flash_launches:
                 raise AssertionError("a bf16 flash launch of the train phase missed its "
                                      "tensor-core kernel")
+            check_flash_wg("train")
         with phase("flash timings"):
             flash_times, train_err = time_flash(seg_rows)
             flash_err = {n: max(flash_err[n], train_err[n]) for n in flash_err}
@@ -5445,6 +5503,8 @@ def main(argv):
             "route": "cuda",
             "source": "areal_tpu_torch/csrc/flash_attention.cu",
             "replaces": FLASH_REPLACES[name],
+            # the bf16 kernel every one of these launches ran (asserted by phase)
+            "variant": fa.variant(FLASH_KIND[name], torch.bfloat16, 128),
             "launches": (n + n_grpo + n_fam + n_remote + n_router + n_ppo + n_algo
                          + n_recover),
             "launches_by_path": {"train": n, "grpo": n_grpo, "families": n_fam,
@@ -5471,6 +5531,7 @@ def main(argv):
             "route": "cuda",
             "source": "areal_tpu_torch/csrc/flash_attention.cu",
             "replaces": FLASH_REPLACES[name],
+            "variant": fa.variant(FLASH_KIND[name], torch.bfloat16, 256),
             "launches": n + n_ladder,
             "launches_by_path": {"gemma1": n, "gemma1_rung_ladder": n_ladder},
             "max_abs_err": flash_err256[name],

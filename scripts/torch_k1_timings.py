@@ -24,9 +24,10 @@ dim only (default both).  Each
 kernel is first held against its plain version (the forward within 2^-6,
 the gradients within 2e-2 of the largest element: `chip_smoke.py`'s
 limits), then timed: device time per call by torch.profiler and time per
-call by CUDA events over back-to-back calls.  Beside the unsharded hd-128
-forwards: torch SDPA's forward on the same block-diagonal causal mask
-(device time) and the forward's bound on an H100 SXM (the larger of its
+call by CUDA events over back-to-back calls.  Beside each unsharded hd-128
+kernel: torch SDPA on the same block-diagonal causal mask (device time;
+its forward beside the forward kernel, its forward and backward beside
+dq and dk/dv) and the kernel's bound on an H100 SXM (the larger of its
 bytes over 3.35 TB/s and its attended pairs' flops over 989 TFLOP/s,
 counted as `chip_smoke.py flash_bounds` counts them).  Needs a CUDA device; the
 kernels build from DIR at first use.
@@ -141,9 +142,12 @@ def device_ms(fn, iters=20):
     return None
 
 
-def forward_yardsticks(qs, k, v, sg):
-    """(SDPA forward device ms, the forward's bound ms, "bytes" or
-    "operations") on unsharded rows."""
+def yardsticks(qs, k, v, dout, sg):
+    """{kernel: (SDPA device ms, bound ms, "bytes" or "operations")} on
+    unsharded rows: SDPA's forward beside the forward kernel, its forward
+    and backward (one autograd call gives dq, dk and dv) beside the two
+    backward kernels; each kernel's bound counted as `chip_smoke.py
+    flash_bounds` counts it."""
     B, T, Hq, hd = qs.shape
     Hkv, item = k.shape[2], qs.element_size()
     n_valid = int((sg >= 0).sum())
@@ -151,21 +155,35 @@ def forward_yardsticks(qs, k, v, sg):
     for row in sg.cpu().numpy():
         _, n = np.unique(row[row >= 0], return_counts=True)
         pairs += int((n * (n + 1) // 2).sum())
-    nbytes = (sg.numel() * 4 + n_valid * Hq * hd * item + 2 * n_valid * Hkv * hd * item
-              + qs.numel() * item + B * Hq * T * 4)
-    t_bytes, t_ops = nbytes / 3.35e12 * 1e3, 4 * pairs * Hq * hd / 989e12 * 1e3
+    q_in, kv_in, row_in = n_valid * Hq * hd * item, n_valid * Hkv * hd * item, n_valid * Hq * 4
+    q_out, kv_out, row_out, ids = qs.numel() * item, k.numel() * item, B * Hq * T * 4, sg.numel() * 4
+    ops = pairs * Hq * hd
+    work = {"flash_fwd": (ids + q_in + 2 * kv_in + q_out + row_out, 4 * ops),
+            "flash_bwd_dq": (ids + 2 * q_in + 2 * kv_in + 2 * row_in + q_out, 6 * ops),
+            "flash_bwd_dkv": (ids + 2 * q_in + 2 * kv_in + 2 * row_in + 2 * kv_out, 8 * ops)}
     idx = torch.arange(T, device=sg.device)
     same = (sg[:, :, None] == sg[:, None, :]) & (sg[:, :, None] >= 0)
     mask = ((same & (idx[None, :] <= idx[:, None]))
             | torch.eye(T, dtype=torch.bool, device=sg.device))[:, None]
-    q4, k4, v4 = (x.transpose(1, 2) for x in (qs, k, v))
+    q4, k4, v4 = (x.transpose(1, 2).detach().requires_grad_(True) for x in (qs, k, v))
+    g4 = dout.transpose(1, 2)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
 
-    def sdpa():
-        torch.nn.functional.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask, scale=1.0,
-                                                         enable_gqa=True)
+    def fwd():
+        with torch.no_grad():
+            sdpa(q4, k4, v4, attn_mask=mask, scale=1.0, enable_gqa=True)
 
-    by = "bytes" if t_bytes >= t_ops else "operations"
-    return device_ms(sdpa), max(t_bytes, t_ops), by
+    def fwd_bwd():
+        torch.autograd.grad(sdpa(q4, k4, v4, attn_mask=mask, scale=1.0, enable_gqa=True),
+                            (q4, k4, v4), g4)
+
+    lib_fwd, lib_bwd = device_ms(fwd), device_ms(fwd_bwd, iters=10)
+    res = {}
+    for name, (nbytes, flops) in work.items():
+        t_bytes, t_ops = nbytes / 3.35e12 * 1e3, flops / 989e12 * 1e3
+        res[name] = (lib_fwd if name == "flash_fwd" else lib_bwd, max(t_bytes, t_ops),
+                     "bytes" if t_bytes >= t_ops else "operations")
+    return res
 
 
 def time_case(fa, name, qs, k, v, dout, sg, q_start=0, kv_seg=None):
@@ -226,8 +244,8 @@ def main(argv):
                                 ("hd128_reward_model_rows", rw, QWEN25_HEADS)):
             case = make_case(320 + len(cases), seg, fa, heads)
             cases[key] = time_case(fa, f"{key} {tuple(seg.shape)}", *case)
-            sdpa, bound, by = forward_yardsticks(case[0], case[1], case[2], case[4])
-            cases[key]["flash_fwd"].update(sdpa_device_ms=sdpa, bound_ms=bound, bound_by=by)
+            for name, (sdpa, bound, by) in yardsticks(*case).items():
+                cases[key][name].update(sdpa_device_ms=sdpa, bound_ms=bound, bound_by=by)
         qs, k, v, dout, sg = make_case(330, sp_batch, fa, QWEN25_HEADS)
         n = sp_batch.shape[1] // 2
         for s in range(2):

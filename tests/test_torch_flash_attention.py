@@ -195,6 +195,98 @@ def test_dkv_plan():
     assert fa.dkv_plan(8, 1, 256, False, 1, 1024) == 1
 
 
+def _flash_source():
+    import os
+
+    return open(os.path.join(os.path.dirname(fa.__file__), "..", "csrc",
+                             "flash_attention.cu")).read()
+
+
+def _c_launchers(src):
+    """{launcher: variant} read from `csrc/flash_attention.cu`: the
+    `Variant` each launcher reports, named by the wrappers' `_VARIANTS`,
+    whose order must be the enum's."""
+    import re
+
+    enum = re.search(r"enum Variant : int \{([^}]*)\}", src).group(1)
+    codes = {name: int(value) for name, value in re.findall(r"(k\w+) = (\d+)", enum)}
+    assert sorted(codes.values()) == list(range(len(fa._VARIANTS)))
+    launchers = {}
+    for m in re.finditer(r"\ncudaError_t (\w+)\(", src):
+        body = src[m.start():src.index("\n}\n", m.start())]
+        report = re.search(r"return report\(.*?, (k\w+), launched\);", body, re.S)
+        if report:
+            launchers[m.group(1)] = fa._VARIANTS[codes[report.group(1)]]
+    return launchers
+
+
+def _c_rule():
+    """{(kernel, bf16, hd): variant} read from the C entry points of
+    `csrc/flash_attention.cu`: each entry's float32 return, then its
+    bfloat16 return, each a choice by `hd == 128` between two launchers,
+    and the variant each launcher reports it launched."""
+    import re
+
+    src = _flash_source()
+    launchers = _c_launchers(src)
+    assert set(launchers) == {"fwd", "bwd_dq", "bwd_dkv", "attn_wg", "bwd_dkv_wg",
+                              "bwd_dkv_tc256"}, launchers
+    rule = {}
+    for kernel, entry in (("fwd", "flash_fwd"), ("dq", "flash_bwd_dq"), ("dkv", "flash_bwd_dkv")):
+        body = src[src.index(f'extern "C" int {entry}('):]
+        body = body[:body.index("\n}\n")]
+        f32_part, bf16_part = body.split("if (!bf16)", 1)[1].split(";", 1)
+        for bf16, text in ((False, f32_part), (True, bf16_part)):
+            m = re.search(r"hd == 128\s*\?\s*(\w+)(<[^>]*>)?\(.*?:\s*(\w+)(<[^>]*>)?\(", text,
+                          re.S)
+            for hd, name, targs in ((128, m.group(1), m.group(2)), (256, m.group(3),
+                                                                    m.group(4))):
+                if targs:  # a template's head dim is the launch's
+                    assert targs.rstrip(">").split(",")[-1].strip() == str(hd), (entry, targs)
+                rule[(kernel, bf16, hd)] = launchers[name]
+    return rule
+
+
+@pytest.mark.parametrize("kernel", ["fwd", "dq", "dkv"])
+def test_variant_rule_matches_the_cuda_entry_point(kernel):
+    """`variant` mirrors the C entry points' choice by dtype and head dim:
+    float32 on the CUDA cores; bfloat16 on the wgmma kernels, the forward
+    and dq at hd 128 and 256 and dk/dv at hd 128, and dk/dv at hd 256 on
+    the mma.sync cluster kernel."""
+    rule = _c_rule()
+    for dtype in (torch.float32, torch.bfloat16):
+        for hd in fa.HEAD_DIMS:
+            assert fa.variant(kernel, dtype, hd) == rule[(kernel, dtype == torch.bfloat16, hd)]
+    assert fa.variant(kernel, torch.bfloat16, 128) == "wg"
+    assert fa.variant(kernel, torch.float32, 128) == "cores"
+    want_256 = "tc" if kernel == "dkv" else "wg"
+    assert fa.variant(kernel, torch.bfloat16, 256) == want_256
+
+
+@pytest.mark.parametrize("kernel,wrapper", [("fwd", fa.flash_fwd), ("dq", fa.flash_bwd_dq),
+                                            ("dkv", fa.flash_bwd_dkv)])
+def test_launches_wg_counts_the_wgmma_variant(kernel, wrapper, monkeypatch):
+    """Each wrapper's `launches_wg` advances with a launch that its C
+    entry reports on the wgmma kernels and with no other, and starts at 0
+    beside `launches` and `launches_tc`; a launch the entry reports no
+    kernel for raises and counts nothing."""
+    assert isinstance(wrapper.launches_wg, int)
+    for attr in ("launches", "launches_tc", "launches_wg"):
+        monkeypatch.setattr(wrapper, attr, 0)
+    monkeypatch.setattr(wrapper, "launches_hd", dict.fromkeys(fa.HEAD_DIMS, 0))
+    rule = _c_rule()
+    calls = [(bf16, hd) for bf16 in (False, True) for hd in fa.HEAD_DIMS]
+    for bf16, hd in calls:
+        fa._count(wrapper, fa._VARIANTS.index(rule[(kernel, bf16, hd)]), hd)
+    n_wg = sum(rule[(kernel, bf16, hd)] == "wg" for bf16, hd in calls)
+    assert (wrapper.launches, wrapper.launches_tc, wrapper.launches_wg) == (4, 2, n_wg)
+    assert n_wg == (1 if kernel == "dkv" else 2)
+    assert wrapper.launches_hd == {128: 2, 256: 2}
+    with pytest.raises(RuntimeError, match="reported no kernel"):
+        fa._count(wrapper, -1, 128)
+    assert (wrapper.launches, wrapper.launches_tc, wrapper.launches_wg) == (4, 2, n_wg)
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take():
     """CPU tensors never reach a kernel, and no kernel takes a head dim
     other than 128 and 256 (a device other than cuda is refused either
@@ -582,15 +674,72 @@ def test_cuda_hd128_wgmma_forward(cuda_device, case):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("case", [
+    dict(T=2048, n_segs=3, **QWEN25_HEADS),
+    dict(T=1024, n_segs=2, B=8, **QWEN3_HEADS),
+    dict(T=1024, n_segs=2, Hq=4, Hkv=4),
+    dict(T=1000, n_segs=2, **QWEN25_HEADS),
+    dict(T=1024, n_segs=2, window=256, **QWEN25_HEADS),
+    dict(T=1024, n_segs=2, softcap=30.0, **QWEN25_HEADS),
+    dict(rw=(40, 120, 0, 77), **QWEN25_HEADS),
+], ids=["qwen2.5-T2048", "qwen3-8-rows", "mha", "partial-tile", "window", "softcap",
+        "reward-model-rows"])
+def test_cuda_hd128_wgmma_backward(cuda_device, case):
+    """The bf16 dq and dk/dv at head dim 128 on wgmma
+    (`wg::flash_wg_kernel<true, CAP, 128>` and `wg::flash_dkv_wg_kernel`)
+    against the f32 plain versions: Qwen2.5-1.5B's heads (12 q on 2 kv) on
+    rows of 2048 with 3 segments and tail padding, Qwen3-1.7B's (16 on 8),
+    group 1, T = 1000 (a partial last key tile, and a block whose second
+    64 keys lie past the row), a window, a softcap, and the reward model's
+    rows (one short sequence a row of 1024, one row filler end to end):
+    dq, dk and dv within 2e-2 of the largest element (P and dS rounded to
+    bf16 before their products); pad rows' gradients exactly 0; reruns
+    bit-equal; every launch counted on the wgmma variant."""
+    window, softcap = case.get("window"), case.get("softcap")
+    if "rw" in case:
+        q, k, v, g, seg = _rw_rows(53, lens=case["rw"])
+    else:
+        q, k, v, g, seg, _ = _packed(53, B=case.get("B", 2), T=case["T"], Hq=case["Hq"],
+                                     Hkv=case["Hkv"], hd=128, n_segs=case["n_segs"])
+    qs, kk, vv, dout = (torch.from_numpy(x).to(cuda_device, torch.bfloat16) for x in (q, k, v, g))
+    qs = fa.scale_query(qs)
+    sg = torch.from_numpy(seg).to(cuda_device)
+    out, lse = fa.flash_fwd(qs, kk, vv, sg, window, softcap)
+    di = fa.attention_di(out, dout)
+    wrappers = (fa.flash_bwd_dq, fa.flash_bwd_dkv)
+    before = [(w.launches, w.launches_tc, w.launches_wg, w.launches_hd[128]) for w in wrappers]
+    dq = fa.flash_bwd_dq(qs, kk, vv, sg, dout, lse, di, window, softcap)
+    dq2 = fa.flash_bwd_dq(qs, kk, vv, sg, dout, lse, di, window, softcap)
+    dk, dv = fa.flash_bwd_dkv(qs, kk, vv, sg, dout, lse, di, window, softcap)
+    dk2, dv2 = fa.flash_bwd_dkv(qs, kk, vv, sg, dout, lse, di, window, softcap)
+    torch.cuda.synchronize()
+    assert [(w.launches, w.launches_tc, w.launches_wg, w.launches_hd[128])
+            for w in wrappers] == [tuple(n + 2 for n in b) for b in before]
+    assert torch.equal(dq, dq2) and torch.equal(dk, dk2) and torch.equal(dv, dv2)
+    pad = torch.from_numpy(seg < 0).to(cuda_device)
+    for t in (dq, dk, dv):
+        assert bool(torch.isfinite(t).all())
+        assert not t[pad].any()
+    p_dq = fa.flash_bwd_dq_plain(qs, kk, vv, sg, dout, lse, di, window, softcap)
+    p_dk, p_dv = fa.flash_bwd_dkv_plain(qs, kk, vv, sg, dout, lse, di, window, softcap)
+    for name, a, b in (("dq", dq, p_dq), ("dk", dk, p_dk), ("dv", dv, p_dv)):
+        rel = ((a.float() - b.float()).abs().max() / b.float().abs().max()).item()
+        assert rel < 2e-2, (name, rel)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("sp", [2, 4])
 @pytest.mark.parametrize("heads", [QWEN25_HEADS, QWEN3_HEADS], ids=["qwen2.5", "qwen3"])
 def test_cuda_hd128_offset_shards_equal_unsharded_rows(cuda_device, heads, sp):
     """Each sp shard of a row of 2048 (3 segments, tail padding) at its
-    query offset, through the hd-128 wgmma forward: its out and lse
+    query offset, through the hd-128 wgmma kernels: its out and lse
     bit-equal to the unsharded kernel's rows (a shard starts on a multiple
     of 128 rows, so every row's key tiles are the same), and against the
     plain offset version within the K1a limit; the shards' dq against the
-    unsharded dq kernel fed the same lse, bit for bit."""
+    unsharded dq kernel fed the same lse, bit for bit; each shard's dk/dv
+    partial zero, exactly, at the keys past its last query, and the
+    partials summed within 2e-2 of the unsharded dk/dv kernel's largest
+    element (each partial is rounded to bf16 once)."""
     q, k, v, g, seg, _ = _packed(47, B=1, T=2048, Hq=heads["Hq"], Hkv=heads["Hkv"], hd=128,
                                  n_segs=3)
     qs, kk, vv, dout = (torch.from_numpy(x).to(cuda_device, torch.bfloat16) for x in (q, k, v, g))
@@ -599,6 +748,9 @@ def test_cuda_hd128_offset_shards_equal_unsharded_rows(cuda_device, heads, sp):
     full_out, full_lse = fa.flash_fwd(qs, kk, vv, sg)
     full_di = fa.attention_di(full_out, dout)
     full_dq = fa.flash_bwd_dq(qs, kk, vv, sg, dout, full_lse, full_di)
+    full_dk, full_dv = fa.flash_bwd_dkv(qs, kk, vv, sg, dout, full_lse, full_di)
+    sums = [torch.zeros_like(kk, dtype=torch.float32) for _ in range(2)]
+    wg0 = [w.launches_wg for w in (fa.flash_bwd_dq, fa.flash_bwd_dkv)]
     n = 2048 // sp
     for s in range(sp):
         a = s * n
@@ -607,13 +759,22 @@ def test_cuda_hd128_offset_shards_equal_unsharded_rows(cuda_device, heads, sp):
         out, lse = fa.flash_fwd(q_s, kk, vv, sg_s, **kw)
         di = full_di[:, :, a:a + n].contiguous()
         dq = fa.flash_bwd_dq(q_s, kk, vv, sg_s, do_s, lse, di, **kw)
+        dk, dv = fa.flash_bwd_dkv(q_s, kk, vv, sg_s, do_s, lse, di, **kw)
         torch.cuda.synchronize()
         assert torch.equal(out, full_out[:, a:a + n]), s
         assert torch.equal(lse, full_lse[:, :, a:a + n]), s
         assert torch.equal(dq, full_dq[:, a:a + n]), s
+        assert not dk[:, a + n:].any() and not dv[:, a + n:].any(), s
+        sums[0] += dk.float()
+        sums[1] += dv.float()
         p_out, _ = fa.flash_fwd_plain(q_s, kk, vv, sg_s, **kw)
         valid = sg_s >= 0
         assert (out.float() - p_out.float()).abs()[valid].max().item() <= K1A_ATOL
+    assert [w.launches_wg for w in (fa.flash_bwd_dq, fa.flash_bwd_dkv)] == [
+        n0 + sp for n0 in wg0]
+    for name, x, y in (("dk", sums[0], full_dk), ("dv", sums[1], full_dv)):
+        rel = ((x - y.float()).abs().max() / y.float().abs().max()).item()
+        assert rel < 2e-2, (name, rel)
 
 
 def _rw_rows(seed, lens=(1024, 300, 700, 0), T=1024, Hq=12, Hkv=2, hd=128):
