@@ -81,7 +81,7 @@ Phases, each printed with its wall time; any failure exits non-zero:
             counted apart = 4 x verify calls, none on `dec` or `tc` (f32);
             (c) `python -m
             areal_tpu_torch.gen.server` on a checkpoint of the serve
-            phase's model cut to SPEC_PPO_LAYERS (8) layers with
+            phase's model cut to SPEC_PPO_LAYERS (4) layers with
             --spec-decode and without (8 slots each, the launch helper),
             the same 8 requests (64..512-token prompts of tiled spans, 128
             new tokens, half greedy): tokens/s, drafted, accepted, verify
@@ -93,25 +93,26 @@ Phases, each printed with its wall time; any failure exits non-zero:
             (on the tensor cores) timed (events, device time) with its bound,
             plain version and SDPA on the same boolean mask.  `--only spec`
             runs the build, a checkpoint and this phase alone
-6c. tiers   the serve phase's model (28 layers) in process, two engines of
+6c. tiers   the spec phase's checkpoint (SPEC_PPO_LAYERS, 4; 28 before the
+            benches phase came) in process, two engines of
             16 slots x 2048: tiered (decode_tiers=2: ceilings 1024 and 2048,
             8 slots each; the host tier on, 2048 MiB) and untiered.  16 greedy
             requests (8 of 900..950 tokens and 128 new, 4 "movers" of
             760..800 and 256 new that find the long tier full and start in
             the short one, 4 of 700..900 and 64 new) through both (after a
             warm-up batch of the same shapes, untiered first, both timed): streams
-            equal token for token, migrations > 0, K2 = 28 x (decode steps +
-            verify calls) on the tiered run.  16 fillers spill every
+            equal token for token, migrations > 0, K2 = layers x (decode
+            steps + verify calls) on the tiered run.  16 fillers spill every
             retained prefix to the host tier; a mover's transcript comes back
             and swaps in: its row's bytes equal the spilled bytes and its
             greedy continuation equals the untiered engine's, whose prefix
             never left the device; spill and swap-in of a 1024-token block
-            (29.4 MB) timed through the pinned staging buffer.  Staged
+            (4.2 MB at 4 layers) timed through the pinned staging buffer.  Staged
             weights: `stage_params` from host tensors on a thread while 16
             requests decode, `commit_staged(live=True)` and `(live=False)`
             each advancing the version, their pauses against `load_weights`
-            of the same host tensors.  `--only tiers` runs the build, a
-            28-layer checkpoint and this phase
+            of the same host tensors.  `--only tiers` runs the build, an
+            4-layer checkpoint and this phase
 7. train    the PPO actor on the serve phase's checkpoint at full width (f32
             masters, bf16 compute, full remat) beside a server of the same
             checkpoint: 8 prompts x group 4 rolled out over HTTP (256 new
@@ -151,7 +152,7 @@ Phases, each printed with its wall time; any failure exits non-zero:
             `--only sp` runs the build, the offset checks and this phase
 9. grpo     the asynchronous GRPO loop of `areal_tpu_torch.scripts.bench_e2e_grpo`
             at full width from a checkpoint of the serve phase's model cut
-            to REMOTE_LAYERS (4) layers, which the remote and router
+            to REMOTE_LAYERS (2) layers, which the remote and router
             phases then reuse, trainer (f32
             masters, bf16 compute, full remat, decoupled loss, logprob
             recompute) and `ColocatedEngine` (32 slots, max_seq_len 1024,
@@ -192,6 +193,34 @@ Phases, each printed with its wall time; any failure exits non-zero:
             accumulated tokens) reuse their retained prefixes and resume
             every stream exactly.  Ragged launches = layers x decode steps
             in every run
+10b. benches the port's measuring rigs (`areal_tpu_torch/scripts/`) at
+            Qwen2.5-1.5B's full width and 28 layers, each rig's JSON on a
+            line of its own: (a) `bench_serving`: decode at 8, 32 and 128
+            slots (64 new tokens), prefill buckets 128 / 512 / 1024 of 8
+            rows, multi-turn (4 conversations x 3 turns, 512-token turns,
+            32 new tokens, reuse against cold), group fan-out (2 groups of
+            8 over 256-token prompts, sharing on, off and with the host
+            tier), the ceiling A/B (16 slots, 4096 against 16384, 64 new
+            tokens) and the spec A/B on the repetition params (8 slots, 64
+            tokens, D = 31, each prompt seeded on one of the greedy map's
+            shortest cycles): K2 launches = layers x (decode steps + verify
+            calls) over every engine (each result's `k2_calls`), spec-on
+            streams equal spec-off, the on arm drafted and verified, the
+            multi-turn and fan-out token counts equal the workload's
+            arithmetic; (b) `bench_weight_sync`: transfer publishes and
+            disk publishes into a port server, timed in the order transfer,
+            disk, disk, transfer (6.2 GB written); (c) `bench_replay`: two
+            port servers behind the port's router, in threads of this
+            process, the mixed workload (seed 0, 8 s at 2 rps, 1,024-token
+            sequences, 32 new tokens) at rates 1, 4 and 16: no error, every
+            arrival answered, a complete SLO report (no dropped event, no
+            orphan span, the accounting identity), K2 = layers x the
+            fleet's decode steps, the load client's send lag per rate, the
+            latency tail as each rate's maximum (15 arrivals a rate); (d) the
+            staleness ablation as a smoke (50 SFT steps, then η in {0, 4} x
+            {decoupled, naive} for 5 steps: finite losses, rewards in [0,
+            1]).  About 100 s and 6.2 GB of disk writes; `--only benches`
+            runs the build and this phase
 11. families  the dense families at full width, random weights from seed 0,
             each written as an HF checkpoint by the port's writer from its
             published config.json.  Gemma-2-2B (GEMMA2_LAYERS, 10, of its
@@ -210,7 +239,7 @@ Phases, each printed with its wall time; any failure exits non-zero:
             head; loss, grad norm, tokens/s, MFU), a disk publish the
             server reloads (snapshot bit-equal to the trainer's bf16 cast),
             decode tokens/s.  Qwen3-1.7B (d=2048, 16 q / 8 kv heads, qk
-            norm; its 28 layers cut to QWEN3_LOOP_LAYERS, 4) through the
+            norm; its 28 layers cut to QWEN3_LOOP_LAYERS, 2) through the
             grpo phase's colocated loop from its checkpoint: sync and async
             (live publish), 1 + 1 steps each, with the grpo phase's checks.  Then K2 at both models' decode
             shapes and K1 at Qwen3's heads on its train rows timed against
@@ -245,7 +274,7 @@ Phases, each printed with its wall time; any failure exits non-zero:
 13. remote  the same cell with trainer and server as two processes on the
             card: `areal_tpu_torch.gen.server` started by the launch helper
             (32 slots, max_seq_len 1024, bf16, from the grpo phase's
-            checkpoint of REMOTE_LAYERS (4) layers), the
+            checkpoint of REMOTE_LAYERS (2) layers), the
             trainer here, rollouts over HTTP through
             `RemoteTorchEngine` (`bench_e2e_grpo.run_mode_remote`).  Sync
             with the disk publish (1 + 1 steps), async with the transfer
@@ -264,7 +293,7 @@ Phases, each printed with its wall time; any failure exits non-zero:
             (and logprobs) from the server process bit-equal to a GenEngine
             built here from the trainer's bf16 export
 13b. router two servers behind the port's router on the grpo phase's
-            checkpoint of REMOTE_LAYERS (4) layers, every process found
+            checkpoint of REMOTE_LAYERS (2) layers, every process found
             through name_resolve (NFS under
             build/): the launcher starts the servers from the allocation
             mode jax:d2+d1 (each registers), the router is `python -m
@@ -301,7 +330,7 @@ Phases, each printed with its wall time; any failure exits non-zero:
 13c. ppo    PPO with a learned critic, `python -m
             areal_tpu_torch.examples.math.gsm8k_ppo`'s loop (`gsm8k_grpo.run`
             with a `PPOConfig`, the example yaml's values) on the spec
-            phase's checkpoint of SPEC_PPO_LAYERS (8) layers: actor and
+            phase's checkpoint of SPEC_PPO_LAYERS (4) layers: actor and
             critic (f32 masters, bf16 compute, full remat, 2 minibatches of
             2 micro-batches each) here, one server process on the card (32
             slots, max_seq_len 1024, the launch helper); 8 prompts x group
@@ -318,7 +347,7 @@ Phases, each printed with its wall time; any failure exits non-zero:
             mean |value|), and the forced critic save of the last step (a
             tied bf16 backbone and `value_head.npy`) reloaded into a fresh
             critic: values bit-equal to the live critic's on its masters
-            rounded to bf16.  `--only ppo` runs the build, an 8-layer
+            rounded to bf16.  `--only ppo` runs the build, a 4-layer
             checkpoint and this phase
 13d. algo   SFT, the reward model, AEnt and the critic at Qwen2.5-1.5B's
             full width and 28 layers, in process, one engine at a time
@@ -340,7 +369,7 @@ Phases, each printed with its wall time; any failure exits non-zero:
             and their plain versions (a nonzero dout).  `--only algo` runs
             the build and this phase
 13e. disagg  run right after the router phase, on its checkpoint of
-            REMOTE_LAYERS (4) layers: `python -m areal_tpu_torch.gen.server
+            REMOTE_LAYERS (2) layers: `python -m areal_tpu_torch.gen.server
             --role prefill` and `--role decode` (8 slots x 2048 each; decode
             runs the host tier) behind `python -m areal_tpu_torch.gen.router
             --disagg`.  8 requests of 256..900-token prompts and 64 new
@@ -353,7 +382,7 @@ Phases, each printed with its wall time; any failure exits non-zero:
             overwritten by a batch of fillers, so that leg 1 prefills cold
             there too).  Prints the bytes a handoff, export + import ms
             through the router and its MB/s, and the workers' export and
-            import service times.  `--only disagg` runs the build, a 4-layer
+            import service times.  `--only disagg` runs the build, a 2-layer
             checkpoint and this phase
 14. recover the training job at full width.  In process: Qwen2.5-1.5B's
             width at 4 layers, the example's actor config, one update,
@@ -366,7 +395,7 @@ Phases, each printed with its wall time; any failure exits non-zero:
             areal_tpu_torch.examples.math.gsm8k_grpo --launch` for 3 steps
             at full width and RECOVER_RUN_LAYERS (2) layers, from a random
             bf16 HF checkpoint (seed 0) that trainer, ref engine and server
-            load: 256 new tokens, the transfer publish, kl_ctl 0.001 with
+            load: 128 new tokens, the transfer publish, kl_ctl 0.001 with
             the ref engine, 32 held-out gsm8k-synth problems evaluated at
             every step, a recover generation at steps 1 and 2 keeping 1, a
             bf16 export at step 2, recover.mode fault with 1 retry, and
@@ -392,8 +421,9 @@ Phases, each printed with its wall time; any failure exits non-zero:
 
 Depth cuts, to keep the whole script under 900 s and under the card
 host's 45 GiB of disk writes a call (all at full width): the spec
-servers and the ppo loop at SPEC_PPO_LAYERS (8; the spec servers ran the
-serve phase's 28 layers before the ppo phase came), the sp phase's bf16 run at
+servers, the tiers phase and the ppo loop at SPEC_PPO_LAYERS (4; 8 before
+the benches phase came, and the spec servers and tiers 28 before that),
+the sp phase's bf16 run at
 SP_LAYERS (8; at 28 its two ranks took 60.6 s on an H100, 16 of each
 update's 18 s summing f32 gradients through gloo, and at 4 they took no
 less than at 8) and its f32 run at SP_F32_LAYERS (2; 4 before).  To make
@@ -402,7 +432,12 @@ remote and router loops went to REMOTE_LAYERS (4; 8 before, and the
 colocated loop 28 before that), Gemma-2-2B to GEMMA2_LAYERS (10 of 26),
 Gemma-2B to GEMMA1_LAYERS (6 of 18), the Qwen3-1.7B loop to
 QWEN3_LOOP_LAYERS (4; 8 before) and the recover phase's launched run to
-RECOVER_RUN_LAYERS (2; 4 before).
+RECOVER_RUN_LAYERS (2; 4 before).  To make room for the benches phase
+(90–134 s) the colocated, remote, router and disagg loops went to
+REMOTE_LAYERS 2, the Qwen3-1.7B loop to 2, and the spec servers, tiers
+and ppo to SPEC_PPO_LAYERS 4 (Gemma-2-2B at 4 layers failed its window
+check), and the recover phase's launched run to 128 new tokens (256
+before) for the weight-sync bench's second pair of readings.
 
 After the card's line comes the whole run's wall time.  The line before
 the last is the kernels' JSON record (`launches` sums the
@@ -1695,11 +1730,11 @@ def greedy_streams(generate, vocab_size):
 
 
 # depth of the colocated, remote and router loops' checkpoint (full width)
-REMOTE_LAYERS = 4
+REMOTE_LAYERS = 2
 # depth of the spec servers' and the ppo loop's checkpoint (full width),
 # written in the spec phase and kept for the ppo phase
-SPEC_PPO_LAYERS = 8
-QWEN3_LOOP_LAYERS = 4  # depth of the Qwen3-1.7B loop's checkpoint (full width)
+SPEC_PPO_LAYERS = 4
+QWEN3_LOOP_LAYERS = 2  # depth of the Qwen3-1.7B loop's checkpoint (full width)
 
 
 def remote_qwen(ckpt_dir, publish_dir):
@@ -2447,8 +2482,8 @@ RECOVER_RUN_LAYERS = 2
 RECOVER_STEPS = 3
 RECOVER_KILL = "train_step@2:kill"  # SIGKILL at the end of global step 1
 RECOVER_OVERRIDES = [
-    # 256 new tokens (the example's default is 512) keep the script under 900 s
-    f"total_train_steps={RECOVER_STEPS}", "gconfig.max_new_tokens=256",
+    # 128 new tokens (the example's default is 512) keep the script under 1200 s
+    f"total_train_steps={RECOVER_STEPS}", "gconfig.max_new_tokens=128",
     "actor.kl_ctl=0.001", "ref.dtype=bfloat16",
     "valid_dataset.type=gsm8k-synth", "valid_dataset.batch_size=32",
     # FrequencyControl counts from step 0, so freq_steps=1 first fires at
@@ -2801,7 +2836,8 @@ QWEN3_1P7B = {
 FAMILY_SLOTS, FAMILY_SEQ = 8, 8192
 # Gemma-2-2B's 26 layers cut to 10 (5 of them windowed): the windows must
 # still move the long request's logprobs by more than LOGP_MEAN_TOL (a
-# mean 0.0947 at 26 layers, 0.2464 at 18 and 0.3080 at 10 on an H100)
+# mean 0.0947 at 26 layers, 0.2464 at 18, 0.3080 at 10 and 0.0277 at 4 on
+# an H100: not monotone in depth, and 4 is too few)
 GEMMA2_LAYERS = 10
 LONG_PROMPT = 4500  # past Gemma-2's window of 4096
 SHORT_PROMPTS = (300, 700, 1200)  # the long request's three companions
@@ -4876,7 +4912,7 @@ def algo_phase():
 
 # ---------------------------------------------------------------------------
 # the tiers phase: length-cohort tiers, migration, the host tier and the
-# staged weights, in process at 28 layers
+# staged weights, in process on the spec phase's checkpoint
 # ---------------------------------------------------------------------------
 
 TIER_SLOTS, TIER_SEQ = 16, 2048  # decode_tiers=2: ceilings (1024, 2048), (8, 8) slots
@@ -4919,12 +4955,12 @@ def _drive(eng, reqs):
 
 
 def tiers_phase(ckpt_dir):
-    """The serve phase's model (28 layers, bf16) in two engines of 16 slots x
-    2048: tiered (decode_tiers=2, the host tier on) and untiered.  Tiers: the
+    """The spec phase's checkpoint (full width, SPEC_PPO_LAYERS layers, bf16)
+    in two engines of 16 slots x 2048: tiered (decode_tiers=2, the host tier on) and untiered.  Tiers: the
     same 16 greedy requests through both (after a warm-up batch of the
     same shapes; untiered first, both walls printed), token streams equal,
-    migrations > 0, K2 = 28 x (decode steps + verify calls) on the tiered
-    run.  Host
+    migrations > 0, K2 = layers x (decode steps + verify calls) on the
+    tiered run.  Host
     tier: 16 filler prompts overwrite every tiered slot (16 spills), then a
     mover's transcript comes back: it swaps in, its row's bytes equal the
     spilled bytes, and its greedy continuation equals the untiered
@@ -4938,7 +4974,8 @@ def tiers_phase(ckpt_dir):
 
     launches0 = ragged_paged_attention.launches
     t0 = time.perf_counter()
-    model, cfg = load_hf_params(ckpt_dir, qwen25_1p5b(), "cuda")
+    depth = TransformerConfig.from_hf(ckpt_dir).num_layers
+    model, cfg = load_hf_params(ckpt_dir, qwen25_1p5b().replace(num_layers=depth), "cuda")
     L = cfg.num_layers
     kw = dict(n_slots=TIER_SLOTS, max_seq_len=TIER_SEQ, prompt_bucket=128, kv_dtype="bfloat16",
               seed=0)
@@ -5239,6 +5276,233 @@ def disagg_phase(ckpt_dir, build_dir):
                 p.wait()
 
 
+# ---------------------------------------------------------------------------
+# benches: the port's measuring rigs at Qwen2.5-1.5B's full width
+# ---------------------------------------------------------------------------
+
+BENCH_DECODE_SLOTS = (8, 32, 128)
+BENCH_NEW = 64  # new tokens a request of the decode curve and both A/Bs
+BENCH_PREFILL = (128, 512, 1024)  # prompt buckets, 8 rows each
+BENCH_MT = dict(n_convs=4, turns=3, turn_prompt=512, turn_gen=32, max_seq_len=4096)
+BENCH_FANOUT = dict(group_size=8, n_groups=2, prompt_len=256, gen_tokens=16, max_seq_len=1024)
+BENCH_CEILINGS = (4096, 16384)  # the ceiling A/B, 16 slots
+BENCH_REPLAY = ["--workload", "mixed", "--seed", "0", "--duration", "8", "--base-rps", "2",
+                "--rates", "1,4,16", "--n-slots", "8", "--max-seq-len", "1024",
+                "--max-new-tokens", "32", "--servers", "2", "--router"]
+ABLATION_SFT_STEPS = 50
+ABLATION_STEPS = 5
+BENCH_DISK_BUDGET = 7e9  # bytes the phase may write: two bf16 snapshots, 3.1 GB each
+
+
+def multi_turn_arithmetic(n_convs, turns, turn_prompt, turn_gen, **_):
+    """The multi-turn workload's token accounting: (the cold engine's
+    prefill tokens, the reuse engine's reused tokens).  Turn t's transcript
+    is L_t = turn_prompt + t (turn_gen + turn_prompt) tokens; the reuse
+    engine keeps each turn's prompt and all its sampled tokens but the last
+    (whose K/V no step wrote)."""
+    lens = [turn_prompt + t * (turn_gen + turn_prompt) for t in range(turns)]
+    return n_convs * sum(lens), n_convs * sum(n + turn_gen - 1 for n in lens[:-1])
+
+
+def fanout_arithmetic(group_size, n_groups, prompt_len, **_):
+    """The fan-out workload's accounting: (share prefill, share suffix,
+    shared tokens, no-share prefill).  A group's representative prefills
+    the prompt; each sibling inherits all of it but its last token."""
+    return (n_groups * prompt_len, n_groups * (group_size - 1),
+            n_groups * (group_size - 1) * (prompt_len - 1), n_groups * group_size * prompt_len)
+
+
+def benches_phase(build_dir):
+    """The port's rigs at Qwen2.5-1.5B's full width (d 1536, 12 q / 2 kv
+    heads of 128, vocab 151,936) and its 28 layers, each rig's JSON on a
+    line of its own.  (a) `bench_serving`: decode at 8, 32 and 128 slots,
+    prefill buckets 128 / 512 / 1024 of 8 rows, multi-turn (4 x 3 turns of
+    512 + 32), group fan-out (8 x 2 groups of 256), the ceiling A/B (16
+    slots, 4096 against 16384), the spec A/B on the repetition params (8
+    slots, 64 tokens, each prompt seeded on a short cycle of the greedy
+    map): K2 launches = layers x (decode steps + verify calls) over every
+    engine, spec-on streams equal spec-off, the on arm drafted and
+    verified, the token accounting equal the workload's arithmetic.  (b)
+    `bench_weight_sync`: transfer and disk, each timed twice in the order
+    transfer, disk, disk, transfer, the disk path's bytes counted.  (c)
+    `bench_replay`: two port servers behind the port's router, the mixed
+    workload (seed 0, 8 s at 2 rps) at rates 1, 4 and 16: no error, every
+    arrival answered, a complete SLO report (no dropped event, no orphan,
+    the accounting identity), K2 = layers x the fleet's decode steps, the
+    load client's send lag per rate.  A rate is the same 15 arrivals (at
+    x16 all inside half a second), so its latency tail is read as the
+    maximum, a smoke reading.  (d) The staleness ablation as a smoke: 50
+    SFT steps, then η in {0, 4} x {decoupled, naive} for 5 steps: finite
+    losses, rewards in [0, 1].  Returns (K2 launches, seconds per rig, bytes
+    written)."""
+    from areal_tpu_torch.scripts import bench_replay, bench_weight_sync
+    from areal_tpu_torch.scripts import bench_serving as bs
+    from areal_tpu_torch.scripts import staleness_ablation as abl
+
+    times, launches = {}, 0
+    # (a) the serving bench
+    t0 = time.perf_counter()
+    k2_0 = ragged_paged_attention.launches
+    cfg, params = bs.serving_model_setup("qwen25_1p5b", "cuda")
+    layers = cfg.num_layers
+    res = {"decode": bs.bench_decode(cfg, params, BENCH_DECODE_SLOTS, gen_tokens=BENCH_NEW)}
+    bad = {k: v["error"] for k, v in res["decode"].items() if "error" in v}
+    if bad:
+        raise AssertionError(f"benches: decode failed at {bad}")
+    res["prefill"] = bs.bench_prefill(cfg, params, buckets=BENCH_PREFILL, rows=8)
+    res["multi_turn"] = bs.bench_multi_turn(cfg, params, **BENCH_MT)
+    res["grouped"] = bs.bench_group_fanout(cfg, params, **BENCH_FANOUT)
+    res["decode_ceiling_ab"] = bs.bench_decode_ceiling_ab(cfg, params, n_slots=16,
+                                                          ceilings=BENCH_CEILINGS,
+                                                          gen_tokens=BENCH_NEW)
+    res["spec_ab"] = bs.bench_spec_decode_ab(cfg, params, n_slots=8, gen_tokens=BENCH_NEW,
+                                             seed_on_cycles=True)
+    del params
+    # layers x (decode steps + verify calls) over every engine the rigs ran
+    want_k2 = (sum(d["k2_calls"] for d in res["decode"].values())
+               + sum(res[k]["k2_calls"] for k in res if k != "decode"))
+    k2 = ragged_paged_attention.launches - k2_0
+    print(json.dumps({"bench_serving": res}))
+    launches += k2
+    times["bench_serving"] = time.perf_counter() - t0
+    print(f"  bench_serving in {times['bench_serving']:.1f} s: K2 launches {k2}, layers x "
+          f"(decode steps + verify calls) over every engine {want_k2}")
+    if k2 == 0 or k2 != want_k2:
+        raise AssertionError("benches: K2 launches differ from layers x (decode steps + "
+                             "verify calls)")
+    for n, d in res["decode"].items():
+        print(f"    decode {n} slots: {d['tokens_per_sec']} tokens/s, "
+              f"attended {d['decode_attended_fraction']}")
+    print("    prefill: " + ", ".join(f"{k} {v['tokens_per_sec']} tokens/s ({v['ms']} ms)"
+                                      for k, v in res["prefill"].items() if k.startswith("b")))
+    mt, cold_want, reused_want = res["multi_turn"], *multi_turn_arithmetic(**BENCH_MT)
+    print(f"    multi-turn: reuse {mt['reuse']['wall_s']} s against cold {mt['cold']['wall_s']} "
+          f"s, speedup {mt['speedup']}; reused {mt['reuse']['reused_tokens']} (want "
+          f"{reused_want}), cold prefill {mt['cold']['prefill_tokens']} (want {cold_want})")
+    if (mt["cold"]["prefill_tokens"], mt["reuse"]["reused_tokens"]) != (cold_want, reused_want) \
+            or (mt["reuse"]["prefill_tokens"] + mt["reuse"]["suffix_tokens"]
+                + mt["reuse"]["reused_tokens"]) != cold_want:
+        raise AssertionError("benches: multi-turn accounting off the workload's arithmetic")
+    g, want = res["grouped"], fanout_arithmetic(**BENCH_FANOUT)
+    got = (g["share"]["prefill_tokens"], g["share"]["suffix_tokens"], g["share"]["shared_tokens"],
+           g["noshare"]["prefill_tokens"])
+    print(f"    fan-out: share {g['share']['wall_s']} s against no-share {g['noshare']['wall_s']}"
+          f" s, speedup {g['speedup']}; (prefill, suffix, shared, no-share prefill) {got}, "
+          f"want {want}; host tier streams equal {g['streams_bit_identical']}")
+    if got != want or g["share_host"]["shared_tokens"] != want[2] \
+            or not g["streams_bit_identical"]:
+        raise AssertionError("benches: fan-out accounting off the workload's arithmetic")
+    ab = res["decode_ceiling_ab"]
+    per = ab["by_ceiling"]
+    print("    ceiling A/B: " + ", ".join(
+        f"{c} {v.get('tokens_per_sec')} tokens/s (attended {v.get('decode_attended_fraction')})"
+        for c, v in per.items()) + f"; large / small {ab.get('large_over_small_tok_s')}")
+    if "large_over_small_tok_s" not in ab:
+        raise AssertionError(f"benches: the ceiling A/B failed: {per}")
+    sp = res["spec_ab"]
+    print(f"    spec A/B: off {sp['off']['tokens_per_sec']} tokens/s, on "
+          f"{sp['on']['tokens_per_sec']} ({sp['spec_over_plain_tok_s']}x); drafted "
+          f"{sp['on']['spec_draft_tokens']}, accepted {sp['on']['spec_accepted_tokens']}, "
+          f"verify calls {sp['on']['verify_calls']}; the greedy map's shortest cycles "
+          f"{sp['cycle_lengths']}, distinct tokens of each 64-token prompt "
+          f"{sp['prompt_distinct_tokens']}; streams equal {sp['streams_bit_identical']}")
+    if not sp["streams_bit_identical"]:
+        raise AssertionError("benches: spec-on streams differ from spec-off")
+    if sp["on"]["verify_calls"] == 0 or sp["on"]["spec_draft_tokens"] == 0:
+        raise AssertionError("benches: the spec A/B's on arm drafted or verified nothing")
+    torch.cuda.empty_cache()
+
+    # (b) the weight-sync bench
+    t0 = time.perf_counter()
+    wdir = os.path.join(build_dir, "wsync")
+    shutil.rmtree(wdir, ignore_errors=True)
+    os.makedirs(wdir)
+    try:
+        ws = bench_weight_sync.run("qwen25_1p5b", "cuda", work_dir=wdir)
+    finally:
+        shutil.rmtree(wdir, ignore_errors=True)
+    print(json.dumps({"bench_weight_sync": ws}))
+    times["bench_weight_sync"] = time.perf_counter() - t0
+    written = ws["disk_bytes_written"]
+    print(f"  bench_weight_sync in {times['bench_weight_sync']:.1f} s, in the order "
+          f"{', '.join(ws['order'])}: transfer {ws['transfer_path_seconds']} s, disk "
+          f"{ws['disk_path_seconds']} s (save {ws['disk_save_seconds']}, load "
+          f"{ws['disk_load_seconds']}); {ws['disk_bytes_written'] / 1e9:.2f} GB written of the "
+          f"card host's 45 GiB")
+    if ws["server_version"] != len(ws["order"]):
+        raise AssertionError(f"benches: weight sync left the server at {ws['server_version']}")
+    torch.cuda.empty_cache()
+
+    # (c) the replay: two servers behind the router
+    t0 = time.perf_counter()
+    rdir = os.path.join(build_dir, "replay")
+    shutil.rmtree(rdir, ignore_errors=True)
+    k2_0 = ragged_paged_attention.launches
+    try:
+        rc = bench_replay.main(["--model", "qwen25_1p5b", "--device", "cuda"]
+                               + BENCH_REPLAY + ["--telemetry-dir", rdir, "--slo-report",
+                                                 os.path.join(rdir, "SLO_REPORT.json"),
+                                                 "--out", os.path.join(rdir, "curves.json")])
+        curves = json.load(open(os.path.join(rdir, "curves.json")))
+        report = json.load(open(os.path.join(rdir, "SLO_REPORT.json")))
+        written += bench_weight_sync.dir_bytes(rdir)
+    finally:
+        shutil.rmtree(rdir, ignore_errors=True)
+    k2 = ragged_paged_attention.launches - k2_0
+    launches += k2
+    times["bench_replay"] = time.perf_counter() - t0
+    total = curves["fleet_k2"]
+    print(f"  bench_replay in {times['bench_replay']:.1f} s: K2 launches {k2}, {layers} x "
+          f"(decode steps + verify calls) {layers * (total['decode_steps'] + total['verify_calls'])}")
+    for r in curves["rates"]:
+        lat, lag = r["latency_s"] or {}, r["send_lag_s"] or {}
+        print(f"    x{r['rate']:g}: {r['ok']}/{r['n']} answered, errors {r['errors']}; e2e p50 "
+              f"{lat.get('p50')} max {lat.get('max')} s; goodput {r['achieved_rps']} req/s, "
+              f"{r['output_tokens_per_s']} tokens/s; send lag p50 {lag.get('p50')} p99 "
+              f"{lag.get('p99')} max {lag.get('max')} s; prefix hit rate "
+              f"{r['prefix_cache']['hit_rate']}")
+    comp, acct = report["completeness"], report["accounting"]
+    print(f"    SLO report: complete {report['complete']}, dropped {comp['dropped_events']}, "
+          f"orphans {len(comp['orphan_traces'])}, open {comp['open_traces']}, lost "
+          f"{report['trajectories']['lost']}; accounting ok {acct['ok']} over {acct['checked']} "
+          f"(max rel err {acct['max_rel_err']})")
+    if rc != 0 or any(r["errors"] or r["ok"] != r["n"] or r["n"] == 0 for r in curves["rates"]):
+        raise AssertionError("benches: the replay lost or failed requests")
+    if not (report["complete"] and comp["dropped_events"] == 0 and not comp["orphan_traces"]
+            and acct["ok"] and report["trajectories"]["lost"] == 0):
+        raise AssertionError("benches: the replay's SLO report is not complete")
+    if k2 != layers * (total["decode_steps"] + total["verify_calls"]):
+        raise AssertionError("benches: the replay's K2 launches differ from layers x decode steps")
+    torch.cuda.empty_cache()
+
+    # (d) the staleness ablation, as a smoke
+    t0 = time.perf_counter()
+    tok = abl.ArithmeticTokenizer()
+    warm = abl.warmstart_params(tok, 0, ABLATION_SFT_STEPS, device="cuda")
+    smoke = {}
+    for eta in (0, 4):
+        for dec in (True, False):
+            stats = []
+            curve = abl.run(eta, dec, ABLATION_STEPS, tok, warm, device="cuda",
+                            update_stats=stats)
+            losses = [s["loss"] for s in stats]
+            name = f"eta{eta}_{'decoupled' if dec else 'naive'}"
+            smoke[name] = {"rewards": curve, "losses": losses}
+            if not (losses and all(np.isfinite(losses))
+                    and all(0.0 <= r <= 1.0 for r in curve)):
+                raise AssertionError(f"benches: ablation {name}: losses {losses}, rewards {curve}")
+    print(json.dumps({"staleness_ablation_smoke": smoke}))
+    times["staleness_ablation"] = time.perf_counter() - t0
+    print(f"  staleness ablation smoke in {times['staleness_ablation']:.1f} s: "
+          + ", ".join(f"{k} rewards {[round(r, 3) for r in v['rewards']]}"
+                      for k, v in smoke.items()))
+    print(f"  the phase's rigs: " + ", ".join(f"{k} {v:.1f} s" for k, v in times.items())
+          + f"; {written / 1e9:.2f} GB written (budget {BENCH_DISK_BUDGET / 1e9:.0f} GB)")
+    if written > BENCH_DISK_BUDGET:
+        raise AssertionError("benches: the phase wrote past its disk budget")
+    return launches, times, written
+
+
 def main(argv):
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -5316,8 +5580,8 @@ def main(argv):
             algo_phase()
     elif only in ("tiers", "disagg"):
         # the phase alone, on a checkpoint written as the whole script writes
-        # it: the serve phase's 28 layers, the router phase's REMOTE_LAYERS
-        layers = SERVE_LAYERS if only == "tiers" else REMOTE_LAYERS
+        # it: the spec phase's SPEC_PPO_LAYERS, the router phase's REMOTE_LAYERS
+        layers = SPEC_PPO_LAYERS if only == "tiers" else REMOTE_LAYERS
         ckpt_dir = os.path.join(ROOT, "build", f"{only}_ckpt")
         try:
             write_checkpoint(qwen25_1p5b().replace(num_layers=layers).to_hf_dict(), ckpt_dir)
@@ -5328,6 +5592,9 @@ def main(argv):
                     disagg_phase(ckpt_dir, os.path.join(ROOT, "build"))
         finally:
             shutil.rmtree(ckpt_dir, ignore_errors=True)
+    elif only == "benches":
+        with phase("benches"):
+            benches_phase(os.path.join(ROOT, "build"))
     elif only == "recover-full-depth":
         fileroot = os.path.join(ROOT, "build", "recover_run")
         try:
@@ -5386,7 +5653,7 @@ def main(argv):
                 spec_phase(spec_ppo_ckpt))
             max_err = max(max_err, spec_err)
         with phase("tiers"):
-            tiers_launches = tiers_phase(ckpt_dir)
+            tiers_launches = tiers_phase(spec_ppo_ckpt)
         with phase("train"):
             flash_launches, train_stats, seg_rows = train_qwen(ckpt_dir, publish_dir)
             on_tc = flash_counts_tc()
@@ -5410,6 +5677,8 @@ def main(argv):
             flash_err = {n: max(flash_err[n], grpo_err[n]) for n in flash_err}
         with phase("prefix"):
             prefix_launches = prefix_qwen()
+        with phase("benches"):
+            bench_launches, _, _ = benches_phase(build_dir)
         with phase("families"):
             gemma_ragged, _, _ = gemma_serve_and_train(gemma_dir, gemma_publish)
             shutil.rmtree(gemma_dir, ignore_errors=True)
@@ -5454,11 +5723,12 @@ def main(argv):
         "launches": (launches + grpo_launches[0] + prefix_launches + family_launches[0]
                      + gemma1_ragged + remote_ragged + router_ragged + ppo_ragged
                      + recover_ragged + verify_launches + spec_decode_launches
-                     + spec_f32_launches + tiers_launches + disagg_launches),
+                     + spec_f32_launches + tiers_launches + disagg_launches + bench_launches),
         # "spec": the launches at T = D + 1 the --spec-decode server
         # counted; "spec_decode": both spec-phase servers' T = 1 launches;
         # "spec_f32": the in-process f32 runs at 4 layers; "tiers": every
-        # engine run of that phase; "disagg": both of its server processes
+        # engine run of that phase; "disagg": both of its server processes;
+        # "benches": the serving bench's engines and the replay's servers
         "launches_by_path": {"serve": launches, "grpo": grpo_launches[0],
                              "prefix": prefix_launches, "families": family_launches[0],
                              "gemma1": gemma1_ragged, "remote": remote_ragged,
@@ -5466,7 +5736,7 @@ def main(argv):
                              "recover": recover_ragged, "spec": verify_launches,
                              "spec_decode": spec_decode_launches,
                              "spec_f32": spec_f32_launches, "tiers": tiers_launches,
-                             "disagg": disagg_launches},
+                             "disagg": disagg_launches, "benches": bench_launches},
         # the verify half at the spec servers' shape, T = 4 and 8
         "verify": {f"T{T}": dict(zip(("ms", "plain_ms", "library_ms", "bound_ms", "bound_by"),
                                      verify_times[T][:5])) for T in verify_times},
